@@ -1,0 +1,116 @@
+"""Ragged inference engine configuration.
+
+Port of ``deepspeed_tpu/inference/v2/config_v2.py``: the same two
+dataclasses, fields and defaults. Features the port does not serve yet
+raise ``NotImplementedError`` at construction instead of being ignored:
+the int8 KV pool (``kv_quant``), weight-only quantization
+(``quant_bits``), the LoRA bank (``max_lora_adapters``), tensor/expert
+parallelism, the KV spill tier, and the stitched ``ragged_attention="off"``
+dispatch, whose prefill needs the flash-attention kernel.
+"""
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+# ranges of the serving tunables this config validates (copied from the
+# JAX package's registry, runtime/tunables.py)
+_TUNABLE_RANGES = {
+    "decode_window": ("serving.decode_window", 1, 64),
+    "prefill_bucket": ("serving.prefill_bucket", 1, 8192),
+}
+
+
+def _check_tunable(key: str, value) -> None:
+    name, lo, hi = _TUNABLE_RANGES[key]
+    if (isinstance(value, bool) or not isinstance(value, int)
+            or not lo <= value <= hi):
+        raise ValueError(
+            f"{key} must be in [{lo}, {hi}], got {value!r} — registered "
+            f"tunable '{name}'")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md)")
+
+
+@dataclass
+class DSStateManagerConfig:
+    max_tracked_sequences: int = 64          # concurrent sequences
+    max_ragged_batch_size: int = 768         # tokens per put() (prefill cap)
+    max_ragged_sequence_count: int = 512
+    max_seq_len: int = 2048
+    num_blocks: int = 256                    # KV pool size (incl. null block)
+    block_size: int = 64                     # tokens per KV block
+    memory_reserve_fraction: float = 0.0
+    # share full KV blocks across requests with identical token prefixes
+    # (ragged_manager.py; off by default)
+    enable_prefix_caching: bool = False
+    enable_kv_spill: bool = False
+    kv_spill_host_bytes: int = 64 << 20
+    kv_spill_dir: Optional[str] = None
+    kv_spill_disk_bytes: int = 256 << 20
+    kv_spill_namespace: Optional[str] = None
+
+    def __post_init__(self):
+        if self.enable_kv_spill:
+            raise _not_ported("the KV spill tier (enable_kv_spill)")
+
+
+@dataclass
+class RaggedInferenceEngineConfig:
+    state_manager: DSStateManagerConfig = field(
+        default_factory=DSStateManagerConfig)
+    tensor_parallel_size: int = 1
+    expert_parallel_size: int = 1
+    dtype: str = "bfloat16"
+    prefill_bucket: int = 64                 # prompt lengths pad to multiples
+    # hand-written paged/ragged attention kernels; False selects their
+    # plain PyTorch versions (for comparison, never as a fallback)
+    use_paged_kernel: bool = True
+    quant_bits: int = 0
+    kv_quant: bool = False
+    # fused multi-token decode: K decode steps per window with one [N, K]
+    # device-to-host transfer; 1 = per-token decode
+    decode_window: int = 8
+    # "auto"/"on": every put() runs as one ragged step; "off" (the
+    # stitched prefill/continue/decode dispatch) is not ported
+    ragged_attention: str = "auto"
+    max_lora_adapters: int = 0
+    lora_rank: int = 8
+    spec_mode: str = "auto"
+    seed: int = 0
+
+    def __post_init__(self):
+        for key in ("decode_window", "prefill_bucket"):
+            _check_tunable(key, getattr(self, key))
+        if self.spec_mode not in ("auto", "ngram", "draft"):
+            raise ValueError(
+                f"spec_mode must be 'auto', 'ngram' or 'draft', got "
+                f"{self.spec_mode!r}")
+        if self.ragged_attention not in ("auto", "on", "off"):
+            raise ValueError(
+                f"ragged_attention must be 'auto', 'on' or 'off' "
+                f"(got {self.ragged_attention!r})")
+        if self.max_lora_adapters < 0:
+            raise ValueError("max_lora_adapters must be >= 0")
+        if self.ragged_attention == "off":
+            raise _not_ported(
+                "ragged_attention='off' (its stitched prefill runs the "
+                "flash-attention kernel, ops/flash_attention.py)")
+        if self.kv_quant:
+            raise _not_ported("the int8 KV pool (kv_quant)")
+        if self.quant_bits:
+            raise _not_ported("weight-only quantization (quant_bits)")
+        if self.max_lora_adapters:
+            raise _not_ported("the LoRA adapter bank (max_lora_adapters)")
+        if self.tensor_parallel_size != 1 or self.expert_parallel_size != 1:
+            raise _not_ported("tensor/expert-parallel serving")
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RaggedInferenceEngineConfig":
+        d = dict(d or {})
+        sm = d.pop("state_manager", {})
+        if isinstance(sm, dict):
+            sm = DSStateManagerConfig(**sm)
+        return cls(state_manager=sm, **d)

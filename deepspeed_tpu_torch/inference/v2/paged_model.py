@@ -1,0 +1,247 @@
+"""Paged (blocked-KV) transformer forward for the ragged engine.
+
+Port of ``deepspeed_tpu/inference/v2/paged_model.py``, the bf16/fp32,
+tensor-parallel-1 path:
+
+* ``paged_ragged_step`` — one mixed batch (prefill chunks, continuations
+  and decode rows as one flat token buffer); attention through the ragged
+  kernel, once per layer.
+* ``paged_decode`` — one token for each of N sequences; attention through
+  the paged decode kernel, once per layer.
+* ``paged_decode_window`` — K greedy decode steps on the device with one
+  host transfer for the whole window.
+
+The KV pool is ``[L, num_blocks, block_size, kv_heads, head_dim]`` per K
+and V; block 0 is the null block that padding writes land in. The JAX
+functions are pure and return a new pool (XLA donates the old buffer);
+here the pool is updated in place and every entry point mutates the
+``cache`` dict it is given.
+
+The layer loop is a Python loop over views of the stacked ``[L, ...]``
+leaves: ``params["layers"][k][l]`` copies nothing.
+"""
+
+from typing import Dict
+
+import torch
+
+from ...models.transformer import (TransformerConfig, dense_mlp, gate_act,
+                                   out_proj, qkv_proj, rotary_dims)
+from ...ops.norms import layer_norm, rms_norm
+from .kernels.paged_attention import paged_attention, paged_attention_plain
+from .kernels.ragged_attention import (ragged_attention,
+                                       ragged_attention_plain)
+from .sampling import greedy_tokens
+
+
+def check_servable(cfg: TransformerConfig) -> None:
+    """The model families this port serves: causal pre-LN dense models with
+    rotary positions."""
+    if not (cfg.is_causal and cfg.norm_scheme == "pre"):
+        raise ValueError("paged serving requires a causal pre-LN model (the "
+                         "MLM/post-LN encoder family does not decode)")
+    if cfg.moe_num_experts > 0:
+        raise NotImplementedError("MoE serving is not ported yet")
+    if cfg.positional != "rope":
+        raise NotImplementedError(
+            f"positional={cfg.positional!r} serving is not ported yet "
+            f"(rope only)")
+    if cfg.parallel_residual:
+        raise NotImplementedError(
+            "the parallel-residual family is not ported yet")
+
+
+def init_paged_kv_cache(cfg: TransformerConfig, num_blocks: int,
+                        block_size: int, dtype: torch.dtype,
+                        device) -> Dict[str, torch.Tensor]:
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _kv_write(kc: torch.Tensor, l: int, blocks: torch.Tensor,
+              offs: torch.Tensor, k: torch.Tensor) -> None:
+    """Scatter one write-set into layer ``l`` of the pool, in place (the
+    JAX package's ``kc.at[l, blocks, offs].set`` returns a new pool and
+    relies on buffer donation). Padding tokens all target block 0, slot 0,
+    so the indices repeat there and which write lands is unspecified; no
+    unmasked read ever touches block 0."""
+    kc[l].index_put_((blocks.long(), offs.long()), k.to(kc.dtype))
+
+
+def _norm(cfg, x, w, b=None):
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, w, cfg.norm_eps)
+    return layer_norm(x, w, b, cfg.norm_eps)
+
+
+def _rope_at(cfg: TransformerConfig, pos: torch.Tensor):
+    """f32 cos/sin tables at integer positions ``pos`` [...] ->
+    [..., half]."""
+    half = rotary_dims(cfg) // 2
+    freqs = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, half, dtype=torch.float32, device=pos.device)
+        / half))
+    angles = pos.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x [..., D]; f32 cos/sin broadcastable to [..., rot/2]. The product
+    with the f32 tables promotes to f32 and casts back, as in JAX; with
+    partial rotary the trailing dims pass through."""
+    rot = 2 * cos.shape[-1]
+    tail = x[..., rot:]
+    half = rot // 2
+    x1, x2 = x[..., :half], x[..., half:rot]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    if tail.shape[-1]:
+        out = torch.cat([out, tail.to(out.dtype)], dim=-1)
+    return out.to(x.dtype)
+
+
+def _mlp(cfg, lp, x):
+    if cfg.is_gated_mlp:
+        return (gate_act(cfg)(x @ lp["w_gate"]) * (x @ lp["w_up"])) \
+            @ lp["w_down"]
+    return dense_mlp(cfg, lp, x)
+
+
+def _embed_ln(cfg, params, x):
+    """Embedding LayerNorm of the Bloom/BERT families (keyed on param
+    presence)."""
+    if "embed_ln_w" in params:
+        return layer_norm(x, params["embed_ln_w"], params.get("embed_ln_b"),
+                          cfg.norm_eps)
+    return x
+
+
+def _embed(cfg, params, ids):
+    x = params["embed"][ids.long()]
+    if cfg.embed_scale != 1.0:
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
+    return _embed_ln(cfg, params, x)
+
+
+def _logits(cfg, params, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    out = (x @ head.to(x.dtype)).float()
+    if "lm_head_b" in params:
+        out = out + params["lm_head_b"].float()
+    return out
+
+
+def _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
+            attend):
+    """The shared layer loop: norm, qkv, rotary, KV write, then attention
+    over the pool (``attend(q, kc_l, vc_l)``), out-projection and MLP.
+    Each layer writes its K/V into the pool before it reads it, on the
+    same stream."""
+    T = x.shape[0]
+    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    layers = params["layers"]
+    kc, vc = cache["k"], cache["v"]
+    for l in range(cfg.num_layers):
+        lp = {name: leaf[l] for name, leaf in layers.items()}
+        hn = _norm(cfg, x, lp["attn_norm"], lp.get("attn_norm_b"))
+        q, k, v = qkv_proj(lp, hn)
+        q = q.reshape(T, nh, hd)
+        k = k.reshape(T, nkv, hd)
+        v = v.reshape(T, nkv, hd)
+        q = _rotate(q, cos[:, None], sin[:, None])
+        k = _rotate(k, cos[:, None], sin[:, None])
+        _kv_write(kc, l, write_blocks, write_offsets, k)
+        _kv_write(vc, l, write_blocks, write_offsets, v)
+        o = attend(q, kc[l], vc[l]).reshape(T, nh * hd)
+        x = x + out_proj(lp, o)
+        hn = _norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_b"))
+        x = x + _mlp(cfg, lp, hn)
+    return _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+def paged_decode(cfg: TransformerConfig, params, toks: torch.Tensor,
+                 pos: torch.Tensor, block_tables: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], active: torch.Tensor,
+                 block_size: int, use_kernel: bool = True) -> torch.Tensor:
+    """toks/pos/active [N]; block_tables [N, MB] int32. One token per
+    sequence; returns [N, V] f32 logits and updates ``cache`` in place.
+    Inactive rows write to the null block and produce garbage logits
+    (masked by the caller)."""
+    MB = block_tables.shape[1]
+    x = _embed(cfg, params, toks)
+    cos, sin = _rope_at(cfg, pos)
+    # an inactive row's position may sit one past its table; clamp the
+    # lookup (the row writes to the null block either way)
+    page = torch.clamp(pos.long() // block_size, max=MB - 1)
+    blk = torch.gather(block_tables, 1, page[:, None])[:, 0]
+    blk = torch.where(active, blk, torch.zeros_like(blk))
+    off = pos % block_size
+    lengths = pos + 1
+    attn = paged_attention if use_kernel else paged_attention_plain
+    x = _layers(cfg, params, x, cos, sin, cache, blk, off,
+                lambda q, kc, vc: attn(q, kc, vc, block_tables, lengths))
+    return _logits(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# Ragged unified step (mixed prefill + decode, one launch per layer)
+# ---------------------------------------------------------------------------
+def paged_ragged_step(cfg: TransformerConfig, params, ids: torch.Tensor,
+                      row_ids: torch.Tensor, pos: torch.Tensor,
+                      lengths: torch.Tensor, write_blocks: torch.Tensor,
+                      write_offsets: torch.Tensor,
+                      block_tables: torch.Tensor, last_index: torch.Tensor,
+                      cache: Dict[str, torch.Tensor], block_size: int,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """One mixed batch as a flat token buffer ``ids`` [TB] with per-token
+    descriptors (``row_ids``, ``pos``, ``lengths`` = pos + 1 or 0 for
+    padding, the KV write-set ``write_blocks``/``write_offsets``), per-row
+    ``block_tables`` [RB, MBw] and ``last_index`` [RB]. Returns [RB, V]
+    f32 last-token logits per row and updates ``cache`` in place."""
+    x = _embed(cfg, params, ids)
+    cos, sin = _rope_at(cfg, pos)
+    attn = ragged_attention if use_kernel else ragged_attention_plain
+    x = _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
+                lambda q, kc, vc: attn(q, kc, vc, row_ids, lengths,
+                                       block_tables))
+    return _logits(cfg, params, x[last_index.long()])
+
+
+# ---------------------------------------------------------------------------
+# Fused multi-token decode window
+# ---------------------------------------------------------------------------
+def paged_decode_window(cfg: TransformerConfig, params, toks: torch.Tensor,
+                        pos: torch.Tensor, block_tables: torch.Tensor,
+                        cache: Dict[str, torch.Tensor],
+                        steps_left: torch.Tensor, eos_ids: torch.Tensor,
+                        block_size: int, window: int,
+                        use_kernel: bool = True) -> torch.Tensor:
+    """``window`` greedy decode steps with no host round trip: argmax, the
+    active mask, the EOS and budget cuts and the output block all stay on
+    the device. Returns tokens [N, window] int32 with -1 in the steps a row
+    did not take (emitted tokens form a prefix of each row).
+
+    The host pre-allocates every block a row can write in its
+    ``steps_left[i]`` steps, so block advancement is position arithmetic
+    over a complete table. A row that emits its EOS goes inactive: the EOS
+    is emitted but never fed back, later steps write to the null block.
+    The JAX loop exits once every row is inactive; this loop always runs
+    ``window`` steps, since testing for that would cost a host sync per
+    step. The extra steps change no live block and emit only -1, so the
+    output is the same."""
+    N = toks.shape[0]
+    active = steps_left > 0
+    out = torch.full((N, window), -1, dtype=torch.int32, device=toks.device)
+    for s in range(window):
+        logits = paged_decode(cfg, params, toks, pos, block_tables, cache,
+                              active, block_size, use_kernel=use_kernel)
+        nxt = greedy_tokens(logits)
+        out[:, s] = torch.where(active, nxt, torch.full_like(nxt, -1))
+        pos = torch.where(active, pos + 1, pos)
+        toks = torch.where(active, nxt, toks)
+        active = active & (nxt != eos_ids) & (steps_left > s + 1)
+    return out

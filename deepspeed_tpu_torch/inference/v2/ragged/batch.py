@@ -1,0 +1,121 @@
+"""Ragged batch descriptor: one padded layout for mixed prefill+decode.
+
+Port of ``deepspeed_tpu/inference/v2/ragged/batch.py``, with the same
+layout and the same buckets, so the descriptors the two packages build
+for one allocation sequence are identical (the CPU parity tests pin it).
+A :class:`RaggedBatch` packs decode rows and prompt chunks into ONE
+padded (token-bucket x row-bucket) layout that
+``paged_model.paged_ragged_step`` + ``kernels.ragged_attention`` consume
+in a single step.
+
+Layout (all numpy, moved to the device by the engine):
+
+* flat token axis, padded to ``token_bucket`` (power-of-two, capped at
+  ``max_ragged_batch_size``): ``ids``, ``row_ids`` (token -> row),
+  ``positions`` (absolute cache position), ``lengths`` (per-token causal
+  bound = position+1; 0 marks padding), and the KV write-set
+  ``write_blocks``/``write_offsets`` (padding writes land in the null
+  block).
+* row axis, padded to ``row_bucket`` (power-of-two, capped at
+  ``max_tracked_sequences``): ``block_tables`` (sliced to the
+  power-of-two used-page width) and ``last_index`` (flat index of each
+  row's last valid token, where the per-row logits are gathered).
+"""
+
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from ....utils.bucketing import pow2_bucket
+from .blocked_allocator import NULL_BLOCK
+
+
+@dataclass
+class RaggedBatch:
+    uids: List[int]               # live rows, in pack order
+    new_lens: List[int]           # valid tokens per live row
+    token_bucket: int
+    row_bucket: int
+    ids: np.ndarray               # [TB] int32 flat token buffer
+    row_ids: np.ndarray           # [TB] int32 token -> row
+    positions: np.ndarray         # [TB] int32 absolute cache position
+    lengths: np.ndarray           # [TB] int32 causal bound (0 = padding)
+    write_blocks: np.ndarray      # [TB] int32 KV append block per token
+    write_offsets: np.ndarray     # [TB] int32 slot within the block
+    block_tables: np.ndarray      # [RB, MBw] int32 (null-padded)
+    last_index: np.ndarray        # [RB] int32 flat idx of row's last token
+    adapter_slots: np.ndarray     # [RB] int32 LoRA bank slot (0 = base)
+
+    @property
+    def total_tokens(self) -> int:
+        return int(sum(self.new_lens))
+
+    @property
+    def pad_fraction(self) -> float:
+        """Wasted fraction of the padded token axis."""
+        return 1.0 - self.total_tokens / max(self.token_bucket, 1)
+
+
+def pack(entries: Sequence[Tuple[int, np.ndarray]], state_manager
+         ) -> RaggedBatch:
+    """Pack ``[(uid, fed_tokens)]`` into one :class:`RaggedBatch`.
+
+    Allocates each row's KV blocks for the tokens it will write
+    (``ensure_blocks``) but does NOT advance ``seen_tokens`` — the engine
+    commits host state only after the device step is dispatched.
+    """
+    sm = state_manager
+    bs = sm.block_size
+    total = sum(len(t) for _, t in entries)
+    TB = pow2_bucket(max(total, 1), sm.config.max_ragged_batch_size)
+    RB = pow2_bucket(max(len(entries), 1),
+                     sm.config.max_tracked_sequences)
+    assert total <= TB and len(entries) <= RB, \
+        f"ragged batch over caps: {total} tokens / {len(entries)} rows " \
+        f"vs buckets {TB}/{RB} (can_schedule should have rejected this)"
+
+    ids = np.zeros(TB, np.int32)
+    row_ids = np.zeros(TB, np.int32)
+    positions = np.zeros(TB, np.int32)
+    lengths = np.zeros(TB, np.int32)
+    write_blocks = np.full(TB, NULL_BLOCK, np.int32)
+    write_offsets = np.zeros(TB, np.int32)
+    tables = np.full((RB, sm.max_blocks_per_seq), NULL_BLOCK, np.int32)
+    last_index = np.zeros(RB, np.int32)
+    adapter_slots = np.zeros(RB, np.int32)
+
+    cursor = 0
+    used_pages = 1
+    uids: List[int] = []
+    new_lens: List[int] = []
+    for r, (uid, toks) in enumerate(entries):
+        n = len(toks)
+        seq = sm.ensure_blocks(uid, n)
+        start = seq.seen_tokens
+        pos = start + np.arange(n)
+        seq_blocks = np.asarray(seq.blocks, np.int32)
+        sl = slice(cursor, cursor + n)
+        ids[sl] = np.asarray(toks, np.int64)
+        row_ids[sl] = r
+        positions[sl] = pos
+        lengths[sl] = pos + 1
+        write_blocks[sl] = seq_blocks[pos // bs]
+        write_offsets[sl] = pos % bs
+        tables[r, :len(seq.blocks)] = seq_blocks
+        last_index[r] = cursor + n - 1
+        adapter_slots[r] = seq.adapter_slot
+        used_pages = max(used_pages, len(seq.blocks))
+        cursor += n
+        uids.append(int(uid))
+        new_lens.append(n)
+
+    # slice tables to the power-of-two used-page bucket (a short batch in
+    # a full-width table would carry every null slot)
+    tables = tables[:, :pow2_bucket(used_pages, sm.max_blocks_per_seq)]
+    return RaggedBatch(uids=uids, new_lens=new_lens, token_bucket=TB,
+                       row_bucket=RB, ids=ids, row_ids=row_ids,
+                       positions=positions, lengths=lengths,
+                       write_blocks=write_blocks,
+                       write_offsets=write_offsets, block_tables=tables,
+                       last_index=last_index, adapter_slots=adapter_slots)

@@ -1,0 +1,88 @@
+"""Free-list KV block allocator.
+
+Port of ``deepspeed_tpu/inference/v2/ragged/blocked_allocator.py``
+(reference inference/v2/ragged/blocked_allocator.py, BlockedAllocator): a
+fixed pool of KV-cache blocks handed out to sequences and returned on
+flush. Host-side (numpy int free list); block 0 is reserved as the NULL
+block that padded token slots write into, so scatters never need masking.
+"""
+
+from typing import Iterable, List
+
+import numpy as np
+
+NULL_BLOCK = 0
+
+
+class BlockedAllocator:
+    """Reference-counted: prefix caching shares one physical block among
+    several sequences (plus the retained-prefix index); a block returns
+    to the free list when its last reference drops."""
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 2:
+            raise ValueError("need at least 2 blocks (one is the null block)")
+        self.num_blocks = num_blocks
+        # LIFO free list; block 0 reserved
+        self._free: List[int] = list(range(num_blocks - 1, 0, -1))
+        self._refs: dict = {}
+        # bumped on every allocate/share/free: lets callers memoize
+        # refcount-derived aggregates (DSStateManager._evictable)
+        self.version = 0
+        # per-block last-touch stamp (monotonic op counter)
+        self._touch: dict = {}
+
+    def touch(self, block: int) -> None:
+        """Refresh a block's last-touch stamp (prefix match, decode
+        append) without changing its refcount."""
+        self._touch[int(block)] = self.version
+        self.version += 1
+
+    def last_touch(self, block: int) -> int:
+        return self._touch.get(int(block), 0)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def allocate(self, n: int) -> np.ndarray:
+        if n > len(self._free):
+            raise RuntimeError(
+                f"KV cache exhausted: requested {n} blocks, "
+                f"{len(self._free)} free")
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._refs[b] = 1
+            self._touch[b] = self.version
+        self.version += 1
+        return np.asarray(out, np.int32)
+
+    def share(self, block: int) -> None:
+        """Add a reference to an already-allocated block."""
+        b = int(block)
+        if self._refs.get(b, 0) < 1:
+            raise ValueError(f"sharing unallocated block {b}")
+        self._refs[b] += 1
+        self._touch[b] = self.version
+        self.version += 1
+
+    def refcount(self, block: int) -> int:
+        return self._refs.get(int(block), 0)
+
+    def free(self, blocks: Iterable[int]) -> None:
+        for b in blocks:
+            b = int(b)
+            if b == NULL_BLOCK:
+                continue
+            if b <= 0 or b >= self.num_blocks:
+                raise ValueError(f"freeing invalid block {b}")
+            refs = self._refs.get(b, 0)
+            if refs <= 0:
+                raise ValueError(f"double free of block {b}")
+            if refs == 1:
+                del self._refs[b]
+                self._touch.pop(b, None)
+                self._free.append(b)
+            else:
+                self._refs[b] = refs - 1
+        self.version += 1

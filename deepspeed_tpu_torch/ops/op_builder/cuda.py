@@ -1,0 +1,137 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source of the package is compiled by ``nvcc`` into a
+shared library with a plain C interface, one library per source, and
+loaded with ``ctypes``::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/torch_kernels/<key>/lib<name>.so <name>.cu
+
+The first call builds all sources at once, one ``nvcc`` process per
+source started together, into ``build/torch_kernels/<key>/`` beside the
+package, where ``<key>`` hashes the sources and flags: an edit rebuilds,
+an unchanged tree reuses the libraries. A failed build raises with
+nvcc's stderr. Each C entry point returns its ``cudaGetLastError()``;
+:func:`check` turns a non-zero code into an exception.
+
+Wrappers pass every pointer and the stream as ``ctypes.c_void_p`` (the
+argtypes below), so 64-bit addresses are never cut to 32 bits.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, List
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of every entry point, by library name
+SIGNATURES = {
+    "paged_attention": {
+        # q, k, v, tables, lengths, out, n, nh, kvh, hd, bs, mb, dtype,
+        # scale, stream
+        "ds_paged_decode_attention":
+            [_P] * 6 + [_I] * 7 + [_F, _P],
+    },
+    "ragged_attention": {
+        # q, k, v, row_ids, lengths, tables, out, n, nh, kvh, hd, bs, mb,
+        # dtype, scale, stream
+        "ds_ragged_paged_attention":
+            [_P] * 7 + [_I] * 7 + [_F, _P],
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+# wall seconds of the last build (0.0 when the libraries were reused)
+build_seconds = 0.0
+# ptxas resource report (registers, shared memory, spills) per source
+build_logs: Dict[str, str] = {}
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), DEFAULT_CUDA_HOME):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the port's CUDA kernels are built from "
+            "deepspeed_tpu_torch/csrc at first use")
+    return found
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` (in parallel) unless this source key is
+    already built; returns the build directory."""
+    global build_seconds
+    out_dir = BUILD_ROOT / _key()
+    srcs = sources()
+    if all((out_dir / f"lib{s.stem}.so").exists() for s in srcs):
+        return out_dir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src in srcs:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)]
+        procs.append((src, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, tmp, proc in procs:
+        out, err = proc.communicate()
+        build_logs[src.stem] = out + err
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit {proc.returncode}):\n{err}")
+            os.unlink(tmp)
+        else:
+            # atomic publish: concurrent builders never see a partial file
+            os.replace(tmp, out_dir / f"lib{src.stem}.so")
+    build_seconds = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("nvcc failed to build the port's kernels:\n"
+                           + "\n".join(failed))
+    return out_dir
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, with argtypes set."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build() / f"lib{name}.so"))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
