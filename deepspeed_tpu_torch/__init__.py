@@ -6,14 +6,62 @@ weights move between the two by name. It imports neither ``jax`` nor
 anything of ``deepspeed_tpu``. Its kernels are hand-written for Hopper
 (``csrc/``) and built at first use (``ops/op_builder/cuda.py``).
 
-This slice serves: ``pipeline()`` / ``init_inference(use_ragged=True)``
-over the ragged v2 engine (``inference/v2``). Entry points run on the GPU
-unless the caller passes ``device="cpu"``.
+It serves: ``pipeline()`` / ``init_inference(use_ragged=True)`` over the
+ragged v2 engine (``inference/v2``). It trains: ``initialize()`` returns
+the one-GPU :class:`~.runtime.engine.DeepSpeedTpuEngine` (ZeRO stage 0),
+whose ``train_batch()`` runs the flash-attention kernels forward and
+backward. Entry points run on the GPU unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
+from typing import Any, Optional, Tuple
+
 from .pipeline import ServePipeline, pipeline  # noqa: F401
+from .runtime.config import DeepSpeedConfig  # noqa: F401
+from .runtime.engine import DeepSpeedTpuEngine  # noqa: F401
+from .runtime.lr_schedules import LRScheduler  # noqa: F401
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None,
+               distributed_port: int = 29500, mpu=None,
+               dist_init_required: Optional[bool] = None, collate_fn=None,
+               config=None, config_params=None, seed: int = 0,
+               topology=None, params=None, device=None,
+               ) -> Tuple[DeepSpeedTpuEngine, Any, Any, Any]:
+    """Initialize the training engine (reference deepspeed/__init__.py:64,
+    JAX ``deepspeed_tpu.initialize``).
+
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
+    the dataloader is None. ``model`` exposes ``init_params(generator,
+    dtype)`` and ``apply(params, batch, train=...)``; ``params`` (the JAX
+    tree layout) replaces its seeded init. ``device=None`` trains on the
+    GPU and raises without one. As in the JAX function, ``optimizer``,
+    ``model_parameters``, ``mpu``, ``dist_init_required`` and
+    ``distributed_port`` are accepted and not read (the optimizer comes
+    from the config). ``training_data`` (the dataloader, ROADMAP A12) and
+    ``topology`` (ROADMAP A8) are not ported yet and raise."""
+    config = config if config is not None else config_params
+    if config is None and args is not None and hasattr(args, "deepspeed_config"):
+        config = args.deepspeed_config
+    if config is None:
+        raise ValueError("a config (dict or json path) is required")
+    if training_data is not None:
+        raise NotImplementedError(
+            "initialize(training_data=...) needs DeepSpeedDataLoader, not "
+            "ported to deepspeed_tpu_torch yet (ROADMAP A12); pass batches "
+            "to train_batch()")
+    if topology is not None:
+        raise NotImplementedError(
+            "initialize(topology=...) is not ported to deepspeed_tpu_torch "
+            "yet (ROADMAP A8)")
+    ds_config = DeepSpeedConfig(config)
+    engine = DeepSpeedTpuEngine(model, ds_config, params=params,
+                                device=device, seed=seed,
+                                lr_scheduler=lr_scheduler)
+    return engine, engine.optimizer, None, engine.lr_scheduler
 
 
 def init_inference(model=None, config=None, params=None, device=None,

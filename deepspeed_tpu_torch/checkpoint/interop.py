@@ -21,3 +21,11 @@ def params_from_numpy(tree: Dict[str, Any], device="cpu",
                 for k, v in tree.items()}
     t = torch.from_numpy(np.array(tree, copy=True))
     return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The reverse: a tree of tensors -> the same dict of f32 numpy arrays
+    on the host (what the JAX package's ``jnp.asarray`` takes)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", torch.float32).numpy()

@@ -27,6 +27,7 @@ import torch
 
 from ...models.transformer import TransformerConfig
 from ...utils.bucketing import pow2_bucket
+from ...utils.device import resolve_device
 from .config_v2 import RaggedInferenceEngineConfig
 from .paged_model import (check_servable, init_paged_kv_cache,
                           paged_decode, paged_decode_window,
@@ -38,18 +39,6 @@ from .sampling import greedy_tokens
 
 DTYPES = {"float32": torch.float32, "float16": torch.float16,
           "bfloat16": torch.bfloat16}
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Asking for CUDA without one raises: the
-    port never drops to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; deepspeed_tpu_torch serves on the "
-            "GPU by default — pass device='cpu' to run the plain PyTorch "
-            "versions of its kernels on the CPU")
-    return dev
 
 
 class InferenceEngineV2:

@@ -6,10 +6,14 @@ the JAX package's names and layout — stacked ``[L, ...]`` layer leaves and
 ``x @ W`` with ``[in, out]`` weights — so weights move between the two
 packages by name with no transposes (``checkpoint/interop.py``).
 
-Only what serving the Llama/Mistral family needs is here: the config with
-its validation, the presets, the MLP/projection helpers and a seeded
-``init_params``. The training forward, the flash path and the MoE/MLM
-families of the JAX module wait for later slices.
+Here: the config with its validation, the presets, the MLP/projection
+helpers, a seeded ``init_params``, and the training forward of the causal
+dense families (``forward_hidden``, ``forward_logits``, ``apply`` with the
+chunked cross-entropy), whose attention routes through
+``sequence/layer.py`` to the flash kernels. Serving keeps its own layer
+loop (``inference/v2/paged_model.py``). Not ported yet, each raising
+``NotImplementedError``: MoE and sequence parallelism (ROADMAP A8), PPO
+batches (A11), alibi, post-LN and the MLM family (A12).
 """
 
 import math
@@ -18,6 +22,9 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
+
+from ..ops.norms import layer_norm, rms_norm
 
 
 @dataclass(frozen=True)
@@ -147,6 +154,63 @@ def dense_mlp(cfg: TransformerConfig, lp, x):
     return out
 
 
+def _rope_tables(cfg: TransformerConfig, seq_len: int, offset=0,
+                 device=None):
+    """f32 (cos, sin) [seq_len, rotary_dims / 2] at positions
+    offset .. offset + seq_len - 1."""
+    half = rotary_dims(cfg) // 2
+    freqs = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, half, dtype=torch.float32, device=device) / half))
+    t = offset + torch.arange(seq_len, dtype=torch.float32, device=device)
+    angles = torch.outer(t, freqs)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rotary(x, cos, sin):
+    """x: [B, H, S, D]; rotate-half convention, in x's dtype (cos/sin cast
+    to it by the caller). Dims past 2 * cos.shape[-1] pass through."""
+    rot = 2 * cos.shape[-1]
+    tail = x[..., rot:]
+    half = rot // 2
+    x1, x2 = x[..., :half], x[..., half:rot]
+    c = cos[None, None]
+    s = sin[None, None]
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    if tail.shape[-1]:
+        out = torch.cat([out, tail], dim=-1)
+    return out.to(x.dtype)
+
+
+def _chunked_ce_loss(x, targets, mask, head, chunk: int, bias=None):
+    """Cross-entropy without materializing [B, S, V] logits: one
+    ``torch.utils.checkpoint`` per sequence chunk, so each chunk's logits
+    are rebuilt in the backward and peak memory is O(chunk * V).
+    Returns (sum of masked nll, sum of mask)."""
+    B, S, H = x.shape
+    chunk = min(chunk, S) if chunk and chunk > 0 else S
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def chunk_nll(x_c, t_c, m_c, head, bias):
+        logits = (x_c @ head.to(x_c.dtype)).float()
+        if bias is not None:
+            logits = logits + bias.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, t_c[..., None].long())[..., 0]
+        return torch.sum((lse - tgt) * m_c)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in range(0, x.shape[1], chunk):
+        total = total + torch.utils.checkpoint.checkpoint(
+            chunk_nll, x[:, a:a + chunk], targets[:, a:a + chunk],
+            mask[:, a:a + chunk], head, bias, use_reentrant=False,
+            preserve_rng_state=False)
+    return total, torch.sum(mask)
+
+
 def qkv_proj(lp, hn):
     """q/k/v projections with optional biases. hn: [..., H]; returns flat
     [..., nh*hd] / [..., nkv*hd] projections."""
@@ -169,7 +233,9 @@ def out_proj(lp, o):
 
 
 class TransformerLM:
-    """Decoder-only LM: holds the config and builds the parameter tree."""
+    """Decoder-only LM: holds the config, builds the parameter tree and
+    runs the training forward (the engine's model protocol:
+    ``init_params`` + ``apply``)."""
 
     def __init__(self, cfg: TransformerConfig):
         self.cfg = cfg
@@ -244,6 +310,121 @@ class TransformerLM:
         if cfg.lm_head_bias:
             params["lm_head_b"] = zeros(v)
         return params
+
+    # -- training forward ------------------------------------------------
+    def _check_trainable(self):
+        cfg = self.cfg
+        if cfg.moe_num_experts > 0 or cfg.seq_parallel:
+            raise NotImplementedError(
+                "MoE and sequence-parallel layers are not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A8)")
+        if (cfg.positional == "alibi" or cfg.norm_scheme == "post"
+                or cfg.objective == "mlm" or cfg.embed_ln or cfg.mlm_head):
+            raise NotImplementedError(
+                "alibi attention, post-LN and the MLM (BERT) family are not "
+                "ported to deepspeed_tpu_torch yet (ROADMAP A12)")
+
+    def _norm(self, x, w, b=None):
+        if self.cfg.norm == "rmsnorm":
+            return rms_norm(x, w, self.cfg.norm_eps)
+        return layer_norm(x, w, b, self.cfg.norm_eps)
+
+    def _attention(self, q, k, v):
+        from ..sequence.layer import sharded_attention
+
+        cfg = self.cfg
+        # the flash kernels once the S^2 score tensor dominates
+        use_flash = cfg.use_flash and q.shape[2] >= cfg.flash_min_seq
+        return sharded_attention(q, k, v, None, causal=cfg.is_causal,
+                                 use_flash=use_flash,
+                                 block_q=cfg.attn_block_q,
+                                 block_kv=cfg.attn_block_kv,
+                                 impl=cfg.seq_parallel_impl)
+
+    def _layer(self, x, lp, cos, sin):
+        cfg = self.cfg
+        B, S, H = x.shape
+        nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        hn = self._norm(x, lp["attn_norm"], lp.get("attn_norm_b"))
+        q, k, v = qkv_proj(lp, hn)
+        q = q.reshape(B, S, nh, hd).transpose(1, 2)
+        k = k.reshape(B, S, nkv, hd).transpose(1, 2)
+        v = v.reshape(B, S, nkv, hd).transpose(1, 2)
+        if cfg.positional == "rope":
+            q = apply_rotary(q, cos, sin)
+            k = apply_rotary(k, cos, sin)
+        o = self._attention(q, k, v)
+        o = o.transpose(1, 2).reshape(B, S, nh * hd)
+        if cfg.parallel_residual:
+            hn2 = (self._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"))
+                   if cfg.parallel_norms else hn)
+            return x + out_proj(lp, o) + dense_mlp(cfg, lp, hn2)
+        x = x + out_proj(lp, o)
+        hn = self._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"))
+        if cfg.is_gated_mlp:
+            g = gate_act(cfg)(hn @ lp["w_gate"])
+            return x + (g * (hn @ lp["w_up"])) @ lp["w_down"]
+        return x + dense_mlp(cfg, lp, hn)
+
+    def forward_hidden(self, params, input_ids):
+        """Final-normed hidden states [B, S, H]. The layer loop walks views
+        of the stacked ``[L, ...]`` leaves; under ``cfg.remat`` each layer
+        runs inside the configured activation checkpoint."""
+        cfg = self.cfg
+        self._check_trainable()
+        x = F.embedding(input_ids, params["embed"])
+        if cfg.embed_scale != 1.0:
+            x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
+        S = input_ids.shape[1]
+        if cfg.positional == "learned":
+            x = x + params["pos_embed"][:S][None]
+        if cfg.positional == "rope":
+            cos, sin = _rope_tables(cfg, S, device=x.device)
+            cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+        else:
+            cos = sin = torch.zeros((S, 1), dtype=x.dtype, device=x.device)
+        body = self._layer
+        if cfg.remat:
+            from ..runtime.activation_checkpointing import \
+                checkpointing as ds_ckpt
+            body = ds_ckpt.checkpoint_wrapper(body)
+        layers = {k: torch.unbind(v) for k, v in params["layers"].items()}
+        for l in range(cfg.num_layers):
+            x = body(x, {k: v[l] for k, v in layers.items()}, cos, sin)
+        return self._norm(x, params["final_norm"], params.get("final_norm_b"))
+
+    def _head_inputs(self, params, x):
+        """(hidden, head matrix, logit bias) of the causal LM head."""
+        head = (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+        return x, head, params.get("lm_head_b")
+
+    def forward_logits(self, params, input_ids):
+        x = self.forward_hidden(params, input_ids)
+        x, head, bias = self._head_inputs(params, x)
+        logits = x @ head.to(x.dtype)
+        if bias is not None:
+            logits = logits + bias.to(logits.dtype)
+        return logits
+
+    def apply(self, params, batch, train: bool = True, rng=None):
+        """Next-token loss on {input_ids [B, S], optional loss_mask [B, S]}:
+        the masked mean of the chunked cross-entropy, f32."""
+        if "ppo_old_logprobs" in batch:
+            raise NotImplementedError(
+                "PPO learner batches are not ported to deepspeed_tpu_torch "
+                "yet (ROADMAP A11)")
+        ids = batch["input_ids"]
+        x = self.forward_hidden(params, ids)
+        # the logit bias of the head is not in the JAX training loss either
+        _, head, _ = self._head_inputs(params, x)
+        mask = batch.get("loss_mask")
+        mask = (mask[:, 1:].float() if mask is not None
+                else torch.ones(ids[:, 1:].shape, dtype=torch.float32,
+                                device=ids.device))
+        total, count = _chunked_ce_loss(x[:, :-1], ids[:, 1:], mask, head,
+                                        self.cfg.loss_chunk)
+        return total / torch.clamp(count, min=1.0)
 
 
 # -- canonical configs (model zoo) ------------------------------------------

@@ -50,6 +50,16 @@ SIGNATURES = {
         "ds_ragged_paged_attention":
             [_P] * 7 + [_I] * 7 + [_F, _P],
     },
+    "flash_attention": {
+        # q, k, v, o, lse, bh, bhk, sq, skv, d, dtype, scale, causal, stream
+        "ds_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+        # q, k, v, do, lse, delta, dq, bh, bhk, sq, skv, d, dtype, scale,
+        # causal, stream
+        "ds_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+        # q, k, v, do, lse, delta, dk, dv, bh, bhk, sq, skv, d, dtype,
+        # scale, causal, stream
+        "ds_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
