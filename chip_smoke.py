@@ -3,9 +3,10 @@
 NVIDIA GPU: builds the hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, serves
 full-width Mistral-7B (seeded random weights) through ``pipeline()`` and
-``generate()``, trains full-width Mistral-7B at 4 layers through
-``initialize()`` and ``train_batch()``, and checks that both paths ran
-through the kernels.
+``generate()`` over a bf16 and an int8 KV pool and through the v1
+``init_inference()`` engine, trains full-width Mistral-7B at 4 layers
+through ``initialize()`` and ``train_batch()``, and checks that every path
+ran through its kernels.
 
     python3 chip_smoke.py            # needs one CUDA card; exit 0 = ok
     python3 chip_smoke.py --kernels-only   # phases 1-3 only, no result
@@ -22,6 +23,14 @@ exit 0):
    and a pure-decode ragged batch bit-equal to the decode kernel; fp32
    (2e-5) and fp16 (1e-2) on the same inputs; times (CUDA events,
    medians, L2 flushed before each launch), bound and library yardstick;
+   the same over an int8 pool with random per-(block, head) scales
+   (paged_attention_q8, ragged_attention_q8; the int8 pure-decode ragged
+   batch bit-equal to int8 paged decode; the yardstick times
+   scaled_dot_product_attention on pages gathered and dequantized
+   beforehand); the dense decode kernel of the v1 engine at B 8, M 2048
+   (row lengths 1536 / 2048) and M 1000 (993 / 1000), same dtypes and
+   tolerances, its yardstick scaled_dot_product_attention over
+   cache[:, :, :length];
 3. flash kernel phases at Mistral-7B training geometry (B 2, nh 32, kvh
    8, hd 128, S 2048, bf16, causal): flash_fwd, flash_bwd_dq and
    flash_bwd_dkv against their plain versions (o within 1e-2 absolute,
@@ -32,8 +41,11 @@ exit 0):
    repeated backward bit-identical; times, the operations bound at 989
    TFLOP/s and the library yardstick (scaled_dot_product_attention
    forward, and its autograd backward for the dq + dkv pair);
-4. a small fp32 serve check: tiny model, kernel engine vs plain engine,
-   put() logits within 1e-4 and generate() streams equal;
+4. small fp32 serve checks on a tiny model: kernel engine vs plain engine,
+   put() logits within 1e-4 and generate() streams equal, for the bf16-
+   style pool and for the int8 kv_quant pool; the v1 engine with the
+   dense decode kernel vs its decode_kernel=False einsum route, decode
+   logits within 1e-4 and generate() streams equal;
 5. serve: Mistral-7B, 32 layers, bf16, pipeline() answers 8 requests
    (prompts 128-1024 tokens, 64 new tokens, greedy) and generate() runs
    them with decode_window 8; launch counts must equal 32 x steps, one
@@ -41,8 +53,19 @@ exit 0):
    the put() logits of the kernels against the plain versions in bf16
    and against an fp32 engine (informational); the device time, busy
    share and top kernels of one ragged step and of one fused decode
-   window (torch.profiler over generate()); then the serving engine is
-   freed;
+   window (torch.profiler over generate()); then, on the same weight
+   tensors, the int8 KV engine (init_inference(use_ragged=True,
+   kv_quant)): generate() with launch counts of 32 x steps for both int8
+   kernels, one host sync per window, identical streams on a repeat by
+   an engine with the same pool history (a freed block keeps its
+   grow-only scale, as in the JAX package), finite put() logits, its
+   pool bytes against the bf16 pool's, TTFT and decode tokens/s, its
+   logit gap and token agreement with the bf16 pool and the fp32 engine
+   (informational) and its profile as above; and the v1 engine
+   (init_inference()): 8 prompts of 512 tokens, 64 new tokens, greedy,
+   32 x 63 dense decode launches, identical tokens on a repeat, prefill
+   ms and decode tokens/s, and the profile of the prefill and of 8
+   decode steps; then the serving engines are freed;
 6. a small fp32 training check: a tiny model (hd 64, flash from S 128)
    trained 3 steps by a kernel engine and by a use_flash=False engine on
    the same weights, losses within 1e-5;
@@ -151,10 +174,7 @@ def library_attention(q_rows, k_cache, v_cache, tables, q_lens):
     ctx = mb * BS
     k = k_cache[tables.long()].reshape(R, ctx, KVH, HD).transpose(1, 2)
     v = v_cache[tables.long()].reshape(R, ctx, KVH, HD).transpose(1, 2)
-    mask = (torch.arange(ctx, device=q_rows.device)[None, None, None, :]
-            < q_lens[:, None, :, None])
-    return torch.nn.functional.scaled_dot_product_attention(
-        q_rows, k, v, attn_mask=mask, enable_gqa=True)
+    return sdpa_rows(q_rows, k, v, q_lens)
 
 
 def other_dtypes(name, kernel, plain, q, k_cache, v_cache, *int_args):
@@ -296,11 +316,211 @@ def kernel_phases(dev, flush):
         library_ms=time_ms(lambda: library_attention(
             qr, k_cache, v_cache, tables, ql), flush),
         bound_ms=b_ms, bound_by=b_by)
+    results.update(quant_kernel_phases(dev, flush, rng, gen, rows_pos))
+    results.update(dense_decode_phases(dev, flush, gen))
     for name, r in results.items():
         log(f"{name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
             f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
     return results
+
+
+def check_close(name, out, ref, tol):
+    err = (out.float() - ref.float()).abs().max().item()
+    log(f"{name}: max_abs_err={err:.3e} (tolerance {tol})")
+    if not (err <= tol and torch.isfinite(out).all()):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{err} > {tol}")
+    return err
+
+
+def make_q8_pool(gen, n_pages, dev):
+    """Random int8 K/V pool with random per-(block, head) f32 scales of
+    absmax / 127 for an absmax in [0.5, 1.5): dequantized values of
+    magnitude ~1, as written by _kv_write."""
+    shape = (n_pages, BS, KVH, HD)
+    pool = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2)]
+    scales = [(0.5 + torch.rand((n_pages, KVH), generator=gen, device=dev))
+              / 127.0 for _ in range(2)]
+    return pool + scales
+
+
+def dequant_gather(pool, scale, tables):
+    """[R, KVH, MB * BS, HD] bf16 pages of ``tables``, dequantized as the
+    kernels do (the library yardstick's input; not timed)."""
+    R, mb = tables.shape
+    pages = (pool[tables.long()].float()
+             * scale[tables.long()][:, :, None, :, None]).to(torch.bfloat16)
+    return pages.reshape(R, mb * BS, KVH, HD).transpose(1, 2).contiguous()
+
+
+def sdpa_rows(q_rows, k, v, q_lens):
+    """Library yardstick on gathered context: q_rows [R, nh, Lq, hd], k/v
+    [R, kvh, ctx, hd], a causal bound per query q_lens [R, Lq]."""
+    ctx = k.shape[2]
+    mask = (torch.arange(ctx, device=q_rows.device)[None, None, None, :]
+            < q_lens[:, None, :, None])
+    return torch.nn.functional.scaled_dot_product_attention(
+        q_rows, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def quant_kernel_phases(dev, flush, rng, gen, rows_pos):
+    """The int8 kv_quant pool through paged decode and a mixed ragged batch
+    (the bf16 phases' lengths and rows), q in bf16 / fp32 / fp16."""
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import (
+        ragged_attention, ragged_attention_plain)
+
+    mb = 2048 // BS
+    results = {}
+    tols = ((torch.bfloat16, TOL), (torch.float32, 2e-5),
+            (torch.float16, TOL))
+
+    # -- int8 paged decode ---------------------------------------------------
+    dec_lens = [1, 63, 64, 65, 500, 1024, 1537, 2048]
+    n_pages = 1 + sum(-(-n // BS) for n in dec_lens) + 64
+    kq, vq, ks, vs = make_q8_pool(gen, n_pages, dev)
+    tables = torch.as_tensor(tables_for(rng, dec_lens, n_pages, mb),
+                             device=dev)
+    lengths = torch.as_tensor(dec_lens, dtype=torch.int32, device=dev)
+    N = len(dec_lens)
+    q = torch.randn((N, NH, HD), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    pool = (kq, vq, tables, lengths, ks, vs)
+    for dt, tol in tols:
+        out = paged_attention(q.to(dt), *pool)
+        e = check_close(f"paged_attention_q8 {dt}", out,
+                        paged_attention_plain(q.to(dt), *pool), tol)
+        if dt == torch.bfloat16:
+            err, out_bf16 = e, out
+    rag_dec = ragged_attention(q, kq, vq,
+                               torch.arange(N, dtype=torch.int32, device=dev),
+                               lengths, tables, ks, vs)
+    torch.cuda.synchronize()
+    if not torch.equal(rag_dec, out_bf16):
+        diff = (rag_dec.float() - out_bf16.float()).abs().max().item()
+        raise AssertionError(f"int8 pure-decode ragged batch is not bit-equal "
+                             f"to the int8 decode kernel (max diff {diff})")
+    log("ragged_attention_q8 pure-decode batch: bit-equal to "
+        "paged_attention_q8")
+    # unique bytes: the used int8 K/V slots once per (row, kv head), one f32
+    # K and V scale per used page and head, q read and out written once,
+    # the used table entries and the lengths
+    used_pages = sum(-(-n // BS) for n in dec_lens)
+    kv_bytes = 2 * sum(dec_lens) * KVH * HD + 2 * used_pages * KVH * 4
+    io_bytes = 2 * q.numel() * 2 + used_pages * 4 + N * 4
+    b_ms, b_by = bound(kv_bytes + io_bytes, 4 * sum(dec_lens) * NH * HD)
+    kd, vd = dequant_gather(kq, ks, tables), dequant_gather(vq, vs, tables)
+    results["paged_attention_q8"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: paged_attention(q, *pool), flush),
+        plain_ms=time_ms(lambda: paged_attention_plain(q, *pool), flush,
+                         reps=5),
+        library_ms=time_ms(lambda: sdpa_rows(q[:, :, None], kd, vd,
+                                             lengths[:, None]), flush),
+        bound_ms=b_ms, bound_by=b_by)
+    del kd, vd
+
+    # -- int8 ragged mixed batch --------------------------------------------
+    ctx_lens = [p[-1] + 1 for p in rows_pos]
+    n_pages = 1 + sum(-(-n // BS) for n in ctx_lens) + 64
+    kq, vq, ks, vs = make_q8_pool(gen, n_pages, dev)
+    tables = torch.as_tensor(tables_for(rng, ctx_lens, n_pages, mb),
+                             device=dev)
+    row_ids = np.concatenate([[r] * len(p) for r, p in enumerate(rows_pos)])
+    tok_lens = np.concatenate([np.asarray(p) + 1 for p in rows_pos])
+    n_tok = len(row_ids)
+    T = 1 << (n_tok - 1).bit_length()
+    row_ids_t = torch.as_tensor(np.pad(row_ids, (0, T - n_tok)).astype(
+        np.int32), device=dev)
+    tok_lens_t = torch.as_tensor(np.pad(tok_lens, (0, T - n_tok)).astype(
+        np.int32), device=dev)
+    q = torch.randn((T, NH, HD), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    pool = (kq, vq, row_ids_t, tok_lens_t, tables, ks, vs)
+    for dt, tol in tols:
+        out = ragged_attention(q.to(dt), *pool)
+        e = check_close(f"ragged_attention_q8 {dt}", out,
+                        ragged_attention_plain(q.to(dt), *pool), tol)
+        if not bool((out[n_tok:] == 0).all().item()):
+            raise AssertionError("ragged_attention_q8: a padding token's "
+                                 "output is not exactly zero")
+        if dt == torch.bfloat16:
+            err = e
+    used_pages = sum(-(-n // BS) for n in ctx_lens)
+    kv_bytes = 2 * sum(ctx_lens) * KVH * HD + 2 * used_pages * KVH * 4
+    io_bytes = ((n_tok + T) * NH * HD * 2 + used_pages * 4
+                + (n_tok + T) * 4)
+    b_ms, b_by = bound(kv_bytes + io_bytes,
+                       4 * int(tok_lens.sum()) * NH * HD)
+    Lq = max(len(p) for p in rows_pos)
+    qr = torch.zeros((len(rows_pos), NH, Lq, HD), device=dev,
+                     dtype=torch.bfloat16)
+    ql = torch.zeros((len(rows_pos), Lq), device=dev, dtype=torch.int32)
+    start = 0
+    for r, p in enumerate(rows_pos):
+        qr[r, :, :len(p)] = q[start:start + len(p)].transpose(0, 1)
+        ql[r, :len(p)] = torch.as_tensor(np.asarray(p) + 1, device=dev)
+        start += len(p)
+    kd, vd = dequant_gather(kq, ks, tables), dequant_gather(vq, vs, tables)
+    results["ragged_attention_q8"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ragged_attention(q, *pool), flush),
+        plain_ms=time_ms(lambda: ragged_attention_plain(q, *pool), flush,
+                         reps=5),
+        library_ms=time_ms(lambda: sdpa_rows(qr, kd, vd, ql), flush),
+        bound_ms=b_ms, bound_by=b_by)
+    log("q8 library_ms: scaled_dot_product_attention on the dequantized "
+        "gathered pages; the gather and dequantization are not timed")
+    return results
+
+
+def dense_decode_phases(dev, flush, gen):
+    """The v1 engine's dense-cache decode at B 8, M 2048 (row lengths 1536
+    and 2048) and at M 1000 (lengths 993 and 1000), q and cache in bf16 /
+    fp32 / fp16."""
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        dense_decode_attention, dense_decode_attention_plain)
+
+    B = 8
+    out = {}
+    for M, lens in ((1000, [993, 1000]), (2048, [1536, 2048])):
+        lengths = torch.as_tensor(lens * (B // 2), dtype=torch.int32,
+                                  device=dev)
+        q = torch.randn((B, NH, HD), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        kc = torch.randn((B, KVH, M, HD), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        vc = torch.randn((B, KVH, M, HD), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        for dt, tol in ((torch.bfloat16, TOL), (torch.float32, 2e-5),
+                        (torch.float16, TOL)):
+            args = (q.to(dt), kc.to(dt), vc.to(dt), lengths)
+            e = check_close(f"dense_decode_attention M={M} lengths {lens} "
+                            f"{dt}", dense_decode_attention(*args),
+                            dense_decode_attention_plain(*args), tol)
+            if dt == torch.bfloat16:
+                out[M] = e
+    # times at M 2048: the used K/V rows once per (row, kv head), q read and
+    # out written once, the lengths
+    total = int(lengths.sum())
+    b_ms, b_by = bound(2 * total * KVH * HD * 2 + 2 * q.numel() * 2 + B * 4,
+                       4 * total * NH * HD)
+    ql = lengths[:, None]
+    lmax = max(lens)
+    res = dict(
+        max_abs_err=max(out.values()),
+        ms=time_ms(lambda: dense_decode_attention(q, kc, vc, lengths), flush),
+        plain_ms=time_ms(lambda: dense_decode_attention_plain(
+            q, kc, vc, lengths), flush, reps=5),
+        library_ms=time_ms(lambda: sdpa_rows(
+            q[:, :, None], kc[:, :, :lmax], vc[:, :, :lmax], ql), flush),
+        bound_ms=b_ms, bound_by=b_by)
+    log("dense_decode_attention library_ms: scaled_dot_product_attention "
+        "over cache[:, :, :length] with a per-row length mask")
+    return {"dense_decode_attention": res}
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +562,63 @@ def small_fp32_check(dev):
     if not (gap <= 1e-4 and same):
         raise AssertionError("fp32 kernel engine disagrees with the plain "
                              "engine on the tiny model")
+
+    # the int8 kv_quant pool: kernel engine against plain engine
+    def q8_engine(use_kernel, params=None):
+        return InferenceEngineV2(model, RaggedInferenceEngineConfig.from_dict(
+            {"dtype": "float32", "prefill_bucket": 16, "decode_window": 8,
+             "use_paged_kernel": use_kernel, "kv_quant": True,
+             "state_manager": {"max_tracked_sequences": 8, "max_seq_len": 128,
+                               "num_blocks": 65, "block_size": 16}}),
+            params=params, device=dev)
+
+    kern = q8_engine(True, params=kern.params)
+    plain = q8_engine(False, params=kern.params)
+    a = kern.put([1, 2, 3], prompts)
+    b = plain.put([1, 2, 3], prompts)
+    gap = float(np.abs(a - b).max())
+    a2 = kern.put([1, 2, 3], [[7], [8], [9]])       # decode rows over int8
+    b2 = plain.put([1, 2, 3], [[7], [8], [9]])
+    gap = max(gap, float(np.abs(a2 - b2).max()))
+    for e in (kern, plain):
+        for u in (1, 2, 3):
+            e.flush(u)
+    ga = kern.generate(prompts, max_new_tokens=20)
+    gb = plain.generate(prompts, max_new_tokens=20)
+    same = all(np.array_equal(x, y) for x, y in zip(ga, gb))
+    log(f"small fp32 check, kv_quant: put logits max|kernel - plain|="
+        f"{gap:.3e} generate streams equal={same}")
+    if not (gap <= 1e-4 and same):
+        raise AssertionError("fp32 kv_quant kernel engine disagrees with the "
+                             "kv_quant plain engine on the tiny model")
+
+    # the v1 engine: dense decode kernel against the decode_kernel=False
+    # einsum route
+    import deepspeed_tpu_torch
+
+    params = kern.params
+    v1 = {dk: deepspeed_tpu_torch.init_inference(
+        TransformerLM(dataclasses.replace(model.cfg, decode_kernel=dk)),
+        config={"dtype": "fp32"}, params=params, device=dev)
+        for dk in (True, False)}
+    ids = torch.as_tensor(np.array([p[:3] for p in prompts]), device=dev)
+    step_logits = {}
+    for dk, e in v1.items():
+        cache = e.model.init_kv_cache(3, 8, torch.float32, dev)
+        with torch.no_grad():
+            e.model.forward_cached(e.params, ids, cache, 0)
+            step_logits[dk] = e.model.forward_cached(
+                e.params, ids[:, -1:], cache, 3)
+    gap = (step_logits[True] - step_logits[False]).abs().max().item()
+    v1_prompts = np.array([p[:3] for p in prompts])
+    ga = v1[True].generate(v1_prompts, max_new_tokens=20)
+    gb = v1[False].generate(v1_prompts, max_new_tokens=20)
+    same = np.array_equal(ga, gb)
+    log(f"small fp32 check, v1: decode logits max|kernel - einsum|="
+        f"{gap:.3e} generate streams equal={same}")
+    if not (gap <= 1e-4 and same):
+        raise AssertionError("fp32 v1 engine with the dense decode kernel "
+                             "disagrees with the einsum route")
 
 
 # ---------------------------------------------------------------------------
@@ -460,48 +737,232 @@ def serve_phase(dev):
         f"margin {float((top2[:, 1] - top2[:, 0]).min()):.4f} "
         f"(bf16 gaps informational)")
     profile_phase(eng, prompts, eng.decode_window)
+    launches.update(q8_serve_phase(dev, cfg, eng, prompts, new, logits,
+                                   f32))
+    launches.update(v1_serve_phase(dev, cfg, eng.params))
     return launches
 
 
-def profile_phase(eng, prompts, window):
+def q8_serve_phase(dev, cfg, bf16_eng, prompts, new, bf16_logits,
+                   f32_logits):
+    """The int8 kv_quant pool at Mistral-7B: init_inference(use_ragged=True,
+    kv_quant) on the bf16 engine's weights (the same tensors) and pool
+    geometry, then put() + generate() as the bf16 serve phase drives
+    them."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_attention
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import \
+        ragged_attention
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    L = cfg.num_layers
+
+    def build():
+        e = deepspeed_tpu_torch.init_inference(
+            TransformerLM(cfg), params=bf16_eng.params, device=dev,
+            config={"dtype": "bfloat16", "use_ragged": True,
+                    "ragged": {"kv_quant": True, "decode_window": 8,
+                               "state_manager": {
+                                   "max_ragged_batch_size": 8192}}})
+        e.generate([prompts[0][:64]], max_new_tokens=4)        # warm-up
+        return e
+
+    eng = build()
+    if eng.params["embed"].data_ptr() != bf16_eng.params["embed"].data_ptr():
+        raise AssertionError("the int8 engine copied the weights")
+    pool = {k: (tuple(v.shape), v.dtype) for k, v in eng.kv_cache.items()}
+    q8_bytes = sum(v.numel() * v.element_size()
+                   for v in eng.kv_cache.values())
+    bf_bytes = sum(v.numel() * v.element_size()
+                   for v in bf16_eng.kv_cache.values())
+    log(f"serve q8: pool {pool}: {q8_bytes / 2**30:.3f} GiB against the "
+        f"bf16 pool's {bf_bytes / 2**30:.3f} GiB (ratio "
+        f"{q8_bytes / bf_bytes:.4f}) for the same "
+        f"{eng.state_manager.config.num_blocks} blocks")
+
+    before = dict(ragged=eng.ragged_steps, decode=eng.decode_steps,
+                  syncs=eng.host_syncs, windows=eng.decode_windows)
+    paged_attention.q8_launches = 0
+    ragged_attention.q8_launches = 0
+    # -- the main path: generate() over the int8 pool ----------------------
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(paged_attention_q8=paged_attention.q8_launches,
+                    ragged_attention_q8=ragged_attention.q8_launches)
+    steps = dict(ragged=eng.ragged_steps - before["ragged"],
+                 decode=eng.decode_steps - before["decode"],
+                 syncs=eng.host_syncs - before["syncs"],
+                 windows=eng.decode_windows - before["windows"])
+    ttft = eng.last_ttft_s
+    log(f"serve q8: generate 8 requests in {gen_s:.2f}s (TTFT "
+        f"{ttft * 1e3:.1f} ms for the 8-prompt put, decode "
+        f"{8 * (new - 1) / (gen_s - ttft):.1f} tokens/s)")
+    log(f"serve q8: steps {steps} launches {launches}")
+    for g, p in zip(gen, prompts):
+        if len(g) != len(p) + new or not ((g >= 0)
+                                          & (g < cfg.vocab_size)).all():
+            raise AssertionError("q8: a request did not get all its tokens "
+                                 "in [0, vocab)")
+    if launches["ragged_attention_q8"] != L * steps["ragged"] or \
+            steps["ragged"] == 0:
+        raise AssertionError(f"q8 ragged launches {launches} != {L} x "
+                             f"ragged steps {steps['ragged']}")
+    if launches["paged_attention_q8"] != L * steps["decode"] or \
+            steps["decode"] == 0:
+        raise AssertionError(f"q8 paged launches {launches} != {L} x decode "
+                             f"steps {steps['decode']}")
+    if steps["syncs"] != steps["windows"]:
+        raise AssertionError(f"q8: {steps['syncs']} host syncs for "
+                             f"{steps['windows']} decode windows")
+    # a freed block keeps its grow-only scale for its next tenant (as in
+    # the JAX package), so a repeat is identical on a pool with the same
+    # history: a second engine built and warmed up the same way
+    twin = build()
+    gen2 = twin.generate(prompts, max_new_tokens=new)
+    del twin
+    if not all(np.array_equal(a, b) for a, b in zip(gen, gen2)):
+        raise AssertionError("q8: a repeated generate() gave other streams")
+    gen3 = eng.generate(prompts, max_new_tokens=new)
+    same = sum(np.array_equal(a, b) for a, b in zip(gen, gen3))
+    log(f"serve q8: repeat generate() on an engine with the same history "
+        f"identical; on the same engine (its blocks' scales now carry the "
+        f"first run's absmax) {same}/8 streams equal (informational)")
+    uids = list(range(1000, 1008))
+    logits = eng.put(uids, prompts)
+    for u in uids:
+        eng.flush(u)
+    if logits.shape != (8, cfg.vocab_size) or not np.isfinite(logits).all():
+        raise AssertionError("q8 put() logits not finite / wrong shape")
+    bf_gen = bf16_eng.generate(prompts, max_new_tokens=new)
+    agree = np.mean([np.mean(a[len(p):] == b[len(p):])
+                     for a, b, p in zip(gen, bf_gen, prompts)])
+    for name, ref in (("bf16 pool", bf16_logits), ("fp32", f32_logits)):
+        log(f"serve q8: put() logits max|q8 - {name}| = "
+            f"{float(np.abs(logits - ref).max()):.4f}, argmax agreement "
+            f"{float((logits.argmax(-1) == ref.argmax(-1)).mean()):.3f}")
+    log(f"serve q8: generated-token agreement with the bf16 pool "
+        f"{agree:.3f} (informational: random weights leave near-tied "
+        f"logits, and one parted token parts the rest of a stream)")
+    profile_phase(eng, prompts, eng.decode_window, "q8 ")
+    del eng
+    return launches
+
+
+def v1_serve_phase(dev, cfg, params):
+    """The v1 engine at Mistral-7B: init_inference() without use_ragged on
+    the serve phase's weights; 8 prompts of 512 tokens, 64 new tokens,
+    greedy."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.ops.decode_attention import \
+        dense_decode_attention
+
+    L, B, S, new = cfg.num_layers, 8, 512, 64
+    eng = deepspeed_tpu_torch.init_inference(TransformerLM(cfg),
+                                             params=params, dtype="bf16",
+                                             device=dev)
+    if eng.params["embed"].data_ptr() != params["embed"].data_ptr():
+        raise AssertionError("the v1 engine copied the weights")
+    ids = np.random.default_rng(5).integers(1, cfg.vocab_size, (B, S))
+    eng.generate(ids[:, :64], max_new_tokens=4)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(ids, max_new_tokens=1)      # prefill + one sample, no decode
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    dense_decode_attention.launches = 0
+    # -- the main path: generate() -----------------------------------------
+    t0 = time.perf_counter()
+    out = eng.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {"dense_decode_attention": dense_decode_attention.launches}
+    decode_s = gen_s - prefill_s
+    log(f"serve v1: mistral_7b bf16 B={B} prompt {S} new {new}: generate "
+        f"{gen_s:.2f}s, prefill {prefill_s * 1e3:.1f} ms, decode "
+        f"{B * (new - 1) / decode_s:.1f} tokens/s "
+        f"({decode_s / (new - 1) * 1e3:.2f} ms/step); launches {launches}")
+    if out.shape != (B, S + new) or not np.array_equal(out[:, :S], ids) or \
+            not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"v1 generate() returned {out.shape} / ids "
+                             f"out of [0, vocab)")
+    if launches["dense_decode_attention"] != L * (new - 1):
+        raise AssertionError(f"v1 dense decode launches {launches} != "
+                             f"{L} x {new - 1}")
+    again = eng.generate(ids, max_new_tokens=new)
+    if not np.array_equal(out, again):
+        raise AssertionError("v1: a repeated generate() gave other tokens")
+    log("serve v1: repeat generate() identical")
+    # where the time goes: generate() with 1 new token (the prefill) and
+    # with 9 (the prefill, then 8 decode steps); the steps are the
+    # difference
+    _, pre_wall, pre_k = profiled(lambda: eng.generate(ids, max_new_tokens=1))
+    _, both_wall, both_k = profiled(
+        lambda: eng.generate(ids, max_new_tokens=9))
+    log_profile(f"v1 prefill ({B} x {S} tokens)", pre_wall, pre_k)
+    log_profile(f"v1 decode (per step, {B} rows)", both_wall - pre_wall,
+                minus(both_k, pre_k), 8)
+    del eng
+    return launches
+
+
+def profiled(fn):
+    """Runs fn() under torch.profiler; returns (fn's result, host ms of the
+    call ending in a synchronize, {device event: (ms, count)} for the
+    device-side events only: kernels, memcpy, memset)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if e.device_type == DeviceType.CUDA and t > 0:
+            kern[e.key] = (t / 1e3, e.count)
+    return out, wall, kern
+
+
+def log_profile(name, wall, kern, steps=1, top=6):
+    dev_ms = sum(t for t, _ in kern.values())
+    log(f"profile {name}: wall {wall / steps:.2f} ms/step, device "
+        f"{dev_ms / steps:.2f} ms/step, busy {dev_ms / wall:.3f}, "
+        f"launches/step {sum(c for _, c in kern.values()) / steps:.0f}")
+    for k, (t, c) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"   {t / steps:.3f} ms/step {c / steps:.0f}x  {k[:90]}")
+
+
+def minus(a, b):
+    """Per-event difference of two profiles: the extra steps of a."""
+    return {k: (t - b.get(k, (0.0, 0))[0], c - b.get(k, (0.0, 0))[1])
+            for k, (t, c) in a.items()}
+
+
+def profile_phase(eng, prompts, window, label=""):
     """Where the serving time goes. torch.profiler over
     generate() with max_new_tokens=1 (one put(): the ragged step) and with
     1 + window (the same put(), then one fused decode window). The window's
     device time and launches are the difference of the two runs; its wall
     time is the second run's after its put() (``last_ttft_s``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def run(new):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.generate(prompts, max_new_tokens=new)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 - eng.last_ttft_s * 1e3
-        kern = {}   # device-side events only: kernels, memcpy, memset
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", 0.0) or 0.0
-            if e.device_type == DeviceType.CUDA and t > 0:
-                kern[e.key] = (t / 1e3, e.count)
-        return eng.last_ttft_s * 1e3, wall, kern
+        _, wall, kern = profiled(
+            lambda: eng.generate(prompts, max_new_tokens=new))
+        return eng.last_ttft_s * 1e3, wall - eng.last_ttft_s * 1e3, kern
 
     put_wall, _, put_k = run(1)
     _, win_wall, both_k = run(1 + window)
-    win_k = {k: (t - put_k.get(k, (0.0, 0))[0], c - put_k.get(k, (0.0, 0))[1])
-             for k, (t, c) in both_k.items()}
     n_tok = sum(map(len, prompts))
-    for name, wall, kern, steps in (
-            (f"ragged step ({n_tok} tokens)", put_wall, put_k, 1),
-            (f"decode window (per step, {len(prompts)} rows)",
-             win_wall, win_k, window)):
-        dev_ms = sum(t for t, _ in kern.values())
-        log(f"profile {name}: wall {wall / steps:.2f} ms/step, device "
-            f"{dev_ms / steps:.2f} ms/step, busy {dev_ms / wall:.3f}, "
-            f"launches/step {sum(c for _, c in kern.values()) / steps:.0f}")
-        for k, (t, c) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]:
-            log(f"   {t / steps:.3f} ms/step {c / steps:.0f}x  {k[:90]}")
+    log_profile(f"{label}ragged step ({n_tok} tokens)", put_wall, put_k)
+    log_profile(f"{label}decode window (per step, {len(prompts)} rows)",
+                win_wall, minus(both_k, put_k), window)
 
 
 # ---------------------------------------------------------------------------
@@ -768,21 +1229,7 @@ def train_phase(dev):
 
 def train_profile(engine, batch):
     """Device time, busy share and top kernels of one train_batch()."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.train_batch(batch=batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kern = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0) or 0.0
-        if e.device_type == DeviceType.CUDA and t > 0:
-            kern[e.key] = (t / 1e3, e.count)
+    _, wall, kern = profiled(lambda: engine.train_batch(batch=batch))
     dev_ms = sum(t for t, _ in kern.values())
     log(f"profile train step: wall {wall:.2f} ms (profiled), device "
         f"{dev_ms:.2f} ms, busy {dev_ms / wall:.3f}, launches "
@@ -834,6 +1281,18 @@ def main() -> int:
                                     "ragged_attention.cu",
                                     "deepspeed_tpu/inference/v2/kernels/"
                                     "ragged_attention.py:234"),
+               "paged_attention_q8": ("deepspeed_tpu_torch/csrc/"
+                                      "paged_attention.cu",
+                                      "deepspeed_tpu/inference/v2/kernels/"
+                                      "paged_attention.py:175"),
+               "ragged_attention_q8": ("deepspeed_tpu_torch/csrc/"
+                                       "ragged_attention.cu",
+                                       "deepspeed_tpu/inference/v2/kernels/"
+                                       "ragged_attention.py:150"),
+               "dense_decode_attention": ("deepspeed_tpu_torch/csrc/"
+                                          "dense_decode_attention.cu",
+                                          "deepspeed_tpu/ops/"
+                                          "decode_attention.py:35"),
                "flash_fwd": (FLASH_SRC,
                              "deepspeed_tpu/ops/flash_attention.py:63"),
                "flash_bwd_dq": (FLASH_SRC,

@@ -7,7 +7,9 @@ anything of ``deepspeed_tpu``. Its kernels are hand-written for Hopper
 (``csrc/``) and built at first use (``ops/op_builder/cuda.py``).
 
 It serves: ``pipeline()`` / ``init_inference(use_ragged=True)`` over the
-ragged v2 engine (``inference/v2``). It trains: ``initialize()`` returns
+ragged v2 engine (``inference/v2``, with the int8 KV pool under
+``kv_quant``), and plain ``init_inference()`` over the v1 dense-cache
+engine (``inference/engine.py``). It trains: ``initialize()`` returns
 the one-GPU :class:`~.runtime.engine.DeepSpeedTpuEngine` (ZeRO stage 0),
 whose ``train_batch()`` runs the flash-attention kernels forward and
 backward. Entry points run on the GPU unless the caller passes
@@ -68,18 +70,19 @@ def init_inference(model=None, config=None, params=None, device=None,
                    **kwargs):
     """Inference engine entry (reference deepspeed/__init__.py:269).
 
-    ``use_ragged=True`` builds the ragged v2 engine
-    (:class:`~.inference.v2.engine_v2.InferenceEngineV2`) for a native
-    ``TransformerLM``; ``params`` supplies trained weights (a tree of
-    tensors or arrays in the JAX package's layout). The v1 engine, HF
-    modules and ``checkpoint`` loading are not ported yet."""
+    Returns the v1 dense-cache engine
+    (:class:`~.inference.engine.InferenceEngine`) for a native
+    ``TransformerLM``, or with ``use_ragged=True`` the ragged v2 engine
+    (:class:`~.inference.v2.engine_v2.InferenceEngineV2`). ``params``
+    supplies trained weights (a tree of tensors or arrays in the JAX
+    package's layout). HF modules and ``checkpoint`` loading are not
+    ported yet."""
     from .inference.config import DeepSpeedInferenceConfig
 
     cfg = DeepSpeedInferenceConfig.from_dict_or_kwargs(config, kwargs)
     if not cfg.use_ragged:
-        raise NotImplementedError(
-            "only the ragged v2 engine (use_ragged=True) is ported to "
-            "deepspeed_tpu_torch yet")
+        from .inference.engine import InferenceEngine
+        return InferenceEngine(model, cfg, params=params, device=device)
     if cfg.checkpoint:
         raise NotImplementedError(
             "use_ragged=True does not take 'checkpoint' yet; pass params")

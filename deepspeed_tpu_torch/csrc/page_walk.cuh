@@ -1,14 +1,20 @@
-// Shared page walk of the paged decode and ragged paged attention kernels.
+// Shared page walk of the paged decode, ragged paged and dense decode
+// attention kernels.
 //
 // One thread block serves one (query row, kv head) pair: the `group` query
 // heads that share kv head `h` (q head i reads kv head i / group, the JAX
 // layout q.reshape(N, kvh, group, hd)). The block walks only the
-// ceil(length / bs) pages of its block table that hold context, never the
-// table width, so null-padded tables cost nothing. Per page it:
+// ceil(length / bs) pages that hold context, never the table width or the
+// cache length, so null-padded tables and a long dense cache cost nothing
+// past `length`. Per page it:
 //
-//   1. copies the page's K and V tiles for its kv head ([n_valid, hd] each,
-//      16-byte loads) into shared memory, rows padded by 16 bytes so that
-//      the row-per-thread score loop reads without bank conflicts;
+//   1. copies the page's K and V tiles for its kv head ([n_valid, hd] each)
+//      into shared memory in the io dtype T, rows padded by 16 bytes so that
+//      the row-per-thread score loop reads without bank conflicts. A pool
+//      stored in T is copied with 16-byte loads; an int8 pool is loaded 16
+//      bytes at a time and dequantized on the way in, exactly as the TPU
+//      kernels' _dequant_tile does it: f32(q8) * scale, rounded to T (the
+//      tile is then read back as f32 like any T tile);
 //   2. scores every (query head, slot) pair in f32 and scales by 1/sqrt(hd);
 //   3. updates the online softmax (running max m, running sum l) with one
 //      warp per query head, reducing with a fixed shuffle tree;
@@ -16,20 +22,25 @@
 //      + sum_s p_s v_s.
 //
 // Slots past `length` on the last page are never loaded, scored or summed,
-// which equals the -1e30 mask of the TPU kernel (their exp underflows to an
+// which equals the -1e30 mask of the TPU kernels (their exp underflows to an
 // exact 0). The output is acc / l (acc / 1 when l == 0), so a token with
 // length 0 walks no page and writes exact zeros.
 //
-// Both entry points call attend_row with the same launch geometry
-// (kThreads threads, one block per (row, kv head)), so their reductions run
-// in one order and a pure-decode ragged batch is bit-identical to the decode
-// kernel on the same inputs.
+// Where a row's pages lie is a Slots policy: PagedSlots reads a block table
+// over the pool [nb, bs, kvh, hd]; DenseSlots cuts one (row, head) of a
+// dense cache [B, kvh, M, hd] into tiles of bs contiguous slots. All entry
+// points call attend_row with the same launch geometry (kThreads threads,
+// one block per (row, kv head)), so their reductions run in one order: a
+// pure-decode ragged batch is bit-identical to the paged decode kernel on
+// the same inputs, for a T pool and for an int8 pool alike.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ds_paged {
 
@@ -38,6 +49,10 @@ constexpr float kNegInf = -1e30f;
 
 // dtype codes shared with the Python wrappers
 enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
+
+// What a KV pool of io dtype T stores: T, or int8 under kv_quant.
+template <typename T, bool Q8>
+using Pool = typename std::conditional<Q8, int8_t, T>::type;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) {
@@ -80,18 +95,84 @@ inline size_t smem_bytes(int hd, int bs, int group) {
                           (size_t)group * 3);
 }
 
-// q_rows / out_rows: the block's [group, hd] query and output rows.
-// k_cache / v_cache: one layer's pool, [nb, bs, kvh, hd].
-// table: this row's block table, [mb].
+// One (row, kv head) of a paged pool [nb, bs, kvh, hd], through the row's
+// block table. The int8 pool's scales are [nb, kvh].
+struct PagedSlots {
+  const int* table;
+  int kv_head, kvh, hd, bs;
+  __device__ __forceinline__ size_t page_offset(int j) const {
+    return ((size_t)table[j] * bs * kvh + kv_head) * hd;
+  }
+  __device__ __forceinline__ size_t slot_stride() const {
+    return (size_t)kvh * hd;
+  }
+  __device__ __forceinline__ size_t scale_index(int j) const {
+    return (size_t)table[j] * kvh + kv_head;
+  }
+};
+
+// One (row, kv head) of a dense cache [B, kvh, M, hd]: its M slots are
+// contiguous from `base`, walked in tiles of bs slots.
+struct DenseSlots {
+  size_t base;
+  int hd, bs;
+  __device__ __forceinline__ size_t page_offset(int j) const {
+    return base + (size_t)j * bs * hd;
+  }
+  __device__ __forceinline__ size_t slot_stride() const { return hd; }
+  __device__ __forceinline__ size_t scale_index(int) const { return 0; }
+};
+
+// Copy n_valid slots of one page into a padded shared tile. A pool stored in
+// the io dtype T moves in 16-byte vectors.
 template <typename T>
+__device__ __forceinline__ void load_tile(T* __restrict__ dst,
+                                          const T* __restrict__ src,
+                                          int n_valid, int hd, size_t stride,
+                                          int ld, float) {
+  constexpr int V = vec_elems<T>();
+  const int row_vecs = hd / V;
+  for (int i = threadIdx.x; i < n_valid * row_vecs; i += kThreads) {
+    const int s = i / row_vecs;
+    const int c = (i - s * row_vecs) * V;
+    *reinterpret_cast<uint4*>(dst + s * ld + c) =
+        *reinterpret_cast<const uint4*>(src + s * stride + c);
+  }
+}
+
+// An int8 pool moves 16 values per 16-byte load and is dequantized into the
+// tile: f32 product with the page's scale, rounded once to T (_dequant_tile).
+template <typename T>
+__device__ __forceinline__ void load_tile(T* __restrict__ dst,
+                                          const int8_t* __restrict__ src,
+                                          int n_valid, int hd, size_t stride,
+                                          int ld, float scale) {
+  constexpr int V = 16;
+  const int row_vecs = hd / V;
+  for (int i = threadIdx.x; i < n_valid * row_vecs; i += kThreads) {
+    const int s = i / row_vecs;
+    const int c = (i - s * row_vecs) * V;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + s * stride + c);
+    const int8_t* q8 = reinterpret_cast<const int8_t*>(&raw);
+    T* d = dst + s * ld + c;
+#pragma unroll
+    for (int u = 0; u < V; ++u) d[u] = from_f32<T>((float)q8[u] * scale);
+  }
+}
+
+// q_rows / out_rows: the block's [group, hd] query and output rows, in T.
+// k_pool / v_pool: one layer's K and V storage (T, or int8 with per-page
+// scales k_scale / v_scale; the scales are not read for a T pool).
+// slots: where this (row, kv head)'s pages lie; max_pages caps the walk.
+template <typename T, typename S, typename Slots>
 __device__ __forceinline__ void attend_row(
-    const T* __restrict__ q_rows, const T* __restrict__ k_cache,
-    const T* __restrict__ v_cache, const int* __restrict__ table, int length,
-    int mb, int kv_head, int kvh, int hd, int bs, int group, float scale,
+    const T* __restrict__ q_rows, const S* __restrict__ k_pool,
+    const S* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const Slots& slots, int length,
+    int max_pages, int hd, int bs, int group, float scale,
     T* __restrict__ out_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = tile_ld<T>(hd);
-  constexpr int V = vec_elems<T>();
   T* k_s = reinterpret_cast<T*>(smem);
   T* v_s = k_s + (size_t)bs * ld;
   float* q_s = reinterpret_cast<float*>(v_s + (size_t)bs * ld);
@@ -105,6 +186,7 @@ __device__ __forceinline__ void attend_row(
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int gh = group * hd;
+  constexpr int V = vec_elems<T>();
 
   for (int e = tid; e < gh; e += kThreads) {
     q_s[e] = to_f32<T>(q_rows[e]);
@@ -116,27 +198,22 @@ __device__ __forceinline__ void attend_row(
   }
 
   int n_pages = (length + bs - 1) / bs;
-  if (n_pages > mb) n_pages = mb;  // a bound past the table has no pages
-  const int row_vecs = hd / V;
-  const size_t slot_stride = (size_t)kvh * hd;
-  const size_t page_stride = (size_t)bs * slot_stride;
+  if (n_pages > max_pages) n_pages = max_pages;  // no pages past the table
+  const size_t stride = slots.slot_stride();
 
   for (int j = 0; j < n_pages; ++j) {
-    const size_t page = (size_t)table[j];
     int n_valid = length - j * bs;
     if (n_valid > bs) n_valid = bs;
-    const T* kp = k_cache + page * page_stride + (size_t)kv_head * hd;
-    const T* vp = v_cache + page * page_stride + (size_t)kv_head * hd;
+    const size_t off = slots.page_offset(j);
+    float ks = 1.f, vs = 1.f;
+    if (k_scale != nullptr) {
+      ks = k_scale[slots.scale_index(j)];
+      vs = v_scale[slots.scale_index(j)];
+    }
 
     __syncthreads();  // the previous page's tiles and scores are consumed
-    for (int i = tid; i < n_valid * row_vecs; i += kThreads) {
-      const int s = i / row_vecs;
-      const int c = (i - s * row_vecs) * V;
-      *reinterpret_cast<uint4*>(k_s + s * ld + c) =
-          *reinterpret_cast<const uint4*>(kp + s * slot_stride + c);
-      *reinterpret_cast<uint4*>(v_s + s * ld + c) =
-          *reinterpret_cast<const uint4*>(vp + s * slot_stride + c);
-    }
+    load_tile(k_s, k_pool + off, n_valid, hd, stride, ld, ks);
+    load_tile(v_s, v_pool + off, n_valid, hd, stride, ld, vs);
     __syncthreads();
 
     // scores: one (query head, slot) pair per thread and pass
@@ -204,7 +281,7 @@ __device__ __forceinline__ void attend_row(
   }
 }
 
-// Launch helper shared by both entry points: raises the dynamic shared
+// Launch helper shared by the entry points: raises the dynamic shared
 // memory cap when a tile needs more than the default 48 KB.
 template <typename Kernel>
 inline cudaError_t prepare_smem(Kernel kernel, size_t bytes) {

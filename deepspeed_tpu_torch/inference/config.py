@@ -2,9 +2,10 @@
 
 Port of ``deepspeed_tpu/inference/config.py`` (reference
 ``DeepSpeedInferenceConfig``): the same legacy aliases and dtype names, and
-the fields the ragged v2 engine (``use_ragged=True``) reads. The v1 engine
-and its knobs (``max_out_tokens``, ``enable_cuda_graph``, ...) wait for a
-later slice; until then such keys take the unknown-key warning.
+the fields the v1 engine (``inference/engine.py``) and the ragged v2
+engine (``use_ragged=True``) read, with the JAX defaults. Keys that nothing
+reads yet (``enable_cuda_graph``, ``replace_with_kernel_inject``, ROADMAP
+A6e) take the unknown-key warning.
 """
 
 import logging
@@ -24,8 +25,12 @@ class DeepSpeedInferenceConfig:
     dtype: str = "bfloat16"
     tensor_parallel: TensorParallelConfig = field(
         default_factory=TensorParallelConfig)
+    max_out_tokens: int = 1024          # prompt + new tokens per generate()
+    min_out_tokens: int = 1
+    max_batch_size: int = 8
     checkpoint: Optional[str] = None
     quant_bits: Optional[int] = None
+    seed: int = 0                       # seeded weights when none are given
     use_ragged: bool = False
     ragged: Optional[Dict[str, Any]] = None  # RaggedInferenceEngineConfig
 

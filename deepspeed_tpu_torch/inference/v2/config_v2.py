@@ -3,10 +3,10 @@
 Port of ``deepspeed_tpu/inference/v2/config_v2.py``: the same two
 dataclasses, fields and defaults. Features the port does not serve yet
 raise ``NotImplementedError`` at construction instead of being ignored:
-the int8 KV pool (``kv_quant``), weight-only quantization
-(``quant_bits``), the LoRA bank (``max_lora_adapters``), tensor/expert
-parallelism, the KV spill tier, and the stitched ``ragged_attention="off"``
-dispatch, whose prefill needs the flash-attention kernel.
+weight-only quantization (``quant_bits``), the LoRA bank
+(``max_lora_adapters``), tensor/expert parallelism, the KV spill tier,
+and the stitched ``ragged_attention="off"`` dispatch, whose prefill needs
+the flash-attention kernel. The int8 KV pool (``kv_quant``) is served.
 """
 
 from dataclasses import dataclass, field
@@ -69,6 +69,8 @@ class RaggedInferenceEngineConfig:
     # plain PyTorch versions (for comparison, never as a fallback)
     use_paged_kernel: bool = True
     quant_bits: int = 0
+    # int8 KV pool with per-(block, kv head) f32 scales: ~2x the tokens
+    # in the same device memory
     kv_quant: bool = False
     # fused multi-token decode: K decode steps per window with one [N, K]
     # device-to-host transfer; 1 = per-token decode
@@ -98,8 +100,6 @@ class RaggedInferenceEngineConfig:
             raise _not_ported(
                 "ragged_attention='off' (its stitched prefill runs the "
                 "flash-attention kernel, ops/flash_attention.py)")
-        if self.kv_quant:
-            raise _not_ported("the int8 KV pool (kv_quant)")
         if self.quant_bits:
             raise _not_ported("weight-only quantization (quant_bits)")
         if self.max_lora_adapters:

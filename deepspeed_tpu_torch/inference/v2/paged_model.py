@@ -12,10 +12,13 @@ tensor-parallel-1 path:
   host transfer for the whole window.
 
 The KV pool is ``[L, num_blocks, block_size, kv_heads, head_dim]`` per K
-and V; block 0 is the null block that padding writes land in. The JAX
-functions are pure and return a new pool (XLA donates the old buffer);
-here the pool is updated in place and every entry point mutates the
-``cache`` dict it is given.
+and V; block 0 is the null block that padding writes land in. Under
+``kv_quant`` the pool is int8 with per-(block, kv head) f32 scales
+``ks``/``vs`` ``[L, num_blocks, kv_heads]`` (about half the bytes of a
+bf16 pool), and the kernels dequantize in-kernel. The JAX functions are
+pure and return a new pool (XLA donates the old buffer); here the pool is
+updated in place and every entry point mutates the ``cache`` dict it is
+given.
 
 The layer loop is a Python loop over views of the stacked ``[L, ...]``
 leaves: ``params["layers"][k][l]`` copies nothing.
@@ -51,23 +54,71 @@ def check_servable(cfg: TransformerConfig) -> None:
             "the parallel-residual family is not ported yet")
 
 
+# 1 / 127 rounded to f32: the int8 pool's per-token scale is absmax / 127
+_INV_QMAX = float(torch.tensor(1.0) / 127.0)
+
+
 def init_paged_kv_cache(cfg: TransformerConfig, num_blocks: int,
-                        block_size: int, dtype: torch.dtype,
-                        device) -> Dict[str, torch.Tensor]:
+                        block_size: int, dtype: torch.dtype, device,
+                        kv_quant: bool = False) -> Dict[str, torch.Tensor]:
+    """The zeroed pool. ``kv_quant``: int8 ``k``/``v`` and f32 ``ks``/``vs``
+    scales ``[L, num_blocks, kv_heads]``; a scale of 0 means nothing was
+    written to that (block, head) yet."""
     shape = (cfg.num_layers, num_blocks, block_size, cfg.kv_heads,
              cfg.head_dim)
+    if kv_quant:
+        sshape = (cfg.num_layers, num_blocks, cfg.kv_heads)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
+                "vs": torch.zeros(sshape, dtype=torch.float32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _kv_write(kc: torch.Tensor, l: int, blocks: torch.Tensor,
-              offs: torch.Tensor, k: torch.Tensor) -> None:
+def _kv_write(kc: torch.Tensor, ksc, l: int, blocks: torch.Tensor,
+              offs: torch.Tensor, k: torch.Tensor, touched=None) -> None:
     """Scatter one write-set into layer ``l`` of the pool, in place (the
     JAX package's ``kc.at[l, blocks, offs].set`` returns a new pool and
-    relies on buffer donation). Padding tokens all target block 0, slot 0,
-    so the indices repeat there and which write lands is unspecified; no
-    unmasked read ever touches block 0."""
-    kc[l].index_put_((blocks.long(), offs.long()), k.to(kc.dtype))
+    relies on buffer donation). ``blocks``/``offs`` are int64. Padding
+    tokens all target block 0, slot 0, so the indices repeat there and
+    which write lands is unspecified; no unmasked read ever touches
+    block 0.
+
+    Under ``kv_quant`` (``ksc`` the f32 scales ``[L, nb, kvh]``) this is
+    the JAX ``_kv_write`` (:72): per-token scale absmax / 127, a running
+    per-(block, head) absmax that only grows (``scatter_reduce`` amax,
+    deterministic; the JAX package's ``/ 127.0`` is compiled by XLA into a
+    multiply by the f32 reciprocal, so this multiplies by it too), the
+    block's existing int8 content requantized to the
+    grown scale as ``round(q * old / new)``, then the new tokens quantized
+    as ``clip(round(x / s), -127, 127)``. ``touched`` [D] int64 holds the
+    distinct blocks of the write-set (padding to the null block allowed).
+    JAX requantizes every write-set block under a ``lax.cond`` on any
+    scale growing; requantizing ``touched`` unconditionally is
+    bit-identical and needs no host sync: an unchanged scale gives a ratio
+    of exactly 1.0 and ``round(q * 1.0) == q``, and a block whose scale is
+    0 holds only zeros. As in JAX, nothing resets a freed block's scale:
+    its next tenant quantizes against the old absmax."""
+    if ksc is None:
+        kc[l].index_put_((blocks, offs), k.to(kc.dtype))
+        return
+    xf = k.float()                                        # [C, kvh, hd]
+    tok_scale = xf.abs().amax(dim=-1) * _INV_QMAX         # [C, kvh]
+    old = ksc[l]                                          # [nb, kvh]
+    new = old.scatter_reduce(0, blocks[:, None].expand_as(tok_scale),
+                             tok_scale, "amax")           # running absmax
+    o, n = old[touched], new[touched]                     # [D, kvh]
+    pos = n > 0
+    ratio = torch.where(pos, o / torch.where(pos, n, torch.ones_like(n)),
+                        torch.zeros_like(n))
+    pages = kc[l][touched].float()                        # [D, bs, kvh, hd]
+    kc[l][touched] = torch.round(pages * ratio[:, None, :, None]).to(
+        torch.int8)
+    s_tok = torch.where(new > 0, new, torch.ones_like(new))[blocks]
+    q = torch.clamp(torch.round(xf / s_tok[..., None]), -127, 127)
+    kc[l].index_put_((blocks, offs), q.to(torch.int8))
+    old.copy_(new)
 
 
 def _norm(cfg, x, w, b=None):
@@ -133,15 +184,21 @@ def _logits(cfg, params, x):
 
 
 def _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
-            attend):
+            touched, attend):
     """The shared layer loop: norm, qkv, rotary, KV write, then attention
-    over the pool (``attend(q, kc_l, vc_l)``), out-projection and MLP.
-    Each layer writes its K/V into the pool before it reads it, on the
-    same stream."""
+    over the pool (``attend(q, kc_l, vc_l, ks_l, vs_l)``, the scales None
+    unless the pool is int8), out-projection and MLP. Each layer writes
+    its K/V into the pool before it reads it, on the same stream.
+    ``touched`` is the write-set's distinct blocks (read for an int8 pool
+    only)."""
     T = x.shape[0]
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     layers = params["layers"]
     kc, vc = cache["k"], cache["v"]
+    ksc, vsc = cache.get("ks"), cache.get("vs")
+    write_blocks, write_offsets = write_blocks.long(), write_offsets.long()
+    if ksc is not None:
+        touched = touched.long()
     for l in range(cfg.num_layers):
         lp = {name: leaf[l] for name, leaf in layers.items()}
         hn = _norm(cfg, x, lp["attn_norm"], lp.get("attn_norm_b"))
@@ -151,9 +208,10 @@ def _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
         v = v.reshape(T, nkv, hd)
         q = _rotate(q, cos[:, None], sin[:, None])
         k = _rotate(k, cos[:, None], sin[:, None])
-        _kv_write(kc, l, write_blocks, write_offsets, k)
-        _kv_write(vc, l, write_blocks, write_offsets, v)
-        o = attend(q, kc[l], vc[l]).reshape(T, nh * hd)
+        _kv_write(kc, ksc, l, write_blocks, write_offsets, k, touched)
+        _kv_write(vc, vsc, l, write_blocks, write_offsets, v, touched)
+        o = attend(q, kc[l], vc[l], None if ksc is None else ksc[l],
+                   None if vsc is None else vsc[l]).reshape(T, nh * hd)
         x = x + out_proj(lp, o)
         hn = _norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_b"))
         x = x + _mlp(cfg, lp, hn)
@@ -170,7 +228,9 @@ def paged_decode(cfg: TransformerConfig, params, toks: torch.Tensor,
     """toks/pos/active [N]; block_tables [N, MB] int32. One token per
     sequence; returns [N, V] f32 logits and updates ``cache`` in place.
     Inactive rows write to the null block and produce garbage logits
-    (masked by the caller)."""
+    (masked by the caller). Each live row writes its own block, so the
+    per-row write blocks are the write-set's distinct blocks (repeats are
+    the null block)."""
     MB = block_tables.shape[1]
     x = _embed(cfg, params, toks)
     cos, sin = _rope_at(cfg, pos)
@@ -182,8 +242,9 @@ def paged_decode(cfg: TransformerConfig, params, toks: torch.Tensor,
     off = pos % block_size
     lengths = pos + 1
     attn = paged_attention if use_kernel else paged_attention_plain
-    x = _layers(cfg, params, x, cos, sin, cache, blk, off,
-                lambda q, kc, vc: attn(q, kc, vc, block_tables, lengths))
+    x = _layers(cfg, params, x, cos, sin, cache, blk, off, blk,
+                lambda q, kc, vc, ks, vs: attn(q, kc, vc, block_tables,
+                                               lengths, ks, vs))
     return _logits(cfg, params, x)
 
 
@@ -196,18 +257,26 @@ def paged_ragged_step(cfg: TransformerConfig, params, ids: torch.Tensor,
                       write_offsets: torch.Tensor,
                       block_tables: torch.Tensor, last_index: torch.Tensor,
                       cache: Dict[str, torch.Tensor], block_size: int,
-                      use_kernel: bool = True) -> torch.Tensor:
+                      use_kernel: bool = True,
+                      touched_blocks: torch.Tensor = None) -> torch.Tensor:
     """One mixed batch as a flat token buffer ``ids`` [TB] with per-token
     descriptors (``row_ids``, ``pos``, ``lengths`` = pos + 1 or 0 for
     padding, the KV write-set ``write_blocks``/``write_offsets``), per-row
     ``block_tables`` [RB, MBw] and ``last_index`` [RB]. Returns [RB, V]
-    f32 last-token logits per row and updates ``cache`` in place."""
+    f32 last-token logits per row and updates ``cache`` in place. An int8
+    pool also needs ``touched_blocks``, the write-set's distinct blocks
+    (``RaggedBatch.touched_blocks``, host data): never one page per token,
+    which at a 4608-token chunk would gather gigabytes per layer."""
+    if "ks" in cache and touched_blocks is None:
+        raise ValueError("paged_ragged_step: an int8 pool needs "
+                         "touched_blocks (the write-set's distinct blocks)")
     x = _embed(cfg, params, ids)
     cos, sin = _rope_at(cfg, pos)
     attn = ragged_attention if use_kernel else ragged_attention_plain
     x = _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
-                lambda q, kc, vc: attn(q, kc, vc, row_ids, lengths,
-                                       block_tables))
+                touched_blocks,
+                lambda q, kc, vc, ks, vs: attn(q, kc, vc, row_ids, lengths,
+                                               block_tables, ks, vs))
     return _logits(cfg, params, x[last_index.long()])
 
 

@@ -46,6 +46,7 @@ class RaggedBatch:
     block_tables: np.ndarray      # [RB, MBw] int32 (null-padded)
     last_index: np.ndarray        # [RB] int32 flat idx of row's last token
     adapter_slots: np.ndarray     # [RB] int32 LoRA bank slot (0 = base)
+    touched_blocks: np.ndarray    # [DB] int32 distinct write blocks
 
     @property
     def total_tokens(self) -> int:
@@ -113,9 +114,13 @@ def pack(entries: Sequence[Tuple[int, np.ndarray]], state_manager
     # slice tables to the power-of-two used-page bucket (a short batch in
     # a full-width table would carry every null slot)
     tables = tables[:, :pow2_bucket(used_pages, sm.max_blocks_per_seq)]
+    distinct = np.unique(write_blocks)
+    touched = np.full(pow2_bucket(len(distinct), TB), NULL_BLOCK, np.int32)
+    touched[:len(distinct)] = distinct
     return RaggedBatch(uids=uids, new_lens=new_lens, token_bucket=TB,
                        row_bucket=RB, ids=ids, row_ids=row_ids,
                        positions=positions, lengths=lengths,
                        write_blocks=write_blocks,
                        write_offsets=write_offsets, block_tables=tables,
-                       last_index=last_index, adapter_slots=adapter_slots)
+                       last_index=last_index, adapter_slots=adapter_slots,
+                       touched_blocks=touched)

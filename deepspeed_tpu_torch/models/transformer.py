@@ -10,10 +10,13 @@ Here: the config with its validation, the presets, the MLP/projection
 helpers, a seeded ``init_params``, and the training forward of the causal
 dense families (``forward_hidden``, ``forward_logits``, ``apply`` with the
 chunked cross-entropy), whose attention routes through
-``sequence/layer.py`` to the flash kernels. Serving keeps its own layer
-loop (``inference/v2/paged_model.py``). Not ported yet, each raising
-``NotImplementedError``: MoE and sequence parallelism (ROADMAP A8), PPO
-batches (A11), alibi, post-LN and the MLM family (A12).
+``sequence/layer.py`` to the flash kernels, and the dense KV-cache
+forward of the v1 engine (``init_kv_cache``, ``forward_cached``), whose
+one-token decode runs the dense decode kernel. The ragged engine keeps
+its own layer loop (``inference/v2/paged_model.py``). Not ported yet, each
+raising ``NotImplementedError``: MoE and sequence parallelism (ROADMAP
+A8), PPO batches (A11), alibi, post-LN and the MLM family (A12), and in
+the cached forward learned positions, alibi and parallel residual (A6d).
 """
 
 import math
@@ -425,6 +428,110 @@ class TransformerLM:
         total, count = _chunked_ce_loss(x[:, :-1], ids[:, 1:], mask, head,
                                         self.cfg.loss_chunk)
         return total / torch.clamp(count, min=1.0)
+
+
+    # -- KV-cache inference (the v1 engine's prefill + decode) ------------
+    # Port of the JAX package's dense-cache path (transformer.py:1112-1251):
+    # a [L, B, kvh, M, hd] cache, updated in place here (the JAX forward
+    # returns a new one).
+    def _check_cached(self):
+        cfg = self.cfg
+        if not (cfg.is_causal and cfg.norm_scheme == "pre"):
+            raise ValueError("KV-cache generation requires a causal pre-LN "
+                             "model (the MLM/post-LN encoder family does "
+                             "not decode)")
+        if cfg.moe_num_experts > 0:
+            raise NotImplementedError(
+                "MoE KV-cache generation is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A8)")
+        if cfg.positional != "rope" or cfg.parallel_residual:
+            raise NotImplementedError(
+                f"KV-cache generation of positional={cfg.positional!r}, "
+                f"parallel_residual={cfg.parallel_residual} is not ported "
+                f"to deepspeed_tpu_torch yet (rope, sequential residual "
+                f"only; ROADMAP A6d)")
+
+    def init_kv_cache(self, batch_size: int, max_len: int,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device=None) -> Dict[str, torch.Tensor]:
+        """Zeroed dense cache ``{"k", "v"}`` of [L, B, kvh, max_len, hd]."""
+        cfg = self.cfg
+        self._check_cached()
+        shape = (cfg.num_layers, batch_size, cfg.kv_heads, max_len,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def _layer_cached(self, x, lp, ck, cv, cos, sin, start_pos: int):
+        """One layer over [B, S, H] tokens at positions start_pos ..
+        start_pos + S - 1, writing their K/V into ``ck``/``cv`` [B, kvh, M,
+        hd] in place and attending over the cache. A one-token step takes
+        the dense decode kernel (``cfg.decode_kernel``); prefill, and
+        decode without the kernel, the masked softmax over all M slots
+        with dots in the cache dtype accumulated in f32, as in JAX."""
+        from ..ops.decode_attention import dense_decode_attention
+
+        cfg = self.cfg
+        B, S, H = x.shape
+        nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        hn = self._norm(x, lp["attn_norm"], lp.get("attn_norm_b"))
+        q, k, v = qkv_proj(lp, hn)
+        # f32 tables: the products promote to f32 and cast back, as in JAX
+        q = apply_rotary(q.reshape(B, S, nh, hd).transpose(1, 2), cos, sin)
+        k = apply_rotary(k.reshape(B, S, nkv, hd).transpose(1, 2), cos, sin)
+        v = v.reshape(B, S, nkv, hd).transpose(1, 2)
+        ck[:, :, start_pos:start_pos + S] = k.to(ck.dtype)
+        cv[:, :, start_pos:start_pos + S] = v.to(cv.dtype)
+        if cfg.decode_kernel and S == 1 and hd % 8 == 0:
+            lengths = torch.full((B,), start_pos + 1, dtype=torch.int32,
+                                 device=x.device)
+            o = dense_decode_attention(q[:, :, 0].to(ck.dtype).contiguous(),
+                                       ck, cv, lengths)
+            o = o[:, :, None].to(x.dtype)                   # [B, nh, 1, hd]
+        else:
+            rep = nh // nkv
+            kk = ck.repeat_interleave(rep, dim=1).float()    # [B, nh, M, hd]
+            vv = cv.repeat_interleave(rep, dim=1)
+            # JAX's `/ sqrt(hd)` compiles to a multiply by the f32 reciprocal
+            inv = float(1.0 / torch.tensor(math.sqrt(hd)))
+            s = torch.matmul(q.to(ck.dtype).float(),
+                             kk.transpose(-1, -2)) * inv
+            q_pos = start_pos + torch.arange(S, device=x.device)[:, None]
+            k_pos = torch.arange(ck.shape[2], device=x.device)[None, :]
+            s = torch.where(k_pos <= q_pos, s, torch.full_like(s, -1e30))
+            p = torch.softmax(s, dim=-1)
+            o = torch.matmul(p.to(vv.dtype).float(), vv.float()).to(x.dtype)
+        o = o.transpose(1, 2).reshape(B, S, nh * hd)
+        x = x + out_proj(lp, o)
+        hn = self._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"))
+        if cfg.is_gated_mlp:
+            g = gate_act(cfg)(hn @ lp["w_gate"])
+            return x + (g * (hn @ lp["w_up"])) @ lp["w_down"]
+        return x + dense_mlp(cfg, lp, hn)
+
+    def forward_cached(self, params, input_ids, cache, start_pos: int):
+        """Forward over [B, S] tokens at positions start_pos .. start_pos
+        + S - 1, attending to and updating ``cache`` in place. Returns
+        [B, S, V] f32 logits. Used for prefill (start_pos 0, the prompt)
+        and decode (S = 1)."""
+        cfg = self.cfg
+        self._check_cached()
+        S = input_ids.shape[1]
+        x = params["embed"][input_ids.long()].to(cache["k"].dtype)
+        if cfg.embed_scale != 1.0:
+            x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
+        cos, sin = _rope_tables(cfg, S, start_pos, device=x.device)
+        layers = params["layers"]
+        for l in range(cfg.num_layers):
+            x = self._layer_cached(x, {k: v[l] for k, v in layers.items()},
+                                   cache["k"][l], cache["v"][l], cos, sin,
+                                   start_pos)
+        x = self._norm(x, params["final_norm"], params.get("final_norm_b"))
+        x, head, bias = self._head_inputs(params, x)
+        logits = (x @ head.to(x.dtype)).float()
+        if bias is not None:
+            logits = logits + bias.float()
+        return logits
 
 
 # -- canonical configs (model zoo) ------------------------------------------

@@ -43,12 +43,24 @@ SIGNATURES = {
         # scale, stream
         "ds_paged_decode_attention":
             [_P] * 6 + [_I] * 7 + [_F, _P],
+        # q, k, v, k_scale, v_scale, tables, lengths, out, n, nh, kvh, hd,
+        # bs, mb, dtype, scale, stream
+        "ds_paged_decode_attention_q8":
+            [_P] * 8 + [_I] * 7 + [_F, _P],
     },
     "ragged_attention": {
         # q, k, v, row_ids, lengths, tables, out, n, nh, kvh, hd, bs, mb,
         # dtype, scale, stream
         "ds_ragged_paged_attention":
             [_P] * 7 + [_I] * 7 + [_F, _P],
+        # q, k, v, k_scale, v_scale, row_ids, lengths, tables, out, n, nh,
+        # kvh, hd, bs, mb, dtype, scale, stream
+        "ds_ragged_paged_attention_q8":
+            [_P] * 9 + [_I] * 7 + [_F, _P],
+    },
+    "dense_decode_attention": {
+        # q, k, v, lengths, out, b, nh, kvh, hd, m, dtype, scale, stream
+        "ds_dense_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
     },
     "flash_attention": {
         # q, k, v, o, lse, bh, bhk, sq, skv, d, dtype, scale, causal, stream

@@ -330,7 +330,7 @@ def test_entry_points_raise_without_cuda(models, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ragged_attention", "off"), ("kv_quant", True), ("quant_bits", 8),
+    ("ragged_attention", "off"), ("quant_bits", 4), ("quant_bits", 8),
     ("max_lora_adapters", 2), ("tensor_parallel_size", 2),
     ("expert_parallel_size", 2)])
 def test_unported_config_features_raise(field, value):
@@ -362,21 +362,23 @@ def test_generate_options_not_ported_raise(models):
         te.generate([[1, 2, 3]], max_new_tokens=4, speculative=True)
     with pytest.raises(NotImplementedError):
         deepspeed_tpu_torch.pipeline("mistralai/Mistral-7B-v0.1")
-    with pytest.raises(NotImplementedError):
-        deepspeed_tpu_torch.init_inference(te.model, config={"dtype": "fp32"},
-                                           device="cpu")
+    # the v1 engine serves one device without weight quantization
+    for extra in ({"tensor_parallel": 2}, {"quant_bits": 8}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            deepspeed_tpu_torch.init_inference(
+                te.model, config={"dtype": "fp32", **extra}, device="cpu")
 
 
 def test_v1_only_inference_keys_are_reported_not_accepted(caplog):
-    """Knobs only the unported v1 engine reads are not config fields: the
-    builder names them as ignored instead of taking them silently."""
+    """The v1 engine's knobs are config fields; keys nothing reads yet are
+    named as ignored instead of taken silently."""
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
     with caplog.at_level("WARNING"):
         cfg = DeepSpeedInferenceConfig.from_dict_or_kwargs(
             {"use_ragged": True, "enable_cuda_graph": True},
             {"max_out_tokens": 64, "dtype": "bf16"})
-    assert "enable_cuda_graph" in caplog.text
-    assert "max_out_tokens" in caplog.text
+    assert "unknown config keys ['enable_cuda_graph']" in caplog.text
+    assert cfg.max_out_tokens == 64
     assert not hasattr(cfg, "enable_cuda_graph")
     assert (cfg.use_ragged, cfg.dtype) == (True, "bfloat16")
 
