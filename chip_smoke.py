@@ -5,11 +5,12 @@ against its plain PyTorch version at the shapes of the main paths, serves
 full-width Mistral-7B (seeded random weights) through ``pipeline()`` and
 ``generate()`` over a bf16 and an int8 KV pool and through the v1
 ``init_inference()`` engine, trains full-width Mistral-7B at 4 layers
-through ``initialize()`` and ``train_batch()``, and checks that every path
-ran through its kernels.
+through ``initialize()`` and ``train_batch()``, runs block-sparse attention
+forward and backward through ``SparseSelfAttention`` at Mistral-7B
+attention width, and checks that every path ran through its kernels.
 
     python3 chip_smoke.py            # needs one CUDA card; exit 0 = ok
-    python3 chip_smoke.py --kernels-only   # phases 1-3 only, no result
+    python3 chip_smoke.py --kernels-only   # phases 1-4 only, no result
 
 Phases, in the order they run (each raises on failure, so the run cannot
 exit 0):
@@ -41,12 +42,23 @@ exit 0):
    repeated backward bit-identical; times, the operations bound at 989
    TFLOP/s and the library yardstick (scaled_dot_product_attention
    forward, and its autograd backward for the dq + dkv pair);
-4. small fp32 serve checks on a tiny model: kernel engine vs plain engine,
+4. sparse kernel phases at Mistral-7B attention width (B 1, nh 32, hd 128,
+   S 8192, bf16) on three layouts: (i) Fixed, block 64, 4 local / 1
+   global, causal; (ii) BigBird, block 64, window 3, 1 global, 1 random,
+   non-causal; (iii) the pattern of (i) at block 16 (16 local / 4
+   global): sparse_fwd, sparse_bwd_dq and sparse_bwd_dkv against their
+   plain versions with the flash tolerances, (i) also in fp32 and fp16,
+   blocks 32 and 128 at S 2048, q blocks with no active block giving
+   o = 0 and dq = 0, a repeated backward bit-identical; times of (i), the
+   operations bound (sparse_work) and the library yardstick
+   (scaled_dot_product_attention with the layout as a boolean mask, and
+   its autograd backward for the dq + dkv pair);
+5. small fp32 serve checks on a tiny model: kernel engine vs plain engine,
    put() logits within 1e-4 and generate() streams equal, for the bf16-
    style pool and for the int8 kv_quant pool; the v1 engine with the
    dense decode kernel vs its decode_kernel=False einsum route, decode
    logits within 1e-4 and generate() streams equal;
-5. serve: Mistral-7B, 32 layers, bf16, pipeline() answers 8 requests
+6. serve: Mistral-7B, 32 layers, bf16, pipeline() answers 8 requests
    (prompts 128-1024 tokens, 64 new tokens, greedy) and generate() runs
    them with decode_window 8; launch counts must equal 32 x steps, one
    host sync per window, identical streams on a repeat, finite logits;
@@ -66,10 +78,10 @@ exit 0):
    32 x 63 dense decode launches, identical tokens on a repeat, prefill
    ms and decode tokens/s, and the profile of the prefill and of 8
    decode steps; then the serving engines are freed;
-6. a small fp32 training check: a tiny model (hd 64, flash from S 128)
+7. a small fp32 training check: a tiny model (hd 64, flash from S 128)
    trained 3 steps by a kernel engine and by a use_flash=False engine on
    the same weights, losses within 1e-5;
-7. train: Mistral-7B width at 4 layers (of 32: the fp32 master and Adam
+8. train: Mistral-7B width at 4 layers (of 32: the fp32 master and Adam
    state of all 32 would not fit one card), bf16 over an fp32 master,
    AdamW lr 3e-4, clip 1.0, micro 2 x gas 2 x S 2048, through
    initialize() and train_batch(): five steps and one eval_batch on one
@@ -79,7 +91,14 @@ exit 0):
    per step, plus L x gas forwards for the eval; step time, tokens/s,
    peak memory, and the device time, busy share and top kernels of one
    more step (torch.profiler);
-8. the kernels JSON line, then the last line
+9. sparse op: SparseSelfAttention(layout (i))(q, k, v, causal=True) and
+   backward on bf16 [1, 32, 8192, 128] inputs five times: 5 launches of
+   each sparse kernel, finite outputs, o and grads against the plain
+   versions, forward+backward ms, tokens/s, peak memory and the device
+   time of the forward and the backward (CUDA events); an fp32 check of
+   impl="kernel" against impl="dense" (S 1024, hd 64, 1e-4); block 8
+   under impl="auto" on the card raises;
+10. the kernels JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 Everything it builds goes under build/ of the checkout. It imports nothing
@@ -89,6 +108,7 @@ of JAX and nothing of the JAX package.
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -104,6 +124,8 @@ TOL = 1e-2
 NH, KVH, HD, BS = 32, 8, 128, 64   # Mistral-7B attention geometry
 TRAIN_B, TRAIN_S = 2, 2048         # micro-batch rows x sequence (train)
 FLASH_SRC = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+SPARSE_SRC = "deepspeed_tpu_torch/csrc/sparse_attention.cu"
+SPARSE_S = 8192                    # sparse attention sequence (B 1)
 
 
 def log(msg):
@@ -1005,12 +1027,12 @@ def flash_run(fa, q, k, v, do, causal):
             (lse, delta))
 
 
-def flash_check(fa, name, q, k, v, do, causal, tol_o, tol_g):
-    """Holds the three kernels against their plain versions; returns the
-    errors (o absolute, grads relative to max |plain|)."""
-    (o, o_p), (lse, lse_p), *grads, _ = flash_run(fa, q, k, v, do, causal)
+def compare_outputs(name, o_pair, lse_pair, grads, tol_o, tol_g):
+    """o absolute, lse absolute (1e-3), grads relative to max |plain|;
+    raises past the tolerances or on a non-finite output."""
+    (o, o_p), (lse, lse_p) = o_pair, lse_pair
     err_o = (o.float() - o_p.float()).abs().max().item()
-    err_lse = (lse - lse_p).abs().max().item()
+    err_lse = (lse - lse_p).abs().max().item() if lse is not None else 0.0
     err_g = {}
     for gname, (a, b) in zip(("dq", "dk", "dv"), grads):
         ref = b.float().abs().max().item()
@@ -1023,10 +1045,17 @@ def flash_check(fa, name, q, k, v, do, causal, tol_o, tol_g):
                  for t in (o, grads[0][0], grads[1][0], grads[2][0]))
     if not (err_o <= tol_o and err_lse <= 1e-3 and finite
             and all(e <= tol_g for e in err_g.values())):
-        raise AssertionError(f"{name}: a flash kernel disagrees with its "
-                             f"plain version: o {err_o}, lse {err_lse}, "
-                             f"grads {err_g}")
+        raise AssertionError(f"{name}: a kernel disagrees with its plain "
+                             f"version: o {err_o}, lse {err_lse}, grads "
+                             f"{err_g}")
     return err_o, err_g
+
+
+def flash_check(fa, name, q, k, v, do, causal, tol_o, tol_g):
+    """Holds the three kernels against their plain versions; returns the
+    errors (o absolute, grads relative to max |plain|)."""
+    (o, o_p), (lse, lse_p), *grads, _ = flash_run(fa, q, k, v, do, causal)
+    return compare_outputs(name, (o, o_p), (lse, lse_p), grads, tol_o, tol_g)
 
 
 def flash_phases(dev, flush):
@@ -1112,6 +1141,336 @@ def flash_phases(dev, flush):
     log("flash library_ms: forward = scaled_dot_product_attention; the dq "
         "and dkv rows = its autograd backward, which computes the pair")
     return results
+
+
+# ---------------------------------------------------------------------------
+# block-sparse attention phases
+# ---------------------------------------------------------------------------
+def sparse_configs():
+    """The three layouts at Mistral-7B attention width: (i) Fixed, block
+    64, causal (the timed case and the op path's); (ii) BigBird, block 64,
+    non-causal; (iii) the pattern of (i) at the JAX default block 16."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    return {
+        "(i) fixed b64 causal": (sa.FixedSparsityConfig(
+            num_heads=NH, block=64, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional"), True),
+        "(ii) bigbird b64": (sa.BigBirdSparsityConfig(
+            num_heads=NH, block=64, num_sliding_window_blocks=3,
+            num_global_blocks=1, num_random_blocks=1), False),
+        "(iii) fixed b16 causal": (sa.FixedSparsityConfig(
+            num_heads=NH, block=16, num_local_blocks=16, num_global_blocks=4,
+            attention="unidirectional"), True),
+    }
+
+
+def visible_layout(layout, causal):
+    lay = np.asarray(layout, bool)
+    if causal:
+        lay = lay & np.tril(np.ones(lay.shape[1:], bool))[None]
+    return lay
+
+
+def sparse_work(layout, causal, block, bh, tables, elem):
+    """(bytes, flops) of each sparse function: every input (q, k, v, do,
+    lse, delta, the function's two tables) read once and every output
+    written once; 2 flops per visible (q, k) pair and head dim per product,
+    two products in the forward, three in dq, four in dk/dv. Visible pairs:
+    block^2 per active off-diagonal block, block (block + 1) / 2 per causal
+    diagonal block."""
+    lay = visible_layout(layout, causal)
+    H, n, _ = lay.shape
+    diag = int(np.trace(lay, axis1=1, axis2=2).sum()) if causal else 0
+    pairs = (int(lay.sum()) - diag) * block ** 2 + diag * block * (
+        block + 1) // 2
+    per_product = 2 * (bh // H) * pairs * HD
+    x = bh * n * block * HD * elem              # one [bh, S, D] tensor
+    row = bh * n * block * 4                    # lse or delta
+    tb_kv = sum(t.numel() * 4 for t in tables[:2])
+    tb_q = sum(t.numel() * 4 for t in tables[2:])
+    return {"sparse_fwd": (4 * x + row + tb_kv, 2 * per_product),
+            "sparse_bwd_dq": (5 * x + 2 * row + tb_kv, 3 * per_product),
+            "sparse_bwd_dkv": (6 * x + 2 * row + tb_q, 4 * per_product)}
+
+
+def layout_stats(layout, causal, tables):
+    lay = visible_layout(layout, causal)
+    H, n, _ = lay.shape
+    rows, cols = lay.sum(-1), lay.sum(-2)
+    room = n * (n + 1) // 2 if causal else n * n
+    return (f"{int(lay.sum()) // H} active blocks per head of {room} "
+            f"{'causal ' if causal else ''}blocks (density "
+            f"{lay.sum() / (H * room):.3f}), Jmax {tables[0].shape[-1]} / "
+            f"median {float(np.median(rows)):.0f}, Imax "
+            f"{tables[2].shape[-1]} / median {float(np.median(cols)):.0f}")
+
+
+def sparse_calls(sk, q, k, v, do, tables, causal, block):
+    """Each sparse function as (kernel call, plain call) without arguments
+    on one input set; the backward ones take the kernel forward's lse and
+    delta."""
+    args = (1.0 / q.shape[-1] ** 0.5, causal, block, NH)
+    tq, tkv = tables[:2], tables[2:]
+    o, lse = sk.sparse_fwd(q, k, v, *tq, *args)
+    bwd = (q, k, v, do, lse, (do.float() * o.float()).sum(-1, keepdim=True))
+    return {
+        "sparse_fwd": (lambda: sk.sparse_fwd(q, k, v, *tq, *args),
+                       lambda: sk.sparse_fwd_plain(q, k, v, *tq, *args)),
+        "sparse_bwd_dq": (lambda: sk.sparse_bwd_dq(*bwd, *tq, *args),
+                          lambda: sk.sparse_bwd_dq_plain(*bwd, *tq, *args)),
+        "sparse_bwd_dkv": (
+            lambda: sk.sparse_bwd_dkv(*bwd, *tkv, *args),
+            lambda: sk.sparse_bwd_dkv_plain(*bwd, *tkv, *args)),
+    }
+
+
+def sparse_run(sk, q, k, v, do, tables, causal, block):
+    """Kernel and plain outputs of the three functions on one input set:
+    (o, lse, dq, dk, dv), each as (kernel, plain)."""
+    calls = sparse_calls(sk, q, k, v, do, tables, causal, block)
+    (o, lse), (o_p, lse_p) = (f() for f in calls["sparse_fwd"])
+    dq, dq_p = (f() for f in calls["sparse_bwd_dq"])
+    (dk, dv), (dk_p, dv_p) = (f() for f in calls["sparse_bwd_dkv"])
+    torch.cuda.synchronize()
+    return (o, o_p), (lse, lse_p), (dq, dq_p), (dk, dk_p), (dv, dv_p)
+
+
+def sparse_check(sk, name, q, k, v, do, tables, causal, block, tol_o,
+                 tol_g):
+    """Holds the three sparse kernels against their plain versions, as
+    flash_check holds the flash kernels."""
+    (o, o_p), (lse, lse_p), *grads = sparse_run(sk, q, k, v, do, tables,
+                                                causal, block)
+    return compare_outputs(name, (o, o_p), (lse, lse_p), grads, tol_o,
+                           tol_g)
+
+
+def sparse_library_ms(layout, block, q, k, v, do, flush):
+    """The yardstick (never called by the port): scaled_dot_product_attention
+    with the layout expanded to a boolean [1, 1, S, S] token mask (one
+    layout for every head), causal; its autograd backward computes the
+    dq + dkv pair."""
+    S = q.shape[1]
+    lay0 = torch.as_tensor(visible_layout(layout, True)[0], device=q.device)
+    mask = (lay0.repeat_interleave(block, 0).repeat_interleave(block, 1)
+            & torch.ones(S, S, dtype=torch.bool, device=q.device).tril())
+    mask = mask[None, None]
+    q4, k4, v4, do4 = (t.view(1, NH, S, HD) for t in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                  for t in (q4, k4, v4))
+    lib_out = sdpa(qg, kg, vg, attn_mask=mask)
+    pair = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), do4, retain_graph=True), flush)
+    return {"sparse_fwd": time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask),
+                                  flush),
+            "sparse_bwd_dq": pair, "sparse_bwd_dkv": pair}
+
+
+def sparse_phases(dev, flush):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops import sparse_kernels as sk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    S = SPARSE_S
+    q, k, v, do = (torch.randn((NH, S, HD), generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    results = {}
+    for label, (cfg, causal) in sparse_configs().items():
+        layout = cfg.make_layout(S)
+        tables = sk.device_tables(layout, causal, dev)
+        log(f"sparse {label}: B 1, nh {NH}, hd {HD}, S {S}, "
+            + layout_stats(layout, causal, tables))
+        err_o, err_g = sparse_check(sk, f"sparse bf16 {label}", q, k, v, do,
+                                    tables, causal, cfg.block, TOL, 2e-2)
+        calls = sparse_calls(sk, q, k, v, do, tables, causal, cfg.block)
+        work = sparse_work(layout, causal, cfg.block, NH, tables, 2)
+        times = {name: time_ms(kern, flush)
+                 for name, (kern, _) in calls.items()}
+        log(f"sparse {label} kernel ms: " + ", ".join(
+            f"{name} {t:.4f} (bound {bound(*work[name])[0]:.5f})"
+            for name, t in times.items()))
+        if results:
+            continue
+        # (i): the kernels line, with the plain versions and the library
+        first = (cfg, tables, calls)
+        errs = {"sparse_fwd": err_o, "sparse_bwd_dq": err_g["dq"],
+                "sparse_bwd_dkv": max(err_g["dk"], err_g["dv"])}
+        lib = sparse_library_ms(layout, cfg.block, q, k, v, do, flush)
+        for name, (_, plain) in calls.items():
+            b_ms, b_by = bound(*work[name])
+            results[name] = dict(
+                max_abs_err=errs[name], ms=times[name],
+                plain_ms=time_ms(plain, flush, reps=3, warmup=1),
+                library_ms=lib[name], bound_ms=b_ms, bound_by=b_by)
+            r = results[name]
+            log(f"{name}: kernel_ms={r['ms']:.4f} plain_ms="
+                f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+                f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
+                f"err={r['max_abs_err']:.3e}")
+        log("sparse library_ms: forward = scaled_dot_product_attention "
+            "with the layout as a [1, 1, S, S] boolean mask; the dq and dkv "
+            "rows = its autograd backward, which computes the pair")
+    cfg, tables, calls = first
+    for dt, tol_o, tol_g in ((torch.float32, 1e-4, 1e-4),
+                             (torch.float16, TOL, 2e-2)):
+        sparse_check(sk, f"sparse {dt} (i)", q.to(dt), k.to(dt), v.to(dt),
+                     do.to(dt), tables, True, cfg.block, tol_o, tol_g)
+    # the other tile shapes: a 32-row tile, and a 128 block as two 64 tiles
+    s2 = min(S, 2048)
+    for block in (32, 128):
+        lay = sa.FixedSparsityConfig(
+            num_heads=NH, block=block, num_local_blocks=4,
+            attention="unidirectional").make_layout(s2)
+        sparse_check(sk, f"sparse bf16 fixed b{block} causal S {s2}",
+                     *(t[:, :s2].contiguous() for t in (q, k, v, do)),
+                     sk.device_tables(lay, True, dev), True, block, TOL,
+                     2e-2)
+    # q blocks with no active block: o = 0 and dq = 0 there
+    lay = np.zeros((NH, 16, 16), bool)
+    lay[:, 4:, :4] = True
+    lay[:, 4:, 4:] = np.tril(np.ones((12, 12), bool))
+    (o, _), _, (dq, _), _, _ = sparse_run(
+        sk, *(t[:, :1024].contiguous() for t in (q, k, v, do)),
+        sk.device_tables(lay, False, dev), False, 64)
+    if not ((o[:, :256] == 0).all() and (dq[:, :256] == 0).all()
+            and (o[:, 256:] != 0).any()):
+        raise AssertionError("sparse: q blocks with no active block must "
+                             "give o = 0 and dq = 0")
+    log("sparse: q blocks with no active block give o = 0 and dq = 0")
+    # a repeated backward is bit-identical (no atomics)
+    runs = [(calls["sparse_bwd_dq"][0](), *calls["sparse_bwd_dkv"][0]())
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("a repeated sparse backward is not "
+                             "bit-identical")
+    log("sparse backward repeated: bit-identical")
+    # the tables stay cached per layout (~0.1 GiB for the block-16 one):
+    # free them before the later phases measure their peak memory
+    sk._DEVICE_TABLES.clear()
+    return results
+
+
+def sparse_op_phase(dev):
+    """The op's own entry point: SparseSelfAttention(cfg (i)) on bf16
+    [1, 32, 8192, 128] inputs, forward and backward five times; then a
+    small fp32 check of impl="kernel" against impl="dense" on the card."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops import sparse_kernels as sk
+
+    cfg, causal = sparse_configs()["(i) fixed b64 causal"]
+    S = SPARSE_S
+    base = torch.cuda.memory_allocated()    # what earlier phases left
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    q, k, v, do = (torch.randn((1, NH, S, HD), generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    attn = sa.SparseSelfAttention(cfg)
+
+    def step():
+        for t in (q, k, v):
+            t.grad = None
+        o = attn(q, k, v, causal=True)
+        o.backward(do)
+        return o
+
+    step()                      # warm-up: layout, tables, library load
+    kernels = (sk.sparse_fwd, sk.sparse_bwd_dq, sk.sparse_bwd_dkv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kfn in kernels:
+        kfn.launches = 0
+    # -- the main path: SparseSelfAttention forward + backward x 5 ----------
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        o = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {kfn.__name__: kfn.launches for kfn in kernels}
+    med = statistics.median(times)
+    log(f"sparse op: SparseSelfAttention fixed b64 causal, B 1, nh {NH}, "
+        f"hd {HD}, S {S}, bf16: forward+backward ms "
+        f"{[f'{x * 1e3:.2f}' for x in times]}, median {med * 1e3:.2f} ms = "
+        f"{S / med:.0f} tokens/s; peak memory "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB; "
+        f"launches {launches}")
+    if launches != {kfn.__name__: 5 for kfn in kernels}:
+        raise AssertionError(f"sparse op launches {launches}, want 5 each")
+    grads = [t.grad for t in (q, k, v)]
+    if not all(torch.isfinite(t).all().item() for t in (o, *grads)):
+        raise AssertionError("sparse op: non-finite output or gradient")
+    # the last call against the plain versions on the same inputs
+    tables = sk.device_tables(attn.get_layout(S), True, dev)
+    args = (1.0 / HD ** 0.5, True, cfg.block, NH)
+    qf, kf, vf, dof = (t.detach().reshape(NH, S, HD) for t in (q, k, v, do))
+    o_p, lse_p = sk.sparse_fwd_plain(qf, kf, vf, *tables[:2], *args)
+    delta = (dof.float() * o_p.float()).sum(-1, keepdim=True)
+    dq_p = sk.sparse_bwd_dq_plain(qf, kf, vf, dof, lse_p, delta,
+                                  *tables[:2], *args)
+    dk_p, dv_p = sk.sparse_bwd_dkv_plain(qf, kf, vf, dof, lse_p, delta,
+                                         *tables[2:], *args)
+    compare_outputs("sparse op vs plain versions (bf16)",
+                    (o.detach().reshape(NH, S, HD), o_p), (None, None),
+                    [(g.reshape(NH, S, HD), p)
+                     for g, p in zip(grads, (dq_p, dk_p, dv_p))], TOL, 2e-2)
+    # where one call's time goes, on the card's clock: CUDA events, since a
+    # torch.profiler session after the earlier phases' ones recorded no
+    # device events here
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for t in (q, k, v):
+        t.grad = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    out = attn(q, k, v, causal=True)
+    ev[1].record()
+    out.backward(do)
+    ev[2].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    fwd, bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    log(f"sparse op on the card's clock: forward {fwd:.3f} ms, backward "
+        f"(delta, dq, dk/dv) {bwd:.3f} ms, of a {wall:.3f} ms call "
+        f"(device share {(fwd + bwd) / wall:.3f})")
+
+    # small fp32: impl="kernel" against impl="dense" on the same CUDA tensors
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = sa.FixedSparsityConfig(num_heads=NH, block=64,
+                                   num_local_blocks=4, num_global_blocks=1,
+                                   attention="unidirectional")
+    lay = small.make_layout(1024)
+    x = [torch.randn((1, NH, 1024, 64), generator=gen, device=dev)
+         for _ in range(4)]
+    outs = {}
+    for impl in ("kernel", "dense"):
+        ins = [t.clone().requires_grad_(True) for t in x[:3]]
+        out = sa.sparse_attention(*ins, lay, 64, causal=True, impl=impl)
+        out.backward(x[3])
+        outs[impl] = (out.detach(), *(t.grad for t in ins))
+    gaps = [(a - b).abs().max().item()
+            for a, b in zip(outs["kernel"], outs["dense"])]
+    log(f"sparse op fp32 S 1024 hd 64: max|kernel - dense| o {gaps[0]:.3e} "
+        f"dq {gaps[1]:.3e} dk {gaps[2]:.3e} dv {gaps[3]:.3e} (tolerance "
+        f"1e-4)")
+    if not max(gaps) <= 1e-4:
+        raise AssertionError(f"sparse op fp32: kernel disagrees with dense "
+                             f"{gaps}")
+    # a shape the kernels do not take raises under auto, never runs dense
+    lay8 = sa.FixedSparsityConfig(num_heads=NH, block=8).make_layout(1024)
+    try:
+        sa.sparse_attention(*x[:3], lay8, 8)
+    except ValueError as e:
+        log(f"sparse op: block 8 under impl='auto' on the card raises: {e}")
+    else:
+        raise AssertionError("sparse op: block 8 on the card did not raise")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1256,13 +1615,16 @@ def main() -> int:
         f"(nvcc {cuda_build.build_seconds:.1f}s) into "
         f"{cuda_build.BUILD_ROOT}")
     for name, text in sorted(cuda_build.build_logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", text))
+        if regs:
+            log(f"  ptxas {name}: {len(regs)} kernels, {min(regs)}-"
+                f"{max(regs)} registers, {spills} bytes spilled")
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
     results = kernel_phases(dev, flush)
     results.update(flash_phases(dev, flush))
+    results.update(sparse_phases(dev, flush))
     del flush
     if "--kernels-only" in sys.argv:
         return 0    # a build-and-compare run; no result line
@@ -1272,6 +1634,9 @@ def main() -> int:
     torch.cuda.empty_cache()    # the serving engine is gone
     small_train_check(dev)
     launches.update(train_phase(dev))
+    gc.collect()
+    torch.cuda.empty_cache()    # the training engine is gone
+    launches.update(sparse_op_phase(dev))
 
     sources = {"paged_attention": ("deepspeed_tpu_torch/csrc/"
                                    "paged_attention.cu",
@@ -1298,7 +1663,13 @@ def main() -> int:
                "flash_bwd_dq": (FLASH_SRC,
                                 "deepspeed_tpu/ops/flash_attention.py:155"),
                "flash_bwd_dkv": (FLASH_SRC,
-                                 "deepspeed_tpu/ops/flash_attention.py:196")}
+                                 "deepspeed_tpu/ops/flash_attention.py:196"),
+               "sparse_fwd": (SPARSE_SRC,
+                              "deepspeed_tpu/ops/sparse_kernels.py:105"),
+               "sparse_bwd_dq": (SPARSE_SRC,
+                                 "deepspeed_tpu/ops/sparse_kernels.py:190"),
+               "sparse_bwd_dkv": (SPARSE_SRC,
+                                  "deepspeed_tpu/ops/sparse_kernels.py:222")}
     kernels = []
     for name, r in results.items():
         src, replaces = sources[name]

@@ -136,10 +136,8 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale: float, causal: bool):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _check(name, q, k, v, *others):
-    """What the kernels take: one float dtype for q/k/v (and do), contiguous
-    tensors on one CUDA device, head_dim 64 or 128, sequence lengths that
-    are multiples of 128, q heads a multiple of kv heads."""
+def _check_tensors(name, q, k, v, *others):
+    """One float dtype for q/k/v, contiguous tensors on q's device."""
     tensors = [q, k, v, *others]
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on {q.device}")
@@ -149,6 +147,13 @@ def _check(name, q, k, v, *others):
                         f"{v.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: every tensor must be contiguous")
+
+
+def _check(name, q, k, v, *others):
+    """What the kernels take: one float dtype for q/k/v (and do), contiguous
+    tensors on one CUDA device, head_dim 64 or 128, sequence lengths that
+    are multiples of 128, q heads a multiple of kv heads."""
+    _check_tensors(name, q, k, v, *others)
     bh, sq, d = q.shape
     bhk, skv, dk_ = k.shape
     if v.shape != k.shape or dk_ != d or bh % bhk:

@@ -72,6 +72,17 @@ SIGNATURES = {
         # scale, causal, stream
         "ds_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     },
+    "sparse_attention": {
+        # q, k, v, kv_idx, kv_valid, o, lse, bh, nheads, s, d, block, jmax,
+        # dtype, scale, causal, stream
+        "ds_sparse_fwd": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+        # q, k, v, do, lse, delta, kv_idx, kv_valid, dq, bh, nheads, s, d,
+        # block, jmax, dtype, scale, causal, stream
+        "ds_sparse_bwd_dq": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+        # q, k, v, do, lse, delta, q_idx, q_valid, dk, dv, bh, nheads, s, d,
+        # block, imax, dtype, scale, causal, stream
+        "ds_sparse_bwd_dkv": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

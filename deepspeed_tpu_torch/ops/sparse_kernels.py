@@ -1,0 +1,409 @@
+"""Block-sparse flash attention: tables, kernels and their plain versions.
+
+Port of ``deepspeed_tpu/ops/sparse_kernels.py``. The static per-head block
+layout is compiled into per-row ACTIVE-block index tables
+(:func:`build_tables`, numpy, memoized as in the JAX package):
+
+  kv_idx/kv_valid [H, n_q, Jmax]  -- active kv blocks per q block (fwd, dq)
+  q_idx/q_valid   [H, n_kv, Imax] -- active q blocks per kv block (dk/dv)
+
+Padded slots repeat the last valid index with valid = 0 and are skipped.
+Row ``b`` of the folded [B*H, S, D] tensors reads head ``b % H`` of the
+tables. Inactive blocks are never loaded or multiplied, and the [S, S]
+score matrix never exists: the online softmax runs over a q block's
+active kv blocks in table order.
+
+Three hand-written Hopper kernels, ``csrc/sparse_attention.cu`` (the
+flash tile kernels of ``csrc/flash_tiles.cuh`` over a table walk), take
+the place of the TPU kernels:
+
+* :func:`sparse_fwd` -- ``_fwd_kernel`` (:105): o and the f32 lse;
+* :func:`sparse_bwd_dq` -- ``_bwd_dq_kernel`` (:190): dq;
+* :func:`sparse_bwd_dkv` -- ``_bwd_dkv_kernel`` (:222): dk and dv.
+
+Each wrapper launches its kernel on CUDA tensors (built at first use by
+``ops/op_builder/cuda.py``), with the tables as int32 tensors on the card
+(:func:`device_tables` uploads them once per layout), and counts the launch
+in ``<wrapper>.launches``; on CPU tensors it runs the plain version. There
+is no fallback: a build or launch failure, or a shape the kernels do not
+take, raises. ``delta = rowsum(do * o)`` stays one f32 torch expression,
+as it is jnp in the JAX package (:266).
+
+The plain versions (:func:`sparse_fwd_plain`, :func:`sparse_bwd_dq_plain`,
+:func:`sparse_bwd_dkv_plain`) are the same arithmetic over the active
+blocks: the same masks, ``NEG_INF``, safe substitutions and casts of ``p``
+and ``ds``. They gather each q block's Jmax kv blocks (each kv block's
+Imax q blocks) from the tables and walk the blocks in chunks, so that a
+full-size call stays within a few GiB. The CPU tests hold them against
+the JAX kernels; on the card ``chip_smoke.py`` holds the kernels against
+them. Nothing on the card's path calls them.
+"""
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .flash_attention import (_check_bwd_extra, _check_tensors, _delta,
+                              _device_of, _DTYPE_CODE, _stream)
+from .op_builder import cuda as cuda_build
+
+NEG_INF = -1e30
+_BLOCKS = (16, 32, 64, 128)     # layout blocks the CUDA kernels take
+_HEAD_DIMS = (64, 128)
+# f32 elements of the largest temporary of one chunk of the plain versions
+_CHUNK_ELEMS = 1 << 26
+
+_TABLE_CACHE: dict = {}
+_DEVICE_TABLES: dict = {}
+
+
+def _layout_key(layout, causal):
+    return (np.asarray(layout, bool).tobytes(), np.shape(layout), causal)
+
+
+def build_tables(layout: np.ndarray, causal: bool
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """layout [H, n, n] (bool) -> (kv_idx, kv_valid, q_idx, q_valid).
+
+    The reference builds the equivalent Triton look-up tables in
+    make_lut (ops/sparse_attention/matmul.py). Tables are static per
+    (layout, causal) and memoized: eager per-step callers would otherwise
+    repeat the O(H * n^2) host scan every forward."""
+    key = _layout_key(layout, causal)
+    hit = _TABLE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    out = _build_tables(layout, causal)
+    if len(_TABLE_CACHE) > 64:  # bound host memory for layout churn
+        _TABLE_CACHE.clear()
+    _TABLE_CACHE[key] = out
+    return out
+
+
+def _build_tables(layout: np.ndarray, causal: bool):
+    lay = np.asarray(layout, bool)
+    H, n_q, n_kv = lay.shape
+    if causal:
+        lay = lay & np.tril(np.ones((n_q, n_kv), bool))[None]
+
+    def pack(rows):  # list of index-arrays -> padded [len(rows), max]
+        width = max((len(r) for r in rows), default=1) or 1
+        idx = np.zeros((len(rows), width), np.int32)
+        valid = np.zeros((len(rows), width), np.int32)
+        for i, r in enumerate(rows):
+            if len(r):
+                idx[i, :len(r)] = r
+                idx[i, len(r):] = r[-1]
+                valid[i, :len(r)] = 1
+        return idx, valid
+
+    kv_i, kv_v, q_i, q_v = [], [], [], []
+    for h in range(H):
+        a, b = pack([np.nonzero(lay[h, i])[0] for i in range(n_q)])
+        kv_i.append(a), kv_v.append(b)
+        a, b = pack([np.nonzero(lay[h, :, j])[0] for j in range(n_kv)])
+        q_i.append(a), q_v.append(b)
+
+    def stack(parts):  # pad ragged widths across heads
+        width = max(p.shape[1] for p in parts)
+        return np.stack([np.pad(p, ((0, 0), (0, width - p.shape[1])))
+                         for p in parts])
+
+    return stack(kv_i), stack(kv_v), stack(q_i), stack(q_v)
+
+
+def device_tables(layout: np.ndarray, causal: bool, device
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The four :func:`build_tables` arrays as int32 tensors on ``device``,
+    uploaded once per (layout, causal, device): an eager per-step call
+    would otherwise copy them from pageable host memory every time."""
+    key = (_layout_key(layout, causal), str(torch.device(device)))
+    hit = _DEVICE_TABLES.get(key)
+    if hit is None:
+        hit = tuple(torch.from_numpy(t).to(device)
+                    for t in build_tables(layout, causal))
+        if len(_DEVICE_TABLES) > 64:
+            _DEVICE_TABLES.clear()
+        _DEVICE_TABLES[key] = hit
+    return hit
+
+
+# ---------------------------------------------------------------------------
+# plain versions ([B*H, S, D] layout, as the kernels)
+# ---------------------------------------------------------------------------
+def _head_rows(table, bh, nheads):
+    """[H, n, W] table -> [bh, n, W]: row b reads head b % H."""
+    return table[torch.arange(bh, device=table.device) % nheads]
+
+
+def _positions(ids, block):
+    """Block ids [..., W] -> token positions [..., W * block]."""
+    r = torch.arange(block, device=ids.device)
+    return (ids[..., None] * block + r).flatten(-2)
+
+
+def _gather(x, rows, ids, block):
+    """Blocks ``ids`` [bh, c, W] of each row of x [bh, S, e] -> f32
+    [bh, c, W * block, e]."""
+    bh, s, e = x.shape
+    g = x.view(bh, s // block, block, e)[rows, ids]
+    return g.reshape(*ids.shape[:2], -1, e).float()
+
+
+def _chunk(bh, width, block, d):
+    """Blocks per chunk: the largest f32 temporary stays <= _CHUNK_ELEMS."""
+    return max(1, _CHUNK_ELEMS // (bh * width * block * max(d, block)))
+
+
+def _walk_rows(tables, bh, nheads, block, d):
+    """Yields (row slice of blocks, their ids [bh, c, W], the visible-token
+    mask of their slots [bh, c, 1, W * block]) over the table rows."""
+    idx, valid = (_head_rows(t.long(), bh, nheads) for t in tables)
+    n, width = idx.shape[1], idx.shape[2]
+    c = _chunk(bh, width, block, d)
+    for i0 in range(0, n, c):
+        sl = slice(i0, min(n, i0 + c))
+        ok = valid[:, sl].bool()[..., None].expand(*valid[:, sl].shape,
+                                                   block)
+        yield sl, idx[:, sl], ok.flatten(-2)[:, :, None, :]
+
+
+def _rows_pos(sl, block, device):
+    """Token positions of blocks sl.start .. sl.stop - 1: [c, block]."""
+    ids = torch.arange(sl.start, sl.stop, device=device)
+    return ids[:, None] * block + torch.arange(block, device=device)
+
+
+def _q_block_scores(q, k, v, kv_idx, kv_valid, scale, causal, block,
+                    nheads):
+    """Per chunk of q blocks: (their slice, the masked f32 scores
+    [bh, c, block, Jmax * block] over the gathered kv blocks, those K and
+    V blocks in f32 [bh, c, Jmax * block, D])."""
+    bh, s, d = q.shape
+    rows = torch.arange(bh, device=q.device)[:, None, None]
+    qb = q.view(bh, s // block, block, d)
+    for sl, ids, ok in _walk_rows((kv_idx, kv_valid), bh, nheads, block, d):
+        kg, vg = _gather(k, rows, ids, block), _gather(v, rows, ids, block)
+        sc = torch.matmul(qb[:, sl].float(), kg.transpose(-1, -2)) * scale
+        if causal:   # top-left: q_pos >= k_pos (Sq == Skv)
+            qpos = _rows_pos(sl, block, q.device)[None, :, :, None]
+            ok = ok & (qpos >= _positions(ids, block)[:, :, None, :])
+        yield sl, torch.where(ok, sc, torch.full_like(sc, NEG_INF)), kg, vg
+
+
+def sparse_fwd_plain(q, k, v, kv_idx, kv_valid, scale: float, causal: bool,
+                     block: int, nheads: int):
+    """q/k/v [bh, S, D] -> (o [bh, S, D] in q's dtype, lse [bh, S, 1]
+    f32)."""
+    bh, s, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, s, 1), dtype=torch.float32, device=q.device)
+    for sl, sc, _, vg in _q_block_scores(q, k, v, kv_idx, kv_valid, scale,
+                                         causal, block, nheads):
+        m = sc.amax(dim=-1, keepdim=True)
+        m_safe = torch.where(m <= NEG_INF * 0.5, torch.zeros_like(m), m)
+        p = torch.exp(sc - m_safe)
+        l = p.sum(dim=-1, keepdim=True)
+        l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+        acc = torch.matmul(p.to(v.dtype).float(), vg)
+        t0, t1 = sl.start * block, sl.stop * block
+        o[:, t0:t1] = (acc / l_safe).to(q.dtype).reshape(bh, -1, d)
+        lse[:, t0:t1] = torch.where(
+            m <= NEG_INF * 0.5, torch.full_like(m, NEG_INF),
+            m + torch.log(l_safe)).reshape(bh, -1, 1)
+    return o, lse
+
+
+def _lse_safe(lse):
+    return torch.where(lse <= NEG_INF * 0.5, torch.zeros_like(lse), lse)
+
+
+def sparse_bwd_dq_plain(q, k, v, do, lse, delta, kv_idx, kv_valid,
+                        scale: float, causal: bool, block: int, nheads: int):
+    """dq [bh, S, D] from do, the forward's lse and delta = rowsum(do*o)."""
+    bh, s, d = q.shape
+    n = s // block
+    dq = torch.empty_like(q)
+    dob = do.view(bh, n, block, d)
+    lseb, deltab = lse.view(bh, n, block, 1), delta.view(bh, n, block, 1)
+    for sl, sc, kg, vg in _q_block_scores(q, k, v, kv_idx, kv_valid, scale,
+                                          causal, block, nheads):
+        p = torch.exp(sc - _lse_safe(lseb[:, sl]))
+        dp = torch.matmul(dob[:, sl].float(), vg.transpose(-1, -2))
+        ds = (p * (dp - deltab[:, sl]) * scale).to(k.dtype)
+        dq[:, sl.start * block:sl.stop * block] = torch.matmul(
+            ds.float(), kg).to(q.dtype).reshape(bh, -1, d)
+    return dq
+
+
+def sparse_bwd_dkv_plain(q, k, v, do, lse, delta, q_idx, q_valid,
+                         scale: float, causal: bool, block: int, nheads: int):
+    """(dk, dv) [bh, S, D]: each kv block summed over its active q
+    blocks."""
+    bh, s, d = q.shape
+    n = s // block
+    rows = torch.arange(bh, device=q.device)[:, None, None]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    kb, vb = k.view(bh, n, block, d), v.view(bh, n, block, d)
+    for sl, ids, ok in _walk_rows((q_idx, q_valid), bh, nheads, block, d):
+        ok = ok.transpose(-1, -2)                        # [bh, c, W*blk, 1]
+        qg, dog = _gather(q, rows, ids, block), _gather(do, rows, ids, block)
+        lse_g = _gather(lse, rows, ids, block)
+        delta_g = _gather(delta, rows, ids, block)
+        kc, vc = kb[:, sl].float(), vb[:, sl].float()
+        sc = torch.matmul(qg, kc.transpose(-1, -2)) * scale
+        if causal:
+            kpos = _rows_pos(sl, block, q.device)[None, :, None, :]
+            ok = ok & (_positions(ids, block)[:, :, :, None] >= kpos)
+        sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
+        p = torch.exp(sc - _lse_safe(lse_g))
+        t0, t1 = sl.start * block, sl.stop * block
+        dv[:, t0:t1] = torch.matmul(p.to(do.dtype).float().transpose(-1, -2),
+                                    dog).to(v.dtype).reshape(bh, -1, d)
+        dp = torch.matmul(dog, vc.transpose(-1, -2))
+        ds = (p * (dp - delta_g) * scale).to(q.dtype)
+        dk[:, t0:t1] = torch.matmul(ds.float().transpose(-1, -2),
+                                    qg).to(k.dtype).reshape(bh, -1, d)
+    return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+def _check(name, block, nheads, q, k, v, *others, tables):
+    """What the kernels take: one float dtype for q/k/v (and do),
+    contiguous tensors on one CUDA device, q/k/v [bh, S, D] with head_dim
+    64 or 128, a layout block of 16, 32, 64 or 128 dividing S, bh a
+    multiple of the tables' heads, int32 tables [H, S / block, W]."""
+    _check_tensors(name, q, k, v, *others, *tables)
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q/k/v must be one [bh, S, D] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    bh, s, d = q.shape
+    if d not in _HEAD_DIMS or block not in _BLOCKS or s % block \
+            or nheads <= 0 or bh % nheads:
+        raise ValueError(
+            f"{name}: the CUDA kernels take head_dim in {_HEAD_DIMS} and a "
+            f"layout block in {_BLOCKS} dividing S; got q {tuple(q.shape)} "
+            f"(bh, S, head_dim), block {block}, {nheads} heads")
+    for t in tables:
+        if t.dtype != torch.int32 or t.dim() != 3 \
+                or tuple(t.shape[:2]) != (nheads, s // block):
+            raise ValueError(f"{name}: tables must be int32 "
+                             f"[{nheads}, {s // block}, W], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def sparse_fwd(q, k, v, kv_idx, kv_valid, scale: float, causal: bool,
+               block: int, nheads: int):
+    """Forward. q/k/v [bh, S, D] -> (o, lse [bh, S, 1])."""
+    if _device_of("sparse_fwd", q) == "cpu":
+        return sparse_fwd_plain(q, k, v, kv_idx, kv_valid, scale, causal,
+                                block, nheads)
+    _check("sparse_fwd", block, nheads, q, k, v, tables=(kv_idx, kv_valid))
+    bh, s, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, s, 1), dtype=torch.float32, device=q.device)
+    code = cuda_build.load("sparse_attention").ds_sparse_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_idx.data_ptr(),
+        kv_valid.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, nheads, s, d,
+        block, kv_idx.shape[-1], _DTYPE_CODE[q.dtype], scale, int(causal),
+        _stream(q))
+    cuda_build.check(code, "sparse_fwd")
+    sparse_fwd.launches += 1
+    return o, lse
+
+
+def sparse_bwd_dq(q, k, v, do, lse, delta, kv_idx, kv_valid, scale: float,
+                  causal: bool, block: int, nheads: int):
+    """dq [bh, S, D] from do, the forward's lse and delta = rowsum(do*o)."""
+    if _device_of("sparse_bwd_dq", q) == "cpu":
+        return sparse_bwd_dq_plain(q, k, v, do, lse, delta, kv_idx,
+                                   kv_valid, scale, causal, block, nheads)
+    _check("sparse_bwd_dq", block, nheads, q, k, v, do, lse, delta,
+           tables=(kv_idx, kv_valid))
+    _check_bwd_extra("sparse_bwd_dq", q, do, lse, delta)
+    bh, s, d = q.shape
+    dq = torch.empty_like(q)
+    code = cuda_build.load("sparse_attention").ds_sparse_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), kv_idx.data_ptr(),
+        kv_valid.data_ptr(), dq.data_ptr(), bh, nheads, s, d, block,
+        kv_idx.shape[-1], _DTYPE_CODE[q.dtype], scale, int(causal),
+        _stream(q))
+    cuda_build.check(code, "sparse_bwd_dq")
+    sparse_bwd_dq.launches += 1
+    return dq
+
+
+def sparse_bwd_dkv(q, k, v, do, lse, delta, q_idx, q_valid, scale: float,
+                   causal: bool, block: int, nheads: int):
+    """(dk, dv) [bh, S, D]."""
+    if _device_of("sparse_bwd_dkv", q) == "cpu":
+        return sparse_bwd_dkv_plain(q, k, v, do, lse, delta, q_idx, q_valid,
+                                    scale, causal, block, nheads)
+    _check("sparse_bwd_dkv", block, nheads, q, k, v, do, lse, delta,
+           tables=(q_idx, q_valid))
+    _check_bwd_extra("sparse_bwd_dkv", q, do, lse, delta)
+    bh, s, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    code = cuda_build.load("sparse_attention").ds_sparse_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), q_idx.data_ptr(),
+        q_valid.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, nheads, s, d,
+        block, q_idx.shape[-1], _DTYPE_CODE[q.dtype], scale, int(causal),
+        _stream(q))
+    cuda_build.check(code, "sparse_bwd_dkv")
+    sparse_bwd_dkv.launches += 1
+    return dk, dv
+
+
+sparse_fwd.launches = 0
+sparse_bwd_dq.launches = 0
+sparse_bwd_dkv.launches = 0
+
+
+class _SparseCore(torch.autograd.Function):
+    """The JAX ``custom_vjp`` (:333-353): forward saves (q, k, v, o, lse)
+    and the tables; backward computes delta, then dq and dk/dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_idx, kv_valid, q_idx, q_valid, scale,
+                causal, block, nheads):
+        o, lse = sparse_fwd(q, k, v, kv_idx, kv_valid, scale, causal, block,
+                            nheads)
+        ctx.save_for_backward(q, k, v, o, lse, kv_idx, kv_valid, q_idx,
+                              q_valid)
+        ctx.args = (scale, causal, block, nheads)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_idx, kv_valid, q_idx, q_valid = ctx.saved_tensors
+        do = do.contiguous()
+        delta = _delta(do, o)
+        dq = sparse_bwd_dq(q, k, v, do, lse, delta, kv_idx, kv_valid,
+                           *ctx.args)
+        dk, dv = sparse_bwd_dkv(q, k, v, do, lse, delta, q_idx, q_valid,
+                                *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
+
+
+def sparse_flash_attention(q, k, v, layout: np.ndarray, block: int,
+                           causal: bool = False,
+                           scale: Optional[float] = None):
+    """Block-sparse attention over [B, H, S, D] with a static [H, n, n]
+    block layout; only active blocks are computed. A scale of 0 or None
+    means 1 / sqrt(D)."""
+    B, H, S, D = q.shape
+    if S % block:
+        raise ValueError(f"seq {S} not divisible by block {block}")
+    scale = scale or 1.0 / math.sqrt(D)
+    tables = device_tables(layout, causal, q.device)
+    o = _SparseCore.apply(*(x.reshape(B * H, S, D).contiguous()
+                            for x in (q, k, v)),
+                          *tables, float(scale), bool(causal), block, H)
+    return o.reshape(B, H, S, D)

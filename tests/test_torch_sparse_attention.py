@@ -1,0 +1,380 @@
+"""PyTorch port: block-sparse attention against the JAX package.
+
+``deepspeed_tpu_torch/ops/sparse_attention.py`` and ``sparse_kernels.py``
+against ``deepspeed_tpu/ops/sparse_attention.py`` and ``sparse_kernels.py``
+on the same numpy inputs:
+
+* the five layout builders give equal layouts (the random ones with the
+  same ``default_rng(seed)`` draws), and ``build_tables`` equal tables;
+* the plain versions of the three CUDA kernels against the JAX Pallas
+  kernels run in interpret mode, as the JAX package's own tests run them
+  (o and lse against ``_sparse_fwd``, dq/dk/dv against ``_sparse_bwd``),
+  fp32, tolerance 2e-5 (f32 reordering over a few hundred keys);
+* torch autograd through ``sparse_attention(impl="kernel")`` on CPU tensors
+  (the plain versions) against ``jax.grad`` through the JAX
+  ``sparse_attention(impl="kernel")``, fp32, 5e-5;
+* the masked-dense path against JAX's, fp32 (2e-5) and bf16 (2e-2: both
+  round the scores, the probabilities and the output to bf16, so an
+  f32 reordering can flip one bf16 rounding, 2**-7 relative, of outputs of
+  magnitude ~1);
+* ``impl="auto"`` on CPU tensors takes the dense path and launches nothing.
+
+The CUDA kernels are held against the plain versions on the card by
+chip_smoke.py.
+"""
+
+import functools
+import math
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from deepspeed_tpu.ops import sparse_attention as jsa
+from deepspeed_tpu.ops import sparse_kernels as jsk
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
+from deepspeed_tpu_torch.ops import sparse_kernels as tsk
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=5e-5, atol=5e-5)
+D = 64
+
+# ---------------------------------------------------------------------------
+# layouts
+# ---------------------------------------------------------------------------
+# name -> (config class name, kwargs, seq_len)
+LAYOUTS = {
+    "dense": ("DenseSparsityConfig", dict(num_heads=3, block=16), 128),
+    "fixed": ("FixedSparsityConfig", dict(num_heads=2, block=16), 256),
+    "fixed_unidirectional_horizontal": (
+        "FixedSparsityConfig",
+        dict(num_heads=2, block=16, num_local_blocks=4, num_global_blocks=2,
+             attention="unidirectional", horizontal_global_attention=True),
+        256),
+    "fixed_per_head": (
+        "FixedSparsityConfig",
+        dict(num_heads=4, block=16, num_local_blocks=4,
+             different_layout_per_head=True,
+             num_different_global_patterns=3), 256),
+    **{f"variable_seed{s}": (
+        "VariableSparsityConfig",
+        dict(num_heads=2, block=16, num_random_blocks=2,
+             local_window_blocks=[2, 1, 3], global_block_indices=[0, 5],
+             seed=s), 256) for s in (0, 1, 7)},
+    "variable_horizontal_spans": (
+        "VariableSparsityConfig",
+        dict(num_heads=2, block=16, num_random_blocks=1,
+             global_block_indices=[1, 8], global_block_end_indices=[3, 10],
+             horizontal_global_attention=True, attention="unidirectional",
+             seed=4), 256),
+    **{f"bigbird_seed{s}": (
+        "BigBirdSparsityConfig",
+        dict(num_heads=3, block=16, num_random_blocks=2, seed=s), 256)
+        for s in (0, 3, 11)},
+    "bigbird_unidirectional": (
+        "BigBirdSparsityConfig",
+        dict(num_heads=2, block=8, num_sliding_window_blocks=5,
+             num_global_blocks=2, attention="unidirectional"), 128),
+    "longformer": ("BSLongformerSparsityConfig",
+                   dict(num_heads=2, block=16), 256),
+    "longformer_spans": (
+        "BSLongformerSparsityConfig",
+        dict(num_heads=2, block=16, num_sliding_window_blocks=5,
+             global_block_indices=[0, 6], global_block_end_indices=[2, 9],
+             attention="unidirectional"), 256),
+}
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_layout_matches_jax(name):
+    cls, kwargs, seq = LAYOUTS[name]
+    ref = getattr(jsa, cls)(**kwargs).make_layout(seq)
+    got = getattr(tsa, cls)(**kwargs).make_layout(seq)
+    assert got.dtype == ref.dtype and np.array_equal(got, ref)
+    if "per_head" in name:
+        assert not np.array_equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("cls", ["DenseSparsityConfig", "FixedSparsityConfig",
+                                 "VariableSparsityConfig",
+                                 "BigBirdSparsityConfig",
+                                 "BSLongformerSparsityConfig"])
+def test_indivisible_seq_raises(cls):
+    with pytest.raises(ValueError, match="divisible"):
+        getattr(tsa, cls)(num_heads=2, block=16).make_layout(16 * 4 + 3)
+
+
+# ---------------------------------------------------------------------------
+# kernels: name -> (layout builder, block, B, S, causal)
+# ---------------------------------------------------------------------------
+def _fully_masked_rows():
+    layout = np.zeros((1, 4, 4), bool)
+    layout[0, 2:, :2] = True      # the first two q blocks see no block
+    return layout
+
+
+CASES = {
+    "fixed_causal": (lambda: tsa.FixedSparsityConfig(
+        num_heads=2, block=16, num_local_blocks=2, num_global_blocks=1,
+        attention="unidirectional").make_layout(128), 16, 1, 128, True),
+    "fixed_bidirectional": (lambda: tsa.FixedSparsityConfig(
+        num_heads=2, block=16, num_local_blocks=2,
+        num_global_blocks=1).make_layout(128), 16, 1, 128, False),
+    "bigbird_block8": (lambda: tsa.BigBirdSparsityConfig(
+        num_heads=2, block=8, num_random_blocks=1,
+        num_sliding_window_blocks=3, num_global_blocks=1).make_layout(64),
+        8, 1, 64, False),
+    "fully_masked_rows": (_fully_masked_rows, 8, 2, 32, False),
+    # different layouts per head at B 2: row b must read head b % H
+    "per_head": (lambda: tsa.FixedSparsityConfig(
+        num_heads=2, block=16, num_local_blocks=4, num_global_blocks=1,
+        different_layout_per_head=True, num_different_global_patterns=2,
+        attention="unidirectional").make_layout(128), 16, 2, 128, True),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name, seed=0):
+    """(layout, block, causal, q, k, v, w) with q/k/v/w [B, H, S, D] f32."""
+    make, block, b, s, causal = CASES[name]
+    layout = make()
+    rng = np.random.default_rng(seed)
+    q, k, v, w = (rng.normal(size=(b, layout.shape[0], s, D))
+                  .astype(np.float32) for _ in range(4))
+    return layout, block, causal, q, k, v, w
+
+
+def _fold(x):
+    return x.reshape(-1, *x.shape[2:])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_kernels(name):
+    """o, lse (``_sparse_fwd``) and dq, dk, dv (``_sparse_bwd``) for the
+    cotangent w, in interpret mode."""
+    layout, block, causal, q, k, v, w = _case(name)
+    H = layout.shape[0]
+    tables = [jnp.asarray(t) for t in jsk.build_tables(layout, causal)]
+    qf, kf, vf = (jnp.asarray(_fold(a)) for a in (q, k, v))
+    scale = 1.0 / math.sqrt(D)
+    o, lse = jsk._sparse_fwd(qf, kf, vf, *tables[:2], scale, causal, block, H)
+    grads = jsk._sparse_bwd((qf, kf, vf, o, lse, *tables),
+                            jnp.asarray(_fold(w)), scale, causal, block, H)
+    return tuple(np.asarray(a) for a in (o, lse, *grads))
+
+
+def _torch_tables(layout, causal):
+    return [torch.from_numpy(t) for t in tsk.build_tables(layout, causal)]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_build_tables_match_jax(name):
+    layout, _, causal, *_ = _case(name)
+    for c in (causal, not causal):
+        ref = jsk.build_tables(layout, c)
+        got = tsk.build_tables(layout, c)
+        for a, r in zip(got, ref):
+            assert a.dtype == np.int32 and np.array_equal(a, r)
+    assert tsk.build_tables(layout, causal) is tsk.build_tables(layout,
+                                                                causal)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_fwd_plain_matches_jax_kernel(name):
+    layout, block, causal, q, k, v, _ = _case(name)
+    o_ref, lse_ref, *_ = _jax_kernels(name)
+    kv_idx, kv_valid, _, _ = _torch_tables(layout, causal)
+    o, lse = tsk.sparse_fwd_plain(
+        *(torch.from_numpy(_fold(a)) for a in (q, k, v)), kv_idx, kv_valid,
+        1.0 / math.sqrt(D), causal, block, layout.shape[0])
+    np.testing.assert_allclose(o.numpy(), o_ref, **TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, **TOL)
+    assert lse.dtype == torch.float32 and lse.shape == (*o.shape[:2], 1)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bwd_plain_matches_jax_kernels(name):
+    layout, block, causal, q, k, v, w = _case(name)
+    o, lse, *ref = _jax_kernels(name)
+    tables = _torch_tables(layout, causal)
+    qf, kf, vf, do = (torch.from_numpy(_fold(a)) for a in (q, k, v, w))
+    o, lse = torch.from_numpy(o.copy()), torch.from_numpy(lse.copy())
+    delta = (do * o).sum(-1, keepdim=True)
+    args = (1.0 / math.sqrt(D), causal, block, layout.shape[0])
+    dq = tsk.sparse_bwd_dq_plain(qf, kf, vf, do, lse, delta, *tables[:2],
+                                 *args)
+    dk, dv = tsk.sparse_bwd_dkv_plain(qf, kf, vf, do, lse, delta,
+                                      *tables[2:], *args)
+    for a, r, g in zip((dq, dk, dv), ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(a.numpy(), r, **TOL, err_msg=g)
+
+
+@pytest.mark.parametrize("name", ["fixed_causal", "bigbird_block8",
+                                  "per_head"])
+def test_autograd_matches_jax_grad(name):
+    layout, block, causal, q, k, v, w = _case(name)
+
+    def jloss(q, k, v):
+        o = jsa.sparse_attention(q, k, v, layout, block, causal=causal,
+                                 impl="kernel")
+        return jnp.sum(o * w), o
+
+    jg, jo = jax.grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    to = tsa.sparse_attention(tq, tk, tv, layout, block, causal=causal,
+                              impl="kernel")
+    (to * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), **TOL)
+    for t, r, g in zip((tq, tk, tv), jg, "qkv"):
+        assert t.grad.shape == t.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                   **GRAD_TOL, err_msg=f"d{g}")
+
+
+def test_fully_masked_rows_zero():
+    """q blocks 0 and 1 see no block: o = 0, lse = -1e30 and dq = 0 there;
+    kv blocks 2 and 3 feed no q block: dk = dv = 0 there."""
+    layout, block, causal, q, k, v, w = _case("fully_masked_rows")
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    o = tsa.sparse_attention(tq, tk, tv, layout, block, impl="kernel")
+    (o * torch.from_numpy(w)).sum().backward()
+    rows = 2 * block
+    assert (o[:, :, :rows] == 0).all() and (o[:, :, rows:] != 0).any()
+    assert (tq.grad[:, :, :rows] == 0).all()
+    assert (tk.grad[:, :, rows:] == 0).all() and \
+        (tv.grad[:, :, rows:] == 0).all()
+    tables = _torch_tables(layout, False)
+    _, lse = tsk.sparse_fwd_plain(
+        *(torch.from_numpy(_fold(a)) for a in (q, k, v)), *tables[:2],
+        1.0 / math.sqrt(D), False, block, 1)
+    assert (lse[:, :rows] == tsk.NEG_INF).all()
+
+
+# ---------------------------------------------------------------------------
+# the dense path, auto routing, the op wrapper
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["fixed_causal", "bigbird_block8",
+                                  "fully_masked_rows"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_matches_jax_dense(name, dtype):
+    layout, block, causal, q, k, v, _ = _case(name)
+    ref = jsa.sparse_attention(
+        *(jnp.asarray(a, dtype=dtype) for a in (q, k, v)), layout, block,
+        causal=causal, impl="dense")
+    got = tsa.sparse_attention(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)),
+        layout, block, causal=causal, impl="dense")
+    assert got.dtype == getattr(torch, dtype)
+    tol = TOL if dtype == "float32" else dict(rtol=0, atol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), **tol)
+
+
+def test_auto_on_cpu_takes_dense_and_launches_nothing():
+    layout, block, causal, q, k, v, w = _case("fixed_causal")
+    kernels = (tsk.sparse_fwd, tsk.sparse_bwd_dq, tsk.sparse_bwd_dkv)
+    before = [f.launches for f in kernels]
+    tq = torch.from_numpy(q).requires_grad_(True)
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    auto = tsa.sparse_attention(tq, tk, tv, layout, block, causal=causal)
+    dense = tsa.sparse_attention(tq, tk, tv, layout, block, causal=causal,
+                                 impl="dense")
+    assert torch.equal(auto, dense)
+    tsa.sparse_attention(tq, tk, tv, layout, block, causal=causal,
+                         impl="kernel").sum().backward()
+    assert [f.launches for f in kernels] == before
+
+
+def test_wrappers_run_plain_versions_on_cpu():
+    layout, block, causal, q, k, v, w = _case("per_head")
+    H = layout.shape[0]
+    tables = _torch_tables(layout, causal)
+    qf, kf, vf, do = (torch.from_numpy(_fold(a)) for a in (q, k, v, w))
+    args = (0.125, causal, block, H)
+    o, lse = tsk.sparse_fwd(qf, kf, vf, *tables[:2], *args)
+    o_p, lse_p = tsk.sparse_fwd_plain(qf, kf, vf, *tables[:2], *args)
+    assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
+    delta = (do * o).sum(-1, keepdim=True)
+    assert torch.equal(
+        tsk.sparse_bwd_dq(qf, kf, vf, do, lse, delta, *tables[:2], *args),
+        tsk.sparse_bwd_dq_plain(qf, kf, vf, do, lse, delta, *tables[:2],
+                                *args))
+    for a, b in zip(
+            tsk.sparse_bwd_dkv(qf, kf, vf, do, lse, delta, *tables[2:],
+                               *args),
+            tsk.sparse_bwd_dkv_plain(qf, kf, vf, do, lse, delta,
+                                     *tables[2:], *args)):
+        assert torch.equal(a, b)
+
+
+def test_plain_versions_walk_blocks_in_chunks(monkeypatch):
+    """A chunk of one block at a time (the card's memory bound at S 8192)
+    gives the same result as one chunk."""
+    layout, block, causal, q, k, v, w = _case("per_head")
+    tables = _torch_tables(layout, causal)
+    qf, kf, vf, do = (torch.from_numpy(_fold(a)) for a in (q, k, v, w))
+    args = (0.125, causal, block, layout.shape[0])
+
+    def run():
+        o, lse = tsk.sparse_fwd_plain(qf, kf, vf, *tables[:2], *args)
+        delta = (do * o).sum(-1, keepdim=True)
+        return (o, lse, tsk.sparse_bwd_dq_plain(qf, kf, vf, do, lse, delta,
+                                                *tables[:2], *args),
+                *tsk.sparse_bwd_dkv_plain(qf, kf, vf, do, lse, delta,
+                                          *tables[2:], *args))
+
+    whole = run()
+    monkeypatch.setattr(tsk, "_CHUNK_ELEMS", 1)
+    for a, b in zip(run(), whole):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_sparse_self_attention_caches_layout_and_matches_jax():
+    cfg = dict(num_heads=2, block=16, num_local_blocks=2,
+               attention="unidirectional")
+    attn = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(**cfg))
+    assert attn.get_layout(128) is attn.get_layout(128)
+    _, _, _, q, k, v, _ = _case("fixed_causal")
+    ref = jsa.SparseSelfAttention(jsa.FixedSparsityConfig(**cfg))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    got = attn(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_device_tables_are_cached():
+    layout, _, causal, *_ = _case("fixed_causal")
+    a = tsk.device_tables(layout, causal, "cpu")
+    assert a is tsk.device_tables(layout.copy(), causal,
+                                  torch.device("cpu"))
+    for t, r in zip(a, tsk.build_tables(layout, causal)):
+        assert t.dtype == torch.int32 and np.array_equal(t.numpy(), r)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "head_dim", "block", "seq",
+                                 "heads", "table"])
+def test_kernel_argument_checks(bad):
+    H, S, block = 2, 128, 16
+    q = k = v = torch.zeros(4, S, 64)
+    layout = np.ones((H, S // block, S // block), bool)
+    tables = [torch.from_numpy(t) for t in tsk.build_tables(layout, True)]
+    exc, match = ValueError, r"\(4, 128, \d+\)"
+    if bad == "dtype":
+        k = k.double()
+        exc, match = TypeError, "float64"
+    elif bad == "head_dim":
+        q = k = v = torch.zeros(4, S, 32)
+    elif bad == "block":
+        block = 8
+    elif bad == "seq":
+        block = 48
+    elif bad == "heads":
+        H = 3
+    else:
+        tables = [t.long() for t in tables]
+        match = "int32"
+    with pytest.raises(exc, match=match):
+        tsk._check("sparse_fwd", block, H, q, k, v, tables=tables[:2])
