@@ -4,13 +4,15 @@ NVIDIA GPU: builds the hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, serves
 full-width Mistral-7B (seeded random weights) through ``pipeline()`` and
 ``generate()`` over a bf16 and an int8 KV pool and through the v1
-``init_inference()`` engine, trains full-width Mistral-7B at 4 layers
+``init_inference()`` engine, then with weight-only quantized weights
+(int8 and int4 on the v2 engine, int8 on the v1 engine), trains
+full-width Mistral-7B at 4 layers
 through ``initialize()`` and ``train_batch()``, runs block-sparse attention
 forward and backward through ``SparseSelfAttention`` at Mistral-7B
 attention width, and checks that every path ran through its kernels.
 
     python3 chip_smoke.py            # needs one CUDA card; exit 0 = ok
-    python3 chip_smoke.py --kernels-only   # phases 1-4 only, no result
+    python3 chip_smoke.py --kernels-only   # phases 1-4b only, no result
 
 Phases, in the order they run (each raises on failure, so the run cannot
 exit 0):
@@ -53,11 +55,25 @@ exit 0):
    operations bound (sparse_work) and the library yardstick
    (scaled_dot_product_attention with the layout as a boolean mask, and
    its autograd backward for the dq + dkv pair);
+4b. quantizer and RMSNorm kernel phases: quantize_blocks and
+   dequantize_blocks on one Mistral-7B layer's w_gate and w_down (bf16,
+   block 2048, bits 8 and 4, int4 through pack / unpack), on edge inputs
+   (a ragged tail n = 2048 * 5 + 777, an all-zero block, values that
+   land exactly on .5 after the division) in f32 / bf16 / fp16, and on
+   the element-wise route (block 1000, a source off 16-byte alignment):
+   q, scales and f32 / bf16 / fp16 outputs bit-equal to the plain
+   versions; rms_norm(use_pallas=True) at [4608, 4096], [8, 4096] and
+   [4096, 4096] bf16, [4608, 4096] fp32 and h 4100, one launch per call
+   (none for use_pallas=False), within 1e-5 (fp32) or one bf16 rounding
+   (2**-7 |plain| + 1e-6) of rms_norm_ref; times, bytes bound and plain
+   times (library: F.rms_norm; none computes blockwise quantization);
 5. small fp32 serve checks on a tiny model: kernel engine vs plain engine,
    put() logits within 1e-4 and generate() streams equal, for the bf16-
    style pool and for the int8 kv_quant pool; the v1 engine with the
    dense decode kernel vs its decode_kernel=False einsum route, decode
-   logits within 1e-4 and generate() streams equal;
+   logits within 1e-4 and generate() streams equal; WOQ engines (bits 8
+   and 4, v2 and v1) vs dense engines built from their own dequantized
+   weights, logits within 1e-4 and streams equal;
 6. serve: Mistral-7B, 32 layers, bf16, pipeline() answers 8 requests
    (prompts 128-1024 tokens, 64 new tokens, greedy) and generate() runs
    them with decode_window 8; launch counts must equal 32 x steps, one
@@ -77,7 +93,16 @@ exit 0):
    (init_inference()): 8 prompts of 512 tokens, 64 new tokens, greedy,
    32 x 63 dense decode launches, identical tokens on a repeat, prefill
    ms and decode tokens/s, and the profile of the prefill and of 8
-   decode steps; then the serving engines are freed;
+   decode steps; then, on the same weight tensors, the WOQ phases:
+   init_inference(use_ragged=True, quant_bits=8) (8 prompts, 64 new),
+   quant_bits=4 (16 new) and the v1 engine with quant_bits=8 (8 x 512,
+   16 new): 9 quantized leaves, 7 x 32 + 2 quantize launches at init,
+   dequantize launches as the path predicts (7 x 32 per ragged or decode
+   step plus 2 per call or window), resident bytes <= 0.51 / 0.26 of
+   bf16, extra peak memory in generate() within two dense layers + the
+   dense embedding and head + 1.5 GiB, finite logits, a fresh engine's
+   identical streams, decode tokens/s beside the bf16 engine's in the
+   same call, and profiles; then the serving engines are freed;
 7. a small fp32 training check: a tiny model (hd 64, flash from S 128)
    trained 3 steps by a kernel engine and by a use_flash=False engine on
    the same weights, losses within 1e-5;
@@ -119,6 +144,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12            # f32 outside the tensor cores
 TOL = 1e-2
 
 NH, KVH, HD, BS = 32, 8, 128, 64   # Mistral-7B attention geometry
@@ -126,6 +152,8 @@ TRAIN_B, TRAIN_S = 2, 2048         # micro-batch rows x sequence (train)
 FLASH_SRC = "deepspeed_tpu_torch/csrc/flash_attention.cu"
 SPARSE_SRC = "deepspeed_tpu_torch/csrc/sparse_attention.cu"
 SPARSE_S = 8192                    # sparse attention sequence (B 1)
+QUANT_SRC = "deepspeed_tpu_torch/csrc/quantizer.cu"
+WOQ_BLOCK = 2048                   # the WOQ quant block (quantize_params)
 
 
 def log(msg):
@@ -152,9 +180,9 @@ def time_ms(fn, flush, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -643,6 +671,63 @@ def small_fp32_check(dev):
                              "disagrees with the einsum route")
 
 
+def small_woq_check(dev):
+    """Weight-only quantization on the tiny fp32 model: a WOQ engine
+    (bits 8 and 4) against a dense engine built from its own dequantized
+    weights, for the v2 and the v1 engine: logits within 1e-4, generate()
+    streams equal (the kernels dequantize exactly what the dense engine
+    holds)."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.quantization import dequantize_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import TransformerLM, tiny_test
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = TransformerLM(dataclasses.replace(tiny_test(), num_kv_heads=2))
+
+    def engine(bits, params):
+        return InferenceEngineV2(model, RaggedInferenceEngineConfig.from_dict(
+            {"dtype": "float32", "prefill_bucket": 16, "decode_window": 8,
+             "quant_bits": bits,
+             "state_manager": {"max_tracked_sequences": 8, "max_seq_len": 128,
+                               "num_blocks": 65, "block_size": 16}}),
+            params=params, device=dev)
+
+    params = engine(0, None).params
+    prompts = [list(range(3, 17)), [2, 4, 6], list(range(40, 62))]
+    ids = np.array([p[:3] for p in prompts])
+    for bits in (8, 4):
+        woq = engine(bits, params)
+        dense = engine(0, dequantize_params(woq.params))
+        gap = float(np.abs(woq.put([1, 2, 3], prompts)
+                           - dense.put([1, 2, 3], prompts)).max())
+        for e in (woq, dense):
+            for u in (1, 2, 3):
+                e.flush(u)
+        same = all(np.array_equal(x, y) for x, y in zip(
+            woq.generate(prompts, max_new_tokens=20),
+            dense.generate(prompts, max_new_tokens=20)))
+        v1 = deepspeed_tpu_torch.init_inference(
+            model, config={"dtype": "fp32", "quant_bits": bits},
+            params=params, device=dev)
+        v1d = deepspeed_tpu_torch.init_inference(
+            model, config={"dtype": "fp32"},
+            params=dequantize_params(v1.params), device=dev)
+        v1_gap = (v1.forward(ids) - v1d.forward(ids)).abs().max().item()
+        v1_same = np.array_equal(v1.generate(ids, max_new_tokens=20),
+                                 v1d.generate(ids, max_new_tokens=20))
+        log(f"small fp32 check, quant_bits {bits}: v2 put logits max|woq - "
+            f"dense| {gap:.3e}, streams equal {same}; v1 forward logits "
+            f"{v1_gap:.3e}, streams equal {v1_same}")
+        if not (gap <= 1e-4 and same and v1_gap <= 1e-4 and v1_same):
+            raise AssertionError(f"fp32 WOQ engines (bits {bits}) disagree "
+                                 f"with the dense engines of their weights")
+
+
 # ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
@@ -761,7 +846,10 @@ def serve_phase(dev):
     profile_phase(eng, prompts, eng.decode_window)
     launches.update(q8_serve_phase(dev, cfg, eng, prompts, new, logits,
                                    f32))
-    launches.update(v1_serve_phase(dev, cfg, eng.params))
+    v1_launches, v1_ids, v1_out = v1_serve_phase(dev, cfg, eng.params)
+    launches.update(v1_launches)
+    launches.update(woq_serve_phases(dev, cfg, eng, prompts, gen, logits,
+                                     v1_ids, v1_out))
     return launches
 
 
@@ -928,7 +1016,286 @@ def v1_serve_phase(dev, cfg, params):
     log_profile(f"v1 decode (per step, {B} rows)", both_wall - pre_wall,
                 minus(both_k, pre_k), 8)
     del eng
-    return launches
+    return launches, ids, out
+
+
+# ---------------------------------------------------------------------------
+# weight-only quantized serve phases
+# ---------------------------------------------------------------------------
+WOQ_LEAVES = {("layers", k) for k in ("wq", "wk", "wv", "wo", "w_gate",
+                                      "w_up", "w_down")} | {("embed",),
+                                                           ("lm_head",)}
+
+
+def woq_weights(eng, dense_params, bits, L):
+    """The quantized leaves, the quantize launches of the engine's init
+    and its resident weight bytes against the dense tree's."""
+    from deepspeed_tpu_torch.inference.quantization import (
+        QuantizedTensor, _flatten, quantized_nbytes)
+
+    paths = {p for p, leaf in _flatten(eng.params)
+             if isinstance(leaf, QuantizedTensor)}
+    if paths != WOQ_LEAVES:
+        raise AssertionError(f"quantized leaves {sorted(paths)}, want "
+                             f"{sorted(WOQ_LEAVES)}")
+    ratio = quantized_nbytes(eng.params) / quantized_nbytes(dense_params)
+    limit = 0.51 if bits == 8 else 0.26
+    log(f"woq{bits}: {len(paths)} quantized leaves; resident weights "
+        f"{quantized_nbytes(eng.params) / 2**30:.3f} GiB = {ratio:.4f} x "
+        f"the bf16 tree's {quantized_nbytes(dense_params) / 2**30:.3f} GiB "
+        f"(limit {limit})")
+    if not ratio <= limit:
+        raise AssertionError(f"woq{bits}: resident weight bytes {ratio:.4f}"
+                             f" x bf16 > {limit}")
+
+
+def woq_memory_limit(dense_params):
+    """What generate() may add at peak: two layers' dense weights (the
+    layer being dequantized and the one before it), the dense embedding
+    and head, and 1.5 GiB of activations."""
+    layers = dense_params["layers"]
+    layer = sum(layers[k][0].numel() * layers[k][0].element_size()
+                for _, k in sorted(p for p in WOQ_LEAVES if len(p) == 2))
+    nonlayer = sum(dense_params[k].numel() * dense_params[k].element_size()
+                   for k in ("embed", "lm_head"))
+    return layer, nonlayer, 2 * layer + nonlayer + 1.5 * 2**30
+
+
+def woq_serve_phase(dev, cfg, bf16_eng, prompts, bits, new, bf16_gen,
+                    bf16_logits):
+    """init_inference(use_ragged=True, quant_bits=bits) on the bf16 serve
+    phase's weight tensors: quantize at init, then generate() over the
+    phase's 8 prompts with decode_window 8."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+
+    L, N = cfg.num_layers, len(prompts)
+
+    def build():
+        qk.quantize_blocks.launches = 0
+        e = deepspeed_tpu_torch.init_inference(
+            TransformerLM(cfg), params=bf16_eng.params, device=dev,
+            config={"dtype": "bfloat16", "use_ragged": True,
+                    "quant_bits": bits,
+                    "ragged": {"decode_window": 8, "state_manager": {
+                        "max_ragged_batch_size": 8192}}})
+        torch.cuda.synchronize()
+        return e, qk.quantize_blocks.launches
+
+    # -- the main path (1): quantize at init -------------------------------
+    t0 = time.perf_counter()
+    eng, q_launches = build()
+    init_s = time.perf_counter() - t0
+    log(f"woq{bits}: init_inference(use_ragged=True, quant_bits={bits}) in "
+        f"{init_s:.2f}s, quantize_blocks launches {q_launches}")
+    if q_launches != 7 * L + 2:
+        raise AssertionError(f"woq{bits}: {q_launches} quantize launches at "
+                             f"init, want 7 x {L} + 2")
+    woq_weights(eng, bf16_eng.params, bits, L)
+    eng.generate([prompts[0][:64]], max_new_tokens=4)           # warm-up
+
+    layer, nonlayer, limit = woq_memory_limit(bf16_eng.params)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = dict(ragged=eng.ragged_steps, decode=eng.decode_steps,
+                  syncs=eng.host_syncs, windows=eng.decode_windows)
+    qk.dequantize_blocks.launches = 0
+    # -- the main path (2): generate() ---------------------------------------
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    d_launches = qk.dequantize_blocks.launches
+    extra = torch.cuda.max_memory_allocated() - base
+    steps = dict(ragged=eng.ragged_steps - before["ragged"],
+                 decode=eng.decode_steps - before["decode"],
+                 syncs=eng.host_syncs - before["syncs"],
+                 windows=eng.decode_windows - before["windows"])
+    want = 7 * L * (steps["ragged"] + steps["decode"]) \
+        + 2 * (steps["ragged"] + steps["windows"])
+    ttft = eng.last_ttft_s
+    log(f"woq{bits}: generate {N} requests, {new} new tokens, in "
+        f"{gen_s:.2f}s (TTFT {ttft * 1e3:.1f} ms for the {N}-prompt put, "
+        f"decode {N * (new - 1) / (gen_s - ttft):.1f} tokens/s); steps "
+        f"{steps}; "
+        f"dequantize_blocks launches {d_launches} (want {want})")
+    log(f"woq{bits}: extra peak memory in generate() "
+        f"{extra / 2**30:.3f} GiB (limit {limit / 2**30:.3f}: two layers "
+        f"{2 * layer / 2**30:.3f} + embed and head {nonlayer / 2**30:.3f} "
+        f"+ 1.5 activations)")
+    for g, p in zip(gen, prompts):
+        if len(g) != len(p) + new or not ((g >= 0)
+                                          & (g < cfg.vocab_size)).all():
+            raise AssertionError(f"woq{bits}: a request did not get all its "
+                                 f"tokens in [0, vocab)")
+    if d_launches != want or steps["ragged"] == 0 or steps["decode"] == 0:
+        raise AssertionError(f"woq{bits}: dequantize launches {d_launches} "
+                             f"!= {want} for steps {steps}")
+    if steps["syncs"] != steps["windows"]:
+        raise AssertionError(f"woq{bits}: {steps['syncs']} host syncs for "
+                             f"{steps['windows']} decode windows")
+    if not extra <= limit:
+        raise AssertionError(f"woq{bits}: generate() added {extra} bytes at "
+                             f"peak > {limit}: a dense copy of the stack?")
+    twin, _ = build()
+    gen2 = twin.generate(prompts, max_new_tokens=new)
+    del twin
+    if not all(np.array_equal(a, b) for a, b in zip(gen, gen2)):
+        raise AssertionError(f"woq{bits}: a fresh engine's generate() gave "
+                             f"other streams")
+    uids = list(range(1000, 1000 + N))
+    logits = eng.put(uids, prompts)
+    for u in uids:
+        eng.flush(u)
+    if logits.shape != (N, cfg.vocab_size) or not np.isfinite(logits).all():
+        raise AssertionError(f"woq{bits}: put() logits not finite / wrong "
+                             f"shape")
+    # the bf16 engine on the same prompts and budget, in this call: bf16,
+    # woq, bf16 (host-bound decode rates drift between calls)
+    rates = []
+    for e in (bf16_eng, eng, bf16_eng):
+        t0 = time.perf_counter()
+        e.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        rates.append(N * (new - 1) / (time.perf_counter() - t0
+                                      - e.last_ttft_s))
+    log(f"woq{bits}: decode tokens/s at {new} new tokens, bf16 / woq{bits} "
+        f"/ bf16: {rates[0]:.1f} / {rates[1]:.1f} / {rates[2]:.1f} "
+        f"(woq{bits} at {2 * rates[1] / (rates[0] + rates[2]):.3f}x bf16)")
+    agree = np.mean([np.mean(a[len(p):] == b[len(p):len(p) + new])
+                     for a, b, p in zip(gen, bf16_gen, prompts)])
+    log(f"woq{bits}: a fresh engine's streams identical; put() logits "
+        f"max|woq - bf16| {float(np.abs(logits - bf16_logits).max()):.4f}, "
+        f"argmax agreement "
+        f"{float((logits.argmax(-1) == bf16_logits.argmax(-1)).mean()):.3f}"
+        f"; generated-token agreement with bf16 {agree:.3f} "
+        f"(informational)")
+    profile_phase(eng, prompts, eng.decode_window, f"woq{bits} ")
+    del eng
+    return {"quantize_blocks": q_launches, "dequantize_blocks": d_launches}
+
+
+def woq_v1_phase(dev, cfg, params, ids, bf16_out, new=16):
+    """The v1 engine under quant_bits=8 on the serve phase's weights: the
+    v1 phase's 8 prompts of 512 tokens, 16 new tokens, greedy."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+
+    L, (B, S) = cfg.num_layers, ids.shape
+    qk.quantize_blocks.launches = 0
+    # -- the main path (1): quantize at init -------------------------------
+    eng = deepspeed_tpu_torch.init_inference(
+        TransformerLM(cfg), params=params, dtype="bf16", quant_bits=8,
+        device=dev)
+    torch.cuda.synchronize()
+    q_launches = qk.quantize_blocks.launches
+    log(f"woq8 v1: init_inference(quant_bits=8): quantize_blocks launches "
+        f"{q_launches}")
+    if q_launches != 7 * L + 2:
+        raise AssertionError(f"woq8 v1: {q_launches} quantize launches, "
+                             f"want 7 x {L} + 2")
+    woq_weights(eng, params, 8, L)
+    eng.generate(ids[:, :64], max_new_tokens=4)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(ids, max_new_tokens=1)      # prefill + one sample, no decode
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    layer, nonlayer, limit = woq_memory_limit(params)
+    # the v1 engine allocates its dense KV cache inside each call
+    cache = 2 * L * B * cfg.kv_heads * (S + new) * cfg.head_dim * 2
+    limit += cache
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    qk.dequantize_blocks.launches = 0
+    # -- the main path (2): generate() ---------------------------------------
+    t0 = time.perf_counter()
+    out = eng.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    d_launches = qk.dequantize_blocks.launches
+    extra = torch.cuda.max_memory_allocated() - base
+    # the embedding and head once per call; every layer once for the
+    # prefill and once for each of the new - 1 decode forwards
+    want = 2 + 7 * L * new
+    decode_s = gen_s - prefill_s
+    log(f"woq8 v1: B={B} prompt {S} new {new}: generate {gen_s:.2f}s, "
+        f"prefill {prefill_s * 1e3:.1f} ms, decode "
+        f"{B * (new - 1) / decode_s:.1f} tokens/s "
+        f"({decode_s / (new - 1) * 1e3:.2f} ms/step); dequantize_blocks "
+        f"launches {d_launches} (want {want}); extra peak memory "
+        f"{extra / 2**30:.3f} GiB (limit {limit / 2**30:.3f}, the KV cache "
+        f"{cache / 2**30:.3f} of it)")
+    if out.shape != (B, S + new) or not np.array_equal(out[:, :S], ids) or \
+            not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"woq8 v1: generate() returned {out.shape} / "
+                             f"ids out of [0, vocab)")
+    if d_launches != want:
+        raise AssertionError(f"woq8 v1: dequantize launches {d_launches} != "
+                             f"{want}")
+    if not extra <= limit:
+        raise AssertionError(f"woq8 v1: generate() added {extra} bytes at "
+                             f"peak > {limit}: a dense copy of the stack?")
+    twin = deepspeed_tpu_torch.init_inference(
+        TransformerLM(cfg), params=params, dtype="bf16", quant_bits=8,
+        device=dev)
+    again = twin.generate(ids, max_new_tokens=new)
+    del twin
+    if not np.array_equal(out, again):
+        raise AssertionError("woq8 v1: a fresh engine's generate() gave "
+                             "other tokens")
+    logits = eng.forward(ids[:, :64])
+    if not torch.isfinite(logits).all():
+        raise AssertionError("woq8 v1: forward() logits not finite")
+    # the bf16 v1 engine on the same weights, prompts and budget, in this
+    # call: bf16, woq8, bf16 (prefill + new tokens, and the prefill alone)
+    bf16 = deepspeed_tpu_torch.init_inference(TransformerLM(cfg),
+                                              params=params, dtype="bf16",
+                                              device=dev)
+    rates = []
+    for e in (bf16, eng, bf16):
+        walls = []
+        for n_new in (1, new):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.generate(ids, max_new_tokens=n_new)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        rates.append(B * (new - 1) / (walls[1] - walls[0]))
+    del bf16
+    log(f"woq8 v1: decode tokens/s at {new} new tokens, bf16 / woq8 / "
+        f"bf16: {rates[0]:.1f} / {rates[1]:.1f} / {rates[2]:.1f} (woq8 at "
+        f"{2 * rates[1] / (rates[0] + rates[2]):.3f}x bf16)")
+    agree = float(np.mean(out[:, S:] == bf16_out[:, S:S + new]))
+    log(f"woq8 v1: a fresh engine's tokens identical; generated-token "
+        f"agreement with bf16 v1 {agree:.3f} (informational)")
+    _, pre_wall, pre_k = profiled(lambda: eng.generate(ids, max_new_tokens=1))
+    _, both_wall, both_k = profiled(
+        lambda: eng.generate(ids, max_new_tokens=9))
+    log_profile(f"woq8 v1 prefill ({B} x {S} tokens)", pre_wall, pre_k)
+    log_profile(f"woq8 v1 decode (per step, {B} rows)", both_wall - pre_wall,
+                minus(both_k, pre_k), 8)
+    del eng
+    return {"quantize_blocks": q_launches, "dequantize_blocks": d_launches}
+
+
+def woq_serve_phases(dev, cfg, bf16_eng, prompts, bf16_gen, bf16_logits,
+                     v1_ids, v1_out):
+    """int8 and int4 WOQ on the v2 engine, int8 on the v1 engine; the
+    launch counts of the three main paths summed."""
+    runs = [woq_serve_phase(dev, cfg, bf16_eng, prompts, 8, 64, bf16_gen,
+                            bf16_logits),
+            woq_serve_phase(dev, cfg, bf16_eng, prompts, 4, 16, bf16_gen,
+                            bf16_logits),
+            woq_v1_phase(dev, cfg, bf16_eng.params, v1_ids, v1_out)]
+    return {k: sum(r[k] for r in runs)
+            for k in ("quantize_blocks", "dequantize_blocks")}
 
 
 def profiled(fn):
@@ -1474,6 +1841,201 @@ def sparse_op_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# weight-only quantization and RMSNorm kernel phases
+# ---------------------------------------------------------------------------
+def halfway_block(block, qrange, k, dev):
+    """A block whose scale is exactly 2**k (absmax = qrange * 2**k) and
+    whose other elements are (m + 0.5) * 2**k: x / scale lands exactly on
+    .5, where rintf (half to even) and roundf (half away) differ."""
+    m = torch.arange(block, dtype=torch.float32, device=dev) \
+        % (2 * int(qrange)) - qrange
+    x = (m + 0.5) * 2.0 ** k
+    x[0] = qrange * 2.0 ** k
+    return x
+
+
+def quant_edge_input(gen, dev, bits):
+    """n = 2048 * 5 + 777: a random block, an all-zero block, a half-way
+    block, a block of tiny values, a random block, then a ragged tail."""
+    qrange = 127.0 if bits == 8 else 7.0
+    return torch.cat([
+        torch.randn(WOQ_BLOCK, generator=gen, device=dev) * 3.0,
+        torch.zeros(WOQ_BLOCK, device=dev),
+        halfway_block(WOQ_BLOCK, qrange, -2, dev),
+        torch.randn(WOQ_BLOCK, generator=gen, device=dev) * 1e-3,
+        torch.randn(WOQ_BLOCK + 777, generator=gen, device=dev)])
+
+
+def check_quant(name, x, block, bits):
+    """quantize_blocks then dequantize_blocks (f32, bf16, fp16 out; int4
+    through pack / unpack) against the plain versions: bit-equal. Returns
+    the largest difference seen (0.0)."""
+    from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+    from deepspeed_tpu_torch.ops.quantizer import pack_int4, unpack_int4
+
+    q, s = qk.quantize_blocks(x, block, bits)
+    qp, sp = qk.quantize_blocks_plain(x, block, bits)
+    torch.cuda.synchronize()
+    err = max((q.int() - qp.int()).abs().max().item(),
+              (s - sp).abs().max().item())
+    if not (torch.equal(q, qp) and torch.equal(s, sp)):
+        raise AssertionError(f"quantize_blocks {name}: q / scales differ "
+                             f"from the plain version (max diff {err})")
+    qv = unpack_int4(pack_int4(q)) if bits == 4 else q
+    n = x.numel()
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        out = qk.dequantize_blocks(qv, s, dt, n=n)
+        ref = qk.dequantize_blocks_plain(qv, s, dt, n=n)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs().max().item()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"dequantize_blocks {name} -> {dt}: differs "
+                                 f"from the plain version (max diff {d})")
+        err = max(err, d)
+    log(f"quantize / dequantize {name}: bits {bits}, block {block}, "
+        f"n {n}: q, scales and f32 / bf16 / fp16 outputs bit-equal")
+    return err
+
+
+def woq_kernel_phases(dev, flush):
+    """quantize_blocks / dequantize_blocks at one Mistral-7B layer's w_gate
+    and w_down (bf16, block 2048, bits 8 and 4), edge inputs (a ragged
+    tail, a zero block, half-way values) in f32 / bf16 / fp16 and the
+    element-wise route (block 1000, a misaligned source); then RMSNorm."""
+    from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    H, F = 4096, 14336
+    weights = {"w_gate": torch.randn((H, F), generator=gen, device=dev,
+                                     dtype=torch.bfloat16) * 0.02,
+               "w_down": torch.randn((F, H), generator=gen, device=dev,
+                                     dtype=torch.bfloat16) * 0.02}
+    err = 0.0
+    for bits in (8, 4):
+        for name, w in weights.items():
+            err = max(err, check_quant(f"{name} {tuple(w.shape)} bf16", w,
+                                       WOQ_BLOCK, bits))
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            x = quant_edge_input(gen, dev, bits).to(dt)
+            err = max(err, check_quant(f"edge input {dt}", x, WOQ_BLOCK,
+                                       bits))
+        x = quant_edge_input(gen, dev, bits).to(torch.bfloat16)[1:]
+        err = max(err, check_quant("element-wise route (block 1000, source "
+                                   "off 16-byte alignment)", x, 1000, bits))
+
+    w = weights["w_gate"]
+    n = w.numel()
+    nb = n // WOQ_BLOCK
+    q, s = qk.quantize_blocks(w, WOQ_BLOCK, 8)
+    # quantize reads bf16 and writes int8 + one f32 per block; dequantize
+    # the reverse; ~6 f32 operations per element (abs, max, divide, round,
+    # clamp) and 1 (the multiply)
+    io_bytes = n * 2 + n + nb * 4
+    results = {}
+    b_ms, b_by = bound(io_bytes, 6 * n, F32_FLOPS_PER_S)
+    results["quantize_blocks"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: qk.quantize_blocks(w, WOQ_BLOCK, 8), flush),
+        plain_ms=time_ms(lambda: qk.quantize_blocks_plain(w, WOQ_BLOCK, 8),
+                         flush, reps=5),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound(io_bytes, n, F32_FLOPS_PER_S)
+    results["dequantize_blocks"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: qk.dequantize_blocks(q, s, torch.bfloat16, n=n),
+                   flush),
+        plain_ms=time_ms(lambda: qk.dequantize_blocks_plain(
+            q, s, torch.bfloat16, n=n), flush, reps=5),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del weights, w, q, s
+    results.update(rms_norm_phases(dev, flush))
+    for name, r in results.items():
+        lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"{name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={lib} bound_ms={r['bound_ms']:.5f} "
+            f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
+    return results
+
+
+def rms_norm_phases(dev, flush):
+    """rms_norm(x, w, 1e-5, use_pallas=True), the op's entry, at a ragged
+    step [4608, 4096], a decode step [8, 4096] and a train micro-batch
+    [4096, 4096] in bf16, the ragged step in fp32, and h 4100 (no multiple
+    of the vector width): one launch per call, none for use_pallas=False;
+    against rms_norm_ref within 1e-5 (fp32) or one bf16 rounding
+    (2**-7 |plain| + 1e-6)."""
+    from deepspeed_tpu_torch.ops.norms import (rms_norm, rms_norm_kernel,
+                                               rms_norm_ref)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    cases = [("ragged step", (4608, 4096), torch.bfloat16),
+             ("decode step", (8, 4096), torch.bfloat16),
+             ("train micro-batch", (4096, 4096), torch.bfloat16),
+             ("ragged step fp32", (4608, 4096), torch.float32),
+             ("h 4100", (37, 4100), torch.bfloat16)]
+    inputs = [(label, torch.randn(shape, generator=gen, device=dev,
+                                  dtype=dt) * 2.0,
+               (0.5 + torch.rand(shape[-1], generator=gen,
+                                 device=dev)).to(dt))
+              for label, shape, dt in cases]
+    torch.cuda.synchronize()
+    rms_norm_kernel.launches = 0
+    # -- the main path: the op entry, one launch per call -------------------
+    outs = [rms_norm(x, w, 1e-5, use_pallas=True) for _, x, w in inputs]
+    rms_norm(inputs[0][1], inputs[0][2], 1e-5)      # use_pallas=False
+    torch.cuda.synchronize()
+    launches = rms_norm_kernel.launches
+    if launches != len(inputs):
+        raise AssertionError(f"rms_norm launches {launches} for "
+                             f"{len(inputs)} use_pallas=True calls")
+    # a bf16 x with an f32 weight (the kernel reads each in its own dtype)
+    x, w = inputs[1][1], inputs[1][2].float()
+    checks = [(label, x, w, out) for (label, x, w), out in zip(inputs, outs)]
+    checks.append(("decode step, f32 weight", x, w,
+                   rms_norm(x, w, 1e-5, use_pallas=True)))
+    err = 0.0
+    for label, x, w, out in checks:
+        ref = rms_norm_ref(x, w, 1e-5)
+        diff = (out.float() - ref.float()).abs()
+        if x.dtype == torch.float32:
+            ok = bool((diff <= 1e-5).all())
+            tol = "1e-5"
+        else:
+            ok = bool((diff <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
+            tol = "2**-7 |plain| + 1e-6"
+        e = diff.max().item()
+        log(f"rms_norm {label} {tuple(x.shape)} {x.dtype}: max_abs_err="
+            f"{e:.3e} (tolerance {tol})")
+        if not (ok and out.shape == x.shape and out.dtype == x.dtype
+                and torch.isfinite(out).all()):
+            raise AssertionError(f"rms_norm {label}: the kernel disagrees "
+                                 f"with rms_norm_ref ({e})")
+        err = max(err, e)
+    _, x, w = inputs[0]
+    rows, h = x.shape
+    F = torch.nn.functional
+    lib_ms = None
+    if hasattr(F, "rms_norm"):
+        lib = F.rms_norm(x, (h,), w, 1e-5)
+        gap = (lib.float() - rms_norm_ref(x, w, 1e-5).float()).abs().max()
+        # F.rms_norm casts x * rsqrt(var + eps) back to bf16 before the
+        # weight multiply; the port (and JAX) multiply in f32, cast once
+        log(f"rms_norm library yardstick F.rms_norm bf16: max|lib - plain| "
+            f"{gap.item():.3e} (rounds before the weight multiply; "
+            f"informational)")
+        lib_ms = time_ms(lambda: F.rms_norm(x, (h,), w, 1e-5), flush)
+    b_ms, b_by = bound(2 * rows * h * 2 + h * 2, 4 * rows * h,
+                       F32_FLOPS_PER_S)
+    return {"rms_norm": dict(
+        max_abs_err=err, launches=launches,
+        ms=time_ms(lambda: rms_norm(x, w, 1e-5, use_pallas=True), flush),
+        plain_ms=time_ms(lambda: rms_norm_ref(x, w, 1e-5), flush, reps=5),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)}
+
+
+# ---------------------------------------------------------------------------
 # small fp32 training check
 # ---------------------------------------------------------------------------
 SMALL_TRAIN_CONFIG = {
@@ -1625,11 +2187,15 @@ def main() -> int:
     results = kernel_phases(dev, flush)
     results.update(flash_phases(dev, flush))
     results.update(sparse_phases(dev, flush))
+    results.update(woq_kernel_phases(dev, flush))
+    rms_launches = results["rms_norm"].pop("launches")
     del flush
     if "--kernels-only" in sys.argv:
         return 0    # a build-and-compare run; no result line
     small_fp32_check(dev)
+    small_woq_check(dev)
     launches = serve_phase(dev)
+    launches["rms_norm"] = rms_launches
     gc.collect()
     torch.cuda.empty_cache()    # the serving engine is gone
     small_train_check(dev)
@@ -1669,7 +2235,13 @@ def main() -> int:
                "sparse_bwd_dq": (SPARSE_SRC,
                                  "deepspeed_tpu/ops/sparse_kernels.py:190"),
                "sparse_bwd_dkv": (SPARSE_SRC,
-                                  "deepspeed_tpu/ops/sparse_kernels.py:222")}
+                                  "deepspeed_tpu/ops/sparse_kernels.py:222"),
+               "quantize_blocks": (QUANT_SRC, "deepspeed_tpu/ops/"
+                                   "quantizer_kernels.py:28"),
+               "dequantize_blocks": (QUANT_SRC, "deepspeed_tpu/ops/"
+                                     "quantizer_kernels.py:37"),
+               "rms_norm": ("deepspeed_tpu_torch/csrc/rms_norm.cu",
+                            "deepspeed_tpu/ops/norms.py:23")}
     kernels = []
     for name, r in results.items():
         src, replaces = sources[name]

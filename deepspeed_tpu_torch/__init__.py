@@ -9,11 +9,12 @@ anything of ``deepspeed_tpu``. Its kernels are hand-written for Hopper
 It serves: ``pipeline()`` / ``init_inference(use_ragged=True)`` over the
 ragged v2 engine (``inference/v2``, with the int8 KV pool under
 ``kv_quant``), and plain ``init_inference()`` over the v1 dense-cache
-engine (``inference/engine.py``). It trains: ``initialize()`` returns
-the one-GPU :class:`~.runtime.engine.DeepSpeedTpuEngine` (ZeRO stage 0),
-whose ``train_batch()`` runs the flash-attention kernels forward and
-backward. Entry points run on the GPU unless the caller passes
-``device="cpu"``.
+engine (``inference/engine.py``); under ``quant_bits`` 8 or 4 both keep
+their weights quantized (``inference/quantization.py``). It trains:
+``initialize()`` returns the one-GPU
+:class:`~.runtime.engine.DeepSpeedTpuEngine` (ZeRO stage 0), whose
+``train_batch()`` runs the flash-attention kernels forward and backward.
+Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -10,9 +10,14 @@ Python loop whose tokens stay on the device until one host transfer at the
 end, and which, as in JAX, skips the last step's forward (it would never
 be sampled): a call runs ``max_new_tokens - 1`` decode forwards.
 
+Under ``quant_bits`` 8 or 4 the weights rest quantized
+(``inference/quantization.py``): ``forward`` and ``generate`` dequantize
+the embedding and the head once per call, and the model's layer loop one
+layer at a time.
+
 Not ported yet, each raising ``NotImplementedError``: tensor parallelism
-(``tensor_parallel.tp_size`` > 1, ROADMAP A8), ``checkpoint`` loading (A5)
-and weight-only quantization (``quant_bits``, A6b).
+(``tensor_parallel.tp_size`` > 1, ROADMAP A8) and ``checkpoint`` loading
+(A5).
 """
 
 from typing import Optional
@@ -22,6 +27,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .config import DeepSpeedInferenceConfig
+from .quantization import dequantize_nonlayer, quantize_params
 from .v2.engine_v2 import DTYPES, _cast_tree
 
 
@@ -41,10 +47,6 @@ class InferenceEngine:
             raise NotImplementedError(
                 "init_inference(checkpoint=...) is not ported to "
                 "deepspeed_tpu_torch yet (ROADMAP A5); pass params")
-        if config.quant_bits:
-            raise NotImplementedError(
-                "weight-only quantization (quant_bits) is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A6b)")
         self.module = self.model = model
         self.config = config
         self.device = resolve_device(device)
@@ -55,12 +57,18 @@ class InferenceEngine:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             self.params = model.init_params(gen, dtype=self.dtype)
+        if config.quant_bits:
+            # quantize_params validates bits in {4, 8}: an invalid value
+            # raises instead of serving unquantized weights
+            self.params, self._qmeta = quantize_params(
+                self.params, bits=config.quant_bits)
 
     def forward(self, input_ids, **_kw):
         """Plain logits forward (reference engine.forward)."""
         ids = torch.as_tensor(np.asarray(input_ids), device=self.device)
         with torch.no_grad():
-            return self.model.forward_logits(self.params, ids)
+            return self.model.forward_logits(
+                dequantize_nonlayer(self.params), ids)
 
     __call__ = forward
 
@@ -93,7 +101,7 @@ class InferenceEngine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         toks = generate_tokens(
-            self.model, self.params,
+            self.model, dequantize_nonlayer(self.params),
             torch.as_tensor(ids, dtype=torch.int64, device=self.device), gen,
             self.dtype, max_new_tokens=int(max_new_tokens),
             temperature=float(temperature), top_k=int(top_k),

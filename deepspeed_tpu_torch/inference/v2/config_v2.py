@@ -3,10 +3,10 @@
 Port of ``deepspeed_tpu/inference/v2/config_v2.py``: the same two
 dataclasses, fields and defaults. Features the port does not serve yet
 raise ``NotImplementedError`` at construction instead of being ignored:
-weight-only quantization (``quant_bits``), the LoRA bank
-(``max_lora_adapters``), tensor/expert parallelism, the KV spill tier,
-and the stitched ``ragged_attention="off"`` dispatch, whose prefill needs
-the flash-attention kernel. The int8 KV pool (``kv_quant``) is served.
+the LoRA bank (``max_lora_adapters``), tensor/expert parallelism, the KV
+spill tier, and the stitched ``ragged_attention="off"`` dispatch, whose
+prefill needs the flash-attention kernel. The int8 KV pool (``kv_quant``) and
+weight-only quantization (``quant_bits`` 8 or 4) are served.
 """
 
 from dataclasses import dataclass, field
@@ -68,6 +68,8 @@ class RaggedInferenceEngineConfig:
     # hand-written paged/ragged attention kernels; False selects their
     # plain PyTorch versions (for comparison, never as a fallback)
     use_paged_kernel: bool = True
+    # weight-only quantization (0 = off): weights rest as int8 / packed
+    # int4 with per-block f32 scales, dequantized right before use
     quant_bits: int = 0
     # int8 KV pool with per-(block, kv head) f32 scales: ~2x the tokens
     # in the same device memory
@@ -100,8 +102,12 @@ class RaggedInferenceEngineConfig:
             raise _not_ported(
                 "ragged_attention='off' (its stitched prefill runs the "
                 "flash-attention kernel, ops/flash_attention.py)")
-        if self.quant_bits:
-            raise _not_ported("weight-only quantization (quant_bits)")
+        if self.quant_bits and (self.tensor_parallel_size != 1
+                                or self.expert_parallel_size != 1):
+            raise ValueError(
+                "quant_bits requires tensor_parallel_size == "
+                "expert_parallel_size == 1 (shardings are declared "
+                "against dense leaves)")
         if self.max_lora_adapters:
             raise _not_ported("the LoRA adapter bank (max_lora_adapters)")
         if self.tensor_parallel_size != 1 or self.expert_parallel_size != 1:

@@ -14,6 +14,9 @@ reads the [N, K] token block once per window (``host_syncs`` counts
 those reads). There is no jit: PyTorch runs eagerly, and CUDA-graph
 capture of the window is later work.
 
+Under ``quant_bits`` 8 or 4 the weights rest quantized
+(``inference/quantization.py``) and are dequantized right before use.
+
 The engine runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda`` and raises when no GPU is present. On the
 CPU every attention call takes its kernel's plain version.
@@ -63,6 +66,13 @@ class InferenceEngineV2:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             self.params = model.init_params(gen, dtype=self.dtype)
+        if config.quant_bits:
+            # weights rest as int8 / packed int4 with per-block scales,
+            # quantized from the engine's dtype; paged_model dequantizes
+            # the embedding and head per call and one layer at a time
+            from ..quantization import quantize_params
+            self.params, self._qmeta = quantize_params(
+                self.params, bits=config.quant_bits)
 
         self.state_manager = DSStateManager(sm)
         # kv_quant: an int8 pool with per-(block, head) scales, about half

@@ -21,7 +21,12 @@ updated in place and every entry point mutates the ``cache`` dict it is
 given.
 
 The layer loop is a Python loop over views of the stacked ``[L, ...]``
-leaves: ``params["layers"][k][l]`` copies nothing.
+leaves: ``params["layers"][k][l]`` copies nothing. Under weight-only
+quantization (``quant_bits``) the leaves are ``QuantizedTensor``s: every
+entry point dequantizes the embedding and the head at entry (a decode
+window once), and the loop dequantizes one layer's weights at the top of
+its iteration (``inference/quantization.py``), so no dense copy of the
+stack is ever held.
 """
 
 from typing import Dict
@@ -31,6 +36,7 @@ import torch
 from ...models.transformer import (TransformerConfig, dense_mlp, gate_act,
                                    out_proj, qkv_proj, rotary_dims)
 from ...ops.norms import layer_norm, rms_norm
+from ..quantization import dequantize_nonlayer, dequantize_params
 from .kernels.paged_attention import paged_attention, paged_attention_plain
 from .kernels.ragged_attention import (ragged_attention,
                                        ragged_attention_plain)
@@ -200,7 +206,8 @@ def _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
     if ksc is not None:
         touched = touched.long()
     for l in range(cfg.num_layers):
-        lp = {name: leaf[l] for name, leaf in layers.items()}
+        lp = dequantize_params({name: leaf[l]
+                                for name, leaf in layers.items()})
         hn = _norm(cfg, x, lp["attn_norm"], lp.get("attn_norm_b"))
         q, k, v = qkv_proj(lp, hn)
         q = q.reshape(T, nh, hd)
@@ -232,6 +239,7 @@ def paged_decode(cfg: TransformerConfig, params, toks: torch.Tensor,
     per-row write blocks are the write-set's distinct blocks (repeats are
     the null block)."""
     MB = block_tables.shape[1]
+    params = dequantize_nonlayer(params)
     x = _embed(cfg, params, toks)
     cos, sin = _rope_at(cfg, pos)
     # an inactive row's position may sit one past its table; clamp the
@@ -270,6 +278,7 @@ def paged_ragged_step(cfg: TransformerConfig, params, ids: torch.Tensor,
     if "ks" in cache and touched_blocks is None:
         raise ValueError("paged_ragged_step: an int8 pool needs "
                          "touched_blocks (the write-set's distinct blocks)")
+    params = dequantize_nonlayer(params)
     x = _embed(cfg, params, ids)
     cos, sin = _rope_at(cfg, pos)
     attn = ragged_attention if use_kernel else ragged_attention_plain
@@ -303,6 +312,9 @@ def paged_decode_window(cfg: TransformerConfig, params, toks: torch.Tensor,
     step. The extra steps change no live block and emit only -1, so the
     output is the same."""
     N = toks.shape[0]
+    # the embedding and the head once per window; paged_decode's own call
+    # then finds them dense
+    params = dequantize_nonlayer(params)
     active = steps_left > 0
     out = torch.full((N, window), -1, dtype=torch.int32, device=toks.device)
     for s in range(window):

@@ -391,9 +391,16 @@ class TransformerLM:
             from ..runtime.activation_checkpointing import \
                 checkpointing as ds_ckpt
             body = ds_ckpt.checkpoint_wrapper(body)
-        layers = {k: torch.unbind(v) for k, v in params["layers"].items()}
+        from ..inference.quantization import dequantize_params
+
+        # weight-only-quantized leaves are sliced per layer and dequantized
+        # here, one layer at a time (identity on dense params)
+        layers = {k: (torch.unbind(v) if isinstance(v, torch.Tensor) else v)
+                  for k, v in params["layers"].items()}
         for l in range(cfg.num_layers):
-            x = body(x, {k: v[l] for k, v in layers.items()}, cos, sin)
+            x = body(x, dequantize_params({k: v[l]
+                                           for k, v in layers.items()}),
+                     cos, sin)
         return self._norm(x, params["final_norm"], params.get("final_norm_b"))
 
     def _head_inputs(self, params, x):
@@ -520,12 +527,14 @@ class TransformerLM:
         x = params["embed"][input_ids.long()].to(cache["k"].dtype)
         if cfg.embed_scale != 1.0:
             x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
+        from ..inference.quantization import dequantize_params
+
         cos, sin = _rope_tables(cfg, S, start_pos, device=x.device)
         layers = params["layers"]
         for l in range(cfg.num_layers):
-            x = self._layer_cached(x, {k: v[l] for k, v in layers.items()},
-                                   cache["k"][l], cache["v"][l], cos, sin,
-                                   start_pos)
+            lp = dequantize_params({k: v[l] for k, v in layers.items()})
+            x = self._layer_cached(x, lp, cache["k"][l], cache["v"][l], cos,
+                                   sin, start_pos)
         x = self._norm(x, params["final_norm"], params.get("final_norm_b"))
         x, head, bias = self._head_inputs(params, x)
         logits = (x @ head.to(x.dtype)).float()

@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_int64
 # C signature of every entry point, by library name
 SIGNATURES = {
     "paged_attention": {
@@ -82,6 +83,16 @@ SIGNATURES = {
         # q, k, v, do, lse, delta, q_idx, q_valid, dk, dv, bh, nheads, s, d,
         # block, imax, dtype, scale, causal, stream
         "ds_sparse_bwd_dkv": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    },
+    "quantizer": {
+        # x, q, s, n, nb, block, dtype, bits, stream
+        "ds_quantize_blocks": [_P] * 3 + [_L] + [_I] * 4 + [_P],
+        # q, s, out, n, nb, block, dtype, stream
+        "ds_dequantize_blocks": [_P] * 3 + [_L] + [_I] * 3 + [_P],
+    },
+    "rms_norm": {
+        # x, w, out, rows, h, x_dtype, w_dtype, eps, stream
+        "ds_rms_norm": [_P] * 3 + [_I] * 4 + [_F, _P],
     },
 }
 

@@ -330,7 +330,7 @@ def test_entry_points_raise_without_cuda(models, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ragged_attention", "off"), ("quant_bits", 4), ("quant_bits", 8),
+    ("ragged_attention", "off"),
     ("max_lora_adapters", 2), ("tensor_parallel_size", 2),
     ("expert_parallel_size", 2)])
 def test_unported_config_features_raise(field, value):
@@ -362,11 +362,11 @@ def test_generate_options_not_ported_raise(models):
         te.generate([[1, 2, 3]], max_new_tokens=4, speculative=True)
     with pytest.raises(NotImplementedError):
         deepspeed_tpu_torch.pipeline("mistralai/Mistral-7B-v0.1")
-    # the v1 engine serves one device without weight quantization
-    for extra in ({"tensor_parallel": 2}, {"quant_bits": 8}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            deepspeed_tpu_torch.init_inference(
-                te.model, config={"dtype": "fp32", **extra}, device="cpu")
+    # the v1 engine serves one device
+    with pytest.raises(NotImplementedError, match="not ported"):
+        deepspeed_tpu_torch.init_inference(
+            te.model, config={"dtype": "fp32", "tensor_parallel": 2},
+            device="cpu")
 
 
 def test_v1_only_inference_keys_are_reported_not_accepted(caplog):
