@@ -35,15 +35,21 @@ exit 0):
    tolerances, its yardstick scaled_dot_product_attention over
    cache[:, :, :length];
 3. flash kernel phases at Mistral-7B training geometry (B 2, nh 32, kvh
-   8, hd 128, S 2048, bf16, causal): flash_fwd, flash_bwd_dq and
-   flash_bwd_dkv against their plain versions (o within 1e-2 absolute,
-   lse within 1e-3, the gradients within 2e-2 of max |plain|: bf16 casts
-   of p and ds at other points of the summation), also at Sq 1024 < Skv
-   2048, non-causal, and in fp32 (1e-4 absolute / relative: f32
-   reordering over 2048 keys) and fp16 (as bf16) on the same inputs; a
-   repeated backward bit-identical; times, the operations bound at 989
-   TFLOP/s and the library yardstick (scaled_dot_product_attention
-   forward, and its autograd backward for the dq + dkv pair);
+   8, hd 128, S 2048, bf16, causal): first the registers and spills
+   (ptxas) and the shared memory and blocks per SM (occupancy API) of the
+   tensor-core flash_fwd and flash_bwd_dkv; then flash_fwd, flash_bwd_dq
+   and flash_bwd_dkv against their plain versions (o within 1e-2
+   absolute, lse within 1e-3, the gradients within 2e-2 of max |plain|:
+   bf16 casts of p and ds at other points of the summation), also at Sq
+   1024 < Skv 2048, non-causal, and in fp32 (1e-4 absolute / relative:
+   f32 reordering over 2048 keys; the f32 tile kernels) and fp16 (as
+   bf16) on the same inputs, and in bf16 at hd 64, group 1 (MHA), S 128
+   (one tile) and Sq 256 > Skv 128 (the rows that see no key exactly
+   o = 0 and lse = -1e30); a repeated backward bit-identical; times
+   (each kernel and its yardstick in turns: kernel, library, kernel),
+   the operations bound at 989 TFLOP/s and the library yardstick
+   (scaled_dot_product_attention forward, and its autograd backward for
+   the dq + dkv pair);
 4. sparse kernel phases at Mistral-7B attention width (B 1, nh 32, hd 128,
    S 8192, bf16) on three layouts: (i) Fixed, block 64, 4 local / 1
    global, causal; (ii) BigBird, block 64, window 3, 1 global, 1 random,
@@ -114,8 +120,8 @@ exit 0):
    loss above ln(V) / 2 (no leak through the causal mask); launch counts
    2 x L x gas (forward, with the remat recompute) and L x gas (dq, dkv)
    per step, plus L x gas forwards for the eval; step time, tokens/s,
-   peak memory, and the device time, busy share and top kernels of one
-   more step (torch.profiler);
+   peak memory, and the device time, busy share, top kernels and flash
+   kernels of one more step (torch.profiler);
 9. sparse op: SparseSelfAttention(layout (i))(q, k, v, causal=True) and
    backward on bf16 [1, 32, 8192, 128] inputs five times: 5 launches of
    each sparse kernel, finite outputs, o and grads against the plain
@@ -148,6 +154,7 @@ F32_FLOPS_PER_S = 67e12            # f32 outside the tensor cores
 TOL = 1e-2
 
 NH, KVH, HD, BS = 32, 8, 128, 64   # Mistral-7B attention geometry
+HEAD_DIMS = (64, 128)              # head dims of the flash kernels
 TRAIN_B, TRAIN_S = 2, 2048         # micro-batch rows x sequence (train)
 FLASH_SRC = "deepspeed_tpu_torch/csrc/flash_attention.cu"
 SPARSE_SRC = "deepspeed_tpu_torch/csrc/sparse_attention.cu"
@@ -160,10 +167,10 @@ def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, flush, reps=20, warmup=3):
-    """Median CUDA-event time of one call, with the 50 MB L2 flushed before
-    every launch (each layer of the serving path reads its own pool slice
-    cold)."""
+def time_samples(fn, flush, reps=20, warmup=3):
+    """CUDA-event times (ms) of `reps` calls, with the 50 MB L2 flushed
+    before every launch (each layer of the serving path reads its own pool
+    slice cold)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -177,7 +184,22 @@ def time_ms(fn, flush, reps=20, warmup=3):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, flush, reps=20, warmup=3):
+    """Median CUDA-event time of one call (time_samples)."""
+    return statistics.median(time_samples(fn, flush, reps, warmup))
+
+
+def time_turns(kern, lib, flush):
+    """Kernel and library timed in turns in one call (kernel, library,
+    kernel): the median of the kernel's 40 samples and of the library's
+    20, so that clock or power drift shows on both alike."""
+    first = time_samples(kern, flush)
+    lib_t = time_samples(lib, flush)
+    last = time_samples(kern, flush)
+    return statistics.median(first + last), statistics.median(lib_t)
 
 
 def bound(bytes_moved, flops, flops_per_s=BF16_FLOPS_PER_S):
@@ -1425,9 +1447,61 @@ def flash_check(fa, name, q, k, v, do, causal, tol_o, tol_g):
     return compare_outputs(name, (o, o_p), (lse, lse_p), grads, tol_o, tol_g)
 
 
+def hopper_resources():
+    """Logs, for the tensor-core flash_fwd and flash_bwd_dkv kernels, the
+    registers and spills from the ptxas report of the build, and the
+    dynamic shared memory and resident blocks per SM from the CUDA
+    occupancy API."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops.op_builder import cuda as cuda_build
+
+    text = cuda_build.build_logs.get("flash_attention", "")
+    for entry in text.split("Compiling entry function '")[1:]:
+        name = entry.split("'", 1)[0]
+        if "hopper" not in name:
+            continue
+        kind = "flash_fwd" if "flash_fwd" in name else "flash_bwd_dkv"
+        dtype = "fp16" if "6__half" in name else "bf16"
+        hd = re.search(r"Li(\d+)E", name).group(1)
+        regs = re.search(r"Used (\d+) registers", entry).group(1)
+        spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", entry)
+        log(f"  ptxas {kind} tensor-core {dtype} hd {hd}: {regs} registers "
+            f"at launch (setmaxnreg: producer 40, consumers 232), spill "
+            f"stores/loads {'/'.join(spill)} bytes")
+    lib = cuda_build.load("flash_attention")
+    for hd in HEAD_DIMS:
+        out = (ctypes.c_int * 6)()
+        cuda_build.check(lib.ds_flash_hopper_info(hd, 2, ctypes.addressof(
+            out)), "ds_flash_hopper_info")
+        for i, kind in enumerate(("flash_fwd", "flash_bwd_dkv")):
+            regs, smem, blocks = out[3 * i:3 * i + 3]
+            log(f"  {kind} tensor-core bf16 hd {hd}: {regs} registers, "
+                f"{smem} bytes of dynamic shared memory, 384 threads: "
+                f"{blocks} block(s) per SM")
+            if blocks < 1:
+                raise AssertionError(f"{kind} hd {hd} cannot launch")
+
+
+def flash_masked_rows(fa, q, k, v, causal=True):
+    """Sq > Skv: the rows that see no key give o == 0 and lse == -1e30
+    exactly."""
+    o, lse = fa.flash_fwd(q, k, v, 1.0 / q.shape[-1] ** 0.5, causal)
+    torch.cuda.synchronize()
+    dead = (k.shape[1] - q.shape[1]) + torch.arange(q.shape[1],
+                                                    device=q.device) < 0
+    ok = bool((o[:, dead] == 0).all()) and bool((lse[:, dead] == -1e30).all())
+    log(f"flash Sq {q.shape[1]} > Skv {k.shape[1]}: {int(dead.sum())} rows "
+        f"see no key; o == 0 and lse == -1e30 there: {ok}")
+    if not ok:
+        raise AssertionError("flash_fwd: a row that sees no key is not "
+                             "o = 0, lse = -1e30")
+
+
 def flash_phases(dev, flush):
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
+    hopper_resources()
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     bh, bhk, S = TRAIN_B * NH, TRAIN_B * KVH, TRAIN_S
@@ -1449,6 +1523,20 @@ def flash_phases(dev, flush):
                              (torch.float16, TOL, 2e-2)):
         flash_check(fa, f"flash {dt} causal", q.to(dt), k.to(dt), v.to(dt),
                     do.to(dt), True, tol_o, tol_g)
+    # the tensor-core kernels' other routes: head_dim 64, one kv head per
+    # q head, a single 128-row tile, and Sq > Skv (whole q tiles see no key)
+    h64 = [t[..., :64].contiguous() for t in (q, k, v, do)]
+    flash_check(fa, "flash bf16 causal hd 64", *h64, True, TOL, 2e-2)
+    mha = (q[:bhk], k, v, do[:bhk])
+    flash_check(fa, "flash bf16 causal MHA (group 1)", *mha, True, TOL, 2e-2)
+    one = [t[:, :128].contiguous() for t in (q, k, v, do)]
+    flash_check(fa, "flash bf16 causal S 128 (one tile)", *one, True, TOL,
+                2e-2)
+    tall = (q[:, :256].contiguous(), k[:, :128].contiguous(),
+            v[:, :128].contiguous(), do[:, :256].contiguous())
+    flash_check(fa, "flash bf16 causal Sq 256 > Skv 128", *tall, True, TOL,
+                2e-2)
+    flash_masked_rows(fa, *tall[:3])
 
     # a repeated backward is bit-identical (no atomics)
     *_, (lse, delta) = flash_run(fa, q, k, v, do, True)
@@ -1459,9 +1547,11 @@ def flash_phases(dev, flush):
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError("a repeated flash backward is not bit-identical")
-    log("flash backward repeated: bit-identical")
+    log("flash backward repeated (flash_bwd_dq and the tensor-core "
+        "flash_bwd_dkv): bit-identical")
 
-    # times at the training shape; the yardstick is never called by the port
+    # times at the training shape, each kernel in turns with its yardstick
+    # (never called by the port)
     q4 = q.view(TRAIN_B, NH, S, HD)
     k4, v4 = k.view(TRAIN_B, KVH, S, HD), v.view(TRAIN_B, KVH, S, HD)
     do4 = do.view(TRAIN_B, NH, S, HD)
@@ -1473,7 +1563,6 @@ def flash_phases(dev, flush):
     def lib_bwd():
         torch.autograd.grad(lib_out, (qg, kg, vg), do4, retain_graph=True)
 
-    lib_bwd_ms = time_ms(lib_bwd, flush)
     calls = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, True),
                       lambda: fa.flash_fwd_plain(q, k, v, scale, True),
@@ -1483,12 +1572,12 @@ def flash_phases(dev, flush):
                                                  scale, True),
                          lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse,
                                                        delta, scale, True),
-                         None),
+                         lib_bwd),
         "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                    scale, True),
                           lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse,
                                                          delta, scale, True),
-                          None),
+                          lib_bwd),
     }
     work = flash_work(bh, bhk, S, S, True, 2)
     errs = {"flash_fwd": err_o, "flash_bwd_dq": err_g["dq"],
@@ -1496,17 +1585,19 @@ def flash_phases(dev, flush):
     results = {}
     for name, (kern, plain, lib) in calls.items():
         b_ms, b_by = bound(*work[name])
+        ms, lib_ms = time_turns(kern, lib, flush)
         results[name] = dict(
-            max_abs_err=errs[name], ms=time_ms(kern, flush),
+            max_abs_err=errs[name], ms=ms,
             plain_ms=time_ms(plain, flush, reps=3, warmup=1),
-            library_ms=time_ms(lib, flush) if lib else lib_bwd_ms,
-            bound_ms=b_ms, bound_by=b_by)
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         r = results[name]
         log(f"{name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
             f"({r['bound_by']}) err={r['max_abs_err']:.3e}")
     log("flash library_ms: forward = scaled_dot_product_attention; the dq "
-        "and dkv rows = its autograd backward, which computes the pair")
+        "and dkv rows = its autograd backward, which computes the pair; "
+        "kernel and library timed in turns (kernel, library, kernel), "
+        "medians")
     return results
 
 
@@ -2149,13 +2240,19 @@ def train_phase(dev):
 
 
 def train_profile(engine, batch):
-    """Device time, busy share and top kernels of one train_batch()."""
+    """Device time, busy share, top kernels and every flash kernel of one
+    train_batch()."""
     _, wall, kern = profiled(lambda: engine.train_batch(batch=batch))
     dev_ms = sum(t for t, _ in kern.values())
     log(f"profile train step: wall {wall:.2f} ms (profiled), device "
         f"{dev_ms:.2f} ms, busy {dev_ms / wall:.3f}, launches "
         f"{sum(c for _, c in kern.values())}")
     for k, (t, c) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"   {t:.3f} ms {c}x  {k[:90]}")
+    flash = {k: v for k, v in kern.items() if "flash" in k}
+    log(f"profile train step flash kernels: "
+        f"{sum(t for t, _ in flash.values()):.3f} ms")
+    for k, (t, c) in sorted(flash.items(), key=lambda kv: -kv[1][0]):
         log(f"   {t:.3f} ms {c}x  {k[:90]}")
 
 

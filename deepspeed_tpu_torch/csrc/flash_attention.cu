@@ -4,13 +4,24 @@
 //   flash_fwd      <- _fwd_kernel (:63), via _flash_fwd (:115)
 //   flash_bwd_dq   <- _bwd_dq_kernel (:155), via _flash_bwd (:243)
 //   flash_bwd_dkv  <- _bwd_dkv_kernel (:196), via _flash_bwd (:243)
-// with the tile kernels of flash_tiles.cuh (what they compute, their bound
-// and their design are described there) at 64-row tiles over a RangeWalk:
-// a q tile reads every kv tile of its kv head row, or under the causal mask
-// only those that start at or left of its last row's diagonal (the TPU
-// grid's pl.when skips); a kv tile of kv head row bhk is fed by every q
-// tile of every q head of its GQA group, so dk/dv reduce the group inside
-// one block.
+// The dtype picks the kernels:
+//   * bf16 and fp16: flash_fwd and flash_bwd_dkv run the tensor-core kernels
+//     of flash_hopper.cuh (wgmma fed by a TMA ring);
+//   * f32: every entry runs the tile kernels of flash_tiles.cuh, which
+//     multiply in f32 on the CUDA cores. The tensor cores take f32 only as
+//     TF32 (~3 decimal digits), which would break the f32 checks (kernel
+//     against plain within 1e-4, f32 training losses within 1e-5);
+//   * flash_bwd_dq runs the tile kernel for every dtype.
+// The tile kernels (what they compute, their bound and design are described
+// in flash_tiles.cuh) tile by 64 rows over a RangeWalk: a q tile reads
+// every kv tile of its kv head row, or under the causal mask only those
+// that start at or left of its last row's diagonal (the TPU grid's pl.when
+// skips); a kv tile of kv head row bhk is fed by every q tile of every q
+// head of its GQA group, so dk/dv reduce the group inside one block. The
+// tensor-core kernels walk the same ranges.
+#include <type_traits>
+
+#include "flash_hopper.cuh"
 #include "flash_tiles.cuh"
 
 namespace ds_flash {
@@ -57,7 +68,7 @@ struct Args {
   RangeWalk walk() const { return RangeWalk{sq, skv, bh / bhk, causal}; }
 };
 
-template <typename T, int D> static int fwd(const Args& a) {
+template <typename T, int D> static int tile_fwd(const Args& a) {
   auto kernel = flash_fwd_kernel<T, D, kTileRows, RangeWalk>;
   const size_t smem = fwd_smem<D, kTileRows>();
   cudaError_t err = prepare(kernel, smem);
@@ -84,7 +95,7 @@ template <typename T, int D> static int bwd_dq(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D> static int bwd_dkv(const Args& a) {
+template <typename T, int D> static int tile_bwd_dkv(const Args& a) {
   auto kernel = flash_bwd_dkv_kernel<T, D, kTileRows, RangeWalk>;
   const size_t smem = dkv_smem<D, kTileRows>();
   cudaError_t err = prepare(kernel, smem);
@@ -96,6 +107,24 @@ template <typename T, int D> static int bwd_dkv(const Args& a) {
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.skv, a.scale,
       a.causal, a.walk());
   return (int)cudaGetLastError();
+}
+
+// f32 on the tile kernels, bf16 / fp16 on the tensor cores
+template <typename T, int D> static int fwd(const Args& a) {
+  if constexpr (std::is_same<T, float>::value)
+    return tile_fwd<T, D>(a);
+  else
+    return ds_hopper::fwd<T, D>(a.q, a.k, a.v, a.o, a.lse_out, a.bh, a.bhk,
+                                a.sq, a.skv, a.scale, a.causal, a.stream);
+}
+
+template <typename T, int D> static int bwd_dkv(const Args& a) {
+  if constexpr (std::is_same<T, float>::value)
+    return tile_bwd_dkv<T, D>(a);
+  else
+    return ds_hopper::bwd_dkv<T, D>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
+                                    a.dk, a.dv, a.bh, a.bhk, a.sq, a.skv,
+                                    a.scale, a.causal, a.stream);
 }
 
 // dtype x head_dim dispatch of one of the launchers above
@@ -166,4 +195,19 @@ extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.scale = scale, a.causal = causal;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<DkvOp>(a, d, dtype);
+}
+
+// Registers, dynamic shared memory and resident blocks per SM of the
+// tensor-core forward (out[0..2]) and dk/dv (out[3..5]) for a 16-bit dtype
+// and head_dim d; returns the cudaError_t of the queries.
+extern "C" int ds_flash_hopper_info(int d, int dtype, int* out) {
+  using namespace ds_flash;
+  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+  if (dtype == kF16)
+    return d == 64 ? ds_hopper::info<__half, 64>(out)
+                   : ds_hopper::info<__half, 128>(out);
+  if (dtype == kBF16)
+    return d == 64 ? ds_hopper::info<__nv_bfloat16, 64>(out)
+                   : ds_hopper::info<__nv_bfloat16, 128>(out);
+  return (int)cudaErrorInvalidValue;
 }

@@ -28,9 +28,13 @@
 // Bound on an H100: operations. At the training and sparse shapes the
 // products are ~TILE / 2 multiply-adds per byte moved or more, far above the
 // 295 flop/byte line, so the least time is the tensor-core time of the
-// products. This first version does not reach it: it multiplies on the CUDA
-// cores in f32 (FMA), from f32 tiles in shared memory. Its design is the
-// plain one that is easy to hold right against the TPU kernels:
+// products. These kernels do not reach it: they multiply on the CUDA cores
+// in f32 (FMA), from f32 tiles in shared memory. They serve what has not
+// moved to the tensor-core kernels of flash_hopper.cuh yet: the dense
+// forward and dk/dv for f32 inputs (the tensor cores take f32 only as
+// TF32), flash_bwd_dq for every dtype, and the three block-sparse kernels
+// (sparse_attention.cu). Their design is the plain one that is easy to hold
+// right against the TPU kernels:
 //
 //   * one block of 256 threads (a 16 x 16 grid) per (head row, TILE-row
 //     tile), TILE in {16, 32, 64}; each thread owns a PER x PER block
@@ -45,9 +49,8 @@
 //     accumulates dk and dv in registers. No atomics anywhere, so a repeated
 //     backward is bit-identical.
 //
-// The kernels do not use the tensor cores (wgmma / mma.sync), TMA or
-// cp.async, and hold one block per SM at TILE 64, D = 128 (116-166 KB of
-// shared memory): that is the work of the PRs that make them fast.
+// They use neither the tensor cores nor asynchronous copies, and hold one
+// block per SM at TILE 64, D = 128 (116-166 KB of shared memory).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,38 +59,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "vec_io.cuh"
+
 namespace ds_flash {
 
 constexpr int kGrid = 16;                // threads per tile side
 constexpr int kThreads = kGrid * kGrid;  // 256
 constexpr float kNegInf = -1e30f;
 
-// dtype codes shared with the Python wrappers
-enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f32<__half>(__half x) {
-  return __half2float(x);
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// dtype codes and conversions through f32 (vec_io.cuh)
+using ds_vec::DType;
+using ds_vec::from_f32;
+using ds_vec::kBF16;
+using ds_vec::kF16;
+using ds_vec::kF32;
+using ds_vec::to_f32;
 
 // x rounded to the input dtype and back (the TPU kernels' .astype casts)
 template <typename T> __device__ __forceinline__ float round_to(float x) {

@@ -1,7 +1,8 @@
-// Element access of the elementwise kernels (quantizer.cu, rms_norm.cu):
-// the dtype codes shared with the Python wrappers, conversions through f32,
-// and 8-element vector loads and stores (16 bytes of bf16 or fp16, 32 of
-// f32, 8 of int8).
+// Element access of the port's kernels: the dtype codes shared with the
+// Python wrappers and conversions through f32 (also for the flash tile
+// kernels, flash_tiles.cuh), and the 8-element vector loads and stores of
+// the elementwise kernels (quantizer.cu, rms_norm.cu: 16 bytes of bf16 or
+// fp16, 32 of f32, 8 of int8).
 #pragma once
 
 #include <cuda_bf16.h>

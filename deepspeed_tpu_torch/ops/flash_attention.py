@@ -3,13 +3,20 @@
 Port of ``deepspeed_tpu/ops/flash_attention.py``: the memory-efficient
 online-softmax attention (never an [S, S] score matrix in device memory)
 with a causal mask aligned bottom-right for Sq != Skv and grouped-query
-attention (kv head = q head // group). Three hand-written Hopper kernels,
+attention (kv head = q head // group). Hand-written Hopper kernels,
 ``csrc/flash_attention.cu``, take the place of the three TPU kernels:
 
 * :func:`flash_fwd` — ``_fwd_kernel`` (:63): o and the f32 lse;
 * :func:`flash_bwd_dq` — ``_bwd_dq_kernel`` (:155): dq;
 * :func:`flash_bwd_dkv` — ``_bwd_dkv_kernel`` (:196): dk and dv, the GQA
   group reduced inside one block.
+
+The dtype picks the kernel. bf16 and fp16 inputs of :func:`flash_fwd` and
+:func:`flash_bwd_dkv` run on the tensor cores (``csrc/flash_hopper.cuh``:
+wgmma fed by TMA); f32 inputs, and :func:`flash_bwd_dq` for every dtype,
+run the f32 CUDA-core tile kernels of ``csrc/flash_tiles.cuh`` (the tensor
+cores would take f32 only as TF32). TMA reads from 16-byte-aligned
+addresses, so every tensor handed to a kernel must start 16-byte aligned.
 
 Each wrapper launches its kernel on CUDA tensors (built at first use by
 ``ops/op_builder/cuda.py``) and counts the launch in ``<wrapper>.launches``;
@@ -151,9 +158,13 @@ def _check_tensors(name, q, k, v, *others):
 
 def _check(name, q, k, v, *others):
     """What the kernels take: one float dtype for q/k/v (and do), contiguous
-    tensors on one CUDA device, head_dim 64 or 128, sequence lengths that
-    are multiples of 128, q heads a multiple of kv heads."""
+    tensors on one CUDA device that start 16-byte aligned, head_dim 64 or
+    128, sequence lengths that are multiples of 128, q heads a multiple of
+    kv heads."""
     _check_tensors(name, q, k, v, *others)
+    if any(t.data_ptr() % 16 for t in (q, k, v, *others)):
+        raise ValueError(f"{name}: every tensor must start 16-byte aligned "
+                         f"(a view at a storage offset may not)")
     bh, sq, d = q.shape
     bhk, skv, dk_ = k.shape
     if v.shape != k.shape or dk_ != d or bh % bhk:

@@ -72,6 +72,8 @@ SIGNATURES = {
         # q, k, v, do, lse, delta, dk, dv, bh, bhk, sq, skv, d, dtype,
         # scale, causal, stream
         "ds_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+        # d, dtype, out (int[6])
+        "ds_flash_hopper_info": [_I, _I, _P],
     },
     "sparse_attention": {
         # q, k, v, kv_idx, kv_valid, o, lse, bh, nheads, s, d, block, jmax,

@@ -171,7 +171,8 @@ def test_unported_attention_modes_raise():
         tlayer.sharded_attention(x, x, x, topo=object())
 
 
-@pytest.mark.parametrize("bad", ["dtype", "head_dim", "seq", "heads"])
+@pytest.mark.parametrize("bad", ["dtype", "head_dim", "seq", "heads",
+                                 "align"])
 def test_kernel_argument_checks(bad):
     q = torch.zeros(4, 128, 64)
     k = torch.zeros(2, 128, 64)
@@ -186,8 +187,13 @@ def test_kernel_argument_checks(bad):
     elif bad == "seq":
         q = torch.zeros(4, 96, 64)
         exc = ValueError
-    else:
+    elif bad == "heads":
         k = v = torch.zeros(3, 128, 64)
         exc = ValueError
-    with pytest.raises(exc):
+    else:
+        # contiguous, but 4 bytes into its storage: TMA needs 16
+        q = torch.zeros(4 * 128 * 64 + 1)[1:].view(4, 128, 64)
+        assert q.is_contiguous() and q.data_ptr() % 16
+        exc = ValueError
+    with pytest.raises(exc, match="aligned" if bad == "align" else None):
         tfa._check("flash_fwd", q, k, v)
