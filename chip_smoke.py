@@ -30,22 +30,25 @@ exit 0):
    (paged_attention_q8, ragged_attention_q8; the int8 pure-decode ragged
    batch bit-equal to int8 paged decode; the yardstick times
    scaled_dot_product_attention on pages gathered and dequantized
-   beforehand); the dense decode kernel of the v1 engine at B 8, M 2048
-   (row lengths 1536 / 2048) and M 1000 (993 / 1000), same dtypes and
-   tolerances, its yardstick scaled_dot_product_attention over
-   cache[:, :, :length];
+   beforehand); the dense decode kernel of the v1 engine (a split-K walk;
+   its grid logged) at B 8, M 2048 (row lengths 1536 / 2048) and M 1000
+   (993 / 1000), and edge lengths at M 2048, 1000 and 576 (0, 1, a chunk
+   boundary +- 1, M), same dtypes and tolerances, a length-0 row exactly
+   0, a repeated call bit-identical, timed in turns with its yardstick
+   scaled_dot_product_attention over cache[:, :, :length] at M 2048 and
+   at the v1 serve shape (M 576);
 3. flash kernel phases at Mistral-7B training geometry (B 2, nh 32, kvh
    8, hd 128, S 2048, bf16, causal): first the registers and spills
    (ptxas) and the shared memory and blocks per SM (occupancy API) of the
-   tensor-core flash_fwd and flash_bwd_dkv; then flash_fwd, flash_bwd_dq
-   and flash_bwd_dkv against their plain versions (o within 1e-2
-   absolute, lse within 1e-3, the gradients within 2e-2 of max |plain|:
-   bf16 casts of p and ds at other points of the summation), also at Sq
-   1024 < Skv 2048, non-causal, and in fp32 (1e-4 absolute / relative:
-   f32 reordering over 2048 keys; the f32 tile kernels) and fp16 (as
-   bf16) on the same inputs, and in bf16 at hd 64, group 1 (MHA), S 128
-   (one tile) and Sq 256 > Skv 128 (the rows that see no key exactly
-   o = 0 and lse = -1e30); a repeated backward bit-identical; times
+   tensor-core flash_fwd, flash_bwd_dq and flash_bwd_dkv; then the three
+   against their plain versions (o within 1e-2 absolute, lse within 1e-3,
+   the gradients within 2e-2 of max |plain|: bf16 casts of p and ds at
+   other points of the summation), also at Sq 1024 < Skv 2048,
+   non-causal, and in fp32 (1e-4 absolute / relative: f32 reordering
+   over 2048 keys; the f32 tile kernels) and fp16 (as bf16) on the same
+   inputs, and in bf16 at hd 64, group 1 (MHA), S 128 (one tile) and Sq
+   256 > Skv 128 (the rows that see no key exactly o = 0, lse = -1e30
+   and dq = 0); a repeated backward bit-identical; times
    (each kernel and its yardstick in turns: kernel, library, kernel),
    the operations bound at 989 TFLOP/s and the library yardstick
    (scaled_dot_product_attention forward, and its autograd backward for
@@ -550,48 +553,95 @@ def quant_kernel_phases(dev, flush, rng, gen, rows_pos):
 
 
 def dense_decode_phases(dev, flush, gen):
-    """The v1 engine's dense-cache decode at B 8, M 2048 (row lengths 1536
-    and 2048) and at M 1000 (lengths 993 and 1000), q and cache in bf16 /
-    fp32 / fp16."""
+    """The v1 engine's dense-cache decode (a split-K walk, split_plan) at
+    B 8: M 2048 (row lengths 1536 and 2048), M 1000 (993 and 1000), and
+    edge lengths at M 2048, 1000 and 576 (0, 1, one chunk - 1, one chunk,
+    one chunk + 1, two chunks + 1, M - 1, M), also at nh 12, kvh 4, hd 96
+    (the kernel's generic route), q and cache in bf16 / fp32 / fp16; a
+    repeated call bit-identical; the kernel and its yardstick timed in
+    turns at M 2048 and at the v1 serve shape (M 576, lengths 544)."""
     from deepspeed_tpu_torch.ops.decode_attention import (
-        dense_decode_attention, dense_decode_attention_plain)
+        dense_decode_attention, dense_decode_attention_plain, split_plan)
 
     B = 8
-    out = {}
-    for M, lens in ((1000, [993, 1000]), (2048, [1536, 2048])):
-        lengths = torch.as_tensor(lens * (B // 2), dtype=torch.int32,
-                                  device=dev)
-        q = torch.randn((B, NH, HD), generator=gen, device=dev,
+
+    def edges(M):
+        chunk = split_plan(B, KVH, M)[0]
+        return [0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk + 1, M - 1, M]
+
+    def inputs(M, lens, nh=NH, kvh=KVH, hd=HD):
+        lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((B, nh, hd), generator=gen, device=dev,
                         dtype=torch.bfloat16)
-        kc = torch.randn((B, KVH, M, HD), generator=gen, device=dev,
+        kc = torch.randn((B, kvh, M, hd), generator=gen, device=dev,
                          dtype=torch.bfloat16)
-        vc = torch.randn((B, KVH, M, HD), generator=gen, device=dev,
+        vc = torch.randn((B, kvh, M, hd), generator=gen, device=dev,
                          dtype=torch.bfloat16)
+        return q, kc, vc, lengths
+
+    errs = []
+    # (M, lengths, (nh, kvh, hd)); the last case takes the kernel's generic
+    # route (a group of 3, rows of 12 / 24 16-byte vectors)
+    cases = [(1000, [993, 1000] * (B // 2), ()),
+             (2048, [1536, 2048] * (B // 2), ()), (2048, edges(2048), ()),
+             (1000, edges(1000), ()), (576, edges(576), ()),
+             (1000, edges(1000), (12, 4, 96))]
+    for M, lens, shape in cases:
+        q, kc, vc, lengths = inputs(M, lens, *shape)
+        kvh = kc.shape[1]
+        chunk, n_split = split_plan(B, kvh, M)
+        name = f"dense_decode_attention {tuple(q.shape)} M={M}"
+        log(f"{name}: grid ({B * kvh}, {n_split}) = {B * kvh * n_split} "
+            f"blocks of {chunk}-slot chunks")
         for dt, tol in ((torch.bfloat16, TOL), (torch.float32, 2e-5),
                         (torch.float16, TOL)):
             args = (q.to(dt), kc.to(dt), vc.to(dt), lengths)
-            e = check_close(f"dense_decode_attention M={M} lengths {lens} "
-                            f"{dt}", dense_decode_attention(*args),
+            o = dense_decode_attention(*args)
+            e = check_close(f"{name} lengths {lens} {dt}", o,
                             dense_decode_attention_plain(*args), tol)
+            if not bool((o[lengths == 0] == 0).all()):
+                raise AssertionError("dense_decode_attention: a row of "
+                                     "length 0 is not zeros")
             if dt == torch.bfloat16:
-                out[M] = e
-    # times at M 2048: the used K/V rows once per (row, kv head), q read and
-    # out written once, the lengths
-    total = int(lengths.sum())
-    b_ms, b_by = bound(2 * total * KVH * HD * 2 + 2 * q.numel() * 2 + B * 4,
-                       4 * total * NH * HD)
-    ql = lengths[:, None]
-    lmax = max(lens)
-    res = dict(
-        max_abs_err=max(out.values()),
-        ms=time_ms(lambda: dense_decode_attention(q, kc, vc, lengths), flush),
-        plain_ms=time_ms(lambda: dense_decode_attention_plain(
-            q, kc, vc, lengths), flush, reps=5),
-        library_ms=time_ms(lambda: sdpa_rows(
-            q[:, :, None], kc[:, :, :lmax], vc[:, :, :lmax], ql), flush),
-        bound_ms=b_ms, bound_by=b_by)
+                errs.append(e)
+    # a repeated call is bit-identical (the combine runs in split order)
+    q, kc, vc, lengths = inputs(2048, [1536, 2048] * (B // 2))
+    runs = [dense_decode_attention(q, kc, vc, lengths) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not torch.equal(*runs):
+        raise AssertionError("a repeated dense_decode_attention is not "
+                             "bit-identical")
+    log("dense_decode_attention repeated: bit-identical")
+
+    def timed(q, kc, vc, lengths):
+        """kernel and yardstick in turns, the bound: the used K/V rows
+        once per (row, kv head), q read and out written once, lengths."""
+        total = int(lengths.sum())
+        b_ms, b_by = bound(2 * total * KVH * HD * 2 + 2 * q.numel() * 2
+                           + B * 4, 4 * total * NH * HD)
+        lmax = int(lengths.max())
+        ql = lengths[:, None]
+        ms, lib_ms = time_turns(
+            lambda: dense_decode_attention(q, kc, vc, lengths),
+            lambda: sdpa_rows(q[:, :, None], kc[:, :, :lmax],
+                              vc[:, :, :lmax], ql), flush)
+        return ms, lib_ms, b_ms, b_by
+
+    ms, lib_ms, b_ms, b_by = timed(q, kc, vc, lengths)
+    res = dict(max_abs_err=max(errs), ms=ms,
+               plain_ms=time_ms(lambda: dense_decode_attention_plain(
+                   q, kc, vc, lengths), flush, reps=5),
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"dense_decode_attention B 8 M 2048: kernel_ms={ms:.4f} "
+        f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+        f"plain_ms={res['plain_ms']:.4f}")
+    ms, lib_ms, b_ms, b_by = timed(*inputs(576, [544] * B))
+    log(f"dense_decode_attention v1 serve shape B 8 M 576 lengths 544: "
+        f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} "
+        f"({b_by})")
     log("dense_decode_attention library_ms: scaled_dot_product_attention "
-        "over cache[:, :, :length] with a per-row length mask")
+        "over cache[:, :, :max length] with a per-row length mask; kernel "
+        "and library timed in turns (kernel, library, kernel), medians")
     return {"dense_decode_attention": res}
 
 
@@ -1448,20 +1498,21 @@ def flash_check(fa, name, q, k, v, do, causal, tol_o, tol_g):
 
 
 def hopper_resources():
-    """Logs, for the tensor-core flash_fwd and flash_bwd_dkv kernels, the
-    registers and spills from the ptxas report of the build, and the
-    dynamic shared memory and resident blocks per SM from the CUDA
+    """Logs, for the tensor-core flash_fwd, flash_bwd_dq and flash_bwd_dkv
+    kernels, the registers and spills from the ptxas report of the build,
+    and the dynamic shared memory and resident blocks per SM from the CUDA
     occupancy API."""
     import ctypes
 
     from deepspeed_tpu_torch.ops.op_builder import cuda as cuda_build
 
+    kinds = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")  # info's order
     text = cuda_build.build_logs.get("flash_attention", "")
     for entry in text.split("Compiling entry function '")[1:]:
         name = entry.split("'", 1)[0]
         if "hopper" not in name:
             continue
-        kind = "flash_fwd" if "flash_fwd" in name else "flash_bwd_dkv"
+        kind = next(k for k in kinds if f"{k}_hopper" in name)
         dtype = "fp16" if "6__half" in name else "bf16"
         hd = re.search(r"Li(\d+)E", name).group(1)
         regs = re.search(r"Used (\d+) registers", entry).group(1)
@@ -1471,10 +1522,10 @@ def hopper_resources():
             f"stores/loads {'/'.join(spill)} bytes")
     lib = cuda_build.load("flash_attention")
     for hd in HEAD_DIMS:
-        out = (ctypes.c_int * 6)()
+        out = (ctypes.c_int * 9)()
         cuda_build.check(lib.ds_flash_hopper_info(hd, 2, ctypes.addressof(
             out)), "ds_flash_hopper_info")
-        for i, kind in enumerate(("flash_fwd", "flash_bwd_dkv")):
+        for i, kind in enumerate(kinds):
             regs, smem, blocks = out[3 * i:3 * i + 3]
             log(f"  {kind} tensor-core bf16 hd {hd}: {regs} registers, "
                 f"{smem} bytes of dynamic shared memory, 384 threads: "
@@ -1483,19 +1534,27 @@ def hopper_resources():
                 raise AssertionError(f"{kind} hd {hd} cannot launch")
 
 
-def flash_masked_rows(fa, q, k, v, causal=True):
-    """Sq > Skv: the rows that see no key give o == 0 and lse == -1e30
-    exactly."""
-    o, lse = fa.flash_fwd(q, k, v, 1.0 / q.shape[-1] ** 0.5, causal)
+def flash_masked_rows(fa, q, k, v, do, causal=True):
+    """Sq > Skv: the rows that see no key give o == 0, lse == -1e30 and
+    dq == 0 exactly."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
     torch.cuda.synchronize()
     dead = (k.shape[1] - q.shape[1]) + torch.arange(q.shape[1],
                                                     device=q.device) < 0
     ok = bool((o[:, dead] == 0).all()) and bool((lse[:, dead] == -1e30).all())
+    ok_dq = bool((dq[:, dead] == 0).all())
     log(f"flash Sq {q.shape[1]} > Skv {k.shape[1]}: {int(dead.sum())} rows "
-        f"see no key; o == 0 and lse == -1e30 there: {ok}")
+        f"see no key; o == 0 and lse == -1e30 there: {ok}; dq == 0 there: "
+        f"{ok_dq}")
     if not ok:
         raise AssertionError("flash_fwd: a row that sees no key is not "
                              "o = 0, lse = -1e30")
+    if not ok_dq:
+        raise AssertionError("flash_bwd_dq: a row that sees no key has a "
+                             "non-zero dq")
 
 
 def flash_phases(dev, flush):
@@ -1536,7 +1595,7 @@ def flash_phases(dev, flush):
             v[:, :128].contiguous(), do[:, :256].contiguous())
     flash_check(fa, "flash bf16 causal Sq 256 > Skv 128", *tall, True, TOL,
                 2e-2)
-    flash_masked_rows(fa, *tall[:3])
+    flash_masked_rows(fa, *tall)
 
     # a repeated backward is bit-identical (no atomics)
     *_, (lse, delta) = flash_run(fa, q, k, v, do, True)
@@ -1547,7 +1606,7 @@ def flash_phases(dev, flush):
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError("a repeated flash backward is not bit-identical")
-    log("flash backward repeated (flash_bwd_dq and the tensor-core "
+    log("flash backward repeated (the tensor-core flash_bwd_dq and "
         "flash_bwd_dkv): bit-identical")
 
     # times at the training shape, each kernel in turns with its yardstick

@@ -5,13 +5,12 @@
 //   flash_bwd_dq   <- _bwd_dq_kernel (:155), via _flash_bwd (:243)
 //   flash_bwd_dkv  <- _bwd_dkv_kernel (:196), via _flash_bwd (:243)
 // The dtype picks the kernels:
-//   * bf16 and fp16: flash_fwd and flash_bwd_dkv run the tensor-core kernels
-//     of flash_hopper.cuh (wgmma fed by a TMA ring);
+//   * bf16 and fp16: every entry runs the tensor-core kernels of
+//     flash_hopper.cuh (wgmma fed by a TMA ring);
 //   * f32: every entry runs the tile kernels of flash_tiles.cuh, which
 //     multiply in f32 on the CUDA cores. The tensor cores take f32 only as
 //     TF32 (~3 decimal digits), which would break the f32 checks (kernel
-//     against plain within 1e-4, f32 training losses within 1e-5);
-//   * flash_bwd_dq runs the tile kernel for every dtype.
+//     against plain within 1e-4, f32 training losses within 1e-5).
 // The tile kernels (what they compute, their bound and design are described
 // in flash_tiles.cuh) tile by 64 rows over a RangeWalk: a q tile reads
 // every kv tile of its kv head row, or under the causal mask only those
@@ -81,7 +80,7 @@ template <typename T, int D> static int tile_fwd(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D> static int bwd_dq(const Args& a) {
+template <typename T, int D> static int tile_bwd_dq(const Args& a) {
   auto kernel = flash_bwd_dq_kernel<T, D, kTileRows, RangeWalk>;
   const size_t smem = dq_smem<D, kTileRows>();
   cudaError_t err = prepare(kernel, smem);
@@ -116,6 +115,15 @@ template <typename T, int D> static int fwd(const Args& a) {
   else
     return ds_hopper::fwd<T, D>(a.q, a.k, a.v, a.o, a.lse_out, a.bh, a.bhk,
                                 a.sq, a.skv, a.scale, a.causal, a.stream);
+}
+
+template <typename T, int D> static int bwd_dq(const Args& a) {
+  if constexpr (std::is_same<T, float>::value)
+    return tile_bwd_dq<T, D>(a);
+  else
+    return ds_hopper::bwd_dq<T, D>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
+                                   a.dq, a.bh, a.bhk, a.sq, a.skv, a.scale,
+                                   a.causal, a.stream);
 }
 
 template <typename T, int D> static int bwd_dkv(const Args& a) {
@@ -198,8 +206,8 @@ extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // Registers, dynamic shared memory and resident blocks per SM of the
-// tensor-core forward (out[0..2]) and dk/dv (out[3..5]) for a 16-bit dtype
-// and head_dim d; returns the cudaError_t of the queries.
+// tensor-core forward (out[0..2]), dk/dv (out[3..5]) and dq (out[6..8]) for
+// a 16-bit dtype and head_dim d; returns the cudaError_t of the queries.
 extern "C" int ds_flash_hopper_info(int d, int dtype, int* out) {
   using namespace ds_flash;
   if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;

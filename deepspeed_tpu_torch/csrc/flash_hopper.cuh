@@ -1,49 +1,55 @@
-// Tensor-core flash attention kernels for Hopper (sm_90a): the forward and
-// the dk/dv backward for 16-bit inputs (bf16, fp16), head_dim 64 or 128.
+// Tensor-core flash attention kernels for Hopper (sm_90a): the forward, the
+// dq backward and the dk/dv backward for 16-bit inputs (bf16, fp16),
+// head_dim 64 or 128.
 //
-// They compute the functions of flash_tiles.cuh's flash_fwd_kernel and
-// flash_bwd_dkv_kernel (and of the TPU kernels _fwd_kernel and
-// _bwd_dkv_kernel, deepspeed_tpu/ops/flash_attention.py:63,196):
-// q [BH, Sq, D], k/v [BHk, Skv, D], q head row b reading kv row b / group;
-// f32 scores times `scale`, the bottom-right causal mask (off = Skv - Sq,
-// key c visible to query r iff off + r >= c), masked scores -1e30; p rounded
-// to the input dtype before P.V and dV, ds before dK (here the rounding is
-// the conversion of the register A operand); the m_safe / l_safe / lse_safe
-// substitutions, so a row that sees no key gives o = 0, lse = -1e30 and no
-// gradient. lse is [BH, Sq, 1] f32. Sq and Skv are multiples of 128.
+// They compute the functions of flash_tiles.cuh's flash_fwd_kernel,
+// flash_bwd_dq_kernel and flash_bwd_dkv_kernel (and of the TPU kernels
+// _fwd_kernel, _bwd_dq_kernel and _bwd_dkv_kernel,
+// deepspeed_tpu/ops/flash_attention.py:63,155,196): q [BH, Sq, D], k/v
+// [BHk, Skv, D], q head row b reading kv row b / group; f32 scores times
+// `scale`, the bottom-right causal mask (off = Skv - Sq, key c visible to
+// query r iff off + r >= c), masked scores -1e30; p rounded to the input
+// dtype before P.V and dV, ds before dQ and dK (here the rounding is the
+// conversion of the register A operand); the m_safe / l_safe / lse_safe
+// substitutions, so a row that sees no key gives o = 0, lse = -1e30 and
+// no gradient. lse is [BH, Sq, 1] f32. Sq and Skv are multiples of 128.
 //
 // Bound on an H100: operations. At the training shape (B 2, 32 / 8 heads,
-// D 128, S 2048, causal) the forward's two products are 68.7 GFLOP and
-// dk/dv's four 137.5 GFLOP, against ~2 bytes moved per 64 flops: 0.069 and
-// 0.139 ms at 989 TFLOP/s. Only the tensor cores can approach that, so:
+// D 128, S 2048, causal) the forward's two products are 68.7 GFLOP, dq's
+// three 103.1 and dk/dv's four 137.5 GFLOP, against ~2 bytes moved per 64
+// flops: 0.069, 0.104 and 0.139 ms at 989 TFLOP/s. Only the tensor cores
+// can approach that, so:
 //
-//   * products run on wgmma (m64n64k16, f32 accumulate). Q.K^T and, in the
-//     backward, K.Q^T and V.dO^T read both operands from shared memory
-//     (K-major); P.V, P^T.dO and dS^T.Q take P, P^T or dS^T from registers:
-//     the accumulator of a 64 x 64 score tile, rounded to bf16 / fp16 in
-//     place, is wgmma's register A operand for the next product, and the
-//     B operand (V, dO or Q, stored [rows, D]) is read N-major with the
-//     transpose bit set;
+//   * products run on wgmma (m64n64k16, f32 accumulate). Q.K^T, dO.V^T
+//     and, in dk/dv, K.Q^T and V.dO^T read both operands from shared
+//     memory (K-major); P.V, dS.K, P^T.dO and dS^T.Q take P, dS, P^T or
+//     dS^T from registers: the accumulator of a 64 x 64 score tile,
+//     rounded to bf16 / fp16 in place, is wgmma's register A operand for
+//     the next product, and the B operand (V, K, dO or Q, stored [rows,
+//     D]) is read N-major with the transpose bit set;
 //   * tiles arrive by TMA (cp.async.bulk.tensor, 64-row x 128-byte boxes,
 //     128-byte swizzle, which is the layout the wgmma descriptors name) into
-//     a ring of stages, each guarded by a full / empty mbarrier pair; one
-//     thread of a producer warpgroup issues every copy, and the producer
-//     gives its registers to the two consumer warpgroups (setmaxnreg);
+//     a ring of stages, each guarded by a full / empty mbarrier pair
+//     (hopper_async.cuh); one thread of a producer warpgroup issues every
+//     copy, and the producer gives its registers to the two consumer
+//     warpgroups (setmaxnreg);
 //   * the online softmax runs on the accumulator registers: a row's 64
 //     scores sit in the 4 threads of a quad, reduced by two shuffles;
-//   * forward: one block per (q head row, 128 q rows), 64 rows per consumer
-//     warpgroup, walking the kv tiles in order (the causal range only);
-//     blocks are issued heaviest first (the causal tail), and a tile wholly
-//     under the diagonal skips the mask arithmetic;
+//   * forward and dq: one block per (q head row, 128 q rows), 64 rows per
+//     consumer warpgroup, walking the kv tiles in order (the causal range
+//     only); blocks are issued heaviest first (the causal tail), and a tile
+//     wholly under the diagonal skips the mask arithmetic. dq loads its Q,
+//     dO, lse and delta once, computes S and dP per kv tile, P and dS on
+//     the accumulator registers, and keeps dQ in registers until one store;
 //   * dk/dv: one block per (kv head row, 128 kv rows), 64 per consumer
 //     warpgroup, K and V loaded once; it walks the (q head of the GQA group,
 //     64-row q tile) pairs that see its rows, in a fixed order, and keeps
-//     dK and dV in registers: no atomics, so a repeated backward is
-//     bit-identical. The first kv tiles see the most q tiles under the
-//     causal mask and are issued first.
+//     dK and dV in registers. The first kv tiles see the most q tiles under
+//     the causal mask and are issued first.
 //
-// f32 inputs stay on flash_tiles.cuh: the tensor cores take f32 only as
-// TF32 (~3 decimal digits), which the f32 checks (1e-4) would not pass.
+// No kernel uses atomics, so a repeated backward is bit-identical. f32
+// inputs stay on flash_tiles.cuh: the tensor cores take f32 only as TF32
+// (~3 decimal digits), which the f32 checks (1e-4) would not pass.
 #pragma once
 
 #include <cuda.h>
@@ -55,7 +61,11 @@
 
 #include <type_traits>
 
+#include "hopper_async.cuh"
+
 namespace ds_hopper {
+
+using namespace ds_async;
 
 constexpr int kRows = 64;                    // rows per TMA box and per wgmma
 constexpr int kBoxBytes = kRows * 128;       // one 64 x 128-byte swizzled box
@@ -64,81 +74,14 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kBlockRows = kRows * kConsumers;
 constexpr int kFwdStages = 3;                // K/V ring depth (forward)
 constexpr int kDkvStages = 2;                // Q/dO/lse/delta ring depth
+constexpr int kDqStages = 2;                 // K/V ring depth (dq)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// shared memory, barriers, copies
+// register budgets (barriers and copies: hopper_async.cuh)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed. A
-// wait of more than ~2^34 cycles (seconds: a copy that never lands) traps,
-// so a fault shows as a launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// One 2-D TMA box (col, row) of `map` into shared memory; completes on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
-      "r"(row)
-      : "memory");
-}
-
-// A contiguous copy (16-byte aligned, a multiple of 16 bytes); completes on
-// bar.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 template <int R> __device__ __forceinline__ void regs_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
@@ -291,7 +234,7 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
     mbar_init(&empty[s], kConsumers * 128);
   }
   mbar_init(once, 1);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  mbar_fence_init();
 }
 
 // Writes a 64 x 64 accumulator tile as T pairs at rows `row0`, `row0 + 8`
@@ -641,6 +584,154 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// backward dq: grid (BH, Sq / 128)
+// ---------------------------------------------------------------------------
+template <int D> struct DqSmem {
+  static constexpr int kAtoms = D / 64;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + kConsumers * kAtoms * kBoxBytes;
+  static constexpr int kK = kDO + kConsumers * kAtoms * kBoxBytes;
+  static constexpr int kV = kK + kDqStages * kAtoms * kBoxBytes;
+  static constexpr int kLse = kV + kDqStages * kAtoms * kBoxBytes;
+  static constexpr int kDelta = kLse + kBlockRows * 4;
+  static constexpr int kBar = kDelta + kBlockRows * 4;
+  static constexpr int kBytes = kBar + 8 * (2 * kDqStages + 1) + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               T* __restrict__ dq, int sq, int skv,
+                               int group, float scale, int causal) {
+  using L = DqSmem<D>;
+  constexpr int A = L::kAtoms;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + kDqStages;
+  uint64_t* qbar = empty + kDqStages;
+  const int bh = blockIdx.x;
+  // the last q blocks read the most kv tiles under the causal mask
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;
+  const int off = skv - sq;
+  const int n_kv = fwd_kv_tiles(q0, sq, skv, causal);
+  if (threadIdx.x == 0) init_ring(full, empty, kDqStages, qbar);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == kConsumers) {
+    // ---- producer: Q, dO, lse and delta once, then the K/V ring ----------
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x != kConsumers * 128) return;
+    const int qrow = bh * sq + q0;
+    mbar_expect_tx(qbar, 2 * kConsumers * A * kBoxBytes + 2 * kBlockRows * 4);
+    for (int w = 0; w < kConsumers; ++w)
+      for (int at = 0; at < A; ++at) {
+        tma_load(sm + L::kQ + (w * A + at) * kBoxBytes, &tq, qbar, at * 64,
+                 qrow + kRows * w);
+        tma_load(sm + L::kDO + (w * A + at) * kBoxBytes, &tdo, qbar,
+                 at * 64, qrow + kRows * w);
+      }
+    bulk_load(sm + L::kLse, lse + qrow, kBlockRows * 4, qbar);
+    bulk_load(sm + L::kDelta, delta + qrow, kBlockRows * 4, qbar);
+    const int kv_row = (bh / group) * skv;
+    for (int e = 0; e < n_kv; ++e) {
+      const int s = e % kDqStages;
+      if (e >= kDqStages) mbar_wait(&empty[s], ((e / kDqStages) - 1) & 1);
+      mbar_expect_tx(&full[s], 2 * A * kBoxBytes);
+      for (int at = 0; at < A; ++at) {
+        tma_load(sm + L::kK + (s * A + at) * kBoxBytes, &tk, &full[s],
+                 at * 64, kv_row + e * kRows);
+        tma_load(sm + L::kV + (s * A + at) * kBoxBytes, &tv, &full[s],
+                 at * 64, kv_row + e * kRows);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q rows q0w .. q0w + 63 ---------------
+  regs_inc<kConsumerRegs>();
+  const int lane = threadIdx.x % 32;
+  const int row0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int q0w = q0 + kRows * wg;
+  const int qpos = off + q0w + row0;  // row r of the thread: qpos + 8 r
+  const uint8_t* Qw = sm + L::kQ + wg * A * kBoxBytes;
+  const uint8_t* dOw = sm + L::kDO + wg * A * kBoxBytes;
+  float dqa[A][32];
+#pragma unroll
+  for (int at = 0; at < A; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[at][i] = 0.f;
+  mbar_wait(qbar, 0);
+  float ls[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kRows * wg + row0 + 8 * r;
+    const float lraw = reinterpret_cast<const float*>(sm + L::kLse)[row];
+    // a row that sees no key carries lse == -1e30: its scores are all
+    // masked, so p = exp(-1e30 - 0) = 0 and its dq is exactly 0
+    ls[r] = (lraw <= kNegInf * 0.5f ? 0.f : lraw) * kLog2e;
+    dl[r] = reinterpret_cast<const float*>(sm + L::kDelta)[row];
+  }
+  for (int e = 0; e < n_kv; ++e) {
+    const int s = e % kDqStages;
+    mbar_wait(&full[s], (e / kDqStages) & 1);
+    const int k0 = e * kRows;
+    if (causal && off + q0w + kRows - 1 < k0) {  // sees none of this tile
+      mbar_arrive(&empty[s]);
+      continue;
+    }
+    const uint8_t* Ks = sm + L::kK + s * A * kBoxBytes;
+    const uint8_t* Vs = sm + L::kV + s * A * kBoxBytes;
+    // S = Q K^T and dP = dO V^T: q rows as M, kv rows as N
+    float sc[32], dp[32];
+    wg_fence();
+    mma_kmajor<T, D>(sc, Qw, Ks);
+    mma_kmajor<T, D>(dp, dOw, Vs);
+    wg_commit();
+    wg_wait();
+    pin(sc);
+    pin(dp);
+    // tiles wholly under the diagonal skip the mask
+    const bool mask = causal && off + q0w < k0 + kRows - 1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = 4 * j + 2 * r + c;
+          float x = sc[i] * scale;
+          if (mask && qpos + 8 * r < k0 + 8 * j + cq + c) x = kNegInf;
+          const float p = exp2f(fmaf(x, kLog2e, -ls[r]));
+          dp[i] = p * (dp[i] - dl[r]) * scale;
+        }
+    // dS, rounded to T as the register A operand; K read N-major
+    uint32_t dsa[4][4];
+    to_a_operand<T>(dp, dsa);
+    wg_fence();
+    mma_nmajor<T, D>(dqa, dsa, Ks);  // dQ += dS K
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int at = 0; at < A; ++at) pin(dqa[at]);
+    pin(dsa);
+    mbar_arrive(&empty[s]);
+  }
+  const size_t qrow = (size_t)bh * sq + q0w + row0;
+  const float one[2] = {1.f, 1.f};
+#pragma unroll
+  for (int at = 0; at < A; ++at)
+    store_tile<T, D>(dq, qrow, 64 * at, lane, dqa[at], one);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 // cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime has
@@ -726,29 +817,54 @@ static int bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// Registers, dynamic shared memory and resident blocks per SM of the two
-// kernels for (T, D): out[0..2] forward, out[3..5] dk/dv.
+template <typename T, int D>
+static int bwd_dq(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int bh, int bhk, int sq, int skv, float scale,
+                  int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map<T, D>(&tq, q, bh * sq) || !make_map<T, D>(&tk, k, bhk * skv)
+      || !make_map<T, D>(&tv, v, bhk * skv)
+      || !make_map<T, D>(&tdo, dout, bh * sq))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dq_hopper_kernel<T, D>;
+  constexpr int smem = DqSmem<D>::kBytes;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(bh, sq / kBlockRows), kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), sq, skv,
+      bh / bhk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// Registers, dynamic shared memory and resident blocks per SM of one kernel.
+template <typename Kernel>
+static cudaError_t kernel_info(Kernel kernel, int smem, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = set_smem(kernel, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kThreads, smem);
+  out[0] = err == cudaSuccess ? attr.numRegs : 0;
+  out[1] = smem;
+  out[2] = blocks;
+  return err;
+}
+
+// The three kernels for (T, D): out[0..2] forward, out[3..5] dk/dv,
+// out[6..8] dq, each (registers, dynamic shared memory, blocks per SM).
 template <typename T, int D> static int info(int* out) {
-  auto fk = flash_fwd_hopper_kernel<T, D>;
-  auto bk = flash_bwd_dkv_hopper_kernel<T, D>;
-  const int smem[2] = {FwdSmem<D>::kBytes, DkvSmem<D>::kBytes};
-  cudaFuncAttributes attr[2];
-  cudaError_t err = cudaFuncGetAttributes(&attr[0], fk);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr[1], bk);
-  if (err == cudaSuccess) err = set_smem(fk, smem[0]);
-  if (err == cudaSuccess) err = set_smem(bk, smem[1]);
-  int blocks[2] = {0, 0};
+  cudaError_t err = kernel_info(flash_fwd_hopper_kernel<T, D>,
+                                FwdSmem<D>::kBytes, out);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[0], fk,
-                                                        kThreads, smem[0]);
+    err = kernel_info(flash_bwd_dkv_hopper_kernel<T, D>, DkvSmem<D>::kBytes,
+                      out + 3);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[1], bk,
-                                                        kThreads, smem[1]);
-  for (int i = 0; i < 2; ++i) {
-    out[3 * i] = attr[i].numRegs;
-    out[3 * i + 1] = smem[i];
-    out[3 * i + 2] = blocks[i];
-  }
+    err = kernel_info(flash_bwd_dq_hopper_kernel<T, D>, DqSmem<D>::kBytes,
+                      out + 6);
   return (int)err;
 }
 

@@ -31,9 +31,8 @@
 // products. These kernels do not reach it: they multiply on the CUDA cores
 // in f32 (FMA), from f32 tiles in shared memory. They serve what has not
 // moved to the tensor-core kernels of flash_hopper.cuh yet: the dense
-// forward and dk/dv for f32 inputs (the tensor cores take f32 only as
-// TF32), flash_bwd_dq for every dtype, and the three block-sparse kernels
-// (sparse_attention.cu). Their design is the plain one that is easy to hold
+// forward, dq and dk/dv for f32 inputs (the tensor cores take f32 only as
+// TF32), and the three block-sparse kernels (sparse_attention.cu). Their design is the plain one that is easy to hold
 // right against the TPU kernels:
 //
 //   * one block of 256 threads (a 16 x 16 grid) per (head row, TILE-row

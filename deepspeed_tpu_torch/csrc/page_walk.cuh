@@ -1,12 +1,10 @@
-// Shared page walk of the paged decode, ragged paged and dense decode
-// attention kernels.
+// Shared page walk of the paged decode and ragged paged attention kernels.
 //
 // One thread block serves one (query row, kv head) pair: the `group` query
 // heads that share kv head `h` (q head i reads kv head i / group, the JAX
 // layout q.reshape(N, kvh, group, hd)). The block walks only the
-// ceil(length / bs) pages that hold context, never the table width or the
-// cache length, so null-padded tables and a long dense cache cost nothing
-// past `length`. Per page it:
+// ceil(length / bs) pages that hold context, never the table width, so
+// null-padded tables cost nothing past `length`. Per page it:
 //
 //   1. copies the page's K and V tiles for its kv head ([n_valid, hd] each)
 //      into shared memory in the io dtype T, rows padded by 16 bytes so that
@@ -27,11 +25,9 @@
 // length 0 walks no page and writes exact zeros.
 //
 // Where a row's pages lie is a Slots policy: PagedSlots reads a block table
-// over the pool [nb, bs, kvh, hd]; DenseSlots cuts one (row, head) of a
-// dense cache [B, kvh, M, hd] into tiles of bs contiguous slots. All entry
-// points call attend_row with the same launch geometry (kThreads threads,
-// one block per (row, kv head)), so their reductions run in one order: a
-// pure-decode ragged batch is bit-identical to the paged decode kernel on
+// over the pool [nb, bs, kvh, hd]. Both entry points call attend_row with
+// the same launch geometry (kThreads threads, one block per (row, kv
+// head)), so their reductions run in one order: a pure-decode ragged batch is bit-identical to the paged decode kernel on
 // the same inputs, for a T pool and for an int8 pool alike.
 #pragma once
 
@@ -109,18 +105,6 @@ struct PagedSlots {
   __device__ __forceinline__ size_t scale_index(int j) const {
     return (size_t)table[j] * kvh + kv_head;
   }
-};
-
-// One (row, kv head) of a dense cache [B, kvh, M, hd]: its M slots are
-// contiguous from `base`, walked in tiles of bs slots.
-struct DenseSlots {
-  size_t base;
-  int hd, bs;
-  __device__ __forceinline__ size_t page_offset(int j) const {
-    return base + (size_t)j * bs * hd;
-  }
-  __device__ __forceinline__ size_t slot_stride() const { return hd; }
-  __device__ __forceinline__ size_t scale_index(int) const { return 0; }
 };
 
 // Copy n_valid slots of one page into a padded shared tile. A pool stored in

@@ -11,10 +11,23 @@ tokens including the current one); GQA head ``h`` reads kv head
   first use) and counts the launch in ``dense_decode_attention.launches``;
   a CPU tensor takes the plain version. There is no fallback: a build or
   launch failure raises.
+* The kernel is a split-K walk: :func:`split_plan` cuts each (row, kv
+  head)'s cache into chunks of whole 64-slot tiles, one block per chunk,
+  and the last block of a (row, kv head) combines the chunks' partials in
+  chunk order inside the same launch. The partials and the combine's
+  tickets live in a workspace that persists per device (tickets zeroed
+  once, when the workspace is made; each combine resets its own), so calls
+  on one device must come from one stream at a time, as the v1 engine
+  makes them.
 * :func:`dense_decode_attention_plain` — the plain PyTorch version (masked
   f32 softmax over the whole cache), which the CPU tests hold against the
   JAX kernel and ``chip_smoke.py`` holds the kernel against.
+* :func:`dense_decode_split_plain` — the kernel's split-and-combine
+  arithmetic in torch ops, for the tests; nothing on the main path calls
+  it.
 """
+
+import math
 
 import torch
 
@@ -28,6 +41,63 @@ def dense_decode_attention_plain(q, k_cache, v_cache, lengths):
     # [B, kvh, M, hd] -> [B, M, kvh, hd]: the gathered-context layout
     return _attend_plain(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
                          lengths)
+
+
+TILE = 64                  # cache slots per tile of the kernel (csrc kTile)
+H100_SMS = 132             # streaming multiprocessors of an H100 SXM
+BLOCKS_PER_2SM = 5         # blocks the plan aims at per two SMs
+
+
+def split_plan(B: int, kvh: int, M: int):
+    """(chunk, n_split) of the kernel's grid (B * kvh, n_split): the
+    fewest whole tiles per chunk that still give about 2.5 blocks per SM,
+    so small batches fill the card in one wave (three 16-bit blocks of
+    head_dim 128 fit an SM). ``n_split * chunk >= M``, and a cache of
+    M <= 64 slots is one chunk."""
+    n_tiles = max(1, -(-M // TILE))
+    want = max(1, -(-(BLOCKS_PER_2SM * H100_SMS) // (2 * max(1, B * kvh))))
+    per = -(-n_tiles // want)
+    return per * TILE, -(-n_tiles // per)
+
+
+def dense_decode_split_plain(q, k_cache, v_cache, lengths, chunk: int):
+    """The kernel's arithmetic in torch ops: per chunk of ``chunk`` slots
+    a masked f32 softmax state (m, l, acc); chunks that start at or past a
+    row's length take no part; the states combined in chunk order. Same
+    result as :func:`dense_decode_attention_plain` up to f32 rounding."""
+    B, nh, hd = q.shape
+    kvh, M = k_cache.shape[1], k_cache.shape[2]
+    group = nh // kvh
+    q4 = q.float().reshape(B, kvh, group, hd)
+    lens = lengths.to(q.device).long().clamp(0, M)
+    ms, ls, accs = [], [], []
+    for lo in range(0, max(M, 1), chunk):
+        hi = min(M, lo + chunk)
+        k = k_cache[:, :, lo:hi].float()
+        v = v_cache[:, :, lo:hi].float()
+        s = torch.einsum("bhgd,bhsd->bhgs", q4, k) * (1.0 / math.sqrt(hd))
+        valid = (lo + torch.arange(hi - lo, device=q.device))[None] \
+            < lens[:, None]
+        valid = valid[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, -math.inf))
+        m = s.amax(dim=-1, keepdim=True) if hi > lo else \
+            torch.full((B, kvh, group, 1), -math.inf, device=q.device)
+        p = torch.exp(s - torch.where(torch.isfinite(m), m,
+                                      torch.zeros_like(m)))
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bhgs,bhsd->bhgd", p, v))
+    m_all = torch.stack(ms).amax(dim=0)
+    m_all = torch.where(torch.isfinite(m_all), m_all,
+                        torch.zeros_like(m_all))
+    l = torch.zeros_like(ls[0])
+    acc = torch.zeros_like(accs[0])
+    for m, lc, ac in zip(ms, ls, accs):     # chunk order
+        w = torch.exp(m - m_all)            # a chunk past the length: 0
+        l = l + lc * w
+        acc = acc + ac * w
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.reshape(B, nh, hd).to(q.dtype)
 
 
 def _check_args(q, k_cache, v_cache, lengths):
@@ -60,12 +130,32 @@ def _check_args(q, k_cache, v_cache, lengths):
                          f"{q.dtype})")
 
 
+_workspaces = {}    # device -> (ws_ml, ws_acc, tickets), grown as needed
+
+
+def _workspace(device, pairs, n_split, group, hd):
+    """The kernel's partials (f32) and tickets (int32, zero between
+    launches) for at least this size, kept per device. A workspace is made
+    (tickets zeroed) only when none is large enough."""
+    need = (pairs * n_split * 2 * group, pairs * n_split * group * hd, pairs)
+    ws = _workspaces.get(device)
+    if ws is None or any(t.numel() < n for t, n in zip(ws, need)):
+        if ws is not None:
+            need = tuple(max(n, t.numel()) for t, n in zip(ws, need))
+        ws = (torch.empty(need[0], dtype=torch.float32, device=device),
+              torch.empty(need[1], dtype=torch.float32, device=device),
+              torch.zeros(need[2], dtype=torch.int32, device=device))
+        _workspaces[device] = ws
+    return ws
+
+
 def dense_decode_attention(q, k_cache, v_cache, lengths):
     """q [B, nh, hd]; k/v_cache [B, kvh, M, hd] in q's dtype; lengths [B]
     int32. Returns [B, nh, hd].
 
     CPU tensors run :func:`dense_decode_attention_plain`; CUDA tensors
-    launch the Hopper kernel (one block per (row, kv head))."""
+    launch the Hopper kernel once (grid (B * kvh, n_split) of
+    :func:`split_plan`)."""
     if q.device.type == "cpu":
         return dense_decode_attention_plain(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":
@@ -74,11 +164,15 @@ def dense_decode_attention(q, k_cache, v_cache, lengths):
     _check_args(q, k_cache, v_cache, lengths)
     B, nh, hd = q.shape
     _, kvh, M, _ = k_cache.shape
+    chunk, n_split = split_plan(B, kvh, M)
+    ws_ml, ws_acc, tickets = _workspace(q.device, B * kvh, n_split,
+                                        nh // kvh, hd)
     out = torch.empty_like(q)
     code = cuda_build.load("dense_decode_attention").ds_dense_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, nh, kvh, hd, M,
-        _DTYPE_CODE[q.dtype], 1.0 / (hd ** 0.5),
+        lengths.data_ptr(), out.data_ptr(), ws_ml.data_ptr(),
+        ws_acc.data_ptr(), tickets.data_ptr(), B, nh, kvh, hd, M, chunk,
+        n_split, _DTYPE_CODE[q.dtype], 1.0 / (hd ** 0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(code, "dense_decode_attention")
     dense_decode_attention.launches += 1

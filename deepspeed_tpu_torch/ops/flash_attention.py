@@ -11,10 +11,9 @@ attention (kv head = q head // group). Hand-written Hopper kernels,
 * :func:`flash_bwd_dkv` — ``_bwd_dkv_kernel`` (:196): dk and dv, the GQA
   group reduced inside one block.
 
-The dtype picks the kernel. bf16 and fp16 inputs of :func:`flash_fwd` and
-:func:`flash_bwd_dkv` run on the tensor cores (``csrc/flash_hopper.cuh``:
-wgmma fed by TMA); f32 inputs, and :func:`flash_bwd_dq` for every dtype,
-run the f32 CUDA-core tile kernels of ``csrc/flash_tiles.cuh`` (the tensor
+The dtype picks the kernel. bf16 and fp16 inputs of all three run on the
+tensor cores (``csrc/flash_hopper.cuh``: wgmma fed by TMA); f32 inputs run
+the f32 CUDA-core tile kernels of ``csrc/flash_tiles.cuh`` (the tensor
 cores would take f32 only as TF32). TMA reads from 16-byte-aligned
 addresses, so every tensor handed to a kernel must start 16-byte aligned.
 

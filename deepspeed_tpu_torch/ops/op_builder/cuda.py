@@ -60,8 +60,9 @@ SIGNATURES = {
             [_P] * 9 + [_I] * 7 + [_F, _P],
     },
     "dense_decode_attention": {
-        # q, k, v, lengths, out, b, nh, kvh, hd, m, dtype, scale, stream
-        "ds_dense_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+        # q, k, v, lengths, out, ws_ml, ws_acc, tickets, b, nh, kvh, hd, m,
+        # chunk, n_split, dtype, scale, stream
+        "ds_dense_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _P],
     },
     "flash_attention": {
         # q, k, v, o, lse, bh, bhk, sq, skv, d, dtype, scale, causal, stream
@@ -72,7 +73,7 @@ SIGNATURES = {
         # q, k, v, do, lse, delta, dk, dv, bh, bhk, sq, skv, d, dtype,
         # scale, causal, stream
         "ds_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
-        # d, dtype, out (int[6])
+        # d, dtype, out (int[9])
         "ds_flash_hopper_info": [_I, _I, _P],
     },
     "sparse_attention": {
