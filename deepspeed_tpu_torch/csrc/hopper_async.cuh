@@ -1,8 +1,8 @@
 // Asynchronous copies into shared memory on Hopper (sm_90a), shared by the
-// tensor-core flash kernels (flash_hopper.cuh) and the split dense decode
-// kernel (dense_decode_attention.cu): mbarriers, TMA tile loads and
-// contiguous bulk copies, each completing on an mbarrier's transaction
-// count.
+// tensor-core flash kernels (flash_hopper.cuh) and the split decode walk
+// (split_walk.cuh): mbarriers, TMA tile loads and contiguous bulk copies,
+// each completing on an mbarrier's transaction count, and 16-byte
+// cp.async copies, completing on an mbarrier arrival.
 #pragma once
 
 #include <cuda.h>
@@ -83,6 +83,26 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// A 16-byte copy by the calling thread (cp.async, cached in L2 only); dst
+// and src 16-byte aligned. Many small rows move faster this way than as one
+// bulk copy each: the copy engine takes each bulk request in turn.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Arrives on bar once every cp.async that this thread has issued so far
+// has landed. The arrival counts toward the barrier's expected count
+// (.noinc), so each issuing thread is one of the arrivals it was
+// initialized with.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 }  // namespace ds_async

@@ -1,8 +1,8 @@
-// Shared page walk of the paged decode and ragged paged attention kernels.
+// The page walk of the ragged paged attention kernel (ragged_attention.cu).
 //
-// One thread block serves one (query row, kv head) pair: the `group` query
-// heads that share kv head `h` (q head i reads kv head i / group, the JAX
-// layout q.reshape(N, kvh, group, hd)). The block walks only the
+// One thread block serves one (query token, kv head) pair: the `group`
+// query heads that share kv head `h` (q head i reads kv head i / group, the
+// JAX layout q.reshape(N, kvh, group, hd)). The block walks only the
 // ceil(length / bs) pages that hold context, never the table width, so
 // null-padded tables cost nothing past `length`. Per page it:
 //
@@ -25,10 +25,10 @@
 // length 0 walks no page and writes exact zeros.
 //
 // Where a row's pages lie is a Slots policy: PagedSlots reads a block table
-// over the pool [nb, bs, kvh, hd]. Both entry points call attend_row with
-// the same launch geometry (kThreads threads, one block per (row, kv
-// head)), so their reductions run in one order: a pure-decode ragged batch is bit-identical to the paged decode kernel on
-// the same inputs, for a T pool and for an int8 pool alike.
+// over the pool [nb, bs, kvh, hd]. The paged decode kernel no longer walks
+// pages this way: it is the split-K walk of split_walk.cuh, which reduces
+// in another order, so a pure-decode ragged batch agrees with it to
+// rounding, not bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,41 +38,19 @@
 
 #include <type_traits>
 
+#include "vec_io.cuh"
+
 namespace ds_paged {
+
+using ds_vec::from_f32;
+using ds_vec::to_f32;
 
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 
-// dtype codes shared with the Python wrappers
-enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
-
 // What a KV pool of io dtype T stores: T, or int8 under kv_quant.
 template <typename T, bool Q8>
 using Pool = typename std::conditional<Q8, int8_t, T>::type;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f32<__half>(__half x) {
-  return __half2float(x);
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Elements per 16-byte vector, and the padded row stride of a tile.
 template <typename T> __host__ __device__ constexpr int vec_elems() {

@@ -9,100 +9,229 @@
 //
 // One query token per sequence attends over its block table: q [N, nh, hd],
 // pool [nb, bs, kvh, hd], block_tables [N, MB] int32, lengths [N] int32
-// (valid tokens including the current one) -> out [N, nh, hd]. The int8
-// entry point takes an int8 pool and its per-(block, head) f32 scales
-// [nb, kvh], and dequantizes each page tile on load (page_walk.cuh).
+// (valid tokens including the current one, clamped to MB * bs) -> out
+// [N, nh, hd]. The int8 entry point takes an int8 pool and its
+// per-(block, head) f32 scales [nb, kvh].
 //
 // Bound on an H100: bytes. Each (sequence, kv head) must read its used K
-// and V pages once, 2 * length * hd * sizeof(pool element) bytes (plus one
+// and V slots once, 2 * length * hd * sizeof(pool element) bytes (plus one
 // f32 scale per page and head for int8), at 3.35 TB/s; the score and P.V
 // work is 4 * group * hd flops per slot, far below the tensor-core line.
-// The design reads every used page exactly once per (sequence, kv head),
-// never the null-padded table tail, and keeps the scores, softmax state and
-// accumulator in shared memory, so nothing but the output goes back to
-// device memory; int8 pages halve the bytes of a bf16 pool. What it does
-// not do yet: split the page walk of a long sequence over several blocks
-// (one block per (sequence, kv head) leaves most SMs idle at small batch),
-// or pipeline the next page's loads under the current page's math
-// (cp.async / TMA).
-#include "page_walk.cuh"
+// The kernel is the split-K walk of split_walk.cuh, shared with the dense
+// decode kernel: grid (N * kvh, n_split) from the wrapper's
+// page_split_plan (chunks of whole pages, ~5 blocks per SM if every row
+// filled its table; 704 blocks at N 8, kvh 8, MB 32, bs 64, of which the
+// chunks past a row's length return at once), a two-stage K/V ring filled
+// by one producer warp, q and the accumulator in registers on the lane
+// route (Mistral-7B's group 4 at head_dim 128), and the last block of a
+// (sequence, kv head) combining the chunks' partials in split order in the
+// same launch, so a call is one launch and a repeat is bit-identical. A
+// block never reads the table past its chunk, nor a slot past `length`:
+// only the valid slots of a row's last page are copied.
+//
+// How a page arrives. A page's tile for one kv head is `bs` rows of hd
+// elements at a stride of kvh * hd: not contiguous. The 32 lanes of the
+// producer warp copy its rows in 16-byte pieces with cp.async, each lane
+// arriving on the stage's full barrier when its pieces have landed. Two
+// other ways were weighed. One cp.async.bulk per row (the first version)
+// hands the copy engine one request per 256-byte row, and the engine takes
+// them one at a time: on an H100 that copied a page slower than the
+// cp.async pieces do. One TMA load per page over a
+// 3-D tensor map of the pool would be one request a page, but the map
+// must be encoded on the host for each layer's pool, which adds host time
+// to a decode step that is already bound by the host, and its fixed box
+// would read a last page's slots past `length`. A row is 16-byte aligned
+// (the wrapper checks hd * element size % 16 == 0): 256 bytes for bf16 at
+// hd 128, 128 for int8. An int8 pool's tile carries one K and one V scale
+// (its page and kv head): lane 0 of the producer reads them and stages
+// them in shared memory, then arrives on the full barrier itself (a
+// release that publishes them); the consumers read them there and
+// dequantize as they read K and V (_dequant_tile's rounding through T).
+#include "split_walk.cuh"
 
-namespace ds_paged {
+namespace ds_paged_decode {
+
+using namespace ds_split;
+
+// One (sequence, kv head) of a paged pool [nb, bs, kvh, hd], through the
+// sequence's block table. S: the stored element (T, or int8_t with scales
+// [nb, kvh]).
+template <typename S>
+struct PagedSource {
+  static constexpr int kProducerLanes = 32;
+  // the producer lanes' cp.async arrivals and lane 0's own, which
+  // publishes the stage's scales
+  static constexpr int kArrivals = 33;
+  const S* k;
+  const S* v;
+  const float* k_scale;
+  const float* v_scale;
+  const int* table;
+  int kv_head, kvh, hd, bs;
+  __device__ __forceinline__ void issue(int slot0, int n_valid, S* k_dst,
+                                        S* v_dst, float* scl, uint64_t* bar,
+                                        int lane) const {
+    const int j = slot0 / bs;  // a tile lies within one page
+    const size_t page = (size_t)table[j];
+    if (lane == 0) {
+      if constexpr (std::is_same<S, int8_t>::value) {
+        scl[0] = k_scale[page * kvh + kv_head];
+        scl[1] = v_scale[page * kvh + kv_head];
+      }
+      mbar_arrive(bar);
+    }
+    // slot r of the tile is pool row (page * bs + slot0 % bs + r), whose
+    // 16-byte pieces the lanes copy in turn; rows land back to back
+    const int pieces = hd * (int)sizeof(S) / 16;  // per row
+    const size_t row0 = (page * bs + (slot0 - j * bs)) * kvh + kv_head;
+    const char* kg = reinterpret_cast<const char*>(k);
+    const char* vg = reinterpret_cast<const char*>(v);
+    char* kd = reinterpret_cast<char*>(k_dst);
+    char* vd = reinterpret_cast<char*>(v_dst);
+    for (int i = lane; i < n_valid * pieces; i += 32) {
+      const int r = i / pieces;
+      const size_t off = (row0 + (size_t)r * kvh) * hd * sizeof(S) +
+                         (size_t)(i - r * pieces) * 16;
+      cp_async16(kd + (size_t)i * 16, kg + off);
+      cp_async16(vd + (size_t)i * 16, vg + off);
+    }
+    cp_async_arrive(bar);
+  }
+};
+
+// G: the group size on the lane route, 0 on the generic route.
+template <typename T, typename S, int G>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_split_kernel(const T* __restrict__ q,
+                              const S* __restrict__ k_cache,
+                              const S* __restrict__ v_cache,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ v_scale,
+                              const int* __restrict__ block_tables,
+                              const int* __restrict__ lengths,
+                              T* __restrict__ out, float* __restrict__ ws_ml,
+                              float* __restrict__ ws_acc,
+                              int* __restrict__ tickets, int nh, int kvh,
+                              int hd, int bs, int mb, int chunk,
+                              float scale) {
+  const int pair = blockIdx.x;
+  const int n = pair / kvh;
+  int length = lengths[n];
+  length = length < 0 ? 0 : length > mb * bs ? mb * bs : length;
+  const PagedSource<S> src{k_cache, v_cache,  k_scale,    v_scale,
+                           block_tables + (size_t)n * mb, pair % kvh,
+                           kvh,     hd,       bs};
+  split_walk<T, S, G>(src, q, out, ws_ml, ws_acc, tickets, nh, kvh, hd, bs,
+                      length, chunk, scale);
+}
 
 template <typename T, typename S>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_attention_kernel(const T* __restrict__ q,
-                                  const S* __restrict__ k_cache,
-                                  const S* __restrict__ v_cache,
-                                  const float* __restrict__ k_scale,
-                                  const float* __restrict__ v_scale,
-                                  const int* __restrict__ block_tables,
-                                  const int* __restrict__ lengths,
-                                  T* __restrict__ out, int nh, int kvh, int hd,
-                                  int bs, int mb, float scale) {
-  const int n = blockIdx.x;
-  const int h = blockIdx.y;
-  const int group = nh / kvh;
-  const size_t rows = ((size_t)n * nh + (size_t)h * group) * hd;
-  const PagedSlots slots{block_tables + (size_t)n * mb, h, kvh, hd, bs};
-  attend_row<T, S>(q + rows, k_cache, v_cache, k_scale, v_scale, slots,
-                   lengths[n], mb, hd, bs, group, scale, out + rows);
+static Layout layout_of(int nh, int kvh, int hd, int bs) {
+  return layout(hd, nh / kvh, (int)sizeof(T), (int)sizeof(S), bs);
 }
 
 template <typename T, typename S>
 static int launch(const void* q, const void* k, const void* v,
                   const void* ks, const void* vs, const void* tables,
-                  const void* lengths, void* out, int n, int nh, int kvh,
-                  int hd, int bs, int mb, float scale, void* stream) {
-  const size_t smem = smem_bytes<T>(hd, bs, nh / kvh);
-  cudaError_t err = prepare_smem(paged_decode_attention_kernel<T, S>, smem);
-  if (err != cudaSuccess) return (int)err;
-  paged_decode_attention_kernel<T, S>
-      <<<dim3(n, kvh), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(q), static_cast<const S*>(k),
-          static_cast<const S*>(v), static_cast<const float*>(ks),
-          static_cast<const float*>(vs), static_cast<const int*>(tables),
-          static_cast<const int*>(lengths), static_cast<T*>(out), nh, kvh, hd,
-          bs, mb, scale);
-  return (int)cudaGetLastError();
+                  const void* lengths, void* out, void* ws_ml, void* ws_acc,
+                  void* tickets, int n, int nh, int kvh, int hd, int bs,
+                  int mb, int chunk_pages, int n_split, float scale,
+                  void* stream) {
+  const Layout L = layout_of<T, S>(nh, kvh, hd, bs);
+  return dispatch_group<T>(nh / kvh, hd, [&](auto g) {
+    return launch_walk(
+        paged_decode_split_kernel<T, S, decltype(g)::value>, L, n * kvh,
+        n_split, stream, static_cast<const T*>(q), static_cast<const S*>(k),
+        static_cast<const S*>(v), static_cast<const float*>(ks),
+        static_cast<const float*>(vs), static_cast<const int*>(tables),
+        static_cast<const int*>(lengths), static_cast<T*>(out),
+        static_cast<float*>(ws_ml), static_cast<float*>(ws_acc),
+        static_cast<int*>(tickets), nh, kvh, hd, bs, mb, chunk_pages * bs,
+        scale);
+  });
+}
+
+template <bool Q8, typename Run>
+static int with_types(int dtype, Run run) {
+  auto pick = [&](auto t) {
+    using T = decltype(t);
+    using S = typename std::conditional<Q8, int8_t, T>::type;
+    return run(T(), S());
+  };
+  switch (dtype) {
+    case ds_vec::kF32: return pick(float());
+    case ds_vec::kF16: return pick(__half());
+    case ds_vec::kBF16: return pick(__nv_bfloat16());
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <bool Q8>
 static int dispatch(int dtype, const void* q, const void* k, const void* v,
                     const void* ks, const void* vs, const void* tables,
-                    const void* lengths, void* out, int n, int nh, int kvh,
-                    int hd, int bs, int mb, float scale, void* stream) {
+                    const void* lengths, void* out, void* ws_ml,
+                    void* ws_acc, void* tickets, int n, int nh, int kvh,
+                    int hd, int bs, int mb, int chunk_pages, int n_split,
+                    float scale, void* stream) {
   if (n == 0) return 0;
-  switch (dtype) {
-    case kF32:
-      return launch<float, Pool<float, Q8>>(q, k, v, ks, vs, tables, lengths,
-                                            out, n, nh, kvh, hd, bs, mb, scale,
-                                            stream);
-    case kF16:
-      return launch<__half, Pool<__half, Q8>>(q, k, v, ks, vs, tables,
-                                              lengths, out, n, nh, kvh, hd, bs,
-                                              mb, scale, stream);
-    case kBF16:
-      return launch<__nv_bfloat16, Pool<__nv_bfloat16, Q8>>(
-          q, k, v, ks, vs, tables, lengths, out, n, nh, kvh, hd, bs, mb, scale,
-          stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (bs <= 0 || chunk_pages <= 0 || n_split < 1
+      || (long long)n_split * chunk_pages < mb)
+    return (int)cudaErrorInvalidValue;
+  return with_types<Q8>(dtype, [&](auto t, auto s) {
+    return launch<decltype(t), decltype(s)>(
+        q, k, v, ks, vs, tables, lengths, out, ws_ml, ws_acc, tickets, n, nh,
+        kvh, hd, bs, mb, chunk_pages, n_split, scale, stream);
+  });
 }
 
-}  // namespace ds_paged
+// The kernel's resources for these shapes: out[0] dynamic shared memory
+// bytes, [1] slots per stage, [2] 1 on the lane route, [3] blocks per SM
+// (occupancy API), [4] registers per thread, [5] local (spilled) bytes per
+// thread.
+template <typename T, typename S>
+static int info(int nh, int kvh, int hd, int bs, int* out) {
+  const Layout L = layout_of<T, S>(nh, kvh, hd, bs);
+  return dispatch_group<T>(nh / kvh, hd, [&](auto g) {
+    auto kernel = paged_decode_split_kernel<T, S, decltype(g)::value>;
+    if (L.bytes > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kThreads, L.bytes);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = (int)L.bytes;
+    out[1] = L.tile;
+    out[2] = decltype(g)::value > 0;
+    out[3] = blocks;
+    out[4] = attr.numRegs;
+    out[5] = (int)attr.localSizeBytes;
+    return 0;
+  });
+}
+
+}  // namespace ds_paged_decode
 
 // Returns the cudaError_t of the launch (0 on success). Pool in q's dtype.
-extern "C" int ds_paged_decode_attention(const void* q, const void* k_cache,
-                                         const void* v_cache,
-                                         const void* block_tables,
-                                         const void* lengths, void* out, int n,
-                                         int nh, int kvh, int hd, int bs,
-                                         int mb, int dtype, float scale,
-                                         void* stream) {
-  return ds_paged::dispatch<false>(dtype, q, k_cache, v_cache, nullptr,
-                                   nullptr, block_tables, lengths, out, n, nh,
-                                   kvh, hd, bs, mb, scale, stream);
+// ws_ml / ws_acc / tickets: the split workspace (f32 [N * kvh * n_split *
+// 2 * group], f32 [N * kvh * n_split * group * hd], int32 [N * kvh], the
+// tickets zero); chunk_pages * n_split >= mb (the wrapper's
+// page_split_plan).
+extern "C" int ds_paged_decode_attention(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* block_tables, const void* lengths, void* out, void* ws_ml,
+    void* ws_acc, void* tickets, int n, int nh, int kvh, int hd, int bs,
+    int mb, int chunk_pages, int n_split, int dtype, float scale,
+    void* stream) {
+  return ds_paged_decode::dispatch<false>(
+      dtype, q, k_cache, v_cache, nullptr, nullptr, block_tables, lengths,
+      out, ws_ml, ws_acc, tickets, n, nh, kvh, hd, bs, mb, chunk_pages,
+      n_split, scale, stream);
 }
 
 // The int8 kv_quant pool: k/v_cache int8 [nb, bs, kvh, hd], k/v_scale f32
@@ -110,9 +239,23 @@ extern "C" int ds_paged_decode_attention(const void* q, const void* k_cache,
 extern "C" int ds_paged_decode_attention_q8(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* lengths, void* out, int n, int nh, int kvh, int hd, int bs,
-    int mb, int dtype, float scale, void* stream) {
-  return ds_paged::dispatch<true>(dtype, q, k_cache, v_cache, k_scale,
-                                  v_scale, block_tables, lengths, out, n, nh,
-                                  kvh, hd, bs, mb, scale, stream);
+    const void* lengths, void* out, void* ws_ml, void* ws_acc, void* tickets,
+    int n, int nh, int kvh, int hd, int bs, int mb, int chunk_pages,
+    int n_split, int dtype, float scale, void* stream) {
+  return ds_paged_decode::dispatch<true>(
+      dtype, q, k_cache, v_cache, k_scale, v_scale, block_tables, lengths,
+      out, ws_ml, ws_acc, tickets, n, nh, kvh, hd, bs, mb, chunk_pages,
+      n_split, scale, stream);
+}
+
+// The resources of the kernel that a call with these shapes launches
+// (int8 pool when q8 != 0); see ds_paged_decode::info. Returns a
+// cudaError_t.
+extern "C" int ds_paged_decode_info(int nh, int kvh, int hd, int bs,
+                                    int dtype, int q8, int* out) {
+  using namespace ds_paged_decode;
+  auto run = [&](auto t, auto s) {
+    return info<decltype(t), decltype(s)>(nh, kvh, hd, bs, out);
+  };
+  return q8 ? with_types<true>(dtype, run) : with_types<false>(dtype, run);
 }

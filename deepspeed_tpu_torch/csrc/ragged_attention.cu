@@ -18,12 +18,12 @@
 // Bound on an H100: bytes for decode-heavy batches (each row's used K/V
 // pages, read once per (row, kv head), at 3.35 TB/s); a long prefill chunk
 // adds 4 * nh * hd flops per (token, attended slot) and can cross to the
-// operation side. The design shares the decode kernel's page walk
-// (page_walk.cuh) and launch geometry, one block per (token, kv head), so a
-// decode row costs exactly what the decode kernel costs and a pure-decode
-// batch is bit-identical to it, for either pool. Its known waste: a prefill
-// chunk re-reads its row's shared prefix once per token; tiling the queries
-// of one row into one block (the lever named in the TPU kernel's note,
+// operation side. The design walks the pages of page_walk.cuh, one block
+// per (token, kv head). A pure-decode batch agrees with the paged decode
+// kernel (a split-K walk, split_walk.cuh) to f32 rounding, not bit for
+// bit: the two reduce in another order. Its known waste: a prefill chunk
+// re-reads its row's shared prefix once per token; tiling the queries of
+// one row into one block (the lever named in the TPU kernel's note,
 // :50-58) would read it once per tile.
 #include "page_walk.cuh"
 
@@ -78,15 +78,15 @@ static int dispatch(int dtype, const void* q, const void* k, const void* v,
                     void* stream) {
   if (n == 0) return 0;
   switch (dtype) {
-    case kF32:
+    case ds_vec::kF32:
       return launch<float, Pool<float, Q8>>(q, k, v, ks, vs, row_ids, lengths,
                                             tables, out, n, nh, kvh, hd, bs,
                                             mb, scale, stream);
-    case kF16:
+    case ds_vec::kF16:
       return launch<__half, Pool<__half, Q8>>(q, k, v, ks, vs, row_ids,
                                               lengths, tables, out, n, nh, kvh,
                                               hd, bs, mb, scale, stream);
-    case kBF16:
+    case ds_vec::kBF16:
       return launch<__nv_bfloat16, Pool<__nv_bfloat16, Q8>>(
           q, k, v, ks, vs, row_ids, lengths, tables, out, n, nh, kvh, hd, bs,
           mb, scale, stream);

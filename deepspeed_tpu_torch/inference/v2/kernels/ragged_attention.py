@@ -19,10 +19,10 @@ exact zeros.
 * :func:`ragged_attention` — the wrapper: a CUDA tensor launches the
   Hopper kernel ``csrc/ragged_attention.cu`` (counted in
   ``ragged_attention.launches``, or ``ragged_attention.q8_launches`` for
-  an int8 pool), a CPU tensor takes the plain version. The kernel shares
-  the decode kernel's page walk, so a pure-decode ragged batch is
-  bit-identical to :func:`..paged_attention.paged_attention` for either
-  pool.
+  an int8 pool), a CPU tensor takes the plain version. Its page walk is
+  not the paged decode kernel's split walk, so a pure-decode ragged batch
+  agrees with :func:`..paged_attention.paged_attention` to f32 rounding,
+  not bit for bit.
 * :func:`ragged_attention_plain` — the plain PyTorch version: gather each
   row's pages once, index them per token, mask, softmax in f32.
 """

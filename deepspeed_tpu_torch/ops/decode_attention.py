@@ -27,11 +27,13 @@ tokens including the current one); GQA head ``h`` reads kv head
   it.
 """
 
-import math
-
 import torch
 
-from ..inference.v2.kernels.paged_attention import _DTYPE_CODE, _attend_plain
+from ..inference.v2.kernels.paged_attention import (BLOCKS_PER_2SM, H100_SMS,
+                                                     TILE, _DTYPE_CODE,
+                                                     _attend_plain,
+                                                     _split_attend_plain,
+                                                     grow_workspace)
 from .op_builder import cuda as cuda_build
 
 
@@ -41,11 +43,6 @@ def dense_decode_attention_plain(q, k_cache, v_cache, lengths):
     # [B, kvh, M, hd] -> [B, M, kvh, hd]: the gathered-context layout
     return _attend_plain(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
                          lengths)
-
-
-TILE = 64                  # cache slots per tile of the kernel (csrc kTile)
-H100_SMS = 132             # streaming multiprocessors of an H100 SXM
-BLOCKS_PER_2SM = 5         # blocks the plan aims at per two SMs
 
 
 def split_plan(B: int, kvh: int, M: int):
@@ -65,39 +62,9 @@ def dense_decode_split_plain(q, k_cache, v_cache, lengths, chunk: int):
     a masked f32 softmax state (m, l, acc); chunks that start at or past a
     row's length take no part; the states combined in chunk order. Same
     result as :func:`dense_decode_attention_plain` up to f32 rounding."""
-    B, nh, hd = q.shape
-    kvh, M = k_cache.shape[1], k_cache.shape[2]
-    group = nh // kvh
-    q4 = q.float().reshape(B, kvh, group, hd)
-    lens = lengths.to(q.device).long().clamp(0, M)
-    ms, ls, accs = [], [], []
-    for lo in range(0, max(M, 1), chunk):
-        hi = min(M, lo + chunk)
-        k = k_cache[:, :, lo:hi].float()
-        v = v_cache[:, :, lo:hi].float()
-        s = torch.einsum("bhgd,bhsd->bhgs", q4, k) * (1.0 / math.sqrt(hd))
-        valid = (lo + torch.arange(hi - lo, device=q.device))[None] \
-            < lens[:, None]
-        valid = valid[:, None, None, :]
-        s = torch.where(valid, s, torch.full_like(s, -math.inf))
-        m = s.amax(dim=-1, keepdim=True) if hi > lo else \
-            torch.full((B, kvh, group, 1), -math.inf, device=q.device)
-        p = torch.exp(s - torch.where(torch.isfinite(m), m,
-                                      torch.zeros_like(m)))
-        ms.append(m)
-        ls.append(p.sum(dim=-1, keepdim=True))
-        accs.append(torch.einsum("bhgs,bhsd->bhgd", p, v))
-    m_all = torch.stack(ms).amax(dim=0)
-    m_all = torch.where(torch.isfinite(m_all), m_all,
-                        torch.zeros_like(m_all))
-    l = torch.zeros_like(ls[0])
-    acc = torch.zeros_like(accs[0])
-    for m, lc, ac in zip(ms, ls, accs):     # chunk order
-        w = torch.exp(m - m_all)            # a chunk past the length: 0
-        l = l + lc * w
-        acc = acc + ac * w
-    out = acc / torch.where(l == 0, torch.ones_like(l), l)
-    return out.reshape(B, nh, hd).to(q.dtype)
+    # [B, kvh, M, hd] -> [B, M, kvh, hd]: the gathered-context layout
+    return _split_attend_plain(q, k_cache.transpose(1, 2),
+                               v_cache.transpose(1, 2), lengths, chunk)
 
 
 def _check_args(q, k_cache, v_cache, lengths):
@@ -134,19 +101,9 @@ _workspaces = {}    # device -> (ws_ml, ws_acc, tickets), grown as needed
 
 
 def _workspace(device, pairs, n_split, group, hd):
-    """The kernel's partials (f32) and tickets (int32, zero between
-    launches) for at least this size, kept per device. A workspace is made
-    (tickets zeroed) only when none is large enough."""
-    need = (pairs * n_split * 2 * group, pairs * n_split * group * hd, pairs)
-    ws = _workspaces.get(device)
-    if ws is None or any(t.numel() < n for t, n in zip(ws, need)):
-        if ws is not None:
-            need = tuple(max(n, t.numel()) for t, n in zip(ws, need))
-        ws = (torch.empty(need[0], dtype=torch.float32, device=device),
-              torch.empty(need[1], dtype=torch.float32, device=device),
-              torch.zeros(need[2], dtype=torch.int32, device=device))
-        _workspaces[device] = ws
-    return ws
+    """The kernel's partials and tickets (``grow_workspace``), kept per
+    device."""
+    return grow_workspace(_workspaces, device, pairs, n_split, group, hd)
 
 
 def dense_decode_attention(q, k_cache, v_cache, lengths):

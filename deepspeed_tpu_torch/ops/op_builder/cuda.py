@@ -40,14 +40,17 @@ _L = ctypes.c_int64
 # C signature of every entry point, by library name
 SIGNATURES = {
     "paged_attention": {
-        # q, k, v, tables, lengths, out, n, nh, kvh, hd, bs, mb, dtype,
-        # scale, stream
+        # q, k, v, tables, lengths, out, ws_ml, ws_acc, tickets, n, nh,
+        # kvh, hd, bs, mb, chunk_pages, n_split, dtype, scale, stream
         "ds_paged_decode_attention":
-            [_P] * 6 + [_I] * 7 + [_F, _P],
-        # q, k, v, k_scale, v_scale, tables, lengths, out, n, nh, kvh, hd,
-        # bs, mb, dtype, scale, stream
+            [_P] * 9 + [_I] * 9 + [_F, _P],
+        # q, k, v, k_scale, v_scale, tables, lengths, out, ws_ml, ws_acc,
+        # tickets, n, nh, kvh, hd, bs, mb, chunk_pages, n_split, dtype,
+        # scale, stream
         "ds_paged_decode_attention_q8":
-            [_P] * 8 + [_I] * 7 + [_F, _P],
+            [_P] * 11 + [_I] * 9 + [_F, _P],
+        # nh, kvh, hd, bs, dtype, q8, out (int[6])
+        "ds_paged_decode_info": [_I] * 6 + [_P],
     },
     "ragged_attention": {
         # q, k, v, row_ids, lengths, tables, out, n, nh, kvh, hd, bs, mb,

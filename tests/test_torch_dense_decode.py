@@ -27,6 +27,10 @@ from deepspeed_tpu.ops.decode_attention import \
 
 from deepspeed_tpu_torch.ops import decode_attention as dd
 
+# the suite runs in several worker processes that share the CPUs: a
+# small intra-op pool keeps torch from crowding out the other workers
+torch.set_num_threads(2)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

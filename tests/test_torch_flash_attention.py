@@ -25,6 +25,10 @@ from deepspeed_tpu.ops import flash_attention as jfa
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.sequence import layer as tlayer
 
+# the suite runs in several worker processes that share the CPUs: a
+# small intra-op pool keeps torch from crowding out the other workers
+torch.set_num_threads(2)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 D = 64
 

@@ -46,6 +46,10 @@ from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
 from deepspeed_tpu_torch.ops.decode_attention import (
     dense_decode_attention, dense_decode_attention_plain)
 
+# the suite runs in several worker processes that share the CPUs: a
+# small intra-op pool keeps torch from crowding out the other workers
+torch.set_num_threads(2)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -11,6 +11,11 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+# the suite runs in several worker processes that share the CPUs: a
+# small intra-op pool keeps torch from crowding out the other workers
+torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted(

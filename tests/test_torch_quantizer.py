@@ -50,6 +50,10 @@ from deepspeed_tpu_torch.ops import norms as TN
 from deepspeed_tpu_torch.ops import quantizer as TQ
 from deepspeed_tpu_torch.ops import quantizer_kernels as TK
 
+# the suite runs in several worker processes that share the CPUs: a
+# small intra-op pool keeps torch from crowding out the other workers
+torch.set_num_threads(2)
+
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16),
           "float16": (jnp.float16, torch.float16)}

@@ -38,6 +38,10 @@ from deepspeed_tpu.ops import sparse_kernels as jsk
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops import sparse_kernels as tsk
 
+# the suite runs in several worker processes that share the CPUs: a
+# small intra-op pool keeps torch from crowding out the other workers
+torch.set_num_threads(2)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-5, atol=5e-5)
 D = 64

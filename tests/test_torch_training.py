@@ -53,6 +53,10 @@ from deepspeed_tpu_torch.runtime.config import (ConfigError,
                                                 DeepSpeedConfig)
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as tls
 
+# the suite runs in several worker processes that share the CPUs: a
+# small intra-op pool keeps torch from crowding out the other workers
+torch.set_num_threads(2)
+
 S, MICRO, GAS = 128, 2, 2
 
 # _flagship_cfg(small=True) (__graft_entry__.py:120), flash from S = 128

@@ -45,6 +45,10 @@ from deepspeed_tpu_torch.inference.v2.config_v2 import DSStateManagerConfig
 from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
 from deepspeed_tpu_torch.ops import quantizer_kernels as TK
 
+# the suite runs in several worker processes that share the CPUs: a
+# small intra-op pool keeps torch from crowding out the other workers
+torch.set_num_threads(2)
+
 BS = 16
 SM = dict(max_tracked_sequences=8, max_seq_len=128, num_blocks=65,
           block_size=BS)
