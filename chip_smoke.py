@@ -68,13 +68,22 @@ exit 0):
    S 8192, bf16) on three layouts: (i) Fixed, block 64, 4 local / 1
    global, causal; (ii) BigBird, block 64, window 3, 1 global, 1 random,
    non-causal; (iii) the pattern of (i) at block 16 (16 local / 4
-   global): sparse_fwd, sparse_bwd_dq and sparse_bwd_dkv against their
-   plain versions with the flash tolerances, (i) also in fp32 and fp16,
-   blocks 32 and 128 at S 2048, q blocks with no active block giving
-   o = 0 and dq = 0, a repeated backward bit-identical; times of (i), the
-   operations bound (sparse_work) and the library yardstick
-   (scaled_dot_product_attention with the layout as a boolean mask, and
-   its autograd backward for the dq + dkv pair);
+   global). First the registers and spills (ptxas; a spill fails) and
+   the shared memory and blocks per SM of the tensor-core sparse_bwd_dq
+   and sparse_bwd_dkv (csrc/sparse_hopper.cuh); each layout's block and
+   64-row tile statistics (tile products, steps per head, busy share of
+   the consumer slots, longest list); then sparse_fwd, sparse_bwd_dq and
+   sparse_bwd_dkv against their plain versions with the flash
+   tolerances at each layout, (i) also in fp32 (the tile kernels), fp16
+   and at hd 64, blocks 32 and 128 at S 2048, block 16 at S 2064 (a
+   ragged last 64-row tile: the tile kernels' route); q blocks with no
+   active block giving o = 0 and dq = 0 (block 64), and at block 16 empty
+   q and kv blocks inside and across 64-row tiles giving o = dq = 0 and
+   dk = dv = 0 exactly; a repeated backward bit-identical; times of each
+   layout (the backward pair in turns with the library pair: dq, dkv,
+   library, dq, dkv), the operations bound (sparse_work) and the library
+   yardstick (scaled_dot_product_attention with the layout as a boolean
+   mask, and its autograd backward for the dq + dkv pair);
 4b. quantizer and RMSNorm kernel phases: quantize_blocks and
    dequantize_blocks on one Mistral-7B layer's w_gate and w_down (bf16,
    block 2048, bits 8 and 4, int4 through pack / unpack), on edge inputs
@@ -1848,13 +1857,14 @@ def visible_layout(layout, causal):
     return lay
 
 
-def sparse_work(layout, causal, block, bh, tables, elem):
+def sparse_work(layout, causal, block, bh, tables, elem, tiles=None):
     """(bytes, flops) of each sparse function: every input (q, k, v, do,
-    lse, delta, the function's two tables) read once and every output
-    written once; 2 flops per visible (q, k) pair and head dim per product,
-    two products in the forward, three in dq, four in dk/dv. Visible pairs:
-    block^2 per active off-diagonal block, block (block + 1) / 2 per causal
-    diagonal block."""
+    lse, delta, the tables the function's kernel reads: the per-block ones,
+    or for the tensor-core dq and dk/dv the tile tables) read once and
+    every output written once; 2 flops per visible (q, k) pair and head dim
+    per product, two products in the forward, three in dq, four in dk/dv.
+    Visible pairs: block^2 per active off-diagonal block, block (block + 1)
+    / 2 per causal diagonal block."""
     lay = visible_layout(layout, causal)
     H, n, _ = lay.shape
     diag = int(np.trace(lay, axis1=1, axis2=2).sum()) if causal else 0
@@ -1865,27 +1875,57 @@ def sparse_work(layout, causal, block, bh, tables, elem):
     row = bh * n * block * 4                    # lse or delta
     tb_kv = sum(t.numel() * 4 for t in tables[:2])
     tb_q = sum(t.numel() * 4 for t in tables[2:])
+    tb_dq, tb_dkv = tb_kv, tb_q
+    if tiles is not None:
+        tb_dq = (tiles.dq_items.numel() + tiles.dq_steps.numel()) * 4
+        tb_dkv = (tiles.dkv_items.numel() + tiles.dkv_steps.numel()) * 4
     return {"sparse_fwd": (4 * x + row + tb_kv, 2 * per_product),
-            "sparse_bwd_dq": (5 * x + 2 * row + tb_kv, 3 * per_product),
-            "sparse_bwd_dkv": (6 * x + 2 * row + tb_q, 4 * per_product)}
+            "sparse_bwd_dq": (5 * x + 2 * row + tb_dq, 3 * per_product),
+            "sparse_bwd_dkv": (6 * x + 2 * row + tb_dkv, 4 * per_product)}
 
 
-def layout_stats(layout, causal, tables):
+def layout_stats(layout, causal, tables, tiles=None):
+    """The layout's block counts and table widths; with the host tile
+    tables (build_tile_tables) also the tensor-core walk: tile products
+    per head, steps per head, the share of consumer slots that multiply,
+    and the longest step list."""
     lay = visible_layout(layout, causal)
     H, n, _ = lay.shape
     rows, cols = lay.sum(-1), lay.sum(-2)
     room = n * (n + 1) // 2 if causal else n * n
-    return (f"{int(lay.sum()) // H} active blocks per head of {room} "
+    text = (f"{int(lay.sum()) // H} active blocks per head of {room} "
             f"{'causal ' if causal else ''}blocks (density "
             f"{lay.sum() / (H * room):.3f}), Jmax {tables[0].shape[-1]} / "
             f"median {float(np.median(rows)):.0f}, Imax "
             f"{tables[2].shape[-1]} / median {float(np.median(cols)):.0f}")
+    if tiles is not None:
+        masks = tiles.dq_steps[:, 1].view(np.uint32)
+        pairs = int(((masks & 0xFFFF) != 0).sum()
+                    + ((masks >> 16) != 0).sum())
+        text += (f"; 64-row tiles: {pairs / H:.0f} tile products per head, "
+                 f"dq {tiles.dq_steps.shape[0] / H:.0f} steps per head "
+                 f"({pairs / (2 * tiles.dq_steps.shape[0]):.3f} of slots "
+                 f"busy, longest {tiles.dq_max}), dk/dv "
+                 f"{tiles.dkv_steps.shape[0] / H:.0f} ("
+                 f"{pairs / (2 * tiles.dkv_steps.shape[0]):.3f}, longest "
+                 f"{tiles.dkv_max})")
+    return text
 
 
-def sparse_calls(sk, q, k, v, do, tables, causal, block):
+def sparse_tables(sk, layout, causal, block, dev):
+    """The per-block tables and, where S is a multiple of 64, the tile
+    tables of the tensor-core backward, on the card."""
+    tables = sk.device_tables(layout, causal, dev)
+    s = np.shape(layout)[1] * block
+    tiles = (sk.device_tile_tables(layout, causal, block, dev)
+             if s % sk.TILE == 0 else None)
+    return tables, tiles
+
+
+def sparse_calls(sk, q, k, v, do, tables, causal, block, tiles=None):
     """Each sparse function as (kernel call, plain call) without arguments
     on one input set; the backward ones take the kernel forward's lse and
-    delta."""
+    delta (and the tile tables, which the tensor-core route walks)."""
     args = (1.0 / q.shape[-1] ** 0.5, causal, block, NH)
     tq, tkv = tables[:2], tables[2:]
     o, lse = sk.sparse_fwd(q, k, v, *tq, *args)
@@ -1893,18 +1933,19 @@ def sparse_calls(sk, q, k, v, do, tables, causal, block):
     return {
         "sparse_fwd": (lambda: sk.sparse_fwd(q, k, v, *tq, *args),
                        lambda: sk.sparse_fwd_plain(q, k, v, *tq, *args)),
-        "sparse_bwd_dq": (lambda: sk.sparse_bwd_dq(*bwd, *tq, *args),
-                          lambda: sk.sparse_bwd_dq_plain(*bwd, *tq, *args)),
+        "sparse_bwd_dq": (
+            lambda: sk.sparse_bwd_dq(*bwd, *tq, *args, tiles=tiles),
+            lambda: sk.sparse_bwd_dq_plain(*bwd, *tq, *args)),
         "sparse_bwd_dkv": (
-            lambda: sk.sparse_bwd_dkv(*bwd, *tkv, *args),
+            lambda: sk.sparse_bwd_dkv(*bwd, *tkv, *args, tiles=tiles),
             lambda: sk.sparse_bwd_dkv_plain(*bwd, *tkv, *args)),
     }
 
 
-def sparse_run(sk, q, k, v, do, tables, causal, block):
+def sparse_run(sk, q, k, v, do, tables, causal, block, tiles=None):
     """Kernel and plain outputs of the three functions on one input set:
     (o, lse, dq, dk, dv), each as (kernel, plain)."""
-    calls = sparse_calls(sk, q, k, v, do, tables, causal, block)
+    calls = sparse_calls(sk, q, k, v, do, tables, causal, block, tiles)
     (o, lse), (o_p, lse_p) = (f() for f in calls["sparse_fwd"])
     dq, dq_p = (f() for f in calls["sparse_bwd_dq"])
     (dk, dv), (dk_p, dv_p) = (f() for f in calls["sparse_bwd_dkv"])
@@ -1913,35 +1954,130 @@ def sparse_run(sk, q, k, v, do, tables, causal, block):
 
 
 def sparse_check(sk, name, q, k, v, do, tables, causal, block, tol_o,
-                 tol_g):
+                 tol_g, tiles=None):
     """Holds the three sparse kernels against their plain versions, as
-    flash_check holds the flash kernels."""
+    flash_check holds the flash kernels; logs the backward's route."""
+    route = ("tensor cores" if sk.tensor_core_route(q) else "tile kernels")
     (o, o_p), (lse, lse_p), *grads = sparse_run(sk, q, k, v, do, tables,
-                                                causal, block)
-    return compare_outputs(name, (o, o_p), (lse, lse_p), grads, tol_o,
-                           tol_g)
+                                                causal, block, tiles)
+    return compare_outputs(f"{name} [dq, dk/dv on the {route}]", (o, o_p),
+                           (lse, lse_p), grads, tol_o, tol_g)
 
 
-def sparse_library_ms(layout, block, q, k, v, do, flush):
+def sparse_library(layout, causal, block, q, k, v, do):
     """The yardstick (never called by the port): scaled_dot_product_attention
-    with the layout expanded to a boolean [1, 1, S, S] token mask (one
-    layout for every head), causal; its autograd backward computes the
-    dq + dkv pair."""
+    with the layout expanded to a boolean [1, 1, S, S] token mask (head 0's
+    layout for every head; tril under causal), as (forward call, autograd
+    backward call), the backward computing the dq + dkv pair."""
     S = q.shape[1]
-    lay0 = torch.as_tensor(visible_layout(layout, True)[0], device=q.device)
-    mask = (lay0.repeat_interleave(block, 0).repeat_interleave(block, 1)
-            & torch.ones(S, S, dtype=torch.bool, device=q.device).tril())
+    lay0 = torch.as_tensor(visible_layout(layout, causal)[0],
+                           device=q.device)
+    mask = lay0.repeat_interleave(block, 0).repeat_interleave(block, 1)
+    if causal:
+        mask &= torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
     mask = mask[None, None]
-    q4, k4, v4, do4 = (t.view(1, NH, S, HD) for t in (q, k, v, do))
+    q4, k4, v4, do4 = (t.view(1, NH, S, -1) for t in (q, k, v, do))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qg, kg, vg = (t.detach().clone().requires_grad_(True)
                   for t in (q4, k4, v4))
     lib_out = sdpa(qg, kg, vg, attn_mask=mask)
-    pair = time_ms(lambda: torch.autograd.grad(
-        lib_out, (qg, kg, vg), do4, retain_graph=True), flush)
-    return {"sparse_fwd": time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask),
-                                  flush),
-            "sparse_bwd_dq": pair, "sparse_bwd_dkv": pair}
+    return (lambda: sdpa(q4, k4, v4, attn_mask=mask),
+            lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do4,
+                                        retain_graph=True))
+
+
+def time_bwd_turns(calls, lib_bwd, flush):
+    """dq, dk/dv and the library pair in turns (dq, dkv, library, dq,
+    dkv): medians of the kernels' 40 samples and of the library's 20."""
+    kern = ("sparse_bwd_dq", "sparse_bwd_dkv")
+    first = {n: time_samples(calls[n][0], flush) for n in kern}
+    lib_t = time_samples(lib_bwd, flush)
+    last = {n: time_samples(calls[n][0], flush) for n in kern}
+    return ({n: statistics.median(first[n] + last[n]) for n in kern},
+            statistics.median(lib_t))
+
+
+def sparse_resources(sk, max_steps):
+    """Logs, for the tensor-core sparse_bwd_dq and sparse_bwd_dkv, the
+    registers and spills from the ptxas report of the build and the
+    dynamic shared memory (at step lists of up to max_steps) and resident
+    blocks per SM from the CUDA occupancy API; raises on a spill, a
+    missing kernel in the report of a build made by this process, or a
+    kernel that cannot launch."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops.op_builder import cuda as cuda_build
+
+    kinds = ("sparse_bwd_dq", "sparse_bwd_dkv")     # info's order
+    text = cuda_build.build_logs.get("sparse_attention", "")
+    seen = 0
+    for entry in text.split("Compiling entry function '")[1:]:
+        name = entry.split("'", 1)[0]
+        if "hopper" not in name:
+            continue
+        kind = next(k for k in kinds if f"{k}_hopper" in name)
+        dtype = "fp16" if "6__half" in name else "bf16"
+        hd = re.search(r"Li(\d+)E", name).group(1)
+        regs = re.search(r"Used (\d+) registers", entry).group(1)
+        spill = [int(x) for x in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", entry)]
+        log(f"  ptxas {kind} tensor-core {dtype} hd {hd}: {regs} registers "
+            f"at launch (setmaxnreg: producer 24, consumers 240), spill "
+            f"stores/loads {'/'.join(map(str, spill))} bytes")
+        if any(spill):
+            raise AssertionError(f"{kind} {dtype} hd {hd} spills registers")
+        seen += 1
+    if not text:
+        log("  ptxas: no report in this process (the libraries of an "
+            "unchanged tree were reused)")
+    elif seen != 8:
+        raise AssertionError(f"ptxas listed {seen} tensor-core sparse "
+                             f"kernels, want 8 (2 kernels x 2 dtypes x 2 "
+                             f"head dims)")
+    lib = cuda_build.load("sparse_attention")
+    for hd in HEAD_DIMS:
+        out = (ctypes.c_int * 6)()
+        cuda_build.check(lib.ds_sparse_hopper_info(
+            hd, 2, max_steps, ctypes.addressof(out)),
+            "ds_sparse_hopper_info")
+        for i, kind in enumerate(kinds):
+            regs, smem, blocks = out[3 * i:3 * i + 3]
+            log(f"  {kind} tensor-core bf16 hd {hd}: {regs} registers, "
+                f"{smem} bytes of dynamic shared memory (lists of up to "
+                f"{max_steps} steps), 384 threads: {blocks} block(s) per SM")
+            if blocks < 1:
+                raise AssertionError(f"{kind} hd {hd} cannot launch")
+
+
+def sparse_zero_rows(sk, q, k, v, do, dev):
+    """Block 16, non-causal: q blocks 1-2 (inside the first 64-row tile)
+    and 40-47 (whole tiles) see no block, kv blocks 5-6 and 48-55 feed
+    none. The tensor-core backward gives dq = 0 and dk = dv = 0 there
+    exactly, the forward o = 0, and the other rows are not all zero."""
+    s, block = 1024, 16
+    n = s // block
+    lay = np.ones((NH, n, n), bool)
+    lay[:, 1:3] = lay[:, 40:48] = False
+    lay[:, :, 5:7] = lay[:, :, 48:56] = False
+    x = [t[:, :s].contiguous() for t in (q, k, v, do)]
+    tables, tiles = sparse_tables(sk, lay, False, block, dev)
+    sparse_check(sk, "sparse bf16 empty rows b16 S 1024", *x, tables, False,
+                 block, TOL, 2e-2, tiles)
+    (o, _), _, (dq, _), (dk, _), (dv, _) = sparse_run(
+        sk, *x, tables, False, block, tiles)
+    q_dead = np.repeat(~lay[0].any(1), block)
+    k_dead = np.repeat(~lay[0].any(0), block)
+    qd, kd = (torch.as_tensor(m, device=dev) for m in (q_dead, k_dead))
+    ok = (bool((o[:, qd] == 0).all()) and bool((dq[:, qd] == 0).all())
+          and bool((dk[:, kd] == 0).all()) and bool((dv[:, kd] == 0).all())
+          and all(bool((t[:, ~m] != 0).any())
+                  for t, m in ((o, qd), (dq, qd), (dk, kd), (dv, kd))))
+    log(f"sparse b16: {int(q_dead.sum())} q rows of empty q blocks give "
+        f"o = 0 and dq = 0, {int(k_dead.sum())} kv rows of empty kv blocks "
+        f"dk = dv = 0, exactly: {ok}")
+    if not ok:
+        raise AssertionError("sparse: empty q / kv blocks must give exact "
+                             "zeros (o, dq / dk, dv)")
 
 
 def sparse_phases(dev, flush):
@@ -1953,28 +2089,39 @@ def sparse_phases(dev, flush):
     S = SPARSE_S
     q, k, v, do = (torch.randn((NH, S, HD), generator=gen, device=dev,
                                dtype=torch.bfloat16) for _ in range(4))
-    results = {}
+    results, first = {}, None
+    sparse_resources(sk, S // sk.TILE)
     for label, (cfg, causal) in sparse_configs().items():
         layout = cfg.make_layout(S)
-        tables = sk.device_tables(layout, causal, dev)
+        tables, tiles = sparse_tables(sk, layout, causal, cfg.block, dev)
         log(f"sparse {label}: B 1, nh {NH}, hd {HD}, S {S}, "
-            + layout_stats(layout, causal, tables))
+            + layout_stats(layout, causal, tables,
+                           sk.build_tile_tables(layout, causal, cfg.block)))
         err_o, err_g = sparse_check(sk, f"sparse bf16 {label}", q, k, v, do,
-                                    tables, causal, cfg.block, TOL, 2e-2)
-        calls = sparse_calls(sk, q, k, v, do, tables, causal, cfg.block)
-        work = sparse_work(layout, causal, cfg.block, NH, tables, 2)
-        times = {name: time_ms(kern, flush)
-                 for name, (kern, _) in calls.items()}
+                                    tables, causal, cfg.block, TOL, 2e-2,
+                                    tiles)
+        calls = sparse_calls(sk, q, k, v, do, tables, causal, cfg.block,
+                             tiles)
+        work = sparse_work(layout, causal, cfg.block, NH, tables, 2, tiles)
+        lib_fwd, lib_bwd = sparse_library(layout, causal, cfg.block, q, k,
+                                          v, do)
+        times = {"sparse_fwd": time_ms(calls["sparse_fwd"][0], flush)}
+        bwd_times, lib_pair = time_bwd_turns(calls, lib_bwd, flush)
+        times.update(bwd_times)
         log(f"sparse {label} kernel ms: " + ", ".join(
             f"{name} {t:.4f} (bound {bound(*work[name])[0]:.5f})"
-            for name, t in times.items()))
-        if results:
+            for name, t in times.items())
+            + f"; dq + dk/dv {sum(bwd_times.values()):.4f} against the "
+            f"library pair {lib_pair:.4f} (in turns: dq, dkv, library, dq, "
+            f"dkv)")
+        if first is not None:
             continue
         # (i): the kernels line, with the plain versions and the library
-        first = (cfg, tables, calls)
+        first = (cfg, tables, tiles, calls)
         errs = {"sparse_fwd": err_o, "sparse_bwd_dq": err_g["dq"],
                 "sparse_bwd_dkv": max(err_g["dk"], err_g["dv"])}
-        lib = sparse_library_ms(layout, cfg.block, q, k, v, do, flush)
+        lib = {"sparse_fwd": time_ms(lib_fwd, flush),
+               "sparse_bwd_dq": lib_pair, "sparse_bwd_dkv": lib_pair}
         for name, (_, plain) in calls.items():
             b_ms, b_by = bound(*work[name])
             results[name] = dict(
@@ -1989,33 +2136,39 @@ def sparse_phases(dev, flush):
         log("sparse library_ms: forward = scaled_dot_product_attention "
             "with the layout as a [1, 1, S, S] boolean mask; the dq and dkv "
             "rows = its autograd backward, which computes the pair")
-    cfg, tables, calls = first
+    cfg, tables, tiles, calls = first
     for dt, tol_o, tol_g in ((torch.float32, 1e-4, 1e-4),
                              (torch.float16, TOL, 2e-2)):
         sparse_check(sk, f"sparse {dt} (i)", q.to(dt), k.to(dt), v.to(dt),
-                     do.to(dt), tables, True, cfg.block, tol_o, tol_g)
-    # the other tile shapes: a 32-row tile, and a 128 block as two 64 tiles
-    s2 = min(S, 2048)
-    for block in (32, 128):
+                     do.to(dt), tables, True, cfg.block, tol_o, tol_g, tiles)
+    sparse_check(sk, "sparse bf16 (i) hd 64",
+                 *(t[..., :64].contiguous() for t in (q, k, v, do)), tables,
+                 True, cfg.block, TOL, 2e-2, tiles)
+    # the other blocks: 32 (2 x 2 sub-blocks a tile) and 128 (a block of
+    # 2 x 2 tiles) at S 2048, and block 16 at an S with a ragged last
+    # 64-row tile (the tile kernels' route)
+    for block, s2 in ((32, 2048), (128, 2048), (16, 2064)):
         lay = sa.FixedSparsityConfig(
             num_heads=NH, block=block, num_local_blocks=4,
             attention="unidirectional").make_layout(s2)
+        tb, tl = sparse_tables(sk, lay, True, block, dev)
         sparse_check(sk, f"sparse bf16 fixed b{block} causal S {s2}",
-                     *(t[:, :s2].contiguous() for t in (q, k, v, do)),
-                     sk.device_tables(lay, True, dev), True, block, TOL,
-                     2e-2)
+                     *(t[:, :s2].contiguous() for t in (q, k, v, do)), tb,
+                     True, block, TOL, 2e-2, tl)
     # q blocks with no active block: o = 0 and dq = 0 there
     lay = np.zeros((NH, 16, 16), bool)
     lay[:, 4:, :4] = True
     lay[:, 4:, 4:] = np.tril(np.ones((12, 12), bool))
+    tb, tl = sparse_tables(sk, lay, False, 64, dev)
     (o, _), _, (dq, _), _, _ = sparse_run(
-        sk, *(t[:, :1024].contiguous() for t in (q, k, v, do)),
-        sk.device_tables(lay, False, dev), False, 64)
+        sk, *(t[:, :1024].contiguous() for t in (q, k, v, do)), tb, False,
+        64, tl)
     if not ((o[:, :256] == 0).all() and (dq[:, :256] == 0).all()
             and (o[:, 256:] != 0).any()):
         raise AssertionError("sparse: q blocks with no active block must "
                              "give o = 0 and dq = 0")
     log("sparse: q blocks with no active block give o = 0 and dq = 0")
+    sparse_zero_rows(sk, q, k, v, do, dev)
     # a repeated backward is bit-identical (no atomics)
     runs = [(calls["sparse_bwd_dq"][0](), *calls["sparse_bwd_dkv"][0]())
             for _ in range(2)]
@@ -2023,10 +2176,12 @@ def sparse_phases(dev, flush):
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError("a repeated sparse backward is not "
                              "bit-identical")
-    log("sparse backward repeated: bit-identical")
+    log("sparse backward repeated (the tensor-core sparse_bwd_dq and "
+        "sparse_bwd_dkv at (i)): bit-identical")
     # the tables stay cached per layout (~0.1 GiB for the block-16 one):
     # free them before the later phases measure their peak memory
     sk._DEVICE_TABLES.clear()
+    sk._DEVICE_TILES.clear()
     return results
 
 

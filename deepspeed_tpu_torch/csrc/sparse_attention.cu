@@ -5,25 +5,36 @@
 //   sparse_bwd_dq   <- _bwd_dq_kernel (:190), via _sparse_bwd (:259)
 //   sparse_bwd_dkv  <- _bwd_dkv_kernel (:222), via _sparse_bwd (:259)
 // and computes the same functions over q/k/v [B*H, S, D] (no GQA) and a
-// static per-head block layout compiled into int32 tables (build_tables,
-// uploaded to the card once per layout by the Python wrapper):
-//   kv_idx/kv_valid [H, n, Jmax]: the active kv blocks of each q block
-//     (forward, dq), padded slots with valid 0;
-//   q_idx/q_valid [H, n, Imax]: the active q blocks of each kv block (dk/dv).
-// Row b of the folded [B*H, ...] tensors reads head b % H of the tables.
-// Only active blocks are loaded and multiplied; under the causal flag the
-// tables hold only blocks on or below the diagonal, and inside a block the
-// mask is the TPU kernels' top-left q_pos >= k_pos (q_pos = qi * block + r).
-// Here Sq = Skv, so the tile kernels' bottom-right mask (off = Skv - Sq = 0)
-// is the same mask.
+// static per-head block layout, compiled on the host into int32 tables
+// (ops/sparse_kernels.py, uploaded to the card once per layout). Row b of
+// the folded [B*H, ...] tensors reads head b % H of the tables. Only active
+// blocks are loaded and multiplied; inside a block the causal mask is the
+// TPU kernels' top-left q_pos >= k_pos (q_pos = qi * block + r). Here
+// Sq = Skv, so the tile kernels' bottom-right mask (off = Skv - Sq = 0) is
+// the same mask.
 //
-// The kernels are the flash tile kernels of flash_tiles.cuh (their bound
-// and design are described there) over a TableWalk. The tile has
-// TILE = min(block, 64) rows, so a 16- or 32-row block gets a 16- or 32-row
-// tile instead of leaving most of a 64-row one idle; a 128-row block is two
-// tiles: its q rows go to two CUDA blocks, and each active kv block is read
-// as two kv tiles. A kv tile that lies wholly above a q tile's diagonal is
-// skipped: its scores are all -1e30 and add exactly nothing.
+// Routes (the Python wrapper picks the entry point by the same rule):
+//   * dq and dk/dv for bf16 / fp16 with S a multiple of 64: the tensor-core
+//     kernels of sparse_hopper.cuh (ds_sparse_bwd_dq_hopper,
+//     ds_sparse_bwd_dkv_hopper) over the 64-row tile tables of
+//     build_tile_tables (work items and their step lists with 16-bit
+//     sub-block masks); their bound and design are described there;
+//   * the forward, f32 inputs, and an S that is not a multiple of 64 (a
+//     layout of block 16 or 32 whose last 64-row tile would be ragged):
+//     the f32 CUDA-core tile kernels of flash_tiles.cuh over a TableWalk
+//     of the per-block tables
+//       kv_idx/kv_valid [H, n, Jmax]: the active kv blocks of each q block
+//         (forward, dq), padded slots with valid 0;
+//       q_idx/q_valid [H, n, Imax]: the active q blocks of each kv block.
+//     Under the causal flag the tables hold only blocks on or below the
+//     diagonal.
+//
+// The TableWalk tile has TILE = min(block, 64) rows, so a 16- or 32-row
+// block gets a 16- or 32-row tile instead of leaving most of a 64-row one
+// idle; a 128-row block is two tiles: its q rows go to two CUDA blocks, and
+// each active kv block is read as two kv tiles. A kv tile that lies wholly
+// above a q tile's diagonal is skipped: its scores are all -1e30 and add
+// exactly nothing.
 //
 //   forward / dq: one CUDA block per (row b, q tile) walks its q block's
 //     Jmax table slots in table order (the online softmax of the TPU
@@ -37,12 +48,13 @@
 // (32 heads, S 8192, D 128, block 64, 2304 of 8256 causal blocks active)
 // the work is 2 flops per visible (q, k) pair and head dim per product, 2
 // products in the forward, 3 in dq, 4 in dk/dv: 0.152 / 0.228 / 0.304 ms at
-// 989 TFLOP/s, against ~2 bytes moved per 64 flops. Known costs of this
-// first version, beyond the CUDA-core products: a row's work is its number
-// of active blocks, so global rows and columns (Jmax, Imax up to n) finish
+// 989 TFLOP/s, against ~2 bytes moved per 64 flops. Known costs of the tile
+// route, beyond the CUDA-core products: a row's work is its number of
+// active blocks, so global rows and columns (Jmax, Imax up to n) finish
 // long after the median row's ~5 blocks; and a 16-row tile leaves each
 // thread one score and little reuse.
 #include "flash_tiles.cuh"
+#include "sparse_hopper.cuh"
 
 namespace ds_flash {
 
@@ -226,3 +238,74 @@ extern "C" int ds_sparse_bwd_dkv(const void* q, const void* k, const void* v,
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<DkvOp>(a);
 }
+
+// The tensor-core backward (sparse_hopper.cuh): bf16 / fp16, d 64 / 128,
+// s % 64 == 0. items [n_items, 5] int32 (head, tile0, tile1 or -1, step
+// start, step count), heaviest first; steps [*, 2] int32 (other tile, mask
+// of tile0 | mask of tile1 << 16); max_steps: the longest step list. Each
+// returns the cudaError_t of its launch (0 on success).
+namespace ds_sparse {
+
+static bool hopper_shape(int bh, int nheads, int s, int d, int max_steps) {
+  return (d == 64 || d == 128) && nheads > 0 && bh % nheads == 0 &&
+         s % kRows == 0 && max_steps >= 0;
+}
+
+}  // namespace ds_sparse
+
+#define DS_SPARSE_HOPPER_DISPATCH(CALL)                                      \
+  switch (dtype) {                                                           \
+    case ds_flash::kF16:                                                     \
+      return d == 64 ? CALL(__half, 64) : CALL(__half, 128);                 \
+    case ds_flash::kBF16:                                                    \
+      return d == 64 ? CALL(__nv_bfloat16, 64) : CALL(__nv_bfloat16, 128);   \
+  }                                                                          \
+  return (int)cudaErrorInvalidValue;
+
+extern "C" int ds_sparse_bwd_dq_hopper(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* items, const void* steps,
+    void* dq, int bh, int nheads, int s, int d, int n_items, int max_steps,
+    int dtype, float scale, int causal, void* stream) {
+  if (bh == 0 || s == 0 || n_items == 0) return 0;
+  if (!ds_sparse::hopper_shape(bh, nheads, s, d, max_steps))
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+#define DS_CALL(T, D)                                                     \
+  ds_sparse::bwd_dq<T, D>(q, k, v, dout, lse, delta, dq, items, steps,    \
+                          n_items, max_steps, bh, nheads, s, scale, causal, \
+                          st)
+  DS_SPARSE_HOPPER_DISPATCH(DS_CALL)
+#undef DS_CALL
+}
+
+extern "C" int ds_sparse_bwd_dkv_hopper(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* items, const void* steps,
+    void* dk, void* dv, int bh, int nheads, int s, int d, int n_items,
+    int max_steps, int dtype, float scale, int causal, void* stream) {
+  if (bh == 0 || s == 0 || n_items == 0) return 0;
+  if (!ds_sparse::hopper_shape(bh, nheads, s, d, max_steps))
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+#define DS_CALL(T, D)                                                      \
+  ds_sparse::bwd_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, items, steps, \
+                           n_items, max_steps, bh, nheads, s, scale, causal, \
+                           st)
+  DS_SPARSE_HOPPER_DISPATCH(DS_CALL)
+#undef DS_CALL
+}
+
+// Registers, dynamic shared memory and resident blocks per SM of the
+// tensor-core dq (out[0..2]) and dk/dv (out[3..5]) for a 16-bit dtype,
+// head_dim d and step lists of up to max_steps entries.
+extern "C" int ds_sparse_hopper_info(int d, int dtype, int max_steps,
+                                     int* out) {
+  if ((d != 64 && d != 128) || max_steps < 0)
+    return (int)cudaErrorInvalidValue;
+#define DS_CALL(T, D) ds_sparse::info<T, D>(max_steps, out)
+  DS_SPARSE_HOPPER_DISPATCH(DS_CALL)
+#undef DS_CALL
+}
+
+#undef DS_SPARSE_HOPPER_DISPATCH

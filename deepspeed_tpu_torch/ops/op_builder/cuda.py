@@ -89,6 +89,14 @@ SIGNATURES = {
         # q, k, v, do, lse, delta, q_idx, q_valid, dk, dv, bh, nheads, s, d,
         # block, imax, dtype, scale, causal, stream
         "ds_sparse_bwd_dkv": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+        # q, k, v, do, lse, delta, items, steps, dq, bh, nheads, s, d,
+        # n_items, max_steps, dtype, scale, causal, stream
+        "ds_sparse_bwd_dq_hopper": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+        # q, k, v, do, lse, delta, items, steps, dk, dv, bh, nheads, s, d,
+        # n_items, max_steps, dtype, scale, causal, stream
+        "ds_sparse_bwd_dkv_hopper": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+        # d, dtype, max_steps, out (int[6])
+        "ds_sparse_hopper_info": [_I, _I, _I, _P],
     },
     "quantizer": {
         # x, q, s, n, nb, block, dtype, bits, stream

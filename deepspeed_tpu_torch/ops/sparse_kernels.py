@@ -13,21 +13,30 @@ tables. Inactive blocks are never loaded or multiplied, and the [S, S]
 score matrix never exists: the online softmax runs over a q block's
 active kv blocks in table order.
 
-Three hand-written Hopper kernels, ``csrc/sparse_attention.cu`` (the
-flash tile kernels of ``csrc/flash_tiles.cuh`` over a table walk), take
-the place of the TPU kernels:
+Three hand-written Hopper kernels, ``csrc/sparse_attention.cu``, take the
+place of the TPU kernels:
 
 * :func:`sparse_fwd` -- ``_fwd_kernel`` (:105): o and the f32 lse;
 * :func:`sparse_bwd_dq` -- ``_bwd_dq_kernel`` (:190): dq;
 * :func:`sparse_bwd_dkv` -- ``_bwd_dkv_kernel`` (:222): dk and dv.
 
+Routes. dq and dk/dv on bf16 / fp16 inputs with S a multiple of 64 run the
+tensor-core kernels of ``csrc/sparse_hopper.cuh`` (wgmma fed by TMA) over
+64-row tile tables (:func:`build_tile_tables`: per (q tile, kv tile) step
+a 16-bit mask of active 16 x 16 sub-blocks, two tiles per CUDA block,
+work items heaviest first), which the caller passes as ``tiles=``
+(:func:`device_tile_tables`). The forward, f32 inputs (the tensor cores
+take f32 only as TF32) and an S that is not a multiple of 64 run the f32
+CUDA-core tile kernels of ``csrc/flash_tiles.cuh`` over the per-block
+tables.
+
 Each wrapper launches its kernel on CUDA tensors (built at first use by
 ``ops/op_builder/cuda.py``), with the tables as int32 tensors on the card
-(:func:`device_tables` uploads them once per layout), and counts the launch
-in ``<wrapper>.launches``; on CPU tensors it runs the plain version. There
-is no fallback: a build or launch failure, or a shape the kernels do not
-take, raises. ``delta = rowsum(do * o)`` stays one f32 torch expression,
-as it is jnp in the JAX package (:266).
+(:func:`device_tables` and :func:`device_tile_tables` upload them once per
+layout), and counts the launch in ``<wrapper>.launches``; on CPU tensors it
+runs the plain version. There is no fallback: a build or launch failure, or
+a shape the kernels do not take, raises. ``delta = rowsum(do * o)`` stays
+one f32 torch expression, as it is jnp in the JAX package (:266).
 
 The plain versions (:func:`sparse_fwd_plain`, :func:`sparse_bwd_dq_plain`,
 :func:`sparse_bwd_dkv_plain`) are the same arithmetic over the active
@@ -40,7 +49,7 @@ them. Nothing on the card's path calls them.
 """
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,8 +64,14 @@ _HEAD_DIMS = (64, 128)
 # f32 elements of the largest temporary of one chunk of the plain versions
 _CHUNK_ELEMS = 1 << 26
 
+TILE = 64                       # rows of a tensor-core tile (one wgmma M)
+_SUB = 16                       # rows of a sub-block of a tile's mask
+_TC_DTYPES = (torch.bfloat16, torch.float16)
+
 _TABLE_CACHE: dict = {}
 _DEVICE_TABLES: dict = {}
+_TILE_CACHE: dict = {}
+_DEVICE_TILES: dict = {}
 
 
 def _layout_key(layout, causal):
@@ -128,6 +143,135 @@ def device_tables(layout: np.ndarray, causal: bool, device
             _DEVICE_TABLES.clear()
         _DEVICE_TABLES[key] = hit
     return hit
+
+
+# ---------------------------------------------------------------------------
+# 64-row tile tables of the tensor-core backward
+# ---------------------------------------------------------------------------
+class TileTables(NamedTuple):
+    """The walk of the tensor-core dq and dk/dv kernels.
+
+    ``*_items`` [n, 5]: one work item per CUDA block (and batch row): head,
+    tile0, tile1 (-1: none), start and count of its steps; heaviest (most
+    steps) first. dq items pair neighbouring q tiles, dk/dv items kv tiles
+    of alike q lists. ``*_steps`` [m, 2]: the other tile of each step and
+    the 16-bit sub-block masks of tile0 and tile1 (``mask0 | mask1 << 16``,
+    as int32); a step is in an item's list iff either mask is non-zero.
+    ``*_max``: the longest list (the kernels' shared-memory budget).
+    ``nheads`` and ``n_tiles`` (S / 64) are the shape they were built
+    for, which the wrappers check."""
+    dq_items: object
+    dq_steps: object
+    dq_max: int
+    dkv_items: object
+    dkv_steps: object
+    dkv_max: int
+    nheads: int
+    n_tiles: int
+
+
+def tile_masks(layout: np.ndarray, causal: bool, block: int) -> np.ndarray:
+    """[H, nt, nt] int64: for q tile t and kv tile u (64 rows each), bit
+    4 a + b is set iff q sub-block a and kv sub-block b (16 rows each) of
+    the pair hold a visible (q, k) pair: their layout block is active and,
+    under the causal flag, the q sub-block is not left of the diagonal
+    (a block of 16 or 32 is 1 or 2 x 2 sub-blocks; one of 64 or 128 sets
+    all 16 bits of its tile pairs)."""
+    lay = np.asarray(layout, bool)
+    H, n, _ = lay.shape
+    rep = block // _SUB
+    sub = np.repeat(np.repeat(lay, rep, axis=1), rep, axis=2)
+    if causal:
+        sub = sub & np.tril(np.ones(sub.shape[1:], bool))[None]
+    nt = n * block // TILE
+    weights = (1 << np.arange(16, dtype=np.int64)).reshape(4, 4)
+    return np.einsum("htaub,ab->htu",
+                     sub.reshape(H, nt, 4, nt, 4).astype(np.int64), weights)
+
+
+def _work(masks: np.ndarray, pairs: np.ndarray):
+    """Items, steps and longest list for tiles paired as ``pairs`` [H, P, 2]
+    (tile ids, -1: none) over ``masks`` [H, tiles, other tiles]."""
+    H, P, _ = pairs.shape
+    heads = np.arange(H)[:, None]
+    m0 = masks[heads, pairs[..., 0]]
+    m1 = np.where((pairs[..., 1] >= 0)[..., None],
+                  masks[heads, np.maximum(pairs[..., 1], 0)], 0)
+    both = (m0 | (m1 << 16)).reshape(H * P, -1)
+    counts = (both != 0).sum(-1)
+    order = np.argsort(-counts, kind="stable")       # heaviest first
+    rank, other = np.nonzero(both[order])
+    steps = np.stack([other, both[order][rank, other]], -1)
+    counts = counts[order]
+    starts = np.cumsum(counts) - counts
+    h, p = np.divmod(order, P)
+    items = np.stack([h, pairs[h, p, 0], pairs[h, p, 1], starts, counts], -1)
+    return (items.astype(np.int32),
+            steps.astype(np.uint32).view(np.int32).reshape(-1, 2),
+            int(counts.max(initial=0)))
+
+
+def _build_tile_tables(layout, causal, block) -> TileTables:
+    masks = tile_masks(layout, causal, block)             # [H, t, u]
+    H, nt, _ = masks.shape
+    # dq: neighbouring q tiles, whose kv lists are alike
+    t = np.arange(0, nt, 2)
+    pair = np.stack([t, np.where(t + 1 < nt, t + 1, -1)], -1)
+    dq = _work(masks, np.broadcast_to(pair, (H, *pair.shape)))
+    # dk/dv: kv tiles sorted by the length of their q list, then by its
+    # first q tile, paired in that order, so that the long lists of global
+    # columns pair with each other and not with a local column's few
+    cols = masks.transpose(0, 2, 1)                       # [H, u, t]
+    count = (cols != 0).sum(-1)
+    first = np.where(count > 0, (cols != 0).argmax(-1), nt)
+    order = np.stack([np.lexsort((first[h], -count[h])) for h in range(H)])
+    if nt % 2:
+        order = np.concatenate([order, np.full((H, 1), -1)], 1)
+    dkv = _work(cols, order.reshape(H, -1, 2))
+    return TileTables(*dq, *dkv, H, nt)
+
+
+def build_tile_tables(layout: np.ndarray, causal: bool, block: int
+                      ) -> TileTables:
+    """The tensor-core backward's tables for (layout, causal, block), numpy
+    int32, memoized like :func:`build_tables`. S = n * block must be a
+    multiple of 64."""
+    if np.shape(layout)[1] * block % TILE or block not in _BLOCKS:
+        raise ValueError(f"tile tables need a layout block in {_BLOCKS} and "
+                         f"S a multiple of {TILE}; got block {block}, "
+                         f"{np.shape(layout)[1]} blocks")
+    key = (_layout_key(layout, causal), block)
+    hit = _TILE_CACHE.get(key)
+    if hit is None:
+        hit = _build_tile_tables(layout, causal, block)
+        if len(_TILE_CACHE) > 64:
+            _TILE_CACHE.clear()
+        _TILE_CACHE[key] = hit
+    return hit
+
+
+def device_tile_tables(layout: np.ndarray, causal: bool, block: int,
+                       device) -> TileTables:
+    """:func:`build_tile_tables` with the arrays as int32 tensors on
+    ``device``, uploaded once per (layout, causal, block, device)."""
+    key = (_layout_key(layout, causal), block, str(torch.device(device)))
+    hit = _DEVICE_TILES.get(key)
+    if hit is None:
+        host = build_tile_tables(layout, causal, block)
+        hit = TileTables(*(torch.from_numpy(x).to(device)
+                           if isinstance(x, np.ndarray) else x
+                           for x in host))
+        if len(_DEVICE_TILES) > 64:
+            _DEVICE_TILES.clear()
+        _DEVICE_TILES[key] = hit
+    return hit
+
+
+def tensor_core_route(q: torch.Tensor) -> bool:
+    """True where dq and dk/dv run the tensor-core kernels: bf16 / fp16
+    inputs with S a multiple of 64 (the head dims and blocks are those of
+    every route)."""
+    return q.dtype in _TC_DTYPES and q.shape[-2] % TILE == 0
 
 
 # ---------------------------------------------------------------------------
@@ -317,9 +461,35 @@ def sparse_fwd(q, k, v, kv_idx, kv_valid, scale: float, causal: bool,
     return o, lse
 
 
+def _check_tiles(name, q, nheads, tiles):
+    """The tensor-core route's tables: present, built for these heads and
+    this S, int32 on q's device."""
+    if tiles is None:
+        raise ValueError(
+            f"{name}: bf16 / fp16 inputs with S a multiple of {TILE} run the "
+            f"tensor-core kernel, which walks the tile tables: pass tiles="
+            f"device_tile_tables(layout, causal, block, q.device)")
+    if (tiles.nheads, tiles.n_tiles) != (nheads, q.shape[1] // TILE):
+        raise ValueError(
+            f"{name}: tile tables of {tiles.nheads} heads and "
+            f"{tiles.n_tiles} tiles of {TILE} rows for {nheads} heads and S "
+            f"{q.shape[1]}")
+    for t in tiles:
+        if isinstance(t, torch.Tensor) and (
+                t.dtype != torch.int32 or t.device != q.device
+                or t.dim() != 2 or not t.is_contiguous()):
+            raise ValueError(f"{name}: tile tables must be contiguous 2-D "
+                             f"int32 tensors on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
 def sparse_bwd_dq(q, k, v, do, lse, delta, kv_idx, kv_valid, scale: float,
-                  causal: bool, block: int, nheads: int):
-    """dq [bh, S, D] from do, the forward's lse and delta = rowsum(do*o)."""
+                  causal: bool, block: int, nheads: int,
+                  tiles: Optional[TileTables] = None):
+    """dq [bh, S, D] from do, the forward's lse and delta = rowsum(do*o).
+    On the tensor-core route (:func:`tensor_core_route`) the kernel walks
+    ``tiles`` (:func:`device_tile_tables` of the same layout, causal flag
+    and block), elsewhere the per-block tables."""
     if _device_of("sparse_bwd_dq", q) == "cpu":
         return sparse_bwd_dq_plain(q, k, v, do, lse, delta, kv_idx,
                                    kv_valid, scale, causal, block, nheads)
@@ -328,20 +498,31 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, kv_idx, kv_valid, scale: float,
     _check_bwd_extra("sparse_bwd_dq", q, do, lse, delta)
     bh, s, d = q.shape
     dq = torch.empty_like(q)
-    code = cuda_build.load("sparse_attention").ds_sparse_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), kv_idx.data_ptr(),
-        kv_valid.data_ptr(), dq.data_ptr(), bh, nheads, s, d, block,
-        kv_idx.shape[-1], _DTYPE_CODE[q.dtype], scale, int(causal),
-        _stream(q))
+    lib = cuda_build.load("sparse_attention")
+    if tensor_core_route(q):
+        _check_tiles("sparse_bwd_dq", q, nheads, tiles)
+        code = lib.ds_sparse_bwd_dq_hopper(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), tiles.dq_items.data_ptr(),
+            tiles.dq_steps.data_ptr(), dq.data_ptr(), bh, nheads, s, d,
+            tiles.dq_items.shape[0], tiles.dq_max, _DTYPE_CODE[q.dtype],
+            scale, int(causal), _stream(q))
+    else:
+        code = lib.ds_sparse_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), kv_idx.data_ptr(),
+            kv_valid.data_ptr(), dq.data_ptr(), bh, nheads, s, d, block,
+            kv_idx.shape[-1], _DTYPE_CODE[q.dtype], scale, int(causal),
+            _stream(q))
     cuda_build.check(code, "sparse_bwd_dq")
     sparse_bwd_dq.launches += 1
     return dq
 
 
 def sparse_bwd_dkv(q, k, v, do, lse, delta, q_idx, q_valid, scale: float,
-                   causal: bool, block: int, nheads: int):
-    """(dk, dv) [bh, S, D]."""
+                   causal: bool, block: int, nheads: int,
+                   tiles: Optional[TileTables] = None):
+    """(dk, dv) [bh, S, D]; ``tiles`` as in :func:`sparse_bwd_dq`."""
     if _device_of("sparse_bwd_dkv", q) == "cpu":
         return sparse_bwd_dkv_plain(q, k, v, do, lse, delta, q_idx, q_valid,
                                     scale, causal, block, nheads)
@@ -350,12 +531,22 @@ def sparse_bwd_dkv(q, k, v, do, lse, delta, q_idx, q_valid, scale: float,
     _check_bwd_extra("sparse_bwd_dkv", q, do, lse, delta)
     bh, s, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    code = cuda_build.load("sparse_attention").ds_sparse_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), q_idx.data_ptr(),
-        q_valid.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, nheads, s, d,
-        block, q_idx.shape[-1], _DTYPE_CODE[q.dtype], scale, int(causal),
-        _stream(q))
+    lib = cuda_build.load("sparse_attention")
+    if tensor_core_route(q):
+        _check_tiles("sparse_bwd_dkv", q, nheads, tiles)
+        code = lib.ds_sparse_bwd_dkv_hopper(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), tiles.dkv_items.data_ptr(),
+            tiles.dkv_steps.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+            nheads, s, d, tiles.dkv_items.shape[0], tiles.dkv_max,
+            _DTYPE_CODE[q.dtype], scale, int(causal), _stream(q))
+    else:
+        code = lib.ds_sparse_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), q_idx.data_ptr(),
+            q_valid.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, nheads, s,
+            d, block, q_idx.shape[-1], _DTYPE_CODE[q.dtype], scale,
+            int(causal), _stream(q))
     cuda_build.check(code, "sparse_bwd_dkv")
     sparse_bwd_dkv.launches += 1
     return dk, dv
@@ -372,12 +563,13 @@ class _SparseCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_idx, kv_valid, q_idx, q_valid, scale,
-                causal, block, nheads):
+                causal, block, nheads, tiles):
         o, lse = sparse_fwd(q, k, v, kv_idx, kv_valid, scale, causal, block,
                             nheads)
         ctx.save_for_backward(q, k, v, o, lse, kv_idx, kv_valid, q_idx,
                               q_valid)
         ctx.args = (scale, causal, block, nheads)
+        ctx.tiles = tiles
         return o
 
     @staticmethod
@@ -386,10 +578,10 @@ class _SparseCore(torch.autograd.Function):
         do = do.contiguous()
         delta = _delta(do, o)
         dq = sparse_bwd_dq(q, k, v, do, lse, delta, kv_idx, kv_valid,
-                           *ctx.args)
+                           *ctx.args, tiles=ctx.tiles)
         dk, dv = sparse_bwd_dkv(q, k, v, do, lse, delta, q_idx, q_valid,
-                                *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+                                *ctx.args, tiles=ctx.tiles)
+        return (dq, dk, dv, *(None,) * 9)
 
 
 def sparse_flash_attention(q, k, v, layout: np.ndarray, block: int,
@@ -403,7 +595,11 @@ def sparse_flash_attention(q, k, v, layout: np.ndarray, block: int,
         raise ValueError(f"seq {S} not divisible by block {block}")
     scale = scale or 1.0 / math.sqrt(D)
     tables = device_tables(layout, causal, q.device)
+    tiles = (device_tile_tables(layout, causal, block, q.device)
+             if q.is_cuda and tensor_core_route(q) and block in _BLOCKS
+             else None)
     o = _SparseCore.apply(*(x.reshape(B * H, S, D).contiguous()
                             for x in (q, k, v)),
-                          *tables, float(scale), bool(causal), block, H)
+                          *tables, float(scale), bool(causal), block, H,
+                          tiles)
     return o.reshape(B, H, S, D)

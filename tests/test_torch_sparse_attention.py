@@ -132,6 +132,10 @@ CASES = {
         num_sliding_window_blocks=3, num_global_blocks=1).make_layout(64),
         8, 1, 64, False),
     "fully_masked_rows": (_fully_masked_rows, 8, 2, 32, False),
+    # 64-row blocks: one tile of the tensor-core walk per block
+    "fixed_block64_causal": (lambda: tsa.FixedSparsityConfig(
+        num_heads=2, block=64, num_local_blocks=2, num_global_blocks=1,
+        attention="unidirectional").make_layout(256), 64, 1, 256, True),
     # different layouts per head at B 2: row b must read head b % H
     "per_head": (lambda: tsa.FixedSparsityConfig(
         num_heads=2, block=16, num_local_blocks=4, num_global_blocks=1,
@@ -382,3 +386,183 @@ def test_kernel_argument_checks(bad):
         match = "int32"
     with pytest.raises(exc, match=match):
         tsk._check("sparse_fwd", block, H, q, k, v, tables=tables[:2])
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core backward's 64-row tile tables
+# ---------------------------------------------------------------------------
+TILE_SEQ = 512
+
+
+def _empty_q_blocks(block):
+    """q blocks 1 and 2 (inside the first 64-row tile at block 16) and the
+    last quarter of the q blocks see no block."""
+    n = TILE_SEQ // block
+    layout = np.ones((2, n, n), bool)
+    layout[:, 1:3] = False
+    layout[:, 3 * n // 4:] = False
+    return layout
+
+
+def _empty_kv_blocks(block):
+    """kv blocks 1 and 2 and the last quarter of the kv blocks feed no q
+    block; head 1 also has an empty diagonal."""
+    n = TILE_SEQ // block
+    layout = np.ones((2, n, n), bool)
+    layout[:, :, 1:3] = False
+    layout[:, :, 3 * n // 4:] = False
+    layout[1, np.arange(n), np.arange(n)] = False
+    return layout
+
+
+TILE_LAYOUTS = {
+    "fixed": lambda b: tsa.FixedSparsityConfig(
+        num_heads=2, block=b, num_local_blocks=2, num_global_blocks=1,
+        attention="unidirectional").make_layout(TILE_SEQ),
+    "fixed_per_head": lambda b: tsa.FixedSparsityConfig(
+        num_heads=3, block=b, num_local_blocks=2,
+        different_layout_per_head=True,
+        num_different_global_patterns=2).make_layout(TILE_SEQ),
+    "bigbird": lambda b: tsa.BigBirdSparsityConfig(
+        num_heads=2, block=b, num_random_blocks=1,
+        num_sliding_window_blocks=3, seed=5).make_layout(TILE_SEQ),
+    "longformer": lambda b: tsa.BSLongformerSparsityConfig(
+        num_heads=2, block=b, num_sliding_window_blocks=3,
+        global_block_indices=[1]).make_layout(TILE_SEQ),
+    "variable": lambda b: tsa.VariableSparsityConfig(
+        num_heads=2, block=b, num_random_blocks=1, local_window_blocks=[1, 2],
+        global_block_indices=[0], seed=3).make_layout(TILE_SEQ),
+    "empty_q_blocks": _empty_q_blocks,
+    "empty_kv_blocks": _empty_kv_blocks,
+}
+
+
+def _tile_visibility(items, steps, heads, causal, kv_major):
+    """Token-level [H, S, S] visibility of a walk, under the kernels' rule:
+    a step's element is visible iff its mask is all ones, or its sub-block
+    bit is set and (non-causal, off the diagonal tile, or q_pos >= k_pos).
+    Also counts how often each tile is owned by an item."""
+    nt = TILE_SEQ // tsk.TILE
+    vis = np.zeros((heads, TILE_SEQ, TILE_SEQ), bool)
+    owned = np.zeros((heads, nt), int)
+    masks = steps[:, 1].view(np.uint32)
+    tril = np.tril(np.ones((tsk.TILE, tsk.TILE), bool))
+    for h, t0, t1, start, n in items:
+        for w, tile in enumerate((t0, t1)):
+            if tile < 0:
+                continue
+            owned[h, tile] += 1
+            for other, m in zip(steps[start:start + n, 0],
+                                masks[start:start + n]):
+                m = int(m >> (16 * w)) & 0xFFFF
+                qt, kt = (other, tile) if kv_major else (tile, other)
+                bits = np.array([(m >> i) & 1 for i in range(16)],
+                                bool).reshape(4, 4)
+                tile_vis = np.kron(bits, np.ones((16, 16), bool))
+                if m != 0xFFFF and causal and qt == kt:
+                    tile_vis &= tril
+                rows = slice(qt * tsk.TILE, (qt + 1) * tsk.TILE)
+                cols = slice(kt * tsk.TILE, (kt + 1) * tsk.TILE)
+                assert not (vis[h, rows, cols] & tile_vis).any()
+                vis[h, rows, cols] |= tile_vis
+    return vis, owned
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("name", list(TILE_LAYOUTS))
+def test_tile_tables_expand_to_layout(name, block, causal):
+    """dq's and dk/dv's walks, expanded to tokens, equal the layout
+    expanded by block (and tril under causal); every tile of every head is
+    in exactly one item, and no step is dead (a zero mask on both tiles)."""
+    layout = TILE_LAYOUTS[name](block)
+    H, n, _ = layout.shape
+    want = np.repeat(np.repeat(layout.astype(bool), block, 1), block, 2)
+    if causal:
+        want &= np.tril(np.ones((TILE_SEQ, TILE_SEQ), bool))
+    tiles = tsk.build_tile_tables(layout, causal, block)
+    for items, steps, kv_major in ((tiles.dq_items, tiles.dq_steps, False),
+                                   (tiles.dkv_items, tiles.dkv_steps, True)):
+        assert items.dtype == np.int32 and steps.dtype == np.int32
+        assert (steps[:, 1] != 0).all()
+        vis, owned = _tile_visibility(items, steps, H, causal, kv_major)
+        assert (owned == 1).all()
+        np.testing.assert_array_equal(vis, want)
+    if name.startswith("empty"):
+        assert not want.all(axis=(2 if name == "empty_q_blocks" else 1)
+                            ).all()
+
+
+@pytest.mark.parametrize("name", ["fixed", "bigbird", "empty_kv_blocks"])
+def test_tile_work_list_heaviest_first(name):
+    """Items run heaviest first, their step lists lie back to back in item
+    order with ascending tiles, and *_max is the longest list; dq pairs
+    neighbouring q tiles, dk/dv kv tiles of alike lists."""
+    layout = TILE_LAYOUTS[name](16)
+    tiles = tsk.build_tile_tables(layout, True, 16)
+    nt = TILE_SEQ // tsk.TILE
+    for items, steps, longest in (
+            (tiles.dq_items, tiles.dq_steps, tiles.dq_max),
+            (tiles.dkv_items, tiles.dkv_steps, tiles.dkv_max)):
+        counts, starts = items[:, 4], items[:, 3]
+        assert (np.diff(counts) <= 0).all()
+        assert (starts == np.cumsum(counts) - counts).all()
+        assert counts.sum() == len(steps) and longest == counts.max()
+        for _, _, _, start, n in items:
+            assert (np.diff(steps[start:start + n, 0]) > 0).all()
+    assert sorted(map(tuple, tiles.dq_items[:, 1:3] % nt)) == sorted(
+        (t, t + 1) for t in range(0, nt, 2) for _ in range(2))
+
+
+def test_tile_pairing_beats_neighbours_on_fixed():
+    """On a Fixed layout with a global column every local block the sorted
+    dk/dv pairing leaves fewer dead slots than pairing neighbours: the
+    global columns pair with each other."""
+    layout = tsa.FixedSparsityConfig(
+        num_heads=1, block=64, num_local_blocks=4, num_global_blocks=1,
+        attention="unidirectional").make_layout(4096)
+    tiles = tsk.build_tile_tables(layout, True, 64)
+    masks = tsk.tile_masks(layout, True, 64)[0] != 0       # [t, u]
+    neighbours = (masks[:, 0::2] | masks[:, 1::2]).sum()
+    assert len(tiles.dkv_steps) < 0.8 * neighbours
+    assert tiles.dkv_steps.shape[0] * 2 >= masks.sum()
+
+
+def test_tile_tables_cached_and_uploaded():
+    layout = TILE_LAYOUTS["bigbird"](32)
+    a = tsk.build_tile_tables(layout, False, 32)
+    assert a is tsk.build_tile_tables(layout.copy(), False, 32)
+    assert a is not tsk.build_tile_tables(layout, True, 32)
+    dev = tsk.device_tile_tables(layout, False, 32, "cpu")
+    assert dev is tsk.device_tile_tables(layout.copy(), False, 32,
+                                         torch.device("cpu"))
+    for t, r in zip(dev, a):
+        if isinstance(r, np.ndarray):
+            assert t.dtype == torch.int32 and np.array_equal(t.numpy(), r)
+        else:
+            assert t == r
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tsk.build_tile_tables(np.ones((1, 5, 5), bool), False, 16)
+
+
+def test_tensor_core_route_and_tile_check():
+    """bf16 / fp16 with S % 64 == 0 take the tensor-core kernels, which
+    need the tile tables; f32 and a ragged last tile take the tile route."""
+    x = torch.zeros(2, 128, 64)
+    assert not tsk.tensor_core_route(x)
+    assert tsk.tensor_core_route(x.bfloat16())
+    assert tsk.tensor_core_route(x.half())
+    assert not tsk.tensor_core_route(torch.zeros(2, 80, 64).bfloat16())
+    with pytest.raises(ValueError, match="tiles="):
+        tsk._check_tiles("sparse_bwd_dq", x.bfloat16(), 1, None)
+    layout = np.ones((1, 8, 8), bool)
+    tiles = tsk.device_tile_tables(layout, True, 16, "cpu")
+    tsk._check_tiles("sparse_bwd_dq", x.bfloat16(), 1, tiles)
+    with pytest.raises(ValueError, match="int32"):
+        tsk._check_tiles("sparse_bwd_dq", x.bfloat16(), 1,
+                         tiles._replace(dq_steps=tiles.dq_steps.long()))
+    with pytest.raises(ValueError, match="1 heads and 2 tiles"):
+        tsk._check_tiles("sparse_bwd_dq", x.bfloat16(), 2, tiles)
+    with pytest.raises(ValueError, match="1 heads and 2 tiles"):
+        tsk._check_tiles("sparse_bwd_dq", torch.zeros(2, 256, 64).half(),
+                         1, tiles)
