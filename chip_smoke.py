@@ -69,21 +69,24 @@ exit 0):
    global, causal; (ii) BigBird, block 64, window 3, 1 global, 1 random,
    non-causal; (iii) the pattern of (i) at block 16 (16 local / 4
    global). First the registers and spills (ptxas; a spill fails) and
-   the shared memory and blocks per SM of the tensor-core sparse_bwd_dq
-   and sparse_bwd_dkv (csrc/sparse_hopper.cuh); each layout's block and
-   64-row tile statistics (tile products, steps per head, busy share of
-   the consumer slots, longest list); then sparse_fwd, sparse_bwd_dq and
-   sparse_bwd_dkv against their plain versions with the flash
-   tolerances at each layout, (i) also in fp32 (the tile kernels), fp16
-   and at hd 64, blocks 32 and 128 at S 2048, block 16 at S 2064 (a
-   ragged last 64-row tile: the tile kernels' route); q blocks with no
-   active block giving o = 0 and dq = 0 (block 64), and at block 16 empty
-   q and kv blocks inside and across 64-row tiles giving o = dq = 0 and
-   dk = dv = 0 exactly; a repeated backward bit-identical; times of each
-   layout (the backward pair in turns with the library pair: dq, dkv,
-   library, dq, dkv), the operations bound (sparse_work) and the library
-   yardstick (scaled_dot_product_attention with the layout as a boolean
-   mask, and its autograd backward for the dq + dkv pair);
+   the shared memory and blocks per SM of the tensor-core sparse_bwd_dq,
+   sparse_bwd_dkv and sparse_fwd (csrc/sparse_hopper.cuh); each layout's
+   block and 64-row tile statistics (tile products, steps per head, busy
+   share of the consumer slots, longest list); then sparse_fwd,
+   sparse_bwd_dq and sparse_bwd_dkv against their plain versions with
+   the flash tolerances at each layout (o 1e-2, lse 1e-3, grads 2e-2),
+   (i) also in fp32 (the tile kernels), fp16 and at hd 64, blocks 32 and
+   128 at S 2048, block 16 at S 2064 (a ragged last 64-row tile: the
+   tile kernels' route), each check logging its route; q blocks with no
+   active block (whole 64-row tiles) giving o = 0, lse = -1e30 and dq = 0
+   (block 64), and at block 16 empty q and kv blocks inside and across
+   64-row tiles giving o = dq = 0, lse = -1e30 and dk = dv = 0 exactly; a
+   repeated forward and backward bit-identical; times of each layout (the
+   forward in turns with its library call: kernel, library, kernel; the
+   backward pair in turns with the library pair: dq, dkv, library, dq,
+   dkv), the operations bound (sparse_work) and the library yardstick
+   (scaled_dot_product_attention with the layout as a boolean mask, and
+   its autograd backward for the dq + dkv pair);
 4b. quantizer and RMSNorm kernel phases: quantize_blocks and
    dequantize_blocks on one Mistral-7B layer's w_gate and w_down (bf16,
    block 2048, bits 8 and 4, int4 through pack / unpack), on edge inputs
@@ -150,7 +153,10 @@ exit 0):
    backward on bf16 [1, 32, 8192, 128] inputs five times: 5 launches of
    each sparse kernel, finite outputs, o and grads against the plain
    versions, forward+backward ms, tokens/s, peak memory and the device
-   time of the forward and the backward (CUDA events); an fp32 check of
+   time of the forward and the backward (CUDA events), the forward's
+   time outside the sparse_fwd wrapper on the card's and the host's
+   clock, and the host cost of the table look-up's layout key (the
+   cached read-only layout, a writeable copy); an fp32 check of
    impl="kernel" against impl="dense" (S 1024, hd 64, 1e-4); block 8
    under impl="auto" on the card raises;
 10. the kernels JSON line, then the last line
@@ -1860,7 +1866,8 @@ def visible_layout(layout, causal):
 def sparse_work(layout, causal, block, bh, tables, elem, tiles=None):
     """(bytes, flops) of each sparse function: every input (q, k, v, do,
     lse, delta, the tables the function's kernel reads: the per-block ones,
-    or for the tensor-core dq and dk/dv the tile tables) read once and
+    or on the tensor-core route the tile tables, dq's for the forward and
+    dq, dk/dv's for dk/dv) read once and
     every output written once; 2 flops per visible (q, k) pair and head dim
     per product, two products in the forward, three in dq, four in dk/dv.
     Visible pairs: block^2 per active off-diagonal block, block (block + 1)
@@ -1879,7 +1886,7 @@ def sparse_work(layout, causal, block, bh, tables, elem, tiles=None):
     if tiles is not None:
         tb_dq = (tiles.dq_items.numel() + tiles.dq_steps.numel()) * 4
         tb_dkv = (tiles.dkv_items.numel() + tiles.dkv_steps.numel()) * 4
-    return {"sparse_fwd": (4 * x + row + tb_kv, 2 * per_product),
+    return {"sparse_fwd": (4 * x + row + tb_dq, 2 * per_product),
             "sparse_bwd_dq": (5 * x + 2 * row + tb_dq, 3 * per_product),
             "sparse_bwd_dkv": (6 * x + 2 * row + tb_dkv, 4 * per_product)}
 
@@ -1914,7 +1921,7 @@ def layout_stats(layout, causal, tables, tiles=None):
 
 def sparse_tables(sk, layout, causal, block, dev):
     """The per-block tables and, where S is a multiple of 64, the tile
-    tables of the tensor-core backward, on the card."""
+    tables of the tensor-core kernels, on the card."""
     tables = sk.device_tables(layout, causal, dev)
     s = np.shape(layout)[1] * block
     tiles = (sk.device_tile_tables(layout, causal, block, dev)
@@ -1925,14 +1932,16 @@ def sparse_tables(sk, layout, causal, block, dev):
 def sparse_calls(sk, q, k, v, do, tables, causal, block, tiles=None):
     """Each sparse function as (kernel call, plain call) without arguments
     on one input set; the backward ones take the kernel forward's lse and
-    delta (and the tile tables, which the tensor-core route walks)."""
+    delta; every kernel call takes the tile tables, which the tensor-core
+    route walks."""
     args = (1.0 / q.shape[-1] ** 0.5, causal, block, NH)
     tq, tkv = tables[:2], tables[2:]
-    o, lse = sk.sparse_fwd(q, k, v, *tq, *args)
+    o, lse = sk.sparse_fwd(q, k, v, *tq, *args, tiles=tiles)
     bwd = (q, k, v, do, lse, (do.float() * o.float()).sum(-1, keepdim=True))
     return {
-        "sparse_fwd": (lambda: sk.sparse_fwd(q, k, v, *tq, *args),
-                       lambda: sk.sparse_fwd_plain(q, k, v, *tq, *args)),
+        "sparse_fwd": (
+            lambda: sk.sparse_fwd(q, k, v, *tq, *args, tiles=tiles),
+            lambda: sk.sparse_fwd_plain(q, k, v, *tq, *args)),
         "sparse_bwd_dq": (
             lambda: sk.sparse_bwd_dq(*bwd, *tq, *args, tiles=tiles),
             lambda: sk.sparse_bwd_dq_plain(*bwd, *tq, *args)),
@@ -1956,12 +1965,12 @@ def sparse_run(sk, q, k, v, do, tables, causal, block, tiles=None):
 def sparse_check(sk, name, q, k, v, do, tables, causal, block, tol_o,
                  tol_g, tiles=None):
     """Holds the three sparse kernels against their plain versions, as
-    flash_check holds the flash kernels; logs the backward's route."""
+    flash_check holds the flash kernels; logs their route."""
     route = ("tensor cores" if sk.tensor_core_route(q) else "tile kernels")
     (o, o_p), (lse, lse_p), *grads = sparse_run(sk, q, k, v, do, tables,
                                                 causal, block, tiles)
-    return compare_outputs(f"{name} [dq, dk/dv on the {route}]", (o, o_p),
-                           (lse, lse_p), grads, tol_o, tol_g)
+    return compare_outputs(f"{name} [forward, dq, dk/dv on the {route}]",
+                           (o, o_p), (lse, lse_p), grads, tol_o, tol_g)
 
 
 def sparse_library(layout, causal, block, q, k, v, do):
@@ -1998,8 +2007,9 @@ def time_bwd_turns(calls, lib_bwd, flush):
 
 
 def sparse_resources(sk, max_steps):
-    """Logs, for the tensor-core sparse_bwd_dq and sparse_bwd_dkv, the
-    registers and spills from the ptxas report of the build and the
+    """Logs, for the tensor-core sparse_bwd_dq, sparse_bwd_dkv and
+    sparse_fwd, the registers and spills from the ptxas report of the
+    build and the
     dynamic shared memory (at step lists of up to max_steps) and resident
     blocks per SM from the CUDA occupancy API; raises on a spill, a
     missing kernel in the report of a build made by this process, or a
@@ -2008,7 +2018,7 @@ def sparse_resources(sk, max_steps):
 
     from deepspeed_tpu_torch.ops.op_builder import cuda as cuda_build
 
-    kinds = ("sparse_bwd_dq", "sparse_bwd_dkv")     # info's order
+    kinds = ("sparse_bwd_dq", "sparse_bwd_dkv", "sparse_fwd")  # info's
     text = cuda_build.build_logs.get("sparse_attention", "")
     seen = 0
     for entry in text.split("Compiling entry function '")[1:]:
@@ -2030,13 +2040,13 @@ def sparse_resources(sk, max_steps):
     if not text:
         log("  ptxas: no report in this process (the libraries of an "
             "unchanged tree were reused)")
-    elif seen != 8:
+    elif seen != 12:
         raise AssertionError(f"ptxas listed {seen} tensor-core sparse "
-                             f"kernels, want 8 (2 kernels x 2 dtypes x 2 "
+                             f"kernels, want 12 (3 kernels x 2 dtypes x 2 "
                              f"head dims)")
     lib = cuda_build.load("sparse_attention")
     for hd in HEAD_DIMS:
-        out = (ctypes.c_int * 6)()
+        out = (ctypes.c_int * 9)()
         cuda_build.check(lib.ds_sparse_hopper_info(
             hd, 2, max_steps, ctypes.addressof(out)),
             "ds_sparse_hopper_info")
@@ -2052,8 +2062,8 @@ def sparse_resources(sk, max_steps):
 def sparse_zero_rows(sk, q, k, v, do, dev):
     """Block 16, non-causal: q blocks 1-2 (inside the first 64-row tile)
     and 40-47 (whole tiles) see no block, kv blocks 5-6 and 48-55 feed
-    none. The tensor-core backward gives dq = 0 and dk = dv = 0 there
-    exactly, the forward o = 0, and the other rows are not all zero."""
+    none. The tensor-core kernels give o = 0, lse = -1e30 and dq = 0, and
+    dk = dv = 0 there exactly, and the other rows are not all zero."""
     s, block = 1024, 16
     n = s // block
     lay = np.ones((NH, n, n), bool)
@@ -2063,21 +2073,23 @@ def sparse_zero_rows(sk, q, k, v, do, dev):
     tables, tiles = sparse_tables(sk, lay, False, block, dev)
     sparse_check(sk, "sparse bf16 empty rows b16 S 1024", *x, tables, False,
                  block, TOL, 2e-2, tiles)
-    (o, _), _, (dq, _), (dk, _), (dv, _) = sparse_run(
+    (o, _), (lse, _), (dq, _), (dk, _), (dv, _) = sparse_run(
         sk, *x, tables, False, block, tiles)
     q_dead = np.repeat(~lay[0].any(1), block)
     k_dead = np.repeat(~lay[0].any(0), block)
     qd, kd = (torch.as_tensor(m, device=dev) for m in (q_dead, k_dead))
     ok = (bool((o[:, qd] == 0).all()) and bool((dq[:, qd] == 0).all())
+          and bool((lse[:, qd] == sk.NEG_INF).all())
+          and bool((lse[:, ~qd] > sk.NEG_INF / 2).all())
           and bool((dk[:, kd] == 0).all()) and bool((dv[:, kd] == 0).all())
           and all(bool((t[:, ~m] != 0).any())
                   for t, m in ((o, qd), (dq, qd), (dk, kd), (dv, kd))))
     log(f"sparse b16: {int(q_dead.sum())} q rows of empty q blocks give "
-        f"o = 0 and dq = 0, {int(k_dead.sum())} kv rows of empty kv blocks "
-        f"dk = dv = 0, exactly: {ok}")
+        f"o = 0, lse = -1e30 and dq = 0, {int(k_dead.sum())} kv rows of "
+        f"empty kv blocks dk = dv = 0, exactly: {ok}")
     if not ok:
         raise AssertionError("sparse: empty q / kv blocks must give exact "
-                             "zeros (o, dq / dk, dv)")
+                             "zeros (o, dq / dk, dv) and lse = -1e30")
 
 
 def sparse_phases(dev, flush):
@@ -2105,23 +2117,26 @@ def sparse_phases(dev, flush):
         work = sparse_work(layout, causal, cfg.block, NH, tables, 2, tiles)
         lib_fwd, lib_bwd = sparse_library(layout, causal, cfg.block, q, k,
                                           v, do)
-        times = {"sparse_fwd": time_ms(calls["sparse_fwd"][0], flush)}
+        fwd_ms, lib_fwd_ms = time_turns(calls["sparse_fwd"][0], lib_fwd,
+                                        flush)
+        times = {"sparse_fwd": fwd_ms}
         bwd_times, lib_pair = time_bwd_turns(calls, lib_bwd, flush)
         times.update(bwd_times)
         log(f"sparse {label} kernel ms: " + ", ".join(
             f"{name} {t:.4f} (bound {bound(*work[name])[0]:.5f})"
             for name, t in times.items())
-            + f"; dq + dk/dv {sum(bwd_times.values()):.4f} against the "
-            f"library pair {lib_pair:.4f} (in turns: dq, dkv, library, dq, "
-            f"dkv)")
+            + f"; forward against the library's {lib_fwd_ms:.4f} (in "
+            f"turns: kernel, library, kernel); dq + dk/dv "
+            f"{sum(bwd_times.values()):.4f} against the library pair "
+            f"{lib_pair:.4f} (in turns: dq, dkv, library, dq, dkv)")
         if first is not None:
             continue
         # (i): the kernels line, with the plain versions and the library
         first = (cfg, tables, tiles, calls)
         errs = {"sparse_fwd": err_o, "sparse_bwd_dq": err_g["dq"],
                 "sparse_bwd_dkv": max(err_g["dk"], err_g["dv"])}
-        lib = {"sparse_fwd": time_ms(lib_fwd, flush),
-               "sparse_bwd_dq": lib_pair, "sparse_bwd_dkv": lib_pair}
+        lib = {"sparse_fwd": lib_fwd_ms, "sparse_bwd_dq": lib_pair,
+               "sparse_bwd_dkv": lib_pair}
         for name, (_, plain) in calls.items():
             b_ms, b_by = bound(*work[name])
             results[name] = dict(
@@ -2160,24 +2175,26 @@ def sparse_phases(dev, flush):
     lay[:, 4:, :4] = True
     lay[:, 4:, 4:] = np.tril(np.ones((12, 12), bool))
     tb, tl = sparse_tables(sk, lay, False, 64, dev)
-    (o, _), _, (dq, _), _, _ = sparse_run(
+    (o, _), (lse, _), (dq, _), _, _ = sparse_run(
         sk, *(t[:, :1024].contiguous() for t in (q, k, v, do)), tb, False,
         64, tl)
     if not ((o[:, :256] == 0).all() and (dq[:, :256] == 0).all()
+            and (lse[:, :256] == sk.NEG_INF).all()
             and (o[:, 256:] != 0).any()):
         raise AssertionError("sparse: q blocks with no active block must "
-                             "give o = 0 and dq = 0")
-    log("sparse: q blocks with no active block give o = 0 and dq = 0")
+                             "give o = 0, lse = -1e30 and dq = 0")
+    log("sparse: q blocks with no active block (whole 64-row tiles) give "
+        "o = 0, lse = -1e30 and dq = 0")
     sparse_zero_rows(sk, q, k, v, do, dev)
-    # a repeated backward is bit-identical (no atomics)
-    runs = [(calls["sparse_bwd_dq"][0](), *calls["sparse_bwd_dkv"][0]())
-            for _ in range(2)]
+    # a repeated forward and backward are bit-identical (no atomics)
+    runs = [(*calls["sparse_fwd"][0](), calls["sparse_bwd_dq"][0](),
+             *calls["sparse_bwd_dkv"][0]()) for _ in range(2)]
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        raise AssertionError("a repeated sparse backward is not "
+        raise AssertionError("a repeated sparse forward or backward is not "
                              "bit-identical")
-    log("sparse backward repeated (the tensor-core sparse_bwd_dq and "
-        "sparse_bwd_dkv at (i)): bit-identical")
+    log("sparse forward and backward repeated (the tensor-core sparse_fwd, "
+        "sparse_bwd_dq and sparse_bwd_dkv at (i)): bit-identical")
     # the tables stay cached per layout (~0.1 GiB for the block-16 one):
     # free them before the later phases measure their peak memory
     sk._DEVICE_TABLES.clear()
@@ -2252,23 +2269,59 @@ def sparse_op_phase(dev):
                      for g, p in zip(grads, (dq_p, dk_p, dv_p))], TOL, 2e-2)
     # where one call's time goes, on the card's clock: CUDA events, since a
     # torch.profiler session after the earlier phases' ones recorded no
-    # device events here
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    # device events here. Two more events bracket the sparse_fwd wrapper
+    # inside the forward (after the counted run), so that the forward's
+    # time outside the kernel shows on both clocks.
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    fwd_wrapper, inner = sk.sparse_fwd, {}
+
+    def bracketed_fwd(*a, **kw):
+        ev[1].record()
+        t = time.perf_counter()
+        out = fwd_wrapper(*a, **kw)
+        inner["host"] = time.perf_counter() - t
+        ev[2].record()
+        return out
+
+    # the wrapper counts its launch on the module's name, the bracket here
+    bracketed_fwd.launches = 0
     for t in (q, k, v):
         t.grad = None
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ev[0].record()
-    out = attn(q, k, v, causal=True)
-    ev[1].record()
-    out.backward(do)
-    ev[2].record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    fwd, bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
-    log(f"sparse op on the card's clock: forward {fwd:.3f} ms, backward "
-        f"(delta, dq, dk/dv) {bwd:.3f} ms, of a {wall:.3f} ms call "
-        f"(device share {(fwd + bwd) / wall:.3f})")
+    sk.sparse_fwd = bracketed_fwd
+    try:
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = attn(q, k, v, causal=True)
+        ev[3].record()
+        host_fwd = (time.perf_counter() - t0) * 1e3
+        out.backward(do)
+        ev[4].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        sk.sparse_fwd = fwd_wrapper
+    fwd, bwd = ev[0].elapsed_time(ev[3]), ev[3].elapsed_time(ev[4])
+    kern = ev[1].elapsed_time(ev[2])
+    log(f"sparse op on the card's clock: forward {fwd:.3f} ms (the "
+        f"sparse_fwd wrapper {kern:.3f} ms, the forward outside it "
+        f"{fwd - kern:.3f} ms), backward (delta, dq, dk/dv) {bwd:.3f} ms, "
+        f"of a {wall:.3f} ms call (device share {(fwd + bwd) / wall:.3f}); "
+        f"on the host's clock the forward call took {host_fwd:.3f} ms, "
+        f"{host_fwd - inner['host'] * 1e3:.3f} ms of it outside the "
+        f"sparse_fwd wrapper")
+    # the table look-up's key: by identity for the op's cached read-only
+    # layout, a serialization for a writeable copy of it
+    lay = attn.get_layout(S)
+    lay_w = np.array(lay)
+    key_us = {}
+    for name, x in (("cached read-only", lay), ("writeable copy", lay_w)):
+        t = time.perf_counter()
+        for _ in range(50):
+            sk._layout_key(x, True)
+        key_us[name] = (time.perf_counter() - t) / 50 * 1e6
+    log(f"sparse op layout key ({list(lay.shape)} {lay.dtype}), host us a "
+        f"look-up: " + ", ".join(f"{n} {u:.2f}" for n, u in key_us.items()))
 
     # small fp32: impl="kernel" against impl="dense" on the same CUDA tensors
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -254,6 +254,67 @@ __device__ __forceinline__ void store_tile(T* out, size_t row0, int col0,
     }
 }
 
+// One kv tile of the forward's online softmax, on a 64 x 64 score tile
+// already scaled and masked (masked scores -1e30): each row's maximum over
+// its quad (two shuffles), m and l updated with the m_safe substitution,
+// acc rescaled, and the scores turned into p.
+template <int A>
+__device__ __forceinline__ void softmax_step(float (&sc)[32], float (&m)[2],
+                                             float (&l)[2],
+                                             float (&acc)[A][32]) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+  float corr[2], ms[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    // rows masked so far keep m == -1e30: exp(s - 0) underflows to 0
+    ms[r] = (m_new <= kNegInf * 0.5f ? 0.f : m_new) * kLog2e;
+    corr[r] = exp2f((m[r] - m_new) * kLog2e);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i / 2) % 2;
+    const float p = exp2f(fmaf(sc[i], kLog2e, -ms[r]));
+    sc[i] = p;
+    rs[r] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+  for (int at = 0; at < A; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[at][i] *= corr[(i / 2) % 2];
+}
+
+// The forward's end of a 64-row tile whose thread rows start at global row
+// `row` (rows row, row + 8): l summed over the quad, o = acc / l_safe in T
+// and lse = m + log(l_safe). A row that saw no key keeps m == -1e30 and
+// l == 0: o = 0, lse = -1e30.
+template <typename T, int D>
+__device__ __forceinline__ void store_fwd_rows(T* o, float* lse, size_t row,
+                                               int lane,
+                                               const float (&acc)[D / 64][32],
+                                               const float (&m)[2],
+                                               float (&l)[2]) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    inv[r] = 1.f / l_safe;
+    if (lane % 4 == 0) lse[row + 8 * r] = m[r] + logf(l_safe);
+  }
+#pragma unroll
+  for (int at = 0; at < D / 64; ++at)
+    store_tile<T, D>(o, row, 64 * at, lane, acc[at], inv);
+}
+
 // ---------------------------------------------------------------------------
 // forward: grid (BH, Sq / 128)
 // ---------------------------------------------------------------------------
@@ -355,7 +416,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     pin(sc);
     // tiles wholly under the diagonal skip the mask
     const bool mask = causal && off + q0w < k0 + kRows - 1;
-    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -366,32 +426,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           float x = sc[i] * scale;
           if (mask && qpos + 8 * r < k0 + 8 * j + cq + c) x = kNegInf;
           sc[i] = x;
-          mx[r] = fmaxf(mx[r], x);
         }
-    float corr[2], ms[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      // rows masked so far keep m == -1e30: exp(s - 0) underflows to 0
-      ms[r] = (m_new <= kNegInf * 0.5f ? 0.f : m_new) * kLog2e;
-      corr[r] = exp2f((m[r] - m_new) * kLog2e);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i / 2) % 2;
-      const float p = exp2f(fmaf(sc[i], kLog2e, -ms[r]));
-      sc[i] = p;
-      rs[r] += p;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
-#pragma unroll
-    for (int at = 0; at < A; ++at)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[at][i] *= corr[(i / 2) % 2];
+    softmax_step(sc, m, l, acc);
     uint32_t pa[4][4];
     to_a_operand<T>(sc, pa);
     wg_fence();
@@ -403,21 +439,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     pin(pa);
     mbar_arrive(&empty[s]);
   }
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    inv[r] = 1.f / l_safe;
-    // a row that saw no key keeps m == -1e30 and l == 0: lse = -1e30
-    if (lane % 4 == 0)
-      lse[(size_t)bh * sq + q0w + row0 + 8 * r] = m[r] + logf(l_safe);
-  }
-  const size_t orow = (size_t)bh * sq + q0w + row0;
-#pragma unroll
-  for (int at = 0; at < A; ++at)
-    store_tile<T, D>(o, orow, 64 * at, lane, acc[at], inv);
+  store_fwd_rows<T, D>(o, lse, (size_t)bh * sq + q0w + row0, lane, acc, m, l);
 }
 
 // ---------------------------------------------------------------------------

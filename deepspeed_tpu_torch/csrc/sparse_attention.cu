@@ -14,15 +14,16 @@
 // the same mask.
 //
 // Routes (the Python wrapper picks the entry point by the same rule):
-//   * dq and dk/dv for bf16 / fp16 with S a multiple of 64: the tensor-core
-//     kernels of sparse_hopper.cuh (ds_sparse_bwd_dq_hopper,
-//     ds_sparse_bwd_dkv_hopper) over the 64-row tile tables of
-//     build_tile_tables (work items and their step lists with 16-bit
-//     sub-block masks); their bound and design are described there;
-//   * the forward, f32 inputs, and an S that is not a multiple of 64 (a
-//     layout of block 16 or 32 whose last 64-row tile would be ragged):
-//     the f32 CUDA-core tile kernels of flash_tiles.cuh over a TableWalk
-//     of the per-block tables
+//   * the forward, dq and dk/dv for bf16 / fp16 with S a multiple of 64:
+//     the tensor-core kernels of sparse_hopper.cuh (ds_sparse_fwd_hopper,
+//     ds_sparse_bwd_dq_hopper, ds_sparse_bwd_dkv_hopper) over the 64-row
+//     tile tables of build_tile_tables (work items and their step lists
+//     with 16-bit sub-block masks; the forward walks dq's); their bound and
+//     design are described there;
+//   * f32 inputs, and an S that is not a multiple of 64 (a layout of
+//     block 16 or 32 whose last 64-row tile would be ragged): the f32
+//     CUDA-core tile kernels of flash_tiles.cuh over a TableWalk of the
+//     per-block tables
 //       kv_idx/kv_valid [H, n, Jmax]: the active kv blocks of each q block
 //         (forward, dq), padded slots with valid 0;
 //       q_idx/q_valid [H, n, Imax]: the active q blocks of each kv block.
@@ -239,11 +240,12 @@ extern "C" int ds_sparse_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch<DkvOp>(a);
 }
 
-// The tensor-core backward (sparse_hopper.cuh): bf16 / fp16, d 64 / 128,
+// The tensor-core kernels (sparse_hopper.cuh): bf16 / fp16, d 64 / 128,
 // s % 64 == 0. items [n_items, 5] int32 (head, tile0, tile1 or -1, step
 // start, step count), heaviest first; steps [*, 2] int32 (other tile, mask
-// of tile0 | mask of tile1 << 16); max_steps: the longest step list. Each
-// returns the cudaError_t of its launch (0 on success).
+// of tile0 | mask of tile1 << 16); max_steps: the longest step list. The
+// forward takes dq's items and steps. Each returns the cudaError_t of its
+// launch (0 on success).
 namespace ds_sparse {
 
 static bool hopper_shape(int bh, int nheads, int s, int d, int max_steps) {
@@ -261,6 +263,23 @@ static bool hopper_shape(int bh, int nheads, int s, int d, int max_steps) {
       return d == 64 ? CALL(__nv_bfloat16, 64) : CALL(__nv_bfloat16, 128);   \
   }                                                                          \
   return (int)cudaErrorInvalidValue;
+
+extern "C" int ds_sparse_fwd_hopper(const void* q, const void* k,
+                                    const void* v, const void* items,
+                                    const void* steps, void* o, void* lse,
+                                    int bh, int nheads, int s, int d,
+                                    int n_items, int max_steps, int dtype,
+                                    float scale, int causal, void* stream) {
+  if (bh == 0 || s == 0 || n_items == 0) return 0;
+  if (!ds_sparse::hopper_shape(bh, nheads, s, d, max_steps))
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+#define DS_CALL(T, D)                                                        \
+  ds_sparse::fwd<T, D>(q, k, v, o, lse, items, steps, n_items, max_steps, bh, \
+                       nheads, s, scale, causal, st)
+  DS_SPARSE_HOPPER_DISPATCH(DS_CALL)
+#undef DS_CALL
+}
 
 extern "C" int ds_sparse_bwd_dq_hopper(
     const void* q, const void* k, const void* v, const void* dout,
@@ -297,8 +316,8 @@ extern "C" int ds_sparse_bwd_dkv_hopper(
 }
 
 // Registers, dynamic shared memory and resident blocks per SM of the
-// tensor-core dq (out[0..2]) and dk/dv (out[3..5]) for a 16-bit dtype,
-// head_dim d and step lists of up to max_steps entries.
+// tensor-core dq (out[0..2]), dk/dv (out[3..5]) and forward (out[6..8])
+// for a 16-bit dtype, head_dim d and step lists of up to max_steps entries.
 extern "C" int ds_sparse_hopper_info(int d, int dtype, int max_steps,
                                      int* out) {
   if ((d != 64 && d != 128) || max_steps < 0)

@@ -1,27 +1,30 @@
-// Tensor-core block-sparse attention backward for Hopper (sm_90a): dq and
-// dk/dv for 16-bit inputs (bf16, fp16), head_dim 64 or 128, S a multiple
-// of 64, over host-built 64-row tile tables.
+// Tensor-core block-sparse attention for Hopper (sm_90a): the forward, dq
+// and dk/dv for 16-bit inputs (bf16, fp16), head_dim 64 or 128, S a
+// multiple of 64, over host-built 64-row tile tables.
 //
-// They compute the functions of the TPU kernels _bwd_dq_kernel and
-// _bwd_dkv_kernel (deepspeed_tpu/ops/sparse_kernels.py:190,222), which the
-// tile kernels of flash_tiles.cuh compute for f32 inputs: q/k/v/do
-// [B*H, S, D], row b reading head b % H of a static per-head block layout;
-// f32 scores times `scale`; a (q, k) pair is visible iff its layout block
-// is active AND (non-causal OR q_pos >= k_pos); masked scores -1e30; p and
-// ds rounded to the input dtype before the products (here the conversion
-// of the register A operand); lse_safe, so a row that sees no key gets no
-// gradient. A q row with no visible key gets dq = 0, a kv row with none
-// dk = dv = 0, exactly.
+// They compute the functions of the TPU kernels _fwd_kernel,
+// _bwd_dq_kernel and _bwd_dkv_kernel (deepspeed_tpu/ops/
+// sparse_kernels.py:105,190,222), which the tile kernels of
+// flash_tiles.cuh compute for f32 inputs: q/k/v/do [B*H, S, D], row b
+// reading head b % H of a static per-head block layout; f32 scores times
+// `scale`; a (q, k) pair is visible iff its layout block is active AND
+// (non-causal OR q_pos >= k_pos); masked scores -1e30; the online softmax
+// with m_safe (0 where m <= -1e30 / 2); p and ds rounded to the input dtype
+// before the products (here the conversion of the register A operand);
+// o = acc / l_safe and lse = m + log(l_safe) f32 [B*H, S, 1]; lse_safe in
+// the backward. A q row with no visible key gets o = 0, lse = -1e30 and
+// dq = 0, a kv row with none dk = dv = 0, exactly.
 //
 // Bound on an H100: operations. At layout (i) of chip_smoke.py (32 heads,
-// S 8192, D 128, Fixed block 64 causal, 2304 of 8256 blocks active) dq's
-// three products are 0.228 ms and dk/dv's four 0.304 ms at 989 TFLOP/s,
-// against ~2 bytes moved per 64 flops. So the design is the one of
-// flash_hopper.cuh's flash_bwd_dq / flash_bwd_dkv (wgmma m64n64k16 with f32
-// accumulators in registers, P and dS (or P^T, dS^T) as the register A
-// operand of the next product, 64-row x 128-byte TMA boxes with 128-byte
-// swizzle into a ring fed by one producer thread, 2 consumer warpgroups of
-// 64 rows), over a walk of 64 x 64 tiles:
+// S 8192, D 128, Fixed block 64 causal, 2304 of 8256 blocks active) the
+// forward's two products are 0.152 ms, dq's three 0.228 ms and dk/dv's
+// four 0.304 ms at 989 TFLOP/s, against ~2 bytes moved per 64 flops. So
+// the design is the one of flash_hopper.cuh's flash_fwd / flash_bwd_dq /
+// flash_bwd_dkv (wgmma m64n64k16 with f32 accumulators in registers, P and
+// dS (or P^T, dS^T) as the register A operand of the next product, 64-row
+// x 128-byte TMA boxes with 128-byte swizzle into a ring fed by one
+// producer thread, 2 consumer warpgroups of 64 rows), over a walk of
+// 64 x 64 tiles:
 //
 //   * the tile tables (build_tile_tables in ops/sparse_kernels.py, numpy,
 //     once per layout): a tile pair (q tile t, kv tile u) is a step if any
@@ -35,27 +38,33 @@
 //     sub-blocks on or below the diagonal.
 //   * work items: one CUDA block per (batch row, item), an item being two
 //     64-row tiles of one head (tile1 = -1: one tile) and its list of
-//     steps, the union of the two tiles' lists with both masks, so each
-//     step loads one tile for both consumers and a consumer whose mask is
-//     0 skips it. dq pairs neighbouring q tiles (their kv lists are alike);
-//     dk/dv pairs kv tiles of alike q lists (sorted by list length): a
-//     global column's list sits beside another global column's, not beside
-//     a local one. Items run heaviest first (longest list first), so a
-//     Fixed layout's global columns do not finish last. Every tile of every
-//     head is in exactly one item, also a tile with an empty list, which
-//     stores zeros.
+//     steps in ascending tile order, the union of the two tiles' lists
+//     with both masks, so each step loads one tile for both consumers and
+//     a consumer whose mask is 0 skips the products (but still arrives on
+//     the ring's barriers). The forward and dq walk one list, which pairs
+//     neighbouring q tiles (their kv lists are alike); dk/dv pairs kv
+//     tiles of alike q lists (sorted by list length): a global column's
+//     list sits beside another global column's, not beside a local one.
+//     Items run heaviest first (longest list first), so a Fixed layout's
+//     global rows and columns do not finish last. Every tile of every head
+//     is in exactly one item, also a tile with an empty list, which stores
+//     zeros (and the forward lse = -1e30).
 //   * the block copies its step list into shared memory before the ring
 //     starts: the producer issues no dependent global load per step.
+//   * forward: a consumer owns one q tile (Q loaded once) and keeps O, m
+//     and l in registers; per step S = Q K^T, the mask, the online-softmax
+//     update of flash_fwd_hopper_kernel, then O += P V; o and lse are
+//     written once, at the end of the item.
 //   * dq: a consumer owns one q tile (Q, dO, lse, delta loaded once) and
 //     keeps dQ in registers; per step S = Q K^T and dP = dO V^T, then
 //     dQ += dS K. dk/dv: a consumer owns one kv tile (K, V loaded once) and
 //     keeps dK, dV in registers; per step S^T = K Q^T and dP^T = V dO^T,
 //     then dV += P^T dO and dK += dS^T Q.
 //
-// No atomics: a repeated backward is bit-identical. The forward and f32
-// inputs stay on flash_tiles.cuh (TF32 would fail the f32 checks, 1e-4),
-// and so does an S that is not a multiple of 64 (possible at blocks 16 and
-// 32): the rule is in sparse_attention.cu.
+// No atomics: a repeated forward or backward is bit-identical. f32 inputs
+// stay on flash_tiles.cuh (TF32 would fail the f32 checks, 1e-4), and so
+// does an S that is not a multiple of 64 (possible at blocks 16 and 32):
+// the rule is in sparse_attention.cu.
 #pragma once
 
 #include "flash_hopper.cuh"
@@ -103,6 +112,136 @@ __device__ __forceinline__ uint8_t* smem_1024(uint8_t* raw) {
 // max_steps entries, and the slack for 1024-byte alignment.
 template <typename L> constexpr size_t smem_bytes(int max_steps) {
   return L::kSteps + 8 * (size_t)max_steps + 1024;
+}
+
+// ---------------------------------------------------------------------------
+// forward: grid (items * batch), block (item rank, batch row); the dq walk
+// ---------------------------------------------------------------------------
+template <int D> struct SparseFwdSmem {
+  static constexpr int kAtoms = D / 64;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kConsumers * kAtoms * kBoxBytes;
+  static constexpr int kV = kK + kFwdStages * kAtoms * kBoxBytes;
+  static constexpr int kBar = kV + kFwdStages * kAtoms * kBoxBytes;
+  static constexpr int kSteps = kBar + 8 * (2 * kFwdStages + 1 + 3);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    sparse_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             T* __restrict__ o, float* __restrict__ lse,
+                             const int* __restrict__ items,
+                             const int2* __restrict__ steps, int batch,
+                             int nheads, int s, float scale, int causal) {
+  using L = SparseFwdSmem<D>;
+  constexpr int A = L::kAtoms;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + kFwdStages;
+  uint64_t* qbar = empty + kFwdStages;
+  int2* st = reinterpret_cast<int2*>(sm + L::kSteps);
+  const Item it = load_item(items, blockIdx.x / batch);
+  const int bh = (blockIdx.x % batch) * nheads + it.head;
+  const int n_tiles = it.tile1 < 0 ? 1 : 2;
+  stage_steps(st, steps, it);
+  if (threadIdx.x == 0) init_ring(full, empty, kFwdStages, qbar);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == kConsumers) {
+    // ---- producer: Q once, then the K/V ring ------------------------------
+    regs_dec<kProducerRegsSparse>();
+    if (threadIdx.x != kConsumers * 128) return;
+    mbar_expect_tx(qbar, n_tiles * A * kBoxBytes);
+    for (int w = 0; w < n_tiles; ++w) {
+      const int qrow = bh * s + (w ? it.tile1 : it.tile0) * kRows;
+      for (int at = 0; at < A; ++at)
+        tma_load(sm + L::kQ + (w * A + at) * kBoxBytes, &tq, qbar, at * 64,
+                 qrow);
+    }
+    for (int e = 0; e < it.n; ++e) {
+      const int sg = e % kFwdStages;
+      const int krow = bh * s + st[e].x * kRows;
+      if (e >= kFwdStages) mbar_wait(&empty[sg], ((e / kFwdStages) - 1) & 1);
+      mbar_expect_tx(&full[sg], 2 * A * kBoxBytes);
+      for (int at = 0; at < A; ++at) {
+        tma_load(sm + L::kK + (sg * A + at) * kBoxBytes, &tk, &full[sg],
+                 at * 64, krow);
+        tma_load(sm + L::kV + (sg * A + at) * kBoxBytes, &tv, &full[sg],
+                 at * 64, krow);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q tile `tile` (none if -1) -----------
+  regs_inc<kConsumerRegsSparse>();
+  const int lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x % 128) / 32;   // q sub-block of its rows
+  const int row0 = 16 * warp + lane / 4;       // rows row0, row0 + 8
+  const int cq = 2 * (lane % 4);
+  const int tile = wg ? it.tile1 : it.tile0;
+  const uint8_t* Qw = sm + L::kQ + wg * A * kBoxBytes;
+  float acc[A][32];
+#pragma unroll
+  for (int at = 0; at < A; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[at][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
+  for (int e = 0; e < it.n; ++e) {
+    const int sg = e % kFwdStages;
+    mbar_wait(&full[sg], (e / kFwdStages) & 1);
+    const int2 step = st[e];
+    const int mask = (step.y >> (16 * wg)) & kFullMask;
+    if (mask == 0) {  // this q tile sees none of this kv tile
+      mbar_arrive(&empty[sg]);
+      continue;
+    }
+    float sc[32];
+    wg_fence();
+    mma_kmajor<T, D>(sc, Qw, sm + L::kK + sg * A * kBoxBytes);
+    wg_commit();
+    wg_wait();
+    pin(sc);
+    // wholly visible steps skip the mask; else the sub-block bits of this
+    // warp's q sub-block (kv sub-block = column / 16 = j / 2), and on a
+    // causal diagonal tile q_pos >= k_pos
+    const bool masked = mask != kFullMask;
+    const int row_bits = mask >> (4 * warp);
+    const bool diag = causal && step.x == tile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = 4 * j + 2 * r + c;
+          float x = sc[i] * scale;
+          if (masked && (!((row_bits >> (j / 2)) & 1) ||
+                         (diag && row0 + 8 * r < 8 * j + cq + c)))
+            x = kNegInf;
+          sc[i] = x;
+        }
+    softmax_step(sc, m, l, acc);
+    // P, rounded to T as the register A operand; V read N-major
+    uint32_t pa[4][4];
+    to_a_operand<T>(sc, pa);
+    wg_fence();
+    mma_nmajor<T, D>(acc, pa, sm + L::kV + sg * A * kBoxBytes);  // O += P V
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int at = 0; at < A; ++at) pin(acc[at]);
+    pin(pa);
+    mbar_arrive(&empty[sg]);
+  }
+  if (tile >= 0)
+    store_fwd_rows<T, D>(o, lse, (size_t)bh * s + (size_t)tile * kRows + row0,
+                         lane, acc, m, l);
 }
 
 // ---------------------------------------------------------------------------
@@ -446,7 +585,28 @@ static bool make_maps(CUtensorMap (&m)[4], const void* q, const void* k,
 }
 
 // Each launch: one block per (item, batch row), the step lists' shared
-// memory on top of the fixed layout.
+// memory on top of the fixed layout. The forward walks the dq items.
+template <typename T, int D>
+static int fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, const void* items, const void* steps, int n_items,
+               int max_steps, int bh, int nheads, int s, float scale,
+               int causal, cudaStream_t stream) {
+  CUtensorMap m[3];
+  const size_t smem = smem_bytes<SparseFwdSmem<D>>(max_steps);
+  if (smem > kMaxSmem || !make_map<T, D>(&m[0], q, bh * s) ||
+      !make_map<T, D>(&m[1], k, bh * s) || !make_map<T, D>(&m[2], v, bh * s))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = sparse_fwd_hopper_kernel<T, D>;
+  cudaError_t err = set_smem(kernel, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int batch = bh / nheads;
+  kernel<<<n_items * batch, kThreads, smem, stream>>>(
+      m[0], m[1], m[2], static_cast<T*>(o), static_cast<float*>(lse),
+      static_cast<const int*>(items), static_cast<const int2*>(steps), batch,
+      nheads, s, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 static int bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
@@ -491,9 +651,9 @@ static int bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The two kernels for (T, D) with step lists of up to max_steps entries:
-// out[0..2] dq, out[3..5] dk/dv, each (registers, dynamic shared memory,
-// blocks per SM).
+// The three kernels for (T, D) with step lists of up to max_steps
+// entries: out[0..2] dq, out[3..5] dk/dv, out[6..8] the forward, each
+// (registers, dynamic shared memory, blocks per SM).
 template <typename T, int D> static int info(int max_steps, int* out) {
   cudaError_t err =
       kernel_info(sparse_bwd_dq_hopper_kernel<T, D>,
@@ -501,6 +661,9 @@ template <typename T, int D> static int info(int max_steps, int* out) {
   if (err == cudaSuccess)
     err = kernel_info(sparse_bwd_dkv_hopper_kernel<T, D>,
                       (int)smem_bytes<SparseDkvSmem<D>>(max_steps), out + 3);
+  if (err == cudaSuccess)
+    err = kernel_info(sparse_fwd_hopper_kernel<T, D>,
+                      (int)smem_bytes<SparseFwdSmem<D>>(max_steps), out + 6);
   return (int)err;
 }
 

@@ -89,13 +89,16 @@ SIGNATURES = {
         # q, k, v, do, lse, delta, q_idx, q_valid, dk, dv, bh, nheads, s, d,
         # block, imax, dtype, scale, causal, stream
         "ds_sparse_bwd_dkv": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+        # q, k, v, items, steps, o, lse, bh, nheads, s, d, n_items,
+        # max_steps, dtype, scale, causal, stream
+        "ds_sparse_fwd_hopper": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
         # q, k, v, do, lse, delta, items, steps, dq, bh, nheads, s, d,
         # n_items, max_steps, dtype, scale, causal, stream
         "ds_sparse_bwd_dq_hopper": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
         # q, k, v, do, lse, delta, items, steps, dk, dv, bh, nheads, s, d,
         # n_items, max_steps, dtype, scale, causal, stream
         "ds_sparse_bwd_dkv_hopper": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
-        # d, dtype, max_steps, out (int[6])
+        # d, dtype, max_steps, out (int[9])
         "ds_sparse_hopper_info": [_I, _I, _I, _P],
     },
     "quantizer": {

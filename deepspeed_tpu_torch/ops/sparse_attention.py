@@ -260,8 +260,14 @@ class SparseSelfAttention:
         self._layouts = {}
 
     def get_layout(self, seq_len: int) -> np.ndarray:
+        """The layout for seq_len, built once and kept read-only, so that
+        the kernels' table look-up keys it by identity
+        (``sparse_kernels._layout_key``) instead of serializing it every
+        call."""
         if seq_len not in self._layouts:
-            self._layouts[seq_len] = self.config.make_layout(seq_len)
+            layout = np.array(self.config.make_layout(seq_len))
+            layout.setflags(write=False)
+            self._layouts[seq_len] = layout
         return self._layouts[seq_len]
 
     def __call__(self, q, k, v, causal: bool = True):

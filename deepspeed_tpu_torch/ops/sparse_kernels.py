@@ -20,23 +20,26 @@ place of the TPU kernels:
 * :func:`sparse_bwd_dq` -- ``_bwd_dq_kernel`` (:190): dq;
 * :func:`sparse_bwd_dkv` -- ``_bwd_dkv_kernel`` (:222): dk and dv.
 
-Routes. dq and dk/dv on bf16 / fp16 inputs with S a multiple of 64 run the
-tensor-core kernels of ``csrc/sparse_hopper.cuh`` (wgmma fed by TMA) over
-64-row tile tables (:func:`build_tile_tables`: per (q tile, kv tile) step
-a 16-bit mask of active 16 x 16 sub-blocks, two tiles per CUDA block,
-work items heaviest first), which the caller passes as ``tiles=``
-(:func:`device_tile_tables`). The forward, f32 inputs (the tensor cores
-take f32 only as TF32) and an S that is not a multiple of 64 run the f32
-CUDA-core tile kernels of ``csrc/flash_tiles.cuh`` over the per-block
-tables.
+Routes. The forward, dq and dk/dv on bf16 / fp16 inputs with S a multiple
+of 64 run the tensor-core kernels of ``csrc/sparse_hopper.cuh`` (wgmma fed
+by TMA) over 64-row tile tables (:func:`build_tile_tables`: per (q tile,
+kv tile) step a 16-bit mask of active 16 x 16 sub-blocks, two tiles per
+CUDA block, work items heaviest first; the forward walks dq's items),
+which the caller passes as ``tiles=`` (:func:`device_tile_tables`). f32
+inputs (the tensor cores take f32 only as TF32) and an S that is not a
+multiple of 64 run the f32 CUDA-core tile kernels of
+``csrc/flash_tiles.cuh`` over the per-block tables.
 
 Each wrapper launches its kernel on CUDA tensors (built at first use by
 ``ops/op_builder/cuda.py``), with the tables as int32 tensors on the card
 (:func:`device_tables` and :func:`device_tile_tables` upload them once per
-layout), and counts the launch in ``<wrapper>.launches``; on CPU tensors it
-runs the plain version. There is no fallback: a build or launch failure, or
-a shape the kernels do not take, raises. ``delta = rowsum(do * o)`` stays
-one f32 torch expression, as it is jnp in the JAX package (:266).
+layout; :func:`sparse_flash_attention` keys both by one serialization of
+the layout a call, none for the read-only layouts that
+``SparseSelfAttention`` caches), and counts the launch in
+``<wrapper>.launches``; on CPU tensors it runs the plain version. There is
+no fallback: a build or launch failure, or a shape the kernels do not
+take, raises. ``delta = rowsum(do * o)`` stays one f32 torch expression,
+as it is jnp in the JAX package (:266).
 
 The plain versions (:func:`sparse_fwd_plain`, :func:`sparse_bwd_dq_plain`,
 :func:`sparse_bwd_dkv_plain`) are the same arithmetic over the active
@@ -72,10 +75,43 @@ _TABLE_CACHE: dict = {}
 _DEVICE_TABLES: dict = {}
 _TILE_CACHE: dict = {}
 _DEVICE_TILES: dict = {}
+_FROZEN_KEYS: dict = {}         # id(read-only layout) -> (layout, contents)
+
+
+def _memo(cache, key, make):
+    """cache[key], made by ``make()`` on a miss; a cache past 64 entries is
+    emptied first (bounds host and device memory under layout churn)."""
+    hit = cache.get(key)
+    if hit is None:
+        hit = make()
+        if len(cache) > 64:
+            cache.clear()
+        cache[key] = hit
+    return hit
+
+
+def _layout_bytes(layout):
+    """The layout's contents as a hashable key: its bool bytes and shape."""
+    return np.asarray(layout, bool).tobytes(), np.shape(layout)
 
 
 def _layout_key(layout, causal):
-    return (np.asarray(layout, bool).tobytes(), np.shape(layout), causal)
+    """The tables' cache key: the layout's contents and the causal flag.
+
+    A read-only array that owns its data (``SparseSelfAttention.get_layout``
+    caches its layouts so) is taken as frozen: its contents are serialized
+    once and found again by identity, so a repeated call costs O(1) in the
+    layout's size (the bytes object caches its hash). Any other layout is
+    serialized on every call, so one that the caller changes in place gets
+    the tables of its new contents."""
+    if isinstance(layout, np.ndarray) and not layout.flags.writeable \
+            and layout.flags.owndata:
+        # the entry holds the array, so no other object can take its id
+        contents = _memo(_FROZEN_KEYS, id(layout),
+                         lambda: (layout, _layout_bytes(layout)))[1]
+    else:
+        contents = _layout_bytes(layout)
+    return (*contents, causal)
 
 
 def build_tables(layout: np.ndarray, causal: bool
@@ -86,15 +122,11 @@ def build_tables(layout: np.ndarray, causal: bool
     make_lut (ops/sparse_attention/matmul.py). Tables are static per
     (layout, causal) and memoized: eager per-step callers would otherwise
     repeat the O(H * n^2) host scan every forward."""
-    key = _layout_key(layout, causal)
-    hit = _TABLE_CACHE.get(key)
-    if hit is not None:
-        return hit
-    out = _build_tables(layout, causal)
-    if len(_TABLE_CACHE) > 64:  # bound host memory for layout churn
-        _TABLE_CACHE.clear()
-    _TABLE_CACHE[key] = out
-    return out
+    return _host_tables(_layout_key(layout, causal), layout, causal)
+
+
+def _host_tables(key, layout, causal):
+    return _memo(_TABLE_CACHE, key, lambda: _build_tables(layout, causal))
 
 
 def _build_tables(layout: np.ndarray, causal: bool):
@@ -134,29 +166,29 @@ def device_tables(layout: np.ndarray, causal: bool, device
     """The four :func:`build_tables` arrays as int32 tensors on ``device``,
     uploaded once per (layout, causal, device): an eager per-step call
     would otherwise copy them from pageable host memory every time."""
-    key = (_layout_key(layout, causal), str(torch.device(device)))
-    hit = _DEVICE_TABLES.get(key)
-    if hit is None:
-        hit = tuple(torch.from_numpy(t).to(device)
-                    for t in build_tables(layout, causal))
-        if len(_DEVICE_TABLES) > 64:
-            _DEVICE_TABLES.clear()
-        _DEVICE_TABLES[key] = hit
-    return hit
+    return _device_tables(_layout_key(layout, causal), layout, causal,
+                          device)
+
+
+def _device_tables(key, layout, causal, device):
+    return _memo(_DEVICE_TABLES, (key, str(torch.device(device))),
+                 lambda: tuple(torch.from_numpy(t).to(device) for t in
+                               _host_tables(key, layout, causal)))
 
 
 # ---------------------------------------------------------------------------
-# 64-row tile tables of the tensor-core backward
+# 64-row tile tables of the tensor-core kernels
 # ---------------------------------------------------------------------------
 class TileTables(NamedTuple):
-    """The walk of the tensor-core dq and dk/dv kernels.
+    """The walk of the tensor-core forward, dq and dk/dv kernels.
 
     ``*_items`` [n, 5]: one work item per CUDA block (and batch row): head,
     tile0, tile1 (-1: none), start and count of its steps; heaviest (most
-    steps) first. dq items pair neighbouring q tiles, dk/dv items kv tiles
-    of alike q lists. ``*_steps`` [m, 2]: the other tile of each step and
-    the 16-bit sub-block masks of tile0 and tile1 (``mask0 | mask1 << 16``,
-    as int32); a step is in an item's list iff either mask is non-zero.
+    steps) first. dq items (which the forward walks too) pair neighbouring
+    q tiles, dk/dv items kv tiles of alike q lists. ``*_steps`` [m, 2]:
+    the other tile of each step and the 16-bit sub-block masks of tile0
+    and tile1 (``mask0 | mask1 << 16``, as int32); a step is in an item's
+    list iff either mask is non-zero.
     ``*_max``: the longest list (the kernels' shared-memory budget).
     ``nheads`` and ``n_tiles`` (S / 64) are the shape they were built
     for, which the wrappers check."""
@@ -212,6 +244,10 @@ def _work(masks: np.ndarray, pairs: np.ndarray):
 
 
 def _build_tile_tables(layout, causal, block) -> TileTables:
+    if np.shape(layout)[1] * block % TILE or block not in _BLOCKS:
+        raise ValueError(f"tile tables need a layout block in {_BLOCKS} and "
+                         f"S a multiple of {TILE}; got block {block}, "
+                         f"{np.shape(layout)[1]} blocks")
     masks = tile_masks(layout, causal, block)             # [H, t, u]
     H, nt, _ = masks.shape
     # dq: neighbouring q tiles, whose kv lists are alike
@@ -233,44 +269,41 @@ def _build_tile_tables(layout, causal, block) -> TileTables:
 
 def build_tile_tables(layout: np.ndarray, causal: bool, block: int
                       ) -> TileTables:
-    """The tensor-core backward's tables for (layout, causal, block), numpy
+    """The tensor-core kernels' tables for (layout, causal, block), numpy
     int32, memoized like :func:`build_tables`. S = n * block must be a
     multiple of 64."""
-    if np.shape(layout)[1] * block % TILE or block not in _BLOCKS:
-        raise ValueError(f"tile tables need a layout block in {_BLOCKS} and "
-                         f"S a multiple of {TILE}; got block {block}, "
-                         f"{np.shape(layout)[1]} blocks")
-    key = (_layout_key(layout, causal), block)
-    hit = _TILE_CACHE.get(key)
-    if hit is None:
-        hit = _build_tile_tables(layout, causal, block)
-        if len(_TILE_CACHE) > 64:
-            _TILE_CACHE.clear()
-        _TILE_CACHE[key] = hit
-    return hit
+    return _host_tile_tables(_layout_key(layout, causal), layout, causal,
+                             block)
+
+
+def _host_tile_tables(key, layout, causal, block):
+    return _memo(_TILE_CACHE, (key, block),
+                 lambda: _build_tile_tables(layout, causal, block))
 
 
 def device_tile_tables(layout: np.ndarray, causal: bool, block: int,
                        device) -> TileTables:
     """:func:`build_tile_tables` with the arrays as int32 tensors on
     ``device``, uploaded once per (layout, causal, block, device)."""
-    key = (_layout_key(layout, causal), block, str(torch.device(device)))
-    hit = _DEVICE_TILES.get(key)
-    if hit is None:
-        host = build_tile_tables(layout, causal, block)
-        hit = TileTables(*(torch.from_numpy(x).to(device)
-                           if isinstance(x, np.ndarray) else x
-                           for x in host))
-        if len(_DEVICE_TILES) > 64:
-            _DEVICE_TILES.clear()
-        _DEVICE_TILES[key] = hit
-    return hit
+    return _device_tile_tables(_layout_key(layout, causal), layout, causal,
+                               block, device)
+
+
+def _device_tile_tables(key, layout, causal, block, device):
+    def upload():
+        host = _host_tile_tables(key, layout, causal, block)
+        return TileTables(*(torch.from_numpy(x).to(device)
+                            if isinstance(x, np.ndarray) else x
+                            for x in host))
+
+    return _memo(_DEVICE_TILES, (key, block, str(torch.device(device))),
+                 upload)
 
 
 def tensor_core_route(q: torch.Tensor) -> bool:
-    """True where dq and dk/dv run the tensor-core kernels: bf16 / fp16
-    inputs with S a multiple of 64 (the head dims and blocks are those of
-    every route)."""
+    """True where the forward, dq and dk/dv run the tensor-core kernels:
+    bf16 / fp16 inputs with S a multiple of 64 (the head dims and blocks
+    are those of every route)."""
     return q.dtype in _TC_DTYPES and q.shape[-2] % TILE == 0
 
 
@@ -442,20 +475,35 @@ def _check(name, block, nheads, q, k, v, *others, tables):
 
 
 def sparse_fwd(q, k, v, kv_idx, kv_valid, scale: float, causal: bool,
-               block: int, nheads: int):
-    """Forward. q/k/v [bh, S, D] -> (o, lse [bh, S, 1])."""
+               block: int, nheads: int, tiles: Optional[TileTables] = None):
+    """Forward. q/k/v [bh, S, D] -> (o, lse [bh, S, 1]). On the
+    tensor-core route (:func:`tensor_core_route`) the kernel walks the dq
+    items and steps of ``tiles`` (:func:`device_tile_tables` of the same
+    layout, causal flag and block), elsewhere the per-block tables."""
     if _device_of("sparse_fwd", q) == "cpu":
         return sparse_fwd_plain(q, k, v, kv_idx, kv_valid, scale, causal,
                                 block, nheads)
     _check("sparse_fwd", block, nheads, q, k, v, tables=(kv_idx, kv_valid))
+    tc = tensor_core_route(q)
+    if tc:
+        _check_tiles("sparse_fwd", q, nheads, tiles)
     bh, s, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, s, 1), dtype=torch.float32, device=q.device)
-    code = cuda_build.load("sparse_attention").ds_sparse_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_idx.data_ptr(),
-        kv_valid.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, nheads, s, d,
-        block, kv_idx.shape[-1], _DTYPE_CODE[q.dtype], scale, int(causal),
-        _stream(q))
+    lib = cuda_build.load("sparse_attention")
+    if tc:
+        code = lib.ds_sparse_fwd_hopper(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            tiles.dq_items.data_ptr(), tiles.dq_steps.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), bh, nheads, s, d,
+            tiles.dq_items.shape[0], tiles.dq_max, _DTYPE_CODE[q.dtype],
+            scale, int(causal), _stream(q))
+    else:
+        code = lib.ds_sparse_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_idx.data_ptr(),
+            kv_valid.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, nheads, s,
+            d, block, kv_idx.shape[-1], _DTYPE_CODE[q.dtype], scale,
+            int(causal), _stream(q))
     cuda_build.check(code, "sparse_fwd")
     sparse_fwd.launches += 1
     return o, lse
@@ -497,10 +545,12 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, kv_idx, kv_valid, scale: float,
            tables=(kv_idx, kv_valid))
     _check_bwd_extra("sparse_bwd_dq", q, do, lse, delta)
     bh, s, d = q.shape
+    tc = tensor_core_route(q)
+    if tc:
+        _check_tiles("sparse_bwd_dq", q, nheads, tiles)
     dq = torch.empty_like(q)
     lib = cuda_build.load("sparse_attention")
-    if tensor_core_route(q):
-        _check_tiles("sparse_bwd_dq", q, nheads, tiles)
+    if tc:
         code = lib.ds_sparse_bwd_dq_hopper(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), tiles.dq_items.data_ptr(),
@@ -530,10 +580,12 @@ def sparse_bwd_dkv(q, k, v, do, lse, delta, q_idx, q_valid, scale: float,
            tables=(q_idx, q_valid))
     _check_bwd_extra("sparse_bwd_dkv", q, do, lse, delta)
     bh, s, d = q.shape
+    tc = tensor_core_route(q)
+    if tc:
+        _check_tiles("sparse_bwd_dkv", q, nheads, tiles)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = cuda_build.load("sparse_attention")
-    if tensor_core_route(q):
-        _check_tiles("sparse_bwd_dkv", q, nheads, tiles)
+    if tc:
         code = lib.ds_sparse_bwd_dkv_hopper(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), tiles.dkv_items.data_ptr(),
@@ -565,7 +617,7 @@ class _SparseCore(torch.autograd.Function):
     def forward(ctx, q, k, v, kv_idx, kv_valid, q_idx, q_valid, scale,
                 causal, block, nheads, tiles):
         o, lse = sparse_fwd(q, k, v, kv_idx, kv_valid, scale, causal, block,
-                            nheads)
+                            nheads, tiles=tiles)
         ctx.save_for_backward(q, k, v, o, lse, kv_idx, kv_valid, q_idx,
                               q_valid)
         ctx.args = (scale, causal, block, nheads)
@@ -594,8 +646,9 @@ def sparse_flash_attention(q, k, v, layout: np.ndarray, block: int,
     if S % block:
         raise ValueError(f"seq {S} not divisible by block {block}")
     scale = scale or 1.0 / math.sqrt(D)
-    tables = device_tables(layout, causal, q.device)
-    tiles = (device_tile_tables(layout, causal, block, q.device)
+    key = _layout_key(layout, causal)       # once a call, for both tables
+    tables = _device_tables(key, layout, causal, q.device)
+    tiles = (_device_tile_tables(key, layout, causal, block, q.device)
              if q.is_cuda and tensor_core_route(q) and block in _BLOCKS
              else None)
     o = _SparseCore.apply(*(x.reshape(B * H, S, D).contiguous()

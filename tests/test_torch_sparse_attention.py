@@ -17,7 +17,19 @@ on the same numpy inputs:
   round the scores, the probabilities and the output to bf16, so an
   f32 reordering can flip one bf16 rounding, 2**-7 relative, of outputs of
   magnitude ~1);
-* ``impl="auto"`` on CPU tensors takes the dense path and launches nothing.
+* ``impl="auto"`` on CPU tensors takes the dense path and launches nothing;
+* the 64-row tile tables, expanded to tokens, equal the layout; the
+  tensor-core forward's walk over them (a torch emulation of its
+  arithmetic: dq's items and steps in order, sub-block masks, the causal
+  diagonal, the online softmax in f32) against the JAX ``_fwd_kernel`` in
+  interpret mode, 2e-5, with exact o = 0 and lse = -1e30 for rows that
+  see no key;
+* the forward's routing (tensor-core entry with the tile tables, their
+  check, the tile kernels for f32 and S % 64 != 0) through a stand-in
+  library, and ``_SparseCore`` handing its tiles to all three wrappers;
+* the tables' layout key: serialized once for ``SparseSelfAttention``'s
+  cached read-only layout, once a call for a writeable one, which gets
+  new tables after an in-place change.
 
 The CUDA kernels are held against the plain versions on the card by
 chip_smoke.py.
@@ -566,3 +578,268 @@ def test_tensor_core_route_and_tile_check():
     with pytest.raises(ValueError, match="1 heads and 2 tiles"):
         tsk._check_tiles("sparse_bwd_dq", torch.zeros(2, 256, 64).half(),
                          1, tiles)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core forward's walk, the forward's routing, the layout key
+# ---------------------------------------------------------------------------
+def _empty_q_and_kv_blocks(block):
+    """Both of the above: q blocks and kv blocks with no active block,
+    inside a 64-row tile (at blocks 16 and 32) and as whole tiles."""
+    return _empty_q_blocks(block) & _empty_kv_blocks(block)
+
+
+FWD_WALK_LAYOUTS = {
+    "fixed": TILE_LAYOUTS["fixed"],
+    "bigbird": TILE_LAYOUTS["bigbird"],
+    "empty_q_and_kv": _empty_q_and_kv_blocks,
+}
+
+
+def _walk_forward(q, k, v, tiles, scale, causal):
+    """The tensor-core forward's arithmetic in torch, f32: for every dq item
+    and each of its (one or two) q tiles, the steps in list order; a step
+    whose mask for the tile is 0 is skipped; a mask of all ones is wholly
+    visible, any other one keeps its active 16 x 16 sub-blocks and, on a
+    causal diagonal tile, q_pos >= k_pos; then the online softmax with
+    m_safe, p rounded to v's dtype before P V, o = acc / l_safe and
+    lse = m + log(l_safe) (-1e30 for a row that saw no key)."""
+    bh, s, d = q.shape
+    T, H = tsk.TILE, tiles.nheads
+    o = torch.full((bh, s, d), float("nan"))
+    lse = torch.full((bh, s, 1), float("nan"))
+    masks = tiles.dq_steps[:, 1].view(np.uint32)
+    tril = torch.ones(T, T, dtype=torch.bool).tril()
+    for b in range(bh // H):
+        for h, t0, t1, start, n in tiles.dq_items:
+            row = b * H + h
+            for w, tile in enumerate((t0, t1)):
+                if tile < 0:
+                    continue
+                rows = slice(tile * T, (tile + 1) * T)
+                qt = q[row, rows].float()
+                acc = torch.zeros(T, d)
+                m = torch.full((T, 1), tsk.NEG_INF)
+                l = torch.zeros(T, 1)
+                for other, mask in zip(tiles.dq_steps[start:start + n, 0],
+                                       masks[start:start + n]):
+                    mask = int(mask >> (16 * w)) & 0xFFFF
+                    if mask == 0:
+                        continue
+                    cols = slice(other * T, (other + 1) * T)
+                    sc = qt @ k[row, cols].float().T * scale
+                    if mask != 0xFFFF:
+                        bits = torch.tensor(
+                            [(mask >> i) & 1 for i in range(16)],
+                            dtype=torch.bool).view(4, 4)
+                        vis = bits.repeat_interleave(
+                            16, 0).repeat_interleave(16, 1)
+                        if causal and other == tile:
+                            vis &= tril
+                        sc = torch.where(vis, sc,
+                                         torch.full_like(sc, tsk.NEG_INF))
+                    m_new = torch.maximum(m, sc.amax(1, keepdim=True))
+                    m_safe = torch.where(m_new <= tsk.NEG_INF * 0.5,
+                                         torch.zeros_like(m_new), m_new)
+                    p = torch.exp(sc - m_safe)
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum(1, keepdim=True)
+                    acc = acc * corr + p.to(v.dtype).float() @ \
+                        v[row, cols].float()
+                    m = m_new
+                l_safe = torch.where(l == 0, torch.ones_like(l), l)
+                o[row, rows] = (acc / l_safe).to(q.dtype)
+                lse[row, rows] = m + torch.log(l_safe)
+    return o, lse
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_walk_case(name, block, causal):
+    """(layout, q, k, v [bh, S, D] f32, JAX o, JAX lse) at S 512, B 1."""
+    layout = FWD_WALK_LAYOUTS[name](block)
+    rng = np.random.default_rng(block + 2 * causal)
+    q, k, v = (rng.normal(size=(layout.shape[0], TILE_SEQ, D))
+               .astype(np.float32) for _ in range(3))
+    tables = [jnp.asarray(t) for t in jsk.build_tables(layout, causal)]
+    o, lse = jsk._sparse_fwd(*(jnp.asarray(a) for a in (q, k, v)),
+                             *tables[:2], 1.0 / math.sqrt(D), causal, block,
+                             layout.shape[0])
+    return layout, q, k, v, np.asarray(o), np.asarray(lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("name", list(FWD_WALK_LAYOUTS))
+def test_tile_walk_forward_matches_jax_kernel(name, block, causal):
+    """The tensor-core forward's walk over dq's items and steps gives the
+    JAX ``_fwd_kernel``'s o and lse (interpret mode), f32, 2e-5; every row
+    is written once, and a row that sees no key gets o = 0 and lse = -1e30
+    exactly."""
+    layout, q, k, v, o_ref, lse_ref = _fwd_walk_case(name, block, causal)
+    tiles = tsk.build_tile_tables(layout, causal, block)
+    o, lse = _walk_forward(*(torch.from_numpy(a) for a in (q, k, v)), tiles,
+                           1.0 / math.sqrt(D), causal)
+    np.testing.assert_allclose(o.numpy(), o_ref, **TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, **TOL)
+    want = np.repeat(np.repeat(layout.astype(bool), block, 1), block, 2)
+    if causal:
+        want &= np.tril(np.ones((TILE_SEQ, TILE_SEQ), bool))
+    dead = torch.from_numpy(~want.any(-1))                 # [H, S]
+    assert (o[dead] == 0).all() and (lse[dead] == tsk.NEG_INF).all()
+    assert (lse[~dead] > tsk.NEG_INF / 2).all()
+    if name == "empty_q_and_kv":
+        assert dead.any()
+        # whole q tiles with an empty list: items of no step
+        assert (tiles.dq_items[:, 4] == 0).any()
+
+
+def _fake_card(monkeypatch):
+    """CPU tensors through the CUDA branch of the wrappers: the device
+    check says CUDA, the kernels' checks pass, and the library records
+    which entry point each call reaches (returning success)."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, entry):
+            return lambda *args: calls.append((entry, args)) or 0
+
+    monkeypatch.setattr(tsk, "_device_of", lambda name, q: "cuda")
+    monkeypatch.setattr(tsk, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(tsk, "_stream", lambda q: 0)
+    monkeypatch.setattr(tsk.cuda_build, "load", lambda name: Lib())
+    return calls
+
+
+def test_sparse_fwd_routes(monkeypatch):
+    """bf16 / fp16 with S % 64 == 0 reach ds_sparse_fwd_hopper with dq's
+    items and steps and need the tile tables; f32 and S 80 reach the tile
+    kernels' ds_sparse_fwd; each launch counts once."""
+    calls = _fake_card(monkeypatch)
+    layout = np.ones((2, 8, 8), bool)
+    tables = _torch_tables(layout, True)
+    tiles = tsk.device_tile_tables(layout, True, 16, "cpu")
+    args = (0.125, True, 16, 2)
+    before = tsk.sparse_fwd.launches
+    for dtype in (torch.bfloat16, torch.float16):
+        x = torch.zeros(2, 128, 64, dtype=dtype)
+        tsk.sparse_fwd(x, x, x, *tables[:2], *args, tiles=tiles)
+        entry, a = calls[-1]
+        assert entry == "ds_sparse_fwd_hopper"
+        assert a[3:5] == (tiles.dq_items.data_ptr(),
+                          tiles.dq_steps.data_ptr())
+        assert a[11:13] == (tiles.dq_items.shape[0], tiles.dq_max)
+    x = torch.zeros(2, 128, 64)
+    tsk.sparse_fwd(x, x, x, *tables[:2], *args)
+    assert calls[-1][0] == "ds_sparse_fwd"
+    lay80 = np.ones((2, 5, 5), bool)
+    x = torch.zeros(2, 80, 64, dtype=torch.bfloat16)
+    tsk.sparse_fwd(x, x, x, *_torch_tables(lay80, True)[:2], *args)
+    assert calls[-1][0] == "ds_sparse_fwd"
+    assert tsk.sparse_fwd.launches == before + 4
+
+
+def test_sparse_fwd_tensor_core_route_checks_tiles(monkeypatch):
+    """Without tiles, or with tiles of another S or head count, the
+    tensor-core forward raises the tile check's error and launches
+    nothing."""
+    calls = _fake_card(monkeypatch)
+    layout = np.ones((2, 8, 8), bool)
+    tables = _torch_tables(layout, True)
+    x = torch.zeros(2, 128, 64, dtype=torch.bfloat16)
+    args = (0.125, True, 16, 2)
+    before = tsk.sparse_fwd.launches
+    with pytest.raises(ValueError, match="tiles="):
+        tsk.sparse_fwd(x, x, x, *tables[:2], *args)
+    other_s = tsk.device_tile_tables(np.ones((2, 16, 16), bool), True, 16,
+                                      "cpu")
+    with pytest.raises(ValueError, match="2 heads and 4 tiles"):
+        tsk.sparse_fwd(x, x, x, *tables[:2], *args, tiles=other_s)
+    other_h = tsk.device_tile_tables(np.ones((1, 8, 8), bool), True, 16,
+                                      "cpu")
+    with pytest.raises(ValueError, match="1 heads and 2 tiles"):
+        tsk.sparse_fwd(x, x, x, *tables[:2], *args, tiles=other_h)
+    assert calls == [] and tsk.sparse_fwd.launches == before
+
+
+def test_sparse_core_hands_tiles_to_forward(monkeypatch):
+    """_SparseCore passes its tile tables to the forward as to dq and
+    dk/dv."""
+    seen = {}
+    for name in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv"):
+        wrapper = getattr(tsk, name)
+
+        def spy(*a, _name=name, _wrapper=wrapper, tiles=None):
+            seen[_name] = tiles
+            return _wrapper(*a, tiles=tiles)
+
+        monkeypatch.setattr(tsk, name, spy)
+    layout, block, causal, q, k, v, w = _case("fixed_causal")
+    tables = _torch_tables(layout, causal)
+    tiles = tsk.device_tile_tables(layout, causal, block, "cpu")
+    tq, tk, tv = (torch.from_numpy(_fold(a)).requires_grad_(True)
+                  for a in (q, k, v))
+    o = tsk._SparseCore.apply(tq, tk, tv, *tables, 0.125, causal, block,
+                              layout.shape[0], tiles)
+    (o * torch.from_numpy(_fold(w))).sum().backward()
+    assert seen == {n: tiles for n in ("sparse_fwd", "sparse_bwd_dq",
+                                       "sparse_bwd_dkv")}
+
+
+def _count_serializations(monkeypatch):
+    count = [0]
+    serialize = tsk._layout_bytes
+
+    def counted(layout):
+        count[0] += 1
+        return serialize(layout)
+
+    monkeypatch.setattr(tsk, "_layout_bytes", counted)
+    return count
+
+
+def test_sparse_self_attention_serializes_its_layout_once(monkeypatch):
+    """Repeated SparseSelfAttention calls on the kernel path serialize the
+    cached (read-only) layout once; the output stays the same."""
+    count = _count_serializations(monkeypatch)
+    monkeypatch.setattr(tsa, "sparse_attention",
+                        functools.partial(tsa.sparse_attention,
+                                          impl="kernel"))
+    cfg = tsa.FixedSparsityConfig(num_heads=2, block=16, num_local_blocks=2,
+                                  attention="unidirectional")
+    attn = tsa.SparseSelfAttention(cfg)
+    assert not attn.get_layout(128).flags.writeable
+    _, _, _, q, k, v, _ = _case("fixed_causal")
+    x = [torch.from_numpy(a) for a in (q, k, v)]
+    outs = [attn(*x) for _ in range(3)]
+    assert count[0] == 1
+    assert all(torch.equal(a, outs[0]) for a in outs)
+    np.testing.assert_allclose(outs[0].numpy(), np.asarray(
+        jsa.SparseSelfAttention(jsa.FixedSparsityConfig(
+            num_heads=2, block=16, num_local_blocks=2,
+            attention="unidirectional"))(*(jnp.asarray(a)
+                                           for a in (q, k, v)))), **TOL)
+
+
+def test_changed_writeable_layout_gets_new_tables(monkeypatch):
+    """A writeable layout changed in place between two calls gets the
+    tables of its new contents, serialized once a call; so does a
+    read-only view of a writeable array."""
+    count = _count_serializations(monkeypatch)
+    layout, block, causal, q, k, v, _ = _case("fixed_causal")
+    layout = layout.copy()
+    x = [torch.from_numpy(a) for a in (q, k, v)]
+    first = tsk.sparse_flash_attention(*x, layout, block, causal)
+    assert count[0] == 1
+    layout[:, 4:, :2] = 0                       # drop the global columns
+    second = tsk.sparse_flash_attention(*x, layout, block, causal)
+    assert count[0] == 2
+    fresh = tsk.sparse_flash_attention(*x, layout.copy(), block, causal)
+    assert torch.equal(second, fresh) and not torch.equal(first, second)
+    for t, r in zip(tsk.device_tables(layout, causal, "cpu"),
+                    tsk.build_tables(layout.copy(), causal)):
+        assert np.array_equal(t.numpy(), r)
+    view = layout.view()
+    view.setflags(write=False)
+    key = tsk._layout_key(view, causal)
+    layout[:, :, :] = 1
+    assert tsk._layout_key(view, causal) != key
