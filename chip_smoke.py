@@ -25,9 +25,19 @@ exit 0):
    pool) and a mixed ragged batch against their plain versions (max
    |diff| <= 1e-2: one bf16 rounding of an output of magnitude ~1 is
    <= 2**-8 relative, plus f32 reordering), padding outputs exactly 0,
-   and a pure-decode ragged batch within 1e-2 of the decode kernel and of
-   its plain version (the two kernels reduce in other orders); fp32
-   (2e-5) and fp16 (1e-2) on the same inputs; paged decode on both pools
+   a repeat bit-identical, and a pure-decode ragged batch torch.equal to
+   the decode kernel (its single-token runs are the decode kernel's
+   walk); the ragged tile kernel's registers, spills (a spill fails),
+   shared memory and blocks per SM for each dtype, head_dim and pool; the
+   ragged kernels on a buffer of every kind of token (runs across 64-token
+   windows, a row's two runs apart, descending lengths, padding in the
+   middle, one-token continuations) at bf16, fp16, f32 (2e-5), hd 64 with
+   group 1, bs 16 with group 2, bs 24, bs 128, and the int8 pool (bs 64,
+   bs 16 at hd 64, and bs 24); rows 3 and 3q also at the put() shape (8 rows of
+   128..1024 tokens, T 4608), each ragged time in turns with its
+   yardstick, and its split between the query tiles and the single-token
+   walk (torch.profiler); fp32 (2e-5) and fp16 (1e-2) on the same inputs;
+   paged decode on both pools
    in all three dtypes at edge lengths 0, 1, 63, 64, 65, a chunk - 1, a
    chunk, a chunk + 1, 2047 and 2048, also at nh 12, kvh 4, hd 96 (the
    generic route), a length-0 row exactly 0, and a repeated call
@@ -36,7 +46,7 @@ exit 0):
    library yardstick (paged: the gather of the whole table + SDPA, and,
    logged beside it, SDPA on pages gathered beforehand); the same over an
    int8 pool with random per-(block, head) scales (paged_attention_q8,
-   ragged_attention_q8; the int8 pure-decode ragged batch within 1e-2 of
+   ragged_attention_q8; the int8 pure-decode ragged batch torch.equal to
    int8 paged decode; the yardstick times
    scaled_dot_product_attention on pages gathered and dequantized
    beforehand); both paged kernels under two split-plan targets (~2.5
@@ -356,83 +366,59 @@ def kernel_phases(dev, flush):
         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
     # -- pure decode through the ragged kernel -----------------------------
-    # a split walk reduces in another order than the ragged kernel's page
-    # walk: the two agree within the phase's tolerance, each is held
-    # against its own plain version, and the paged repeat is bit-identical
+    # its single-token runs are the paged kernel's split walk under the
+    # decode plan for its N rows: the same bits
     rag_dec = ragged_attention(q, k_cache, v_cache,
                                torch.arange(N, dtype=torch.int32, device=dev),
                                lengths, tables)
-    check_close("ragged_attention pure-decode batch vs paged_attention",
-                rag_dec, out, TOL)
-    check_close("ragged_attention pure-decode batch vs its plain version",
-                rag_dec, ref, TOL)
+    torch.cuda.synchronize()
+    if not torch.equal(rag_dec, out):
+        raise AssertionError("ragged_attention pure-decode batch is not "
+                             "paged_attention bit for bit")
+    log("ragged_attention pure-decode batch: torch.equal to paged_attention")
+    ragged_resources()
 
     # -- ragged mixed batch ------------------------------------------------
     # row 0: 512-token prefill chunk (positions 0..511); row 1: a
     # 96-token continuation (positions 704..799); rows 2..7: decode rows
     rows_pos = [list(range(512)), list(range(704, 800))] + [
         [n - 1] for n in (1, 100, 640, 1000, 1536, 2048)]
-    ctx_lens = [p[-1] + 1 for p in rows_pos]
-    n_pages = 1 + sum(-(-n // BS) for n in ctx_lens) + 64
-    k_cache, v_cache = make_pool(gen, n_pages, dev)
-    tables = torch.as_tensor(tables_for(rng, ctx_lens, n_pages, mb),
-                             device=dev)
-    row_ids = np.concatenate([[r] * len(p) for r, p in enumerate(rows_pos)])
-    tok_lens = np.concatenate([np.asarray(p) + 1 for p in rows_pos])
-    n_tok = len(row_ids)
-    T = 1 << (n_tok - 1).bit_length()
-    row_ids = np.pad(row_ids, (0, T - n_tok)).astype(np.int32)
-    tok_lens = np.pad(tok_lens, (0, T - n_tok)).astype(np.int32)
-    row_ids_t = torch.as_tensor(row_ids, device=dev)
-    tok_lens_t = torch.as_tensor(tok_lens, device=dev)
-    q = torch.randn((T, NH, HD), generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    out = ragged_attention(q, k_cache, v_cache, row_ids_t, tok_lens_t,
-                           tables)
-    ref = ragged_attention_plain(q, k_cache, v_cache, row_ids_t, tok_lens_t,
-                                 tables)
+    case = ragged_case(gen, rng, dev, list(enumerate(rows_pos)), T=1024)
+    args, n_tok = case["args"], case["n_tok"]
+    q, k_cache, v_cache, _, _, tables = args
+    out = ragged_attention(*args)
+    ref = ragged_attention_plain(*args)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     pad_zero = bool((out[n_tok:] == 0).all().item())
+    T = q.shape[0]
     log(f"ragged_attention: T={T} ({n_tok} valid: 512 prefill + 96 "
         f"continuation + 6 decode) max_abs_err={err:.3e} "
         f"padding_exact_zero={pad_zero}")
     if not (err <= TOL and pad_zero and torch.isfinite(out).all()):
         raise AssertionError(f"ragged_attention disagrees with its plain "
                              f"version: err {err}, padding zero {pad_zero}")
-    # a padding token's output is zeros whatever its q and row id hold:
-    # q and row ids are read for the n_tok valid tokens, lengths read and
-    # out written for all T; the used table entries once per row
-    kv_bytes = 2 * sum(ctx_lens) * KVH * HD * 2
-    used_pages = sum(-(-n // BS) for n in ctx_lens)
-    io_bytes = ((n_tok + T) * NH * HD * 2 + used_pages * 4
-                + (n_tok + T) * 4)
-    b_ms, b_by = bound(kv_bytes + io_bytes,
-                       4 * int(tok_lens.sum()) * NH * HD)
+    repeat_identical("ragged_attention", lambda: ragged_attention(*args))
     other_dtypes("ragged_attention", ragged_attention,
-                 ragged_attention_plain, q, k_cache, v_cache, row_ids_t,
-                 tok_lens_t, tables)
-    # library yardstick: queries grouped per row, [R, nh, Lq, hd]
-    Lq = max(len(p) for p in rows_pos)
-    qr = torch.zeros((len(rows_pos), NH, Lq, HD), device=dev,
-                     dtype=torch.bfloat16)
-    ql = torch.zeros((len(rows_pos), Lq), device=dev, dtype=torch.int32)
-    start = 0
-    for r, p in enumerate(rows_pos):
-        qr[r, :, :len(p)] = q[start:start + len(p)].transpose(0, 1)
-        ql[r, :len(p)] = torch.as_tensor(np.asarray(p) + 1, device=dev)
-        start += len(p)
+                 ragged_attention_plain, *args)
+    b_ms, b_by = ragged_bound(case)
+    qr, ql = ragged_rows(case)
+    ms, lib_ms = time_turns(
+        lambda: ragged_attention(*args),
+        lambda: library_attention(qr, k_cache, v_cache, tables, ql), flush)
     results["ragged_attention"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: ragged_attention(q, k_cache, v_cache, row_ids_t,
-                                            tok_lens_t, tables), flush),
-        plain_ms=time_ms(lambda: ragged_attention_plain(
-            q, k_cache, v_cache, row_ids_t, tok_lens_t, tables), flush,
-            reps=5),
-        library_ms=time_ms(lambda: library_attention(
-            qr, k_cache, v_cache, tables, ql), flush),
-        bound_ms=b_ms, bound_by=b_by)
+        max_abs_err=err, ms=ms,
+        plain_ms=time_ms(lambda: ragged_attention_plain(*args), flush,
+                         reps=5),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    _, _, kern = profiled(lambda: [ragged_attention(*args)
+                                   for _ in range(5)])
+    log_ragged_kernels("ragged_attention table shape, per call", kern, 5)
+    log(f"ragged_attention table shape: {ms:.4f} ms, in turns with the "
+        f"gather + SDPA's {lib_ms:.4f}")
+    ragged_edge_checks(dev, gen, rng)
     results.update(quant_kernel_phases(dev, flush, rng, gen, rows_pos))
+    ragged_put_phase(dev, flush, gen, rng)
     paged_plan_sweep(dev, flush, gen, rng)
     results.update(dense_decode_phases(dev, flush, gen))
     for name, r in results.items():
@@ -440,6 +426,228 @@ def kernel_phases(dev, flush):
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
             f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}")
     return results
+
+
+# ---------------------------------------------------------------------------
+# ragged attention: inputs, bound, resources, edge cases, the put() shape
+# ---------------------------------------------------------------------------
+def ragged_case(gen, rng, dev, runs, T=None, nh=NH, kvh=KVH, hd=HD, bs=BS,
+                q8=False):
+    """A ragged buffer from `runs` in buffer order: (row, positions) for a
+    run of that row's tokens (a row may have several), (None, n) for n
+    padding tokens (row 0, length 0); padded with padding to T. Random
+    bf16 q and pool (or an int8 pool with scales), each row's pages
+    distinct and random, tables null padded to the widest row's pages."""
+    ctx = {}
+    for r, pos in runs:
+        if r is not None:
+            ctx[r] = max(ctx.get(r, 0), max(pos) + 1)
+    R = max(ctx) + 1
+    pages = [-(-ctx.get(r, 1) // bs) for r in range(R)]
+    mb = max(pages)
+    n_pages = 1 + sum(pages) + 4
+    shape = (n_pages, bs, kvh, hd)
+    if q8:
+        pool = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2)]
+        scales = [(0.5 + torch.rand((n_pages, kvh), generator=gen,
+                                    device=dev)) / 127.0 for _ in range(2)]
+    else:
+        pool = [torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2)]
+        scales = []
+    perm = rng.permutation(np.arange(1, n_pages))
+    tables = np.zeros((R, mb), np.int32)
+    cur = 0
+    for r in range(R):
+        tables[r, :pages[r]] = perm[cur:cur + pages[r]]
+        cur += pages[r]
+    row_ids, lens = [], []
+    for r, pos in runs:
+        if r is None:
+            row_ids += [0] * pos
+            lens += [0] * pos
+        else:
+            row_ids += [r] * len(pos)
+            lens += [p + 1 for p in pos]
+    n_tok = len(row_ids)
+    T = T or n_tok
+    row_ids += [0] * (T - n_tok)
+    lens += [0] * (T - n_tok)
+    q = torch.randn((T, nh, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    as_t = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=dev)
+    args = (q, *pool, as_t(row_ids), as_t(lens), as_t(tables), *scales)
+    return dict(args=args, n_tok=n_tok, runs=runs, ctx=ctx, bs=bs,
+                pad=as_t(lens) == 0)
+
+
+def ragged_rows(case):
+    """The library yardstick's input: each row's queries [R, nh, Lq, hd]
+    (zeros past its tokens) and their causal bounds [R, Lq]."""
+    q, row_ids, lens = case["args"][0], case["args"][3], case["args"][4]
+    R = len(case["ctx"])
+    per_row = [(row_ids == r) & (lens > 0) for r in range(R)]
+    Lq = max(int(m.sum()) for m in per_row)
+    qr = torch.zeros((R, q.shape[1], Lq, q.shape[2]), device=q.device,
+                     dtype=q.dtype)
+    ql = torch.zeros((R, Lq), device=q.device, dtype=torch.int32)
+    for r, m in enumerate(per_row):
+        n = int(m.sum())
+        qr[r, :, :n] = q[m].transpose(0, 1)
+        ql[r, :n] = lens[m]
+    return qr, ql
+
+
+def ragged_bound(case):
+    """The least time of a ragged call: bytes (q read and out written for
+    the valid tokens, out for the padding, each row's used K/V slots once
+    per kv head, with one f32 scale per used page and head for int8; the
+    used table entries, row ids and lengths) over 3.35 TB/s, or the
+    4 * nh * hd flops of each (token, attended slot) at 989 TFLOP/s."""
+    args, n_tok = case["args"], case["n_tok"]
+    q, kc, lens = args[0], args[1], args[4]
+    T, nh, hd = q.shape
+    kvh, bs = kc.shape[2], case["bs"]
+    ctx = sum(case["ctx"].values())
+    used_pages = sum(-(-c // bs) for c in case["ctx"].values())
+    kv_bytes = 2 * ctx * kvh * hd * kc.element_size()
+    if kc.dtype == torch.int8:
+        kv_bytes += 2 * used_pages * kvh * 4
+    io_bytes = ((n_tok + T) * nh * hd * q.element_size() + used_pages * 4
+                + 2 * T * 4)
+    return bound(kv_bytes + io_bytes,
+                 4 * int(lens.long().sum().item()) * nh * hd)
+
+
+def ragged_resources():
+    """Registers, spilled bytes, dynamic shared memory and blocks per SM of
+    the tile kernel for each io dtype, head_dim and pool
+    (ds_ragged_tiles_info); a spill or a kernel that cannot launch fails."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops.op_builder import cuda as cuda_build
+
+    lib = cuda_build.load("ragged_attention")
+    for q8 in (0, 1):
+        for dt, code in (("bf16", 2), ("fp16", 1)):
+            for hd in HEAD_DIMS:
+                out = (ctypes.c_int * 4)()
+                cuda_build.check(lib.ds_ragged_tiles_info(
+                    code, hd, q8, ctypes.addressof(out)),
+                    "ds_ragged_tiles_info")
+                regs, spill, smem, blocks = out
+                log(f"  ragged tiles{'_q8' if q8 else ''} {dt} hd {hd}: "
+                    f"{regs} registers, {spill} bytes spilled, {smem} bytes "
+                    f"of dynamic shared memory, 384 threads: {blocks} "
+                    f"block(s) per SM")
+                if spill or blocks < 1:
+                    raise AssertionError(f"ragged tiles {dt} hd {hd} q8={q8}"
+                                         f": {spill} bytes spilled, {blocks} "
+                                         f"blocks per SM")
+    paged_resources(rows=1)
+
+
+def ragged_edge_checks(dev, gen, rng):
+    """Both pools through the ragged kernels on a buffer that holds every
+    kind of token the descriptor allows: a 100-token run across a 64-token
+    window, a 3-token continuation, a decode row, padding in the middle,
+    the first row's second run behind other rows, a run with descending
+    lengths, a one-token continuation, a 64-token run; within TOL of the
+    plain version (f32 within 2e-5), padding exactly 0, at bf16, fp16,
+    head_dim 64 with group 1, page sizes 16 (group 2), 24 (three 8-slot
+    boxes a page, a 64-slot kv tile across pages) and 128, the int8 pool
+    at bs 64, at bs 16 / hd 64 and at bs 24, and f32 (the page walk); then
+    a mixed buffer with more single-token runs than table rows (both
+    single-token plans in one call, and grid y-blocks past a row's last
+    chunk), bf16 and int8."""
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import (
+        ragged_attention, ragged_attention_plain, ragged_route)
+
+    runs = [(0, list(range(100))), (1, list(range(500, 503))), (2, [77]),
+            (None, 5), (0, list(range(100, 130))),
+            (3, list(range(49, 39, -1))), (4, [200]), (5, list(range(64)))]
+    for name, kw, dt, tol in (
+            ("bf16", {}, torch.bfloat16, TOL),
+            ("fp16", {}, torch.float16, TOL),
+            ("f32", {}, torch.float32, 2e-5),
+            ("hd 64 group 1", dict(nh=8, kvh=8, hd=64), torch.bfloat16, TOL),
+            ("bs 16 group 2", dict(nh=16, bs=16), torch.bfloat16, TOL),
+            ("bs 24", dict(bs=24), torch.bfloat16, TOL),
+            ("bs 128", dict(bs=128), torch.bfloat16, TOL),
+            ("int8", dict(q8=True), torch.bfloat16, TOL),
+            ("int8 bs 16 hd 64", dict(q8=True, bs=16, nh=8, kvh=2, hd=64),
+             torch.bfloat16, TOL),
+            ("int8 bs 24", dict(q8=True, bs=24), torch.bfloat16, TOL)):
+        case = ragged_case(gen, rng, dev, runs, T=320, **kw)
+        q, k, v = case["args"][:3]
+        q8 = k.dtype == torch.int8
+        args = (q.to(dt), k if q8 else k.to(dt), v if q8 else v.to(dt),
+                *case["args"][3:])
+        out = ragged_attention(*args)
+        check_close(f"ragged_attention edges {name} ({dt}, route "
+                    f"{ragged_route(args[0], args[1])})", out,
+                    ragged_attention_plain(*args), tol)
+        if not bool((out[case["pad"]] == 0).all()):
+            raise AssertionError(f"ragged_attention edges {name}: a padding "
+                                 f"token's output is not exactly zero")
+    # more single-token runs than table rows in a mixed batch: rows 0 and 1
+    # alternate one token at a time; the first R take the rows' plan, the
+    # rest the plan for T
+    runs = [(r % 2, [300 + 200 * (r % 2) + r // 2]) for r in range(6)] + [
+        (2, list(range(40)))]
+    for name, kw in (("bf16", {}), ("int8", dict(q8=True))):
+        args = ragged_case(gen, rng, dev, runs, T=64, **kw)["args"]
+        check_close(f"ragged_attention interleaved single-token runs "
+                    f"{name}", ragged_attention(*args),
+                    ragged_attention_plain(*args), TOL)
+
+
+def ragged_put_phase(dev, flush, gen, rng):
+    """Rows 3 and 3q at the put() shape: 8 rows of 128, 256, ..., 1024
+    tokens from position 0 (T 4608, the serve phase's prompts), bf16 and
+    int8 pools: within TOL of the plain version, then timed on the card
+    in turns with the library yardstick (the gather + SDPA for bf16, SDPA
+    on pages dequantized and gathered beforehand for int8), bound from
+    bytes and operations, and the plain version's time."""
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import (
+        ragged_attention, ragged_attention_plain)
+
+    runs = [(r, list(range(128 * (r + 1)))) for r in range(8)]
+    for q8 in (False, True):
+        case = ragged_case(gen, rng, dev, runs, q8=q8)
+        args = case["args"]
+        name = "ragged_attention_q8" if q8 else "ragged_attention"
+        out = ragged_attention(*args)
+        err = check_close(f"{name} put() shape (T {args[0].shape[0]})", out,
+                          ragged_attention_plain(*args), TOL)
+        qr, ql = ragged_rows(case)
+        k, v, tables = args[1], args[2], args[5]
+        if q8:
+            kd, vd = (dequant_gather(k, args[6], tables),
+                      dequant_gather(v, args[7], tables))
+            lib = lambda: sdpa_rows(qr, kd, vd, ql)
+        else:
+            lib = lambda: library_attention(qr, k, v, tables, ql)
+        ms, lib_ms = time_turns(lambda: ragged_attention(*args), lib, flush)
+        b_ms, b_by = ragged_bound(case)
+        _, _, kern = profiled(lambda: [ragged_attention(*args)
+                                       for _ in range(5)])
+        log_ragged_kernels(f"{name} put() shape, per call", kern, 5)
+        plain_ms = time_ms(lambda: ragged_attention_plain(*args), flush,
+                           reps=3)
+        log(f"{name} put() shape: kernel_ms={ms:.4f} library_ms="
+            f"{lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) plain_ms="
+            f"{plain_ms:.4f} max_abs_err={err:.3e}")
+        del lib
+    # what bf16's three P operands cost: fp16 takes one, on the same
+    # shapes, in turns with bf16
+    args = ragged_case(gen, rng, dev, runs)["args"]
+    a16 = (args[0].half(), args[1].half(), args[2].half(), *args[3:])
+    bf_ms, f16_ms = time_turns(lambda: ragged_attention(*args),
+                               lambda: ragged_attention(*a16), flush)
+    log(f"ragged_attention put() shape, tiles' P.V: bf16 (three P operands) "
+        f"{bf_ms:.4f} ms, fp16 (one) {f16_ms:.4f} ms, in turns")
 
 
 def check_close(name, out, ref, tol):
@@ -469,31 +677,34 @@ def gather_rows(cache, tables):
     return cache[tables.long()].reshape(R, mb * bs, kvh, hd).transpose(1, 2)
 
 
-def paged_resources():
+def paged_resources(rows=0):
     """Registers, spilled bytes, dynamic shared memory, stage size, route
     and blocks per SM of the paged decode kernel that a call at Mistral-7B
     geometry launches, for each io dtype and pool (ds_paged_decode_info:
-    cudaFuncGetAttributes and the occupancy API)."""
+    cudaFuncGetAttributes and the occupancy API); rows=1: the ragged
+    batch's single-token walk (ragged_singleton_kernel), which must not
+    spill."""
     import ctypes
 
     from deepspeed_tpu_torch.ops.op_builder import cuda as cuda_build
 
     lib = cuda_build.load("paged_attention")
+    name = "ragged singletons" if rows else "paged_attention"
     for q8 in (0, 1):
         for dt, code in (("bf16", 2), ("fp16", 1), ("fp32", 0)):
             out = (ctypes.c_int * 6)()
             cuda_build.check(lib.ds_paged_decode_info(
-                NH, KVH, HD, BS, code, q8, ctypes.addressof(out)),
+                NH, KVH, HD, BS, code, q8, rows, ctypes.addressof(out)),
                 "ds_paged_decode_info")
             smem, tile, lanes, blocks, regs, spill = out
-            log(f"  paged_attention{'_q8' if q8 else ''} {dt} (nh {NH}, kvh "
+            log(f"  {name}{'_q8' if q8 else ''} {dt} (nh {NH}, kvh "
                 f"{KVH}, hd {HD}, bs {BS}): {regs} registers, {spill} bytes "
                 f"spilled, {smem} bytes of dynamic shared memory, "
                 f"{tile}-slot stages, {'lane' if lanes else 'generic'} "
                 f"route, 160 threads: {blocks} block(s) per SM")
-            if blocks < 1:
-                raise AssertionError(f"paged_attention {dt} q8={q8} cannot "
-                                     f"launch")
+            if blocks < 1 or (rows and spill):
+                raise AssertionError(f"{name} {dt} q8={q8}: {blocks} blocks "
+                                     f"per SM, {spill} bytes spilled")
 
 
 def paged_edge_checks(dev, gen, rng):
@@ -646,11 +857,12 @@ def quant_kernel_phases(dev, flush, rng, gen, rows_pos):
     rag_dec = ragged_attention(q, kq, vq,
                                torch.arange(N, dtype=torch.int32, device=dev),
                                lengths, tables, ks, vs)
-    # the split walk and the ragged page walk reduce in other orders
-    check_close("ragged_attention_q8 pure-decode batch vs "
-                "paged_attention_q8", rag_dec, out_bf16, TOL)
-    check_close("ragged_attention_q8 pure-decode batch vs its plain version",
-                rag_dec, paged_attention_plain(q, *pool), TOL)
+    torch.cuda.synchronize()
+    if not torch.equal(rag_dec, out_bf16):
+        raise AssertionError("ragged_attention_q8 pure-decode batch is not "
+                             "paged_attention_q8 bit for bit")
+    log("ragged_attention_q8 pure-decode batch: torch.equal to "
+        "paged_attention_q8")
     repeat_identical("paged_attention_q8", lambda: paged_attention(q, *pool))
     # unique bytes: the used int8 K/V slots once per (row, kv head), one f32
     # K and V scale per used page and head, q read and out written once,
@@ -671,54 +883,34 @@ def quant_kernel_phases(dev, flush, rng, gen, rows_pos):
     del kd, vd
 
     # -- int8 ragged mixed batch --------------------------------------------
-    ctx_lens = [p[-1] + 1 for p in rows_pos]
-    n_pages = 1 + sum(-(-n // BS) for n in ctx_lens) + 64
-    kq, vq, ks, vs = make_q8_pool(gen, n_pages, dev)
-    tables = torch.as_tensor(tables_for(rng, ctx_lens, n_pages, mb),
-                             device=dev)
-    row_ids = np.concatenate([[r] * len(p) for r, p in enumerate(rows_pos)])
-    tok_lens = np.concatenate([np.asarray(p) + 1 for p in rows_pos])
-    n_tok = len(row_ids)
-    T = 1 << (n_tok - 1).bit_length()
-    row_ids_t = torch.as_tensor(np.pad(row_ids, (0, T - n_tok)).astype(
-        np.int32), device=dev)
-    tok_lens_t = torch.as_tensor(np.pad(tok_lens, (0, T - n_tok)).astype(
-        np.int32), device=dev)
-    q = torch.randn((T, NH, HD), generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    pool = (kq, vq, row_ids_t, tok_lens_t, tables, ks, vs)
+    case = ragged_case(gen, rng, dev, list(enumerate(rows_pos)), T=1024,
+                       q8=True)
+    q, kq, vq, _, _, tables, ks, vs = case["args"]
+    pool = case["args"][1:]
     for dt, tol in tols:
         out = ragged_attention(q.to(dt), *pool)
         e = check_close(f"ragged_attention_q8 {dt}", out,
                         ragged_attention_plain(q.to(dt), *pool), tol)
-        if not bool((out[n_tok:] == 0).all().item()):
+        if not bool((out[case["pad"]] == 0).all().item()):
             raise AssertionError("ragged_attention_q8: a padding token's "
                                  "output is not exactly zero")
         if dt == torch.bfloat16:
             err = e
-    used_pages = sum(-(-n // BS) for n in ctx_lens)
-    kv_bytes = 2 * sum(ctx_lens) * KVH * HD + 2 * used_pages * KVH * 4
-    io_bytes = ((n_tok + T) * NH * HD * 2 + used_pages * 4
-                + (n_tok + T) * 4)
-    b_ms, b_by = bound(kv_bytes + io_bytes,
-                       4 * int(tok_lens.sum()) * NH * HD)
-    Lq = max(len(p) for p in rows_pos)
-    qr = torch.zeros((len(rows_pos), NH, Lq, HD), device=dev,
-                     dtype=torch.bfloat16)
-    ql = torch.zeros((len(rows_pos), Lq), device=dev, dtype=torch.int32)
-    start = 0
-    for r, p in enumerate(rows_pos):
-        qr[r, :, :len(p)] = q[start:start + len(p)].transpose(0, 1)
-        ql[r, :len(p)] = torch.as_tensor(np.asarray(p) + 1, device=dev)
-        start += len(p)
+    repeat_identical("ragged_attention_q8",
+                     lambda: ragged_attention(q, *pool))
+    b_ms, b_by = ragged_bound(case)
+    qr, ql = ragged_rows(case)
     kd, vd = dequant_gather(kq, ks, tables), dequant_gather(vq, vs, tables)
+    ms, lib_ms = time_turns(lambda: ragged_attention(q, *pool),
+                            lambda: sdpa_rows(qr, kd, vd, ql), flush)
+    _, _, kern = profiled(lambda: [ragged_attention(q, *pool)
+                                   for _ in range(5)])
+    log_ragged_kernels("ragged_attention_q8 table shape, per call", kern, 5)
     results["ragged_attention_q8"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: ragged_attention(q, *pool), flush),
+        max_abs_err=err, ms=ms,
         plain_ms=time_ms(lambda: ragged_attention_plain(q, *pool), flush,
                          reps=5),
-        library_ms=time_ms(lambda: sdpa_rows(qr, kd, vd, ql), flush),
-        bound_ms=b_ms, bound_by=b_by)
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     log("q8 library_ms: scaled_dot_product_attention on the dequantized "
         "gathered pages; the gather and dequantization are not timed")
     return results
@@ -1035,6 +1227,8 @@ def serve_phase(dev):
         if not ((o >= 0) & (o < cfg.vocab_size)).all() or \
                 not ((g >= 0) & (g < cfg.vocab_size)).all():
             raise AssertionError("token id out of [0, vocab)")
+    # a ragged call launches the query tiles and the single-token walk
+    # and counts once
     if launches["ragged_attention"] != L * steps["ragged"] or \
             steps["ragged"] == 0:
         raise AssertionError(f"ragged launches {launches} != {L} x ragged "
@@ -1156,6 +1350,7 @@ def q8_serve_phase(dev, cfg, bf16_eng, prompts, new, bf16_logits,
                                           & (g < cfg.vocab_size)).all():
             raise AssertionError("q8: a request did not get all its tokens "
                                  "in [0, vocab)")
+    # one count a ragged call (its two launches), as in the bf16 phase
     if launches["ragged_attention_q8"] != L * steps["ragged"] or \
             steps["ragged"] == 0:
         raise AssertionError(f"q8 ragged launches {launches} != {L} x "
@@ -1569,6 +1764,22 @@ def log_profile(name, wall, kern, steps=1, top=6):
         log(f"   {t / steps:.3f} ms/step {c / steps:.0f}x  {k[:90]}")
 
 
+def log_ragged_kernels(name, kern, calls=1):
+    """The ragged call's device time by kernel in a profile: the query
+    tiles (ragged_tile_kernel), the single-token walk
+    (ragged_singleton_kernel, the paged decode kernel's split walk) and
+    the page walk route (ragged_paged_attention_kernel)."""
+    parts = []
+    for tag in ("ragged_tile_kernel", "ragged_singleton_kernel",
+                "ragged_paged_attention_kernel"):
+        hits = [(t, c) for k, (t, c) in kern.items() if tag in k]
+        if hits:
+            parts.append(f"{tag} {sum(t for t, _ in hits) / calls:.4f} ms "
+                         f"({sum(c for _, c in hits) / calls:.0f}x)")
+    log(f"profile {name}: " + (", ".join(parts) or "the profiler recorded "
+                               "no device event"))
+
+
 def minus(a, b):
     """Per-event difference of two profiles: the extra steps of a."""
     return {k: (t - b.get(k, (0.0, 0))[0], c - b.get(k, (0.0, 0))[1])
@@ -1590,6 +1801,7 @@ def profile_phase(eng, prompts, window, label=""):
     _, win_wall, both_k = run(1 + window)
     n_tok = sum(map(len, prompts))
     log_profile(f"{label}ragged step ({n_tok} tokens)", put_wall, put_k)
+    log_ragged_kernels(f"{label}ragged step", put_k)
     win_k = minus(both_k, put_k)
     log_profile(f"{label}decode window (per step, {len(prompts)} rows)",
                 win_wall, win_k, window)

@@ -60,8 +60,9 @@ __global__ void __launch_bounds__(kThreads)
   int length = lengths[pair / kvh];
   length = length < 0 ? 0 : length > m ? m : length;
   const DenseSource<T> src{k_cache, v_cache, (size_t)pair * m, hd};
-  split_walk<T, T, G>(src, q, out, ws_ml, ws_acc, tickets, nh, kvh, hd,
-                      kTile, length, chunk, scale);
+  split_walk<T, T, G>(src, q, out, ws_ml, ws_acc, tickets, pair, pair,
+                      blockIdx.y, gridDim.y, nh, kvh, hd, kTile, length,
+                      chunk, scale);
 }
 
 template <typename T>

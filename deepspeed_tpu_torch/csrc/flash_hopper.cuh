@@ -227,6 +227,14 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
+// The dynamic shared memory's first 1024-byte boundary, as an offset from
+// the array itself, so that the compiler keeps the shared state space for
+// every access through it (32-bit addresses, ld.shared) instead of generic
+// 64-bit pointers, which had cost the sparse dk/dv consumers a spill.
+__device__ __forceinline__ uint8_t* smem_1024(uint8_t* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
 __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
                                           int stages, uint64_t* once) {
   for (int s = 0; s < stages; ++s) {

@@ -1,8 +1,9 @@
 // Asynchronous copies into shared memory on Hopper (sm_90a), shared by the
-// tensor-core flash kernels (flash_hopper.cuh) and the split decode walk
-// (split_walk.cuh): mbarriers, TMA tile loads and contiguous bulk copies,
-// each completing on an mbarrier's transaction count, and 16-byte
-// cp.async copies, completing on an mbarrier arrival.
+// tensor-core flash, sparse and ragged kernels (flash_hopper.cuh,
+// sparse_hopper.cuh, ragged_hopper.cuh) and the split decode walk
+// (split_walk.cuh): mbarriers, 2-D and 3-D TMA tile loads and contiguous
+// bulk copies, each completing on an mbarrier's transaction count, and
+// 16-byte cp.async copies, completing on an mbarrier arrival.
 #pragma once
 
 #include <cuda.h>
@@ -26,6 +27,14 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 // engine) before any copy completes on them.
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Ends a barrier's life, so that its word may be initialized again (the
+// split walk re-initializes its ring for every (row, kv head) a block
+// takes).
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
@@ -72,6 +81,25 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
       "r"(row)
       : "memory");
+}
+
+// One 3-D TMA box (c0, c1, c2) of `map` into shared memory; completes on
+// bar.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Orders this thread's plain shared-memory stores before later reads of
+// the same bytes by the async proxy (wgmma operands, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // A contiguous copy (16-byte aligned, a multiple of 16 bytes); completes on

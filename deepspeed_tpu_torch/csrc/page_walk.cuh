@@ -1,4 +1,6 @@
-// The page walk of the ragged paged attention kernel (ragged_attention.cu).
+// The page walk of the ragged paged attention kernel (ragged_attention.cu):
+// its route for f32 q and for the shapes the tensor-core tiles do not take
+// (ragged_attention.py, ragged_route).
 //
 // One thread block serves one (query token, kv head) pair: the `group`
 // query heads that share kv head `h` (q head i reads kv head i / group, the
@@ -25,10 +27,11 @@
 // length 0 walks no page and writes exact zeros.
 //
 // Where a row's pages lie is a Slots policy: PagedSlots reads a block table
-// over the pool [nb, bs, kvh, hd]. The paged decode kernel no longer walks
-// pages this way: it is the split-K walk of split_walk.cuh, which reduces
-// in another order, so a pure-decode ragged batch agrees with it to
-// rounding, not bit for bit.
+// over the pool [nb, bs, kvh, hd]. The paged decode kernel walks pages
+// otherwise (the split-K walk of split_walk.cuh, another reduction order),
+// so on this route a pure-decode ragged batch agrees with it to rounding,
+// not bit for bit; on the tile route its single-token runs are the paged
+// kernel's own walk, bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>

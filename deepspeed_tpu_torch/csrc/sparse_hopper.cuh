@@ -100,14 +100,6 @@ __device__ __forceinline__ void stage_steps(int2* dst, const int2* steps,
     dst[e] = __ldg(steps + it.start + e);
 }
 
-// The dynamic shared memory's first 1024-byte boundary, as an offset from
-// the array itself, so that the compiler keeps the shared state space for
-// every access through it (32-bit addresses, ld.shared) instead of generic
-// 64-bit pointers, which had cost the dk/dv consumers a spill.
-__device__ __forceinline__ uint8_t* smem_1024(uint8_t* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-}
-
 // Bytes of dynamic shared memory: the fixed layout, a step list of up to
 // max_steps entries, and the slack for 1024-byte alignment.
 template <typename L> constexpr size_t smem_bytes(int max_steps) {

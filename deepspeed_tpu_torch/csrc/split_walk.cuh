@@ -14,7 +14,9 @@
 //     slots (a multiple of the tile) of one (row, kv head); the wrappers'
 //     plans pick the chunk so that the grid holds several blocks per SM
 //     even at small batch. A block whose chunk starts at or past the row's
-//     length returns before it copies anything;
+//     length returns before it copies anything. (The ragged kernel's
+//     single-token runs launch fewer blocks, each taking several (row, kv
+//     head) pairs in turn with the same chunks: paged_attention.cu);
 //   * one producer warp fills a ring of kStages K/V stages, each stage one
 //     tile of `tile` slots (64, fewer for long rows or small pages), only
 //     the valid slots of the last tile, guarded by a full / empty mbarrier
@@ -208,8 +210,15 @@ __device__ __forceinline__ void load_kv(const int8_t* p, float scale,
   }
 }
 
-// One block of the walk: the chunk `blockIdx.y` of the (row, kv head)
-// `blockIdx.x` (row = blockIdx.x / kvh). T: io dtype of q and out; S: the
+// One block's walk of the chunk `split` (of n_split) of the (row, kv head)
+// `pair` (row = pair / kvh: its q and out rows), whose partials and ticket
+// sit at index `slot` of the workspace: the kernels pass (blockIdx.x,
+// blockIdx.x, blockIdx.y, gridDim.y), or, where one block takes several
+// pairs in turn, each pair with blockIdx.y and its own workspace slot; the
+// ring's barriers are then invalidated between two walks (release_ring).
+// Returns false, the same in every thread, where the chunk lies past
+// `length` and the walk returned before it initialized the ring.
+// T: io dtype of q and out; S: the
 // stored K/V element (T, or int8_t); G: the group on the lane route, 0 on
 // the generic route. `length` is the row's valid slot count, already
 // clamped to the row's capacity. The Source says where the slots lie:
@@ -220,14 +229,14 @@ __device__ __forceinline__ void load_kv(const int8_t* p, float scale,
 // (initialized for Source::kArrivals arrivals); for an int8 pool it writes
 // the slots' K and V scales to scl[0], scl[1] and publishes them with an
 // arrival of its own.
-// ws_ml: [rows * kvh, n_split, 2, group] (m, then l); ws_acc: [rows * kvh,
-// n_split, group, hd]; tickets: [rows * kvh], zero between launches.
+// ws_ml: [slots, n_split, 2, group] (m, then l); ws_acc: [slots, n_split,
+// group, hd]; tickets: [slots], zero between launches.
 template <typename T, typename S, int G, typename Source>
-__device__ __forceinline__ void split_walk(
+__device__ __forceinline__ bool split_walk(
     const Source& src, const T* __restrict__ q, T* __restrict__ out,
     float* __restrict__ ws_ml, float* __restrict__ ws_acc,
-    int* __restrict__ tickets, int nh, int kvh, int hd, int page, int length,
-    int chunk, float scale) {
+    int* __restrict__ tickets, int pair, int slot, int split, int n_split,
+    int nh, int kvh, int hd, int page, int length, int chunk, float scale) {
   constexpr int V = 16 / (int)sizeof(T);
   constexpr bool kQ8 = std::is_same<S, int8_t>::value;
   const int group = G > 0 ? G : nh / kvh;
@@ -246,12 +255,9 @@ __device__ __forceinline__ void split_walk(
   uint64_t* empty = full + kStages;
   int* flag = reinterpret_cast<int*>(smem + L.flag);
 
-  const int pair = blockIdx.x;  // row * kvh + kv head
   const int b = pair / kvh;
-  const int split = blockIdx.y;
-  const int n_split = gridDim.y;
   const int active = length == 0 ? 1 : (length + chunk - 1) / chunk;
-  if (split >= active) return;  // past `length`: no copy, no partial
+  if (split >= active) return false;  // past `length`: no copy, no partial
   const int start = split * chunk;
   const int end = min(length, start + chunk);
   const int tile = L.tile;
@@ -269,7 +275,7 @@ __device__ __forceinline__ void split_walk(
   if (tid >= kConsumers) {
     // ---- producer warp ----------------------------------------------------
     const int lane = tid - kConsumers;
-    if (lane >= Source::kProducerLanes) return;
+    if (lane >= Source::kProducerLanes) return true;
     for (int e = 0; e < n_tiles; ++e) {
       const int s = e % kStages;
       if (e >= kStages) mbar_wait(&empty[s], ((e / kStages) - 1) & 1);
@@ -277,7 +283,7 @@ __device__ __forceinline__ void split_walk(
       src.issue(slot0, min(tile, end - slot0), k_s + (size_t)s * tile * hd,
                 v_s + (size_t)s * tile * hd, scl + 2 * s, &full[s], lane);
     }
-    return;
+    return true;
   }
 
   // ---- consumers --------------------------------------------------------
@@ -490,11 +496,11 @@ __device__ __forceinline__ void split_walk(
       const float l = l_s[i / hd];
       out[rows + i] = from_f32<T>(a / (l == 0.f ? 1.f : l));
     }
-    return;
+    return true;
   }
 
   // this split's partial, then the ticket
-  const size_t part_ix = (size_t)pair * n_split + split;
+  const size_t part_ix = (size_t)slot * n_split + split;
   float* wm = ws_ml + part_ix * 2 * group;
   for (int i = tid; i < gh; i += kConsumers) {
     float a = acc[i];
@@ -507,13 +513,13 @@ __device__ __forceinline__ void split_walk(
   }
   __threadfence();
   consumer_sync();
-  if (tid == 0) *flag = atomicAdd(&tickets[pair], 1);
+  if (tid == 0) *flag = atomicAdd(&tickets[slot], 1);
   consumer_sync();
-  if (*flag != active - 1) return;
+  if (*flag != active - 1) return true;
   __threadfence();
 
   // the last split of this (row, kv head): combine in split index order
-  const size_t first = (size_t)pair * n_split;
+  const size_t first = (size_t)slot * n_split;
   for (int i = tid; i < gh; i += kConsumers) {
     const int g = i / hd;
     float mx = kNegInf, l = 0.f, a = 0.f;
@@ -530,7 +536,18 @@ __device__ __forceinline__ void split_walk(
     // every split holds a valid slot, so l >= 1
     out[rows + i] = from_f32<T>(a / l);
   }
-  if (tid == 0) tickets[pair] = 0;
+  if (tid == 0) tickets[slot] = 0;
+  return true;
+}
+
+// Ends the ring barriers' life after a walk that initialized them
+// (split_walk returned true, and every thread of the block has left it), so
+// that the next walk of the block may initialize them again.
+__device__ __forceinline__ void release_ring(const Layout& L) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  if (threadIdx.x == 0)
+    for (int s = 0; s < 2 * kStages; ++s)
+      mbar_inval(reinterpret_cast<uint64_t*>(smem + L.bar) + s);
 }
 
 // Raises the kernel's dynamic shared memory cap to the layout's size and

@@ -49,8 +49,13 @@ SIGNATURES = {
         # scale, stream
         "ds_paged_decode_attention_q8":
             [_P] * 11 + [_I] * 9 + [_F, _P],
-        # nh, kvh, hd, bs, dtype, q8, out (int[6])
-        "ds_paged_decode_info": [_I] * 6 + [_P],
+        # q, k, v, k_scale, v_scale, tables, lengths, row_ids, out, ws_ml,
+        # ws_acc, tickets, rank, scan, ws_ml_f, ws_acc_f, tickets_f, n, nh,
+        # kvh, hd, bs, mb, chunk_pages, n_split, fine_rows,
+        # fine_chunk_pages, fine_n_split, blocks, dtype, scale, stream
+        "ds_paged_decode_rows": [_P] * 17 + [_I] * 13 + [_F, _P],
+        # nh, kvh, hd, bs, dtype, q8, rows, out (int[6])
+        "ds_paged_decode_info": [_I] * 7 + [_P],
     },
     "ragged_attention": {
         # q, k, v, row_ids, lengths, tables, out, n, nh, kvh, hd, bs, mb,
@@ -61,6 +66,11 @@ SIGNATURES = {
         # kvh, hd, bs, mb, dtype, scale, stream
         "ds_ragged_paged_attention_q8":
             [_P] * 9 + [_I] * 7 + [_F, _P],
+        # q, k, v, k_scale, v_scale, row_ids, lengths, tables, out, rank,
+        # scan, n, nh, kvh, hd, bs, mb, nb, dtype, scale, stream
+        "ds_ragged_tiles": [_P] * 11 + [_I] * 8 + [_F, _P],
+        # dtype, hd, q8, out (int[4])
+        "ds_ragged_tiles_info": [_I] * 3 + [_P],
     },
     "dense_decode_attention": {
         # q, k, v, lengths, out, ws_ml, ws_acc, tickets, b, nh, kvh, hd, m,
