@@ -7,7 +7,10 @@ full-width Mistral-7B (seeded random weights) through ``pipeline()`` and
 ``init_inference()`` engine, then with weight-only quantized weights
 (int8 and int4 on the v2 engine, int8 on the v1 engine), trains
 full-width Mistral-7B at 4 layers
-through ``initialize()`` and ``train_batch()``, runs block-sparse attention
+through ``initialize()`` and ``train_batch()``, then at its full 32 layers
+through both ZeRO-Offload backends (the host C++ optimizer and the tiered
+pinned-memory state), with the NVMe tier and checkpoints at 2 layers,
+runs block-sparse attention
 forward and backward through ``SparseSelfAttention`` at Mistral-7B
 attention width, and checks that every path ran through its kernels.
 
@@ -159,6 +162,32 @@ exit 0):
    per step, plus L x gas forwards for the eval; step time, tokens/s,
    peak memory, and the device time, busy share, top kernels and flash
    kernels of one more step (torch.profiler);
+8b. offload and checkpoints (the engines of each step freed before the
+   next): the host C++ ops built by g++ from csrc/host (seconds logged);
+   DeepSpeedCPUAdam with f32 and bf16 gradients, Adagrad and Lion on one
+   layer's w_gate (58.7 M f32 elements), 3 steps, against the port's torch
+   optimizers on CPU tensors (rtol 1e-5, atol 1e-6), the bf16 copy-back
+   equal to round-to-nearest-even of the f32 result, ms a call and GB/s
+   beside a CPU copy_ of the same bytes, the CPU model and thread count;
+   at 4 layers, on the same bf16 weights and fixed batch, 3 steps each of
+   the resident (ZeRO 2), tiered (offload_optimizer {device: cpu,
+   pin_memory: true}) and legacy ({device: cpu}) engines: tiered equal to
+   resident bit for bit (losses, params, master, moments: torch.equal),
+   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 32 layers (the
+   deepest depth the host's memory holds, never below 20), bf16, AdamW,
+   micro 2 x gas 2 x S 2048, remat, through the legacy and the tiered
+   engine, 3 steps each on one fixed batch: losses finite, the last below
+   the first, flash launches 2 x L x gas and L x gas a step, peak device
+   memory under 80 GiB (beside the resident state's 18 B a parameter);
+   step time, tokens/s, and one more step's split (torch.profiler where it
+   records the card; the engine's CUDA events: forward+backward, update,
+   host optimizer, H2D and D2H on the copy streams); the NVMe tier at 2
+   layers, 2 steps, losses equal to the RAM tier's (rtol 1e-5), swap bytes
+   and seconds, the swap files removed; checkpoints at 2 layers, resident
+   and tiered: save after 2 steps, load into an engine of other weights,
+   its next loss equal to the saving engine's; save / load seconds and
+   bytes; the v1 init_inference(checkpoint=) prefill logits torch.equal to
+   init_inference(params=) on the same weights;
 9. sparse op: SparseSelfAttention(layout (i))(q, k, v, causal=True) and
    backward on bf16 [1, 32, 8192, 128] inputs five times: 5 launches of
    each sparse kernel, finite outputs, o and grads against the plain
@@ -169,7 +198,9 @@ exit 0):
    cached read-only layout, a writeable copy); an fp32 check of
    impl="kernel" against impl="dense" (S 1024, hd 64, 1e-4); block 8
    under impl="auto" on the card raises;
-10. the kernels JSON line, then the last line
+10. the card's name and power limit, the host_ops JSON line (the host
+   optimizers' times, rates, yardstick and errors), the kernels JSON line
+   (the flash launches of phases 8 and 8b together), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 Everything it builds goes under build/ of the checkout. It imports nothing
@@ -180,6 +211,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2894,6 +2926,463 @@ def train_profile(engine, batch):
         log(f"   {t:.3f} ms {c}x  {k[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8b: ZeRO-Offload and native checkpoints
+# ---------------------------------------------------------------------------
+HOST_SRC = "deepspeed_tpu_torch/csrc/host/"
+OFFLOAD_GAS = 2
+RESIDENT_BYTES_PER_PARAM = 18      # bf16 param, f32 master, m, v, f32 grad
+HOST_STATE_BYTES_PER_PARAM = 12    # f32 master, m, v
+
+
+def meminfo_gib(key):
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) / 2 ** 20
+    raise KeyError(key)
+
+
+def host_rss_gib():
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2 ** 20
+    raise KeyError("VmRSS")
+
+
+def offload_config(offload=None, stage=2, **extra):
+    cfg = {"train_micro_batch_size_per_gpu": TRAIN_B,
+           "gradient_accumulation_steps": OFFLOAD_GAS,
+           "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+           "gradient_clipping": 1.0, "bf16": {"enabled": True},
+           "steps_per_print": 10 ** 9, "zero_optimization": {"stage": stage}}
+    if offload is not None:
+        cfg["zero_optimization"]["offload_optimizer"] = dict(offload)
+    cfg.update(extra)
+    return cfg
+
+
+TIERED = {"device": "cpu", "pin_memory": True}
+LEGACY = {"device": "cpu"}
+
+
+def free_engine(eng):
+    eng.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def host_ops_phase():
+    """The host C++ optimizers on one Mistral-7B layer's w_gate (4096 x
+    14336 f32 elements) against the port's torch optimizer math on CPU
+    tensors, three steps with one gradient as in the JAX package's test
+    (rtol 1e-5, atol 1e-6); the bf16 copy-back equal to round-to-nearest-
+    even of the f32 result; per-call time and GB/s beside a CPU copy_ of
+    the same bytes."""
+    from deepspeed_tpu_torch.ops import cpu_optimizers as co
+    from deepspeed_tpu_torch.ops import optimizers as topt
+    from deepspeed_tpu_torch.ops.op_builder import builder, cpu
+
+    t0 = time.perf_counter()
+    for b in cpu.ALL_OPS.values():
+        b().build()
+    log(f"host ops: g++ build {time.perf_counter() - t0:.1f}s "
+        f"({', '.join(f'{k} {v:.1f}s' for k, v in builder.build_seconds.items()) or 'reused'}) "
+        f"into {builder.BUILD_ROOT}")
+    lscpu = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    model = next((l.split(":", 1)[1].strip() for l in lscpu.splitlines()
+                  if l.startswith("Model name")), "unknown")
+    cpus = os.cpu_count()
+    log(f"host ops: CPU '{model}', {cpus} CPUs, torch threads "
+        f"{torch.get_num_threads()}, OMP_NUM_THREADS "
+        f"{os.environ.get('OMP_NUM_THREADS', 'unset')}")
+    n = 4096 * 14336
+    gen = torch.Generator().manual_seed(5)
+    p0 = torch.randn(n, generator=gen)
+    g32 = torch.randn(n, generator=gen).mul_(0.1)
+    cases = [
+        ("cpu_adam", "f32", lambda: co.DeepSpeedCPUAdam(
+            lr=1e-2, weight_decay=0.01), topt.FusedAdam(
+            lr=1e-2, weight_decay=0.01), 28),
+        ("cpu_adam", "bf16", lambda: co.DeepSpeedCPUAdam(
+            lr=1e-2, weight_decay=0.01), topt.FusedAdam(
+            lr=1e-2, weight_decay=0.01), 28),
+        ("cpu_adagrad", "f32", lambda: co.DeepSpeedCPUAdagrad(lr=1e-2),
+         topt.FusedAdagrad(lr=1e-2, eps=1e-10), 20),
+        ("cpu_lion", "f32", lambda: co.DeepSpeedCPULion(
+            lr=1e-3, weight_decay=0.01), topt.FusedLion(
+            lr=1e-3, weight_decay=0.01), 20),
+    ]
+    records = []
+    for name, gdt, make, ref_opt, bytes_per in cases:
+        opt = make()
+        g = g32.bfloat16() if gdt == "bf16" else g32
+        p = p0.clone()
+        state = [torch.zeros(n) for _ in opt.state_keys()]
+        out = torch.empty(n, dtype=torch.bfloat16)
+        ms = []
+        for step in (1, 2, 3):
+            t0 = time.perf_counter()
+            opt.step(step, p, g, *state,
+                     params_out_bf16=out if gdt == "bf16" else None)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        opt.destroy()
+        ref = [p0.clone()]
+        ref_state = ref_opt.init_state(ref)
+        for step in (1, 2, 3):
+            ref_opt.apply(ref, [g.float()], ref_state, step)
+        err = float((p - ref[0]).abs().max())
+        if not torch.allclose(p, ref[0], rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"{name} ({gdt} grads) disagrees with the "
+                                 f"torch optimizer: max |diff| {err:.3e}")
+        if gdt == "bf16" and not torch.equal(out, p.bfloat16()):
+            raise AssertionError(f"{name}: the bf16 copy-back is not the "
+                                 f"round-to-nearest-even of the f32 result")
+        nbytes = n * bytes_per
+        src = torch.ones(nbytes // 8)
+        dst = torch.empty_like(src)
+        dst.copy_(src)
+        copies = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dst.copy_(src)
+            copies.append((time.perf_counter() - t0) * 1e3)
+        del src, dst
+        med, copy_ms = statistics.median(ms[1:]), statistics.median(copies)
+        rec = {"name": name, "grads": gdt, "source": HOST_SRC + name + ".cpp",
+               "build_s": builder.build_seconds.get(name), "elements": n,
+               "ms": med, "gb_s": nbytes / med / 1e6,
+               "copy_ms": copy_ms, "copy_gb_s": nbytes / copy_ms / 1e6,
+               "max_abs_err": err}
+        records.append(rec)
+        log(f"host ops: {name} ({gdt} grads) {med:.1f} ms a call "
+            f"(steps {[f'{x:.1f}' for x in ms]}), {rec['gb_s']:.1f} GB/s "
+            f"over {bytes_per} B/element; copy_ of the same bytes "
+            f"{copy_ms:.1f} ms = {rec['copy_gb_s']:.1f} GB/s; max |diff| vs "
+            f"torch {err:.2e}" + ("; bf16 copy-back == RNE(f32)"
+                                  if gdt == "bf16" else ""))
+    return {"host_ops": records, "cpu": model, "cpus": cpus}
+
+
+def offload_run(cfg, config, batch, steps, label, params=None, seed=0):
+    """An engine of ``config`` trained ``steps`` times on ``batch``: (engine,
+    losses, step seconds, peak device GiB above what was allocated before
+    it, init seconds), logged."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=TransformerLM(cfg), config=config, params=params, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    ho = eng.host_opt
+    extra = ""
+    if ho is not None:
+        t = ho.timings
+        extra = (f"; last step H2D {t.get('h2d_ms', 0):.1f} ms, D2H "
+                 f"{t.get('d2h_ms', 0):.1f} ms, host optimizer "
+                 f"{t.get('host_opt_ms', 0):.1f} ms")
+        if eng.offload_tiered:
+            extra += (f", stream {t.get('stream_ms', 0):.1f} ms, waits "
+                      f"{t.get('wait_ms', 0):.1f} ms; prefetch hit "
+                      f"{ho.prefetch_hit_fraction:.3f}, exposed "
+                      f"{ho.prefetch_exposed_fraction:.3f}; "
+                      f"{len(ho.buckets)} buckets, pinned "
+                      f"{ho.pinned.bytes / 2 ** 30:.2f} GiB")
+        else:
+            extra += (f"; {len(ho.segments)} segments, ring pinned "
+                      f"{ho.pinned.bytes / 2 ** 30:.2f} GiB")
+    log(f"offload {label}: init {init_s:.1f}s, losses "
+        f"{[f'{x:.4f}' for x in losses]}, step s "
+        f"{[f'{x:.3f}' for x in step_s]}, peak device {peak:.2f} GiB, host "
+        f"RSS {host_rss_gib():.1f} GiB" + extra)
+    return eng, losses, step_s, peak, init_s
+
+
+def compare_tiered_resident(res, tier):
+    """torch.equal of compute params, master and moments, leaf by leaf."""
+    master, moments = tier.host_opt.get_all_leaves()
+    for name, a, b in zip(res._leaf_names, res._param_leaves,
+                          tier._param_leaves):
+        if not torch.equal(a, b):
+            raise AssertionError(f"tiered params differ from resident: {name}")
+    for name, a, b in zip(res._leaf_names, res._master_leaves, master):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"tiered master differs from resident: "
+                                 f"{name}")
+    for key, leaves in moments.items():
+        for name, a, b in zip(res._leaf_names, res.opt_state[key], leaves):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"tiered {key} differs from resident: "
+                                     f"{name}")
+
+
+def offload_width_phase(dev, cfg, batch):
+    """Resident, tiered (pin_memory, stage 2) and legacy (stage 2) on the
+    same weights and fixed batch, 3 steps each: tiered equal to resident bit
+    for bit, legacy within rtol 0.05, atol 1e-2 (one bf16 rounding of the
+    shipped gradients)."""
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    weights = TransformerLM(cfg).init_params(gen, dtype=torch.bfloat16)
+    res, r_loss, r_s, r_peak, _ = offload_run(
+        cfg, offload_config(stage=2), batch, 3, "resident L=4",
+        params=weights)
+    tier, t_loss, t_s, t_peak, _ = offload_run(
+        cfg, offload_config(TIERED), batch, 3, "tiered L=4", params=weights)
+    if t_loss != r_loss:
+        raise AssertionError(f"tiered losses {t_loss} != resident {r_loss}")
+    compare_tiered_resident(res, tier)
+    log("offload L=4: tiered == resident bit for bit (losses, params, "
+        "master, exp_avg, exp_avg_sq)")
+    free_engine(tier)
+    del tier
+    leg, l_loss, l_s, l_peak, _ = offload_run(
+        cfg, offload_config(LEGACY), batch, 3, "legacy L=4", params=weights)
+    if not np.allclose(l_loss, r_loss, rtol=0.05, atol=1e-2):
+        raise AssertionError(f"legacy losses {l_loss} vs resident {r_loss}")
+    log(f"offload L=4: legacy within rtol 0.05 / atol 1e-2 of resident "
+        f"(max |diff| {max(abs(a - b) for a, b in zip(l_loss, r_loss)):.2e}); "
+        f"median step ms resident {statistics.median(r_s[1:]) * 1e3:.1f}, "
+        f"tiered {statistics.median(t_s[1:]) * 1e3:.1f}, legacy "
+        f"{statistics.median(l_s[1:]) * 1e3:.1f}")
+    free_engine(leg)
+    free_engine(res)
+    del leg, res, weights
+
+
+def full_depth_layers(cfg):
+    """32 unless the host cannot hold the f32 state (12 B a parameter)
+    beside this process: then the deepest depth that fits, never below 20
+    (from 20 layers up the resident state passes 80 GB)."""
+    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.kv_heads * cfg.head_dim
+    per_layer = 2 * h * h + 2 * h * kv + 3 * h * f + 2 * h
+    fixed = 2 * v * h + h
+    room = meminfo_gib("MemTotal") - host_rss_gib() - 4.0
+    for L in range(cfg.num_layers, 19, -1):
+        need = (fixed + L * per_layer) * HOST_STATE_BYTES_PER_PARAM / 2 ** 30
+        if need <= room:
+            return L, need, room, fixed + L * per_layer
+    raise AssertionError(f"the host cannot hold 20 layers of f32 state "
+                         f"({room:.1f} GiB free)")
+
+
+def offload_full_depth_phase(dev, batch):
+    """Mistral-7B at full depth through both offload backends, 3 steps each
+    on one fixed batch: losses finite and falling, flash launches 2·L·gas /
+    L·gas / L·gas a step, peak device memory under 80 GiB; then one more
+    step under torch.profiler for the split into device, transfer and host
+    optimizer."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import mistral_7b
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    base = mistral_7b()
+    L, need, room, n_params = full_depth_layers(base)
+    cfg = dataclasses.replace(base, num_layers=L)
+    log(f"offload full depth: L={L} of {base.num_layers}, "
+        f"{n_params / 1e9:.3f} B params; host state {need:.1f} GiB of "
+        f"{room:.1f} GiB the host can give (MemTotal "
+        f"{meminfo_gib('MemTotal'):.1f}, MemAvailable "
+        f"{meminfo_gib('MemAvailable'):.1f}, RSS {host_rss_gib():.1f}); "
+        f"resident state would be {RESIDENT_BYTES_PER_PARAM} B x "
+        f"{n_params / 1e9:.2f} B = "
+        f"{RESIDENT_BYTES_PER_PARAM * n_params / 1e9:.0f} GB")
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    want = {"flash_fwd": 3 * 2 * L * OFFLOAD_GAS,
+            "flash_bwd_dq": 3 * L * OFFLOAD_GAS,
+            "flash_bwd_dkv": 3 * L * OFFLOAD_GAS}
+    total = dict.fromkeys(want, 0)
+    tokens = OFFLOAD_GAS * TRAIN_B * TRAIN_S
+    results = {}
+    for label, off in (("legacy", LEGACY), ("tiered", TIERED)):
+        for kfn in kernels:
+            kfn.launches = 0
+        eng, losses, step_s, peak, init_s = offload_run(
+            cfg, offload_config(off), batch, 3, f"{label} L={L}")
+        launches = {kfn.__name__: kfn.launches for kfn in kernels}
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{label} L={L} losses not finite and "
+                                 f"falling: {losses}")
+        if launches != want:
+            raise AssertionError(f"{label} L={L} launches {launches} != "
+                                 f"{want}")
+        if peak >= 80.0:
+            raise AssertionError(f"{label} L={L} peak device memory "
+                                 f"{peak:.2f} GiB >= 80 GiB")
+        for k in total:
+            total[k] += launches[k]
+        med = statistics.median(step_s[1:])
+        log(f"offload {label} L={L}: median step {med * 1e3:.0f} ms = "
+            f"{tokens / med:.0f} tokens/s ({tokens} tokens/step); launches "
+            f"{launches}; peak device {peak:.2f} GiB")
+        # the split of one more step: torch.profiler where it records the
+        # card, and the engine's and the tier's CUDA events in any case
+        _, wall, kern = profiled(lambda: eng.train_batch(batch=batch))
+        st, t = eng.step_timings(), eng.host_opt.timings
+        copy_ms = sum(v for k, (v, _) in kern.items() if "Memcpy" in k)
+        dev_ms = sum(v for k, (v, _) in kern.items()
+                     if "Memcpy" not in k and "Memset" not in k)
+        log(f"profile {label} L={L} step: wall {wall:.0f} ms; by events: "
+            f"forward+backward {st.get('grads_ms', 0.0):.0f} ms, update "
+            f"{st.get('update_ms', 0.0):.0f} ms, of which host optimizer "
+            f"{t.get('host_opt_ms', 0.0):.0f} ms; H2D "
+            f"{t.get('h2d_ms', 0.0):.0f} ms, D2H {t.get('d2h_ms', 0.0):.0f} "
+            f"ms on the copy streams; profiler: " + (
+                f"device kernels {dev_ms:.0f} ms, copies {copy_ms:.0f} ms"
+                if kern else "recorded no device event"))
+        for k, (tt, c) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:5]:
+            log(f"   {tt:.1f} ms {c}x  {k[:90]}")
+        results[label] = {"step_ms": med * 1e3, "peak_gib": peak,
+                          "init_s": init_s}
+        free_engine(eng)
+        del eng
+        log(f"offload {label} L={L} freed: host RSS {host_rss_gib():.1f} "
+            f"GiB, device allocated "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    return total
+
+
+def nvme_phase(dev, cfg, batch):
+    """The NVMe tier at 2 layers: 2 steps, losses equal to the RAM tier's
+    (rtol 1e-5), swap bytes and seconds; the swap files removed."""
+    swap_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "nvme_swap")
+    nvme = {"device": "nvme", "nvme_path": swap_root}
+    cpu, c_loss, *_ = offload_run(cfg, offload_config(LEGACY), batch, 2,
+                                  "legacy (RAM) L=2")
+    free_engine(cpu)
+    del cpu
+    eng, n_loss, n_s, *_ = offload_run(
+        cfg, offload_config(nvme, aio={"thread_count": 8}), batch, 2,
+        "legacy (NVMe) L=2")
+    ho = eng.host_opt
+    if not np.allclose(n_loss, c_loss, rtol=1e-5):
+        raise AssertionError(f"NVMe losses {n_loss} != RAM tier {c_loss}")
+    files = sum(len(fs) for _, _, fs in os.walk(ho.swap_dir))
+    log(f"offload NVMe L=2: losses equal the RAM tier's within 1e-5 "
+        f"({n_loss} vs {c_loss}); {files} swap files under {ho.swap_dir}, "
+        f"{ho.swap_bytes / 1e9:.2f} GB moved in {ho.swap_seconds:.1f} s "
+        f"({ho.swap_bytes / max(ho.swap_seconds, 1e-9) / 1e9:.2f} GB/s, "
+        f"init included)")
+    swap_dir = ho.swap_dir
+    free_engine(eng)
+    if os.path.exists(swap_dir):
+        raise AssertionError(f"swap files left at {swap_dir}")
+    shutil.rmtree(swap_root, ignore_errors=True)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def checkpoint_phase(dev, cfg, batch):
+    """Save after 2 steps, load into a fresh engine of other weights: its
+    next loss bit-identical to the saving engine's, resident and tiered;
+    then the v1 engine from the checkpoint against params= on the same
+    weights (prefill logits torch.equal)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "ckpt_smoke")
+    nxt = {"input_ids": np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (OFFLOAD_GAS, TRAIN_B, TRAIN_S))}
+    for label, off in (("resident", None), ("tiered", TIERED)):
+        path = os.path.join(root, label)
+        src, *_ = offload_run(cfg, offload_config(off), batch, 2,
+                              f"{label} L=2 (to save)")
+        t0 = time.perf_counter()
+        src.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(path)
+        ref = src.train_batch(batch=nxt)
+        free_engine(src)
+        del src
+        dst, *_ = offload_run(cfg, offload_config(off), batch, 0,
+                              f"{label} L=2 (to load)", seed=1)
+        t0 = time.perf_counter()
+        dst.load_checkpoint(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if label == "resident":
+            model = TransformerLM(cfg)
+            ids = np.random.default_rng(10).integers(0, cfg.vocab_size,
+                                                     (1, 512))
+            icfg = {"dtype": "bfloat16", "max_out_tokens": 1024}
+            v1_ck = deepspeed_tpu_torch.init_inference(
+                model, config=dict(icfg, checkpoint=path))
+            a = v1_ck.forward(ids)
+            del v1_ck
+            v1_p = deepspeed_tpu_torch.init_inference(
+                model, config=icfg, params=dst.params)
+            b = v1_p.forward(ids)
+            del v1_p
+            if not torch.equal(a, b):
+                raise AssertionError("v1 logits from the checkpoint differ "
+                                     "from params=")
+            log(f"checkpoint: v1 init_inference(checkpoint=) prefill logits "
+                f"[1, 512, {cfg.vocab_size}] torch.equal to params=")
+            del a, b
+        got = dst.train_batch(batch=nxt)
+        if got != ref:
+            raise AssertionError(f"{label}: resumed loss {got} != "
+                                 f"uninterrupted {ref}")
+        log(f"checkpoint {label} L=2: save {save_s:.1f}s, load {load_s:.1f}s, "
+            f"{nbytes / 1e9:.2f} GB ({nbytes / save_s / 1e9:.2f} GB/s "
+            f"written); resumed loss {got:.6f} == uninterrupted {ref:.6f}")
+        free_engine(dst)
+        del dst
+        shutil.rmtree(path)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def offload_phase(dev):
+    """Phase 8b: host ops, the three engines at 4 layers, both offload
+    backends at full depth, the NVMe tier and checkpoints at 2 layers.
+    Returns (flash launches of the full-depth runs, the host_ops record)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import mistral_7b
+
+    host = host_ops_phase()
+    rng = np.random.default_rng(4)
+    batch = {"input_ids": rng.integers(0, mistral_7b().vocab_size,
+                                       (OFFLOAD_GAS, TRAIN_B, TRAIN_S))}
+    t0 = time.perf_counter()
+    offload_width_phase(dev, dataclasses.replace(mistral_7b(), num_layers=4),
+                        batch)
+    log(f"offload L=4 phase: {time.perf_counter() - t0:.0f}s")
+    t0 = time.perf_counter()
+    launches = offload_full_depth_phase(dev, batch)
+    log(f"offload full-depth phase: {time.perf_counter() - t0:.0f}s")
+    two = dataclasses.replace(mistral_7b(), num_layers=2)
+    t0 = time.perf_counter()
+    nvme_phase(dev, two, batch)
+    log(f"offload NVMe phase: {time.perf_counter() - t0:.0f}s")
+    t0 = time.perf_counter()
+    checkpoint_phase(dev, two, batch)
+    log(f"checkpoint phase: {time.perf_counter() - t0:.0f}s")
+    return launches, host
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2937,6 +3426,12 @@ def main() -> int:
     launches.update(train_phase(dev))
     gc.collect()
     torch.cuda.empty_cache()    # the training engine is gone
+    t0 = time.perf_counter()
+    offload_launches, host_ops = offload_phase(dev)
+    log(f"phase 8b: {time.perf_counter() - t0:.0f}s; flash launches of the "
+        f"full-depth runs {offload_launches}")
+    for k, n in offload_launches.items():
+        launches[k] += n
     launches.update(sparse_op_phase(dev))
 
     sources = {"paged_attention": ("deepspeed_tpu_torch/csrc/"
@@ -2987,6 +3482,7 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
     print(card)
+    print(json.dumps(host_ops))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,24 @@ It serves: ``pipeline()`` / ``init_inference(use_ragged=True)`` over the
 ragged v2 engine (``inference/v2``, with the int8 KV pool under
 ``kv_quant``), and plain ``init_inference()`` over the v1 dense-cache
 engine (``inference/engine.py``); under ``quant_bits`` 8 or 4 both keep
-their weights quantized (``inference/quantization.py``). It trains:
-``initialize()`` returns the one-GPU
-:class:`~.runtime.engine.DeepSpeedTpuEngine` (ZeRO stage 0), whose
-``train_batch()`` runs the flash-attention kernels forward and backward.
-Entry points run on the GPU unless the caller passes ``device="cpu"``.
+their weights quantized (``inference/quantization.py``); the v1 engine
+also loads its weights from a training checkpoint
+(``init_inference(checkpoint=...)``). It trains: ``initialize()`` returns
+the one-GPU :class:`~.runtime.engine.DeepSpeedTpuEngine` (ZeRO stages 0-2
+at one rank), whose ``train_batch()`` runs the flash-attention kernels
+forward and backward. Its optimizer state may live on the card, in
+page-locked host memory with the update streamed through the card
+(``offload_optimizer {device: cpu, pin_memory: true}``,
+``runtime/offload.py``), or with the host C++ optimizer in host memory or
+in swap files (``{device: cpu}`` / ``{device: nvme}``,
+``runtime/zero/offload.py``, ``ops/cpu_optimizers.py``, ``ops/aio.py``,
+sources in ``csrc/host/`` built by ``g++`` at first use).
+``save_checkpoint`` / ``load_checkpoint`` write and read the JAX package's
+checkpoint format (``checkpoint/state_checkpoint.py``,
+``utils/zero_to_fp32.py``). Still raising: ZeRO stage 3 and more than one
+rank (ROADMAP A4), ``offload_param`` (A9), universal checkpoints and
+``init_inference(use_ragged=True, checkpoint=...)`` (A5). Entry points run
+on the GPU unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -76,8 +89,9 @@ def init_inference(model=None, config=None, params=None, device=None,
     ``TransformerLM``, or with ``use_ragged=True`` the ragged v2 engine
     (:class:`~.inference.v2.engine_v2.InferenceEngineV2`). ``params``
     supplies trained weights (a tree of tensors or arrays in the JAX
-    package's layout). HF modules and ``checkpoint`` loading are not
-    ported yet."""
+    package's layout); for the v1 engine ``checkpoint=`` (a training
+    checkpoint directory) does. HF modules, and ``checkpoint`` with
+    ``use_ragged=True`` (as in the JAX package), are not ported yet."""
     from .inference.config import DeepSpeedInferenceConfig
 
     cfg = DeepSpeedInferenceConfig.from_dict_or_kwargs(config, kwargs)

@@ -15,9 +15,14 @@ Under ``quant_bits`` 8 or 4 the weights rest quantized
 the embedding and the head once per call, and the model's layer loop one
 layer at a time.
 
-Not ported yet, each raising ``NotImplementedError``: tensor parallelism
-(``tensor_parallel.tp_size`` > 1, ROADMAP A8) and ``checkpoint`` loading
-(A5).
+``checkpoint`` (a training checkpoint's run or tag directory, in the
+fragment format of ``checkpoint/state_checkpoint.py``, written by either
+package) supplies the weights when ``params`` is not given: the master
+weights where the checkpoint holds them, else its params, cast to the
+engine's dtype (JAX :66-67, :107).
+
+Not ported yet, raising ``NotImplementedError``: tensor parallelism
+(``tensor_parallel.tp_size`` > 1, ROADMAP A8).
 """
 
 from typing import Optional
@@ -43,16 +48,17 @@ class InferenceEngine:
             raise NotImplementedError(
                 "tensor-parallel v1 inference (tensor_parallel.tp_size > 1) "
                 "is not ported to deepspeed_tpu_torch yet (ROADMAP A8)")
-        if config.checkpoint:
-            raise NotImplementedError(
-                "init_inference(checkpoint=...) is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A5); pass params")
         self.module = self.model = model
         self.config = config
         self.device = resolve_device(device)
         self.dtype = DTYPES[config.dtype]
         if params is not None:
             self.params = _cast_tree(params, self.device, self.dtype)
+        elif config.checkpoint:
+            from ..checkpoint.state_checkpoint import \
+                load_params_for_inference
+            self.params = load_params_for_inference(
+                config.checkpoint, self.dtype, self.device)
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)

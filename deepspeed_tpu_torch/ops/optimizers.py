@@ -31,6 +31,9 @@ class TpuOptimizer:
 
     lr: float = 1e-3
     weight_decay: float = 0.0
+    # each element's update reads only that element (LAMB's trust ratio
+    # reads its whole leaf): the tiered offload may then cut a leaf
+    elementwise = True
 
     def init_state(self, master_params: Leaves) -> Dict[str, Any]:
         raise NotImplementedError
@@ -79,6 +82,7 @@ class FusedAdam(TpuOptimizer):
 class FusedLamb(TpuOptimizer):
     """LAMB with per-layer trust ratio (reference csrc/lamb kernels)."""
 
+    elementwise = False
     betas: Tuple[float, float] = (0.9, 0.999)
     eps: float = 1e-6
     max_coeff: float = 10.0

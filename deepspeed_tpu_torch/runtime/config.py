@@ -580,11 +580,20 @@ _PORTED = {
     "wall_clock_breakdown", "optimizer", "scheduler", "bf16.enabled",
     "fp16.enabled", "fp16.loss_scale", "fp16.initial_scale_power",
     "fp16.loss_scale_window", "fp16.hysteresis", "fp16.min_loss_scale",
+    # optimizer offload (runtime/offload.py, runtime/zero/offload.py)
+    "zero_optimization.offload_optimizer.device",
+    "zero_optimization.offload_optimizer.nvme_path",
+    "zero_optimization.offload_optimizer.pin_memory",
+    "zero_optimization.offload_optimizer.buffer_count",
+    "zero_optimization.stage3_prefetch_bucket_size",
+    "aio.block_size", "aio.thread_count", "checkpoint.async_save",
 }
-# (key, value) pairs that run: switching off what the port does not have
-_PORTED_VALUES = {"telemetry.enabled": False, "diagnostics.enabled": False,
-                  "activation_checkpointing.policy": "everything_saveable",
-                  "zero_optimization.stage": 0}
+# keys and the values that run: switching off what the port does not
+# have; ZeRO stages 1 and 2 run at one rank (their plan is the identity)
+_PORTED_VALUES = {"telemetry.enabled": (False,),
+                  "diagnostics.enabled": (False,),
+                  "activation_checkpointing.policy": ("everything_saveable",),
+                  "zero_optimization.stage": (0, 1, 2)}
 # keys the JAX package itself leaves inert, by the rationale of its
 # dead-key audit (tests/unit/runtime/test_config_keys.py INERT_BY_DESIGN)
 _INERT = {
@@ -602,6 +611,8 @@ _INERT = {
     "tp_gather_partition_size", "pin_parameters", "fast_init",
     "num_microbatches", "seed_layers", "data_efficiency", "buffer_size",
     "pipeline_read", "pipeline_write", "activation_checkpoint_interval",
+    # the AIO thread pool's own knobs (JAX ops/aio.py reads neither)
+    "queue_depth", "single_submit", "overlap_events",
 }
 # everything else, by the ROADMAP item (section A) that ports it; the
 # longest matching prefix wins
@@ -629,7 +640,6 @@ _ROADMAP = {
     "hybrid_engine": "A11 (RLHF and hybrid engine)",
 }
 _ROADMAP_DEFAULT = "A12 (remainder)"
-_MISSING = object()
 
 
 def _leaves(obj, default, path="") -> Iterator[Tuple[str, Any]]:
@@ -651,7 +661,7 @@ def unported_keys(ds_config: DeepSpeedConfig) -> List[Tuple[str, Any, str]]:
     for path, value in _leaves(ds_config.cfg, base):
         top = path.split(".")[0]
         if (path in _PORTED or top in _PORTED
-                or _PORTED_VALUES.get(path, _MISSING) == value
+                or value in _PORTED_VALUES.get(path, ())
                 or path.split(".")[-1] in _INERT):
             continue
         item = max((k for k in _ROADMAP
@@ -677,4 +687,5 @@ def check_ported(ds_config: DeepSpeedConfig) -> None:
                            for k, v, item in bad)
         raise NotImplementedError(
             f"config keys not ported to deepspeed_tpu_torch yet: {listed}. "
-            f"This slice trains on one GPU with ZeRO stage 0")
+            f"The port trains on one GPU at ZeRO stages 0-2, with optimizer "
+            f"offload")

@@ -286,8 +286,8 @@ def test_device_none_raises_without_gpu():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"zero_optimization": {"stage": 2}}, "A4"),
-    ({"zero_optimization": {"stage": 1, "offload_optimizer":
+    ({"zero_optimization": {"stage": 3}}, "A4"),
+    ({"zero_optimization": {"stage": 3, "offload_param":
                             {"device": "cpu"}}}, "A9"),
     ({"activation_checkpointing": {"policy": "save_attn"}}, "A3"),
     ({"activation_checkpointing": {"cpu_checkpointing": True}}, "A9"),
