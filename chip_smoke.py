@@ -3,7 +3,8 @@
 NVIDIA GPU: builds the hand-written kernels from this checkout, holds each
 against its plain PyTorch version at the shapes of the main paths, serves
 full-width Mistral-7B (seeded random weights) through ``pipeline()`` and
-``generate()`` over a bf16 and an int8 KV pool and through the v1
+``generate()`` over a bf16 and an int8 KV pool, through the serving
+runtime (``ServingEngine`` + ``ServingAPI`` over HTTP) and through the v1
 ``init_inference()`` engine, then with weight-only quantized weights
 (int8 and int4 on the v2 engine, int8 on the v1 engine), trains
 full-width Mistral-7B at 4 layers
@@ -127,7 +128,26 @@ exit 0):
    and against an fp32 engine (informational); the device time, busy
    share and top kernels of one ragged step and of one fused decode
    window, and the paged kernel's ms per decode step (torch.profiler over
-   generate()); then, on the same weight
+   generate()); then phase 2c, the serving runtime on the same engine:
+   the 8 prompts (rows 0-3 greedy, 4-7 sampled at temperature 0.8, top_p
+   0.95, top_k 50, seeds 1-4), 64 new tokens each, concurrently over HTTP
+   (ServingAPI on 127.0.0.1:0 over ServingEngine(eng, ServingConfig())),
+   through in-process ServingEngine.submit() and twice through the
+   direct DynamicSplitFuseScheduler: every stream 64 tokens in [0, V),
+   the two direct runs equal, /healthz 200, /metrics parsed with its
+   request and generated-token counters equal to what was streamed, a
+   request cancelled after its 8th token freeing its KV blocks (free
+   blocks after the drain as before the phase), a burst beyond
+   AdmissionConfig(max_pending=2) answered 429 with Retry-After, paged
+   and ragged launches = 32 x the engine's decode and ragged steps, the
+   sampler's row keys equal on the card and the CPU, sampled generate()
+   repeat identical with one host sync per window, top_k=1 equal to
+   greedy, each row's window-8 and window-1 sampled streams equal where
+   its greedy ones are, the engine's spans in a torch.profiler trace;
+   logged: stream agreement with the direct path, window 8 against
+   window 1, TTFT and inter-token p50 / p99 over HTTP and in-process, output
+   tokens/s of every run beside generate()'s, and the sampled decode
+   window's profile and launches against greedy; then, on the same weight
    tensors, the int8 KV engine (init_inference(use_ragged=True,
    kv_quant)): generate() with launch counts of 32 x steps for both int8
    kernels, one host sync per window, identical streams on a repeat by
@@ -1309,13 +1329,384 @@ def serve_phase(dev):
     log(f"serve: fp32 |logits| max {np.abs(f32).max():.3f}, smallest top-2 "
         f"margin {float((top2[:, 1] - top2[:, 0]).min()):.4f} "
         f"(bf16 gaps informational)")
-    profile_phase(eng, prompts, eng.decode_window)
+    greedy_window_launches = profile_phase(eng, prompts, eng.decode_window)
+    for k, n in serving_runtime_phase(cfg, eng, prompts, new, gen,
+                                      greedy_window_launches).items():
+        launches[k] += n
     launches.update(q8_serve_phase(dev, cfg, eng, prompts, new, logits,
                                    f32))
     v1_launches, v1_ids, v1_out = v1_serve_phase(dev, cfg, eng.params)
     launches.update(v1_launches)
     launches.update(woq_serve_phases(dev, cfg, eng, prompts, gen, logits,
                                      v1_ids, v1_out))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: the serving runtime (ServingEngine, admission, loop, HTTP API)
+# ---------------------------------------------------------------------------
+SERVE_SAMPLED = dict(temperature=0.8, top_p=0.95, top_k=50)
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs \
+        else float("nan")
+
+
+def prom_samples(text):
+    """Prometheus text -> {family-or-sample name: summed value}; raises on
+    a line that is not a comment or a ``name{labels} value`` sample."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.fullmatch(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)", line)
+        if m is None:
+            raise AssertionError(f"/metrics line does not parse: {line!r}")
+        out[m.group(1)] = out.get(m.group(1), 0.0) + float(m.group(3))
+    return out
+
+
+async def http_call(host, port, method, target, payload=None):
+    """One HTTP/1.1 request; returns (status, headers, body lines, the
+    seconds from send to each body line)."""
+    import asyncio
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection(host, port)
+    body = json.dumps(payload).encode() if payload is not None else b""
+    writer.write((f"{method} {target} HTTP/1.1\r\nHost: smoke\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+    await writer.drain()
+    status = int((await reader.readline()).split()[1])
+    headers = {}
+    while True:
+        line = await reader.readline()
+        if line in (b"\r\n", b"\n", b""):
+            break
+        k, _, v = line.decode().partition(":")
+        headers[k.strip().lower()] = v.strip()
+    lines, times = [], []
+    while True:
+        line = await reader.readline()
+        if not line:
+            break
+        lines.append(line)
+        times.append(time.perf_counter() - t0)
+    writer.close()
+    return status, headers, lines, times
+
+
+def latencies(times_per_request):
+    """TTFT and inter-token gaps (s) over a run's requests."""
+    ttft = [t[0] for t in times_per_request if t]
+    itl = [b - a for t in times_per_request for a, b in zip(t, t[1:])]
+    return ttft, itl
+
+
+def log_latencies(name, times_per_request, seconds, n_tokens):
+    ttft, itl = latencies(times_per_request)
+    log(f"phase 2c {name}: {n_tokens} tokens in {seconds:.2f}s = "
+        f"{n_tokens / seconds:.1f} output tokens/s; TTFT p50 "
+        f"{pct(ttft, 50) * 1e3:.1f} / p99 {pct(ttft, 99) * 1e3:.1f} ms; "
+        f"inter-token p50 {pct(itl, 50) * 1e3:.2f} / p99 "
+        f"{pct(itl, 99) * 1e3:.2f} ms")
+    return {"tokens_per_s": n_tokens / seconds,
+            "ttft_p50_ms": pct(ttft, 50) * 1e3,
+            "ttft_p99_ms": pct(ttft, 99) * 1e3,
+            "itl_p50_ms": pct(itl, 50) * 1e3,
+            "itl_p99_ms": pct(itl, 99) * 1e3}
+
+
+def check_streams(name, streams, new, vocab):
+    for i, toks in enumerate(streams):
+        if len(toks) != new or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"phase 2c {name}: request {i} got "
+                                 f"{len(toks)} tokens (want {new}) or an "
+                                 f"id outside [0, {vocab})")
+
+
+def serving_runtime_phase(cfg, eng, prompts, new, greedy_gen,
+                          greedy_window_launches):
+    """Phase 2c: the serving runtime on the bf16 Mistral-7B engine. The 8
+    prompts (rows 0-3 greedy, rows 4-7 sampled: temperature 0.8, top_p
+    0.95, top_k 50, seeds 1-4), 64 new tokens each, go concurrently over
+    HTTP (ServingAPI on 127.0.0.1:0 over ServingEngine(eng,
+    ServingConfig())), then through in-process ServingEngine.submit(),
+    then twice through the direct DynamicSplitFuseScheduler path. Checks
+    (each raises): every stream 64 tokens in [0, V); the two direct runs
+    equal; /healthz 200; /metrics parses and its request and generated-
+    token counters equal what was streamed; a request cancelled after its
+    8th token frees its KV blocks (free blocks after the drain equal those
+    before the phase); a burst beyond AdmissionConfig(max_pending=2) gets
+    429 with Retry-After; paged and ragged launches over the phase equal
+    L x the engine's decode and ragged step counts; generate() sampled
+    twice identical, with one host sync per window; top_k=1 equal to the
+    greedy generate(); window 8 against window 1: each row's sampled
+    streams equal where its greedy ones are; the spans reach
+    torch.profiler. Logged: stream agreement with the direct path, the
+    window 8 / window 1 counts, TTFT and inter-token p50 / p99, output
+    tokens/s beside generate()'s, launches per sampled window against
+    greedy. Returns the phase's paged and ragged launches."""
+    import asyncio
+
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_attention
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import \
+        ragged_attention
+    from deepspeed_tpu_torch.inference.v2.sampling import (fold_in_rows,
+                                                           prng_key)
+    from deepspeed_tpu_torch.inference.v2.serve import (AdmissionConfig,
+                                                        ServingAPI,
+                                                        ServingConfig,
+                                                        ServingEngine)
+    from deepspeed_tpu_torch.telemetry import trace
+
+    t_phase = time.perf_counter()
+    L, V, n = cfg.num_layers, cfg.vocab_size, len(prompts)
+    kws = [{} if i < 4 else dict(SERVE_SAMPLED, seed=i - 3)
+           for i in range(n)]
+    sm = eng.state_manager
+    # the sampler's row keys: the same bits on the card as on the CPU
+    rows, gidx = torch.arange(256), torch.arange(256) * 7 + 3
+    keys = fold_in_rows(prng_key(7, eng.device), rows.to(eng.device),
+                        gidx.to(eng.device)).cpu()
+    if not torch.equal(keys, fold_in_rows(prng_key(7), rows, gidx)):
+        raise AssertionError("phase 2c: row keys differ between the card "
+                             "and the CPU")
+    free0 = sm.free_blocks()
+    steps0 = dict(ragged=eng.ragged_steps, decode=eng.decode_steps)
+    paged_attention.launches = 0
+    ragged_attention.launches = 0
+
+    async def serve_runs():
+        serving = ServingEngine(eng, ServingConfig())
+        await serving.start()
+        api = ServingAPI(serving)
+        host, port = await api.start()
+        _, _, m0, _ = await http_call(host, port, "GET", "/metrics")
+        t0 = time.perf_counter()
+        http = await asyncio.gather(*[http_call(
+            host, port, "POST", "/generate",
+            dict(prompt=prompts[i], max_new_tokens=new, **kws[i]))
+            for i in range(n)])
+        http_s = time.perf_counter() - t0
+        health = await http_call(host, port, "GET", "/healthz")
+        _, _, m1, _ = await http_call(host, port, "GET", "/metrics")
+
+        async def one(i):
+            t0 = time.perf_counter()
+            stream = await serving.submit(prompts[i], new, **kws[i])
+            times = []
+            async for _ in stream:
+                times.append(time.perf_counter() - t0)
+            return stream.tokens, times
+        t0 = time.perf_counter()
+        inproc = await asyncio.gather(*[one(i) for i in range(n)])
+        inproc_s = time.perf_counter() - t0
+
+        stream = await serving.submit(prompts[-1], new)
+        async for _ in stream:
+            if len(stream.tokens) == 8:
+                await stream.cancel()
+        cancelled = (stream.status, len(stream.tokens))
+        await api.stop()
+        await serving.stop(drain=True)
+        return (http, http_s, health, b"".join(m0).decode(),
+                b"".join(m1).decode(), inproc, inproc_s, cancelled)
+
+    async def burst():
+        serving = ServingEngine(eng, ServingConfig(
+            admission=AdmissionConfig(max_pending=2, retry_after_s=1.5)))
+        api = ServingAPI(serving)
+        host, port = await api.start()
+        calls = [asyncio.ensure_future(http_call(
+            host, port, "POST", "/generate",
+            {"prompt": prompts[0][:16], "max_new_tokens": 4}))
+            for _ in range(4)]
+        done = []
+        while len(done) < 2:            # the two shed at the door
+            fin, _ = await asyncio.wait([c for c in calls if c not in done],
+                                        return_when=asyncio.FIRST_COMPLETED)
+            done.extend(fin)
+        shed = [c.result() for c in done]
+        await serving.stop(drain=False)  # cancels the two parked
+        parked = [await c for c in calls if c not in done]
+        await api.stop()
+        return shed, parked
+
+    (http, http_s, health, m0, m1, inproc, inproc_s,
+     cancelled) = asyncio.run(serve_runs())
+    http_streams, http_times = [], []
+    for status, headers, lines, times in http:
+        if status != 200:
+            raise AssertionError(f"phase 2c: /generate answered {status}")
+        docs = [json.loads(x) for x in lines]
+        toks = [d["token"] for d in docs[:-1]]
+        if docs[-1].get("tokens") != toks or \
+                docs[-1].get("status") != "completed":
+            raise AssertionError(f"phase 2c: NDJSON tail {docs[-1]}")
+        http_streams.append(toks)
+        http_times.append(times[:-1])
+    check_streams("HTTP", http_streams, new, V)
+    inproc_streams = [t for t, _ in inproc]
+    check_streams("in-process", inproc_streams, new, V)
+    if health[0] != 200 or json.loads(health[2][0])["status"] != "ok":
+        raise AssertionError(f"phase 2c: /healthz {health[0]}")
+    p0, p1 = prom_samples(m0), prom_samples(m1)
+    streamed = sum(len(s) for s in http_streams)
+    for name, want in (("serving_requests_submitted_total", n),
+                       ("serving_requests_finished_total", n),
+                       ("serving_generated_tokens_total", streamed)):
+        got = p1.get(name, 0.0) - p0.get(name, 0.0)
+        if got != want:
+            raise AssertionError(f"phase 2c: /metrics {name} moved by "
+                                 f"{got}, {want} were streamed")
+    if cancelled[0] != "cancelled" or not 8 <= cancelled[1] < new:
+        raise AssertionError(f"phase 2c: cancel after 8 tokens: {cancelled}")
+    if sm.free_blocks() != free0:
+        raise AssertionError(f"phase 2c: {sm.free_blocks()} free KV blocks "
+                             f"after the drain, {free0} before")
+    log(f"phase 2c: /healthz 200, /metrics parsed ({len(p1)} samples), "
+        f"counters = streamed ({n} requests, {streamed} tokens); cancel "
+        f"after 8 tokens freed its blocks ({free0} free)")
+
+    shed, parked = asyncio.run(burst())
+    for status, headers, lines, _ in shed:
+        if status != 429 or headers.get("retry-after") != "2":
+            raise AssertionError(f"phase 2c: burst answered {status} "
+                                 f"{headers}")
+    for status, _, lines, _ in parked:
+        if status != 200 or json.loads(lines[-1])["status"] != "cancelled":
+            raise AssertionError("phase 2c: a parked request did not end "
+                                 "cancelled")
+    log("phase 2c: a burst of 4 beyond max_pending=2 got 2 x 429 "
+        "(Retry-After: 2), the 2 parked ended cancelled at stop")
+
+    def direct():
+        sched = DynamicSplitFuseScheduler(eng)
+        for i, p in enumerate(prompts):
+            sched.submit(5000 + i, p, new, **kws[i])
+        t0 = time.perf_counter()
+        sched.run()
+        seconds = time.perf_counter() - t0
+        res = sched.results()
+        out = [res[5000 + i][len(prompts[i]):].tolist() for i in range(n)]
+        for i in range(n):
+            sched.release(5000 + i)
+        return out, seconds
+    d1, d1_s = direct()
+    d2, d2_s = direct()
+    check_streams("direct", d1, new, V)
+    if d1 != d2:
+        raise AssertionError("phase 2c: two direct scheduler runs differ")
+    for name, streams in (("HTTP", http_streams),
+                          ("in-process", inproc_streams)):
+        log(f"phase 2c: {name} streams equal to the direct path: greedy "
+            f"{sum(a == b for a, b in zip(streams[:4], d1[:4]))}/4, "
+            f"sampled {sum(a == b for a, b in zip(streams[4:], d1[4:]))}/4 "
+            f"(informational: arrival order changes the batching, and "
+            f"bf16 near-ties can part)")
+
+    # generate(): greedy, then sampled twice, then top_k = 1
+    t0 = time.perf_counter()
+    g8 = eng.generate(prompts, new)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    s0, w0 = eng.host_syncs, eng.decode_windows
+    t0 = time.perf_counter()
+    s8 = eng.generate(prompts, new, seed=7, **SERVE_SAMPLED)
+    torch.cuda.synchronize()
+    sampled_s = time.perf_counter() - t0
+    if eng.host_syncs - s0 != eng.decode_windows - w0 or \
+            eng.decode_windows == w0:
+        raise AssertionError(f"phase 2c: {eng.host_syncs - s0} host syncs "
+                             f"for {eng.decode_windows - w0} sampled windows")
+    s8b = eng.generate(prompts, new, seed=7, **SERVE_SAMPLED)
+    if not all(np.array_equal(a, b) for a, b in zip(s8, s8b)):
+        raise AssertionError("phase 2c: a repeated sampled generate() gave "
+                             "other streams")
+    k1 = eng.generate(prompts, new, seed=7, **dict(SERVE_SAMPLED, top_k=1))
+    if not all(np.array_equal(a, b) for a, b in zip(k1, greedy_gen)):
+        raise AssertionError("phase 2c: top_k=1 generate() differs from "
+                             "the greedy one")
+    check_streams("sampled generate()", [list(o[len(p):]) for o, p in
+                                         zip(s8, prompts)], new, V)
+    log(f"phase 2c: sampled generate() repeat identical, one host sync a "
+        f"window, top_k=1 = greedy; greedy repeat = serve phase's: "
+        f"{all(np.array_equal(a, b) for a, b in zip(g8, greedy_gen))}")
+
+    # window 8 against the per-token path (window 1), greedy and sampled
+    eng.set_decode_window(1, source="config")
+    g1 = eng.generate(prompts, new)
+    s1 = eng.generate(prompts, new, seed=7, **SERVE_SAMPLED)
+    eng.set_decode_window(8, source="config")
+    g_eq = [np.array_equal(a, b) for a, b in zip(g8, g1)]
+    s_eq = [np.array_equal(a, b) for a, b in zip(s8, s1)]
+    log(f"phase 2c: window 8 vs window 1 (per-token): greedy streams "
+        f"equal {sum(g_eq)}/{n}, sampled {sum(s_eq)}/{n}")
+    # a row whose greedy streams agree ran on the same bits in both
+    # paths, so its sampled streams must agree too: a difference there is
+    # a key or generated-token index that the two paths derive apart
+    parted = [i for i in range(n) if g_eq[i] and not s_eq[i]]
+    if parted:
+        raise AssertionError(
+            f"phase 2c: rows {parted} agree greedy but not sampled between "
+            f"window 8 and window 1")
+
+    # the spans in a torch.profiler trace
+    trace.enable_profiler_annotations(True)
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            eng.generate(prompts[:2], 9, seed=3, **SERVE_SAMPLED)
+    finally:
+        trace.enable_profiler_annotations(False)
+    names = {e.key for e in prof.key_averages()}
+    if not {"ragged_step", "decode_window"} <= names:
+        raise AssertionError("phase 2c: the engine's spans are missing from "
+                             "the torch.profiler trace")
+    sampled_window_launches = profile_phase(eng, prompts, eng.decode_window,
+                                            label="sampled ", seed=7,
+                                            **SERVE_SAMPLED)
+    log(f"phase 2c: launches per decode step in a window, sampled "
+        f"{sampled_window_launches:.0f} against greedy "
+        f"{greedy_window_launches:.0f} (+"
+        f"{sampled_window_launches - greedy_window_launches:.0f} for the "
+        f"sampler)")
+
+    launches = dict(paged_attention=paged_attention.launches,
+                    ragged_attention=ragged_attention.launches)
+    steps = dict(ragged=eng.ragged_steps - steps0["ragged"],
+                 decode=eng.decode_steps - steps0["decode"])
+    if launches["paged_attention"] != L * steps["decode"] or \
+            launches["ragged_attention"] != L * steps["ragged"] or \
+            not steps["decode"] or not steps["ragged"]:
+        raise AssertionError(f"phase 2c: launches {launches} != {L} x "
+                             f"steps {steps}")
+    if sm.free_blocks() != free0:
+        raise AssertionError("phase 2c: KV blocks leaked")
+    mem = eng.memory_report()
+    if not 0 < mem["device"]["allocated"] <= mem["device"]["total"]:
+        raise AssertionError(f"phase 2c: memory_report() {mem['device']}")
+    log(f"phase 2c: memory_report(): allocated "
+        f"{mem['device']['allocated'] / 2**30:.2f} GiB, peak "
+        f"{mem['device']['peak'] / 2**30:.2f} GiB of "
+        f"{mem['device']['total'] / 2**30:.2f}; buffers (GiB) "
+        + ", ".join(f"{k} {v / 2**30:.2f}"
+                    for k, v in sorted(mem["buffers"].items())))
+    n_tok = n * new
+    rows = {"http": log_latencies("HTTP", http_times, http_s, n_tok),
+            "in_process": log_latencies("in-process",
+                                        [t for _, t in inproc], inproc_s,
+                                        n_tok)}
+    log(f"phase 2c: output tokens/s in the same call: HTTP "
+        f"{rows['http']['tokens_per_s']:.1f}, in-process "
+        f"{rows['in_process']['tokens_per_s']:.1f}, direct scheduler "
+        f"{n_tok / d1_s:.1f} / {n_tok / d2_s:.1f}, generate() greedy "
+        f"{n_tok / greedy_s:.1f}, sampled {n_tok / sampled_s:.1f}")
+    log(f"phase 2c: launches {launches} = {L} x steps {steps}; "
+        f"{time.perf_counter() - t_phase:.1f}s")
     return launches
 
 
@@ -1818,15 +2209,17 @@ def minus(a, b):
             for k, (t, c) in a.items()}
 
 
-def profile_phase(eng, prompts, window, label=""):
+def profile_phase(eng, prompts, window, label="", **gen_kw):
     """Where the serving time goes. torch.profiler over
     generate() with max_new_tokens=1 (one put(): the ragged step) and with
     1 + window (the same put(), then one fused decode window). The window's
     device time and launches are the difference of the two runs; its wall
-    time is the second run's after its put() (``last_ttft_s``)."""
+    time is the second run's after its put() (``last_ttft_s``). ``gen_kw``
+    goes to generate() (the sampling arguments). Returns the window's
+    device launches per step."""
     def run(new):
         _, wall, kern = profiled(
-            lambda: eng.generate(prompts, max_new_tokens=new))
+            lambda: eng.generate(prompts, max_new_tokens=new, **gen_kw))
         return eng.last_ttft_s * 1e3, wall - eng.last_ttft_s * 1e3, kern
 
     put_wall, _, put_k = run(1)
@@ -1842,6 +2235,7 @@ def profile_phase(eng, prompts, window, label=""):
     log(f"profile {label}decode window: paged attention "
         f"{sum(t for t, _ in paged) / window:.3f} ms/step, "
         f"{sum(c for _, c in paged) / window:.0f} launches/step")
+    return sum(c for _, c in win_k.values()) / window
 
 
 # ---------------------------------------------------------------------------

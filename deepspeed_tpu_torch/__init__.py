@@ -28,6 +28,19 @@ checkpoint format (``checkpoint/state_checkpoint.py``,
 rank (ROADMAP A4), ``offload_param`` (A9), universal checkpoints and
 ``init_inference(use_ragged=True, checkpoint=...)`` (A5). Entry points run
 on the GPU unless the caller passes ``device="cpu"``.
+
+It serves online too: ``inference/v2/serve`` is the JAX package's
+single-replica serving runtime — ``ServingEngine`` (streaming
+``submit()`` with deadlines and cancellation that frees KV blocks),
+admission control (bounded queue, token budget, tenant fairness), the
+continuous-batching loop thread and ``ServingAPI``, the HTTP surface
+(NDJSON ``/generate``, ``/healthz``, Prometheus ``/metrics``,
+``/statusz``, ``/debug/timeline``, ``/debug/postmortem``; overload is a
+429). ``telemetry/`` is the JAX package's metrics registry, spans, flight
+recorder, anomaly detectors and post-mortem bundles, and ``generate()``
+samples (temperature / top-p / top-k) on the device. The fleet tier
+(router, replicas, KV handoff, weight pushes) is ROADMAP A7, the online
+adapter A12, speculation and LoRA A11.
 """
 
 __version__ = "0.1.0"

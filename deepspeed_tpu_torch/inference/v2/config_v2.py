@@ -12,26 +12,23 @@ weight-only quantization (``quant_bits`` 8 or 4) are served.
 from dataclasses import dataclass, field
 from typing import Optional
 
-# ranges of the serving tunables this config validates (copied from the
-# JAX package's registry, runtime/tunables.py)
-_TUNABLE_RANGES = {
-    "decode_window": ("serving.decode_window", 1, 64),
-    "prefill_bucket": ("serving.prefill_bucket", 1, 8192),
-}
 
-
-def _check_tunable(key: str, value) -> None:
-    name, lo, hi = _TUNABLE_RANGES[key]
-    if (isinstance(value, bool) or not isinstance(value, int)
-            or not lo <= value <= hi):
-        raise ValueError(
-            f"{key} must be in [{lo}, {hi}], got {value!r} — registered "
-            f"tunable '{name}'")
-
-
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md)")
+        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP {item})")
+
+
+def check_ragged_mode(mode: str) -> None:
+    """Validate a ``ragged_attention`` mode: "auto" and "on" both run
+    every put() as one ragged step; "off" is not ported."""
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(
+            f"ragged_attention must be 'auto', 'on' or 'off' "
+            f"(got {mode!r})")
+    if mode == "off":
+        raise _not_ported(
+            "ragged_attention='off' (its stitched prefill runs the "
+            "flash-attention kernel, ops/flash_attention.py)", "A6a")
 
 
 @dataclass
@@ -54,7 +51,7 @@ class DSStateManagerConfig:
 
     def __post_init__(self):
         if self.enable_kv_spill:
-            raise _not_ported("the KV spill tier (enable_kv_spill)")
+            raise _not_ported("the KV spill tier (enable_kv_spill)", "A9")
 
 
 @dataclass
@@ -86,22 +83,21 @@ class RaggedInferenceEngineConfig:
     seed: int = 0
 
     def __post_init__(self):
-        for key in ("decode_window", "prefill_bucket"):
-            _check_tunable(key, getattr(self, key))
+        # serving geometry knobs are registered tunables
+        # (runtime/tunables.py): validate against the documented range
+        # and publish the effective value + provenance for /statusz
+        from ...runtime import tunables
+        for key, name in (("decode_window", "serving.decode_window"),
+                          ("prefill_bucket", "serving.prefill_bucket")):
+            tunables.check(name, getattr(self, key), label=key)
+            tunables.observe(name, getattr(self, key), "config")
         if self.spec_mode not in ("auto", "ngram", "draft"):
             raise ValueError(
                 f"spec_mode must be 'auto', 'ngram' or 'draft', got "
                 f"{self.spec_mode!r}")
-        if self.ragged_attention not in ("auto", "on", "off"):
-            raise ValueError(
-                f"ragged_attention must be 'auto', 'on' or 'off' "
-                f"(got {self.ragged_attention!r})")
+        check_ragged_mode(self.ragged_attention)
         if self.max_lora_adapters < 0:
             raise ValueError("max_lora_adapters must be >= 0")
-        if self.ragged_attention == "off":
-            raise _not_ported(
-                "ragged_attention='off' (its stitched prefill runs the "
-                "flash-attention kernel, ops/flash_attention.py)")
         if self.quant_bits and (self.tensor_parallel_size != 1
                                 or self.expert_parallel_size != 1):
             raise ValueError(
@@ -109,9 +105,10 @@ class RaggedInferenceEngineConfig:
                 "expert_parallel_size == 1 (shardings are declared "
                 "against dense leaves)")
         if self.max_lora_adapters:
-            raise _not_ported("the LoRA adapter bank (max_lora_adapters)")
+            raise _not_ported("the LoRA adapter bank (max_lora_adapters)",
+                              "A11")
         if self.tensor_parallel_size != 1 or self.expert_parallel_size != 1:
-            raise _not_ported("tensor/expert-parallel serving")
+            raise _not_ported("tensor/expert-parallel serving", "A8")
 
     @classmethod
     def from_dict(cls, d: dict) -> "RaggedInferenceEngineConfig":

@@ -8,8 +8,8 @@ tensor-parallel-1 path:
   kernel, once per layer.
 * ``paged_decode`` — one token for each of N sequences; attention through
   the paged decode kernel, once per layer.
-* ``paged_decode_window`` — K greedy decode steps on the device with one
-  host transfer for the whole window.
+* ``paged_decode_window`` — K decode steps (greedy or sampled) on the
+  device with one host transfer for the whole window.
 
 The KV pool is ``[L, num_blocks, block_size, kv_heads, head_dim]`` per K
 and V; block 0 is the null block that padding writes land in. Under
@@ -40,7 +40,8 @@ from ..quantization import dequantize_nonlayer, dequantize_params
 from .kernels.paged_attention import paged_attention, paged_attention_plain
 from .kernels.ragged_attention import (ragged_attention,
                                        ragged_attention_plain)
-from .sampling import greedy_tokens
+from .sampling import (fold_in_rows, greedy_tokens, key_uniforms,
+                       sample_tokens_uniform)
 
 
 def check_servable(cfg: TransformerConfig) -> None:
@@ -50,14 +51,15 @@ def check_servable(cfg: TransformerConfig) -> None:
         raise ValueError("paged serving requires a causal pre-LN model (the "
                          "MLM/post-LN encoder family does not decode)")
     if cfg.moe_num_experts > 0:
-        raise NotImplementedError("MoE serving is not ported yet")
+        raise NotImplementedError(
+            "MoE serving is not ported yet (ROADMAP A8)")
     if cfg.positional != "rope":
         raise NotImplementedError(
             f"positional={cfg.positional!r} serving is not ported yet "
-            f"(rope only)")
+            f"(rope only; ROADMAP A6d)")
     if cfg.parallel_residual:
         raise NotImplementedError(
-            "the parallel-residual family is not ported yet")
+            "the parallel-residual family is not ported yet (ROADMAP A6d)")
 
 
 # 1 / 127 rounded to f32: the int8 pool's per-token scale is absmax / 127
@@ -297,11 +299,23 @@ def paged_decode_window(cfg: TransformerConfig, params, toks: torch.Tensor,
                         cache: Dict[str, torch.Tensor],
                         steps_left: torch.Tensor, eos_ids: torch.Tensor,
                         block_size: int, window: int,
+                        rng: torch.Tensor = None,
+                        row_seeds: torch.Tensor = None,
+                        gen_idx0: torch.Tensor = None,
+                        temp: torch.Tensor = None, topp: torch.Tensor = None,
+                        topk: torch.Tensor = None,
                         use_kernel: bool = True) -> torch.Tensor:
-    """``window`` greedy decode steps with no host round trip: argmax, the
-    active mask, the EOS and budget cuts and the output block all stay on
-    the device. Returns tokens [N, window] int32 with -1 in the steps a row
-    did not take (emitted tokens form a prefix of each row).
+    """``window`` decode steps with no host round trip: the next-token
+    pick (argmax, or the sampler), the active mask, the EOS and budget cuts
+    and the output block all stay on the device. Returns tokens [N, window]
+    int32 with -1 in the steps a row did not take (emitted tokens form a
+    prefix of each row).
+
+    Sampling (``rng`` is not None): step s draws row i with the key
+    ``fold_in_rows(rng, row_seeds, gen_idx0 + s)`` (``sampling.py``), so a
+    row's draw depends only on its own seed and generated-token index —
+    the per-token path derives the same keys, and the two give the same
+    stream for a fixed seed. ``temp`` / ``topp`` / ``topk`` are [N].
 
     The host pre-allocates every block a row can write in its
     ``steps_left[i]`` steps, so block advancement is position arithmetic
@@ -317,10 +331,20 @@ def paged_decode_window(cfg: TransformerConfig, params, toks: torch.Tensor,
     params = dequantize_nonlayer(params)
     active = steps_left > 0
     out = torch.full((N, window), -1, dtype=torch.int32, device=toks.device)
+    if rng is not None:
+        # every step's keys at once: the key hash is ~190 tiny launches,
+        # paid once a window instead of once a step (same bits)
+        steps = torch.arange(window, device=toks.device)
+        u = key_uniforms(fold_in_rows(
+            rng, row_seeds[:, None].expand(N, window),
+            gen_idx0[:, None] + steps))
     for s in range(window):
         logits = paged_decode(cfg, params, toks, pos, block_tables, cache,
                               active, block_size, use_kernel=use_kernel)
-        nxt = greedy_tokens(logits)
+        if rng is not None:
+            nxt = sample_tokens_uniform(logits, u[:, s], temp, topp, topk)
+        else:
+            nxt = greedy_tokens(logits)
         out[:, s] = torch.where(active, nxt, torch.full_like(nxt, -1))
         pos = torch.where(active, pos + 1, pos)
         toks = torch.where(active, nxt, toks)

@@ -4,8 +4,9 @@ Port of ``deepspeed_tpu/inference/v2/ragged/ragged_manager.py`` (reference
 inference/v2/ragged/ragged_manager.py:19, DSStateManager): owns the block
 allocator and the per-sequence descriptors, answers schedulability
 questions, and materializes the per-step block tables the device program
-consumes. The telemetry counters, flight-recorder events and the KV spill
-tier of the JAX package are not ported.
+consumes. The prefix-cache and KV-flow counters and the ``kv_alloc`` /
+``kv_free`` flight-recorder events are the JAX package's; its KV spill
+tier is not ported (ROADMAP A9).
 
 Prefix caching (``enable_prefix_caching``, off by default): KV depends
 only on the causal token prefix, so FULL blocks whose token content
@@ -23,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ....telemetry import recorder as flight
 from ..config_v2 import DSStateManagerConfig
 from .blocked_allocator import NULL_BLOCK, BlockedAllocator
 from .sequence_descriptor import DSSequenceDescriptor
@@ -72,6 +74,32 @@ class DSStateManager:
         # chain-hash digest -> retained block id (insertion-ordered: LRU
         # eviction pops from the front)
         self._prefix: "OrderedDict[bytes, int]" = OrderedDict()
+        from ....telemetry import get_registry
+        reg = get_registry()
+        self._m_lookups = reg.counter(
+            "inference_prefix_lookups_total",
+            "prefix-cache matches attempted for new sequences")
+        self._m_hits = reg.counter(
+            "inference_prefix_hits_total",
+            "prefix-cache lookups that reused at least one block")
+        self._m_reused_tokens = reg.counter(
+            "inference_prefix_reused_tokens_total",
+            "prompt tokens served from shared KV blocks")
+        self._m_evicted = reg.counter(
+            "inference_prefix_evicted_blocks_total",
+            "retained prefix blocks LRU-evicted under pool pressure")
+        # KV-pool flow accounting (the leak detector's reconciliation
+        # inputs, and the flight recorder's kv_alloc/kv_free events):
+        # allocated counts fresh blocks handed to sequences; freed counts
+        # block REFERENCES returned (a prefix-shared block freed by one
+        # owner still lives until its last reference drops)
+        self._m_alloc = reg.counter(
+            "inference_kv_blocks_allocated_total",
+            "KV blocks allocated to sequences")
+        self._m_freed = reg.counter(
+            "inference_kv_blocks_freed_total",
+            "KV block references released (sequence flush + prefix "
+            "eviction)")
 
     # -- prefix caching -----------------------------------------------------
     _chain = staticmethod(_chain)
@@ -86,6 +114,7 @@ class DSStateManager:
         matches."""
         if not self.config.enable_prefix_caching or uid in self.seqs:
             return [], 0
+        self._m_lookups.inc()
         bs = self.block_size
         usable = ((len(tokens) - 1) // bs) * bs
         blocks: List[int] = []
@@ -111,6 +140,8 @@ class DSStateManager:
         seq.seen_tokens = n
         seq.token_log = list(map(int, tokens[:n]))
         seq.adapter = adapter or None
+        self._m_hits.inc()
+        self._m_reused_tokens.inc(n)
         return blocks, n
 
     def _register_prefix(self, seq: DSSequenceDescriptor) -> None:
@@ -150,6 +181,8 @@ class DSStateManager:
                 return
             blk = self._prefix.pop(victim)
             self.allocator.free([blk])
+            self._m_evicted.inc()
+            self._m_freed.inc()
 
     def reclaimable_blocks(self) -> int:
         """Free blocks plus what eviction could free right now — the
@@ -187,6 +220,9 @@ class DSStateManager:
             if need > self.allocator.free_blocks:
                 self._evict_retained(need)
             seq.blocks.extend(int(b) for b in self.allocator.allocate(need))
+            self._m_alloc.inc(need)
+            flight.record("kv_alloc", uid=int(uid), blocks=int(need),
+                          free=self.allocator.free_blocks)
         return seq
 
     def adopt_sequence(self, uid: int, n_blocks: int, seen_tokens: int,
@@ -217,6 +253,9 @@ class DSStateManager:
         seq.seen_tokens = int(seen_tokens)
         if self.config.enable_prefix_caching:
             seq.token_log = list(map(int, token_log))
+        self._m_alloc.inc(n_blocks)
+        flight.record("kv_alloc", uid=int(uid), blocks=int(n_blocks),
+                      free=self.allocator.free_blocks)
         return seq
 
     def flush_sequence(self, uid: int) -> None:
@@ -227,6 +266,11 @@ class DSStateManager:
             if self.config.enable_prefix_caching:
                 self._register_prefix(seq)
             self.allocator.free(seq.blocks)
+            if seq.blocks:
+                self._m_freed.inc(len(seq.blocks))
+                flight.record("kv_free", uid=int(uid),
+                              blocks=len(seq.blocks),
+                              free=self.allocator.free_blocks)
 
     # -- device metadata ----------------------------------------------------
     def block_table_for(self, uid: int) -> np.ndarray:

@@ -122,6 +122,9 @@ class NativeOpBuilder:
                     t0 = time.perf_counter()
                     self._compile(out)
                     build_seconds[self.NAME] = time.perf_counter() - t0
+                    from ...telemetry import watchdog
+                    watchdog.record_build(self.NAME,
+                                          build_seconds[self.NAME])
         return out
 
     def load(self) -> ctypes.CDLL:

@@ -187,6 +187,8 @@ def build() -> Path:
     if failed:
         raise RuntimeError("nvcc failed to build the port's kernels:\n"
                            + "\n".join(failed))
+    from ...telemetry import watchdog
+    watchdog.record_build("cuda_kernels", build_seconds)
     return out_dir
 
 

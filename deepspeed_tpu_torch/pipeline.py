@@ -99,7 +99,7 @@ def pipeline(model=None, tokenizer=None, config=None, params=None,
         raise NotImplementedError(
             "pipeline() serves native models (TransformerConfig / "
             "TransformerLM); HF modules and hub names wait for the "
-            "module_inject port")
+            "module_inject port (ROADMAP A6d)")
     cfg = dict(config or {})
     cfg["use_ragged"] = True
     engine = init_inference(model=model, config=cfg, params=params,

@@ -360,10 +360,10 @@ def test_config_validation_matches_jax():
 
 def test_generate_options_not_ported_raise(models):
     te = _torch_engine(models, 8)
-    with pytest.raises(NotImplementedError, match="sampler"):
-        te.generate([[1, 2, 3]], max_new_tokens=4, temperature=0.8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A11"):
         te.generate([[1, 2, 3]], max_new_tokens=4, speculative=True)
+    with pytest.raises(NotImplementedError, match="A11"):
+        te.generate([[1, 2, 3]], max_new_tokens=4, adapter="a")
     with pytest.raises(NotImplementedError):
         deepspeed_tpu_torch.pipeline("mistralai/Mistral-7B-v0.1")
     # the v1 engine serves one device
