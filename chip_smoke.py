@@ -11,6 +11,7 @@ full-width Mistral-7B at 4 layers
 through ``initialize()`` and ``train_batch()``, then at its full 32 layers
 through both ZeRO-Offload backends (the host C++ optimizer and the tiered
 pinned-memory state), with the NVMe tier and checkpoints at 2 layers,
+trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group,
 runs block-sparse attention
 forward and backward through ``SparseSelfAttention`` at Mistral-7B
 attention width, and checks that every path ran through its kernels.
@@ -182,6 +183,17 @@ exit 0):
    per step, plus L x gas forwards for the eval; step time, tokens/s,
    peak memory, and the device time, busy share, top kernels and flash
    kernels of one more step (torch.profiler);
+8c. ZeRO over torch.distributed at world 1: comm.init_distributed() with
+   no environment (backend nccl and world 1 asserted); on phase 8's model,
+   settings, seed and fixed batch, a stage-0 engine, then stages 1, 2 and
+   3 (stage3_param_persistence_threshold 0) each with overlap_grad_reduce
+   "bucketed" and "off", 3 train_batch() steps each: losses and params
+   torch.equal to stage 0's, flash launches 2 x L x gas and L x gas a
+   step; the bucket plans, step ms (median of steps 2-3), init s and peak
+   memory per engine beside the card's name and power limit; one more
+   stage-3 step under torch.profiler, whose NCCL all-gather and
+   reduce-scatter calls (at one rank NCCL runs them as device copies) are
+   counted with their device ms; the process group destroyed at the end;
 8b. offload and checkpoints (the engines of each step freed before the
    next): the host C++ ops built by g++ from csrc/host (seconds logged);
    DeepSpeedCPUAdam with f32 and bf16 gradients, Adagrad and Lion on one
@@ -220,7 +232,7 @@ exit 0):
    under impl="auto" on the card raises;
 10. the card's name and power limit, the host_ops JSON line (the host
    optimizers' times, rates, yardstick and errors), the kernels JSON line
-   (the flash launches of phases 8 and 8b together), then the last line
+   (the flash launches of phases 8, 8c and 8b together), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 Everything it builds goes under build/ of the checkout. It imports nothing
@@ -2156,11 +2168,22 @@ def woq_serve_phases(dev, cfg, bf16_eng, prompts, bf16_gen, bf16_logits,
             for k in ("quantize_blocks", "dequantize_blocks")}
 
 
+def device_events(prof):
+    """{device event: (ms, count)} of a profile's device-side events only:
+    kernels, memcpy, memset."""
+    from torch.autograd import DeviceType
+
+    kern = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if e.device_type == DeviceType.CUDA and t > 0:
+            kern[e.key] = (t / 1e3, e.count)
+    return kern
+
+
 def profiled(fn):
     """Runs fn() under torch.profiler; returns (fn's result, host ms of the
-    call ending in a synchronize, {device event: (ms, count)} for the
-    device-side events only: kernels, memcpy, memset)."""
-    from torch.autograd import DeviceType
+    call ending in a synchronize, ``device_events`` of the profile)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2170,12 +2193,7 @@ def profiled(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0) or 0.0
-        if e.device_type == DeviceType.CUDA and t > 0:
-            kern[e.key] = (t / 1e3, e.count)
-    return out, wall, kern
+    return out, wall, device_events(prof)
 
 
 def log_profile(name, wall, kern, steps=1, top=6):
@@ -3321,6 +3339,146 @@ def train_profile(engine, batch):
 
 
 # ---------------------------------------------------------------------------
+# phase 8c: ZeRO 1/2/3 over torch.distributed (NCCL, world 1)
+# ---------------------------------------------------------------------------
+def nccl_calls(prof):
+    """{op: (calls, device ms)} of the c10d NCCL calls in a profile (the
+    ``nccl:*`` ranges; at one rank NCCL runs a gather or scatter as a
+    device copy inside them)."""
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith("nccl:"):
+            n, t = out.get(e.key, (0, 0.0))
+            dt = (getattr(e, "device_time_total", 0.0) or 0.0) / 1e3
+            out[e.key] = (max(n, e.count), t + dt)
+    return out
+
+
+def zero_dp_phase(dev, card):
+    """Phase 8c: the data-parallel engine at stages 1-3, bucketed and off,
+    against stage 0 at world 1 over NCCL. Returns the flash launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_7b
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    comm.init_distributed()
+    backend, world = dist.get_backend(), dist.get_world_size()
+    log(f"phase 8c: process group backend {backend}, world {world}")
+    if backend != "nccl" or world != 1:
+        raise AssertionError(f"phase 8c needs one NCCL rank, got "
+                             f"{backend} x {world}")
+    cfg = dataclasses.replace(mistral_7b(), num_layers=4)
+    L, gas, steps = cfg.num_layers, 2, 3
+    rng = np.random.default_rng(4)          # phase 8's fixed batch
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (gas, TRAIN_B, TRAIN_S))}
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    want = {"flash_fwd": steps * 2 * L * gas,
+            "flash_bwd_dq": steps * L * gas, "flash_bwd_dkv": steps * L * gas}
+    total = {k: 0 for k in want}
+    ref, bad, rows = None, [], []
+    for stage, mode in [(0, "off")] + [(s, m) for s in (1, 2, 3)
+                                       for m in ("bucketed", "off")]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        config = {"train_micro_batch_size_per_gpu": TRAIN_B,
+                  "gradient_accumulation_steps": gas,
+                  "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+                  "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                  "steps_per_print": 10 ** 9,
+                  "zero_optimization": {
+                      "stage": stage, "overlap_grad_reduce": mode,
+                      "stage3_param_persistence_threshold": 0}}
+        t0 = time.perf_counter()
+        eng, *_ = deepspeed_tpu_torch.initialize(model=TransformerLM(cfg),
+                                                 config=config)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        for kfn in kernels:
+            kfn.launches = 0
+        losses, step_s = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch(batch=batch))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = {kfn.__name__: kfn.launches for kfn in kernels}
+        for k, n in launches.items():
+            total[k] += n
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(step_s[1:]) * 1e3
+        params = [p.detach() for p in eng._param_leaves]
+        if ref is None:
+            ref = (losses, [p.clone() for p in params])
+            equal = True
+        else:
+            equal = losses == ref[0] and all(
+                torch.equal(a, b) for a, b in zip(params, ref[1]))
+        tag = f"stage {stage} {mode}"
+        rows.append((tag, med, peak))
+        log(f"phase 8c {tag}: grad reduction {eng.grad_overlap_mode}, "
+            f"losses {losses}, equal to stage 0: {equal}; step ms "
+            f"{[f'{x * 1e3:.1f}' for x in step_s]}, median of steps 2-3 "
+            f"{med:.1f}; init {init_s:.2f}s; peak {peak:.2f} GiB; launches "
+            f"{launches} [{card}]")
+        if eng.grad_bucket_plan is not None:
+            log(eng.grad_bucket_plan.summary())
+        if not equal:
+            bad.append(f"{tag}: differs from stage 0")
+        if launches != want:
+            bad.append(f"{tag}: launches {launches} != {want}")
+        if stage == 3 and mode == "off":
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.train_batch(batch=batch)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            calls = nccl_calls(prof)
+            kern = device_events(prof)
+            dev_ms = sum(t for t, _ in kern.values())
+            log(f"phase 8c profile of one stage-3 step: wall {wall:.1f} ms, "
+                f"device {dev_ms:.2f} ms, busy {dev_ms / wall:.3f}; NCCL "
+                f"calls {sum(n for n, _ in calls.values())}, device "
+                f"{sum(t for _, t in calls.values()):.3f} ms [{card}]")
+            for k, (n, t) in sorted(calls.items()):
+                log(f"   {t:.3f} ms {n}x  {k}")
+            for k, (t, c) in sorted(kern.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
+                log(f"   {t:.3f} ms {c}x  {k[:90]}")
+            for op in ("gather", "scatter"):
+                if not any(op in k and n > 0 and t > 0
+                           for k, (n, t) in calls.items()):
+                    bad.append(f"the stage-3 profile shows no NCCL {op} "
+                               f"on the card")
+        eng.close()
+        del eng, params
+    del ref
+    comm.destroy_process_group()
+    base = rows[0]
+    for tag, med, peak in rows[1:]:
+        log(f"phase 8c {tag}: step {med:.1f} ms ({med / base[1]:.3f}x "
+            f"stage 0's {base[1]:.1f}), peak {peak:.2f} GiB (stage 0 "
+            f"{base[2]:.2f}) [{card}]")
+    log(f"phase 8c: {time.perf_counter() - t_phase:.0f}s; flash launches "
+        f"{total}")
+    if bad:
+        raise AssertionError("phase 8c: " + "; ".join(bad))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 8b: ZeRO-Offload and native checkpoints
 # ---------------------------------------------------------------------------
 HOST_SRC = "deepspeed_tpu_torch/csrc/host/"
@@ -3820,6 +3978,8 @@ def main() -> int:
     launches.update(train_phase(dev))
     gc.collect()
     torch.cuda.empty_cache()    # the training engine is gone
+    for k, n in zero_dp_phase(dev, card).items():
+        launches[k] += n
     t0 = time.perf_counter()
     offload_launches, host_ops = offload_phase(dev)
     log(f"phase 8b: {time.perf_counter() - t0:.0f}s; flash launches of the "

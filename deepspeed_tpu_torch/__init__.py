@@ -13,19 +13,25 @@ engine (``inference/engine.py``); under ``quant_bits`` 8 or 4 both keep
 their weights quantized (``inference/quantization.py``); the v1 engine
 also loads its weights from a training checkpoint
 (``init_inference(checkpoint=...)``). It trains: ``initialize()`` returns
-the one-GPU :class:`~.runtime.engine.DeepSpeedTpuEngine` (ZeRO stages 0-2
-at one rank), whose ``train_batch()`` runs the flash-attention kernels
-forward and backward. Its optimizer state may live on the card, in
-page-locked host memory with the update streamed through the card
-(``offload_optimizer {device: cpu, pin_memory: true}``,
+the :class:`~.runtime.engine.DeepSpeedTpuEngine`, data parallel over
+``torch.distributed`` at ZeRO stages 0-3 (``comm/``,
+``parallel/topology.py``, ``runtime/zero/partition.py``, bucketed
+gradient reduction in ``runtime/grad_overlap.py``; ranks started by
+``launcher/launch.py``, fed by ``runtime/dataloader.py``; NCCL on the
+card, gloo on the CPU), whose ``train_batch()`` runs the flash-attention
+kernels forward and backward. At one rank its optimizer state may live
+on the card, in page-locked host memory with the update streamed through
+the card (``offload_optimizer {device: cpu, pin_memory: true}``,
 ``runtime/offload.py``), or with the host C++ optimizer in host memory or
 in swap files (``{device: cpu}`` / ``{device: nvme}``,
 ``runtime/zero/offload.py``, ``ops/cpu_optimizers.py``, ``ops/aio.py``,
 sources in ``csrc/host/`` built by ``g++`` at first use).
 ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX package's
 checkpoint format (``checkpoint/state_checkpoint.py``,
-``utils/zero_to_fp32.py``). Still raising: ZeRO stage 3 and more than one
-rank (ROADMAP A4), ``offload_param`` (A9), universal checkpoints and
+``utils/zero_to_fp32.py``) at any data-parallel world. Still raising:
+optimizer offload at more than one rank and ``offload_param`` (ROADMAP
+A9), tensor / sequence / pipeline / expert parallelism (A8), ZeRO++
+(A10), universal checkpoints and
 ``init_inference(use_ragged=True, checkpoint=...)`` (A5). Entry points run
 on the GPU unless the caller passes ``device="cpu"``.
 
@@ -63,34 +69,51 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     """Initialize the training engine (reference deepspeed/__init__.py:64,
     JAX ``deepspeed_tpu.initialize``).
 
-    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``;
-    the dataloader is None. ``model`` exposes ``init_params(generator,
-    dtype)`` and ``apply(params, batch, train=...)``; ``params`` (the JAX
-    tree layout) replaces its seeded init. ``device=None`` trains on the
-    GPU and raises without one. As in the JAX function, ``optimizer``,
-    ``model_parameters``, ``mpu``, ``dist_init_required`` and
-    ``distributed_port`` are accepted and not read (the optimizer comes
-    from the config). ``training_data`` (the dataloader, ROADMAP A12) and
-    ``topology`` (ROADMAP A8) are not ported yet and raise."""
+    Starts the process group first (``comm.init_distributed``, JAX
+    :58): the launcher's ranks, or one rank on a free local port; on
+    ``nccl`` for the card and ``gloo`` for ``device="cpu"``. Returns
+    ``(engine, optimizer, training_dataloader, lr_scheduler)``; the
+    dataloader is a :class:`~.runtime.dataloader.DeepSpeedDataLoader` of
+    ``training_data`` (global micro-batches, which the engine cuts by
+    rank; the engine draws from it when ``train_batch()`` gets no batch),
+    or None. ``model`` exposes ``init_params(generator, dtype)`` and
+    ``apply(params, batch, train=...)``; ``params`` (the JAX tree layout,
+    the same on every rank) replaces its seeded init. ``device=None``
+    trains on the GPU and raises without one. As in the JAX function,
+    ``optimizer``, ``model_parameters``, ``mpu`` and
+    ``dist_init_required`` are accepted and not read (the optimizer comes
+    from the config)."""
+    from .comm import comm
+    from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
+    from .utils.device import resolve_device
+
     config = config if config is not None else config_params
     if config is None and args is not None and hasattr(args, "deepspeed_config"):
         config = args.deepspeed_config
     if config is None:
         raise ValueError("a config (dict or json path) is required")
+    on_cpu = resolve_device(device).type == "cpu"
+    comm.init_distributed(dist_backend="gloo" if on_cpu else None,
+                          distributed_port=distributed_port)
+    ds_config = DeepSpeedConfig(config, world_size=comm.get_world_size())
+    dataloader = None
     if training_data is not None:
-        raise NotImplementedError(
-            "initialize(training_data=...) needs DeepSpeedDataLoader, not "
-            "ported to deepspeed_tpu_torch yet (ROADMAP A12); pass batches "
-            "to train_batch()")
-    if topology is not None:
-        raise NotImplementedError(
-            "initialize(topology=...) is not ported to deepspeed_tpu_torch "
-            "yet (ROADMAP A8)")
-    ds_config = DeepSpeedConfig(config)
-    engine = DeepSpeedTpuEngine(model, ds_config, params=params,
-                                device=device, seed=seed,
-                                lr_scheduler=lr_scheduler)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+        dataloader = DeepSpeedDataLoader(
+            training_data,
+            micro_batch_size=ds_config.train_micro_batch_size_per_gpu,
+            dp_world_size=ds_config.dp_world_size,
+            collate_fn=collate_fn)
+    engine = DeepSpeedTpuEngine(
+        model, ds_config, params=params, device=device, seed=seed,
+        lr_scheduler=lr_scheduler, topology=topology,
+        dataloader=RepeatingLoader(dataloader) if dataloader else None)
+    return engine, engine.optimizer, dataloader, engine.lr_scheduler
+
+
+def init_distributed(dist_backend: Optional[str] = None, **kwargs):
+    """Reference deepspeed/__init__.py init_distributed passthrough."""
+    from .comm import comm
+    return comm.init_distributed(dist_backend=dist_backend, **kwargs)
 
 
 def init_inference(model=None, config=None, params=None, device=None,

@@ -17,6 +17,12 @@ pipeline-stacked ``stack_NNN`` component is saved as per-layer
 an opaque 2-byte type (a bfloat16 array written by numpy with
 ``ml_dtypes`` has the descr ``'<V2'``) is read through the manifest's
 dtype, never through ``ml_dtypes``.
+
+Under data parallelism the fragments stay whole: every rank gathers its
+sharded leaves (:func:`gather_shards`, JAX :74-87 ``process_allgather``)
+and rank 0 writes; on load each rank reads the whole leaves and keeps its
+shards (:func:`take_shards`), so a checkpoint saved at one data-parallel
+world loads at another.
 """
 
 import json
@@ -79,6 +85,27 @@ def tree_from_paths(items) -> Any:
     return tree
 
 
+def gather_shards(leaves, dims, group=None) -> List[torch.Tensor]:
+    """Whole leaves from this rank's ZeRO shards (``dims[i]``: the dimension
+    leaf ``i`` is cut along, None if whole). A collective on every rank of
+    the group."""
+    from ..comm import comm
+    from ..comm.quantized import all_gather_leaf
+
+    if comm.get_world_size(group) == 1:
+        return list(leaves)
+    return [v if d is None else all_gather_leaf(v.detach(), d, group)
+            for v, d in zip(leaves, dims)]
+
+
+def take_shards(leaves, dims, rank: int, world: int) -> List[torch.Tensor]:
+    """This rank's shards (views) of whole leaves read from a checkpoint."""
+    from ..comm.quantized import shard_of
+
+    return [v if d is None else shard_of(v, d, rank, world)
+            for v, d in zip(leaves, dims)]
+
+
 def to_numpy(leaf) -> np.ndarray:
     """A leaf on the host as numpy; floats narrower than 32 bits upcast to
     float32 (lossless)."""
@@ -95,6 +122,12 @@ def to_numpy(leaf) -> np.ndarray:
 
 def save_state(save_dir: str, tag: str, state: Dict[str, Any],
                meta: Dict[str, Any], save_latest: bool = True) -> None:
+    """Write ``state`` (whole leaves) under ``save_dir/tag``; in a process
+    group only rank 0 writes."""
+    from ..comm import comm
+
+    if comm.get_rank() != 0:
+        return
     ckpt_dir = os.path.join(save_dir, tag)
     os.makedirs(ckpt_dir, exist_ok=True)
     manifest = {"tensors": {}, "meta": meta}

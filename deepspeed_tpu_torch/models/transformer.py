@@ -240,8 +240,15 @@ class TransformerLM:
     runs the training forward (the engine's model protocol:
     ``init_params`` + ``apply``)."""
 
+    # the stacked [L, ...] subtree the layer loop walks (JAX :387)
+    param_offload_keys = ("layers",)
+
     def __init__(self, cfg: TransformerConfig):
         self.cfg = cfg
+        # ZeRO-3: maps a layer's views of its sharded leaves to the whole
+        # tensors; set by the training engine and run inside the layer's
+        # activation checkpoint, so the recompute gathers again
+        self.layer_gather = None
 
     def init_params(self, generator: torch.Generator,
                     dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
@@ -387,6 +394,11 @@ class TransformerLM:
         else:
             cos = sin = torch.zeros((S, 1), dtype=x.dtype, device=x.device)
         body = self._layer
+        if self.layer_gather is not None:
+            gather, layer = self.layer_gather, self._layer
+
+            def body(x, lp, cos, sin):
+                return layer(x, gather(lp), cos, sin)
         if cfg.remat:
             from ..runtime.activation_checkpointing import \
                 checkpointing as ds_ckpt

@@ -5,7 +5,8 @@ the same :class:`DeepSpeedConfig`, so one dict hydrates to the same values
 and raises the same :class:`ConfigError`\\ s in both packages (unknown keys,
 the batch triple ``train = micro x gas x dp``, the ZeRO stage range, the
 cross-block rejects). The data-parallel world is ``world_size // (tp * pp
-* sp)``; ``world_size`` defaults to 1, the one GPU this slice trains on.
+* sp)``; ``world_size`` defaults to 1 (``initialize()`` passes the
+process group's).
 
 What the schema accepts is more than this slice runs. :func:`check_ported`
 raises ``NotImplementedError``, naming its ROADMAP item, for every key set
@@ -587,13 +588,19 @@ _PORTED = {
     "zero_optimization.offload_optimizer.buffer_count",
     "zero_optimization.stage3_prefetch_bucket_size",
     "aio.block_size", "aio.thread_count", "checkpoint.async_save",
+    # ZeRO over torch.distributed (runtime/zero/partition.py,
+    # runtime/grad_overlap.py)
+    "zero_optimization.stage", "zero_optimization.reduce_bucket_size",
+    "zero_optimization.allgather_bucket_size",
+    "zero_optimization.overlap_grad_reduce",
+    "zero_optimization.overlap_comm",
+    "zero_optimization.stage3_param_persistence_threshold",
 }
 # keys and the values that run: switching off what the port does not
-# have; ZeRO stages 1 and 2 run at one rank (their plan is the identity)
+# have
 _PORTED_VALUES = {"telemetry.enabled": (False,),
                   "diagnostics.enabled": (False,),
-                  "activation_checkpointing.policy": ("everything_saveable",),
-                  "zero_optimization.stage": (0, 1, 2)}
+                  "activation_checkpointing.policy": ("everything_saveable",)}
 # keys the JAX package itself leaves inert, by the rationale of its
 # dead-key audit (tests/unit/runtime/test_config_keys.py INERT_BY_DESIGN)
 _INERT = {
@@ -620,6 +627,7 @@ _ROADMAP = {
     "zero_optimization": "A4 (ZeRO over torch.distributed)",
     "zero_optimization.offload_optimizer": "A9 (memory tiers)",
     "zero_optimization.offload_param": "A9 (memory tiers)",
+    "zero_optimization.zero_hpz_partition_size": "A10 (ZeRO++)",
     "zero_optimization.zero_quantized_weights": "A10 (ZeRO++)",
     "zero_optimization.zero_quantized_gradients": "A10 (ZeRO++)",
     "zero_optimization.quantized_reduce": "A10 (quantized communication)",
@@ -668,9 +676,11 @@ def unported_keys(ds_config: DeepSpeedConfig) -> List[Tuple[str, Any, str]]:
                     if path == k or path.startswith(k + ".")),
                    key=len, default=None)
         out.append((path, value, _ROADMAP[item] if item else _ROADMAP_DEFAULT))
-    if ds_config.dp_world_size != 1:
+    if ds_config.dp_world_size != 1 and \
+            ds_config.cfg.zero_optimization.offload_optimizer.device != "none":
         out.append(("world_size", ds_config.world_size,
-                    _ROADMAP["zero_optimization"]))
+                    "A9 (memory tiers: optimizer offload at more than one "
+                    "rank)"))
     if ds_config.cfg.optimizer is not None and \
             is_onebit_optimizer(ds_config.cfg.optimizer.type):
         out.append(("optimizer.type", ds_config.cfg.optimizer.type,
@@ -687,5 +697,5 @@ def check_ported(ds_config: DeepSpeedConfig) -> None:
                            for k, v, item in bad)
         raise NotImplementedError(
             f"config keys not ported to deepspeed_tpu_torch yet: {listed}. "
-            f"The port trains on one GPU at ZeRO stages 0-2, with optimizer "
-            f"offload")
+            f"The port trains data parallel at ZeRO stages 0-3, with "
+            f"optimizer offload at one rank")

@@ -83,3 +83,23 @@ def test_host_ops_build_from_the_port_sources():
     for op in cpu.ALL_OPS.values():
         for src in op().sources() + ["ds_host.h"]:
             assert (builder.HOST_SRC / src).is_file(), src
+
+
+# the data-parallel slice's modules: each is among the sources checked
+# above and among the modules the probe imports
+DATA_PARALLEL_MODULES = [
+    "accelerator/__init__.py", "accelerator/abstract_accelerator.py",
+    "accelerator/real_accelerator.py", "accelerator/cuda_accelerator.py",
+    "utils/timer.py", "utils/comms_logging.py", "comm/__init__.py",
+    "comm/comm.py", "comm/quantized.py", "parallel/__init__.py",
+    "parallel/topology.py", "runtime/zero/partition.py",
+    "runtime/grad_overlap.py", "runtime/dataloader.py",
+    "launcher/__init__.py", "launcher/launch.py"]
+
+
+@pytest.mark.parametrize("path", DATA_PARALLEL_MODULES)
+def test_data_parallel_module_is_checked(path):
+    assert f"deepspeed_tpu_torch/{path}" in PORT_SOURCES
+    # the JAX package has the module at the same path
+    assert (ROOT / "deepspeed_tpu" / path).is_file() or \
+        path == "accelerator/cuda_accelerator.py"

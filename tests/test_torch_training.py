@@ -286,7 +286,8 @@ def test_device_none_raises_without_gpu():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"zero_optimization": {"stage": 3}}, "A4"),
+    # MiCS shard groups are A4's remainder (ZeRO 3 itself runs)
+    ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}}, "A4"),
     ({"zero_optimization": {"stage": 3, "offload_param":
                             {"device": "cpu"}}}, "A9"),
     ({"activation_checkpointing": {"policy": "save_attn"}}, "A3"),
@@ -314,10 +315,13 @@ def test_ported_and_inert_keys_run():
         config=config, device="cpu")
     assert np.isfinite(eng.train_batch(
         batch={"input_ids": _ids(50, (GAS, MICRO, S))}))
-    with pytest.raises(NotImplementedError, match="A12"):
-        deepspeed_tpu_torch.initialize(
-            model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
-            config=TRAIN_CONFIG, device="cpu", training_data=[1])
+    # training_data= builds the dataloader (the third value), which feeds
+    # train_batch() when it gets no batch
+    data = [{"input_ids": _ids(60 + i, (S,))} for i in range(8)]
+    eng, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
+        config=TRAIN_CONFIG, device="cpu", training_data=data)
+    assert len(loader) == 4 and np.isfinite(eng.train_batch())
 
 
 @pytest.mark.parametrize("field,item", [
