@@ -12,7 +12,9 @@ through ``initialize()`` and ``train_batch()``, then at its full 32 layers
 through both ZeRO-Offload backends (the host C++ optimizer and the tiered
 pinned-memory state), with the NVMe tier and checkpoints at 2 layers,
 trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group,
-runs block-sparse attention
+with its layer stack and activations offloaded to the host and through
+ZeRO-Infinity's per-layer files, serves returning conversations through
+the KV spill tier, runs block-sparse attention
 forward and backward through ``SparseSelfAttention`` at Mistral-7B
 attention width, and checks that every path ran through its kernels.
 
@@ -169,7 +171,24 @@ exit 0):
    bf16, extra peak memory in generate() within two dense layers + the
    dense embedding and head + 1.5 GiB, finite logits, a fresh engine's
    identical streams, decode tokens/s beside the bf16 engine's in the
-   same call, and profiles; then the serving engines are freed;
+   same call, and profiles; then phase 2d, the KV spill tier on the same
+   weight tensors: 12 two-turn conversations (turn 1: a 512-token prompt,
+   32 new tokens; turn 2: that, its 32 tokens and 64 new ones, 32 new
+   tokens), all turn 1s 4 at a time, then the turn 2s, through pools of
+   64 blocks under prefix caching with the spill tier's host tier alone
+   (1 GiB), with 8 blocks of host tier over a 1 GiB disk tier, without
+   spill, and (bf16) through a 128-block pool; then int8 with the host
+   tier and without spill: spilled and restored counts above 0, every
+   restored block torch.equal to the bytes spilled, bf16 spill
+   token-identical to the large pool (int8: turn 1 to the same pool
+   without spill; a freed int8 block keeps its scales, as in JAX, so a
+   pool of fresh blocks is no reference), the disk tier
+   used, /healthz's kv_spill summary claiming every held digest, the
+   drain emptying the tier, removing the disk namespace and leaving every
+   block free or reclaimable, paged and ragged launches 32 x steps;
+   logged: restore ms and bytes a block, turn 2's TTFT with restores,
+   with recompute (and in the large pool), the int8 / bf16 bytes a block;
+   then the serving engines are freed;
 7. a small fp32 training check: a tiny model (hd 64, flash from S 128)
    trained 3 steps by a kernel engine and by a use_flash=False engine on
    the same weights, losses within 1e-5;
@@ -220,6 +239,28 @@ exit 0):
    its next loss equal to the saving engine's; save / load seconds and
    bytes; the v1 init_inference(checkpoint=) prefill logits torch.equal to
    init_inference(params=) on the same weights;
+8d. parameter and activation offload on phase 8's model, settings and
+   batch at stage 3: at 4 layers, offload_param {device: cpu} against the
+   resident engine, cpu_checkpointing against it, and offload_param cpu
+   with the host C++ optimizer against that optimizer alone (the tiered
+   optimizer offload at stage 3 refused, as in JAX), 3 steps each: losses
+   and params torch.equal, flash launches 2 x L x gas and L x gas a
+   step, the stack in pinned host memory; then offload_param cpu with
+   the host C++ optimizer at the deepest depth the host holds (never
+   below 20): losses finite and falling, step ms, tokens/s, peak device
+   GiB beside phase 8b's 32-layer runs, host RSS, layer copies a step
+   and their exposed share;
+8e. ZeRO-Infinity (offload_param {device: nvme}) under build/nvme_infinity
+   (removed at the end): at 4 layers, 2 steps, the optimizer state in
+   host RAM and on NVMe torch.equal to each other and within rtol 0.05 /
+   atol 1e-2 of phase 8d's host-optimizer engine, flash launches as above,
+   no layer on the device after init (no stacked leaf among the
+   persistent ones, the init's device bytes at most the persistent
+   leaves' plus less than one layer), the files removed by close(); then
+   at the deepest depth the host memory and the disk hold (never below
+   20), the same init check, 3 steps: losses finite and falling, step ms,
+   tokens/s, peak device GiB, bytes read from the layer files and their
+   rate, each sweep's share waiting on reads, init s and bytes written;
 9. sparse op: SparseSelfAttention(layout (i))(q, k, v, causal=True) and
    backward on bf16 [1, 32, 8192, 128] inputs five times: 5 launches of
    each sparse kernel, finite outputs, o and grads against the plain
@@ -232,7 +273,8 @@ exit 0):
    under impl="auto" on the card raises;
 10. the card's name and power limit, the host_ops JSON line (the host
    optimizers' times, rates, yardstick and errors), the kernels JSON line
-   (the flash launches of phases 8, 8c and 8b together), then the last line
+   (the flash launches of phases 8, 8c, 8b, 8d and 8e together, the
+   paged and ragged ones of phases 6, 2c and 2d), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 Everything it builds goes under build/ of the checkout. It imports nothing
@@ -1351,6 +1393,10 @@ def serve_phase(dev):
     launches.update(v1_launches)
     launches.update(woq_serve_phases(dev, cfg, eng, prompts, gen, logits,
                                      v1_ids, v1_out))
+    t0 = time.perf_counter()
+    for k, n in kv_spill_phase(dev, cfg, eng).items():
+        launches[k] += n
+    log(f"phase 2d: {time.perf_counter() - t0:.0f}s")
     return launches
 
 
@@ -1828,6 +1874,261 @@ def q8_serve_phase(dev, cfg, bf16_eng, prompts, new, bf16_logits,
         f"logits, and one parted token parts the rest of a stream)")
     profile_phase(eng, prompts, eng.decode_window, "q8 ")
     del eng
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: the KV spill tier
+# ---------------------------------------------------------------------------
+SPILL_CONVS, SPILL_BATCH = 12, 4
+SPILL_T1, SPILL_NEW1, SPILL_NEW2 = 512, 32, 64     # turn-1 prompt, tokens
+
+
+def spill_run(dev, cfg, params, blocks, kv_quant, spill=None):
+    """12 two-turn conversations through one engine (pool of ``blocks``,
+    prefix caching on, ``spill``: the spill tier's settings or None): all
+    turn 1s, 4 at a time, then the turn 2s in the same order. Returns the
+    engine, the streams, turn 2's TTFTs and what the spy saw: the bytes a
+    block took in the tier, and the number of restores, each checked bit
+    for bit against a device copy of the block taken when it was spilled.
+    The spy only enqueues device work (a copy at a spill, a comparison
+    after a restore, both on the engine's stream) and reads the
+    comparisons after the last turn, so the timed turns hold no sync of
+    its own."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    sm = {"num_blocks": blocks, "enable_prefix_caching": True,
+          "max_ragged_batch_size": 8192}
+    if spill is not None:
+        sm.update(spill, enable_kv_spill=True)
+    eng = deepspeed_tpu_torch.init_inference(
+        TransformerLM(cfg), params=params, device=dev,
+        config={"dtype": "bfloat16", "use_ragged": True,
+                "ragged": {"kv_quant": kv_quant, "decode_window": 8,
+                           "state_manager": sm}})
+    seen = {"restored": 0, "bytes": []}
+    spilled, equal = {}, []
+    tier = eng.spill
+    if tier is not None:
+        spill_block, restore_block = tier.spill_block, tier.restore_block
+        as_int = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+        def bits(t):
+            return t.view(as_int[t.element_size()])
+
+        def spy_spill(digest, block):
+            if not tier.has(digest):
+                spilled[digest] = {k: v[:, block].clone()
+                                   for k, v in eng.kv_cache.items()}
+            n0 = tier.spilled_bytes
+            ok = spill_block(digest, block)
+            if tier.spilled_bytes > n0:
+                seen["bytes"].append(tier.spilled_bytes - n0)
+            return ok
+
+        def spy_restore(digest, block):
+            ok = restore_block(digest, block)
+            if ok:
+                want = spilled[digest]
+                equal.append(torch.stack([
+                    (bits(v[:, block]) == bits(want[k])).all()
+                    for k, v in eng.kv_cache.items()]).all())
+            return ok
+
+        tier.spill_block, tier.restore_block = spy_spill, spy_restore
+    rng = np.random.default_rng(21)
+    turn1 = [list(map(int, rng.integers(1, cfg.vocab_size, SPILL_T1)))
+             for _ in range(SPILL_CONVS)]
+    extra = [list(map(int, rng.integers(1, cfg.vocab_size, SPILL_NEW2)))
+             for _ in range(SPILL_CONVS)]
+    out1, out2, ttft2 = [], [], []
+    for a in range(0, SPILL_CONVS, SPILL_BATCH):
+        out1 += eng.generate(turn1[a:a + SPILL_BATCH],
+                             max_new_tokens=SPILL_NEW1,
+                             uids=list(range(a, a + SPILL_BATCH)))
+    for a in range(0, SPILL_CONVS, SPILL_BATCH):
+        prompts = [list(map(int, out1[i])) + extra[i]
+                   for i in range(a, a + SPILL_BATCH)]
+        out2 += eng.generate(prompts, max_new_tokens=SPILL_NEW1,
+                             uids=list(range(100 + a, 100 + a + SPILL_BATCH)))
+        ttft2.append(eng.last_ttft_s)
+    torch.cuda.synchronize()
+    if equal:
+        same = torch.stack(equal).cpu()
+        if not bool(same.all()):
+            raise AssertionError(f"{int((~same).sum())} of {len(equal)} "
+                                 f"restored blocks differ from the bytes "
+                                 f"spilled")
+    seen["restored"] = len(equal)
+    spilled.clear()
+    return eng, out1, out2, ttft2, seen
+
+
+def kv_spill_phase(dev, cfg, bf16_eng):
+    """Phase 2d on phase 6's Mistral-7B weights: a pool of 64 blocks (8
+    MiB each in bf16) cannot retain the 12 conversations' 96 prefix
+    blocks. Spill on (host tier alone; then 8 blocks of host tier over a
+    1 GiB disk tier) is token-identical to a pool that spills nothing, its
+    restored blocks torch.equal to the spilled bytes; spill off recomputes
+    (agreement logged only). Then the int8 pool, spill on and off (its
+    turn 1 equal between them). Launches, /healthz's kv_spill summary,
+    the drain's cleanup."""
+    import asyncio
+
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_attention
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import \
+        ragged_attention
+    from deepspeed_tpu_torch.inference.v2.ragged.spill import SpillSummary
+    from deepspeed_tpu_torch.inference.v2.serve import (ServingConfig,
+                                                        ServingEngine)
+
+    L = cfg.num_layers
+    disk_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "kv_spill")
+    big = SPILL_CONVS * 10 + 8
+    launches = dict.fromkeys(("paged_attention", "ragged_attention",
+                              "paged_attention_q8", "ragged_attention_q8"), 0)
+    spilled_per_block = {}
+    for kv_quant in (False, True):
+        tag = "int8" if kv_quant else "bf16"
+        # the int8 pool's launches have counters of their own
+        attr = "q8_launches" if kv_quant else "launches"
+        suffix = "_q8" if kv_quant else ""
+        configs = [("spill host", 64, {"kv_spill_host_bytes": 1 << 30})]
+        if not kv_quant:
+            configs.append(("spill host+disk", 64, {
+                "kv_spill_host_bytes": 8 * 8 << 20,
+                "kv_spill_disk_bytes": 1 << 30, "kv_spill_dir": disk_root}))
+        configs.append(("no spill", 64, None))
+        if not kv_quant:
+            # an int8 block keeps its grow-only scales when it is freed (as
+            # in JAX), so an int8 stream depends on the pool's history and
+            # a pool that never recycles a block is no reference for it
+            # (on the card: turn 1 agreed on 4/12, turn 2 on 0/12)
+            configs.append(("large pool", big, None))
+        runs = {}
+        for label, blocks, spill in configs:
+            t0 = time.perf_counter()
+            setattr(ragged_attention, attr, 0)
+            setattr(paged_attention, attr, 0)
+            eng, out1, out2, ttft2, seen = spill_run(
+                dev, cfg, bf16_eng.params, blocks, kv_quant, spill)
+            steps = (eng.ragged_steps, eng.decode_steps)
+            got = (getattr(ragged_attention, attr),
+                   getattr(paged_attention, attr))
+            if got != (L * steps[0], L * steps[1]) or 0 in steps:
+                raise AssertionError(
+                    f"2d {tag} {label}: launches ragged / paged {got} != "
+                    f"{L} x steps {steps}")
+            launches["ragged_attention" + suffix] += got[0]
+            launches["paged_attention" + suffix] += got[1]
+            runs[label] = (out1, out2, ttft2)
+            sm = eng.state_manager
+            msg = (f"2d {tag} {label}: pool {blocks} blocks, turn-2 TTFT ms "
+                   f"{[round(t * 1e3, 1) for t in ttft2]}, prefix reused "
+                   f"{int(sm._m_reused_tokens.value)} tokens in this "
+                   f"process, {time.perf_counter() - t0:.1f}s")
+            tier = eng.spill
+            if tier is not None:
+                if tier.spilled_blocks == 0 or seen["restored"] == 0 or \
+                        seen["restored"] != tier.restored_blocks:
+                    raise AssertionError(f"2d {tag} {label}: spilled "
+                                         f"{tier.spilled_blocks}, restored "
+                                         f"{tier.restored_blocks}, checked "
+                                         f"{seen['restored']}")
+                if spill.get("kv_spill_dir") and \
+                        not tier.stats()["disk_entries"]:
+                    raise AssertionError(f"2d {tag} {label}: nothing went "
+                                         f"to the disk tier")
+                per_block = statistics.median(seen["bytes"])
+                spilled_per_block[tag] = per_block
+                sec = tier.seconds
+                n_s, n_r = tier.spilled_blocks, tier.restored_blocks
+                restore_ms = sum(v for k, v in sec.items()
+                                 if k.startswith("restore_")) / n_r * 1e3
+                msg += (f"; spilled {n_s} blocks "
+                        f"({per_block / 2**20:.3f} MiB a block), restored "
+                        f"{n_r} (each bit-equal to its spilled bytes); "
+                        f"host ms a spill: " + ", ".join(
+                            f"{k[6:]} {sec[k] / n_s * 1e3:.2f}"
+                            for k in sec if k.startswith("spill_"))
+                        + "; a restore: " + ", ".join(
+                            f"{k[8:]} {sec[k] / n_r * 1e3:.2f}"
+                            for k in sec if k.startswith("restore_"))
+                        + f" (total {restore_ms:.2f}); stats "
+                        f"{tier.stats()}")
+                free0 = sm.config.num_blocks - 1
+                ns = tier.disk_dir
+
+                async def health_and_drain():
+                    serving = await ServingEngine(eng,
+                                                  ServingConfig()).start()
+                    doc = serving.health()["kv_spill"]
+                    await serving.stop()
+                    return doc
+
+                held = list(tier._host) + list(tier._disk)
+                doc = asyncio.run(health_and_drain())
+                summary = SpillSummary.from_doc(json.loads(json.dumps(doc)))
+                if summary is None or summary.entries != len(held) or not \
+                        all(summary.claims(d) for d in held):
+                    raise AssertionError(f"2d {tag} {label}: /healthz "
+                                         f"kv_spill {doc}")
+                if len(tier) or (ns is not None and os.path.exists(ns)):
+                    raise AssertionError(f"2d {tag} {label}: the drain left "
+                                         f"spill entries or {ns}")
+                if sm.reclaimable_blocks() != free0:
+                    raise AssertionError(
+                        f"2d {tag} {label}: {sm.reclaimable_blocks()} free "
+                        f"or reclaimable blocks after the drain, {free0} "
+                        f"before")
+                msg += (f"; /healthz kv_spill claims all {len(held)} held "
+                        f"digests; drained: tier empty"
+                        + (", disk namespace removed" if ns else ""))
+            log(msg)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref = runs.get("large pool")
+
+        def agree(a, b, turn):
+            return sum(np.array_equal(x, y) for x, y in zip(a[turn], b[turn]))
+
+        for label in runs:
+            if not label.startswith("spill"):
+                continue
+            if not kv_quant:
+                if agree(runs[label], ref, 0) + agree(runs[label], ref, 1) \
+                        != 2 * SPILL_CONVS:
+                    raise AssertionError(f"2d {tag} {label}: streams differ "
+                                         f"from the large pool's")
+                continue
+            # int8: turn 1, before any restore, equals the run of the same
+            # pool (the same block history) without spill
+            if agree(runs[label], runs["no spill"], 0) != SPILL_CONVS:
+                raise AssertionError(f"2d {tag} {label}: turn 1 differs "
+                                     f"from the same pool without spill")
+            log(f"2d {tag} {label}: turn 1 token-identical to the same "
+                f"pool without spill; turn 2 (restore against recompute) "
+                f"agrees on {agree(runs[label], runs['no spill'], 1)}/"
+                f"{SPILL_CONVS} (informational)")
+        log(f"2d {tag}: "
+            + (f"spill on token-identical to the large pool in both turns; "
+               f"recompute (no spill) agrees with it on "
+               f"{agree(runs['no spill'], ref, 1)}/{SPILL_CONVS} turn-2 "
+               f"streams (a prefill of another batch: informational); "
+               if ref else "")
+            + f"turn-2 TTFT ms median, restore "
+            f"{statistics.median(runs['spill host'][2]) * 1e3:.1f} against "
+            f"recompute {statistics.median(runs['no spill'][2]) * 1e3:.1f}"
+            + (f" and the large pool {statistics.median(ref[2]) * 1e3:.1f}"
+               if ref else ""))
+    log(f"2d: spilled bytes a block int8 / bf16 = "
+        f"{spilled_per_block['int8'] / spilled_per_block['bf16']:.4f} "
+        f"(predicted about 0.5)")
+    shutil.rmtree(disk_root, ignore_errors=True)
     return launches
 
 
@@ -3485,6 +3786,12 @@ HOST_SRC = "deepspeed_tpu_torch/csrc/host/"
 OFFLOAD_GAS = 2
 RESIDENT_BYTES_PER_PARAM = 18      # bf16 param, f32 master, m, v, f32 grad
 HOST_STATE_BYTES_PER_PARAM = 12    # f32 master, m, v
+# what a run with its layer stack or layer files on the host holds beside
+# its state: the process, the CUDA context, the pinned transfer ring,
+# staging buffers (a 29-layer offload_param run held 5.6 GiB more than its
+# state and the RSS before it)
+HOST_MARGIN_GIB = 8.0
+HOST_CAP_GIB = 96.0
 
 
 def meminfo_gib(key):
@@ -3493,6 +3800,13 @@ def meminfo_gib(key):
             if line.startswith(key + ":"):
                 return int(line.split()[1]) / 2 ** 20
     raise KeyError(key)
+
+
+def host_limit_gib():
+    """The host memory a run may hold: MemTotal, capped at what one
+    card's machine gives a run (HOST_CAP_GIB, below its MemTotal of 101
+    GiB; the run is ended when it passes it)."""
+    return min(meminfo_gib("MemTotal"), HOST_CAP_GIB)
 
 
 def host_rss_gib():
@@ -3617,10 +3931,12 @@ def host_ops_phase():
     return {"host_ops": records, "cpu": model, "cpus": cpus}
 
 
-def offload_run(cfg, config, batch, steps, label, params=None, seed=0):
+def offload_run(cfg, config, batch, steps, label, params=None, seed=0,
+                on_init=None):
     """An engine of ``config`` trained ``steps`` times on ``batch``: (engine,
     losses, step seconds, peak device GiB above what was allocated before
-    it, init seconds), logged."""
+    it, init seconds), logged. ``on_init(engine, bytes)`` sees the device
+    bytes the engine's init allocated, before the first step."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import TransformerLM
 
@@ -3633,6 +3949,8 @@ def offload_run(cfg, config, batch, steps, label, params=None, seed=0):
         model=TransformerLM(cfg), config=config, params=params, seed=seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    if on_init is not None:
+        on_init(eng, torch.cuda.memory_allocated() - base)
     losses, step_s = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -3717,7 +4035,8 @@ def offload_width_phase(dev, cfg, batch):
     del leg, res, weights
 
 
-def full_depth_layers(cfg):
+def full_depth_layers(cfg, bytes_per_param=HOST_STATE_BYTES_PER_PARAM,
+                      margin_gib=4.0):
     """32 unless the host cannot hold the f32 state (12 B a parameter)
     beside this process: then the deepest depth that fits, never below 20
     (from 20 layers up the resident state passes 80 GB)."""
@@ -3725,9 +4044,9 @@ def full_depth_layers(cfg):
     kv = cfg.kv_heads * cfg.head_dim
     per_layer = 2 * h * h + 2 * h * kv + 3 * h * f + 2 * h
     fixed = 2 * v * h + h
-    room = meminfo_gib("MemTotal") - host_rss_gib() - 4.0
+    room = host_limit_gib() - host_rss_gib() - margin_gib
     for L in range(cfg.num_layers, 19, -1):
-        need = (fixed + L * per_layer) * HOST_STATE_BYTES_PER_PARAM / 2 ** 30
+        need = (fixed + L * per_layer) * bytes_per_param / 2 ** 30
         if need <= room:
             return L, need, room, fixed + L * per_layer
     raise AssertionError(f"the host cannot hold 20 layers of f32 state "
@@ -3750,7 +4069,8 @@ def offload_full_depth_phase(dev, batch):
     cfg = dataclasses.replace(base, num_layers=L)
     log(f"offload full depth: L={L} of {base.num_layers}, "
         f"{n_params / 1e9:.3f} B params; host state {need:.1f} GiB of "
-        f"{room:.1f} GiB the host can give (MemTotal "
+        f"{room:.1f} GiB the host can give (limit "
+        f"{host_limit_gib():.1f}, MemTotal "
         f"{meminfo_gib('MemTotal'):.1f}, MemAvailable "
         f"{meminfo_gib('MemAvailable'):.1f}, RSS {host_rss_gib():.1f}); "
         f"resident state would be {RESIDENT_BYTES_PER_PARAM} B x "
@@ -3818,17 +4138,18 @@ def nvme_phase(dev, cfg, batch):
                              "build", "nvme_swap")
     nvme = {"device": "nvme", "nvme_path": swap_root}
     cpu, c_loss, *_ = offload_run(cfg, offload_config(LEGACY), batch, 2,
-                                  "legacy (RAM) L=2")
+                                  f"legacy (RAM) L={cfg.num_layers}")
     free_engine(cpu)
     del cpu
     eng, n_loss, n_s, *_ = offload_run(
         cfg, offload_config(nvme, aio={"thread_count": 8}), batch, 2,
-        "legacy (NVMe) L=2")
+        f"legacy (NVMe) L={cfg.num_layers}")
     ho = eng.host_opt
     if not np.allclose(n_loss, c_loss, rtol=1e-5):
         raise AssertionError(f"NVMe losses {n_loss} != RAM tier {c_loss}")
     files = sum(len(fs) for _, _, fs in os.walk(ho.swap_dir))
-    log(f"offload NVMe L=2: losses equal the RAM tier's within 1e-5 "
+    log(f"offload NVMe L={cfg.num_layers}: losses equal the RAM tier's "
+        f"within 1e-5 "
         f"({n_loss} vs {c_loss}); {files} swap files under {ho.swap_dir}, "
         f"{ho.swap_bytes / 1e9:.2f} GB moved in {ho.swap_seconds:.1f} s "
         f"({ho.swap_bytes / max(ho.swap_seconds, 1e-9) / 1e9:.2f} GB/s, "
@@ -3860,7 +4181,7 @@ def checkpoint_phase(dev, cfg, batch):
     for label, off in (("resident", None), ("tiered", TIERED)):
         path = os.path.join(root, label)
         src, *_ = offload_run(cfg, offload_config(off), batch, 2,
-                              f"{label} L=2 (to save)")
+                              f"{label} L={cfg.num_layers} (to save)")
         t0 = time.perf_counter()
         src.save_checkpoint(path)
         save_s = time.perf_counter() - t0
@@ -3869,7 +4190,7 @@ def checkpoint_phase(dev, cfg, batch):
         free_engine(src)
         del src
         dst, *_ = offload_run(cfg, offload_config(off), batch, 0,
-                              f"{label} L=2 (to load)", seed=1)
+                              f"{label} L={cfg.num_layers} (to load)", seed=1)
         t0 = time.perf_counter()
         dst.load_checkpoint(path)
         torch.cuda.synchronize()
@@ -3897,7 +4218,8 @@ def checkpoint_phase(dev, cfg, batch):
         if got != ref:
             raise AssertionError(f"{label}: resumed loss {got} != "
                                  f"uninterrupted {ref}")
-        log(f"checkpoint {label} L=2: save {save_s:.1f}s, load {load_s:.1f}s, "
+        log(f"checkpoint {label} L={cfg.num_layers}: save {save_s:.1f}s, "
+            f"load {load_s:.1f}s, "
             f"{nbytes / 1e9:.2f} GB ({nbytes / save_s / 1e9:.2f} GB/s "
             f"written); resumed loss {got:.6f} == uninterrupted {ref:.6f}")
         free_engine(dst)
@@ -3933,6 +4255,413 @@ def offload_phase(dev):
     checkpoint_phase(dev, two, batch)
     log(f"checkpoint phase: {time.perf_counter() - t0:.0f}s")
     return launches, host
+
+
+# ---------------------------------------------------------------------------
+# phases 8d and 8e: parameter offload, activation offload, ZeRO-Infinity
+# ---------------------------------------------------------------------------
+# peak device GiB of phase 8b's offload runs at 32 layers (PERF.md §2)
+OFFLOAD_32L_PEAK_GIB = {"tiered": 60.27, "legacy": 57.49}
+# f32 master, m, v and f32 host gradients, and the bf16 layer files in
+# the page cache
+INFINITY_HOST_BYTES_PER_PARAM = 18
+PARAM_STACK_BYTES_PER_PARAM = 2      # the bf16 layer stack in pinned memory
+
+
+def tier_config(zero=None, **extra):
+    """Phase 8's settings at stage 3 (persistence threshold 0)."""
+    cfg = offload_config(stage=3, **extra)
+    cfg["zero_optimization"]["stage3_param_persistence_threshold"] = 0
+    cfg["zero_optimization"].update(zero or {})
+    return cfg
+
+
+def flash_counts(reset=False):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    if reset:
+        for kfn in kernels:
+            kfn.launches = 0
+    return {kfn.__name__: kfn.launches for kfn in kernels}
+
+
+def flash_want(L, steps, gas=OFFLOAD_GAS):
+    return {"flash_fwd": steps * 2 * L * gas,
+            "flash_bwd_dq": steps * L * gas,
+            "flash_bwd_dkv": steps * L * gas}
+
+
+def tier_run(cfg, config, batch, steps, label, params, on_init=None):
+    """offload_run with the flash launches of its steps checked (2 x L x
+    gas forwards with the recompute, L x gas of each backward kernel);
+    returns offload_run's tuple and the launches."""
+    flash_counts(reset=True)
+    out = offload_run(cfg, config, batch, steps, label, params=params,
+                      on_init=on_init)
+    launches = flash_counts()
+    want = flash_want(cfg.num_layers, steps)
+    if launches != want:
+        raise AssertionError(f"{label}: flash launches {launches} != {want}")
+    return out, launches
+
+
+def equal_engines(label, a, b, a_loss, b_loss):
+    """Losses and compute params torch.equal (host tiers' masters too)."""
+    if a_loss != b_loss:
+        raise AssertionError(f"{label}: losses {b_loss} != {a_loss}")
+    for name, x, y in zip(a._leaf_names, a._param_leaves, b._param_leaves):
+        if not torch.equal(x.detach().cpu(), y.detach().cpu()):
+            raise AssertionError(f"{label}: params differ at {name}")
+    if a.host_opt is not None:
+        for name, x, y in zip(a._leaf_names, a.host_opt.get_all_leaves()[0],
+                              b.host_opt.get_all_leaves()[0]):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label}: masters differ at {name}")
+    log(f"{label}: losses and params torch.equal over 3 steps")
+
+
+def param_offload_width_phase(dev, cfg, batch, weights):
+    """Phase 8d at 4 layers, stage 3: offload_param {device: cpu} against
+    the resident engine, with the host C++ optimizer against that
+    optimizer alone (JAX refuses the tiered optimizer offload at stage 3,
+    and so does the port), and cpu_checkpointing against the resident
+    engine: torch.equal each, the stack in pinned host memory."""
+    from deepspeed_tpu_torch.runtime.config import (ConfigError,
+                                                    DeepSpeedConfig)
+
+    launches = dict.fromkeys(flash_want(0, 0), 0)
+
+    def add(n):
+        for k in launches:
+            launches[k] += n[k]
+
+    po = {"offload_param": {"device": "cpu"}}
+    (res, r_loss, r_s, r_peak, _), n = tier_run(
+        cfg, tier_config(), batch, 3, "resident stage 3 L=4", weights)
+    add(n)
+    (off, o_loss, o_s, o_peak, _), n = tier_run(
+        cfg, tier_config(po), batch, 3, "offload_param cpu L=4", weights)
+    add(n)
+    layers = off.params["layers"]
+    if not all(v.device.type == "cpu" and v.is_pinned()
+               for v in layers.values()):
+        raise AssertionError("offload_param: the layer stack is not in "
+                             "pinned host memory")
+    if any(v.device.type != "cuda" for k, v in off.params.items()
+           if k != "layers"):
+        raise AssertionError("offload_param: a persistent leaf left the card")
+    equal_engines("8d offload_param cpu vs resident stage 3", res, off,
+                  r_loss, o_loss)
+    st = off.host_stream.timings()
+    stack = sum(v.numel() * v.element_size() for v in layers.values())
+    log(f"8d L=4: stack {stack / 2**30:.2f} GiB pinned on the host; median "
+        f"step ms resident {statistics.median(r_s[1:]) * 1e3:.1f}, "
+        f"offload_param {statistics.median(o_s[1:]) * 1e3:.1f}; peak device "
+        f"{r_peak:.2f} / {o_peak:.2f} GiB; layer copies "
+        f"{st['h2d_ms']:.1f} ms on the side stream over 3 steps, compute "
+        f"stream waited {st['wait_ms']:.1f} ms")
+    free_engine(off)
+    del off
+    ck = {"activation_checkpointing": {"cpu_checkpointing": True}}
+    (cpu_ck, c_loss, c_s, c_peak, _), n = tier_run(
+        cfg, tier_config(**ck), batch, 3, "cpu_checkpointing L=4", weights)
+    add(n)
+    equal_engines("8d cpu_checkpointing vs resident stage 3", res, cpu_ck,
+                  r_loss, c_loss)
+    log(f"8d L=4: cpu_checkpointing median step ms "
+        f"{statistics.median(c_s[1:]) * 1e3:.1f}, peak device {c_peak:.2f} "
+        f"GiB (resident {r_peak:.2f})")
+    free_engine(cpu_ck)
+    free_engine(res)
+    del cpu_ck, res
+    try:
+        DeepSpeedConfig(tier_config(dict(po, offload_optimizer=TIERED)))
+    except ConfigError as e:
+        log(f"8d: the tiered optimizer offload at stage 3 is refused, as in "
+            f"JAX ({str(e)[:70]}...)")
+    else:
+        raise AssertionError("the tiered optimizer offload at stage 3 was "
+                             "accepted")
+    (leg, l_loss, _, l_peak, _), n = tier_run(
+        cfg, tier_config({"offload_optimizer": LEGACY}), batch, 3,
+        "legacy stage 3 L=4", weights)
+    add(n)
+    (lpo, p_loss, p_s, p_peak, _), n = tier_run(
+        cfg, tier_config(dict(po, offload_optimizer=LEGACY)), batch, 3,
+        "offload_param cpu + legacy L=4", weights)
+    add(n)
+    equal_engines("8d offload_param cpu + legacy vs legacy", leg, lpo,
+                  l_loss, p_loss)
+    log(f"8d L=4: peak device legacy {l_peak:.2f} GiB, with offload_param "
+        f"{p_peak:.2f} GiB")
+    free_engine(lpo)
+    free_engine(leg)
+    del lpo, leg
+    return launches, l_loss
+
+
+def param_offload_depth_phase(dev, batch):
+    """Phase 8d at full depth: offload_param cpu with the host C++
+    optimizer, the deepest depth the host holds (never below 20), 3
+    steps: losses finite and falling, flash launches, step ms, tokens/s,
+    peak device GiB beside phase 8b's at 32 layers, host RSS, the layer
+    copies a step and the share of them the compute stream waited for."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import mistral_7b
+
+    base = mistral_7b()
+    L, need, room, n_params = full_depth_layers(
+        base, HOST_STATE_BYTES_PER_PARAM + PARAM_STACK_BYTES_PER_PARAM,
+        HOST_MARGIN_GIB)
+    cfg = dataclasses.replace(base, num_layers=L)
+    log(f"8d full depth: L={L} of {base.num_layers}"
+        + (" (cut: host memory)" if L < base.num_layers else "")
+        + f", {n_params / 1e9:.3f} B params; host state and stack "
+        f"{need:.1f} GiB of {room:.1f} GiB")
+    config = tier_config({"offload_param": {"device": "cpu"},
+                          "offload_optimizer": LEGACY})
+    (eng, losses, step_s, peak, init_s), launches = tier_run(
+        cfg, config, batch, 3, f"8d offload_param cpu + legacy L={L}", None)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"8d L={L}: losses not finite and falling: "
+                             f"{losses}")
+    # the layer copies a step: the mean of the 3
+    hs = eng.host_stream
+    st, tm = hs.timings(), eng.step_timings()
+    st = {k: v / 3 for k, v in st.items()}
+    h2d = hs.h2d_bytes / 3
+    tokens = OFFLOAD_GAS * TRAIN_B * TRAIN_S
+    med = statistics.median(step_s[1:])
+    log(f"8d L={L}: median step {med * 1e3:.0f} ms = {tokens / med:.0f} "
+        f"tokens/s; peak device {peak:.2f} GiB (phase 8b at 32 layers: "
+        f"legacy {OFFLOAD_32L_PEAK_GIB['legacy']}, tiered "
+        f"{OFFLOAD_32L_PEAK_GIB['tiered']}); "
+        f"host RSS {host_rss_gib():.1f} GiB; init {init_s:.1f}s")
+    log(f"8d L={L} a step (mean of 3): layer copies "
+        f"{h2d / 1e9:.2f} GB ({st['h2d_ms']:.0f} ms on the side stream, "
+        f"{h2d / max(st['h2d_ms'], 1e-9) / 1e6:.2f} GB/s), compute stream "
+        f"waited {st['wait_ms']:.0f} ms (exposed share "
+        f"{st['wait_ms'] / max(st['h2d_ms'], 1e-9):.3f}); step 3: "
+        f"forward+backward {tm.get('grads_ms', 0):.0f} ms, update "
+        f"{tm.get('update_ms', 0):.0f} ms")
+    free_engine(eng)
+    del eng
+    return launches, {"L": L, "step_ms": med * 1e3, "peak_gib": peak}
+
+
+def infinity_config(path, optim_nvme=False):
+    zero = {"offload_param": {"device": "nvme", "nvme_path": path}}
+    if optim_nvme:
+        zero["offload_optimizer"] = {"device": "nvme", "nvme_path": path}
+    return tier_config(zero, aio={"thread_count": 8})
+
+
+# less than one Mistral-7B layer in bf16 (0.41 GiB): a layer left on the
+# card by ZeRO-Infinity's init fails check_infinity_resident
+INFINITY_INIT_SLACK_GIB = 0.25
+
+
+def check_infinity_resident(label, eng, init_bytes):
+    """ZeRO-Infinity's init keeps no layer on the device: no ``layers/``
+    leaf among the persistent ones, no compute params, and at most the
+    persistent leaves' bytes (plus less than a layer) allocated by the
+    init. Returns the persistent bytes."""
+    inf = eng._infinity
+    stacked = [k for k in list(inf.persist_names) + list(inf.pp_dev)
+               if k.startswith("layers/")]
+    persist = inf.device_param_bytes()
+    slack = INFINITY_INIT_SLACK_GIB * 2 ** 30
+    if eng.params is not None or stacked or init_bytes > persist + slack:
+        raise AssertionError(
+            f"{label}: layer params resident on the device (params "
+            f"{'kept' if eng.params is not None else 'None'}, stacked "
+            f"leaves among the persistent ones {stacked}, init allocated "
+            f"{init_bytes / 2**30:.3f} GiB against the persistent leaves' "
+            f"{persist / 2**30:.3f} + {INFINITY_INIT_SLACK_GIB})")
+    log(f"{label}: init allocated {init_bytes / 2**30:.3f} GiB on the "
+        f"device, the persistent leaves {persist / 2**30:.3f} GiB; no layer "
+        f"resident")
+    return persist
+
+
+def infinity_width_phase(dev, cfg, batch, weights, root, l_loss):
+    """Phase 8e at 4 layers: ZeRO-Infinity with the optimizer state in
+    host RAM and on NVMe, torch.equal to each other, within phase 8b's
+    legacy tolerance of the losses ``l_loss`` of phase 8d's stage-3
+    engine with the host C++ optimizer on the same weights; the device
+    holds only the persistent leaves."""
+    runs = {}
+    for label, on in (("host", False), ("nvme", True)):
+        init = {}
+
+        def on_init(e, nbytes, label=label):
+            init["persist"] = check_infinity_resident(
+                f"8e L=4 optimizer {label}", e, nbytes)
+
+        # two steps: the optimizer sweep over the files takes ~8 s a step
+        (eng, losses, step_s, peak, init_s), n = tier_run(
+            cfg, infinity_config(root, on), batch, 2,
+            f"infinity (optimizer {label}) L=4", weights, on_init=on_init)
+        inf = eng._infinity
+        persist = init["persist"]
+        master = [m.clone() for m in inf.get_all_leaves()[0]]
+        runs[label] = (losses, master, n)
+        log(f"8e L=4 optimizer {label}: median step "
+            f"{statistics.median(step_s[1:]) * 1e3:.0f} ms, peak device "
+            f"{peak:.2f} GiB, device params {persist / 2**30:.3f} GiB "
+            f"(persistent leaves only), init {init_s:.1f}s; timings "
+            f"{ {k: round(v, 3) for k, v in inf.timings.items()} }")
+        pdir = inf.param_dir
+        free_engine(eng)
+        del eng
+        if os.path.exists(pdir):
+            raise AssertionError(f"infinity files left at {pdir}")
+    (h_loss, h_master, n1), (v_loss, v_master, n2) = runs["host"], \
+        runs["nvme"]
+    if h_loss != v_loss or not all(torch.equal(a, b) for a, b in
+                                   zip(h_master, v_master)):
+        raise AssertionError(f"infinity optimizer on NVMe {v_loss} != on "
+                             f"the host {h_loss}")
+    if not np.allclose(h_loss, l_loss[:2], rtol=0.05, atol=1e-2):
+        raise AssertionError(f"infinity losses {h_loss} vs legacy {l_loss}")
+    log(f"8e L=4: optimizer on NVMe torch.equal to on the host (losses, "
+        f"master); within rtol 0.05 / atol 1e-2 of legacy stage 3 (max "
+        f"|diff| {max(abs(a - b) for a, b in zip(h_loss, l_loss)):.2e}; "
+        f"2 steps)")
+    return {k: n1[k] + n2[k] for k in n1}
+
+
+def infinity_depth_layers(cfg, root):
+    """The deepest depth (never below 20) whose param files fit the free
+    space under ``root`` and whose host state fits the host's memory."""
+    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.kv_heads * cfg.head_dim
+    per_layer = 2 * h * h + 2 * h * kv + 3 * h * f + 2 * h
+    fixed = 2 * v * h + h
+    st = os.statvfs(root)
+    disk = st.f_bavail * st.f_frsize / 2 ** 30 - 4.0
+    room = host_limit_gib() - host_rss_gib() - HOST_MARGIN_GIB
+    for L in range(cfg.num_layers, 19, -1):
+        host = (fixed + L * per_layer) * INFINITY_HOST_BYTES_PER_PARAM
+        files = L * per_layer * 2
+        if host / 2 ** 30 <= room and files / 2 ** 30 <= disk:
+            return L, host / 2 ** 30, room, files / 2 ** 30, disk, \
+                fixed + L * per_layer
+    raise AssertionError(f"ZeRO-Infinity: neither 20 layers' host state "
+                         f"({room:.1f} GiB free) nor their files "
+                         f"({disk:.1f} GiB free) fit")
+
+
+def infinity_depth_phase(dev, batch, root):
+    """Phase 8e at full depth (cut by the host's memory or the disk, never
+    below 20): 3 steps with the optimizer in host RAM; losses finite and
+    falling, flash launches; step ms, tokens/s, peak device GiB, bytes
+    read a step and their rate, the share of each sweep that waits on a
+    read, init s and bytes written."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_7b
+
+    base = mistral_7b()
+    L, host, room, files, disk, n_params = infinity_depth_layers(base, root)
+    cfg = dataclasses.replace(base, num_layers=L)
+    log(f"8e full depth: L={L} of {base.num_layers}"
+        + (" (cut: host memory or disk)" if L < base.num_layers else "")
+        + f", {n_params / 1e9:.3f} B params; host state {host:.1f} of "
+        f"{room:.1f} GiB, param files {files:.1f} of {disk:.1f} GiB free")
+    flash_counts(reset=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=TransformerLM(cfg), config=infinity_config(root))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    inf = eng._infinity
+    torch.cuda.reset_peak_memory_stats()
+    base_b = torch.cuda.memory_allocated()
+    check_infinity_resident(f"8e L={L}", eng, base_b - b0)
+    losses, step_s, tms = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        tms.append(dict(inf.timings))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = flash_counts()
+    want = flash_want(L, 3)
+    if launches != want:
+        raise AssertionError(f"8e L={L}: flash launches {launches} != {want}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"8e L={L}: losses not finite and falling: "
+                             f"{losses}")
+    tokens = OFFLOAD_GAS * TRAIN_B * TRAIN_S
+    med = statistics.median(step_s[1:])
+    t = tms[-1]
+    sweeps = t["forward_s"] + t["backward_s"]
+    log(f"8e L={L}: losses {[f'{x:.4f}' for x in losses]}, step s "
+        f"{[f'{x:.2f}' for x in step_s]}; median {med * 1e3:.0f} ms = "
+        f"{tokens / med:.0f} tokens/s; peak device {peak:.2f} GiB (persistent "
+        f"params and activations; {base_b / 2**30:.2f} GiB allocated before "
+        f"the steps; phase 8b's tiered at 32 layers: "
+        f"{OFFLOAD_32L_PEAK_GIB['tiered']}); host RSS "
+        f"{host_rss_gib():.1f} GiB")
+    log(f"8e L={L} last step: read {t['read_bytes'] / 1e9:.2f} GB from the "
+        f"layer files ({t['read_bytes'] / max(sweeps, 1e-9) / 1e9:.2f} GB/s "
+        f"over the two sweeps); forward sweep {t['forward_s']:.2f}s, waits "
+        f"on reads {t['forward_read_wait_s'] / max(t['forward_s'], 1e-9):.3f}"
+        f"; backward sweep {t['backward_s']:.2f}s, waits "
+        f"{t['backward_read_wait_s'] / max(t['backward_s'], 1e-9):.3f}; "
+        f"optimizer sweep {t['optimizer_s']:.2f}s; init {init_s:.1f}s "
+        f"({inf.init_s:.1f}s writing {inf.bytes_written / 1e9:.2f} GB of "
+        f"layer files)")
+    free_engine(eng)
+    del eng
+    return launches, {"L": L, "step_ms": med * 1e3, "peak_gib": peak}
+
+
+def memory_tiers_phase(dev):
+    """Phases 8d and 8e on phase 8's settings and fixed batch."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_7b
+
+    rng = np.random.default_rng(4)
+    batch = {"input_ids": rng.integers(0, mistral_7b().vocab_size,
+                                       (OFFLOAD_GAS, TRAIN_B, TRAIN_S))}
+    four = dataclasses.replace(mistral_7b(), num_layers=4)
+    weights = TransformerLM(four).init_params(
+        torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    launches = dict.fromkeys(flash_want(0, 0), 0)
+
+    def add(n):
+        for k in launches:
+            launches[k] += n[k]
+
+    t0 = time.perf_counter()
+    n, l_loss = param_offload_width_phase(dev, four, batch, weights)
+    add(n)
+    n, d8 = param_offload_depth_phase(dev, batch)
+    add(n)
+    log(f"phase 8d: {time.perf_counter() - t0:.0f}s")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "nvme_infinity")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        add(infinity_width_phase(dev, four, batch, weights, root, l_loss))
+        del weights
+        n, d9 = infinity_depth_phase(dev, batch, root)
+        add(n)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 8e: {time.perf_counter() - t0:.0f}s")
+    return launches, {"8d": d8, "8e": d9}
 
 
 def main() -> int:
@@ -3985,6 +4714,12 @@ def main() -> int:
     log(f"phase 8b: {time.perf_counter() - t0:.0f}s; flash launches of the "
         f"full-depth runs {offload_launches}")
     for k, n in offload_launches.items():
+        launches[k] += n
+    t0 = time.perf_counter()
+    tier_launches, _ = memory_tiers_phase(dev)
+    log(f"phases 8d-8e: {time.perf_counter() - t0:.0f}s; flash launches "
+        f"{tier_launches}")
+    for k, n in tier_launches.items():
         launches[k] += n
     launches.update(sparse_op_phase(dev))
 

@@ -28,9 +28,13 @@ in swap files (``{device: cpu}`` / ``{device: nvme}``,
 sources in ``csrc/host/`` built by ``g++`` at first use).
 ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX package's
 checkpoint format (``checkpoint/state_checkpoint.py``,
-``utils/zero_to_fp32.py``) at any data-parallel world. Still raising:
-optimizer offload at more than one rank and ``offload_param`` (ROADMAP
-A9), tensor / sequence / pipeline / expert parallelism (A8), ZeRO++
+``utils/zero_to_fp32.py``) at any data-parallel world. The parameters
+may leave the card too: ``offload_param {device: cpu}`` streams the layer
+stack from pinned host memory (``runtime/offload.HostLayerStream``),
+``{device: nvme}`` is ZeRO-Infinity (``runtime/zero/infinity.py``), and
+``activation_checkpointing.cpu_checkpointing`` keeps the weight matmuls'
+outputs in host memory. Still raising: ZeRO-Infinity at more than one
+rank (ROADMAP A9), tensor / sequence / pipeline / expert parallelism (A8), ZeRO++
 (A10), universal checkpoints and
 ``init_inference(use_ragged=True, checkpoint=...)`` (A5). Entry points run
 on the GPU unless the caller passes ``device="cpu"``.

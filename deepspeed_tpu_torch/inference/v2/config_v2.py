@@ -3,10 +3,11 @@
 Port of ``deepspeed_tpu/inference/v2/config_v2.py``: the same two
 dataclasses, fields and defaults. Features the port does not serve yet
 raise ``NotImplementedError`` at construction instead of being ignored:
-the LoRA bank (``max_lora_adapters``), tensor/expert parallelism, the KV
-spill tier, and the stitched ``ragged_attention="off"`` dispatch, whose
-prefill needs the flash-attention kernel. The int8 KV pool (``kv_quant``) and
-weight-only quantization (``quant_bits`` 8 or 4) are served.
+the LoRA bank (``max_lora_adapters``), tensor/expert parallelism and the
+stitched ``ragged_attention="off"`` dispatch, whose prefill needs the
+flash-attention kernel. The int8 KV pool (``kv_quant``), weight-only
+quantization (``quant_bits`` 8 or 4) and the KV spill tier
+(``enable_kv_spill``, ``ragged/spill.py``) are served.
 """
 
 from dataclasses import dataclass, field
@@ -43,15 +44,38 @@ class DSStateManagerConfig:
     # share full KV blocks across requests with identical token prefixes
     # (ragged_manager.py; off by default)
     enable_prefix_caching: bool = False
+    # the cold-block KV spill tier (ragged/spill.py): prefix-cache
+    # eviction demotes block content to host RAM (and an optional disk
+    # tier) keyed by the prefix digest; a later arrival restores it
+    # instead of recomputing. Needs enable_prefix_caching
     enable_kv_spill: bool = False
-    kv_spill_host_bytes: int = 64 << 20
-    kv_spill_dir: Optional[str] = None
-    kv_spill_disk_bytes: int = 256 << 20
+    kv_spill_host_bytes: int = 64 << 20      # host-tier LRU budget
+    kv_spill_dir: Optional[str] = None       # optional disk tier
+    kv_spill_disk_bytes: int = 256 << 20     # disk-tier LRU budget
+    # the disk tier's subdirectory under kv_spill_dir (None: unique per
+    # instance; an explicit name must be unique per directory)
     kv_spill_namespace: Optional[str] = None
 
     def __post_init__(self):
+        if self.enable_kv_spill and not self.enable_prefix_caching:
+            raise ValueError(
+                "enable_kv_spill requires enable_prefix_caching: spilled "
+                "blocks are keyed by the prefix chain digests the index "
+                "computes")
+        if self.kv_spill_namespace is not None:
+            ns = self.kv_spill_namespace
+            if not ns or "/" in ns or "\\" in ns or ns in (".", ".."):
+                raise ValueError(
+                    f"kv_spill_namespace must be a single path "
+                    f"component (got {ns!r})")
         if self.enable_kv_spill:
-            raise _not_ported("the KV spill tier (enable_kv_spill)", "A9")
+            # the budgets are registered tunables: a bad value fails
+            # naming the registry entry and its range
+            from ...runtime import tunables
+            for key in ("kv_spill_host_bytes", "kv_spill_disk_bytes"):
+                name = f"state_manager.{key}"
+                tunables.check(name, getattr(self, key), label=key)
+                tunables.observe(name, getattr(self, key), "config")
 
 
 @dataclass

@@ -24,9 +24,10 @@ knobs), the telemetry of the JAX package (the ``inference_*`` metrics,
 trace spans, flight-recorder events, the KV-pool gauges, the
 ``inference_kv_pool_quant_bytes_saved`` gauge), ``bind_trace`` for
 distributed tracing, and ``memory_report`` (the CUDA caching allocator's
-figures). Not ported: speculative decoding and the LoRA bank (ROADMAP
-A11), the stitched ``ragged_attention="off"`` dispatch (A6a), weight
-hot-swaps (A7) and the KV spill tier (A9).
+figures), and the KV spill tier (``engine.spill``, ``ragged/spill.py``).
+Not ported: speculative decoding and the LoRA bank (ROADMAP A11), the
+stitched ``ragged_attention="off"`` dispatch (A6a) and weight hot-swaps
+(A7).
 
 Under ``quant_bits`` 8 or 4 the weights rest quantized
 (``inference/quantization.py``) and are dequantized right before use.
@@ -100,6 +101,14 @@ class InferenceEngineV2:
                                             sm.block_size, self.dtype,
                                             self.device,
                                             kv_quant=config.kv_quant)
+        # the cold-block KV spill tier (ragged/spill.py), installed on the
+        # state manager: prefix eviction demotes block content to host RAM
+        # (and an optional disk tier), match_prefix restores it
+        self.spill = None
+        if sm.enable_kv_spill:
+            from .ragged.spill import KVSpillTier
+            self.spill = KVSpillTier(self, sm)
+            self.state_manager.spill = self.spill
         # True: the hand-written kernels (CUDA) or their plain versions
         # (CPU tensors); False: the plain versions everywhere
         self.use_kernel = bool(config.use_paged_kernel)

@@ -5,8 +5,10 @@ inference/v2/ragged/ragged_manager.py:19, DSStateManager): owns the block
 allocator and the per-sequence descriptors, answers schedulability
 questions, and materializes the per-step block tables the device program
 consumes. The prefix-cache and KV-flow counters and the ``kv_alloc`` /
-``kv_free`` flight-recorder events are the JAX package's; its KV spill
-tier is not ported (ROADMAP A9).
+``kv_free`` flight-recorder events are the JAX package's. With the KV
+spill tier (``spill.py``, installed by the engine as ``self.spill``), an
+evicted prefix block's content is spilled before the block is freed, and
+``match_prefix`` restores a spilled digest into a fresh block as a hit.
 
 Prefix caching (``enable_prefix_caching``, off by default): KV depends
 only on the causal token prefix, so FULL blocks whose token content
@@ -74,6 +76,9 @@ class DSStateManager:
         # chain-hash digest -> retained block id (insertion-ordered: LRU
         # eviction pops from the front)
         self._prefix: "OrderedDict[bytes, int]" = OrderedDict()
+        # the cold-block spill tier (spill.KVSpillTier), set by the engine
+        # under enable_kv_spill
+        self.spill = None
         from ....telemetry import get_registry
         reg = get_registry()
         self._m_lookups = reg.counter(
@@ -125,6 +130,13 @@ class DSStateManager:
         while n + bs <= usable:
             digest = _chain(digest, tokens[n:n + bs])
             blk = self._prefix.get(digest)
+            if blk is None and self.spill is not None \
+                    and self.spill.has(digest):
+                # a spilled digest is a hit: restore it between steps.
+                # Blocks matched earlier in this walk are not shared
+                # until it completes and still look evictable: protect
+                # them from the restore's own eviction
+                blk = self._restore_spilled(digest, protect=blocks)
             if blk is None:
                 break
             blocks.append(blk)
@@ -157,6 +169,24 @@ class DSStateManager:
                 self._prefix[digest] = int(seq.blocks[i])
                 self.allocator.share(seq.blocks[i])
 
+    def _restore_spilled(self, digest: bytes,
+                         protect=()) -> Optional[int]:
+        """Allocate a block and restore the spilled digest's content into
+        it; the block enters the index holding the index's reference, as a
+        retained block does. None when the pool yields no block or the
+        entry fails its integrity check (the caller's walk stops there)."""
+        if self.allocator.free_blocks < 1:
+            self._evict_retained(1, protect=protect)
+            if self.allocator.free_blocks < 1:
+                return None
+        blk = int(self.allocator.allocate(1)[0])
+        if not self.spill.restore_block(digest, blk):
+            self.allocator.free([blk])
+            return None
+        self._prefix[digest] = blk
+        self._m_alloc.inc()
+        return blk
+
     def _evictable(self) -> int:
         """Retained blocks held ONLY by the index (reclaimable now).
         Memoized against the allocator's version stamp."""
@@ -180,6 +210,9 @@ class DSStateManager:
             if victim is None:
                 return
             blk = self._prefix.pop(victim)
+            if self.spill is not None:
+                # the content goes to the cold tier before the free
+                self.spill.spill_block(victim, blk)
             self.allocator.free([blk])
             self._m_evicted.inc()
             self._m_freed.inc()

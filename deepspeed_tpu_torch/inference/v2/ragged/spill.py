@@ -1,0 +1,526 @@
+"""Cold-block KV spill tier: host RAM (and optional disk) behind the pool.
+
+Port of ``deepspeed_tpu/inference/v2/ragged/spill.py`` (``SpillSummary``
+:77, ``build_summary`` :129, ``KVSpillTier`` :149). A finished turn's
+prefix blocks wait in the prefix-cache index (``ragged_manager.py``) for
+the conversation's next message; without this tier, pool pressure evicts
+them and the next turn recomputes its prompt. With it, eviction demotes a
+block's content to host RAM (then an optional disk tier), keyed by the
+same chain digest the index uses, and ``match_prefix`` counts a spilled
+digest as a hit: the block is restored into a freshly allocated pool block
+between scheduler steps, CRC-checked, and the request streams exactly as
+one whose prefix never left the device.
+
+Each spilled block is one chunk of the handoff wire format
+(``serve/handoff.py``): a self-describing ``.npz`` buffer with a CRC32 over
+the leaves' raw bytes, gathered from the pool by an index select and
+restored by an in-place ``index_copy_``. The int8 pool (``kv_quant``)
+spills its per-(block, head) scale rows beside its pages. The buffers are
+the JAX package's, so an entry written by either package restores into
+the other.
+
+Eviction order is last-touch LRU: the prefix index's order picks the
+victim, and the allocator's per-block last-touch stamp rides the entry so
+the host-to-disk demotion follows true touch recency. The disk tier lives
+in a namespace of its own under ``kv_spill_dir`` (two replicas sharing a
+directory never clobber each other); ``adopt_namespace`` takes over a dead
+peer's files; ``close`` (the serving loop's drain) drops every entry and
+removes the namespace. ``digest_summary`` is a bloom filter of the held
+digests, the ``/healthz`` document's ``kv_spill``. ``seconds`` sums the
+host time of each part of the spills (gather with its device-to-host copy,
+CRC, ``.npz`` packing, demotion to disk) and restores (load, parse, CRC,
+host-to-device copy and scatter).
+"""
+
+import base64
+import logging
+import os
+import time
+import uuid
+from collections import OrderedDict
+from typing import Dict, Optional
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+# bloom geometry: ~16 bits per entry at 4 probes keeps the false-
+# positive rate ~0.24% (a false positive silently degrades to a
+# recompute on the chosen replica — never a failure), while the
+# summary stays a few KiB in the health document
+_BLOOM_HASHES = 4
+_BLOOM_MIN_BITS = 256
+_BLOOM_MAX_BITS = 1 << 16
+
+
+def _bloom_indices(digest: bytes, bits: int, hashes: int):
+    """Probe indices for one digest: sha1 bytes are already uniform,
+    so the k probes are disjoint 4-byte slices reduced mod ``bits`` —
+    identical across processes (the router decodes what the replica
+    encoded)."""
+    for i in range(hashes):
+        yield int.from_bytes(digest[4 * i:4 * i + 4], "little") % bits
+
+
+class SpillSummary:
+    """Decoded bloom summary of one replica's spilled digests.
+
+    Built by the owning tier (``digest_summary()``), serialized into
+    the ``/healthz`` document (``to_doc``) and re-decoded by the router
+    from a remote replica's cached health (``from_doc``). ``claims``
+    may answer True for an absent digest (bloom false positive; the
+    placement degrades to a recompute) but never False for a present
+    one at the summary's ``seq``."""
+
+    __slots__ = ("bits", "hashes", "entries", "seq", "namespace",
+                 "_bloom")
+
+    def __init__(self, bits: int, hashes: int, entries: int, seq: int,
+                 namespace: Optional[str], bloom: bytes):
+        self.bits = int(bits)
+        self.hashes = int(hashes)
+        self.entries = int(entries)
+        self.seq = int(seq)
+        self.namespace = namespace
+        self._bloom = bloom
+
+    def claims(self, digest: bytes) -> bool:
+        if not self.entries:
+            return False
+        for idx in _bloom_indices(digest, self.bits, self.hashes):
+            if not (self._bloom[idx >> 3] >> (idx & 7)) & 1:
+                return False
+        return True
+
+    def to_doc(self) -> dict:
+        return {"bits": self.bits, "hashes": self.hashes,
+                "entries": self.entries, "seq": self.seq,
+                "namespace": self.namespace,
+                "bloom": base64.b64encode(self._bloom).decode("ascii")}
+
+    @classmethod
+    def from_doc(cls, doc) -> Optional["SpillSummary"]:
+        """Decode a health-document summary; None on anything
+        malformed (an unparseable summary means no spill placement for
+        that replica, never an error)."""
+        if not isinstance(doc, dict):
+            return None
+        try:
+            return cls(int(doc["bits"]), int(doc["hashes"]),
+                       int(doc["entries"]), int(doc.get("seq", 0)),
+                       doc.get("namespace"),
+                       base64.b64decode(doc["bloom"]))
+        except (KeyError, TypeError, ValueError):
+            return None
+
+
+def build_summary(digests, seq: int = 0,
+                  namespace: Optional[str] = None) -> SpillSummary:
+    """Bloom-summarize an iterable of digests (the tier's host + disk
+    keys). Bits auto-size to ~16x the entry count, power of two,
+    clamped so the summary never exceeds a few KiB."""
+    ds = list(digests)
+    bits = _BLOOM_MIN_BITS
+    while bits < 16 * max(len(ds), 1) and bits < _BLOOM_MAX_BITS:
+        bits <<= 1
+    buf = bytearray(bits >> 3)
+    for d in ds:
+        for idx in _bloom_indices(d, bits, _BLOOM_HASHES):
+            buf[idx >> 3] |= 1 << (idx & 7)
+    return SpillSummary(bits, _BLOOM_HASHES, len(ds), seq, namespace,
+                        bytes(buf))
+
+
+class KVSpillTier:
+    """Digest-keyed LRU of serialized KV blocks, host RAM over disk.
+
+    Owned by the engine (``engine.spill``) and consulted by the state
+    manager (``DSStateManager.spill``): ``spill_block`` runs inside
+    eviction, ``restore_block`` inside ``match_prefix`` — both on the
+    serving-loop thread, between engine program launches.
+    """
+
+    def __init__(self, engine, config):
+        self.engine = engine
+        self.host_limit = int(config.kv_spill_host_bytes)
+        self.disk_limit = int(config.kv_spill_disk_bytes)
+        # disk-tier namespace: every tier instance owns ONE subdirectory
+        # of kv_spill_dir, so replicas sharing a scratch directory never
+        # overwrite (or close()-sweep) each other's entries. An explicit
+        # kv_spill_namespace collision is a config error (typed, at
+        # engine construction); the default is unique per instance.
+        self.root_dir: Optional[str] = config.kv_spill_dir
+        explicit = getattr(config, "kv_spill_namespace", None)
+        self.namespace = explicit or (
+            f"spill-{os.getpid()}-{uuid.uuid4().hex[:8]}")
+        self.disk_dir: Optional[str] = None
+        if self.root_dir:
+            self.disk_dir = os.path.join(self.root_dir, self.namespace)
+            claim = os.path.join(self.disk_dir, ".claim")
+            if explicit and os.path.exists(claim):
+                raise ValueError(
+                    f"kv_spill_namespace {explicit!r} is already "
+                    f"claimed under {self.root_dir!r}: two replicas "
+                    f"sharing a kv_spill_dir must use distinct "
+                    f"namespaces (or leave kv_spill_namespace unset "
+                    f"for a unique default)")
+            os.makedirs(self.disk_dir, exist_ok=True)
+            with open(claim, "w") as fh:
+                fh.write(str(os.getpid()))
+        # membership version: bumped on every add/remove/adopt so the
+        # bloom summary (and its router-side decode) can cache by seq
+        self._seq = 0
+        self._summary: Optional[SpillSummary] = None
+        # digest -> serialized chunk bytes, oldest first (LRU demotes /
+        # drops from the front)
+        self._host: "OrderedDict[bytes, bytes]" = OrderedDict()
+        self._disk: "OrderedDict[bytes, int]" = OrderedDict()  # -> nbytes
+        # digest -> allocator last-touch stamp at spill time: host->disk
+        # demotion picks the OLDEST-touched entry, so tier order follows
+        # true touch recency even when spill order drifts from it
+        self._stamp: Dict[bytes, int] = {}
+        self._host_bytes = 0
+        self._disk_bytes = 0
+        # this tier's own totals (the registry's counters are process-wide)
+        self.spilled_blocks = 0
+        self.spilled_bytes = 0
+        self.restored_blocks = 0
+        # host seconds of each part of this tier's spills and restores
+        # ("copy": the host-to-device copy and the scatter's launch)
+        self.seconds = dict.fromkeys(
+            ("spill_gather", "spill_crc", "spill_pack", "spill_demote",
+             "restore_load", "restore_parse", "restore_crc", "restore_copy"),
+            0.0)
+        from ....telemetry import get_registry
+        reg = get_registry()
+        self._m_spill_bytes = reg.counter(
+            "kv_spill_bytes_total",
+            "serialized KV bytes demoted from the HBM pool to the "
+            "host/disk spill tier")
+        self._m_spill_blocks = reg.counter(
+            "kv_spill_blocks_total",
+            "KV blocks spilled out of the pool (prefix-cache eviction "
+            "under pool pressure)")
+        self._m_restore_blocks = reg.counter(
+            "kv_restore_blocks_total",
+            "spilled KV blocks re-materialized into the pool on a "
+            "prefix match")
+        self._m_restore_s = reg.histogram(
+            "kv_restore_seconds",
+            "per-block spill-tier restore time (load + crc check + "
+            "scatter into the donated pool)", unit="s",
+            buckets=(1e-5, 1e-4, 1e-3, 1e-2, 0.1, 1.0))
+        self._m_resident = reg.gauge(
+            "kv_spill_resident_bytes",
+            "serialized KV bytes currently resident in the host spill "
+            "tier (disk tier excluded)")
+        self._m_dropped = reg.counter(
+            "kv_spill_dropped_blocks_total",
+            "spilled blocks dropped off the end of the tier (budget "
+            "exhausted or integrity failure) — the next request with "
+            "that prefix pays a recompute, not an error")
+        self._m_adopted = reg.counter(
+            "kv_spill_adopted_blocks_total",
+            "disk-tier entries adopted from a dead peer's spill "
+            "namespace (session resurrection: the failover target "
+            "restores these instead of recomputing)")
+
+    # -- queries ---------------------------------------------------------
+    def has(self, digest: bytes) -> bool:
+        return digest in self._host or digest in self._disk
+
+    def __len__(self) -> int:
+        return len(self._host) + len(self._disk)
+
+    def stats(self) -> Dict[str, int]:
+        return {"host_entries": len(self._host),
+                "host_bytes": self._host_bytes,
+                "disk_entries": len(self._disk),
+                "disk_bytes": self._disk_bytes}
+
+    def digest_summary(self) -> SpillSummary:
+        """Bloom summary of every digest this tier holds (host + disk),
+        rebuilt only when membership changed since the last call (the
+        health document polls this on every heartbeat)."""
+        if self._summary is None or self._summary.seq != self._seq:
+            self._summary = build_summary(
+                list(self._host) + list(self._disk), seq=self._seq,
+                namespace=self.namespace if self.root_dir else None)
+        return self._summary
+
+    # -- spill -----------------------------------------------------------
+    def spill_block(self, digest: bytes, block: int) -> bool:
+        """Serialize ``block``'s content (every pool leaf: the int8 pages
+        and their scale rows under kv_quant) under ``digest``. Called by
+        the state manager just before it frees the block."""
+        from ..serve import handoff
+
+        stamp = self.engine.state_manager.allocator.last_touch(block)
+        if self.has(digest):
+            # a full block is never rewritten, so a re-spilled prefix
+            # holds the same content: refresh its recency only
+            self._stamp[digest] = int(stamp)
+            self._touch(digest)
+            return True
+        t0 = time.perf_counter()
+        idx = torch.tensor([block], dtype=torch.long,
+                           device=self.engine.device)
+        kv = {key: handoff._gather_blocks(leaf, idx).to("cpu")
+              for key, leaf in self.engine.kv_cache.items()}
+        t1 = time.perf_counter()
+        crc = handoff._chunk_crc(kv)
+        t2 = time.perf_counter()
+        buf = handoff._npz_chunk(
+            {"kind": "kv_spill", "digest": digest.hex(),
+             "crc32": crc, "stamp": int(stamp)}, kv)
+        t3 = time.perf_counter()
+        self._stamp[digest] = int(stamp)
+        self._host[digest] = buf
+        self._host_bytes += len(buf)
+        self._seq += 1
+        self.spilled_blocks += 1
+        self.spilled_bytes += len(buf)
+        self._m_spill_bytes.inc(len(buf))
+        self._m_spill_blocks.inc()
+        self._shrink_host()
+        self._m_resident.set(self._host_bytes)
+        sec = self.seconds
+        sec["spill_gather"] += t1 - t0
+        sec["spill_crc"] += t2 - t1
+        sec["spill_pack"] += t3 - t2
+        sec["spill_demote"] += time.perf_counter() - t3
+        return True
+
+    def _touch(self, digest: bytes) -> None:
+        if digest in self._host:
+            self._host.move_to_end(digest)
+        elif digest in self._disk:
+            self._disk.move_to_end(digest)
+
+    def _shrink_host(self) -> None:
+        # without a disk tier, dropping the JUST-spilled entry would make
+        # eviction lossy again — keep the newest entry even over budget;
+        # with one, everything over budget demotes
+        keep_min = 0 if self.disk_dir else 1
+        while self._host_bytes > self.host_limit \
+                and len(self._host) > keep_min:
+            # demote the OLDEST-touched entry (allocator stamp recorded
+            # at spill time), not merely the oldest-spilled one
+            victim = min(self._host,
+                         key=lambda d: self._stamp.get(d, 0))
+            buf = self._host.pop(victim)
+            self._host_bytes -= len(buf)
+            if self.disk_dir:
+                self._demote_to_disk(victim, buf)
+            else:
+                self._stamp.pop(victim, None)
+                self._seq += 1
+                self._m_dropped.inc()
+
+    def _disk_file(self, digest: bytes) -> str:
+        return os.path.join(self.disk_dir, f"{digest.hex()}.npz")
+
+    def _demote_to_disk(self, digest: bytes, buf: bytes) -> None:
+        try:
+            with open(self._disk_file(digest), "wb") as fh:
+                fh.write(buf)
+        except OSError as e:
+            logger.warning(f"kv spill disk tier write failed: {e}")
+            self._stamp.pop(digest, None)
+            self._seq += 1
+            self._m_dropped.inc()
+            return
+        self._disk[digest] = len(buf)
+        self._disk_bytes += len(buf)
+        while self._disk_bytes > self.disk_limit and len(self._disk) > 1:
+            victim = min(self._disk,
+                         key=lambda d: self._stamp.get(d, 0))
+            self._disk_bytes -= self._disk.pop(victim)
+            self._stamp.pop(victim, None)
+            self._seq += 1
+            self._m_dropped.inc()
+            try:
+                os.unlink(self._disk_file(victim))
+            except OSError:
+                pass
+
+    # -- restore ---------------------------------------------------------
+    def _load(self, digest: bytes) -> Optional[bytes]:
+        self._stamp.pop(digest, None)
+        self._seq += 1
+        buf = self._host.pop(digest, None)
+        if buf is not None:
+            self._host_bytes -= len(buf)
+            self._m_resident.set(self._host_bytes)
+            return buf
+        n = self._disk.pop(digest, None)
+        if n is None:
+            return None
+        self._disk_bytes -= n
+        path = self._disk_file(digest)
+        try:
+            with open(path, "rb") as fh:
+                buf = fh.read()
+        except OSError as e:
+            logger.warning(f"kv spill disk tier read failed: {e}")
+            self._m_dropped.inc()
+            return None
+        try:
+            os.unlink(path)
+        except OSError:
+            # a stuck unlink must not discard the successfully-read
+            # entry; the orphan is re-attempted at close()
+            pass
+        return buf
+
+    def restore_block(self, digest: bytes, block: int) -> bool:
+        """Re-materialize ``digest``'s content into pool ``block``.
+        Returns False (entry dropped; the caller treats the digest as a
+        plain miss) on an integrity failure: a corrupt entry degrades to a
+        recompute, never to poisoned KV."""
+        from ..serve import handoff
+
+        t0 = time.perf_counter()
+        buf = self._load(digest)
+        if buf is None:
+            return False
+        sec = self.seconds
+        t1 = time.perf_counter()
+        sec["restore_load"] += t1 - t0
+        try:
+            chunk = handoff.parse_chunk(buf)
+            d = chunk["descriptor"]
+            if d.get("kind") != "kv_spill" or d.get("digest") != digest.hex():
+                raise ValueError("spill entry descriptor mismatch")
+            t2 = time.perf_counter()
+            sec["restore_parse"] += t2 - t1
+            crc = handoff._chunk_crc(chunk["kv"])
+            sec["restore_crc"] += time.perf_counter() - t2
+            if crc != int(d["crc32"]):
+                raise ValueError("spill entry failed its crc32 check")
+            if set(chunk["kv"]) != set(self.engine.kv_cache):
+                raise ValueError("spill entry leaf set disagrees with "
+                                 "the pool")
+        except Exception as e:
+            logger.warning(f"kv spill restore dropped a corrupt entry: {e}")
+            self._m_dropped.inc()
+            return False
+        t3 = time.perf_counter()
+        idx = torch.tensor([block], dtype=torch.long,
+                           device=self.engine.device)
+        for key, leaf in self.engine.kv_cache.items():
+            handoff._scatter_blocks(
+                leaf, idx, chunk["kv"][key].to(self.engine.device,
+                                               leaf.dtype))
+        t4 = time.perf_counter()
+        sec["restore_copy"] += t4 - t3
+        self.restored_blocks += 1
+        self._m_restore_blocks.inc()
+        self._m_restore_s.observe(t4 - t0)
+        return True
+
+    # -- resurrection (serve/router.py § session resurrection) -----------
+    def adopt_namespace(self, namespace: str) -> int:
+        """Take over a dead peer's disk-tier entries: every ``.npz``
+        under ``kv_spill_dir/<namespace>/`` moves (atomic rename) into
+        THIS tier's namespace and indexes under its filename digest —
+        the entries already speak the chunked-handoff wire, so the next
+        ``match_prefix`` on this replica restores them like its own.
+        Adopted entries carry stamp 0 (oldest-touched: first to evict
+        under budget pressure). Returns the number adopted; a missing
+        or foreign-root namespace adopts nothing, silently — a failed
+        resurrection degrades to a recompute, never an error."""
+        if not self.disk_dir or not namespace \
+                or namespace == self.namespace:
+            return 0
+        src = os.path.join(self.root_dir, namespace)
+        adopted = 0
+        try:
+            names = os.listdir(src)
+        except OSError:
+            return 0
+        for name in sorted(names):
+            if not name.endswith(".npz"):
+                continue
+            try:
+                digest = bytes.fromhex(name[:-4])
+            except ValueError:
+                continue
+            path = os.path.join(src, name)
+            if self.has(digest):
+                # we already hold this digest (shared prefix spilled on
+                # both replicas): keep ours, drop the duplicate file
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+                continue
+            try:
+                size = os.path.getsize(path)
+                os.replace(path, self._disk_file(digest))
+            except OSError:
+                continue
+            self._disk[digest] = size
+            self._disk_bytes += size
+            self._stamp[digest] = 0
+            adopted += 1
+        # the emptied namespace dir (and its claim) is the dead
+        # replica's scratch — ours to clean up now
+        try:
+            os.unlink(os.path.join(src, ".claim"))
+        except OSError:
+            pass
+        try:
+            os.rmdir(src)
+        except OSError:
+            pass
+        if adopted:
+            self._seq += 1
+            self._m_adopted.inc(adopted)
+            # budget still binds: over-limit adoptions evict oldest
+            while self._disk_bytes > self.disk_limit \
+                    and len(self._disk) > 1:
+                victim = min(self._disk,
+                             key=lambda d: self._stamp.get(d, 0))
+                self._disk_bytes -= self._disk.pop(victim)
+                self._stamp.pop(victim, None)
+                self._seq += 1
+                self._m_dropped.inc()
+                try:
+                    os.unlink(self._disk_file(victim))
+                except OSError:
+                    pass
+        return adopted
+
+    # -- lifecycle -------------------------------------------------------
+    def close(self) -> None:
+        """Drop every entry and unlink this tier's disk namespace
+        (drain/stop semantics: a stopped replica must not leak host RAM
+        or scratch files; its spilled conversations recompute — or,
+        when the router adopted the namespace first, restore —
+        elsewhere). Only OUR namespace directory is swept: siblings
+        sharing kv_spill_dir keep their entries."""
+        self._host.clear()
+        self._host_bytes = 0
+        self._m_resident.set(0)
+        if self.disk_dir:
+            # sweep the whole namespace dir, not just tracked digests:
+            # a file whose unlink failed mid-restore is orphaned from
+            # the index but still ours to clean up
+            try:
+                for name in os.listdir(self.disk_dir):
+                    if name.endswith(".npz") or name == ".claim":
+                        try:
+                            os.unlink(os.path.join(self.disk_dir, name))
+                        except OSError:
+                            pass
+            except OSError:
+                pass
+            try:
+                os.rmdir(self.disk_dir)
+            except OSError:
+                pass
+        self._disk.clear()
+        self._disk_bytes = 0
+        self._stamp.clear()
+        self._seq += 1

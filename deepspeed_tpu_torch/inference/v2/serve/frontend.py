@@ -373,9 +373,17 @@ class ServingEngine:
                 self.scheduler.engine.state_manager.block_size),
             "max_seq_len": int(
                 self.scheduler.engine.state_manager.config.max_seq_len),
-            # the JAX document's fleet fields, at their single-replica
-            # values: the boot weights (live updates are ROADMAP A7) and
-            # no spill tier (ROADMAP A9)
+            # the JAX document's fleet fields: the boot weights (live
+            # updates are ROADMAP A7), and the bloom summary of the
+            # spilled digests (None without a spill tier)
             "weight_version": 0,
-            "kv_spill": None,
+            "kv_spill": self.spill_summary_doc(),
         }
+
+    def spill_summary_doc(self) -> Optional[dict]:
+        """The spill tier's digest summary as a document, or None when the
+        engine runs without one."""
+        spill = getattr(self.scheduler.engine, "spill", None)
+        if spill is None:
+            return None
+        return spill.digest_summary().to_doc()

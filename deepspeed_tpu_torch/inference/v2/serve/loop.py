@@ -21,8 +21,8 @@ nothing else on this thread reads the device (the telemetry hooks read
 host counters). The KV handoff entry points (``resume``,
 ``begin_restore``) raise ``NotImplementedError`` (ROADMAP A7); the loop
 keeps none of the fleet's state (chunked restores, weight staging, the
-online adapter), which comes with those modules (ROADMAP A7, A12). A KV
-spill tier is refused when the engine is configured (ROADMAP A9).
+online adapter), which comes with those modules (ROADMAP A7, A12). The
+drain closes the engine's KV spill tier (``ragged/spill.py``), as in JAX.
 """
 
 import heapq
@@ -369,6 +369,11 @@ class ServingLoop:
         self._run_cmds()
         self._abort_remaining()
         self._diag_drain()
+        spill = getattr(self.scheduler.engine, "spill", None)
+        if spill is not None:
+            # a stopped replica leaks no host RAM or disk scratch: its
+            # spilled conversations recompute wherever they land next
+            spill.close()
         if self.bridge is not None:
             try:  # drain/stop must end cleanly even if a backend throws
                 self.bridge.close()

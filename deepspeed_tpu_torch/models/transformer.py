@@ -243,12 +243,24 @@ class TransformerLM:
     # the stacked [L, ...] subtree the layer loop walks (JAX :387)
     param_offload_keys = ("layers",)
 
+    @property
+    def supports_param_offload(self) -> bool:
+        # without remat every streamed layer would stay on the device as a
+        # saved tensor for the backward, which voids what the offload is
+        # for: the engine refuses (JAX :389)
+        return bool(self.cfg.remat)
+
     def __init__(self, cfg: TransformerConfig):
         self.cfg = cfg
         # ZeRO-3: maps a layer's views of its sharded leaves to the whole
         # tensors; set by the training engine and run inside the layer's
         # activation checkpoint, so the recompute gathers again
         self.layer_gather = None
+        # offload_param {device: cpu}: the engine sets the flag and the
+        # stream (``runtime/offload.HostLayerStream``) that brings one
+        # layer of the host-resident stack to the device
+        self.stream_params_from_host = False
+        self.host_stream = None
 
     def init_params(self, generator: torch.Generator,
                     dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
@@ -393,12 +405,18 @@ class TransformerLM:
             cos, sin = cos.to(x.dtype), sin.to(x.dtype)
         else:
             cos = sin = torch.zeros((S, 1), dtype=x.dtype, device=x.device)
-        body = self._layer
-        if self.layer_gather is not None:
-            gather, layer = self.layer_gather, self._layer
+        layer, gather = self._layer, self.layer_gather
+        stream = self.host_stream if self.stream_params_from_host else None
 
-            def body(x, lp, cos, sin):
-                return layer(x, gather(lp), cos, sin)
+        def body(x, lp, cos, sin, l):
+            if stream is not None:
+                # offload_param (JAX :729-738): this layer's leaves come
+                # from host memory here, inside the checkpoint, so the
+                # recompute fetches them again and no device copy is saved
+                lp = stream.fetch(l)
+            if gather is not None:
+                lp = gather(lp)
+            return layer(x, lp, cos, sin)
         if cfg.remat:
             from ..runtime.activation_checkpointing import \
                 checkpointing as ds_ckpt
@@ -409,10 +427,14 @@ class TransformerLM:
         # here, one layer at a time (identity on dense params)
         layers = {k: (torch.unbind(v) if isinstance(v, torch.Tensor) else v)
                   for k, v in params["layers"].items()}
+        if stream is not None:
+            stream.forward_sweep(True)
         for l in range(cfg.num_layers):
             x = body(x, dequantize_params({k: v[l]
                                            for k, v in layers.items()}),
-                     cos, sin)
+                     cos, sin, l)
+        if stream is not None:
+            stream.forward_sweep(False)     # later fetches: the recompute
         return self._norm(x, params["final_norm"], params.get("final_norm_b"))
 
     def _head_inputs(self, params, x):

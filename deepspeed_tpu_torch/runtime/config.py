@@ -588,6 +588,14 @@ _PORTED = {
     "zero_optimization.offload_optimizer.buffer_count",
     "zero_optimization.stage3_prefetch_bucket_size",
     "aio.block_size", "aio.thread_count", "checkpoint.async_save",
+    # parameter offload (runtime/offload.HostLayerStream: cpu;
+    # runtime/zero/infinity.py: nvme) and activation offload
+    # (activation_checkpointing/checkpointing.py)
+    "zero_optimization.offload_param.device",
+    "zero_optimization.offload_param.nvme_path",
+    "zero_optimization.offload_param.pin_memory",
+    "zero_optimization.offload_param.buffer_count",
+    "activation_checkpointing.cpu_checkpointing",
     # ZeRO over torch.distributed (runtime/zero/partition.py,
     # runtime/grad_overlap.py)
     "zero_optimization.stage", "zero_optimization.reduce_bucket_size",
@@ -641,7 +649,6 @@ _ROADMAP = {
     "moe": "A8 (parallel modes)",
     "activation_checkpointing": "A3 (remat policies beyond "
                                 "nothing_saveable)",
-    "activation_checkpointing.cpu_checkpointing": "A9 (memory tiers)",
     "checkpoint": "A5 (checkpoint interop)",
     "telemetry": "A7 (telemetry)",
     "diagnostics": "A7 (telemetry)",
@@ -677,9 +684,9 @@ def unported_keys(ds_config: DeepSpeedConfig) -> List[Tuple[str, Any, str]]:
                    key=len, default=None)
         out.append((path, value, _ROADMAP[item] if item else _ROADMAP_DEFAULT))
     if ds_config.dp_world_size != 1 and \
-            ds_config.cfg.zero_optimization.offload_optimizer.device != "none":
+            ds_config.cfg.zero_optimization.offload_param.device == "nvme":
         out.append(("world_size", ds_config.world_size,
-                    "A9 (memory tiers: optimizer offload at more than one "
+                    "A9 (memory tiers: ZeRO-Infinity at more than one "
                     "rank)"))
     if ds_config.cfg.optimizer is not None and \
             is_onebit_optimizer(ds_config.cfg.optimizer.type):
@@ -698,4 +705,4 @@ def check_ported(ds_config: DeepSpeedConfig) -> None:
         raise NotImplementedError(
             f"config keys not ported to deepspeed_tpu_torch yet: {listed}. "
             f"The port trains data parallel at ZeRO stages 0-3, with "
-            f"optimizer offload at one rank")
+            f"optimizer and parameter offload")

@@ -48,9 +48,8 @@ loss over the group. At one rank every shard is the whole leaf and every
 collective a copy, so a stage 1/2/3 step equals the stage-0 step bit for
 bit.
 
-At one rank the optimizer state
-may leave the card (``zero_optimization.offload_optimizer``, the selection
-of JAX :215-228; the ZeRO plan is then the identity):
+The optimizer state may leave the card
+(``zero_optimization.offload_optimizer``, the selection of JAX :215-228):
 
 * ``{device: cpu, pin_memory: true}`` (stages 1/2): the tiered offload
   (``runtime/offload.py``): master and moments in page-locked host memory,
@@ -62,7 +61,28 @@ of JAX :215-228; the ZeRO plan is then the identity):
   host in the transfer dtype, the host updates master and moments (in
   RAM, or swapped from files) and writes the compute params back.
 
-An fp16 step that overflows leaves either host state untouched.
+At one rank the ZeRO plan of an offloaded engine is the identity. At more
+than one, each rank's host tier holds only its ZeRO shard of the master
+and moments, updates it with its shard of the reduced gradients, and its
+slice of the compute params reaches the other ranks through the same
+all-gather as a resident stage-1/2 step's (a stage-3 compute leaf is the
+shard itself). An fp16 step that overflows leaves either host state
+untouched.
+
+The parameters may leave the card too
+(``zero_optimization.offload_param``, stage 3, a model that declares
+``supports_param_offload``; the gates of JAX :229-264):
+
+* ``{device: cpu}``: the stacked ``layers/*`` compute leaves live in
+  page-locked host memory and the model's layer loop brings one layer at
+  a time to the card (``runtime/offload.HostLayerStream``) inside the
+  layer's checkpoint; the rest of the engine is the resident stage-3 one,
+  or an offloaded one, bit for bit;
+* ``{device: nvme, nvme_path}``: ZeRO-Infinity
+  (``runtime/zero/infinity.py``): the layers' params and optimizer state
+  in per-layer files, a per-layer executor with host gradients and the
+  host C++ optimizer; one rank, bf16 / fp32, causal pre-LN dense models
+  (JAX ``_check_infinity_supported`` :544).
 ``save_checkpoint`` / ``load_checkpoint`` (JAX :1983 / :2061) write and
 read the JAX package's fragment format (``checkpoint/state_checkpoint.py``)
 for the resident and both offloaded engines, in the background under
@@ -70,10 +90,10 @@ for the resident and both offloaded engines, in the background under
 consolidated weights.
 
 Not ported (``runtime/config.check_ported`` raises, naming the ROADMAP
-item): optimizer offload at more than one rank, ``offload_param`` and
-``cpu_checkpointing`` (A9), MiCS (A4), ZeRO++ (A10), universal
-checkpoints (A5), pipeline, tensor, sequence and expert parallelism (A8), telemetry and diagnostics (A7),
-compression, curriculum and the profilers (A12), the hybrid engine (A11).
+item): ZeRO-Infinity at more than one rank (A9), MiCS (A4), ZeRO++
+(A10), universal checkpoints (A5), pipeline, tensor, sequence and expert
+parallelism (A8), telemetry and diagnostics (A7), compression,
+curriculum and the profilers (A12), the hybrid engine (A11).
 The ``forward``/``backward``/``step`` compatibility shims are not here
 yet.
 """
@@ -102,7 +122,7 @@ from .grad_overlap import (ALL_REDUCE, REDUCE_SCATTER, VJP, BucketedReducer,
                            leaf_kinds, plan_grad_buckets, reduce_leaves,
                            resolve_overlap_mode)
 from .lr_schedules import LRScheduler, build_lr_schedule
-from .offload import copy_rows
+from .offload import HostLayerStream, PinnedHost, copy_rows
 from .zero.partition import ZeroPlan, build_zero_plan
 
 logger = logging.getLogger(__name__)
@@ -237,11 +257,15 @@ class DeepSpeedTpuEngine:
         self.offload_tiered = bool(self.offload_device == "cpu"
                                    and off.pin_memory)
         self.host_opt = None
+        self._init_param_offload(model)
         self._pending_saves: List[threading.Thread] = []
         self._async_save_errors: List[BaseException] = []
         ds_ckpt.configure(deepspeed_config=self.config)
-        self._init_state(params, seed)
-        self._init_grad_reduction()
+        if self.param_offload_nvme:
+            self._init_infinity_state(params, seed)
+        else:
+            self._init_state(params, seed)
+            self._init_grad_reduction()
         self._last_metrics: Dict[str, float] = {}
         self.last_step_s = None
         self._step_events = None
@@ -275,29 +299,135 @@ class DeepSpeedTpuEngine:
                 f"hold at {world} ranks; not ported to deepspeed_tpu_torch "
                 f"yet (ROADMAP A4)")
 
-    # ------------------------------------------------------------------
-    def _init_state(self, params, seed: int):
-        # as in JAX (:643): ZeRO 1/2/3 keep a master even in fp32
-        self.has_master = (self.compute_dtype != torch.float32
-                           or self.zero_stage >= 1)
+    def _init_param_offload(self, model):
+        """``offload_param``: the device check and its refusals (JAX
+        :229-270)."""
+        self.param_offload = False
+        self.param_offload_nvme = False
+        self._infinity = None
+        self.host_stream: Optional[HostLayerStream] = None
+        self._param_pins: Optional[PinnedHost] = None
+        self._streamed: Dict[str, str] = {}     # leaf path -> layer key
+        po = self.config.zero_optimization.offload_param.device
+        if po not in ("none", None, ""):
+            if po not in ("cpu", "nvme"):
+                raise ConfigError(
+                    "zero_optimization.offload_param.device must be "
+                    f"'cpu' or 'nvme' (got {po!r})")
+            if self.zero_stage != 3:
+                raise ConfigError(
+                    "offload_param requires ZeRO stage 3 (param offload "
+                    f"is a stage-3 feature); got stage {self.zero_stage}")
+            if not getattr(model, "supports_param_offload", False):
+                raise NotImplementedError(
+                    "offload_param requires a model that streams its layer "
+                    "stack from host memory (supports_param_offload; "
+                    "TransformerLM with remat=True does). This model does "
+                    "not declare it.")
+            if po == "nvme":
+                self._check_infinity_supported()
+                self.param_offload_nvme = True
+            else:
+                self.param_offload = True
+        # assigned on every build, so a model object reused by a second
+        # engine cannot keep a stale stream
+        model.stream_params_from_host = self.param_offload
+        model.host_stream = None
+
+    def _check_infinity_supported(self):
+        """The refusals of ``offload_param.device='nvme'`` (JAX
+        ``_check_infinity_supported`` :544)."""
+        po = self.config.zero_optimization.offload_param
+        if not po.nvme_path:
+            raise ConfigError(
+                "offload_param.device='nvme' requires "
+                "offload_param.nvme_path")
+        if self.fp16_enabled:
+            raise NotImplementedError(
+                "offload_param nvme requires bf16/fp32 compute (fp16 loss "
+                "scaling is not threaded through the per-layer executor)")
+        cfg = getattr(self.model, "cfg", None)
+        if cfg is None or not cfg.is_causal or cfg.norm_scheme != "pre":
+            raise NotImplementedError(
+                "offload_param nvme supports causal-LM pre-LN models "
+                "(the same surface as the 1F1B pipeline)")
+        if getattr(cfg, "moe_num_experts", 0) > 0:
+            raise NotImplementedError(
+                "offload_param nvme x MoE is not supported (capacity "
+                "routing needs the full layer stack resident)")
+        zc = self.config.zero_optimization
+        if (zc.zero_quantized_weights or zc.zero_quantized_gradients
+                or zc.zero_hpz_partition_size > 1 or zc.mics_shard_size > 1):
+            raise NotImplementedError(
+                "offload_param nvme composes with plain ZeRO-3 only "
+                "(no ZeRO++ / MiCS)")
+
+    def _init_infinity_state(self, params, seed: int):
+        """ZeRO-Infinity's parameter tier (JAX ``_init_infinity_state``
+        :768): the per-layer executor owns params and optimizer state;
+        the engine keeps none."""
+        from .zero.infinity import InfinityParamEngine
+
+        items = self._initial_items(params, seed)
+        self._leaf_names = [k for k, _ in items]
+        self._full_shapes = {k: tuple(v.shape) for k, v in items}
+        opt_cfg, aio = self.config.optimizer, self.config.aio
+        po = self.config.zero_optimization.offload_param
+        oo = self.config.zero_optimization.offload_optimizer
+        self._infinity = InfinityParamEngine(
+            self.model, items, self.device,
+            opt_name=opt_cfg.type, opt_params=opt_cfg.params,
+            param_nvme_path=po.nvme_path,
+            optim_device="nvme" if self.offload_device == "nvme" else "cpu",
+            optim_nvme_path=(oo.nvme_path if self.offload_device == "nvme"
+                             else None),
+            aio_block_size=aio.block_size, aio_threads=aio.thread_count,
+            gas=self.gas, clip=self.config.gradient_clipping,
+            compute_dtype=self.compute_dtype)
+        self.has_master = True
+        self._pdims = self._gdims = self._odims = [None] * len(items)
+        self.zero_plan = None
+        self.grad_overlap_mode = "off"
+        self.grad_bucket_plan = None
+        self._reducer = None
+        self._param_leaves, self._master_leaves = [], None
+        self.params = self.master_params = self.opt_state = None
+        self.scale_state = None
+        self.param_count = int(sum(torch.Size(s).numel()
+                                   for s in self._full_shapes.values()))
+        self._step = 0
+        self._grad_acc = self._grad_shards = None
+
+    def _initial_items(self, params, seed: int):
+        """(path, leaf) of the initial weights: ``params``, or the seeded
+        draw on the device in the compute dtype."""
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             # drawn on the device in the compute dtype; the fp32 master
             # is cast up from it (a 7B tree never exists in f32 on host)
-            tree = self.model.init_params(gen, dtype=self.compute_dtype)
-            items = _flatten(tree)
-        else:
-            items = [(k, torch.as_tensor(np.asarray(v)) if not
-                      isinstance(v, torch.Tensor) else v)
-                     for k, v in _flatten(params)]
+            return _flatten(self.model.init_params(gen,
+                                                   dtype=self.compute_dtype))
+        return [(k, torch.as_tensor(np.asarray(v)) if not
+                 isinstance(v, torch.Tensor) else v)
+                for k, v in _flatten(params)]
+
+    # ------------------------------------------------------------------
+    def _init_state(self, params, seed: int):
+        # as in JAX (:643): ZeRO 1/2/3 keep a master even in fp32
+        self.has_master = (self.compute_dtype != torch.float32
+                           or self.zero_stage >= 1)
+        items = self._initial_items(params, seed)
         self._leaf_names = [k for k, _ in items]
         self._full_shapes = {k: tuple(v.shape) for k, v in items}
         zc = self.config.zero_optimization
-        # the offloaded engines run at one rank on the identity plan
+        # an offloaded engine at one rank runs on the identity plan (its
+        # host tier holds whole leaves); at more than one, on the stage's
+        # plan, each rank's host tier holding its master shards
+        plan_stage = (0 if self.offload_device and self.dp_world_size == 1
+                      else self.zero_stage)
         self.zero_plan: ZeroPlan = build_zero_plan(
-            self.dp_world_size, 0 if self.offload_device else self.zero_stage,
-            self._full_shapes,
+            self.dp_world_size, plan_stage, self._full_shapes,
             persistence_threshold=zc.stage3_param_persistence_threshold)
         names = self._leaf_names
         self._pdims = [self.zero_plan.param_dims[k] for k in names]
@@ -311,12 +441,14 @@ class DeepSpeedTpuEngine:
         with torch.no_grad():
             if self.offload_device:
                 # the master is the f32 value of the same weights, on the
-                # host (built by the offload tier); the card keeps the
-                # compute params only
+                # host (built by the offload tier from this rank's master
+                # shards); the card keeps the compute params only
                 master = None
-                compute = [v.to(self.device, self.compute_dtype,
-                                copy=params is not None) for _, v in items]
-                self._init_offload(items)
+                compute = [local(v, pd).to(self.device, self.compute_dtype,
+                                           copy=params is not None)
+                           for (_, v), pd in zip(items, self._pdims)]
+                self._init_offload([(k, local(v, od)) for (k, v), od in
+                                    zip(items, self._odims)])
             elif self.has_master:
                 master = [local(v, d).to(self.device, torch.float32,
                                          copy=True)
@@ -337,6 +469,8 @@ class DeepSpeedTpuEngine:
         del items
         for p in compute:
             p.requires_grad_(True)
+        if self.param_offload:
+            compute = self._offload_layers(compute)
         self._param_leaves = compute
         self._master_leaves = master
         self.params = _unflatten(list(zip(self._leaf_names, compute)))
@@ -352,6 +486,53 @@ class DeepSpeedTpuEngine:
         self._step = 0          # optimizer steps applied (JAX _step_arr)
         self._grad_acc: Optional[List[torch.Tensor]] = None
         self._grad_shards: Optional[List[Optional[torch.Tensor]]] = None
+        # an offloaded engine at more than one rank: the compute-dtype
+        # shard a replicated leaf's host update writes, then all-gathered
+        self._update_bufs = [
+            torch.empty(self._local_shape(k, od), dtype=self.compute_dtype,
+                        device=self.device)
+            if self.offload_device and pd is None and od is not None
+            else None
+            for k, pd, od in zip(self._leaf_names, self._pdims,
+                                 self._odims)]
+
+    def _local_shape(self, name: str, dim: Optional[int]) -> Tuple[int, ...]:
+        """The shape of this rank's shard of leaf ``name`` along ``dim``."""
+        shape = list(self._full_shapes[name])
+        if dim is not None:
+            shape[dim] //= self.dp_world_size
+        return tuple(shape)
+
+    def _offload_layers(self, compute):
+        """``offload_param {device: cpu}``: the stacked layer leaves
+        (``param_offload_keys``) move to host memory, page-locked on the
+        card (JAX ``_host_param_sharding`` :582); the model streams them
+        back one layer at a time."""
+        keys = tuple(getattr(self.model, "param_offload_keys", ("layers",)))
+        self._param_pins = PinnedHost(self.device.type == "cuda")
+        host = {}
+        out = []
+        for name, p in zip(self._leaf_names, compute):
+            if any(name.startswith(k + "/") for k in keys):
+                h = torch.empty(p.shape, dtype=p.dtype)
+                copy_rows(h, p)
+                p = self._param_pins.pin(h)
+                self._streamed[name] = name.split("/", 1)[1]
+                host[self._streamed[name]] = p
+            out.append(p)
+        del compute
+        self.host_stream = HostLayerStream(host, self.device)
+        self.model.host_stream = self.host_stream
+        return out
+
+    def _grad_inputs(self) -> List[torch.Tensor]:
+        """What ``autograd.grad`` differentiates: the leaves, with each
+        host-resident layer leaf replaced by its device anchor."""
+        if self.host_stream is None:
+            return self._param_leaves
+        anchors = self.host_stream.anchors
+        return [anchors[self._streamed[n]] if n in self._streamed else p
+                for n, p in zip(self._leaf_names, self._param_leaves)]
 
     def _init_grad_reduction(self):
         """The leaves' reduction kinds, the stage-3 gathers and the bucket
@@ -371,6 +552,11 @@ class DeepSpeedTpuEngine:
             if stacked[i] and d > 0 and hasattr(self.model,
                                                       "layer_gather"):
                 layer_dims[n.split("/", 1)[1]] = d - 1
+            elif n in self._streamed:
+                raise NotImplementedError(
+                    f"offload_param: {n} is cut along its layer axis at "
+                    f"{self.dp_world_size} ranks, so no rank holds whole "
+                    f"layers to stream")
             else:
                 self._whole_gathers[i] = make_zero3_gather(d, self.group)
         self._layer_gather = None
@@ -480,6 +666,7 @@ class DeepSpeedTpuEngine:
         — carries the hook that hands its gradient to its bucket."""
         if hasattr(self.model, "layer_gather"):
             self.model.layer_gather = self._layer_gather
+        views = self.host_stream.begin() if self.host_stream else {}
         units: Dict[int, List[Tuple[int, Any]]] = {}
         if reducer is not None:
             for u, unit in enumerate(reducer.plan.units):
@@ -492,10 +679,15 @@ class DeepSpeedTpuEngine:
                 v = self._whole_gathers[i](p)
             elif i in units:
                 if units[i][0][1].layer >= 0:
-                    v = torch.unbind(p)
+                    # a streamed leaf's layers reach autograd through its
+                    # anchor's views (the model gets the host tensor)
+                    v = views.get(self._streamed.get(name)) or \
+                        torch.unbind(p)
                     for u, unit in units[i]:
                         v[unit.layer].register_hook(
                             reducer.hook_for(u, acc[i][unit.layer]))
+                    if name in self._streamed:
+                        v = p
                 else:
                     v = p.view_as(p)
                     v.register_hook(reducer.hook_for(units[i][0][0], acc[i]))
@@ -513,8 +705,11 @@ class DeepSpeedTpuEngine:
             elif kind == VJP or self._odims[i] is None:
                 out.append(acc[i])
             else:
-                out.append(shard_of(acc[i], self._odims[i], self.dp_rank,
-                                    self.dp_world_size))
+                g = shard_of(acc[i], self._odims[i], self.dp_rank,
+                             self.dp_world_size)
+                # the host tiers read flat, contiguous gradients
+                out.append(g.contiguous() if self.host_opt is not None
+                           else g)
         return out
 
     @torch.no_grad()
@@ -524,11 +719,33 @@ class DeepSpeedTpuEngine:
         leaf with a sharded master gathers the cast shards."""
         for p, m, pd, od in zip(self._param_leaves, self._master_leaves,
                                 self._pdims, self._odims):
-            if pd is not None or od is None:
+            if p.device != m.device:
+                # a streamed layer leaf in host memory: cast on the card
+                # (a cast across devices would run on the host), one layer
+                # at a time
+                for r in range(p.shape[0]):
+                    p[r].copy_(m[r].to(p.dtype))
+            elif pd is not None or od is None:
                 p.copy_(m)
             else:
                 p.copy_(all_gather_leaf(m.to(self.compute_dtype), od,
                                         self.group))
+
+    def _update_targets(self) -> List[torch.Tensor]:
+        """Where the host tier writes the updated compute params: the
+        compute leaf, or (more than one rank, replicated compute leaf,
+        sharded master) this rank's shard buffer."""
+        return [p if b is None else b
+                for p, b in zip(self._param_leaves, self._update_bufs)]
+
+    @torch.no_grad()
+    def _gather_updated(self):
+        """After a host-tier update at more than one rank: each replicated
+        compute leaf from every rank's updated shard."""
+        for p, b, od in zip(self._param_leaves, self._update_bufs,
+                            self._odims):
+            if b is not None:
+                p.copy_(all_gather_leaf(b, od, self.group))
 
     def _mean_over_group(self, x: torch.Tensor) -> torch.Tensor:
         if self.dp_world_size > 1:
@@ -545,15 +762,19 @@ class DeepSpeedTpuEngine:
             batch = self._next_batch(data_iter)
         t0 = time.perf_counter()
         dev_batch = self._shard_batch(batch)
-        leaves = self._param_leaves
+        if self._infinity is not None:
+            return self._train_batch_infinity(dev_batch, t0)
+        leaves = self._grad_inputs()
         if self._grad_acc is None:
-            self._grad_acc = [torch.zeros_like(p, dtype=torch.float32)
+            self._grad_acc = [torch.zeros(p.shape, dtype=torch.float32,
+                                          device=self.device)
                               for p in leaves]
             self._grad_shards = [
-                torch.zeros(m.shape, dtype=torch.float32, device=self.device)
+                torch.zeros(self._local_shape(n, d), dtype=torch.float32,
+                            device=self.device)
                 if k == REDUCE_SCATTER else None
-                for k, m in zip(self._kinds, self._master_leaves
-                                or leaves)]
+                for k, n, d in zip(self._kinds, self._leaf_names,
+                                   self._gdims)]
         acc, shards = self._grad_acc, self._grad_shards
         for a in acc:
             a.zero_()
@@ -614,11 +835,12 @@ class DeepSpeedTpuEngine:
             elif ok:
                 # an overflowed step leaves the host state untouched
                 if self.offload_tiered:
-                    self.host_opt.stream_update(grads, self._param_leaves,
+                    self.host_opt.stream_update(grads, self._update_targets(),
                                                 self._step, lr)
                 else:
-                    self.host_opt.step(grads, self._param_leaves,
+                    self.host_opt.step(grads, self._update_targets(),
                                        self._step + 1, lr)
+                self._gather_updated()
                 self._step += 1
             if self.fp16_enabled:
                 self.scale_state = update_scale(
@@ -634,11 +856,29 @@ class DeepSpeedTpuEngine:
         if not skipped:
             self.global_steps += 1
             self.lr_scheduler.step()
-        self.last_step_s = time.perf_counter() - t0
         metrics = {"loss": loss_f, "grad_norm": float(gnorm), "lr": lr,
                    "skipped": skipped}
         if self.fp16_enabled:
             metrics["loss_scale"] = float(scale)
+        return self._finish_step(metrics, t0)
+
+    def _train_batch_infinity(self, dev_batch, t0) -> float:
+        """The ZeRO-Infinity batch (JAX ``_train_batch_infinity`` :1468):
+        the per-layer executor streams the layers from their files,
+        accumulates host gradients and runs the host optimizer."""
+        lr = self._lr_fn(self._step)
+        metrics = self._infinity.train_batch(dev_batch, self._step + 1, lr)
+        self._step += 1
+        self._batches_seen += 1
+        self.global_steps += 1
+        self.lr_scheduler.step()
+        metrics["lr"] = lr
+        return self._finish_step(metrics, t0)
+
+    def _finish_step(self, metrics, t0) -> float:
+        loss_f, lr, skipped = (metrics["loss"], metrics["lr"],
+                               metrics["skipped"])
+        self.last_step_s = time.perf_counter() - t0
         self._last_metrics = metrics
         if self.config.wall_clock_breakdown and \
                 self._batches_seen % self.config.steps_per_print == 0:
@@ -660,6 +900,8 @@ class DeepSpeedTpuEngine:
         if batch is None:
             batch = self._next_batch(data_iter)
         dev_batch = self._shard_batch(batch)
+        if self._infinity is not None:
+            return self._infinity.eval_batch(dev_batch)
         params = self._model_params()
         losses = [self.model.apply(params, m, train=False).float()
                   for m in self._micro_batches(dev_batch)]
@@ -697,14 +939,35 @@ class DeepSpeedTpuEngine:
         return _unflatten(list(zip(self._leaf_names, leaves)))
 
     def _gathered(self, leaves, dims) -> List[torch.Tensor]:
+        if self.dp_world_size > 1:      # a collective runs on the device
+            leaves = [v.to(self.device) for v in leaves]
         return ckpt.gather_shards(leaves, dims, self.group)
+
+    @property
+    def _state_tier(self):
+        """The host tier holding master and moments, if any: the
+        optimizer offload's or ZeRO-Infinity's (the same checkpoint
+        surface)."""
+        return self.host_opt if self.host_opt is not None else \
+            self._infinity
+
+    def _full_params(self) -> List[torch.Tensor]:
+        """The whole compute params (ZeRO-Infinity: the master's cast, as
+        JAX :1992 writes them)."""
+        if self._infinity is not None:
+            master, _ = self._infinity.get_all_leaves()
+            return [m.to(self.compute_dtype) for m in master]
+        return self._gathered(self._param_leaves, self._pdims)
 
     def _train_state(self):
         """The state a checkpoint holds, as the JAX engine lays it out,
         with whole (gathered) leaves."""
-        if self.host_opt is not None:
-            master, moments = self.host_opt.get_all_leaves()
-            master_tree = self._tree(master)
+        tier = self._state_tier
+        if tier is not None:
+            master, moments = tier.get_all_leaves()
+            master_tree = self._tree(self._gathered(master, self._odims))
+            moments = {k: self._gathered(v, self._odims)
+                       for k, v in moments.items()}
         else:
             master_tree = (None if self._master_leaves is None else
                            self._tree(self._gathered(self._master_leaves,
@@ -713,8 +976,7 @@ class DeepSpeedTpuEngine:
                                          else self._pdims)
                        for k, v in self.opt_state.items()}
         return {
-            "params": self._tree(self._gathered(self._param_leaves,
-                                                self._pdims)),
+            "params": self._tree(self._full_params()),
             "master_params": master_tree,
             "opt_state": {k: self._tree(v) for k, v in moments.items()},
             "scale_state": self.scale_state,
@@ -802,12 +1064,18 @@ class DeepSpeedTpuEngine:
                             device="meta")
                 for k, v in zip(self._leaf_names, leaves)])
 
-        if self.host_opt is not None:
-            master, moments = self.host_opt.template_leaves()
+        tier = self._state_tier
+        if tier is not None:
+            master, moments = tier.template_leaves()
         else:
             master, moments = self._master_leaves, self.opt_state
         template = {
-            "params": meta_like(self._param_leaves),
+            "params": self._tree([
+                torch.empty(self._full_shapes[k], dtype=self.compute_dtype
+                            if self._infinity is not None else v.dtype,
+                            device="meta")
+                for k, v in zip(self._leaf_names,
+                                self._param_leaves or master)]),
             "master_params": meta_like(master),
             "opt_state": ({k: meta_like(v) for k, v in moments.items()}
                           if load_optimizer_states else None),
@@ -832,16 +1100,25 @@ class DeepSpeedTpuEngine:
             return ckpt.take_shards(whole, dims or [None] * len(whole),
                                     self.dp_rank, self.dp_world_size)
 
-        if self.host_opt is not None:
+        if tier is not None:
             moments = None
             if state["opt_state"] is not None:
-                moments = {k: leaves(None, sub)
+                moments = {k: leaves(None, sub, self._odims)
                            for k, sub in state["opt_state"].items()}
-            self.host_opt.load_leaves(leaves("master_params"), moments)
-            # the compute params are the master's cast, as in JAX
-            master, _ = self.host_opt.get_all_leaves()
-            for p, m in zip(self._param_leaves, master):
-                copy_rows(p.detach(), m)
+            # ZeRO-Infinity rewrites its layer files and persistents too
+            tier.load_leaves(leaves("master_params", dims=self._odims),
+                             moments)
+            if self.host_opt is not None:
+                # the compute params are the master's cast, as in JAX
+                master, _ = self.host_opt.get_all_leaves()
+                for p, m, pd, od in zip(self._param_leaves, master,
+                                        self._pdims, self._odims):
+                    if pd is None and od is not None:
+                        p.copy_(all_gather_leaf(m.to(self.device,
+                                                     self.compute_dtype),
+                                                od, self.group))
+                    else:
+                        copy_rows(p.detach(), m)
         else:
             mdims = self._odims if self.has_master else self._pdims
             for p, v in zip(self._param_leaves,
@@ -872,7 +1149,7 @@ class DeepSpeedTpuEngine:
         """The consolidated compute-dtype weights as one ``.npz`` keyed by
         parameter path (JAX :2172; 16-bit leaves written as float32, as
         the JAX package writes them). Every rank gathers; rank 0 writes."""
-        params = self._tree(self._gathered(self._param_leaves, self._pdims))
+        params = self._tree(self._full_params())
         path = os.path.join(save_dir, save_filename)
         if self.dp_rank == 0:
             os.makedirs(save_dir, exist_ok=True)
@@ -889,6 +1166,15 @@ class DeepSpeedTpuEngine:
         if self.host_opt is not None:
             self.host_opt.close()
             self.host_opt = None
+        if self._infinity is not None:
+            self._infinity.close()
+            self._infinity = None
+        if self._param_pins is not None:
+            if self.device.type == "cuda":  # no copy may touch a page
+                torch.cuda.synchronize(self.device)   # once unregistered
+            self._param_pins.close()
+            self._param_pins = None
+            self.host_stream = self.model.host_stream = None
         self.params = self.master_params = self.opt_state = None
         self._param_leaves = self._master_leaves = []
         self._grad_acc = self._grad_shards = None

@@ -359,3 +359,124 @@ class TieredOptimizerOffload:
         self._inflight.clear()
         self.master, self.state = [], {}
         self.pinned.close()
+
+
+class _Fetch(torch.autograd.Function):
+    """A layer leaf fetched from host memory, as seen by autograd: its
+    gradient goes, unchanged and on the device, to ``anchor`` (a stride-0
+    device tensor of the leaf's shape that holds no memory), since autograd
+    refuses a device gradient for a host tensor."""
+
+    @staticmethod
+    def forward(ctx, anchor, fetched):
+        return fetched
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class HostLayerStream:
+    """The stacked ``[L, ...]`` layer leaves of ``offload_param {device:
+    cpu}``: stored in host memory (page-locked on the card) and brought to
+    the device one layer at a time by the model's layer loop (``fetch``,
+    inside the layer's activation checkpoint), the port of JAX's
+    ``stream_params_from_host`` (``models/transformer.py:729``), where
+    XLA's host offloader does the double buffering.
+
+    Here a fetch of layer ``l`` issues the host-to-device copy of the next
+    layer the loop will ask for on a side stream: ``l + 1`` in the
+    forward, ``l - 1`` in the backward's recompute (after the last layer's
+    forward, that layer again for the first recompute). The model's layer
+    loop says which pass a fetch belongs to (:meth:`forward_sweep` around
+    the loop; a fetch outside it is the recompute). The consumer's stream
+    waits on the copy's event. Gradients reach the engine through ``anchors`` (one per leaf,
+    cut into layers by :meth:`begin`), so they stay on the device and are
+    reduced exactly as the resident leaves' are.
+
+    ``h2d_bytes`` counts the bytes copied; on the card, :meth:`timings`
+    sums the copies' time on the side stream and the time the compute
+    stream waited for them (the exposed share)."""
+
+    def __init__(self, host: Dict[str, torch.Tensor], device):
+        self.host = host
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.L = next(iter(host.values())).shape[0]
+        self.anchors = {
+            k: torch.zeros((), dtype=v.dtype, device=self.device)
+            .expand(v.shape).detach().requires_grad_()
+            for k, v in host.items()}
+        self._side = torch.cuda.Stream(self.device) if self.cuda else None
+        self._views: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        self._ready: Dict[int, tuple] = {}
+        self._forward = False
+        self._events: List[tuple] = []
+        self.h2d_bytes = 0
+
+    def begin(self) -> Dict[str, Tuple[torch.Tensor, ...]]:
+        """Start a forward: returns the anchors' per-layer views (where
+        the engine may hook each layer's gradient)."""
+        for _, ev, _ in self._ready.values():
+            if ev is not None:
+                ev.synchronize()
+        self._ready.clear()
+        self._views = {k: torch.unbind(a) for k, a in self.anchors.items()}
+        return self._views
+
+    def forward_sweep(self, active: bool) -> None:
+        """Called by the model's layer loop: ``True`` before its first
+        layer, ``False`` after its last. Fetches in between are the
+        forward's; later ones, the backward's recompute."""
+        self._forward = active
+
+    def _issue(self, l: int) -> None:
+        if l in self._ready or not 0 <= l < self.L:
+            return
+        if not self.cuda:
+            self._ready[l] = ({k: v[l].clone() for k, v in
+                               self.host.items()}, None, None)
+        else:
+            with torch.cuda.stream(self._side):
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                dev = {k: v[l].to(self.device, non_blocking=True)
+                       for k, v in self.host.items()}
+                done = torch.cuda.Event(enable_timing=True)
+                done.record()
+            self._ready[l] = (dev, done, start)
+        self.h2d_bytes += sum(v[l].numel() * v.element_size()
+                              for v in self.host.values())
+
+    def fetch(self, l: int) -> Dict[str, torch.Tensor]:
+        """Layer ``l``'s leaves on the device, tied to the anchors."""
+        self._issue(l)
+        dev, done, start = self._ready.pop(l)
+        if done is not None:
+            main = torch.cuda.current_stream(self.device)
+            w0 = torch.cuda.Event(enable_timing=True)
+            w0.record(main)
+            main.wait_event(done)
+            w1 = torch.cuda.Event(enable_timing=True)
+            w1.record(main)
+            self._events.append((start, done, w0, w1))
+            for t in dev.values():
+                t.record_stream(main)
+        if self._forward:       # up the stack, then the top layer again
+            nxt = l + 1 if l + 1 < self.L else (
+                l if torch.is_grad_enabled() else -1)
+        else:                   # the backward's recompute walks down
+            nxt = l - 1
+        self._issue(nxt)
+        return {k: _Fetch.apply(self._views[k][l], v)
+                for k, v in dev.items()}
+
+    def timings(self) -> Dict[str, float]:
+        """Copies' ms on the side stream and the ms the compute stream
+        waited on them, since the last call (waits for the events)."""
+        ev, self._events = self._events, []
+        if not ev:
+            return {"h2d_ms": 0.0, "wait_ms": 0.0}
+        ev[-1][3].synchronize()
+        return {"h2d_ms": sum(s.elapsed_time(d) for s, d, _, _ in ev),
+                "wait_ms": sum(a.elapsed_time(b) for _, _, a, b in ev)}

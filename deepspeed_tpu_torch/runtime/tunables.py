@@ -8,7 +8,9 @@ jax), holding only the entries that code in this package reads:
     ``inference/v2/config_v2.py`` (the window also by the engine's
     ``set_decode_window``),
   * ``serving.max_queued_tokens``, the admission controller's
-    token-budget shed threshold (``inference/v2/serve/admission.py``).
+    token-budget shed threshold (``inference/v2/serve/admission.py``),
+  * ``state_manager.kv_spill_host_bytes`` / ``kv_spill_disk_bytes``, the
+    KV spill tier's budgets, checked by ``inference/v2/config_v2.py``.
 
 Each entry has the same name, default, hard range and cost signal as in
 the JAX package, so a bad value fails with the same message in both.
@@ -16,8 +18,8 @@ Consumers report the value they run with through :func:`observe`, and
 ``/statusz`` renders :func:`statusz_section`: the effective value and
 its provenance (``default | config | tuned | online``) per knob. The
 search ladders of the JAX registry belong to its offline tuner, and the
-handoff, KV-spill and autoscaler entries to the fleet and spill modules
-(ROADMAP A7, A9): they come with the code that reads them.
+handoff and autoscaler entries to the fleet modules (ROADMAP A7): they
+come with the code that reads them.
 """
 
 import math
@@ -181,6 +183,15 @@ _r(name="serving.max_queued_tokens", default=None, lo=1, hi=1 << 24,
    online=True, cost_signal="serving_admission_queued_tokens",
    doc="admission token-budget shed threshold "
        "(AdmissionConfig.max_queued_tokens; None disables shedding)")
+
+# -- serving: KV spill tier --------------------------------------------
+_r(name="state_manager.kv_spill_host_bytes", default=64 << 20,
+   lo=1, hi=None, cost_signal="kv_spill_resident_bytes",
+   doc="host-RAM LRU budget for spilled prefix-cache KV blocks")
+_r(name="state_manager.kv_spill_disk_bytes", default=256 << 20,
+   lo=0, hi=None, cost_signal="kv_spill_dropped_blocks_total",
+   doc="disk-tier LRU budget for spilled KV blocks (0 = host tier "
+       "only)")
 
 
 # -- module-level conveniences (the registry singleton) ----------------

@@ -13,7 +13,10 @@ Held: losses within 1e-5 relative and params after 3 steps within 2e-5
 absolute of JAX at stages 0-3; bucketed and off reduction ``torch.equal``
 at gas 1 and 2; an fp16 overflow in one rank's rows skipped on both ranks;
 the returned loss the mean of the ranks' own; a checkpoint saved at world
-2 resumes at world 1 and one saved at world 1 at world 2.
+2 resumes at world 1 and one saved at world 1 at world 2; optimizer
+offload (tiered at stages 1-2, the host C++ optimizer at stages 1-3) at
+world 2, each rank's host tier half of world 1's, against a JAX dp=2
+offload engine.
 """
 
 import os
@@ -89,6 +92,26 @@ def oracle():
                                  for b in batches[:STEPS]]
         out[f"gnorm{stage}"] = float(eng.get_global_grad_norm())
         out[f"params{stage}"] = _jax_weights(eng)
+    # one JAX dp=2 engine with the host C++ optimizer (in fp32 the tiered
+    # and legacy offload and every stage give the same trajectory there);
+    # its initial master, drawn outside a jit, is the offload cases' start
+    cfg = W.train_config(2)
+    cfg["zero_optimization"]["offload_optimizer"] = W.OFFLOAD["legacy"]
+    eng = JEngine(JModel(JCfg(**W.FLAGSHIP_SMALL)),
+                  JDSConfig(cfg, world_size=WORLD),
+                  topology=MeshTopology(TopologyConfig(),
+                                        devices=jax.devices()[:WORLD]))
+    master = jax.tree_util.tree_unflatten(
+        eng._param_treedef,
+        [np.array(x, np.float32) for x in eng.host_opt.get_master_leaves()])
+    flat, _ = jax.tree_util.tree_flatten_with_path(master)
+    out["offload_weights"] = {"/".join(k.key for k in path): v
+                              for path, v in flat}
+    out["losses_off"] = [float(eng.train_batch(batch=b))
+                         for b in batches[:STEPS]]
+    flat, _ = jax.tree_util.tree_flatten_with_path(eng.params)
+    out["params_off"] = {"/".join(k.key for k in path): np.array(v, np.float32)
+                         for path, v in flat}
     return out
 
 
@@ -99,7 +122,8 @@ def ranks(oracle, tmp_path_factory):
     work = str(tmp_path_factory.mktemp("dist"))
     weights = _nested(oracle["weights"])
     batches = oracle["batches"]
-    torch.save({"weights": weights, "batches": batches},
+    torch.save({"weights": weights, "batches": batches,
+                "offload_weights": _nested(oracle["offload_weights"])},
                os.path.join(work, "inputs.pt"))
     # world 1, stage 3, the same global batch (micro 4): 3 steps, save,
     # 2 more
@@ -214,3 +238,23 @@ def test_world1_checkpoint_resumes_at_world2(ranks):
         np.testing.assert_allclose(r["w1_cont_losses"], w1["cont_losses"],
                                    rtol=1e-5)
         _close(r["w1_cont_params"], w1["cont_params"], 2e-5)
+
+
+@pytest.mark.parametrize("kind,stage", W.OFFLOAD_CASES)
+def test_optimizer_offload_at_world2_matches_jax_dp2(oracle, ranks, kind,
+                                                     stage):
+    """Each rank's host tier holds half the master and moments of world
+    1, updates its shard, and the ranks' compute params meet through the
+    all-gather: the losses and params of the JAX dp=2 offload engine."""
+    r0, r1 = (r[f"off_{kind}{stage}"] for r in ranks[0])
+    for r in (r0, r1):
+        np.testing.assert_allclose(r["losses"], oracle["losses_off"],
+                                   rtol=1e-5)
+        _close(r["params"], oracle["params_off"], 2e-5)
+        assert 2 * r["host_bytes"] == r["full_bytes"]
+    assert r0["losses"] == r1["losses"]
+    for k in r0["params"]:
+        np.testing.assert_array_equal(r0["params"][k], r1["params"][k],
+                                      err_msg=k)
+        np.testing.assert_array_equal(r0["master"][k], r1["master"][k],
+                                      err_msg=k)

@@ -417,8 +417,8 @@ def test_offload_configs_run(weights, extra):
 
 def test_unported_offload_keys_raise():
     for extra, item in (
-            ({"zero_optimization": {"stage": 2, "offload_param": {
-                "device": "cpu"}}}, "A9"),
+            ({"zero_optimization": {"stage": 3, "offload_param": {
+                "device": "cpu", "ratio": 0.5}}}, "A9"),
             ({"zero_optimization": {"stage": 2, "offload_optimizer": dict(
                 LEGACY, ratio=0.5)}}, "A9"),
             ({"checkpoint": {"load_universal": True}}, "A5")):

@@ -531,7 +531,7 @@ def test_fleet_surface_raises_with_its_label(engines, call, item):
 
 @pytest.mark.parametrize("what,item", [
     ("autotune", "A12"), ("ragged_off", "A6a"), ("adapter", "A11"),
-    ("speculative", "A11"), ("spill", "A9")])
+    ("speculative", "A11")])
 def test_unported_options_raise_with_their_label(engines, models, what,
                                                  item):
     eng, serve = engines["torch"]
@@ -544,7 +544,5 @@ def test_unported_options_raise_with_their_label(engines, models, what,
         elif what == "adapter":
             DynamicSplitFuseScheduler(eng).submit(1, [1, 2, 3], 2,
                                                   adapter="a")
-        elif what == "speculative":
-            eng.generate([[1, 2, 3]], 2, speculative=True)
         else:
-            DSStateManagerConfig(enable_kv_spill=True)
+            eng.generate([[1, 2, 3]], 2, speculative=True)

@@ -343,9 +343,14 @@ def test_unported_config_features_raise(field, value):
 
 
 def test_config_validation_matches_jax():
-    with pytest.raises(NotImplementedError, match="spill"):
-        DSStateManagerConfig(enable_prefix_caching=True,
-                             enable_kv_spill=True)
+    # the spill tier keys on prefix digests: both packages refuse it
+    # without prefix caching, with the same message
+    msgs = []
+    for cls in (JSM, DSStateManagerConfig):
+        with pytest.raises(ValueError, match="enable_prefix_caching") as e:
+            cls(enable_kv_spill=True)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
     for kw in ({"decode_window": 0}, {"decode_window": 65},
                {"prefill_bucket": 0}, {"spec_mode": "x"}):
         with pytest.raises(ValueError):

@@ -382,7 +382,9 @@ def test_tunables_registry_identical():
         "zero_optimization.stage3_prefetch_bucket_size",
         "zero_optimization.quant_block",
         "serving.decode_window", "serving.prefill_bucket",
-        "serving.max_queued_tokens"]
+        "serving.max_queued_tokens",
+        "state_manager.kv_spill_host_bytes",
+        "state_manager.kv_spill_disk_bytes"]
     for name in tt.REGISTRY.names():
         t, j = tt.REGISTRY.get(name), jt.REGISTRY.get(name)
         assert (t.range_str(), t.default, t.kind, t.cost_signal,

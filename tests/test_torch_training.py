@@ -289,9 +289,10 @@ def test_device_none_raises_without_gpu():
     # MiCS shard groups are A4's remainder (ZeRO 3 itself runs)
     ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}}, "A4"),
     ({"zero_optimization": {"stage": 3, "offload_param":
-                            {"device": "cpu"}}}, "A9"),
+                            {"device": "cpu", "ratio": 0.5}}}, "A9"),
     ({"activation_checkpointing": {"policy": "save_attn"}}, "A3"),
-    ({"activation_checkpointing": {"cpu_checkpointing": True}}, "A9"),
+    ({"zero_optimization": {"stage": 2, "offload_optimizer":
+                            {"device": "cpu", "ratio": 0.5}}}, "A9"),
     ({"hybrid_engine": {"enabled": True}}, "A11"),
     ({"flops_profiler": {"enabled": True}}, "A12"),
     ({"curriculum_learning": {"enabled": True}}, "A12"),

@@ -202,6 +202,17 @@ ADMITTED = [
                             "overlap_comm": False,
                             "stage3_param_persistence_threshold": 0}}, 4),
     ({"zero_optimization": {"stage": 1, "overlap_grad_reduce": "off"}}, 2),
+    # the memory tiers: optimizer offload at more than one rank, and
+    # parameter and activation offload
+    ({"zero_optimization": {"stage": 2, "offload_optimizer":
+                            {"device": "cpu"}}}, 2),
+    ({"zero_optimization": {"stage": 1, "offload_optimizer":
+                            {"device": "cpu", "pin_memory": True}}}, 2),
+    ({"zero_optimization": {"stage": 3, "offload_param":
+                            {"device": "cpu"}}}, 2),
+    ({"zero_optimization": {"stage": 3, "offload_param":
+                            {"device": "nvme", "nvme_path": "/nvme"}}}, 1),
+    ({"activation_checkpointing": {"cpu_checkpointing": True}}, 1),
 ]
 
 
@@ -214,10 +225,13 @@ def test_config_admits_zero_keys(extra, world):
 
 
 REJECTED = [
-    ({"zero_optimization": {"stage": 2, "offload_optimizer":
-                            {"device": "cpu"}}}, 2, "A9"),
+    # optimizer offload at world 2 and offload_param run; ZeRO-Infinity
+    # at more than one rank and a partial offload ratio do not
     ({"zero_optimization": {"stage": 3, "offload_param":
-                            {"device": "cpu"}}}, 1, "A9"),
+                            {"device": "nvme", "nvme_path": "/nvme"}}},
+     2, "A9"),
+    ({"zero_optimization": {"stage": 3, "offload_param":
+                            {"device": "cpu", "ratio": 0.5}}}, 1, "A9"),
     ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
      2, "A10"),
     ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},

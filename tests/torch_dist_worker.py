@@ -54,6 +54,21 @@ class TinyLinear:
         return (batch["x"].float() * params["w"].float()).sum(-1).mean()
 
 
+OFFLOAD = {"tiered": {"device": "cpu", "pin_memory": True},
+           "legacy": {"device": "cpu"}}
+# the tiered update targets stages 1/2 (a config refusal at 3, as in JAX)
+OFFLOAD_CASES = [("tiered", 1), ("tiered", 2), ("legacy", 1), ("legacy", 2),
+                 ("legacy", 3)]
+
+
+def ckpt_leaves(eng):
+    """(path, whole fp32 master) of an offloaded engine (every rank takes
+    part in the gather)."""
+    from deepspeed_tpu_torch.checkpoint import state_checkpoint as ckpt
+
+    return ckpt.leaf_paths(eng._train_state()["master_params"])
+
+
 def _engine(config, params=None, model=None):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.checkpoint.interop import params_from_numpy
@@ -160,6 +175,23 @@ def run(rank, world, port, workdir):
     eng.load_checkpoint(os.path.join(workdir, "ckpt_w1"), tag="s3")
     out["w1_cont_losses"] = _train(eng, batches[3:5])
     out["w1_cont_params"] = _full_params(eng)
+
+    # 6. optimizer offload at world 2: each rank's host tier holds its
+    # shard of the master and moments (against the JAX dp=2 engine)
+    for kind, stage in OFFLOAD_CASES:
+        cfg = train_config(stage)
+        cfg["zero_optimization"]["offload_optimizer"] = OFFLOAD[kind]
+        eng = _engine(cfg, inp["offload_weights"])
+        host = eng.host_opt
+        out[f"off_{kind}{stage}"] = {
+            "losses": _train(eng, batches[:3]),
+            "params": _full_params(eng),
+            "host_bytes": sum(host.sizes) * 4 * (1 + len(host.state_keys)),
+            "full_bytes": sum(int(np.prod(s)) for s in
+                              eng._full_shapes.values()) * 4 *
+            (1 + len(host.state_keys)),
+            "master": {k: v.numpy().copy() for k, v in ckpt_leaves(eng)}}
+        eng.close()
 
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     dist.barrier()
