@@ -8,13 +8,17 @@ runtime (``ServingEngine`` + ``ServingAPI`` over HTTP) and through the v1
 ``init_inference()`` engine, then with weight-only quantized weights
 (int8 and int4 on the v2 engine, int8 on the v1 engine), trains
 full-width Mistral-7B at 4 layers
-through ``initialize()`` and ``train_batch()``, then at its full 32 layers
+through ``initialize()`` and ``train_batch()`` (and, with telemetry,
+diagnostics and the monitor on, under each selective remat policy,
+through the forward / backward / step shims and through universal
+checkpoints), then at 12 layers
 through both ZeRO-Offload backends (the host C++ optimizer and the tiered
 pinned-memory state), with the NVMe tier and checkpoints at 2 layers,
 trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group,
 with its layer stack and activations offloaded to the host and through
 ZeRO-Infinity's per-layer files, serves returning conversations through
-the KV spill tier, runs block-sparse attention
+the KV spill tier and through the stitched ``ragged_attention="off"``
+dispatch, runs block-sparse attention
 forward and backward through ``SparseSelfAttention`` at Mistral-7B
 attention width, and checks that every path ran through its kernels.
 
@@ -188,7 +192,14 @@ exit 0):
    block free or reclaimable, paged and ragged launches 32 x steps;
    logged: restore ms and bytes a block, turn 2's TTFT with restores,
    with recompute (and in the large pool), the int8 / bf16 bytes a block;
-   then the serving engines are freed;
+   then the serving engines are freed. Phase 2e runs inside this phase,
+   before 2c, on the same engine: the 8 prompts through
+   ragged_attention="off" (each its own prefill, on the flash forward
+   kernel: 32 launches a prompt), last-token logits within twice the
+   ragged step's own gap to the fp32 engine, TTFT of the 8-prompt put in
+   turns (on, off, off, on), greedy streams against the ragged ones
+   (informational), generate()'s flash and paged launches, and a pair of
+   fresh int8-pool engines compared the same way;
 7. a small fp32 training check: a tiny model (hd 64, flash from S 128)
    trained 3 steps by a kernel engine and by a use_flash=False engine on
    the same weights, losses within 1e-5;
@@ -201,7 +212,27 @@ exit 0):
    2 x L x gas (forward, with the remat recompute) and L x gas (dq, dkv)
    per step, plus L x gas forwards for the eval; step time, tokens/s,
    peak memory, and the device time, busy share, top kernels and flash
-   kernels of one more step (torch.profiler);
+   kernels of one more step (torch.profiler), and the host syncs of one
+   step (torch's sync debug mode), with telemetry off;
+8f. the training surface, on phase 8's model, settings, seed and batch:
+   (a) an engine with telemetry, diagnostics (post-mortems on anomaly),
+   csv_monitor and memory_breakdown on: its five losses torch.equal to
+   phase 8's, the registry's training_loss and training_grad_norm equal
+   to each step's, one Train/loss CSV row a step; step ms and host syncs
+   against phase 8's; (c) from one saved state, each of
+   nothing_saveable, save_attn, save_dots_and_attn,
+   dots_with_no_batch_dims_saveable and dots_saveable: loss and
+   gradients torch.equal to nothing_saveable's, flash_fwd L x gas a step
+   where attn_out is kept (2 x L x gas otherwise), step ms, the step's
+   and a forward+backward's peak above the state; (d) forward / backward
+   / step over gas 2: master, params and moments torch.equal to
+   train_batch's; (b) a NaN in one embedding row: one nan_loss verdict
+   naming ``embed`` first, one post-mortem bundle; (e) at 2 layers (the
+   fp32 master and moments of 4 layers are 13.5 GB a copy on disk), a
+   stage-0 save through ds_to_universal into a stage-3 engine and a
+   tiered-offload engine of other weights: the next loss torch.equal to
+   the saving engine's; AsyncCheckpointEngine once over the card's layer
+   tensors;
 8c. ZeRO over torch.distributed at world 1: comm.init_distributed() with
    no environment (backend nccl and world 1 asserted); on phase 8's model,
    settings, seed and fixed batch, a stage-0 engine, then stages 1, 2 and
@@ -224,10 +255,11 @@ exit 0):
    the resident (ZeRO 2), tiered (offload_optimizer {device: cpu,
    pin_memory: true}) and legacy ({device: cpu}) engines: tiered equal to
    resident bit for bit (losses, params, master, moments: torch.equal),
-   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 32 layers (the
-   deepest depth the host's memory holds, never below 20), bf16, AdamW,
-   micro 2 x gas 2 x S 2048, remat, through the legacy and the tiered
-   engine, 3 steps each on one fixed batch: losses finite, the last below
+   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 12 layers
+   (``DEEP_LAYERS``: earlier versions ran 32 here; cut for the run's
+   time limit), bf16, AdamW, micro 2 x gas 2 x S 2048, remat, through the
+   legacy and the tiered engine, 2 steps each (``DEEP_STEPS``; 3 before)
+   on one fixed batch: losses finite, the last below
    the first, flash launches 2 x L x gas and L x gas a step, peak device
    memory under 80 GiB (beside the resident state's 18 B a parameter);
    step time, tokens/s, and one more step's split (torch.profiler where it
@@ -246,10 +278,11 @@ exit 0):
    optimizer offload at stage 3 refused, as in JAX), 3 steps each: losses
    and params torch.equal, flash launches 2 x L x gas and L x gas a
    step, the stack in pinned host memory; then offload_param cpu with
-   the host C++ optimizer at the deepest depth the host holds (never
-   below 20): losses finite and falling, step ms, tokens/s, peak device
-   GiB beside phase 8b's 32-layer runs, host RSS, layer copies a step
-   and their exposed share;
+   the host C++ optimizer at 12 layers, 2 steps (26 layers, the host's
+   cap, and 3 steps before; cut for the run's time limit): losses
+   finite and falling, step ms, tokens/s, peak device GiB beside phase
+   8b's 32-layer runs, host RSS, layer copies a step and their exposed
+   share;
 8e. ZeRO-Infinity (offload_param {device: nvme}) under build/nvme_infinity
    (removed at the end): at 4 layers, 2 steps, the optimizer state in
    host RAM and on NVMe torch.equal to each other and within rtol 0.05 /
@@ -257,8 +290,9 @@ exit 0):
    no layer on the device after init (no stacked leaf among the
    persistent ones, the init's device bytes at most the persistent
    leaves' plus less than one layer), the files removed by close(); then
-   at the deepest depth the host memory and the disk hold (never below
-   20), the same init check, 3 steps: losses finite and falling, step ms,
+   at 12 layers (20 before, where the host capped it; cut for the run's
+   time limit), the same init check, 2 steps: losses finite and falling,
+   step ms,
    tokens/s, peak device GiB, bytes read from the layer files and their
    rate, each sweep's share waiting on reads, init s and bytes written;
 9. sparse op: SparseSelfAttention(layout (i))(q, k, v, causal=True) and
@@ -273,8 +307,9 @@ exit 0):
    under impl="auto" on the card raises;
 10. the card's name and power limit, the host_ops JSON line (the host
    optimizers' times, rates, yardstick and errors), the kernels JSON line
-   (the flash launches of phases 8, 8c, 8b, 8d and 8e together, the
-   paged and ragged ones of phases 6, 2c and 2d), then the last line
+   (the flash launches of phases 2e, 8, 8f, 8c, 8b, 8d and 8e together,
+   the paged and ragged ones of phases 6, 2e, 2c and 2d), then the last
+   line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 Everything it builds goes under build/ of the checkout. It imports nothing
@@ -1383,6 +1418,8 @@ def serve_phase(dev):
     log(f"serve: fp32 |logits| max {np.abs(f32).max():.3f}, smallest top-2 "
         f"margin {float((top2[:, 1] - top2[:, 0]).min()):.4f} "
         f"(bf16 gaps informational)")
+    stitched = stitched_serve_phase(dev, cfg, eng, prompts, new, logits,
+                                    f32, gen)
     greedy_window_launches = profile_phase(eng, prompts, eng.decode_window)
     for k, n in serving_runtime_phase(cfg, eng, prompts, new, gen,
                                       greedy_window_launches).items():
@@ -1397,7 +1434,124 @@ def serve_phase(dev):
     for k, n in kv_spill_phase(dev, cfg, eng).items():
         launches[k] += n
     log(f"phase 2d: {time.perf_counter() - t0:.0f}s")
+    launches["paged_attention"] += stitched["paged_attention"]
+    launches["flash_fwd"] = stitched["flash_fwd"]
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the stitched dispatch (ragged_attention="off")
+# ---------------------------------------------------------------------------
+def timed_put(eng, uids, prompts):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.put(uids, prompts)
+    ms = (time.perf_counter() - t0) * 1e3
+    for u in uids:
+        eng.flush(u)
+    return out, ms
+
+
+def first_divergence(a, b):
+    n = min(len(a), len(b))
+    diff = np.nonzero(np.asarray(a[:n]) != np.asarray(b[:n]))[0]
+    return int(diff[0]) if len(diff) else None
+
+
+def stitched_serve_phase(dev, cfg, eng, prompts, new, ragged_logits, f32,
+                         ragged_gen):
+    """Phase 2e on the serve phase's engine: the 8 prompts (128-1024
+    tokens: buckets of multiples of 128, so every prefill takes the flash
+    kernel) through ragged_attention="off" against the ragged step. The
+    last-token logits must agree within twice the ragged path's own gap
+    to the fp32 engine on the same prompts: both are bf16 evaluations of
+    one function in different rounding orders, each within its bf16
+    error of the fp32 value; the tolerance uses the measured error of the
+    ragged path, not the stitched one's. Greedy streams and TTFT (put()
+    ms, the two modes in turns) are logged, an int8-pool pair of fresh
+    engines compared the same way. Returns the flash and paged
+    launches."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_attention
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    L = cfg.num_layers
+    t_phase = time.perf_counter()
+    uids = list(range(2000, 2008))
+    f0, p0 = fa.flash_fwd.launches, paged_attention.launches
+    eng.set_ragged_mode("off")
+    off, _ = timed_put(eng, uids, prompts)
+    flash_put = fa.flash_fwd.launches - f0
+    if flash_put != L * len(prompts):
+        raise AssertionError(f"2e: flash_fwd launched {flash_put} times for "
+                             f"{len(prompts)} prompts, not {L} x "
+                             f"{len(prompts)}")
+    ttft = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        eng.set_ragged_mode(mode)
+        ttft[mode].append(timed_put(eng, uids, prompts)[1])
+    gap = float(np.abs(off - ragged_logits).max())
+    err_on = float(np.abs(ragged_logits - f32).max())
+    err_off = float(np.abs(off - f32).max())
+    agree = float((off.argmax(-1) == ragged_logits.argmax(-1)).mean())
+    log(f"2e: put() logits max|off - on| {gap:.4f} (tolerance 2 x "
+        f"max|on - fp32| = {2 * err_on:.4f}; max|off - fp32| {err_off:.4f}); "
+        f"argmax agreement {agree:.3f}; flash_fwd {flash_put} launches "
+        f"for the put (= {L} x {len(prompts)})")
+    if not (np.isfinite(off).all() and gap <= 2 * err_on):
+        raise AssertionError("2e: stitched put() logits outside the bf16 "
+                             "tolerance of the ragged step's")
+    log(f"2e: TTFT (the 8-prompt put, ms, in turns on/off/off/on): ragged "
+        f"{[f'{x:.1f}' for x in ttft['on']]}, stitched "
+        f"{[f'{x:.1f}' for x in ttft['off']]}")
+    eng.set_ragged_mode("off")
+    f1, p1 = fa.flash_fwd.launches, paged_attention.launches
+    d0 = eng.decode_steps
+    gen = eng.generate(prompts, max_new_tokens=new)
+    eng.set_ragged_mode("auto")
+    decode = eng.decode_steps - d0
+    flash_gen = fa.flash_fwd.launches - f1
+    paged_gen = paged_attention.launches - p1
+    if flash_gen != L * len(prompts) or paged_gen != L * decode:
+        raise AssertionError(f"2e: generate() launches flash {flash_gen}, "
+                             f"paged {paged_gen} for {decode} decode steps")
+    same = [np.array_equal(a, b) for a, b in zip(gen, ragged_gen)]
+    div = [first_divergence(a[len(p):], b[len(p):])
+           for a, b, p in zip(gen, ragged_gen, prompts)]
+    log(f"2e: greedy generate() off vs on: {sum(same)}/8 streams equal; "
+        f"first divergent token per row {div} (bf16 near-ties part the "
+        f"paths; informational); launches flash {flash_gen}, paged "
+        f"{paged_gen} = {L} x {decode} decode steps")
+    # the int8 pool: two fresh engines on the same weight tensors (a freed
+    # int8 block keeps its scales, so each mode gets the same history)
+    q8 = {}
+    for mode in ("on", "off"):
+        e = InferenceEngineV2(TransformerLM(cfg), RaggedInferenceEngineConfig.
+                              from_dict({"dtype": "bfloat16",
+                                         "kv_quant": True,
+                                         "ragged_attention": mode,
+                                         "state_manager": {
+                                             "max_ragged_batch_size": 8192}}),
+                              params=eng.params, device=dev)
+        q8[mode] = timed_put(e, uids, prompts)
+        del e
+    q_gap = float(np.abs(q8["off"][0] - q8["on"][0]).max())
+    q_err = float(np.abs(q8["on"][0] - f32).max())
+    log(f"2e int8 pool: put() logits max|off - on| {q_gap:.4f} (tolerance "
+        f"2 x max|on - fp32| = {2 * q_err:.4f}), argmax agreement "
+        f"{float((q8['off'][0].argmax(-1) == q8['on'][0].argmax(-1)).mean()):.3f}; "
+        f"TTFT ms ragged {q8['on'][1]:.1f}, stitched {q8['off'][1]:.1f}")
+    if not (np.isfinite(q8["off"][0]).all() and q_gap <= 2 * q_err):
+        raise AssertionError("2e: int8 stitched put() outside the bf16 "
+                             "tolerance")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 2e: {time.perf_counter() - t_phase:.0f}s")
+    return {"flash_fwd": fa.flash_fwd.launches - f0,
+            "paged_attention": paged_attention.launches - p0}
 
 
 # ---------------------------------------------------------------------------
@@ -3554,6 +3708,13 @@ def small_train_check(dev):
 # ---------------------------------------------------------------------------
 # train phase
 # ---------------------------------------------------------------------------
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_B,
+                "gradient_accumulation_steps": 2,
+                "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+                "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                "steps_per_print": 10 ** 9}
+
+
 def train_phase(dev):
     import dataclasses
 
@@ -3563,11 +3724,10 @@ def train_phase(dev):
 
     cfg = dataclasses.replace(mistral_7b(), num_layers=4)
     L, gas, steps = cfg.num_layers, 2, 5
-    config = {"train_micro_batch_size_per_gpu": TRAIN_B,
-              "gradient_accumulation_steps": gas,
-              "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
-              "gradient_clipping": 1.0, "bf16": {"enabled": True},
-              "steps_per_print": 10 ** 9}
+    # telemetry and diagnostics off: phase 8f holds its observed engine
+    # against this one
+    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=gas,
+                  telemetry={"enabled": False})
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine, *_ = deepspeed_tpu_torch.initialize(model=TransformerLM(cfg),
@@ -3619,7 +3779,30 @@ def train_phase(dev):
     if launches != want:
         raise AssertionError(f"train launches {launches} != {want}")
     train_profile(engine, batch)
-    return launches
+    syncs = count_syncs(lambda: engine.train_batch(batch=batch))
+    log(f"train: host syncs in one step, telemetry off: {syncs}")
+    return launches, {"losses": losses, "median_ms": med * 1e3,
+                      "syncs": syncs, "batch": batch}
+
+
+def count_syncs(fn):
+    """Synchronizing CUDA calls (device-to-host reads, waits) made by
+    fn(), as torch's sync debug mode reports them: "N at file:line, ..."
+    (the Python lines that made them), or "none reported"."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in seen
+             if "synchroniz" in str(w.message)]
+    return (f"{len(sites)} at {', '.join(sites)}" if sites
+            else "none reported")
 
 
 def train_profile(engine, batch):
@@ -3637,6 +3820,280 @@ def train_profile(engine, batch):
         f"{sum(t for t, _ in flash.values()):.3f} ms")
     for k, (t, c) in sorted(flash.items(), key=lambda kv: -kv[1][0]):
         log(f"   {t:.3f} ms {c}x  {k[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8f: the training surface (telemetry, diagnostics, monitor; remat
+# policies; forward / backward / step; universal checkpoints)
+# ---------------------------------------------------------------------------
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+POLICIES_8F = ("nothing_saveable", "save_attn", "save_dots_and_attn",
+               "dots_with_no_batch_dims_saveable", "dots_saveable")
+
+
+def flash_launches():
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    return {n: getattr(fa, n).launches for n in FLASH_NAMES}
+
+
+def engine_state(eng):
+    """Clones of an engine's master, compute params and moments, and its
+    step (to restart a step from the same state)."""
+    return ([m.clone() for m in eng._master_leaves],
+            [p.detach().clone() for p in eng._param_leaves],
+            {k: [t.clone() for t in v] for k, v in eng.opt_state.items()},
+            eng._step)
+
+
+@torch.no_grad()
+def restore_state(eng, state):
+    master, params, moments, step = state
+    for a, b in zip(eng._master_leaves, master):
+        a.copy_(b)
+    for a, b in zip(eng._param_leaves, params):
+        a.copy_(b)
+    for k, v in moments.items():
+        for a, b in zip(eng.opt_state[k], v):
+            a.copy_(b)
+    eng._step = step
+
+
+def same_state(eng, state):
+    master, params, moments, _ = state
+    return (all(torch.equal(a, b) for a, b in zip(eng._master_leaves,
+                                                   master))
+            and all(torch.equal(a.detach(), b)
+                    for a, b in zip(eng._param_leaves, params))
+            and all(torch.equal(a, b) for k, v in moments.items()
+                    for a, b in zip(eng.opt_state[k], v)))
+
+
+def training_surface_phase(dev, card, base):
+    """Phase 8f on train_phase's model, settings, seed and fixed batch
+    (``base``: its losses, median step ms and host syncs, telemetry off):
+    (a) an engine with telemetry, diagnostics, csv_monitor and
+    memory_breakdown on, (c) the remat policies, (d) the shims and (b) a
+    NaN leaf on it; (e) universal checkpoints at 2 layers. Returns the
+    flash launches."""
+    import dataclasses
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_7b
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing as ds_ckpt
+    from deepspeed_tpu_torch.telemetry import anomaly, get_registry
+
+    cfg = dataclasses.replace(mistral_7b(), num_layers=4)
+    L, gas, batch = cfg.num_layers, 2, base["batch"]
+    tmp = tempfile.mkdtemp(prefix="phase8f_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    launches0 = flash_launches()
+    t_phase = time.perf_counter()
+    # -- (a) observability changes no numbers -----------------------------
+    config = dict(TRAIN_CONFIG, memory_breakdown=True,
+                  telemetry={"enabled": True},
+                  diagnostics={"postmortem_dir": os.path.join(tmp, "pm"),
+                               "postmortem_on_anomaly": True},
+                  csv_monitor={"enabled": True, "output_path": tmp,
+                               "job_name": "8f"})
+    torch.cuda.reset_peak_memory_stats()
+    eng, *_ = deepspeed_tpu_torch.initialize(model=TransformerLM(cfg),
+                                             config=config)
+    losses, step_s = [], []
+    reg = get_registry()
+    for _ in range(len(base["losses"])):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if reg.get("training_loss").value != losses[-1] or \
+                reg.get("training_grad_norm").value != \
+                eng.get_global_grad_norm():
+            raise AssertionError("8f: the registry's training_loss / "
+                                 "training_grad_norm differ from the step's")
+    if losses != base["losses"]:
+        raise AssertionError(f"8f: observed losses {losses} != telemetry-"
+                             f"off losses {base['losses']}")
+    with open(os.path.join(tmp, "8f", "Train_loss.csv")) as fh:
+        rows = [r.strip().split(",") for r in fh if r.strip()]
+    if [int(r[0]) for r in rows[1:]] != list(range(1, len(losses) + 1)) or \
+            [float(r[1]) for r in rows[1:]] != losses:
+        raise AssertionError(f"8f: Train/loss CSV rows {rows}")
+    med = statistics.median(step_s[1:]) * 1e3
+    syncs = count_syncs(lambda: eng.train_batch(batch=batch))
+    log(f"8f (a): telemetry + diagnostics + csv_monitor + memory_breakdown "
+        f"on: 5 losses torch.equal to the telemetry-off engine's; registry "
+        f"training_loss / training_grad_norm = the returned values each "
+        f"step; Train/loss CSV {len(rows) - 1} rows; step ms median "
+        f"{med:.1f} against {base['median_ms']:.1f} off "
+        f"({med / base['median_ms'] - 1:+.2%}); host syncs a step "
+        f"{syncs} against {base['syncs']} off; memory_breakdown "
+        f"{eng.memory_breakdown}; csv files "
+        f"{len(os.listdir(os.path.join(tmp, '8f')))} [{card}]")
+    # -- (c) the remat policies against nothing_saveable ------------------
+    state = engine_state(eng)
+    ref = None
+    micro = {k: torch.as_tensor(v[0]).to(dev) for k, v in batch.items()}
+    for pol in POLICIES_8F:
+        ds_ckpt.configure(policy=pol)
+        # a forward + backward alone: the activations the policy keeps,
+        # apart from the update's temporaries
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = torch.autograd.grad(
+            eng.model.apply(eng._model_params(), micro).float(),
+            eng._grad_inputs())
+        del grads
+        torch.cuda.synchronize()
+        act = (torch.cuda.max_memory_allocated() - base_bytes) / 2 ** 30
+        times, peaks = [], []
+        f0 = flash_launches()["flash_fwd"]
+        for _ in range(3):
+            restore_state(eng, state)
+            torch.cuda.synchronize()
+            base_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = eng.train_batch(batch=batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            peaks.append((torch.cuda.max_memory_allocated() - base_bytes)
+                         / 2 ** 30)
+        fwd = (flash_launches()["flash_fwd"] - f0) / 3
+        if ref is None:
+            ref = (loss, [g.clone() for g in eng._grad_acc])
+            same = True
+        else:
+            same = loss == ref[0] and all(
+                torch.equal(a, b) for a, b in zip(eng._grad_acc, ref[1]))
+        log(f"8f (c) {pol}: loss and grads torch.equal to "
+            f"nothing_saveable: {same}; step ms median "
+            f"{statistics.median(times):.1f} ({[f'{t:.1f}' for t in times]}); "
+            f"peak above the state {max(peaks):.2f} GiB, of one micro-batch's "
+            f"forward + backward {act:.2f} GiB; flash_fwd "
+            f"{fwd:.0f} a step (2 x L x gas = {2 * L * gas}) [{card}]")
+        if not same:
+            raise AssertionError(f"8f: {pol} differs from nothing_saveable")
+        want = L * gas if "attn" in pol else 2 * L * gas
+        if fwd != want:
+            raise AssertionError(f"8f: {pol} launched flash_fwd {fwd} times "
+                                 f"a step, not {want}")
+    ds_ckpt.configure(policy="nothing_saveable")
+    del ref
+    # -- (d) forward / backward / step over gas 2 = train_batch -----------
+    restore_state(eng, state)
+    eng.train_batch(batch=batch)
+    after = engine_state(eng)
+    restore_state(eng, state)
+    for g in range(gas):
+        eng.backward(eng(
+            {k: v[g] for k, v in batch.items()}))
+    eng.step()
+    if not same_state(eng, after):
+        raise AssertionError("8f: forward/backward/step differ from "
+                             "train_batch")
+    log("8f (d): forward / backward / step over gas 2: master, params and "
+        "moments torch.equal to train_batch's")
+    del after, state
+    # -- (b) a NaN written into one named leaf ----------------------------
+    n0 = len(anomaly.recent())
+    tok = int(batch["input_ids"][0, 0, 0])
+    with torch.no_grad():
+        eng.params["embed"][tok, 0] = float("nan")
+    nan_loss = eng.train_batch(batch=batch)
+    verdicts = anomaly.recent()[n0:]
+    pm_root = os.path.join(tmp, "pm")
+    bundles = os.listdir(pm_root) if os.path.isdir(pm_root) else []
+    top = [t["bucket"] for t in verdicts[0]["top_buckets"]] if verdicts \
+        else []
+    log(f"8f (b): NaN at embed[{tok}, 0]: loss {nan_loss}, verdicts "
+        f"{[v['kind'] for v in verdicts]}, top buckets {top}, bundles "
+        f"{bundles}")
+    if not (np.isnan(nan_loss) and len(verdicts) == 1
+            and verdicts[0]["kind"] == "nan_loss" and top[:1] == ["embed"]
+            and len(bundles) == 1):
+        raise AssertionError("8f: the NaN leaf did not give one nan_loss "
+                             "verdict naming embed and one bundle")
+    free_engine(eng)
+    del eng
+    # -- (e) universal checkpoints at 2 layers ----------------------------
+    universal_phase(dev, tmp, batch)
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {k: v - launches0[k] for k, v in flash_launches().items()}
+    log(f"phase 8f: {time.perf_counter() - t_phase:.0f}s; flash launches "
+        f"{out}")
+    return out
+
+
+def universal_phase(dev, tmp, batch):
+    """8f (e) at 2 layers (the fp32 master and moments of 4 Mistral-width
+    layers are 13.5 GB a copy on disk, and a conversion writes a second
+    copy): a stage-0 engine trains 2 steps and saves; ds_to_universal
+    converts; a stage-3 engine and a tiered-offload engine of other
+    weights load the directory and take the next step: each loss
+    torch.equal to the saving engine's own next step. Then
+    AsyncCheckpointEngine writes the card's layer tensors once."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.checkpoint.universal import ds_to_universal
+    from deepspeed_tpu_torch.models import mistral_7b
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import \
+        AsyncCheckpointEngine
+
+    two = dataclasses.replace(mistral_7b(), num_layers=2)
+    nxt = {"input_ids": np.random.default_rng(11).integers(
+        0, two.vocab_size, (OFFLOAD_GAS, TRAIN_B, TRAIN_S))}
+    src, *_ = offload_run(two, offload_config(None, stage=0), batch, 2,
+                          "8f (e) stage 0 L=2 (to save)")
+    ck, uni = os.path.join(tmp, "ck"), os.path.join(tmp, "universal")
+    t0 = time.perf_counter()
+    src.save_checkpoint(ck)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds_to_universal(ck, uni)
+    conv_s = time.perf_counter() - t0
+    nbytes = dir_bytes(uni)
+    shutil.rmtree(ck)
+    # AsyncCheckpointEngine over the card's tensors: the snapshot is taken
+    # at save(); the tensors change right after it
+    layers = src.params["layers"]
+    want = {k: v.float().cpu() for k, v in layers.items()}
+    ace = AsyncCheckpointEngine()
+    t0 = time.perf_counter()
+    ace.save({"layers": layers}, os.path.join(tmp, "layers.npz"))
+    snap_s = time.perf_counter() - t0
+    ref = src.train_batch(batch=nxt)
+    ace.commit("8f")
+    got = ace.load(os.path.join(tmp, "layers.npz"))["layers"]
+    if not all(torch.equal(torch.from_numpy(got[k]), want[k]) for k in want):
+        raise AssertionError("8f: AsyncCheckpointEngine wrote other values "
+                             "than the tensors held at save()")
+    free_engine(src)
+    del src, layers, want, got
+    log(f"8f (e): stage-0 save {save_s:.1f}s, ds_to_universal "
+        f"{conv_s:.1f}s ({nbytes / 1e9:.2f} GB of fragments); "
+        f"AsyncCheckpointEngine save() of the card's layer tensors "
+        f"returned in {snap_s:.2f}s, the file equal to them")
+    for label, config in (("stage 3", offload_config(None, stage=3)),
+                          ("tiered", offload_config(TIERED))):
+        dst, *_ = offload_run(two, config, batch, 0,
+                              f"8f (e) {label} L=2 (to load)", seed=1)
+        t0 = time.perf_counter()
+        dst.load_universal_checkpoint(uni)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        loss = dst.train_batch(batch=nxt)
+        log(f"8f (e) {label}: load_universal_checkpoint {load_s:.1f}s, "
+            f"next loss {loss!r} torch.equal to the saving engine's "
+            f"{ref!r}: {loss == ref}")
+        if loss != ref:
+            raise AssertionError(f"8f: {label} after the universal load "
+                                 f"{loss} != {ref}")
+        free_engine(dst)
+        del dst
+    shutil.rmtree(uni)
 
 
 # ---------------------------------------------------------------------------
@@ -4035,21 +4492,33 @@ def offload_width_phase(dev, cfg, batch):
     del leg, res, weights
 
 
+# the depth and steps of the deep offload runs of phases 8b, 8d and 8e:
+# 12 layers and 2 steps, cut from 32 (8b), 26 (8d) and 20 (8e) layers
+# (their host caps) and 3 steps to make room for phases 2e and 8f within
+# the run's time limit. At 12 layers the resident state (18 B a
+# parameter, 52 GB) would still fit the card: these runs now show the
+# offloaded engines at depth, not a depth only offload reaches (earlier
+# versions of this script did, at 20-32 layers)
+DEEP_LAYERS = 12
+DEEP_STEPS = 2
+
+
 def full_depth_layers(cfg, bytes_per_param=HOST_STATE_BYTES_PER_PARAM,
-                      margin_gib=4.0):
-    """32 unless the host cannot hold the f32 state (12 B a parameter)
-    beside this process: then the deepest depth that fits, never below 20
-    (from 20 layers up the resident state passes 80 GB)."""
+                      margin_gib=4.0, max_layers=DEEP_LAYERS):
+    """``max_layers`` unless the host cannot hold the f32 state (12 B a
+    parameter) beside this process: then the deepest depth that fits,
+    never below min(20, max_layers)."""
     h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     kv = cfg.kv_heads * cfg.head_dim
     per_layer = 2 * h * h + 2 * h * kv + 3 * h * f + 2 * h
     fixed = 2 * v * h + h
     room = host_limit_gib() - host_rss_gib() - margin_gib
-    for L in range(cfg.num_layers, 19, -1):
+    top = min(cfg.num_layers, max_layers)
+    for L in range(top, min(max_layers, 20) - 1, -1):
         need = (fixed + L * per_layer) * bytes_per_param / 2 ** 30
         if need <= room:
             return L, need, room, fixed + L * per_layer
-    raise AssertionError(f"the host cannot hold 20 layers of f32 state "
+    raise AssertionError(f"the host cannot hold {L} layers of f32 state "
                          f"({room:.1f} GiB free)")
 
 
@@ -4067,7 +4536,8 @@ def offload_full_depth_phase(dev, batch):
     base = mistral_7b()
     L, need, room, n_params = full_depth_layers(base)
     cfg = dataclasses.replace(base, num_layers=L)
-    log(f"offload full depth: L={L} of {base.num_layers}, "
+    log(f"offload full depth: L={L} of {base.num_layers} (cut to "
+        f"{DEEP_LAYERS} for the run's time limit), "
         f"{n_params / 1e9:.3f} B params; host state {need:.1f} GiB of "
         f"{room:.1f} GiB the host can give (limit "
         f"{host_limit_gib():.1f}, MemTotal "
@@ -4077,9 +4547,9 @@ def offload_full_depth_phase(dev, batch):
         f"{n_params / 1e9:.2f} B = "
         f"{RESIDENT_BYTES_PER_PARAM * n_params / 1e9:.0f} GB")
     kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    want = {"flash_fwd": 3 * 2 * L * OFFLOAD_GAS,
-            "flash_bwd_dq": 3 * L * OFFLOAD_GAS,
-            "flash_bwd_dkv": 3 * L * OFFLOAD_GAS}
+    want = {"flash_fwd": DEEP_STEPS * 2 * L * OFFLOAD_GAS,
+            "flash_bwd_dq": DEEP_STEPS * L * OFFLOAD_GAS,
+            "flash_bwd_dkv": DEEP_STEPS * L * OFFLOAD_GAS}
     total = dict.fromkeys(want, 0)
     tokens = OFFLOAD_GAS * TRAIN_B * TRAIN_S
     results = {}
@@ -4087,7 +4557,7 @@ def offload_full_depth_phase(dev, batch):
         for kfn in kernels:
             kfn.launches = 0
         eng, losses, step_s, peak, init_s = offload_run(
-            cfg, offload_config(off), batch, 3, f"{label} L={L}")
+            cfg, offload_config(off), batch, DEEP_STEPS, f"{label} L={L}")
         launches = {kfn.__name__: kfn.launches for kfn in kernels}
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise AssertionError(f"{label} L={L} losses not finite and "
@@ -4417,21 +4887,24 @@ def param_offload_depth_phase(dev, batch):
         HOST_MARGIN_GIB)
     cfg = dataclasses.replace(base, num_layers=L)
     log(f"8d full depth: L={L} of {base.num_layers}"
-        + (" (cut: host memory)" if L < base.num_layers else "")
+        + (" (cut: host memory)" if L < min(DEEP_LAYERS, 20) else
+           f" (cut to {DEEP_LAYERS}: the run's time limit)"
+           if L < base.num_layers else "")
         + f", {n_params / 1e9:.3f} B params; host state and stack "
         f"{need:.1f} GiB of {room:.1f} GiB")
     config = tier_config({"offload_param": {"device": "cpu"},
                           "offload_optimizer": LEGACY})
     (eng, losses, step_s, peak, init_s), launches = tier_run(
-        cfg, config, batch, 3, f"8d offload_param cpu + legacy L={L}", None)
+        cfg, config, batch, DEEP_STEPS,
+        f"8d offload_param cpu + legacy L={L}", None)
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"8d L={L}: losses not finite and falling: "
                              f"{losses}")
-    # the layer copies a step: the mean of the 3
+    # the layer copies a step: the mean of the steps
     hs = eng.host_stream
     st, tm = hs.timings(), eng.step_timings()
-    st = {k: v / 3 for k, v in st.items()}
-    h2d = hs.h2d_bytes / 3
+    st = {k: v / DEEP_STEPS for k, v in st.items()}
+    h2d = hs.h2d_bytes / DEEP_STEPS
     tokens = OFFLOAD_GAS * TRAIN_B * TRAIN_S
     med = statistics.median(step_s[1:])
     log(f"8d L={L}: median step {med * 1e3:.0f} ms = {tokens / med:.0f} "
@@ -4439,11 +4912,11 @@ def param_offload_depth_phase(dev, batch):
         f"legacy {OFFLOAD_32L_PEAK_GIB['legacy']}, tiered "
         f"{OFFLOAD_32L_PEAK_GIB['tiered']}); "
         f"host RSS {host_rss_gib():.1f} GiB; init {init_s:.1f}s")
-    log(f"8d L={L} a step (mean of 3): layer copies "
+    log(f"8d L={L} a step (mean of {DEEP_STEPS}): layer copies "
         f"{h2d / 1e9:.2f} GB ({st['h2d_ms']:.0f} ms on the side stream, "
         f"{h2d / max(st['h2d_ms'], 1e-9) / 1e6:.2f} GB/s), compute stream "
         f"waited {st['wait_ms']:.0f} ms (exposed share "
-        f"{st['wait_ms'] / max(st['h2d_ms'], 1e-9):.3f}); step 3: "
+        f"{st['wait_ms'] / max(st['h2d_ms'], 1e-9):.3f}); last step: "
         f"forward+backward {tm.get('grads_ms', 0):.0f} ms, update "
         f"{tm.get('update_ms', 0):.0f} ms")
     free_engine(eng)
@@ -4533,9 +5006,10 @@ def infinity_width_phase(dev, cfg, batch, weights, root, l_loss):
     return {k: n1[k] + n2[k] for k in n1}
 
 
-def infinity_depth_layers(cfg, root):
-    """The deepest depth (never below 20) whose param files fit the free
-    space under ``root`` and whose host state fits the host's memory."""
+def infinity_depth_layers(cfg, root, max_layers=DEEP_LAYERS):
+    """The deepest depth up to ``max_layers`` (never below min(20,
+    max_layers)) whose param files fit the free space under ``root`` and
+    whose host state fits the host's memory."""
     h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     kv = cfg.kv_heads * cfg.head_dim
     per_layer = 2 * h * h + 2 * h * kv + 3 * h * f + 2 * h
@@ -4543,13 +5017,14 @@ def infinity_depth_layers(cfg, root):
     st = os.statvfs(root)
     disk = st.f_bavail * st.f_frsize / 2 ** 30 - 4.0
     room = host_limit_gib() - host_rss_gib() - HOST_MARGIN_GIB
-    for L in range(cfg.num_layers, 19, -1):
+    for L in range(min(cfg.num_layers, max_layers),
+                   min(max_layers, 20) - 1, -1):
         host = (fixed + L * per_layer) * INFINITY_HOST_BYTES_PER_PARAM
         files = L * per_layer * 2
         if host / 2 ** 30 <= room and files / 2 ** 30 <= disk:
             return L, host / 2 ** 30, room, files / 2 ** 30, disk, \
                 fixed + L * per_layer
-    raise AssertionError(f"ZeRO-Infinity: neither 20 layers' host state "
+    raise AssertionError(f"ZeRO-Infinity: neither {L} layers' host state "
                          f"({room:.1f} GiB free) nor their files "
                          f"({disk:.1f} GiB free) fit")
 
@@ -4569,7 +5044,9 @@ def infinity_depth_phase(dev, batch, root):
     L, host, room, files, disk, n_params = infinity_depth_layers(base, root)
     cfg = dataclasses.replace(base, num_layers=L)
     log(f"8e full depth: L={L} of {base.num_layers}"
-        + (" (cut: host memory or disk)" if L < base.num_layers else "")
+        + (" (cut: host memory or disk)" if L < min(DEEP_LAYERS, 20) else
+           f" (cut to {DEEP_LAYERS}: the run's time limit)"
+           if L < base.num_layers else "")
         + f", {n_params / 1e9:.3f} B params; host state {host:.1f} of "
         f"{room:.1f} GiB, param files {files:.1f} of {disk:.1f} GiB free")
     flash_counts(reset=True)
@@ -4586,7 +5063,7 @@ def infinity_depth_phase(dev, batch, root):
     base_b = torch.cuda.memory_allocated()
     check_infinity_resident(f"8e L={L}", eng, base_b - b0)
     losses, step_s, tms = [], [], []
-    for _ in range(3):
+    for _ in range(DEEP_STEPS):
         t0 = time.perf_counter()
         losses.append(eng.train_batch(batch=batch))
         torch.cuda.synchronize()
@@ -4594,7 +5071,7 @@ def infinity_depth_phase(dev, batch, root):
         tms.append(dict(inf.timings))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = flash_counts()
-    want = flash_want(L, 3)
+    want = flash_want(L, DEEP_STEPS)
     if launches != want:
         raise AssertionError(f"8e L={L}: flash launches {launches} != {want}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
@@ -4704,9 +5181,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()    # the serving engine is gone
     small_train_check(dev)
-    launches.update(train_phase(dev))
+    train_launches, train_base = train_phase(dev)
+    for k, n in train_launches.items():
+        launches[k] = launches.get(k, 0) + n
     gc.collect()
     torch.cuda.empty_cache()    # the training engine is gone
+    for k, n in training_surface_phase(dev, card, train_base).items():
+        launches[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
     for k, n in zero_dp_phase(dev, card).items():
         launches[k] += n
     t0 = time.perf_counter()

@@ -33,11 +33,18 @@ may leave the card too: ``offload_param {device: cpu}`` streams the layer
 stack from pinned host memory (``runtime/offload.HostLayerStream``),
 ``{device: nvme}`` is ZeRO-Infinity (``runtime/zero/infinity.py``), and
 ``activation_checkpointing.cpu_checkpointing`` keeps the weight matmuls'
-outputs in host memory. Still raising: ZeRO-Infinity at more than one
-rank (ROADMAP A9), tensor / sequence / pipeline / expert parallelism (A8), ZeRO++
-(A10), universal checkpoints and
-``init_inference(use_ragged=True, checkpoint=...)`` (A5). Entry points run
-on the GPU unless the caller passes ``device="cpu"``.
+outputs in host memory; the selective remat policies (``save_attn``,
+``save_dots_and_attn``, the dot policies) keep theirs on the card. The
+engine reports to the metrics registry, the flight recorder, the anomaly
+detector and the monitor backends (``monitor/``), loads universal
+checkpoints (``checkpoint/universal.py``, also a CLI), and has the
+``forward`` / ``backward`` / ``step`` shims; ``runtime/checkpoint_engine``
+holds the synchronous and background checkpoint writers. Still raising:
+ZeRO-Infinity at more than one rank (ROADMAP A9), tensor / sequence /
+pipeline / expert parallelism (A8), ZeRO++ (A10), the other remat
+policies (A3); ``init_inference(use_ragged=True, checkpoint=...)``
+raises as in the JAX package. Entry points run on the GPU unless the
+caller passes ``device="cpu"``.
 
 It serves online too: ``inference/v2/serve`` is the JAX package's
 single-replica serving runtime — ``ServingEngine`` (streaming
@@ -48,7 +55,9 @@ continuous-batching loop thread and ``ServingAPI``, the HTTP surface
 ``/statusz``, ``/debug/timeline``, ``/debug/postmortem``; overload is a
 429). ``telemetry/`` is the JAX package's metrics registry, spans, flight
 recorder, anomaly detectors and post-mortem bundles, and ``generate()``
-samples (temperature / top-p / top-k) on the device. The fleet tier
+samples (temperature / top-p / top-k) on the device; under
+``ragged_attention="off"`` put() takes the stitched prefill / continue /
+decode dispatch, its prompts on the flash forward kernel. The fleet tier
 (router, replicas, KV handoff, weight pushes) is ROADMAP A7, the online
 adapter A12, speculation and LoRA A11.
 """

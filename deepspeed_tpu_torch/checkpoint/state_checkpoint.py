@@ -173,9 +173,10 @@ def read_fragment(ckpt_dir: str, info: Dict[str, Any]) -> torch.Tensor:
                              f"{info['dtype']!r}")
         int_view = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
         t = torch.from_numpy(np.ascontiguousarray(arr).view(
-            int_view[arr.dtype.itemsize]))
+            int_view[arr.dtype.itemsize]).reshape(arr.shape))
         return t.view(want)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    # ascontiguousarray makes a 0-d array 1-d: keep the fragment's shape
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
 
 
 def _load_fragment(entry: Dict[str, Any], ckpt_dir: str, key: str,

@@ -3,11 +3,11 @@
 Port of ``deepspeed_tpu/inference/v2/config_v2.py``: the same two
 dataclasses, fields and defaults. Features the port does not serve yet
 raise ``NotImplementedError`` at construction instead of being ignored:
-the LoRA bank (``max_lora_adapters``), tensor/expert parallelism and the
-stitched ``ragged_attention="off"`` dispatch, whose prefill needs the
-flash-attention kernel. The int8 KV pool (``kv_quant``), weight-only
-quantization (``quant_bits`` 8 or 4) and the KV spill tier
-(``enable_kv_spill``, ``ragged/spill.py``) are served.
+the LoRA bank (``max_lora_adapters``) and tensor/expert parallelism. The
+int8 KV pool (``kv_quant``), weight-only quantization (``quant_bits`` 8
+or 4), the KV spill tier (``enable_kv_spill``, ``ragged/spill.py``) and
+both dispatches of ``ragged_attention`` (the ragged step, and "off": the
+stitched prefill / continue / decode) are served.
 """
 
 from dataclasses import dataclass, field
@@ -19,17 +19,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP {item})")
 
 
-def check_ragged_mode(mode: str) -> None:
-    """Validate a ``ragged_attention`` mode: "auto" and "on" both run
-    every put() as one ragged step; "off" is not ported."""
+def check_ragged_mode(mode: str) -> bool:
+    """Validate a ``ragged_attention`` mode; returns whether put() runs
+    as one ragged step ("auto" and "on") or through the stitched
+    prefill / continue / decode dispatch ("off")."""
     if mode not in ("auto", "on", "off"):
         raise ValueError(
             f"ragged_attention must be 'auto', 'on' or 'off' "
             f"(got {mode!r})")
-    if mode == "off":
-        raise _not_ported(
-            "ragged_attention='off' (its stitched prefill runs the "
-            "flash-attention kernel, ops/flash_attention.py)", "A6a")
+    return mode != "off"
 
 
 @dataclass
@@ -98,8 +96,8 @@ class RaggedInferenceEngineConfig:
     # fused multi-token decode: K decode steps per window with one [N, K]
     # device-to-host transfer; 1 = per-token decode
     decode_window: int = 8
-    # "auto"/"on": every put() runs as one ragged step; "off" (the
-    # stitched prefill/continue/decode dispatch) is not ported
+    # "auto"/"on": every put() runs as one ragged step; "off": the
+    # stitched prefill / continue / decode dispatch
     ragged_attention: str = "auto"
     max_lora_adapters: int = 0
     lora_rank: int = 8

@@ -25,9 +25,13 @@ trace spans, flight-recorder events, the KV-pool gauges, the
 ``inference_kv_pool_quant_bytes_saved`` gauge), ``bind_trace`` for
 distributed tracing, and ``memory_report`` (the CUDA caching allocator's
 figures), and the KV spill tier (``engine.spill``, ``ragged/spill.py``).
-Not ported: speculative decoding and the LoRA bank (ROADMAP A11), the
-stitched ``ragged_attention="off"`` dispatch (A6a) and weight hot-swaps
-(A7).
+Under ``ragged_attention="off"`` put() takes the stitched dispatch
+instead (JAX :1583-1621): a new prompt through ``paged_prefill`` (its
+causal self-attention on the flash forward kernel when its bucket is a
+multiple of 128), a multi-token continuation through ``paged_continue``,
+single tokens as batched decode steps on the paged decode kernel. Not
+ported: speculative decoding and the LoRA bank (ROADMAP A11) and weight
+hot-swaps (A7).
 
 Under ``quant_bits`` 8 or 4 the weights rest quantized
 (``inference/quantization.py``) and are dequantized right before use.
@@ -47,13 +51,13 @@ from ...models.transformer import TransformerConfig
 from ...telemetry import memory as ds_memory
 from ...telemetry import recorder as flight
 from ...telemetry import trace, watchdog
-from ...utils.bucketing import pow2_bucket
+from ...utils.bucketing import ceil_bucket, pow2_bucket
 from ...utils.device import resolve_device
 from ...utils.logging import log_dist
 from .config_v2 import RaggedInferenceEngineConfig, check_ragged_mode
 from .paged_model import (check_servable, init_paged_kv_cache,
-                          paged_decode, paged_decode_window,
-                          paged_ragged_step)
+                          paged_continue, paged_decode, paged_decode_window,
+                          paged_prefill, paged_ragged_step)
 from .ragged import batch as ragged_batch
 from .ragged.blocked_allocator import NULL_BLOCK
 from .ragged.ragged_manager import DSStateManager
@@ -123,6 +127,7 @@ class InferenceEngineV2:
         # trace ids of every request they served; cleared on flush()
         self._uid_traces: Dict[int, str] = {}
         self._init_telemetry()
+        self.ragged_enabled = check_ragged_mode(config.ragged_attention)
         self.decode_window = max(int(config.decode_window), 1)
         self._m_window_size.set(self.decode_window)
         # the compile points of the JAX engine, counted the port's way:
@@ -131,6 +136,8 @@ class InferenceEngineV2:
         self._decode_fn = watchdog.watch("decode", paged_decode)
         self._window_fn = watchdog.watch("decode_window",
                                          paged_decode_window)
+        self._prefill_fn = watchdog.watch("prefill", paged_prefill)
+        self._continue_fn = watchdog.watch("continue", paged_continue)
         if config.kv_quant:
             # the capacity win, as a live gauge: pool bytes the int8
             # layout frees vs the same pool at the serving dtype
@@ -235,10 +242,12 @@ class InferenceEngineV2:
     # Ragged mode and the fused decode window K (serving-runtime knobs)
     # ------------------------------------------------------------------
     def set_ragged_mode(self, mode: str) -> None:
-        """Set the ragged dispatch at runtime (ServingConfig.
-        ragged_attention routes here). "auto" and "on" both run every
-        put() as one ragged step; "off" raises (ROADMAP A6a)."""
-        check_ragged_mode(mode)
+        """Set the dispatch at runtime (ServingConfig.ragged_attention
+        routes here): "auto" and "on" run every put() as one ragged step,
+        "off" through the stitched prefill / continue / decode dispatch.
+        Eager PyTorch keeps no compiled program per path, so flipping
+        costs nothing."""
+        self.ragged_enabled = check_ragged_mode(mode)
         self.config.ragged_attention = mode
 
     def set_decode_window(self, window: int, *,
@@ -329,10 +338,12 @@ class InferenceEngineV2:
         return self._i32(out)
 
     def _decode_common(self, uids: List[int], tokens: List[int],
-                       pick) -> Dict[int, int]:
+                       pick, extract=lambda v, i: int(v[i])
+                       ) -> Dict[int, object]:
         """One decode step for ``uids`` (the ``decode_window`` = 1 path):
-        ``pick(logits, N)`` turns the [N, V] logits into [N] int32 tokens
-        on the device, and the host reads them once."""
+        ``pick(logits, N)`` turns the [N, V] logits into what the host
+        reads once (by default [N] int32 tokens on the device), and
+        ``extract(values, i)`` gives row i's result."""
         sm = self.state_manager
         t0 = time.perf_counter()
         with trace.span("decode_step", batch=len(uids),
@@ -364,7 +375,7 @@ class InferenceEngineV2:
             seq.seen_tokens += 1
             if sm.config.enable_prefix_caching:
                 seq.token_log.append(int(tokens[i]))
-            out[uid] = int(nxt[i])
+            out[uid] = extract(nxt, i)
         self._update_pool_telemetry()
         return out
 
@@ -572,13 +583,130 @@ class InferenceEngineV2:
         self._update_pool_telemetry()
         return logits
 
+    # -- the stitched dispatch (ragged_attention="off", JAX :797-880) ----
+    def _bucket(self, n: int) -> int:
+        """Prefill chunk-length bucket (multiple of prefill_bucket,
+        capped at the max_seq_len bucket)."""
+        return ceil_bucket(n, self.config.prefill_bucket,
+                           cap=self.state_manager.config.max_seq_len)
+
+    def _chunk_write_set(self, seq, start: int, n: int, C: int):
+        """(ids buffer, block ids, offsets, distinct blocks) of a chunk of
+        ``n`` tokens at ``start`` padded to ``C``; padding writes go to
+        the null block."""
+        positions = start + np.arange(C)
+        valid = np.arange(C) < n
+        table = np.full(C, NULL_BLOCK, np.int32)
+        table[valid] = np.asarray(seq.blocks, np.int32)[
+            positions[valid] // self.block_size]
+        offs = (positions % self.block_size).astype(np.int32)
+        return table, offs, np.unique(table)
+
+    def _prefill(self, uid: int, tokens: np.ndarray) -> np.ndarray:
+        """A whole prompt in one pass (``paged_prefill``): [V] f32
+        logits of its last token."""
+        sm = self.state_manager
+        n = len(tokens)
+        seq = sm.ensure_blocks(uid, n)
+        assert seq.seen_tokens == 0, \
+            "a prompt continuation goes through _continue"
+        C = self._bucket(n)
+        ids = np.zeros((1, C), np.int32)
+        ids[0, :n] = tokens
+        table, offs, touched = self._chunk_write_set(seq, 0, n, C)
+        with trace.span("prefill", uid=int(uid), tokens=int(n),
+                        **self._trace_attr(uid)):
+            logits = self._prefill_fn(
+                self.model.cfg, self.params, self._i32(ids), n,
+                self.kv_cache, self._i32(table), self._i32(offs),
+                use_kernel=self.use_kernel,
+                touched_blocks=self._i32(touched))
+            logits = logits.cpu().numpy()
+        flight.record("prefill", uid=int(uid), tokens=int(n))
+        seq.seen_tokens = n
+        if sm.config.enable_prefix_caching:
+            seq.token_log.extend(map(int, tokens))
+        self._m_prefill_tokens.inc(n)
+        self._update_pool_telemetry()
+        return logits
+
+    def _continue(self, uid: int, tokens: np.ndarray) -> np.ndarray:
+        """A multi-token continuation of a cached sequence in one pass
+        (``paged_continue``): [V] f32 logits of its last token."""
+        sm = self.state_manager
+        n = len(tokens)
+        seq = sm.ensure_blocks(uid, n)
+        start = seq.seen_tokens
+        C = self._bucket(n)
+        ids = np.zeros((1, C), np.int32)
+        ids[0, :n] = tokens
+        table, offs, touched = self._chunk_write_set(seq, start, n, C)
+        with trace.span("continue", uid=int(uid), tokens=int(n),
+                        spec=False, **self._trace_attr(uid)):
+            logits = self._continue_fn(
+                self.model.cfg, self.params, self._i32(ids), start, n,
+                self.kv_cache, self._i32(table), self._i32(offs),
+                self._i32(sm.block_table_for(uid)), self.block_size,
+                touched_blocks=self._i32(touched))
+            logits = logits.cpu().numpy()
+        seq.seen_tokens = start + n
+        if sm.config.enable_prefix_caching:
+            seq.token_log.extend(map(int, tokens))
+        self._m_prefill_tokens.inc(n)
+        self._update_pool_telemetry()
+        return logits
+
+    def _decode_batch(self, uids: List[int],
+                      tokens: List[int]) -> Dict[int, np.ndarray]:
+        """One decode step returning each row's [V] f32 logits (the
+        stitched put()'s decode rows)."""
+        return self._decode_common(uids, tokens,
+                                   lambda logits, N: logits[:len(uids)],
+                                   lambda v, i: v[i])
+
     def put(self, batch_uids: Sequence[int],
             batch_tokens: Sequence[Iterable[int]]) -> np.ndarray:
         """Reference engine_v2.put: returns [len(batch_uids), vocab] logits
-        for the last token of each entry, from one ragged step
-        (``ragged_attention`` "auto" and "on" both mean this; the stitched
-        "off" dispatch is not ported)."""
-        return self.step_ragged(batch_uids, batch_tokens)
+        for the last token of each entry. With ragged attention on
+        ("auto" / "on") the whole batch runs as ONE ragged step;
+        otherwise the stitched dispatch (JAX :1583-1621) runs each new
+        prompt through ``paged_prefill``, each multi-token continuation
+        through ``paged_continue``, and the single tokens of cached
+        sequences as batched decode steps."""
+        if self.ragged_enabled:
+            return self.step_ragged(batch_uids, batch_tokens)
+        sm = self.state_manager
+        entries = [(int(uid), np.atleast_1d(np.asarray(toks, np.int64)))
+                   for uid, toks in zip(batch_uids, batch_tokens)]
+        if not self.can_schedule([u for u, _ in entries],
+                                 [len(t) for _, t in entries]):
+            raise RuntimeError(
+                "batch not schedulable (KV blocks / sequence budget); "
+                "check can_schedule()/query() before put()")
+        results: Dict[int, np.ndarray] = {}
+        decode_uids: List[int] = []
+        decode_toks: List[int] = []
+        for i, (uid, toks) in enumerate(entries):
+            if not sm.known_seq(uid) and len(toks) > 1:
+                # prefix caching: shared full blocks make this uid a known
+                # sequence whose suffix continues below
+                _, n_reused = sm.match_prefix(uid, toks)
+                if n_reused:
+                    toks = toks[n_reused:]
+                    entries[i] = (uid, toks)
+            known = sm.known_seq(uid) and sm.seqs[uid].seen_tokens > 0
+            if not known and len(toks) >= 1:
+                results[uid] = self._prefill(uid, toks)
+            elif len(toks) == 1:
+                decode_uids.append(uid)
+                decode_toks.append(int(toks[0]))
+            else:
+                results[uid] = self._continue(uid, toks)
+        step = sm.config.max_tracked_sequences
+        for a in range(0, len(decode_uids), step):
+            results.update(self._decode_batch(decode_uids[a:a + step],
+                                              decode_toks[a:a + step]))
+        return np.stack([results[uid] for uid, _ in entries])
 
     def flush(self, uid: int) -> None:
         """Release a finished sequence's KV blocks (reference flush)."""

@@ -6,6 +6,10 @@ tensor-parallel-1 path:
 * ``paged_ragged_step`` — one mixed batch (prefill chunks, continuations
   and decode rows as one flat token buffer); attention through the ragged
   kernel, once per layer.
+* ``paged_prefill`` / ``paged_continue`` — the stitched dispatch of
+  ``ragged_attention="off"``: one prompt, its causal self-attention
+  through the flash forward kernel (bucket ``C % 128 == 0``); one
+  multi-token continuation over the sequence's whole table (``_kv_read``).
 * ``paged_decode`` — one token for each of N sequences; attention through
   the paged decode kernel, once per layer.
 * ``paged_decode_window`` — K decode steps (greedy or sampled) on the
@@ -37,7 +41,8 @@ from ...models.transformer import (TransformerConfig, dense_mlp, gate_act,
                                    out_proj, qkv_proj, rotary_dims)
 from ...ops.norms import layer_norm, rms_norm
 from ..quantization import dequantize_nonlayer, dequantize_params
-from .kernels.paged_attention import paged_attention, paged_attention_plain
+from .kernels.paged_attention import (NEG_INF, paged_attention,
+                                      paged_attention_plain)
 from .kernels.ragged_attention import (ragged_attention,
                                        ragged_attention_plain)
 from .sampling import (fold_in_rows, greedy_tokens, key_uniforms,
@@ -194,11 +199,11 @@ def _logits(cfg, params, x):
 def _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
             touched, attend):
     """The shared layer loop: norm, qkv, rotary, KV write, then attention
-    over the pool (``attend(q, kc_l, vc_l, ks_l, vs_l)``, the scales None
-    unless the pool is int8), out-projection and MLP. Each layer writes
-    its K/V into the pool before it reads it, on the same stream.
-    ``touched`` is the write-set's distinct blocks (read for an int8 pool
-    only)."""
+    (``attend(q, k, v, kc_l, vc_l, ks_l, vs_l)``: the batch's own k / v
+    and the layer's pool, the scales None unless the pool is int8),
+    out-projection and MLP. Each layer writes its K/V into the pool before
+    it reads it, on the same stream. ``touched`` is the write-set's
+    distinct blocks (read for an int8 pool only)."""
     T = x.shape[0]
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     layers = params["layers"]
@@ -219,12 +224,134 @@ def _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
         k = _rotate(k, cos[:, None], sin[:, None])
         _kv_write(kc, ksc, l, write_blocks, write_offsets, k, touched)
         _kv_write(vc, vsc, l, write_blocks, write_offsets, v, touched)
-        o = attend(q, kc[l], vc[l], None if ksc is None else ksc[l],
+        o = attend(q, k, v, kc[l], vc[l], None if ksc is None else ksc[l],
                    None if vsc is None else vsc[l]).reshape(T, nh * hd)
         x = x + out_proj(lp, o)
         hn = _norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_b"))
         x = x + _mlp(cfg, lp, hn)
     return _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
+
+
+def _kv_read(kc: torch.Tensor, ksc, l: int, table: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Gather layer ``l``'s pages ``table`` [...] -> [..., bs, kvh, hd],
+    dequantizing when scales exist (JAX :117): the per-(block, head)
+    scale broadcast over the page's slots and head dim, ``f32(q8) *
+    scale`` rounded to ``dtype`` — the multiply the kernels' int8
+    variants run per tile."""
+    pages = kc[l][table]
+    if ksc is None:
+        return pages
+    return (pages.float() * ksc[l][table][..., None, :, None]).to(dtype)
+
+
+def _plain_attention(q, k, v, mask, dtype):
+    """Softmax attention of the JAX stitched paths: q [C, nh, hd] over k /
+    v [Ck, kvh, hd], f32 scores of the ``dtype`` product, masked with
+    ``NEG_INF`` by ``mask`` [C, Ck], the probabilities rounded to
+    ``dtype``."""
+    nh, nkv, hd = q.shape[1], k.shape[1], q.shape[2]
+    if nkv != nh:
+        k = k.repeat_interleave(nh // nkv, dim=1)
+        v = v.repeat_interleave(nh // nkv, dim=1)
+    scores = torch.einsum("qhd,khd->hqk", q, k).float()
+    scores = scores / torch.sqrt(torch.tensor(float(hd)))
+    scores = torch.where(mask[None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("hqk,khd->qhd", probs, v)
+
+
+def _need_touched(cache, touched, name):
+    if "ks" in cache and touched is None:
+        raise ValueError(f"{name}: an int8 pool needs touched_blocks (the "
+                         f"write-set's distinct blocks)")
+
+
+# ---------------------------------------------------------------------------
+# Stitched prefill and continuation (ragged_attention="off")
+# ---------------------------------------------------------------------------
+def paged_prefill(cfg: TransformerConfig, params, ids: torch.Tensor,
+                  prompt_len: int, cache: Dict[str, torch.Tensor],
+                  block_ids: torch.Tensor, offsets: torch.Tensor,
+                  use_kernel: bool = True,
+                  touched_blocks: torch.Tensor = None) -> torch.Tensor:
+    """ids [1, C] (the padded prompt); ``prompt_len`` its valid tokens;
+    ``block_ids`` / ``offsets`` [C] map a chunk position to its (cache
+    block, slot), padding to the null block. Returns the last token's
+    [V] f32 logits and writes the prompt's K/V into ``cache`` in place
+    (JAX :319). An int8 pool also needs ``touched_blocks``.
+
+    With ``use_kernel``, a bucket ``C % 128 == 0`` and no ALiBi, the
+    prompt's causal self-attention runs the hand-written flash forward
+    (``ops/flash_attention.flash_attention``: the Hopper kernel of
+    ``csrc/flash_attention.cu`` on the card, its plain version on CPU
+    tensors), as JAX runs its Pallas flash kernel there: padding keys sit
+    after every valid query, so the causal mask alone hides them.
+    Otherwise plain attention with the causal and valid mask."""
+    from ...ops.flash_attention import flash_attention
+
+    _need_touched(cache, touched_blocks, "paged_prefill")
+    C = ids.shape[1]
+    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    flash_ok = (use_kernel and C % 128 == 0 and hd % 8 == 0
+                and cfg.positional != "alibi")
+    params = dequantize_nonlayer(params)
+    x = _embed(cfg, params, ids[0])                           # [C, H]
+    pos = torch.arange(C, device=x.device)
+    cos, sin = _rope_at(cfg, pos)
+    valid = pos < int(prompt_len)
+    mask = (pos[:, None] >= pos[None, :]) & valid[None, :]    # [C, C]
+
+    def attend(q, k, v, kc, vc, ks, vs):
+        if flash_ok:
+            return flash_attention(
+                q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+                v.transpose(0, 1)[None], causal=True)[0].transpose(0, 1)
+        return _plain_attention(q, k, v, mask, x.dtype)
+
+    x = _layers(cfg, params, x, cos, sin, cache, block_ids, offsets,
+                touched_blocks, attend)
+    return _logits(cfg, params, x[int(prompt_len) - 1])
+
+
+def paged_continue(cfg: TransformerConfig, params, ids: torch.Tensor,
+                   start_pos: int, n_new: int,
+                   cache: Dict[str, torch.Tensor], block_ids: torch.Tensor,
+                   offsets: torch.Tensor, block_table: torch.Tensor,
+                   block_size: int,
+                   touched_blocks: torch.Tensor = None) -> torch.Tensor:
+    """A multi-token continuation of ONE cached sequence in one pass (JAX
+    :417): ids [1, C] (the padded chunk), ``start_pos`` the tokens already
+    cached, ``n_new`` the chunk's valid tokens, ``block_ids`` /
+    ``offsets`` [C] the chunk's write-set (padding to the null block),
+    ``block_table`` [MB] the sequence's whole table. The chunk's K/V go
+    into the pool, then every chunk token attends causally over the whole
+    table (``_kv_read``, int8 pages dequantized) up to its own position.
+    Returns the last valid token's [V] f32 logits."""
+    _need_touched(cache, touched_blocks, "paged_continue")
+    C = ids.shape[1]
+    MB = block_table.shape[0]
+    ctx = MB * block_size
+    nkv, hd = cfg.kv_heads, cfg.head_dim
+    params = dequantize_nonlayer(params)
+    x = _embed(cfg, params, ids[0])                           # [C, H]
+    pos = int(start_pos) + torch.arange(C, device=x.device)
+    cos, sin = _rope_at(cfg, pos)
+    ctx_pos = torch.arange(ctx, device=x.device)
+    mask = ctx_pos[None, :] <= pos[:, None]                   # [C, ctx]
+    table = block_table.long()
+
+    def attend(q, k, v, kc, vc, ks, vs):
+        kp = _kv_read(kc[None], None if ks is None else ks[None], 0, table,
+                      x.dtype).reshape(ctx, nkv, hd)
+        vp = _kv_read(vc[None], None if vs is None else vs[None], 0, table,
+                      x.dtype).reshape(ctx, nkv, hd)
+        return _plain_attention(q, kp, vp, mask, x.dtype)
+
+    x = _layers(cfg, params, x, cos, sin, cache, block_ids, offsets,
+                touched_blocks, attend)
+    return _logits(cfg, params, x[int(n_new) - 1])
 
 
 # ---------------------------------------------------------------------------
@@ -253,8 +380,8 @@ def paged_decode(cfg: TransformerConfig, params, toks: torch.Tensor,
     lengths = pos + 1
     attn = paged_attention if use_kernel else paged_attention_plain
     x = _layers(cfg, params, x, cos, sin, cache, blk, off, blk,
-                lambda q, kc, vc, ks, vs: attn(q, kc, vc, block_tables,
-                                               lengths, ks, vs))
+                lambda q, k, v, kc, vc, ks, vs: attn(q, kc, vc, block_tables,
+                                                     lengths, ks, vs))
     return _logits(cfg, params, x)
 
 
@@ -286,8 +413,9 @@ def paged_ragged_step(cfg: TransformerConfig, params, ids: torch.Tensor,
     attn = ragged_attention if use_kernel else ragged_attention_plain
     x = _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
                 touched_blocks,
-                lambda q, kc, vc, ks, vs: attn(q, kc, vc, row_ids, lengths,
-                                               block_tables, ks, vs))
+                lambda q, k, v, kc, vc, ks, vs: attn(q, kc, vc, row_ids,
+                                                     lengths, block_tables,
+                                                     ks, vs))
     return _logits(cfg, params, x[last_index.long()])
 
 

@@ -256,11 +256,17 @@ flash_bwd_dkv.launches = 0
 
 class _FlashCore(torch.autograd.Function):
     """The JAX ``custom_vjp`` (:319-334): forward saves (q, k, v, o, lse);
-    backward computes delta, then dq and dk/dv."""
+    backward computes delta, then dq and dk/dv. The forward's result is
+    the model's ``attn_out``: a selective checkpoint that keeps that name
+    (``save_attn``, ``save_dots_and_attn``) keeps ``(o, lse)`` and its
+    recompute launches no kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
-        o, lse = flash_fwd(q, k, v, scale, causal)
+        from ..runtime.activation_checkpointing.checkpointing import \
+            named_output
+        o, lse = named_output("attn_out",
+                              lambda: flash_fwd(q, k, v, scale, causal))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.causal = scale, causal
         return o

@@ -19,6 +19,7 @@ from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 from . import tunables
+from .activation_checkpointing.checkpointing import POLICIES
 from .config_utils import AUTO, ConfigError, as_dict, hydrate, subconfig
 
 
@@ -269,7 +270,7 @@ class CSVConfig:
 class DiagnosticsConfig:
     """The ``diagnostics`` block (copy of the JAX package's schema,
     ``telemetry/anomaly.py``): flight recorder, anomaly detector and
-    post-mortem knobs. The port has no diagnostics yet (ROADMAP A7)."""
+    post-mortem knobs, read by the training engine."""
 
     enabled: bool = True
     recorder_max_bytes: int = 2 << 20
@@ -603,12 +604,16 @@ _PORTED = {
     "zero_optimization.overlap_grad_reduce",
     "zero_optimization.overlap_comm",
     "zero_optimization.stage3_param_persistence_threshold",
+    # telemetry, diagnostics and the monitor backends (runtime/engine.py,
+    # monitor/monitor.py) and the memory breadcrumbs (utils/memory.py)
+    "telemetry", "diagnostics", "tensorboard", "wandb", "csv_monitor",
+    "memory_breakdown",
+    # accepted as the JAX package accepts it, which reads it nowhere: a
+    # universal directory loads through load_universal_checkpoint()
+    "checkpoint.load_universal",
 }
-# keys and the values that run: switching off what the port does not
-# have
-_PORTED_VALUES = {"telemetry.enabled": (False,),
-                  "diagnostics.enabled": (False,),
-                  "activation_checkpointing.policy": ("everything_saveable",)}
+# keys and the values that run
+_PORTED_VALUES = {"activation_checkpointing.policy": POLICIES}
 # keys the JAX package itself leaves inert, by the rationale of its
 # dead-key audit (tests/unit/runtime/test_config_keys.py INERT_BY_DESIGN)
 _INERT = {
@@ -647,11 +652,7 @@ _ROADMAP = {
     "tensor_parallel_size": "A8 (parallel modes)",
     "sequence_parallel_size": "A8 (parallel modes)",
     "moe": "A8 (parallel modes)",
-    "activation_checkpointing": "A3 (remat policies beyond "
-                                "nothing_saveable)",
-    "checkpoint": "A5 (checkpoint interop)",
-    "telemetry": "A7 (telemetry)",
-    "diagnostics": "A7 (telemetry)",
+    "activation_checkpointing": "A3 (the remaining remat policies)",
     "hybrid_engine": "A11 (RLHF and hybrid engine)",
 }
 _ROADMAP_DEFAULT = "A12 (remainder)"

@@ -87,22 +87,40 @@ The parameters may leave the card too
 read the JAX package's fragment format (``checkpoint/state_checkpoint.py``)
 for the resident and both offloaded engines, in the background under
 ``checkpoint.async_save``; ``save_16bit_model`` (:2172) writes the
-consolidated weights.
+consolidated weights; ``load_universal_checkpoint`` (:2183) loads a
+universal directory (``checkpoint/universal.py``) into the resident
+engine at ZeRO 0-3 and both optimizer offloads, moments included.
+
+Observability (JAX :363-534, :1693-1810): the training series of the
+metrics registry (``telemetry``), flushed into ``MonitorMaster``
+(``monitor/monitor.py``: TensorBoard, wandb, CSV) every
+``telemetry.flush_interval`` steps; ``Train/loss`` and ``Train/lr`` to the
+monitor on every applied step; the step spans ``train_data``,
+``train_step``, ``train_device_dispatch``, ``train_host_sync``; under
+``diagnostics``, a flight-recorder event and the loss / gradient anomaly
+check per batch, attributed by the per-leaf squared norms the step stacks
+on the card and fetches once (only then), post-mortem bundles, and the
+host-sync stall watchdog, armed only while a step is in flight;
+``memory_breakdown`` logs ``utils/memory.see_memory_usage`` after init.
+
+The torch-style ``forward`` (``__call__``) / ``backward`` / ``step``
+shims (JAX :1828-1960) accumulate micro-batches and apply them as
+``train_batch`` does, bit for bit, for the resident engine at ZeRO 0-3
+and the optimizer offloads; they refuse ``offload_param``. A model's
+``frozen_mask`` holds its frozen leaves on both paths.
 
 Not ported (``runtime/config.check_ported`` raises, naming the ROADMAP
 item): ZeRO-Infinity at more than one rank (A9), MiCS (A4), ZeRO++
-(A10), universal checkpoints (A5), pipeline, tensor, sequence and expert
-parallelism (A8), telemetry and diagnostics (A7), compression,
-curriculum and the profilers (A12), the hybrid engine (A11).
-The ``forward``/``backward``/``step`` compatibility shims are not here
-yet.
+(A10), the remat policies beyond the ported ones (A3), pipeline,
+tensor, sequence and expert parallelism (A8), compression, curriculum
+and the profilers (A12), the hybrid engine (A11).
 """
 
 import logging
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,7 +131,9 @@ from ..comm.quantized import (all_gather_leaf, make_zero3_gather,
                               shard_of)
 from ..ops.optimizers import TpuOptimizer, build_optimizer
 from ..parallel.topology import MeshTopology, build_topology
+from ..telemetry import trace
 from ..utils.device import resolve_device
+from ..utils.timer import ThroughputTimer
 from .activation_checkpointing import checkpointing as ds_ckpt
 from .config import ConfigError, DeepSpeedConfig, OptimizerConfig, check_ported
 from .fp16.loss_scaler import (LossScaleConfig, from_fp16_config,
@@ -154,11 +174,17 @@ def _unflatten(items: List[Tuple[str, Any]]) -> Dict[str, Any]:
 
 def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
                        fp16: bool, sharded: Optional[List[bool]] = None,
-                       group=None):
-    """In place: unscale by ``inv`` (1 / (gas * loss_scale)), global
-    inf/nan check under fp16 (on the unclipped grads: clipping an inf
-    makes a nan), global norm, norm clipping. Returns (grads, finite,
-    gnorm); ``finite`` is None when the precision cannot overflow.
+                       group=None, frozen: Sequence[int] = (),
+                       with_leaf_sqnorms: bool = False):
+    """In place: unscale by ``inv`` (1 / (gas * loss_scale)), zero the
+    frozen leaves' gradients (indices ``frozen``), global inf/nan check
+    under fp16 (on the unclipped grads: clipping an inf makes a nan),
+    global norm, norm clipping. Returns (grads, finite, gnorm), plus the
+    per-leaf squared norms stacked into one f32 tensor on the device when
+    ``with_leaf_sqnorms`` (the anomaly detector's attribution input: the
+    global norm's own sums, taken before clipping and whether or not the
+    step is finite); ``finite`` is None when the precision cannot
+    overflow.
 
     Across a data-parallel group of more than one rank, ``sharded[i]``
     marks a gradient each rank holds a shard of: its partial sum of
@@ -167,6 +193,8 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
     overflow check is agreed over the group."""
     for g in grads:
         g.mul_(inv)
+    for i in frozen:
+        grads[i].zero_()
     world = comm.get_world_size(group)
     finite = grads_finite(grads) if fp16 else None
     if finite is not None and world > 1:
@@ -185,18 +213,26 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
         factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
         for g in grads:
             g.mul_(factor)
+    if with_leaf_sqnorms:
+        return grads, finite, gnorm, torch.stack(sq)
     return grads, finite, gnorm
 
 
 def apply_update_with_skip(optimizer: TpuOptimizer, target, grads,
                            opt_state, step: int, lr: float,
-                           finite: bool) -> int:
+                           finite: bool, frozen: Sequence[int] = ()) -> int:
     """The optimizer update unless the step overflowed (reference
     stage3.py:2018): a skipped step leaves target, moments and step
-    untouched. Returns the new (1-based count of applied) step."""
+    untouched. Frozen leaves (indices ``frozen``) are restored after the
+    update, which undoes decoupled weight decay on them too (JAX :106).
+    Returns the new (1-based count of applied) step."""
     if not finite:
         return step
+    held = [target[i].detach().clone() for i in frozen]
     optimizer.apply(target, grads, opt_state, step + 1, lr=lr)
+    with torch.no_grad():
+        for i, h in zip(frozen, held):
+            target[i].copy_(h)
     return step + 1
 
 
@@ -266,9 +302,24 @@ class DeepSpeedTpuEngine:
         else:
             self._init_state(params, seed)
             self._init_grad_reduction()
+        self._init_frozen(model)
         self._last_metrics: Dict[str, float] = {}
         self.last_step_s = None
         self._step_events = None
+        # the forward/backward/step shims' state (JAX :1828-1960)
+        self._cached_losses: List[Any] = []
+        self._shim_grads = False
+        self.micro_steps = 0
+
+        # --- observability (JAX :363-383)
+        self.tput_timer = ThroughputTimer(self.train_batch_size)
+        self.monitor = None
+        try:
+            from ..monitor.monitor import MonitorMaster
+            self.monitor = MonitorMaster(self.config)
+        except Exception as e:  # monitor must never break training
+            logger.warning(f"monitor disabled: {e}")
+        self._init_telemetry()
         logger.info(
             f"engine ready: zero_stage={self.zero_stage} "
             f"dtype={config.precision_dtype} device={self.device} "
@@ -276,6 +327,196 @@ class DeepSpeedTpuEngine:
             f"{comm.get_backend()}) grad_reduce={self.grad_overlap_mode} "
             f"batch={self.train_batch_size} (micro={self.micro_batch_size} "
             f"gas={self.gas})")
+        self.memory_breakdown = None
+        if self.config.memory_breakdown:
+            from ..utils.memory import see_memory_usage
+            self.memory_breakdown = see_memory_usage(
+                "after engine init (params + optimizer state)", force=True,
+                device=self.device)
+
+    # ------------------------------------------------------------------
+    # Telemetry and diagnostics (JAX :385-534)
+    # ------------------------------------------------------------------
+    def _init_telemetry(self):
+        """Wire the metrics registry into this engine: the training-step
+        series, and the TelemetryBridge that flushes registry scalars
+        through MonitorMaster every ``telemetry.flush_interval`` steps.
+
+        Of the JAX series, two are read from XLA there and have no
+        compiled program to read here: ``training_comm_exposed_fraction``
+        (measured from the HLO schedule only when the JAX step is
+        AOT-lowered) keeps its registered default, as on a JAX engine
+        that never lowers its step; the quantized-reduce series
+        (``training_reduce_quantized_bytes``,
+        ``training_quant_error_feedback_norm``) are 0, the values JAX
+        gives them with ``quantized_reduce`` off, which is the only
+        setting the port runs (ROADMAP A10). ``telemetry.xla_annotations``
+        mirrors the spans into ``torch.profiler.record_function`` ranges
+        (``telemetry/trace.enable_profiler_annotations``)."""
+        from ..telemetry import get_registry
+        tcfg = self.config.telemetry
+        self.telemetry_enabled = bool(tcfg.enabled)
+        self.telemetry = get_registry()
+        self.telemetry_bridge = None
+        if not self.telemetry_enabled:
+            self._init_diagnostics()   # attributes must exist either way
+            return
+        if tcfg.xla_annotations:
+            trace.enable_profiler_annotations(True)
+        reg = self.telemetry
+        self._tm_loss = reg.gauge("training_loss", "last train_batch loss")
+        self._tm_gnorm = reg.gauge("training_grad_norm",
+                                   "global gradient norm (pre-clip)")
+        self._tm_lr = reg.gauge("training_lr", "learning rate")
+        self._tm_scale = reg.gauge("training_loss_scale",
+                                   "fp16 dynamic loss scale")
+        self._tm_steps = reg.counter("training_steps_total",
+                                     "optimizer steps applied")
+        self._tm_skipped = reg.counter("training_skipped_steps_total",
+                                       "steps skipped on fp16 overflow")
+        self._tm_samples = reg.counter("training_samples_total",
+                                       "samples consumed")
+        self._tm_step_time = reg.histogram(
+            "training_step_seconds", "train_batch wall time", unit="s")
+        self._tm_comm_exposed = reg.gauge(
+            "training_comm_exposed_fraction",
+            "fraction of grad-reduce collectives in the compiled train "
+            "step with no overlap window (from HLO scheduling analysis)")
+        self._tm_bucket_bytes = reg.gauge(
+            "training_reduce_bucket_bytes",
+            "largest gradient-reduction bucket", unit="bytes")
+        self._tm_quant_bytes = reg.gauge(
+            "training_reduce_quantized_bytes",
+            "per-device wire bytes per step of the quantized ring "
+            "gradient reduction (0 when quantized_reduce is off)",
+            unit="bytes")
+        self._tm_quant_err = reg.gauge(
+            "training_quant_error_feedback_norm",
+            "global norm of the carried quantized-reduce error-feedback "
+            "residuals after the last step")
+        if self.grad_bucket_plan is not None:
+            self._tm_bucket_bytes.set(self.grad_bucket_plan.max_bucket_bytes)
+            self._tm_quant_bytes.set(0)
+        if self.monitor is not None and self.monitor.enabled:
+            self.telemetry_bridge = self.monitor.attach_telemetry(
+                reg, flush_interval=tcfg.flush_interval)
+        self._init_diagnostics()
+
+    def _init_diagnostics(self):
+        """Active observability (telemetry/anomaly.py): the flight
+        recorder budget, the loss/grad anomaly detector fed by
+        train_batch, the crash post-mortem hook and (lazily, on the first
+        batch) the host-sync stall watchdog. All gated by the
+        ``diagnostics`` block, under ``telemetry.enabled``."""
+        from ..telemetry import recorder as flight
+        from ..telemetry.anomaly import LossAnomalyDetector
+        dcfg = self.config.diagnostics
+        self.diagnostics_enabled = (self.telemetry_enabled
+                                    and bool(dcfg.enabled))
+        self._grad_attribution = (self.diagnostics_enabled
+                                  and bool(dcfg.grad_attribution))
+        self._anomaly_detector = None
+        self._stall_watchdog = None
+        # the watchdog's clock (tests drive a manual one)
+        self._watchdog_clock = time.monotonic
+        if not self.diagnostics_enabled:
+            return
+        flight.get_recorder().set_budget(dcfg.recorder_max_bytes)
+        self._anomaly_detector = LossAnomalyDetector(
+            dcfg, leaf_names=self._grad_leaf_names())
+        if dcfg.postmortem_on_crash:
+            from ..telemetry import postmortem
+            postmortem.install_crash_handler(dcfg)
+
+    def _grad_leaf_names(self) -> List[str]:
+        """The gradient leaves' names: the "parameter bucket" labels
+        anomaly attribution reports, in the order the step stacks the
+        per-leaf squared norms (the JAX ``keystr`` paths, ``/``-joined)."""
+        return list(self._leaf_names)
+
+    def _ensure_stall_watchdog(self):
+        """Start the train host-sync stall watchdog on first use (no
+        thread for engines that never train)."""
+        if not self.diagnostics_enabled:
+            return None
+        dcfg = self.config.diagnostics
+        if not dcfg.stall_enabled:
+            return None
+        if self._stall_watchdog is None:
+            from ..telemetry.anomaly import StallWatchdog
+            self._stall_watchdog = StallWatchdog(
+                dcfg, clock=self._watchdog_clock).start()
+            self._stall_watchdog.register("train_step")
+        return self._stall_watchdog
+
+    def _record_train_telemetry(self, metrics, skipped: int):
+        """Registry updates for one completed train_batch (+ the bridge's
+        cadence-gated flush into the monitor backends)."""
+        if not self.telemetry_enabled:
+            return
+        self._tm_loss.set(float(metrics["loss"]))
+        self._tm_gnorm.set(float(metrics["grad_norm"]))
+        self._tm_lr.set(float(metrics["lr"]))
+        if "loss_scale" in metrics:
+            self._tm_scale.set(float(metrics["loss_scale"]))
+        if skipped:
+            self._tm_skipped.inc()
+        else:
+            self._tm_steps.inc()
+            self._tm_samples.inc(self.train_batch_size)
+        dur = self.tput_timer.last_duration
+        if dur:
+            self._tm_step_time.observe(dur)
+        if self.telemetry_bridge is not None:
+            self.telemetry_bridge.step(self.global_steps)
+
+    def _record_flight_and_anomaly(self, metrics, loss: float,
+                                   skipped: int, leaf_sqnorms) -> None:
+        """One flight-recorder event per completed batch plus the online
+        loss/grad anomaly check. Best-effort: diagnostics must never fail
+        a training step."""
+        if not self.diagnostics_enabled:
+            return
+        try:
+            from ..telemetry import postmortem
+            from ..telemetry import recorder as flight
+            gnorm = float(metrics["grad_norm"])
+            fields = {"step": self.global_steps, "loss": loss,
+                      "grad_norm": gnorm, "skipped": bool(skipped),
+                      "lr": float(metrics["lr"])}
+            if "loss_scale" in metrics:
+                fields["loss_scale"] = float(metrics["loss_scale"])
+            dur = self.tput_timer.last_duration
+            if dur:
+                fields["dur_s"] = round(dur, 4)
+            flight.record("train_step", **fields)
+            verdict = self._anomaly_detector.update(
+                self.global_steps, loss, gnorm, leaf_sqnorms=leaf_sqnorms,
+                skipped=bool(skipped))
+            if (verdict is not None
+                    and self.config.diagnostics.postmortem_on_anomaly):
+                postmortem.maybe_write_bundle(
+                    verdict["kind"], config=self.config.diagnostics)
+        except Exception as e:  # pragma: no cover - diagnostics only
+            logger.debug(f"train-step diagnostics skipped: {e}")
+
+    def _init_frozen(self, model):
+        """``model.frozen_mask`` (a tree of bools like the params, or a
+        callable returning one): the leaves that never move (reference
+        requires_grad=False). As in JAX (:341, :778), the offloaded
+        optimizers and ZeRO-Infinity refuse it."""
+        fm = getattr(model, "frozen_mask", None)
+        mask = fm() if callable(fm) else fm
+        self._frozen_idx: List[int] = []
+        if mask is None:
+            return
+        if self.offload_device or self.param_offload_nvme:
+            raise NotImplementedError(
+                "frozen_mask is not supported with ZeRO-Offload or "
+                "offload_param nvme; use the resident optimizer")
+        flags = dict(_flatten(mask))
+        self._frozen_idx = [i for i, n in enumerate(self._leaf_names)
+                            if flags.get(n)]
 
     def _check_world(self):
         world = self.topology.dp_world_size
@@ -757,25 +998,68 @@ class DeepSpeedTpuEngine:
     # ------------------------------------------------------------------
     def train_batch(self, data_iter=None, batch=None) -> float:
         """Run one full (global micro * gas) training batch; returns the
-        mean micro-batch loss over the data-parallel group."""
+        mean micro-batch loss over the data-parallel group.
+
+        The step's spans (JAX :1693-1730): ``train_data`` (the batch to
+        the device), ``train_step`` holding ``train_device_dispatch`` (the
+        forward, backward and update, enqueued on the card) and
+        ``train_host_sync`` (the fetch of the loss and norms, where the
+        host waits for the card). The stall watchdog is armed only while
+        a step is in flight."""
         if batch is None:
             batch = self._next_batch(data_iter)
         t0 = time.perf_counter()
-        dev_batch = self._shard_batch(batch)
-        if self._infinity is not None:
-            return self._train_batch_infinity(dev_batch, t0)
-        leaves = self._grad_inputs()
+        with trace.span("train_data", step=self.global_steps):
+            dev_batch = self._shard_batch(batch)
+        stall = self._ensure_stall_watchdog()
+        if stall is not None:
+            stall.beat("train_step")
+            stall.set_active("train_step", True)
+        self.tput_timer.start()
+        self._shim_grads = False    # the step reuses the shims' buffers
+        with trace.span("train_step", step=self.global_steps):
+            with trace.span("train_device_dispatch"):
+                if self._infinity is not None:
+                    out = self._run_infinity(dev_batch)
+                else:
+                    out = self._run_step(dev_batch)
+            with trace.span("train_host_sync"):
+                metrics, leaf_sq = self._fetch_metrics(out)
+        if stall is not None:
+            stall.beat("train_step")
+            stall.set_active("train_step", False)
+        # the host counters mirror the applied steps: an fp16 step that
+        # overflowed moves neither global_steps nor the schedule
+        skipped = metrics["skipped"]
+        self.skipped_steps += skipped
+        self._batches_seen += 1
+        if not skipped:
+            self.global_steps += 1
+            self.lr_scheduler.step()
+        self.tput_timer.stop(global_step=True)
+        return self._finish_step(metrics, t0, leaf_sq)
+
+    def _grad_buffers(self):
+        """The f32 gradient accumulators (one per leaf) and the
+        reduce-scatter shards, allocated at first use."""
         if self._grad_acc is None:
             self._grad_acc = [torch.zeros(p.shape, dtype=torch.float32,
                                           device=self.device)
-                              for p in leaves]
+                              for p in self._grad_inputs()]
             self._grad_shards = [
                 torch.zeros(self._local_shape(n, d), dtype=torch.float32,
                             device=self.device)
                 if k == REDUCE_SCATTER else None
                 for k, n, d in zip(self._kinds, self._leaf_names,
                                    self._gdims)]
-        acc, shards = self._grad_acc, self._grad_shards
+        return self._grad_acc, self._grad_shards
+
+    def _run_step(self, dev_batch) -> Dict[str, Any]:
+        """The step on the card: the GAS loop, the reduction, then
+        :meth:`_apply_grads`. Returns the loss, the norms and the skip
+        flag, the loss and the norms still on the device."""
+        leaves = self._grad_inputs()
+        acc, shards = self._grad_buffers()
         for a in acc:
             a.zero_()
         scale = (self.scale_state["loss_scale"] if self.fp16_enabled
@@ -813,73 +1097,85 @@ class DeepSpeedTpuEngine:
                 reduce_leaves(acc, self._kinds, self._gdims, shards,
                               self.group)
             loss = self._mean_over_group(torch.stack(losses).mean())
-            inv = 1.0 / (self.gas * scale) if scale is not None \
-                else 1.0 / self.gas
-            grads, finite, gnorm = unscale_clip_check(
-                self._optimizer_grads(acc, shards), inv,
-                self.config.gradient_clipping, self.fp16_enabled,
-                sharded=[k != ALL_REDUCE or d is not None
-                         for k, d in zip(self._kinds, self._odims)],
-                group=self.group)
-            if events is not None:
-                events[1].record()
-            ok = True if finite is None else bool(finite.item())
-            if self.host_opt is None:
-                target = (self._master_leaves if self.has_master
-                          else self._param_leaves)
-                self._step = apply_update_with_skip(
-                    self.optimizer, target, grads, self.opt_state,
-                    self._step, lr, ok)
-                if ok and self.has_master:
-                    self._publish_params()
-            elif ok:
-                # an overflowed step leaves the host state untouched
-                if self.offload_tiered:
-                    self.host_opt.stream_update(grads, self._update_targets(),
-                                                self._step, lr)
-                else:
-                    self.host_opt.step(grads, self._update_targets(),
-                                       self._step + 1, lr)
-                self._gather_updated()
-                self._step += 1
-            if self.fp16_enabled:
-                self.scale_state = update_scale(
-                    self.scale_state, torch.tensor(ok, device=self.device),
-                    self.scale_cfg)
-            if events is not None:
-                events[2].record()
+            ok, gnorm, leaf_sq = self._apply_grads(acc, shards, scale, lr,
+                                                   events)
         self._step_events = events
-        loss_f = float(loss)
-        skipped = 0 if ok else 1
-        self.skipped_steps += skipped
-        self._batches_seen += 1
-        if not skipped:
-            self.global_steps += 1
-            self.lr_scheduler.step()
-        metrics = {"loss": loss_f, "grad_norm": float(gnorm), "lr": lr,
-                   "skipped": skipped}
+        out = {"loss": loss, "grad_norm": gnorm, "lr": lr,
+               "skipped": 0 if ok else 1, "leaf_sqnorms": leaf_sq}
         if self.fp16_enabled:
-            metrics["loss_scale"] = float(scale)
-        return self._finish_step(metrics, t0)
+            out["loss_scale"] = scale
+        return out
 
-    def _train_batch_infinity(self, dev_batch, t0) -> float:
+    def _apply_grads(self, acc, shards, scale, lr, events=None):
+        """Unscale, clip and check the reduced gradients, then the update
+        (resident, tiered or host optimizer) unless the step overflowed,
+        and the fp16 scale update. Returns (ok, grad norm on the device,
+        stacked per-leaf squared norms or None). Reads ``finite`` on the
+        host once per fp16 step (other precisions never skip)."""
+        inv = 1.0 / (self.gas * scale) if scale is not None \
+            else 1.0 / self.gas
+        grads, finite, gnorm, *leaf_sq = unscale_clip_check(
+            self._optimizer_grads(acc, shards), inv,
+            self.config.gradient_clipping, self.fp16_enabled,
+            sharded=[k != ALL_REDUCE or d is not None
+                     for k, d in zip(self._kinds, self._odims)],
+            group=self.group, frozen=self._frozen_idx,
+            with_leaf_sqnorms=self._grad_attribution)
+        if events is not None:
+            events[1].record()
+        ok = True if finite is None else bool(finite.item())
+        if self.host_opt is None:
+            target = (self._master_leaves if self.has_master
+                      else self._param_leaves)
+            self._step = apply_update_with_skip(
+                self.optimizer, target, grads, self.opt_state,
+                self._step, lr, ok, frozen=self._frozen_idx)
+            if ok and self.has_master:
+                self._publish_params()
+        elif ok:
+            # an overflowed step leaves the host state untouched
+            if self.offload_tiered:
+                self.host_opt.stream_update(grads, self._update_targets(),
+                                            self._step, lr)
+            else:
+                self.host_opt.step(grads, self._update_targets(),
+                                   self._step + 1, lr)
+            self._gather_updated()
+            self._step += 1
+        if self.fp16_enabled:
+            self.scale_state = update_scale(
+                self.scale_state, torch.tensor(ok, device=self.device),
+                self.scale_cfg)
+        if events is not None:
+            events[2].record()
+        return ok, gnorm, (leaf_sq[0] if leaf_sq else None)
+
+    def _fetch_metrics(self, out):
+        """The step's numbers on the host: the loss and the grad norm,
+        and the stacked per-leaf squared norms (one small fetch) when
+        anomaly attribution is on."""
+        leaf_sq = out.pop("leaf_sqnorms", None)
+        metrics = {k: (float(v) if k != "skipped" else int(v))
+                   for k, v in out.items()}
+        if leaf_sq is not None:
+            leaf_sq = leaf_sq.cpu().numpy().astype(np.float64)
+        return metrics, leaf_sq
+
+    def _run_infinity(self, dev_batch) -> Dict[str, Any]:
         """The ZeRO-Infinity batch (JAX ``_train_batch_infinity`` :1468):
         the per-layer executor streams the layers from their files,
         accumulates host gradients and runs the host optimizer."""
         lr = self._lr_fn(self._step)
-        metrics = self._infinity.train_batch(dev_batch, self._step + 1, lr)
+        metrics = dict(self._infinity.train_batch(dev_batch, self._step + 1,
+                                                  lr))
         self._step += 1
-        self._batches_seen += 1
-        self.global_steps += 1
-        self.lr_scheduler.step()
         metrics["lr"] = lr
-        return self._finish_step(metrics, t0)
+        return metrics
 
-    def _finish_step(self, metrics, t0) -> float:
+    def _finish_step(self, metrics, t0, leaf_sq=None) -> float:
         loss_f, lr, skipped = (metrics["loss"], metrics["lr"],
                                metrics["skipped"])
         self.last_step_s = time.perf_counter() - t0
-        self._last_metrics = metrics
         if self.config.wall_clock_breakdown and \
                 self._batches_seen % self.config.steps_per_print == 0:
             logger.info(f"time: train_batch={self.last_step_s * 1e3:.1f}ms "
@@ -891,7 +1187,116 @@ class DeepSpeedTpuEngine:
                 + (f" loss_scale={metrics['loss_scale']:.0f}"
                    if self.fp16_enabled else "")
                 + (" SKIPPED(overflow)" if skipped else ""))
+        if self.monitor is not None and self.monitor.enabled and \
+                not skipped:
+            self.monitor.write_events([
+                ("Train/loss", loss_f, self.global_steps),
+                ("Train/lr", float(lr), self.global_steps)])
+        self._record_train_telemetry(metrics, skipped)
+        self._record_flight_and_anomaly(metrics, loss_f, skipped, leaf_sq)
+        self._last_metrics = metrics
         return loss_f
+
+    # ------------------------------------------------------------------
+    # torch-style forward / backward / step (JAX :1828-1960)
+    # ------------------------------------------------------------------
+    def _check_shims(self):
+        if self._infinity is not None:
+            raise RuntimeError(
+                "forward/backward/step are not supported with "
+                "offload_param nvme; use train_batch/eval_batch")
+        if self.host_stream is not None:
+            raise RuntimeError(
+                "forward/backward/step are not supported with "
+                "offload_param cpu (the layer stream follows train_batch's "
+                "forward and backward sweeps); use train_batch/eval_batch")
+
+    def _shard_micro(self, batch) -> Dict[str, torch.Tensor]:
+        """One global micro-batch [micro * dp_world, ...] -> this rank's
+        rows on the device."""
+        def prep(x):
+            x = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+                np.asarray(x))
+            gm = self.micro_batch_size * self.ds_config.dp_world_size
+            if x.shape[0] != gm:
+                raise ValueError(f"micro-batch dim {x.shape[0]} != "
+                                 f"micro * dp_world = {gm}")
+            if self.dp_world_size > 1:
+                m = self.micro_batch_size
+                x = x[self.dp_rank * m:(self.dp_rank + 1) * m]
+            return x.to(self.device)
+
+        return {k: prep(v) for k, v in batch.items()}
+
+    def forward(self, batch):
+        """Compat: ``engine(batch)`` -> the micro-batch's loss (f32, on
+        the device). The autograd graph (or, under ``torch.no_grad``, the
+        batch) is kept for :meth:`backward`."""
+        self._check_shims()
+        micro = self._shard_micro(batch)
+        loss = self.model.apply(self._model_params(), micro,
+                                train=True).float()
+        self._cached_losses.append(loss if loss.requires_grad else micro)
+        return loss.detach()
+
+    __call__ = forward
+
+    def backward(self, loss=None):
+        """Compat: accumulate the gradients of the oldest forward's
+        micro-batch (``loss`` is accepted and not read, as in JAX). Under
+        fp16 they are the gradients of the SCALED loss (reference
+        FP16_Optimizer scales inside backward); :meth:`step` unscales and
+        checks for overflow."""
+        if not self._cached_losses:
+            raise RuntimeError("backward() without forward()")
+        loss = self._cached_losses.pop(0)
+        if isinstance(loss, dict):       # a forward run without a graph
+            loss = self.model.apply(self._model_params(), loss,
+                                    train=True).float()
+        leaves = self._grad_inputs()
+        acc, _ = self._grad_buffers()
+        if not self._shim_grads:
+            for a in acc:
+                a.zero_()
+            self._shim_grads = True
+        scale = (self.scale_state["loss_scale"] if self.fp16_enabled
+                 else None)
+        grads = torch.autograd.grad(
+            loss * scale if scale is not None else loss, leaves,
+            allow_unused=True)
+        with torch.no_grad():
+            for a, g in zip(acc, grads):
+                if g is not None:
+                    a.add_(g)
+        self.micro_steps += 1
+
+    def step(self):
+        """Compat: apply the accumulated gradients as train_batch applies
+        its own: the reduction over the group, the unscale by gas *
+        loss_scale, the global inf/nan check, the skip on overflow, the
+        scale update, and the host bookkeeping (global_steps / the lr
+        schedule) gated on the skip (reference stage3.py:2018)."""
+        if not self._shim_grads:
+            raise RuntimeError("step() without backward()")
+        acc, shards = self._grad_buffers()
+        scale = (self.scale_state["loss_scale"] if self.fp16_enabled
+                 else None)
+        lr = self._lr_fn(self._step)
+        with torch.no_grad():
+            reduce_leaves(acc, self._kinds, self._gdims, shards, self.group)
+            ok, _, _ = self._apply_grads(acc, shards, scale, lr)
+        self._shim_grads = False
+        if not ok:
+            self.skipped_steps += 1
+            return
+        self.global_steps += 1
+        self.lr_scheduler.step()
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self.micro_steps % self.gas == 0
+
+    def zero_grad(self):
+        self._shim_grads = False
 
     @torch.no_grad()
     def eval_batch(self, data_iter=None, batch=None) -> float:
@@ -1159,9 +1564,149 @@ class DeepSpeedTpuEngine:
         comm.barrier(self.group)
         return path
 
+    @torch.no_grad()
+    def load_universal_checkpoint(self, universal_dir):
+        """Load a universal-checkpoint directory (``checkpoint/universal``;
+        reference engine flag load_universal_checkpoint, engine.py:794;
+        JAX :2183): the fragments by tree path, each rank keeping its
+        shards, so a directory converted from any stage and world loads
+        at this one. The fp16 scale state restores with the weights. The
+        optimizer moments restore when the directory holds them and they
+        match this optimizer, and then the step counter, global_steps and
+        the lr schedule travel with them (Adam's bias correction); a
+        mismatch restores the weights only, the step restarting at 0,
+        and is validated before anything changes. Serves the resident
+        engine at ZeRO 0-3 and both optimizer offloads."""
+        from ..checkpoint.universal import (has_universal_opt_state,
+                                            load_universal_extras,
+                                            load_universal_into_tree)
+        self._join_pending_saves()
+        if self._infinity is not None:
+            raise NotImplementedError(
+                "load_universal_checkpoint under offload_param nvme is not "
+                "ported to deepspeed_tpu_torch yet (ROADMAP A9)")
+
+        def template(dtype_of):
+            return self._tree([
+                torch.empty(self._full_shapes[k], dtype=dtype_of(i),
+                            device="meta")
+                for i, k in enumerate(self._leaf_names)])
+
+        def leaves_of(tree):
+            out = [v for _, v in ckpt.leaf_paths(tree)]
+            for k, v in zip(self._leaf_names, out):
+                if tuple(v.shape) != self._full_shapes[k]:
+                    raise KeyError(f"shape mismatch for {k}: "
+                                   f"{tuple(v.shape)} vs "
+                                   f"{self._full_shapes[k]}")
+            return out
+
+        try:
+            host = leaves_of(load_universal_into_tree(
+                universal_dir, template(lambda i: torch.float32)))
+        except KeyError as exc:
+            raise ValueError(f"universal checkpoint {universal_dir} does "
+                             f"not match this model: {exc}") from None
+        extras = load_universal_extras(universal_dir)
+        tier = self.host_opt
+        if tier is not None:
+            _, moments = tier.template_leaves()
+        else:
+            moments = self.opt_state or {}
+        mdims = self._odims if (self.has_master or tier is not None) \
+            else self._pdims
+        opt = None
+        if moments and has_universal_opt_state(universal_dir):
+            try:
+                tree = load_universal_into_tree(
+                    universal_dir,
+                    {k: template(lambda i, v=v: v[i].dtype)
+                     for k, v in moments.items()}, section="opt_state")
+                opt = {k: ckpt.take_shards(leaves_of(tree[k]), mdims,
+                                           self.dp_rank,
+                                           self.dp_world_size)
+                       for k in moments}
+            except KeyError as exc:
+                logger.warning(
+                    f"universal checkpoint optimizer state does not match "
+                    f"this optimizer ({exc}); restored weights only — the "
+                    f"step counter and LR schedule restart at 0")
+        if tier is not None:
+            tier.load_leaves(ckpt.take_shards(host, self._odims,
+                                              self.dp_rank,
+                                              self.dp_world_size), opt)
+            # the compute params are the master's cast, as in JAX
+            master, _ = tier.get_all_leaves()
+            for p, m, pd, od in zip(self._param_leaves, master, self._pdims,
+                                    self._odims):
+                if pd is None and od is not None:
+                    p.copy_(all_gather_leaf(m.to(self.device,
+                                                 self.compute_dtype),
+                                            od, self.group))
+                else:
+                    copy_rows(p.detach(), m)
+        else:
+            if self.has_master:
+                for m, v in zip(self._master_leaves, ckpt.take_shards(
+                        host, self._odims, self.dp_rank,
+                        self.dp_world_size)):
+                    copy_rows(m, v)
+                self._publish_params()
+            else:
+                for p, v in zip(self._param_leaves, ckpt.take_shards(
+                        host, self._pdims, self.dp_rank,
+                        self.dp_world_size)):
+                    copy_rows(p.detach(), v)
+            if opt is not None:
+                for k, vals in opt.items():
+                    for m, v in zip(self.opt_state[k], vals):
+                        copy_rows(m, v)
+        if self.scale_state is not None and extras.get("scale_state"):
+            # the loss scale belongs to the weights' magnitude: it
+            # restores whenever they do (merged over the current state)
+            self.scale_state = {**self.scale_state, **{
+                k: torch.tensor(v, dtype=self.scale_state[k].dtype,
+                                device=self.device)
+                for k, v in extras["scale_state"].items()
+                if k in self.scale_state}}
+        if opt is not None:
+            meta = extras.get("meta", {})
+            if extras.get("step") is not None:
+                self._step = int(extras["step"])
+            if "global_steps" in meta:
+                self.global_steps = meta["global_steps"]
+                self.skipped_steps = meta.get("skipped_steps", 0)
+                self._batches_seen = meta.get("batches_seen",
+                                              self.global_steps)
+                if extras.get("step") is None:
+                    self._step = self.global_steps
+            if "lr_scheduler" in meta:
+                try:
+                    self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+                except Exception as exc:
+                    logger.warning(f"lr scheduler state not restored: "
+                                   f"{exc}")
+        logger.info(f"loaded universal checkpoint from {universal_dir}")
+
+    def destroy(self):
+        """JAX ``destroy`` (reference engine.py destroy): :meth:`close`."""
+        self.close()
+
     def close(self):
-        """Wait for pending saves, then release the host tier (pinned
-        memory, swap files, the C++ optimizer) and the training state."""
+        """Stop the stall watchdog, flush the telemetry bridge (metrics
+        since the last cadence boundary would otherwise never reach the
+        monitor backends), wait for pending saves, then release the host
+        tier (pinned memory, swap files, the C++ optimizer) and the
+        training state."""
+        if getattr(self, "_stall_watchdog", None) is not None:
+            self._stall_watchdog.stop()
+            self._stall_watchdog = None
+        if getattr(self, "telemetry_bridge", None) is not None:
+            try:
+                self.telemetry_bridge.close(self.global_steps)
+            except Exception as e:  # a backend failure must not block
+                logger.warning(f"final telemetry flush failed: {e}")
+        self._cached_losses = []
         self._join_pending_saves()
         if self.host_opt is not None:
             self.host_opt.close()

@@ -16,7 +16,9 @@ the returned loss the mean of the ranks' own; a checkpoint saved at world
 2 resumes at world 1 and one saved at world 1 at world 2; optimizer
 offload (tiered at stages 1-2, the host C++ optimizer at stages 1-3) at
 world 2, each rank's host tier half of world 1's, against a JAX dp=2
-offload engine.
+offload engine; a universal directory converted from a stage-0
+checkpoint at world 1 loading at stage 3, world 2, continuing as the JAX
+dp=2 stage-3 engine continues.
 """
 
 import os
@@ -37,6 +39,7 @@ from deepspeed_tpu.runtime.config import DeepSpeedConfig as JDSConfig
 from deepspeed_tpu.runtime.engine import DeepSpeedTpuEngine as JEngine
 
 import torch_dist_worker as W
+from deepspeed_tpu_torch.checkpoint import universal as tuni
 
 # the suite runs in several worker processes that share the CPUs: a
 # small intra-op pool keeps torch from crowding out the other workers
@@ -92,6 +95,10 @@ def oracle():
                                  for b in batches[:STEPS]]
         out[f"gnorm{stage}"] = float(eng.get_global_grad_norm())
         out[f"params{stage}"] = _jax_weights(eng)
+        if stage == 3:
+            out["cont_losses3"] = [float(eng.train_batch(batch=b))
+                                   for b in batches[STEPS:STEPS + 2]]
+            out["cont_params3"] = _jax_weights(eng)
     # one JAX dp=2 engine with the host C++ optimizer (in fp32 the tiered
     # and legacy offload and every stage give the same trajectory there);
     # its initial master, drawn outside a jit, is the offload cases' start
@@ -132,6 +139,13 @@ def ranks(oracle, tmp_path_factory):
     eng.save_checkpoint(os.path.join(work, "ckpt_w1"), tag="s3")
     w1 = {"cont_losses": W._train(eng, batches[STEPS:STEPS + 2]),
           "cont_params": W._full_params(eng)}
+    # world 1, stage 0: 3 steps, save, convert to a universal directory
+    # the ranks load at stage 3
+    eng = W._engine(W.train_config(0, micro=2 * WORLD), weights)
+    W._train(eng, batches[:STEPS])
+    eng.save_checkpoint(os.path.join(work, "ckpt_u0"), tag="s0")
+    tuni.ds_to_universal(os.path.join(work, "ckpt_u0"),
+                         os.path.join(work, "uni_w1"))
     ctx = mp.spawn(W.run, args=(WORLD, _free_port(), work), nprocs=WORLD,
                    join=False)
     t0 = time.monotonic()
@@ -238,6 +252,22 @@ def test_world1_checkpoint_resumes_at_world2(ranks):
         np.testing.assert_allclose(r["w1_cont_losses"], w1["cont_losses"],
                                    rtol=1e-5)
         _close(r["w1_cont_params"], w1["cont_params"], 2e-5)
+
+
+def test_universal_stage0_world1_loads_at_stage3_world2(oracle, ranks):
+    """The port's counterpart of JAX ``test_cross_stage_elastic_restore``:
+    a stage-0 checkpoint saved at world 1 after 3 steps, converted by
+    ``ds_to_universal``, loads into a stage-3 engine at world 2 (moments,
+    step and schedule included), which continues as the JAX dp=2 stage-3
+    engine continues its own 3 steps (1e-5 relative; 2e-5 on the
+    params)."""
+    out = ranks[0]
+    for r in out:
+        assert r["uni_step"] == (STEPS, STEPS)
+        np.testing.assert_allclose(r["uni_cont_losses"],
+                                   oracle["cont_losses3"], rtol=1e-5)
+        _close(r["uni_cont_params"], oracle["cont_params3"], 2e-5)
+    assert out[0]["uni_cont_losses"] == out[1]["uni_cont_losses"]
 
 
 @pytest.mark.parametrize("kind,stage", W.OFFLOAD_CASES)

@@ -421,7 +421,9 @@ def test_unported_offload_keys_raise():
                 "device": "cpu", "ratio": 0.5}}}, "A9"),
             ({"zero_optimization": {"stage": 2, "offload_optimizer": dict(
                 LEGACY, ratio=0.5)}}, "A9"),
-            ({"checkpoint": {"load_universal": True}}, "A5")):
+            ({"zero_optimization": {"stage": 2,
+                                    "zero_quantized_gradients": True}},
+             "A10")):
         with pytest.raises(NotImplementedError, match=item):
             deepspeed_tpu_torch.initialize(
                 model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),

@@ -530,7 +530,7 @@ def test_fleet_surface_raises_with_its_label(engines, call, item):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("autotune", "A12"), ("ragged_off", "A6a"), ("adapter", "A11"),
+    ("autotune", "A12"), ("tensor_parallel", "A8"), ("adapter", "A11"),
     ("speculative", "A11")])
 def test_unported_options_raise_with_their_label(engines, models, what,
                                                  item):
@@ -538,9 +538,8 @@ def test_unported_options_raise_with_their_label(engines, models, what,
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         if what == "autotune":
             serve.ServingEngine(eng, serve.ServingConfig(autotune=object()))
-        elif what == "ragged_off":
-            serve.ServingEngine(eng, serve.ServingConfig(
-                ragged_attention="off"))
+        elif what == "tensor_parallel":
+            RaggedInferenceEngineConfig(tensor_parallel_size=2)
         elif what == "adapter":
             DynamicSplitFuseScheduler(eng).submit(1, [1, 2, 3], 2,
                                                   adapter="a")

@@ -15,8 +15,12 @@ Held equal: forward logits (1e-4), the loss (1e-5), the gradients
 a warmup schedule and clipping (1e-5 in fp32, 3e-2 under bf16, the
 ``_run_tiny`` tolerance), eval_batch, the fp16 loss-scale sequence and
 skip-step, the config schema's batch math and errors, the optimizers, the
-schedules and the loss scaler. Keys the port does not run raise
-``NotImplementedError``.
+schedules and the loss scaler; the selective remat policies (loss and
+gradients bit-equal to ``nothing_saveable``'s, the flash forwards and
+matmuls they spare counted, ``save_attn`` against JAX's); the
+``forward`` / ``backward`` / ``step`` shims (bit-equal to train_batch,
+1e-5 of JAX's shims, the fp16 overflow skip, frozen leaves holding). Keys
+the port does not run raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -290,13 +294,14 @@ def test_device_none_raises_without_gpu():
     ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}}, "A4"),
     ({"zero_optimization": {"stage": 3, "offload_param":
                             {"device": "cpu", "ratio": 0.5}}}, "A9"),
-    ({"activation_checkpointing": {"policy": "save_attn"}}, "A3"),
+    ({"activation_checkpointing": {
+        "policy": "save_anything_except_these_names"}}, "A3"),
     ({"zero_optimization": {"stage": 2, "offload_optimizer":
                             {"device": "cpu", "ratio": 0.5}}}, "A9"),
     ({"hybrid_engine": {"enabled": True}}, "A11"),
     ({"flops_profiler": {"enabled": True}}, "A12"),
     ({"curriculum_learning": {"enabled": True}}, "A12"),
-    ({"telemetry": {"flush_interval": 5}}, "A7"),
+    ({"progressive_layer_drop": {"enabled": True}}, "A12"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "A10"),
 ])
 def test_unported_keys_raise(extra, item):
@@ -473,9 +478,240 @@ def test_remat_policies():
     tckpt.reset()
     try:
         with pytest.raises(NotImplementedError, match="A3"):
-            tckpt.configure(policy="dots_saveable")
+            tckpt.configure(policy="save_only_these_names")
+        tckpt.reset()
+        tckpt.configure(policy="dots_saveable")
+        assert tckpt.active_policy() == "dots_saveable"
         tckpt.reset()
         assert tckpt.checkpoint_wrapper(len, "everything_saveable") is len
         assert tckpt.active_policy() == "nothing_saveable"
     finally:
         tckpt.reset()
+
+
+# ---------------------------------------------------------------------------
+# the selective remat policies (runtime/activation_checkpointing)
+# ---------------------------------------------------------------------------
+POLICIES = ("nothing_saveable", "save_attn", "save_dots_and_attn",
+            "dots_with_no_batch_dims_saveable", "dots_saveable",
+            "checkpoint_dots", "checkpoint_dots_with_no_batch_dims",
+            "everything_saveable")
+
+
+class _CountOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the matmuls dispatched (forward, recompute and backward)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _policy_grads(models, policy, monkeypatch):
+    """(loss, grads, flash forwards, matmuls) of one forward + backward
+    of the port's model under ``policy``."""
+    _, np_params, tmodel = models
+    calls = []
+    plain = tfa.flash_fwd_plain
+    monkeypatch.setattr(tfa, "flash_fwd_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    tckpt.reset()
+    tckpt.configure(policy=policy)
+    try:
+        tparams = params_from_numpy(np_params)
+        leaves = [tparams["layers"][k] for k in sorted(tparams["layers"])]
+        for p in leaves:
+            p.requires_grad_(True)
+        with _CountOps() as mm:
+            loss = tmodel.apply(tparams, {"input_ids": torch.from_numpy(
+                _ids(5))})
+            grads = torch.autograd.grad(loss, leaves)
+    finally:
+        tckpt.reset()
+    return loss.detach(), grads, len(calls), mm.n
+
+
+def test_selective_policies_equal_nothing_saveable(models, monkeypatch):
+    """Every ported policy computes the loss and gradients of
+    ``nothing_saveable`` bit for bit; the ones keeping ``attn_out`` run
+    the flash forward once per layer (no recompute), the dot policies
+    spare the recompute's weight matmuls."""
+    L = FLAGSHIP_SMALL["num_layers"]
+    out = {p: _policy_grads(models, p, monkeypatch) for p in POLICIES}
+    loss0, grads0, fwd0, mm0 = out["nothing_saveable"]
+    assert fwd0 == 2 * L
+    for p, (loss, grads, fwd, mm) in out.items():
+        assert torch.equal(loss, loss0), p
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads0)), p
+        keeps_attn = p in ("save_attn", "save_dots_and_attn",
+                           "everything_saveable")
+        assert fwd == (L if keeps_attn else 2 * L), (p, fwd)
+        keeps_dots = "dots" in p or p == "everything_saveable"
+        # the recompute stops at the last tensor the backward needs
+        # (torch's early stop), before w_down: it runs six weight
+        # matmuls a layer, which the dot policies spare
+        assert mm == (mm0 - 6 * L if keeps_dots else mm0), (p, mm, mm0)
+
+
+def test_save_attn_grads_match_jax(models):
+    """The JAX model under ``save_attn`` (its attn_out tag) against the
+    port's, as test_grads_match_jax_grad holds nothing_saveable."""
+    from deepspeed_tpu.runtime.activation_checkpointing import \
+        checkpointing as jckpt
+    jmodel, np_params, tmodel = models
+    ids = _ids(6)
+    jckpt.configure(policy="save_attn")
+    tckpt.configure(policy="save_attn")
+    try:
+        ref = jax.grad(lambda p: JModel(JCfg(**FLAGSHIP_SMALL)).apply(
+            p, {"input_ids": jnp.asarray(ids)}))(
+            jax.tree.map(jnp.asarray, np_params))
+        tparams = params_from_numpy(np_params)
+        leaves = [tparams["layers"][k] for k in sorted(tparams["layers"])]
+        for p in leaves:
+            p.requires_grad_(True)
+        grads = torch.autograd.grad(
+            tmodel.apply(tparams, {"input_ids": torch.from_numpy(ids)}),
+            leaves)
+    finally:
+        jckpt.configure(policy="nothing_saveable")
+        tckpt.reset()
+    for g, k in zip(grads, sorted(ref["layers"])):
+        r = np.asarray(ref["layers"][k])
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-4,
+                                   atol=1e-4 * np.abs(r).max())
+
+
+# ---------------------------------------------------------------------------
+# forward / backward / step (JAX engine.py:1828-1960)
+# ---------------------------------------------------------------------------
+def _shim_steps(eng, batches, jax_engine=False):
+    for b in batches:
+        for g in range(GAS):
+            micro = {"input_ids": b["input_ids"][g]}
+            loss = eng.forward(micro) if not jax_engine else eng(micro)
+            eng.backward(loss)
+        eng.step()
+
+
+@pytest.mark.parametrize("stage", [0, 3])
+def test_shims_equal_train_batch_and_jax(stage):
+    """forward/backward/step over gas 2 give train_batch's params bit for
+    bit, and JAX's forward/backward/step within 1e-5 (fp32)."""
+    config = dict(TRAIN_CONFIG, zero_optimization={"stage": stage})
+    jeng = _jax_engine(config)
+    w = params_from_numpy(_engine_weights(jeng))
+    a, b = (deepspeed_tpu_torch.initialize(
+        model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
+        config=config, params=w, device="cpu")[0] for _ in range(2))
+    batches = [{"input_ids": _ids(70 + i, (GAS, MICRO, S))}
+               for i in range(2)]
+    for bt in batches:
+        a.train_batch(batch=bt)
+    _shim_steps(b, batches)
+    _shim_steps(jeng, batches, jax_engine=True)
+    for p, q in zip(a._param_leaves, b._param_leaves):
+        assert torch.equal(p, q)
+    assert b.global_steps == a.global_steps == jeng.global_steps == 2
+    assert b.micro_steps == 4 and b.is_gradient_accumulation_boundary()
+    ref = _engine_weights(jeng)
+    for name, p in zip(b._leaf_names, b._param_leaves):
+        node = ref
+        for part in name.split("/"):
+            node = node[part]
+        np.testing.assert_allclose(p.detach().numpy(), node, rtol=1e-4,
+                                   atol=1e-5)
+    with pytest.raises(RuntimeError, match="without backward"):
+        b.step()
+    with pytest.raises(RuntimeError, match="without forward"):
+        b.backward()
+
+
+def test_shims_fp16_overflow_skips_like_jax():
+    """backward() takes the scaled loss's gradients; at 2**40 they
+    overflow, step() skips (global_steps, schedule and params hold) and
+    the scale halves — the JAX compat path's sequence."""
+    config = dict(TRAIN_CONFIG, fp16={"enabled": True,
+                                      "initial_scale_power": 40,
+                                      "hysteresis": 1})
+    jeng = _jax_engine(config)
+    teng, *_ = deepspeed_tpu_torch.initialize(
+        model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
+        config=config, params=params_from_numpy(_engine_weights(jeng)),
+        device="cpu")
+    before = [p.detach().clone() for p in teng._param_leaves]
+    sched = teng.lr_scheduler.state_dict()
+    b = {"input_ids": _ids(80, (GAS, MICRO, S))}
+    _shim_steps(teng, [b])
+    _shim_steps(jeng, [b], jax_engine=True)
+    assert teng.skipped_steps == jeng.skipped_steps == 1
+    assert teng.global_steps == jeng.global_steps == 0
+    assert teng.loss_scale == jeng.loss_scale == 2.0 ** 39
+    assert teng.lr_scheduler.state_dict() == sched
+    for p, q in zip(teng._param_leaves, before):
+        assert torch.equal(p.detach(), q)
+
+
+class _FrozenEmbedLM(TransformerLM):
+    """The embedding frozen (reference requires_grad=False)."""
+
+    def frozen_mask(self):
+        return {"embed": True}
+
+
+class _JFrozenEmbedLM(JModel):
+    def frozen_mask(self):
+        mask = jax.tree.map(lambda _: False, self.init_params(
+            jax.random.PRNGKey(0)))
+        mask["embed"] = True
+        return mask
+
+
+def test_frozen_params_hold_like_jax():
+    """A frozen leaf holds on train_batch and on the shims (gradient and
+    decoupled weight decay both skip it), as in JAX, and the trained
+    leaves follow JAX's (1e-5); the offloaded optimizers refuse it."""
+    config = dict(TRAIN_CONFIG, optimizer={
+        "type": "adamw", "params": {"lr": 1e-2, "weight_decay": 0.1}})
+    ds = JDSConfig(config, world_size=1)
+    jeng = JEngine(_JFrozenEmbedLM(JCfg(**FLAGSHIP_SMALL)), ds,
+                   topology=MeshTopology(TopologyConfig(),
+                                         devices=jax.devices()[:1]))
+    w = params_from_numpy(_engine_weights(jeng))
+    engs = [deepspeed_tpu_torch.initialize(
+        model=_FrozenEmbedLM(TransformerConfig(**FLAGSHIP_SMALL)),
+        config=config, params=w, device="cpu")[0] for _ in range(2)]
+    embed0 = engs[0].params["embed"].detach().clone()
+    b = {"input_ids": _ids(90, (GAS, MICRO, S))}
+    engs[0].train_batch(batch=b)
+    _shim_steps(engs[1], [b])
+    jeng.train_batch(batch=b)
+    ref = _engine_weights(jeng)
+    for e in engs:
+        assert torch.equal(e.params["embed"].detach(), embed0)
+        assert not torch.equal(e.params["layers"]["wq"],
+                               w["layers"]["wq"])
+        np.testing.assert_allclose(e.params["layers"]["wq"].detach().numpy(),
+                                   ref["layers"]["wq"], rtol=1e-4, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="frozen_mask"):
+        deepspeed_tpu_torch.initialize(
+            model=_FrozenEmbedLM(TransformerConfig(**FLAGSHIP_SMALL)),
+            config=dict(config, zero_optimization={
+                "stage": 2, "offload_optimizer": {"device": "cpu",
+                                                  "pin_memory": True}}),
+            params=w, device="cpu")
+
+
+def test_shims_refuse_param_offload():
+    config = dict(TRAIN_CONFIG, zero_optimization={
+        "stage": 3, "offload_param": {"device": "cpu"}})
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
+        config=config, device="cpu")
+    with pytest.raises(RuntimeError, match="offload_param cpu"):
+        eng.forward({"input_ids": _ids(91)})
+    eng.close()

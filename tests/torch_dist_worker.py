@@ -176,6 +176,14 @@ def run(rank, world, port, workdir):
     out["w1_cont_losses"] = _train(eng, batches[3:5])
     out["w1_cont_params"] = _full_params(eng)
 
+    # 5b. a universal directory converted from a stage-0 checkpoint at
+    # world 1 (by the test) loads at stage 3, world 2
+    eng = _engine(train_config(3, micro=2), weights)
+    eng.load_universal_checkpoint(os.path.join(workdir, "uni_w1"))
+    out["uni_step"] = (eng._step, eng.global_steps)
+    out["uni_cont_losses"] = _train(eng, batches[3:5])
+    out["uni_cont_params"] = _full_params(eng)
+
     # 6. optimizer offload at world 2: each rank's host tier holds its
     # shard of the master and moments (against the JAX dp=2 engine)
     for kind, stage in OFFLOAD_CASES:
