@@ -11,14 +11,15 @@ full-width Mistral-7B at 4 layers
 through ``initialize()`` and ``train_batch()`` (and, with telemetry,
 diagnostics and the monitor on, under each selective remat policy,
 through the forward / backward / step shims and through universal
-checkpoints), then at 12 layers
+checkpoints), then at 8 layers
 through both ZeRO-Offload backends (the host C++ optimizer and the tiered
 pinned-memory state), with the NVMe tier and checkpoints at 2 layers,
 trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group,
 with its layer stack and activations offloaded to the host and through
 ZeRO-Infinity's per-layer files, serves returning conversations through
 the KV spill tier and through the stitched ``ragged_attention="off"``
-dispatch, runs block-sparse attention
+dispatch, serves Mixtral-8x7B width (8 of 32 layers in bf16, all 32
+under WOQ int8) and trains it at 2 layers, runs block-sparse attention
 forward and backward through ``SparseSelfAttention`` at Mistral-7B
 attention width, and checks that every path ran through its kernels.
 
@@ -126,7 +127,12 @@ exit 0):
    dense decode kernel vs its decode_kernel=False einsum route, decode
    logits within 1e-4 and generate() streams equal; WOQ engines (bits 8
    and 4, v2 and v1) vs dense engines built from their own dequantized
-   weights, logits within 1e-4 and streams equal;
+   weights, logits within 1e-4 and streams equal; and a tiny top-2 MoE
+   model (4 experts): the v2 kernel engine against the plain engine, a
+   WOQ int8 engine against the dense engine of its dequantized weights
+   (put() logits within 1e-4, streams equal; 79 prompt tokens and the
+   decode rows through the grouped expert route), the v1 dense decode
+   kernel against the einsum route;
 6. serve: Mistral-7B, 32 layers, bf16, pipeline() answers 8 requests
    (prompts 128-1024 tokens, 64 new tokens, greedy) and generate() runs
    them with decode_window 8; launch counts must equal 32 x steps, one
@@ -200,6 +206,24 @@ exit 0):
    turns (on, off, off, on), greedy streams against the ragged ones
    (informational), generate()'s flash and paged launches, and a pair of
    fresh int8-pool engines compared the same way;
+2f. Mixtral-8x7B serving (after the Mistral engines are freed): (a) 8 of
+   32 layers in bf16 through pipeline() and generate(), the serve phase's
+   8 prompts, 64 new tokens, decode_window 8: ragged and paged launches
+   8 x steps, one host sync per window, identical streams on a repeat,
+   put() logits of the kernel engine within 0.05 x max|plain| of the
+   plain bf16 engine's with both engines routed as the plain engine
+   routes (top-2 routing is discrete: the free-running gap and the rows
+   whose own top-2 differs are logged), TTFT, decode tokens/s, the put's
+   and a decode window's device ms and launches, one layer's MoE MLP
+   profiled at both shapes (ms, launches, share of the step; no host
+   sync in it, under CUDA's sync debug mode), and the v1 engine on the
+   same weights (8 x 512, 16 new: 8 x 15 dense decode launches); (b) all
+   32 layers under WOQ int8, built a layer at a time (8 x 32 + 2
+   quantize launches; the quantizer kernels bit-equal to their plain
+   versions on one layer's [8, 4096, 14336] e_gate leaf), resident GiB,
+   generate() over the 8 prompts: dequantize launches 8 x 32 per step +
+   2 per call or window, one sync per window, TTFT, decode tokens/s,
+   dequantize ms a step;
 7. a small fp32 training check: a tiny model (hd 64, flash from S 128)
    trained 3 steps by a kernel engine and by a use_flash=False engine on
    the same weights, losses within 1e-5;
@@ -233,6 +257,13 @@ exit 0):
    tiered-offload engine of other weights: the next loss torch.equal to
    the saving engine's; AsyncCheckpointEngine once over the card's layer
    tensors;
+8g. Mixtral-8x7B width at 2 layers (3.165 B parameters) through
+   initialize() / train_batch() at one NCCL rank: ZeRO 1, bf16, AdamW,
+   clip 1.0, micro 2 x gas 2 x S 2048, remat, top-2 at capacity 1.0, 3
+   steps on one fixed batch: losses finite, the last below the first, aux
+   finite, the share of (token, choice) pairs dropped, flash launches 2 x
+   L x gas and L x gas a step, step ms, tokens/s, peak GiB; then one
+   dropless top-1 step, its loss finite;
 8c. ZeRO over torch.distributed at world 1: comm.init_distributed() with
    no environment (backend nccl and world 1 asserted); on phase 8's model,
    settings, seed and fixed batch, a stage-0 engine, then stages 1, 2 and
@@ -255,9 +286,9 @@ exit 0):
    the resident (ZeRO 2), tiered (offload_optimizer {device: cpu,
    pin_memory: true}) and legacy ({device: cpu}) engines: tiered equal to
    resident bit for bit (losses, params, master, moments: torch.equal),
-   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 12 layers
-   (``DEEP_LAYERS``: earlier versions ran 32 here; cut for the run's
-   time limit), bf16, AdamW, micro 2 x gas 2 x S 2048, remat, through the
+   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 8 layers
+   (``DEEP_LAYERS``: earlier versions ran 32, then 12 here; cut for the
+   run's time limit), bf16, AdamW, micro 2 x gas 2 x S 2048, remat, through the
    legacy and the tiered engine, 2 steps each (``DEEP_STEPS``; 3 before)
    on one fixed batch: losses finite, the last below
    the first, flash launches 2 x L x gas and L x gas a step, peak device
@@ -278,8 +309,9 @@ exit 0):
    optimizer offload at stage 3 refused, as in JAX), 3 steps each: losses
    and params torch.equal, flash launches 2 x L x gas and L x gas a
    step, the stack in pinned host memory; then offload_param cpu with
-   the host C++ optimizer at 12 layers, 2 steps (26 layers, the host's
-   cap, and 3 steps before; cut for the run's time limit): losses
+   the host C++ optimizer at 8 layers, 2 steps (26 layers, the host's
+   cap, and 3 steps, then 12 layers before; cut for the run's time
+   limit): losses
    finite and falling, step ms, tokens/s, peak device GiB beside phase
    8b's 32-layer runs, host RSS, layer copies a step and their exposed
    share;
@@ -290,8 +322,8 @@ exit 0):
    no layer on the device after init (no stacked leaf among the
    persistent ones, the init's device bytes at most the persistent
    leaves' plus less than one layer), the files removed by close(); then
-   at 12 layers (20 before, where the host capped it; cut for the run's
-   time limit), the same init check, 2 steps: losses finite and falling,
+   at 8 layers (20, where the host capped it, then 12 before; cut for
+   the run's time limit), the same init check, 2 steps: losses finite and falling,
    step ms,
    tokens/s, peak device GiB, bytes read from the layer files and their
    rate, each sweep's share waiting on reads, init s and bytes written;
@@ -307,9 +339,10 @@ exit 0):
    under impl="auto" on the card raises;
 10. the card's name and power limit, the host_ops JSON line (the host
    optimizers' times, rates, yardstick and errors), the kernels JSON line
-   (the flash launches of phases 2e, 8, 8f, 8c, 8b, 8d and 8e together,
-   the paged and ragged ones of phases 6, 2e, 2c and 2d), then the last
-   line
+   (the flash launches of phases 2e, 8, 8f, 8g, 8c, 8b, 8d and 8e
+   together, the paged and ragged ones of phases 6, 2e, 2c, 2d and 2f,
+   the dense decode ones of phases 6 and 2f, the quantizer ones of the
+   WOQ phases and 2f), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 Everything it builds goes under build/ of the checkout. It imports nothing
@@ -4493,13 +4526,13 @@ def offload_width_phase(dev, cfg, batch):
 
 
 # the depth and steps of the deep offload runs of phases 8b, 8d and 8e:
-# 12 layers and 2 steps, cut from 32 (8b), 26 (8d) and 20 (8e) layers
-# (their host caps) and 3 steps to make room for phases 2e and 8f within
-# the run's time limit. At 12 layers the resident state (18 B a
-# parameter, 52 GB) would still fit the card: these runs now show the
-# offloaded engines at depth, not a depth only offload reaches (earlier
-# versions of this script did, at 20-32 layers)
-DEEP_LAYERS = 12
+# 8 layers and 2 steps, cut from 32 (8b), 26 (8d) and 20 (8e) layers
+# (their host caps) and 3 steps to make room for phases 2e and 8f, then
+# from 12 layers for phases 2f and 8g, within the run's time limit. At 8
+# layers the resident state (18 B a parameter, 36 GB) would still fit the
+# card: these runs show the offloaded engines at depth, not a depth only
+# offload reaches (earlier versions of this script did, at 20-32 layers)
+DEEP_LAYERS = 8
 DEEP_STEPS = 2
 
 
@@ -5141,6 +5174,593 @@ def memory_tiers_phase(dev):
     return launches, {"8d": d8, "8e": d9}
 
 
+# ---------------------------------------------------------------------------
+# phase 5 (MoE): small fp32 checks on a tiny Mixtral-style model
+# ---------------------------------------------------------------------------
+def small_moe_check(dev):
+    """A tiny top-2 MoE model in fp32: the v2 kernel engine against the
+    plain engine (put() logits 1e-4, streams equal), the v1 engine with the
+    dense decode kernel against its einsum route, and a WOQ int8 engine
+    against the dense engine of its own dequantized weights."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.quantization import dequantize_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = TransformerLM(TransformerConfig(
+        vocab_size=256, hidden_size=128, intermediate_size=256, num_layers=2,
+        num_heads=4, num_kv_heads=2, max_seq_len=128, moe_num_experts=4,
+        moe_top_k=2))
+
+    def engine(params=None, **kw):
+        return InferenceEngineV2(model, RaggedInferenceEngineConfig.from_dict(
+            {"dtype": "float32", "prefill_bucket": 16, "decode_window": 8,
+             "state_manager": {"max_tracked_sequences": 8, "max_seq_len": 128,
+                               "num_blocks": 65, "block_size": 16}, **kw}),
+            params=params, device=dev)
+
+    # 79 prompt tokens and decode rows through the grouped experts
+    prompts = [list(range(3, 17)), [2, 4, 6], list(range(40, 62)),
+               list(range(100, 140))]
+    uids = [1, 2, 3, 4]
+
+    def compare(name, a_eng, b_eng, tol=1e-4):
+        a = a_eng.put(uids, prompts)
+        b = b_eng.put(uids, prompts)
+        gap = float(np.abs(a - b).max())
+        for e in (a_eng, b_eng):
+            for u in uids:
+                e.flush(u)
+        same = all(np.array_equal(x, y) for x, y in zip(
+            a_eng.generate(prompts, max_new_tokens=20),
+            b_eng.generate(prompts, max_new_tokens=20)))
+        log(f"small fp32 MoE check, {name}: put logits max|diff| "
+            f"{gap:.3e} (tolerance {tol}), generate streams equal {same}")
+        if not (gap <= tol and same):
+            raise AssertionError(f"fp32 MoE {name} disagree on the tiny "
+                                 f"model")
+
+    kern = engine(use_paged_kernel=True)
+    compare("v2 kernel vs plain engine", kern,
+            engine(params=kern.params, use_paged_kernel=False))
+    woq = engine(params=kern.params, quant_bits=8)
+    compare("WOQ int8 vs the dense engine of its weights", woq,
+            engine(params=dequantize_params(woq.params)))
+    v1 = {dk: deepspeed_tpu_torch.init_inference(
+        TransformerLM(dataclasses.replace(model.cfg, decode_kernel=dk)),
+        config={"dtype": "fp32"}, params=kern.params, device=dev)
+        for dk in (True, False)}
+    ids = np.array([p[:3] for p in prompts])
+    step_logits = {}
+    for dk, e in v1.items():
+        cache = e.model.init_kv_cache(len(ids), 8, torch.float32, dev)
+        t = torch.as_tensor(ids, device=dev)
+        with torch.no_grad():
+            e.model.forward_cached(e.params, t, cache, 0)
+            step_logits[dk] = e.model.forward_cached(e.params, t[:, -1:],
+                                                     cache, 3)
+    gap = (step_logits[True] - step_logits[False]).abs().max().item()
+    same = np.array_equal(v1[True].generate(ids, max_new_tokens=20),
+                          v1[False].generate(ids, max_new_tokens=20))
+    log(f"small fp32 MoE check, v1: decode logits max|kernel - einsum| "
+        f"{gap:.3e}, generate streams equal {same}")
+    if not (gap <= 1e-4 and same):
+        raise AssertionError("fp32 MoE v1 engine with the dense decode "
+                             "kernel disagrees with the einsum route")
+
+
+# ---------------------------------------------------------------------------
+# phase 2f: Mixtral-8x7B serving (bf16 at 8 layers, WOQ int8 at 32)
+# ---------------------------------------------------------------------------
+MOE_SERVE_LAYERS = 8        # bf16: all 32 layers are 93 GB
+
+
+def routed_put(eng, uids, prompts, tape=None):
+    """``eng.put(uids, prompts)`` (then flushed) with the serving MoE's
+    routing (``sharded_moe.route_topk``) recorded, or, given the ``tape``
+    of another engine's same put(), replaced by it: each row takes the
+    taped experts, weighted by its own gate probabilities. Returns
+    (logits, tape, the (row, layer) routings whose own top-k differs from
+    the taped one)."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    orig = sharded_moe.route_topk
+    rec, taped, moved = [], iter(tape or ()), []
+
+    def route(probs, k, renormalize_top1):
+        topv, topi = orig(probs, k, renormalize_top1)
+        if tape is None:
+            rec.append(topi)
+            return topv, topi
+        want = next(taped)
+        if want.shape != topi.shape:
+            raise AssertionError(f"routing tape {tuple(want.shape)} for "
+                                 f"{tuple(topi.shape)}")
+        moved.append((topi.sort(-1).values != want.sort(-1).values)
+                     .any(-1).sum())
+        v = torch.gather(probs, 1, want)
+        if k > 1 or renormalize_top1:
+            v = v / torch.sum(v, dim=-1, keepdim=True)
+        return v, want
+
+    sharded_moe.route_topk = route
+    try:
+        logits = eng.put(uids, prompts)
+    finally:
+        sharded_moe.route_topk = orig
+    for u in uids:
+        eng.flush(u)
+    if tape is not None and next(taped, None) is not None:
+        raise AssertionError("routing tape longer than the put()'s calls")
+    return logits, rec, int(sum(int(m) for m in moved))
+
+
+def window_device_ms(eng, prompts, window):
+    """(device ms of one put() of ``prompts``, device ms and launches a step
+    of one fused decode window after it), from two profiled generate()
+    runs as ``profile_phase`` takes them."""
+    _, _, put_k = profiled(lambda: eng.generate(prompts, max_new_tokens=1))
+    _, _, both_k = profiled(
+        lambda: eng.generate(prompts, max_new_tokens=1 + window))
+    win_k = minus(both_k, put_k)
+    return (sum(t for t, _ in put_k.values()),
+            sum(t for t, _ in win_k.values()) / window,
+            sum(c for _, c in win_k.values()) / window, win_k)
+
+
+def moe_mlp_share(cfg, eng, put_ms, win_ms, n_tok, n_rows, reps=10):
+    """The MoE MLP of one layer (``paged_model._moe_mlp``) alone at the put()
+    shape and at the decode shape: a call under CUDA's sync debug mode
+    (it fails on a host sync), its time on CUDA events (median of ``reps``
+    calls, launch gaps included), its device ms and launches a call from
+    one profile of ``reps`` calls, and L times the device ms as a share of
+    the step's device ms."""
+    from deepspeed_tpu_torch.inference.quantization import dequantize_params
+    from deepspeed_tpu_torch.inference.v2 import paged_model
+
+    lp = dequantize_params({k: v[0] for k, v in
+                            eng.params["layers"].items()})
+    gen = torch.Generator(device=eng.device).manual_seed(5)
+    no_flush = torch.empty(1, device=eng.device)   # the weights exceed L2
+    for label, rows, step_ms in (("put", n_tok, put_ms),
+                                 ("decode step", n_rows, win_ms)):
+        x = torch.randn((rows, cfg.hidden_size), generator=gen,
+                        device=eng.device, dtype=eng.dtype)
+
+        def call():
+            return paged_model._moe_mlp(cfg, lp, x)
+
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")    # raises on a host sync
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ms = statistics.median(time_samples(call, no_flush, reps=reps,
+                                            warmup=2))
+        _, _, kern = profiled(lambda: [call() for _ in range(reps)])
+        dev = sum(t for t, _ in kern.values()) / reps
+        n = sum(c for _, c in kern.values()) / reps
+        share = (f"{cfg.num_layers * dev / step_ms:.3f}"
+                 if dev > 0 and step_ms > 0 else
+                 "not measured (the profiler recorded no device event)")
+        log(f"2f MoE MLP at the {label} shape ({rows} rows), one layer: "
+            f"{ms:.3f} ms (CUDA events), {dev:.3f} device ms and {n:.0f} "
+            f"launches (profiler), no host sync; x {cfg.num_layers} layers "
+            f"= {share} of the step's {step_ms:.2f} device ms")
+
+
+def moe_serve_phase(dev):
+    """2f (a): Mixtral-8x7B width at 8 layers in bf16 through pipeline() and
+    generate(), the serve phase's 8 prompts; then (b) all 32 layers under
+    WOQ int8. Returns the launches of both main paths."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_attention
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import \
+        ragged_attention
+    from deepspeed_tpu_torch.models import TransformerLM, mixtral_8x7b
+    from deepspeed_tpu_torch.ops.decode_attention import \
+        dense_decode_attention
+
+    cfg = dataclasses.replace(mixtral_8x7b(), num_layers=MOE_SERVE_LAYERS)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    pipe = deepspeed_tpu_torch.pipeline(
+        cfg, device=dev,
+        config={"dtype": "bfloat16",
+                "ragged": {"seed": 0, "decode_window": 8,
+                           "state_manager": {"max_ragged_batch_size": 8192}}})
+    eng = pipe.engine
+    torch.cuda.synchronize()
+    log(f"2f: mixtral_8x7b L={L} (of 32) hidden={cfg.hidden_size} "
+        f"experts {cfg.moe_num_experts} top-{cfg.moe_top_k} bf16 seeded "
+        f"weights in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    rng = np.random.default_rng(1)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (128, 256, 384, 512, 640, 768, 896, 1024)]
+    new, N = 64, len(prompts)
+    pipe([prompts[0][:64]], max_new_tokens=4)                   # warm-up
+
+    before = dict(ragged=eng.ragged_steps, decode=eng.decode_steps,
+                  syncs=eng.host_syncs, windows=eng.decode_windows)
+    paged_attention.launches = 0
+    ragged_attention.launches = 0
+    # -- the main path: pipeline() then generate() ------------------------
+    t0 = time.perf_counter()
+    outs = pipe(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(paged_attention=paged_attention.launches,
+                    ragged_attention=ragged_attention.launches)
+    steps = dict(ragged=eng.ragged_steps - before["ragged"],
+                 decode=eng.decode_steps - before["decode"],
+                 syncs=eng.host_syncs - before["syncs"],
+                 windows=eng.decode_windows - before["windows"])
+    ttft = eng.last_ttft_s
+    log(f"2f: pipeline {N} requests in {pipe_s:.2f}s; generate in "
+        f"{gen_s:.2f}s (TTFT {ttft * 1e3:.1f} ms for the {N}-prompt put, "
+        f"decode {N * (new - 1) / (gen_s - ttft):.1f} tokens/s)")
+    log(f"2f: steps {steps} launches {launches}; MoE experts through "
+        f"torch._grouped_mm over the rows sorted by expert")
+    for o, g, p in zip(outs, gen, prompts):
+        if len(o) != new or len(g) != len(p) + new or not (
+                ((o >= 0) & (o < cfg.vocab_size)).all()
+                and ((g >= 0) & (g < cfg.vocab_size)).all()):
+            raise AssertionError("2f: a request did not get all its tokens "
+                                 "in [0, vocab)")
+    if launches["ragged_attention"] != L * steps["ragged"] or \
+            launches["paged_attention"] != L * steps["decode"] or \
+            steps["ragged"] == 0 or steps["decode"] == 0:
+        raise AssertionError(f"2f: launches {launches} != {L} x steps "
+                             f"{steps}")
+    if steps["syncs"] != steps["windows"]:
+        raise AssertionError(f"2f: {steps['syncs']} host syncs for "
+                             f"{steps['windows']} decode windows")
+    gen2 = eng.generate(prompts, max_new_tokens=new)
+    if not all(np.array_equal(a, b) for a, b in zip(gen, gen2)):
+        raise AssertionError("2f: a repeated generate() gave other streams")
+    # the same put() through the plain versions in bf16, its routing
+    # recorded; the kernel engine's put() free and routed as the plain
+    # engine routed: top-2 routing is discrete, so one bf16 rounding can
+    # move a token to another expert, and only the routed comparison can
+    # be held to the serve phase's rule (0.05 x max|plain|)
+    uids = list(range(1000, 1000 + N))
+    plain = InferenceEngineV2(
+        TransformerLM(cfg), RaggedInferenceEngineConfig.from_dict(
+            {"dtype": "bfloat16", "use_paged_kernel": False,
+             "state_manager": {"max_ragged_batch_size": 8192}}),
+        params=eng.params, device=dev)
+    ref, tape, _ = routed_put(plain, uids, prompts)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _, _ = routed_put(eng, uids, prompts)
+    logits, _, moved = routed_put(eng, uids, prompts, tape)
+    gap = float(np.abs(logits - ref).max())
+    tol = 0.05 * float(np.abs(ref).max())
+    for name, x in (("free kernel - plain", free),
+                    ("routed kernel - plain", logits)):
+        log(f"2f: put() logits max|{name}| = "
+            f"{float(np.abs(x - ref).max()):.4f}, argmax agreement "
+            f"{float((x.argmax(-1) == ref.argmax(-1)).mean()):.3f}")
+    log(f"2f: routed kernel - plain {gap:.4f} against the tolerance "
+        f"{tol:.4f} (0.05 x max|plain| {float(np.abs(ref).max()):.3f}); the "
+        f"kernel engine's own top-2 differs from the plain engine's in "
+        f"{moved} of {sum(t.shape[0] for t in tape)} (row, layer) routings; "
+        f"repeat generate() identical")
+    if logits.shape != (N, cfg.vocab_size) or not np.isfinite(logits).all() \
+            or not np.isfinite(free).all() or not gap <= tol:
+        raise AssertionError(f"2f: put() logits not finite or off the plain "
+                             f"engine's by {gap} > {tol}")
+    put_ms, win_ms, win_launches, win_k = window_device_ms(
+        eng, prompts, eng.decode_window)
+    log(f"2f profile: put() of {sum(map(len, prompts))} tokens {put_ms:.2f} "
+        f"device ms; decode window {win_ms:.2f} device ms and "
+        f"{win_launches:.0f} launches a step")
+    for k, (t, c) in sorted(win_k.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"   {t / eng.decode_window:.3f} ms/step "
+            f"{c / eng.decode_window:.0f}x  {k[:90]}")
+    moe_mlp_share(cfg, eng, put_ms, win_ms, sum(map(len, prompts)), N)
+
+    # the v1 engine on the same weights: 8 prompts of 512 tokens, 16 new
+    v1 = deepspeed_tpu_torch.init_inference(
+        TransformerLM(cfg), params=eng.params, dtype="bf16", device=dev)
+    ids = np.stack([np.asarray(p[:128] * 4) for p in prompts])
+    v1.generate(ids[:, :64], max_new_tokens=2)                   # warm-up
+    dense_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    out = v1.generate(ids, max_new_tokens=16)
+    torch.cuda.synchronize()
+    v1_s = time.perf_counter() - t0
+    launches["dense_decode_attention"] = dense_decode_attention.launches
+    log(f"2f v1: generate {ids.shape} + 16 in {v1_s:.2f}s, dense decode "
+        f"launches {launches['dense_decode_attention']} (want {L} x 15)")
+    if launches["dense_decode_attention"] != L * 15 or not (
+            (out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError("2f v1: dense decode launches or tokens off")
+    del v1, pipe, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in moe_woq_phase(dev, prompts, new).items():
+        launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def moe_woq_tree(cfg, dev, seed=0):
+    """The WOQ int8 tree of ``cfg``, built a layer at a time: each layer's
+    bf16 weights drawn on the card (the model's init at one layer, the
+    output projections scaled to ``cfg``'s depth), quantized, freed. The
+    embedding and head stay bf16 (the engine quantizes them). Returns the
+    tree and the quantize launches."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.quantization import (QuantizedTensor,
+                                                            quantize_params)
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+
+    L = cfg.num_layers
+    one = TransformerLM(dataclasses.replace(cfg, num_layers=1))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qk.quantize_blocks.launches = 0
+    layers, rest = {}, None
+    for l in range(L):
+        p = one.init_params(gen, dtype=torch.bfloat16)
+        for k in ("wo", "e_down"):          # 0.02 / sqrt(2 L), as at depth L
+            p["layers"][k].mul_(1.0 / np.sqrt(L))
+        if rest is None:
+            rest = {k: v for k, v in p.items() if k != "layers"}
+            # the quantizer kernels against their plain versions on the
+            # block sequence the main path quantizes and dequantizes: one
+            # layer's [E, h, f] expert leaf (these launches do not count)
+            counts = (qk.quantize_blocks.launches,
+                      qk.dequantize_blocks.launches)
+            leaf = p["layers"]["e_gate"][0]
+            check_quant(f"Mixtral e_gate {tuple(leaf.shape)} bf16", leaf,
+                        WOQ_BLOCK, 8)
+            del leaf
+            qk.quantize_blocks.launches, qk.dequantize_blocks.launches = \
+                counts
+        qp, _ = quantize_params({"layers": p["layers"]}, bits=8)
+        del p
+        for k, leaf in qp["layers"].items():
+            if isinstance(leaf, QuantizedTensor):
+                if k not in layers:
+                    layers[k] = QuantizedTensor(
+                        torch.empty((L,) + tuple(leaf.q.shape[1:]),
+                                    dtype=leaf.q.dtype, device=dev),
+                        torch.empty((L,) + tuple(leaf.s.shape[1:]),
+                                    dtype=leaf.s.dtype, device=dev),
+                        leaf.shape, leaf.dtype, bits=8, stacked=True)
+                layers[k].q[l].copy_(leaf.q[0])
+                layers[k].s[l].copy_(leaf.s[0])
+            else:
+                if k not in layers:
+                    layers[k] = torch.empty((L,) + tuple(leaf.shape[1:]),
+                                            dtype=leaf.dtype, device=dev)
+                layers[k][l].copy_(leaf[0])
+        del qp
+    torch.cuda.synchronize()
+    return dict(rest, layers=layers), qk.quantize_blocks.launches
+
+
+def moe_woq_phase(dev, prompts, new):
+    """2f (b): all 32 layers of Mixtral-8x7B under WOQ int8 (its bf16 form,
+    93 GB, never exists on the card): init_inference(use_ragged=True,
+    quant_bits=8) on the tree built a layer at a time, then generate() over
+    the 8 prompts."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.quantization import (QuantizedTensor,
+                                                            quantized_nbytes)
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_attention
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import \
+        ragged_attention
+    from deepspeed_tpu_torch.models import TransformerLM, mixtral_8x7b
+    from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+
+    cfg = mixtral_8x7b()
+    L, N = cfg.num_layers, len(prompts)
+    t0 = time.perf_counter()
+    tree, q_build = moe_woq_tree(cfg, dev)
+    build_s = time.perf_counter() - t0
+    nq = sum(isinstance(v, QuantizedTensor) for v in tree["layers"].values())
+    qk.quantize_blocks.launches = 0
+    eng = deepspeed_tpu_torch.init_inference(
+        TransformerLM(cfg), params=tree, device=dev,
+        config={"dtype": "bfloat16", "use_ragged": True, "quant_bits": 8,
+                "ragged": {"decode_window": 8, "state_manager": {
+                    "max_ragged_batch_size": 8192}}})
+    del tree
+    torch.cuda.synchronize()
+    q_launches = q_build + qk.quantize_blocks.launches
+    resident = quantized_nbytes(eng.params)
+    log(f"2f woq8: mixtral_8x7b all {L} layers built a layer at a time in "
+        f"{build_s:.1f}s; {nq} quantized leaves a layer; quantize_blocks "
+        f"launches {q_launches} (want {nq} x {L} + 2: embed, head); "
+        f"resident weights {resident / 2**30:.2f} GiB "
+        f"(prediction ~43.6 GiB), {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated with the KV pool")
+    if q_launches != nq * L + 2:
+        raise AssertionError(f"2f woq8: {q_launches} quantize launches")
+    eng.generate([prompts[0][:64]], max_new_tokens=2)           # warm-up
+    before = dict(ragged=eng.ragged_steps, decode=eng.decode_steps,
+                  syncs=eng.host_syncs, windows=eng.decode_windows)
+    qk.dequantize_blocks.launches = 0
+    paged_attention.launches = 0
+    ragged_attention.launches = 0
+    # -- the main path: generate() ------------------------------------------
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {"dequantize_blocks": qk.dequantize_blocks.launches,
+                "quantize_blocks": q_launches,
+                "paged_attention": paged_attention.launches,
+                "ragged_attention": ragged_attention.launches}
+    steps = dict(ragged=eng.ragged_steps - before["ragged"],
+                 decode=eng.decode_steps - before["decode"],
+                 syncs=eng.host_syncs - before["syncs"],
+                 windows=eng.decode_windows - before["windows"])
+    want = nq * L * (steps["ragged"] + steps["decode"]) \
+        + 2 * (steps["ragged"] + steps["windows"])
+    ttft = eng.last_ttft_s
+    log(f"2f woq8: generate {N} requests, {new} new tokens, in {gen_s:.2f}s "
+        f"(TTFT {ttft * 1e3:.1f} ms for the {N}-prompt put, decode "
+        f"{N * (new - 1) / (gen_s - ttft):.1f} tokens/s); steps {steps}; "
+        f"dequantize_blocks launches {launches['dequantize_blocks']} (want "
+        f"{want})")
+    for g, p in zip(gen, prompts):
+        if len(g) != len(p) + new or not ((g >= 0)
+                                          & (g < cfg.vocab_size)).all():
+            raise AssertionError("2f woq8: a request did not get all its "
+                                 "tokens in [0, vocab)")
+    if launches["dequantize_blocks"] != want or steps["decode"] == 0 or \
+            steps["syncs"] != steps["windows"] or \
+            launches["paged_attention"] != L * steps["decode"] or \
+            launches["ragged_attention"] != L * steps["ragged"]:
+        raise AssertionError(f"2f woq8: launches {launches} for steps "
+                             f"{steps}")
+    put_ms, win_ms, _, win_k = window_device_ms(eng, prompts,
+                                                 eng.decode_window)
+    deq = [(t, c) for k, (t, c) in win_k.items() if "dequant" in k]
+    log(f"2f woq8 profile: put() {put_ms:.2f} device ms; decode window "
+        f"{win_ms:.2f} device ms a step (prediction >= ~40 ms from bytes), "
+        f"dequantize {sum(t for t, _ in deq) / eng.decode_window:.2f} ms and "
+        f"{sum(c for _, c in deq) / eng.decode_window:.0f} launches a step")
+    logits = eng.put(list(range(2000, 2000 + N)), prompts)
+    if not np.isfinite(logits).all():
+        raise AssertionError("2f woq8: put() logits not finite")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8g: Mixtral-8x7B width training, 2 layers
+# ---------------------------------------------------------------------------
+MOE_TRAIN_LAYERS = 2
+
+
+def moe_train_phase(dev):
+    """8g: Mixtral-8x7B width at 2 layers through initialize() /
+    train_batch() at one NCCL rank: ZeRO 1, bf16, AdamW, clip 1.0, micro 2
+    x gas 2 x S 2048, remat, top-2 at capacity 1.0; then one dropless top-1
+    step. Returns the flash launches of the main path."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mixtral_8x7b
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(mixtral_8x7b(), num_layers=MOE_TRAIN_LAYERS)
+    L, gas, steps = cfg.num_layers, 2, 3
+    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=gas,
+                  zero_optimization={"stage": 1},
+                  moe={"enabled": True, "num_experts": cfg.moe_num_experts},
+                  telemetry={"enabled": False})
+    routed = {"kept": [], "aux": []}
+    route = sharded_moe._route_top2
+
+    def counting(*args, **kwargs):
+        r = route(*args, **kwargs)
+        routed["kept"].append(r.keep.sum())      # read after the steps
+        routed["aux"].append(r.aux.detach())
+        return r
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = deepspeed_tpu_torch.initialize(model=TransformerLM(cfg),
+                                                config=config)
+    torch.cuda.synchronize()
+    log(f"8g: mixtral_8x7b width, L={L} (of 32), "
+        f"{engine.param_count / 1e9:.3f} B params, ZeRO 1 bf16 + fp32 "
+        f"master on {engine.device} in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    rng = np.random.default_rng(4)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (gas, TRAIN_B, TRAIN_S))}
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for kfn in kernels:
+        kfn.launches = 0
+    sharded_moe._route_top2 = counting
+    try:
+        # -- the main path: train_batch() x 3 -----------------------------
+        losses, step_s = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(engine.train_batch(batch=batch))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        sharded_moe._route_top2 = route
+    launches = {kfn.__name__: kfn.launches for kfn in kernels}
+    tokens = gas * TRAIN_B * TRAIN_S
+    calls = len(routed["kept"])
+    kept = float(torch.stack(routed["kept"]).sum())
+    aux = torch.stack(routed["aux"]).float().cpu().numpy()
+    dropped = 1.0 - kept / (calls * TRAIN_B * TRAIN_S * cfg.moe_top_k)
+    med = statistics.median(step_s[1:])
+    log(f"8g: losses {[f'{x:.4f}' for x in losses]}; aux per layer call "
+        f"{aux.min():.4f}..{aux.max():.4f}; share of (token, choice) pairs "
+        f"dropped by capacity 1.0: {dropped:.4f} over {calls} routings "
+        f"(forward and remat recompute)")
+    log(f"8g: step s {[f'{x:.3f}' for x in step_s]}; median of steps 2-"
+        f"{steps} {med * 1e3:.1f} ms = {tokens / med:.0f} tokens/s; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    want = {"flash_fwd": steps * 2 * L * gas,
+            "flash_bwd_dq": steps * L * gas,
+            "flash_bwd_dkv": steps * L * gas}
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and np.isfinite(aux).all()):
+        raise AssertionError(f"8g: losses not finite and falling or aux not "
+                             f"finite: {losses}")
+    if launches != want:
+        raise AssertionError(f"8g: launches {launches} != {want}")
+    engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one dropless top-1 step (the sorted grouped route) on the same batch
+    dl = dataclasses.replace(cfg, moe_top_k=1, moe_dropless=True)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=TransformerLM(dl),
+                                                config=config)
+    t0 = time.perf_counter()
+    loss = engine.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    log(f"8g dropless top-1: one step, loss {loss:.4f} in "
+        f"{time.perf_counter() - t0:.2f}s (first step)")
+    if not np.isfinite(loss):
+        raise AssertionError("8g: the dropless step's loss is not finite")
+    engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -5152,7 +5772,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = device_line()
     log(f"device: {card}; torch {torch.__version__} CUDA "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; torch._grouped_mm "
+        f"{'present' if hasattr(torch, '_grouped_mm') else 'absent'} (the "
+        f"serving MoE's grouped experts)")
     t0 = time.perf_counter()
     cuda_build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f}s "
@@ -5176,10 +5798,15 @@ def main() -> int:
         return 0    # a build-and-compare run; no result line
     small_fp32_check(dev)
     small_woq_check(dev)
+    small_moe_check(dev)
     launches = serve_phase(dev)
     launches["rms_norm"] = rms_launches
     gc.collect()
     torch.cuda.empty_cache()    # the serving engine is gone
+    t0 = time.perf_counter()
+    for k, n in moe_serve_phase(dev).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"phase 2f: {time.perf_counter() - t0:.0f}s")
     small_train_check(dev)
     train_launches, train_base = train_phase(dev)
     for k, n in train_launches.items():
@@ -5190,6 +5817,10 @@ def main() -> int:
         launches[k] += n
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for k, n in moe_train_phase(dev).items():
+        launches[k] += n
+    log(f"phase 8g: {time.perf_counter() - t0:.0f}s")
     for k, n in zero_dp_phase(dev, card).items():
         launches[k] += n
     t0 = time.perf_counter()

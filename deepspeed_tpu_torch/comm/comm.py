@@ -12,9 +12,10 @@ Port of ``deepspeed_tpu/comm/comm.py`` (``init_distributed`` :41,
    (``all_reduce(tensor, ...)``, ``all_gather_into_tensor(out, in)``,
    ``reduce_scatter_tensor(out, in)``). Where the JAX package names a mesh
    axis (``axis_name="data"``) this takes a process group; the data-like
-   axes (``data``, ``shard``, ``expert``) are the default (world) group,
-   since the port runs data parallelism only. Tensor, sequence, pipeline
-   and expert groups come with ROADMAP A8, and their functions raise.
+   axes (``data``, ``shard``, ``expert``) default to the world group (an
+   expert group is passed as ``group``, ``parallel/topology.py``). The
+   expert dispatch's :func:`all_to_all_single` runs; tensor, sequence and
+   pipeline groups come with ROADMAP A8, and their functions raise.
 
 At world 1 without a process group every collective is local (a copy or
 nothing); with a group, even at world 1, it runs on the backend, so the
@@ -354,12 +355,29 @@ def _unported(name):
     return fn
 
 
+@timed_op
+def all_to_all_single(output: torch.Tensor, input: torch.Tensor,
+                      output_split_sizes=None, input_split_sizes=None,
+                      group=None, async_op: bool = False,
+                      axis_name="expert"):
+    """Scatter ``input``'s dim-0 blocks to the ranks and gather theirs into
+    ``output``, rank-major (reference comm/comm.py:331; equal blocks unless
+    split sizes are given): the MoE expert dispatch."""
+    group = resolve_group(group, axis_name)
+    if not dist.is_initialized():
+        output.copy_(input)
+        return _Done() if async_op else None
+    return dist.all_to_all_single(output, input, output_split_sizes,
+                                  input_split_sizes, group=group,
+                                  async_op=async_op)
+
+
+all_to_all = all_to_all_single
+
 # the tensor-, sequence- and pipeline-parallel primitives (JAX comm.py:222-
 # 352): their groups come with A8
 tp_copy = _unported("tp_copy")
 tp_reduce = _unported("tp_reduce")
-all_to_all_single = _unported("all_to_all_single")
-all_to_all = all_to_all_single
 permute = _unported("permute")
 send_next = _unported("send_next")
 recv_prev = _unported("recv_prev")

@@ -66,6 +66,11 @@ def _is_qleaf(x) -> bool:
     return isinstance(x, QuantizedTensor)
 
 
+def qblock(t: QuantizedTensor) -> int:
+    """The block size ``t`` was quantized with (int4 packs two a byte)."""
+    return t.q.shape[-1] * (2 if t.bits == 4 else 1)
+
+
 def _should_quantize(path: Tuple[str, ...], leaf: torch.Tensor) -> bool:
     if leaf.dim() < 2 or leaf.numel() < _MIN_QUANT_SIZE:
         return False
@@ -107,7 +112,10 @@ def quantize_params(params, bits: int = 8, block: int = 2048):
 
     Leaves under ``params["layers"]`` are stacked ``[L, ...]`` and are
     consumed one layer at a time, so they quantize per layer
-    (``stacked=True``): one quantize launch per layer and leaf."""
+    (``stacked=True``): one quantize launch per layer and leaf (an MoE
+    layer's ``[E, h, f]`` expert leaf is one block sequence). A leaf that
+    is a ``QuantizedTensor`` already is kept; it raises ``ValueError``
+    unless it has the ``bits`` and ``block`` asked for."""
     if bits not in (4, 8):
         # the quantizer's range pick defaults anything != 8 to the int4
         # range, so e.g. bits=16 would silently serve 15-level weights
@@ -115,6 +123,14 @@ def quantize_params(params, bits: int = 8, block: int = 2048):
     meta = {"bits": bits, "block": block, "n_quantized": 0}
 
     def leaf_fn(path, leaf):
+        if _is_qleaf(leaf):         # quantized already (kept as it is)
+            if leaf.bits != bits or qblock(leaf) != block:
+                raise ValueError(
+                    f"{'/'.join(map(str, path))} is quantized at "
+                    f"{leaf.bits} bits, block {qblock(leaf)}; asked for "
+                    f"{bits} bits, block {block}")
+            meta["n_quantized"] += 1
+            return leaf
         stacked = _under_scan(path) and leaf.dim() >= 3
         per_layer = leaf[0] if stacked else leaf
         if not _should_quantize(path, per_layer):

@@ -35,6 +35,9 @@ hot-swaps (A7).
 
 Under ``quant_bits`` 8 or 4 the weights rest quantized
 (``inference/quantization.py``) and are dequantized right before use.
+MoE models (Mixtral) serve at ``expert_parallel_size`` 1, any top-k
+(``paged_model._moe_mlp``); expert- and tensor-parallel serving raise
+(ROADMAP A8).
 
 The engine runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda`` and raises when no GPU is present. On the
@@ -77,6 +80,13 @@ class InferenceEngineV2:
         self.model = model
         cfg: TransformerConfig = model.cfg
         check_servable(cfg)
+        if cfg.moe_num_experts > 0 and config.expert_parallel_size > 1:
+            # as JAX (:140): ep > 1 would route through the capacity
+            # dispatch, whose gating has the top-1 / top-2 conventions only
+            # (the config refuses ep > 1 first: ROADMAP A8)
+            assert cfg.moe_top_k <= 2, \
+                f"expert-parallel serving is top-1/top-2 only " \
+                f"(got moe_top_k={cfg.moe_top_k}); serve top-k>2 at ep=1"
         self.device = resolve_device(device)
         sm = config.state_manager
         if sm.max_seq_len > cfg.max_seq_len:
@@ -876,7 +886,22 @@ class InferenceEngineV2:
 
 def _cast_tree(tree, device, dtype):
     """Move a parameter tree of tensors (or arrays) onto ``device`` in
-    ``dtype``; tensors already there are reused, not copied."""
+    ``dtype``; tensors already there are reused, not copied. An already
+    quantized leaf (a ``QuantizedTensor``, e.g. a stack quantized one
+    layer at a time because its dense form would not fit the card) is
+    kept as it is, and raises ``ValueError`` unless it lies on ``device``
+    and dequantizes to ``dtype``."""
+    from ..quantization import QuantizedTensor
+
     if isinstance(tree, dict):
         return {k: _cast_tree(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        want = torch.device(device)
+        have = tree.q.device
+        if tree.dtype != dtype or have.type != want.type or (
+                want.index is not None and have.index != want.index):
+            raise ValueError(
+                f"a quantized leaf on {have} dequantizing to {tree.dtype} "
+                f"cannot serve on {want} in {dtype}")
+        return tree
     return torch.as_tensor(tree).to(device=device, dtype=dtype)

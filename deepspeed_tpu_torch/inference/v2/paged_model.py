@@ -24,6 +24,13 @@ pure and return a new pool (XLA donates the old buffer); here the pool is
 updated in place and every entry point mutates the ``cache`` dict it is
 given.
 
+An MoE model (``moe_num_experts`` > 0) routes each token to its top-k
+experts (``_moe_mlp``, JAX :216): softmax in f32, renormalized over the
+chosen set for k >= 2. Its tokens, sorted by expert, go through a grouped
+GEMM whose group offsets stay on the device
+(``moe.sharded_moe.serve_topk_experts``), so a decode window keeps its
+one host sync.
+
 The layer loop is a Python loop over views of the stacked ``[L, ...]``
 leaves: ``params["layers"][k][l]`` copies nothing. Under weight-only
 quantization (``quant_bits``) the leaves are ``QuantizedTensor``s: every
@@ -50,14 +57,11 @@ from .sampling import (fold_in_rows, greedy_tokens, key_uniforms,
 
 
 def check_servable(cfg: TransformerConfig) -> None:
-    """The model families this port serves: causal pre-LN dense models with
-    rotary positions."""
+    """The model families this port serves: causal pre-LN dense and MoE
+    models with rotary positions."""
     if not (cfg.is_causal and cfg.norm_scheme == "pre"):
         raise ValueError("paged serving requires a causal pre-LN model (the "
                          "MLM/post-LN encoder family does not decode)")
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError(
-            "MoE serving is not ported yet (ROADMAP A8)")
     if cfg.positional != "rope":
         raise NotImplementedError(
             f"positional={cfg.positional!r} serving is not ported yet "
@@ -166,10 +170,32 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 
 def _mlp(cfg, lp, x):
+    if cfg.moe_num_experts > 0:
+        return _moe_mlp(cfg, lp, x)
     if cfg.is_gated_mlp:
         return (gate_act(cfg)(x @ lp["w_gate"]) * (x @ lp["w_up"])) \
             @ lp["w_down"]
     return dense_mlp(cfg, lp, x)
+
+
+def _moe_mlp(cfg, lp, x):
+    """Routed-expert MLP for serving (JAX :216), ep 1, dropless: top-1
+    keeps the raw gate probability, top-k >= 2 renormalizes over the
+    chosen set (the Mixtral convention)."""
+    from ...moe.sharded_moe import residual_moe_combine, serve_moe
+
+    orig_shape = x.shape
+    xt = x.reshape(-1, orig_shape[-1])
+    out = serve_moe(xt, lp["moe_gate_w"],
+                    (lp["e_gate"], lp["e_up"], lp["e_down"]),
+                    cfg.moe_top_k, renormalize_top1=False,
+                    logits_in_f32=True)
+    if cfg.moe_use_residual:
+        dense = (torch.nn.functional.silu(xt @ lp["res_gate"])
+                 * (xt @ lp["res_up"])) @ lp["res_down"]
+        out = residual_moe_combine(xt, out, dense, lp["res_coef_w"],
+                                   lp["res_coef_b"])
+    return out.reshape(orig_shape)
 
 
 def _embed_ln(cfg, params, x):

@@ -8,15 +8,18 @@ packages by name with no transposes (``checkpoint/interop.py``).
 
 Here: the config with its validation, the presets, the MLP/projection
 helpers, a seeded ``init_params``, and the training forward of the causal
-dense families (``forward_hidden``, ``forward_logits``, ``apply`` with the
-chunked cross-entropy), whose attention routes through
-``sequence/layer.py`` to the flash kernels, and the dense KV-cache
-forward of the v1 engine (``init_kv_cache``, ``forward_cached``), whose
-one-token decode runs the dense decode kernel. The ragged engine keeps
-its own layer loop (``inference/v2/paged_model.py``). Not ported yet, each
-raising ``NotImplementedError``: MoE and sequence parallelism (ROADMAP
-A8), PPO batches (A11), alibi, post-LN and the MLM family (A12), and in
-the cached forward learned positions, alibi and parallel residual (A6d).
+dense and MoE families (``forward_hidden``, ``forward_logits``, ``apply``
+with the chunked cross-entropy and the MoE aux loss), whose attention
+routes through ``sequence/layer.py`` to the flash kernels, and the dense
+KV-cache forward of the v1 engine (``init_kv_cache``, ``forward_cached``),
+whose one-token decode runs the dense decode kernel. An MoE layer
+(``moe_num_experts`` > 0) replaces the MLP with capacity, dropless or
+residual routing (``moe/sharded_moe.py``); the engine sets
+``moe_groups`` for its collectives across ranks. The ragged engine keeps
+its own layer loop (``inference/v2/paged_model.py``). Not ported yet,
+each raising ``NotImplementedError``: sequence parallelism (ROADMAP A8),
+PPO batches (A11), alibi, post-LN and the MLM family (A12), and in the
+cached forward learned positions, alibi and parallel residual (A6d).
 """
 
 import math
@@ -250,6 +253,14 @@ class TransformerLM:
         # for: the engine refuses (JAX :389)
         return bool(self.cfg.remat)
 
+    @property
+    def expert_leaves(self) -> Dict[str, int]:
+        """The expert leaves and their expert dimension (JAX
+        ``param_partition_specs``: the leaves on the expert axis)."""
+        if self.cfg.moe_num_experts <= 0:
+            return {}
+        return {"layers/e_gate": 1, "layers/e_up": 1, "layers/e_down": 1}
+
     def __init__(self, cfg: TransformerConfig):
         self.cfg = cfg
         # ZeRO-3: maps a layer's views of its sharded leaves to the whole
@@ -261,6 +272,10 @@ class TransformerLM:
         # layer of the host-resident stack to the device
         self.stream_params_from_host = False
         self.host_stream = None
+        # the MoE layers' collectives (``moe.sharded_moe.MoEGroups``): the
+        # data-parallel group of the global gating and the expert group;
+        # set by the training engine, None at one rank
+        self.moe_groups = None
 
     def init_params(self, generator: torch.Generator,
                     dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
@@ -269,10 +284,10 @@ class TransformerLM:
         distribution as the JAX package (normal, std 0.02; output
         projections 0.02 / sqrt(2L); norms 1, biases 0), other bits."""
         cfg = self.cfg
-        if cfg.moe_num_experts > 0 or cfg.embed_ln or cfg.mlm_head:
+        if cfg.embed_ln or cfg.mlm_head:
             raise NotImplementedError(
-                "init_params covers the dense causal families; MoE and "
-                "the MLM encoder family are not ported yet")
+                "init_params covers the causal families; the MLM encoder "
+                "family is not ported yet")
         h, ffn, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
         hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.kv_heads
         L = cfg.num_layers
@@ -298,7 +313,19 @@ class TransformerLM:
             "wo": init((L, nh * hd, h), out_std),
             "mlp_norm": ones(L, h),
         }
-        if cfg.is_gated_mlp:
+        if cfg.moe_num_experts > 0:
+            E = cfg.moe_num_experts
+            layer["moe_gate_w"] = init((L, h, E))
+            layer["e_gate"] = init((L, E, h, ffn))
+            layer["e_up"] = init((L, E, h, ffn))
+            layer["e_down"] = init((L, E, ffn, h), out_std)
+            if cfg.moe_use_residual:
+                layer["res_gate"] = init((L, h, ffn))
+                layer["res_up"] = init((L, h, ffn))
+                layer["res_down"] = init((L, ffn, h), out_std)
+                layer["res_coef_w"] = init((L, h, 2))
+                layer["res_coef_b"] = zeros(L, 2)
+        elif cfg.is_gated_mlp:
             layer["w_gate"] = init((L, h, ffn))
             layer["w_up"] = init((L, h, ffn))
             layer["w_down"] = init((L, ffn, h), out_std)
@@ -336,10 +363,14 @@ class TransformerLM:
     # -- training forward ------------------------------------------------
     def _check_trainable(self):
         cfg = self.cfg
-        if cfg.moe_num_experts > 0 or cfg.seq_parallel:
+        if cfg.seq_parallel:
             raise NotImplementedError(
-                "MoE and sequence-parallel layers are not ported to "
+                "sequence-parallel layers are not ported to "
                 "deepspeed_tpu_torch yet (ROADMAP A8)")
+        if cfg.moe_dropless and cfg.moe_top_k != 1:
+            raise NotImplementedError(
+                "moe_dropless supports top-1 routing only "
+                f"(got moe_top_k={cfg.moe_top_k})")
         if (cfg.positional == "alibi" or cfg.norm_scheme == "post"
                 or cfg.objective == "mlm" or cfg.embed_ln or cfg.mlm_head):
             raise NotImplementedError(
@@ -363,7 +394,23 @@ class TransformerLM:
                                  block_kv=cfg.attn_block_kv,
                                  impl=cfg.seq_parallel_impl)
 
+    def _moe(self, lp, hn):
+        """The MoE MLP of one layer (JAX :640-697): (output, aux)."""
+        from ..moe.sharded_moe import moe_mlp, swiglu_experts
+
+        cfg = self.cfg
+        residual = tuple(lp[k] for k in ("res_gate", "res_up", "res_down",
+                                         "res_coef_w", "res_coef_b")) \
+            if cfg.moe_use_residual else None
+        return moe_mlp(hn, lp["moe_gate_w"],
+                       (lp["e_gate"], lp["e_up"], lp["e_down"]),
+                       swiglu_experts, self.moe_groups, top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       min_capacity=cfg.moe_min_capacity,
+                       dropless=cfg.moe_dropless, residual=residual)
+
     def _layer(self, x, lp, cos, sin):
+        """One layer: (output, the MoE aux loss or None)."""
         cfg = self.cfg
         B, S, H = x.shape
         nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
@@ -380,18 +427,26 @@ class TransformerLM:
         if cfg.parallel_residual:
             hn2 = (self._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"))
                    if cfg.parallel_norms else hn)
-            return x + out_proj(lp, o) + dense_mlp(cfg, lp, hn2)
+            return x + out_proj(lp, o) + dense_mlp(cfg, lp, hn2), None
         x = x + out_proj(lp, o)
         hn = self._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"))
+        if cfg.moe_num_experts > 0:
+            out, aux = self._moe(lp, hn)
+            return x + out, aux
         if cfg.is_gated_mlp:
             g = gate_act(cfg)(hn @ lp["w_gate"])
-            return x + (g * (hn @ lp["w_up"])) @ lp["w_down"]
-        return x + dense_mlp(cfg, lp, hn)
+            return x + (g * (hn @ lp["w_up"])) @ lp["w_down"], None
+        return x + dense_mlp(cfg, lp, hn), None
 
     def forward_hidden(self, params, input_ids):
-        """Final-normed hidden states [B, S, H]. The layer loop walks views
-        of the stacked ``[L, ...]`` leaves; under ``cfg.remat`` each layer
-        runs inside the configured activation checkpoint."""
+        """Final-normed hidden states [B, S, H]."""
+        return self.forward_hidden_aux(params, input_ids)[0]
+
+    def forward_hidden_aux(self, params, input_ids):
+        """(final-normed hidden states [B, S, H], the layers' mean MoE aux
+        loss or None for a dense model). The layer loop walks views of the
+        stacked ``[L, ...]`` leaves; under ``cfg.remat`` each layer runs
+        inside the configured activation checkpoint."""
         cfg = self.cfg
         self._check_trainable()
         x = F.embedding(input_ids, params["embed"])
@@ -429,13 +484,17 @@ class TransformerLM:
                   for k, v in params["layers"].items()}
         if stream is not None:
             stream.forward_sweep(True)
+        auxs = []
         for l in range(cfg.num_layers):
-            x = body(x, dequantize_params({k: v[l]
-                                           for k, v in layers.items()}),
-                     cos, sin, l)
+            x, aux = body(x, dequantize_params({k: v[l]
+                                                for k, v in layers.items()}),
+                          cos, sin, l)
+            if aux is not None:
+                auxs.append(aux)
         if stream is not None:
             stream.forward_sweep(False)     # later fetches: the recompute
-        return self._norm(x, params["final_norm"], params.get("final_norm_b"))
+        x = self._norm(x, params["final_norm"], params.get("final_norm_b"))
+        return x, (torch.mean(torch.stack(auxs)) if auxs else None)
 
     def _head_inputs(self, params, x):
         """(hidden, head matrix, logit bias) of the causal LM head."""
@@ -459,7 +518,7 @@ class TransformerLM:
                 "PPO learner batches are not ported to deepspeed_tpu_torch "
                 "yet (ROADMAP A11)")
         ids = batch["input_ids"]
-        x = self.forward_hidden(params, ids)
+        x, aux = self.forward_hidden_aux(params, ids)
         # the logit bias of the head is not in the JAX training loss either
         _, head, _ = self._head_inputs(params, x)
         mask = batch.get("loss_mask")
@@ -468,7 +527,10 @@ class TransformerLM:
                                 device=ids.device))
         total, count = _chunked_ce_loss(x[:, :-1], ids[:, 1:], mask, head,
                                         self.cfg.loss_chunk)
-        return total / torch.clamp(count, min=1.0)
+        loss = total / torch.clamp(count, min=1.0)
+        if aux is not None:
+            loss = loss + self.cfg.moe_aux_loss_coef * aux
+        return loss
 
 
     # -- KV-cache inference (the v1 engine's prefill + decode) ------------
@@ -481,10 +543,6 @@ class TransformerLM:
             raise ValueError("KV-cache generation requires a causal pre-LN "
                              "model (the MLM/post-LN encoder family does "
                              "not decode)")
-        if cfg.moe_num_experts > 0:
-            raise NotImplementedError(
-                "MoE KV-cache generation is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A8)")
         if cfg.positional != "rope" or cfg.parallel_residual:
             raise NotImplementedError(
                 f"KV-cache generation of positional={cfg.positional!r}, "
@@ -545,10 +603,26 @@ class TransformerLM:
         o = o.transpose(1, 2).reshape(B, S, nh * hd)
         x = x + out_proj(lp, o)
         hn = self._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"))
+        if cfg.moe_num_experts > 0:
+            return x + self._moe_cached(lp, hn)
         if cfg.is_gated_mlp:
             g = gate_act(cfg)(hn @ lp["w_gate"])
             return x + (g * (hn @ lp["w_up"])) @ lp["w_down"]
         return x + dense_mlp(cfg, lp, hn)
+
+    def _moe_cached(self, lp, hn):
+        """Inference MoE of the cached forward (JAX :1192-1206): top-k
+        gating without capacity, the chosen weights renormalized (at k = 1
+        too, as there). JAX gathers each token's expert matrices; this
+        computes the same function grouped by expert."""
+        from ..moe.sharded_moe import serve_moe
+
+        B, S, H = hn.shape
+        out = serve_moe(hn.reshape(B * S, H), lp["moe_gate_w"],
+                        (lp["e_gate"], lp["e_up"], lp["e_down"]),
+                        self.cfg.moe_top_k, renormalize_top1=True,
+                        logits_in_f32=False)
+        return out.reshape(B, S, H).to(hn.dtype)
 
     def forward_cached(self, params, input_ids, cache, start_pos: int):
         """Forward over [B, S] tokens at positions start_pos .. start_pos
@@ -589,6 +663,16 @@ def mistral_7b() -> TransformerConfig:
     return TransformerConfig(vocab_size=32000, hidden_size=4096,
                              intermediate_size=14336, num_layers=32,
                              num_heads=32, num_kv_heads=8, max_seq_len=8192)
+
+
+def mixtral_8x7b() -> TransformerConfig:
+    """Mixtral-8x7B (JAX :1313): 8 experts, top-2 routing, Mistral
+    attention geometry, 32k context with rope_theta 1e6."""
+    return TransformerConfig(vocab_size=32000, hidden_size=4096,
+                             intermediate_size=14336, num_layers=32,
+                             num_heads=32, num_kv_heads=8, max_seq_len=32768,
+                             rope_theta=1e6,
+                             moe_num_experts=8, moe_top_k=2)
 
 
 def tiny_test(vocab=256, hidden=128, layers=2, heads=4,

@@ -7,10 +7,14 @@ Port of ``deepspeed_tpu/parallel/topology.py`` (``MeshTopology`` :55,
 groups instead of a device mesh. A JAX collective over a mesh axis is a
 collective over the axis's process group here (:meth:`MeshTopology.group`).
 
-The port runs data parallelism only: every rank is on the ``data`` axis,
-whose group is the default (world) group. A pipeline, tensor, sequence or
-expert axis > 1 raises (ROADMAP A8), as do the ZeRO sub-groups: MiCS
-(A4) and ZeRO++ hpZ (A10).
+The port runs data and expert parallelism. The data-parallel group is the
+default (world) group. The expert axis factors it, as in JAX (:41,
+:59-62): rank ``d * ep + j`` is data index ``d``, expert index ``j`` (the
+JAX mesh order, expert inside data), its expert group the ``ep`` ranks of
+its data index (one copy of every expert between them) and its
+expert-data group the ranks of its expert index (the replicas of its
+experts). A pipeline, tensor or sequence axis > 1 raises (ROADMAP A8), as
+do the ZeRO sub-groups: MiCS (A4) and ZeRO++ hpZ (A10).
 """
 
 from dataclasses import dataclass
@@ -43,7 +47,6 @@ _UNPORTED_AXES = (
     ("pipe", "pipeline parallelism", "A8 (parallel modes)"),
     ("model", "tensor parallelism", "A8 (parallel modes)"),
     ("seq", "sequence parallelism", "A8 (parallel modes)"),
-    ("expert", "expert parallelism", "A8 (parallel modes)"),
     ("mics_shard", "MiCS shard groups (mics_shard_size)",
      "A4 (ZeRO over torch.distributed)"),
     ("hpz_shard", "ZeRO++ hpZ (zero_hpz_partition_size)", "A10 (ZeRO++)"),
@@ -51,10 +54,14 @@ _UNPORTED_AXES = (
 
 
 class MeshTopology:
-    """The data-parallel world of this process group.
+    """The data-parallel world of this process group, factored by the
+    expert axis.
 
     ``world_size`` / ``rank`` default to the default group's (1 / 0 when
-    no group is initialized: then every collective is local)."""
+    no group is initialized: then every collective is local). With an
+    expert axis > 1 over the process group's world, every rank builds
+    every expert and expert-data group (``torch.distributed.new_group``
+    is collective) and keeps its own."""
 
     def __init__(self, topo: TopologyConfig = TopologyConfig(),
                  world_size: Optional[int] = None, rank: Optional[int] = None):
@@ -67,10 +74,26 @@ class MeshTopology:
         self.topo = topo
         self.world = comm.get_world_size() if world_size is None else world_size
         self.rank = comm.get_rank() if rank is None else rank
+        ep = topo.expert
+        if self.world % ep:
+            raise ValueError(f"{self.world} ranks not divisible by "
+                             f"expert={ep}")
         self.sizes: Dict[str, int] = {
-            PIPE_AXIS: 1, DATA_AXIS: self.world, SHARD_AXIS: 1,
-            EXPERT_AXIS: 1, SEQ_AXIS: 1, MODEL_AXIS: 1,
+            PIPE_AXIS: 1, DATA_AXIS: self.world // ep, SHARD_AXIS: 1,
+            EXPERT_AXIS: ep, SEQ_AXIS: 1, MODEL_AXIS: 1,
         }
+        self._expert_group = self._expert_data_group = None
+        if ep > 1 and comm.is_initialized() and \
+                self.world == comm.get_world_size():
+            import torch.distributed as dist
+            for d in range(self.world // ep):
+                g = dist.new_group(list(range(d * ep, (d + 1) * ep)))
+                if d == self.rank // ep:
+                    self._expert_group = g
+            for j in range(ep):
+                g = dist.new_group(list(range(j, self.world, ep)))
+                if j == self.rank % ep:
+                    self._expert_data_group = g
 
     def axis_size(self, axis: str) -> int:
         return self.sizes[axis]
@@ -78,7 +101,10 @@ class MeshTopology:
     @property
     def dp_axes(self) -> Tuple[str, ...]:
         """Axes a dense parameter's ZeRO shard spans (JAX :124)."""
-        return (DATA_AXIS, SHARD_AXIS)
+        axes = (DATA_AXIS, SHARD_AXIS)
+        if self.sizes[EXPERT_AXIS] > 1:
+            axes = axes + (EXPERT_AXIS,)
+        return axes
 
     @property
     def zero_shard_axes(self) -> Tuple[str, ...]:
@@ -95,9 +121,27 @@ class MeshTopology:
     def dp_rank(self) -> int:
         return self.rank
 
+    @property
+    def ep_rank(self) -> int:
+        """This rank's index on the expert axis."""
+        return self.rank % self.sizes[EXPERT_AXIS]
+
+    def expert_group(self):
+        """The ``ep`` ranks sharing this rank's data index (one copy of
+        every expert); None at ep 1."""
+        return self._expert_group
+
+    def expert_data_group(self):
+        """The ranks holding this rank's experts (its expert index); the
+        default group at ep 1."""
+        return self._expert_data_group
+
     def group(self, axes=DATA_AXIS):
-        """The process group of a mesh axis (or tuple of axes): the default
-        group for the data-like axes."""
+        """The process group of a mesh axis (or tuple of axes): the expert
+        group for the expert axis alone, the default group for the other
+        data-like axes."""
+        if axes == EXPERT_AXIS and self.sizes[EXPERT_AXIS] > 1:
+            return self._expert_group
         return comm.resolve_group(None, axes)
 
     def __repr__(self):

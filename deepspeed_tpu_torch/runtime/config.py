@@ -611,6 +611,10 @@ _PORTED = {
     # accepted as the JAX package accepts it, which reads it nowhere: a
     # universal directory loads through load_universal_checkpoint()
     "checkpoint.load_universal",
+    # MoE and expert parallelism (moe/, parallel/topology.py): the engine
+    # reads enabled / expert_parallel_size; the layer's routing comes from
+    # the model config, the rest is accepted as JAX accepts it
+    "moe",
 }
 # keys and the values that run
 _PORTED_VALUES = {"activation_checkpointing.policy": POLICIES}
@@ -651,7 +655,6 @@ _ROADMAP = {
     "pipeline": "A8 (parallel modes)",
     "tensor_parallel_size": "A8 (parallel modes)",
     "sequence_parallel_size": "A8 (parallel modes)",
-    "moe": "A8 (parallel modes)",
     "activation_checkpointing": "A3 (the remaining remat policies)",
     "hybrid_engine": "A11 (RLHF and hybrid engine)",
 }

@@ -109,11 +109,25 @@ shims (JAX :1828-1960) accumulate micro-batches and apply them as
 and the optimizer offloads; they refuse ``offload_param``. A model's
 ``frozen_mask`` holds its frozen leaves on both paths.
 
+MoE models train with their aux loss in the model's loss. Under expert
+parallelism (``moe.expert_parallel_size`` = ep > 1) each rank holds the
+``E / ep`` experts of its place in its expert group (the expert leaves
+are cut along their expert dimension at build, and a checkpoint holds
+them whole: gathered from the expert group at save, cut again at load,
+so it reloads under another ep). An expert leaf's gradient already sums
+its expert group's tokens (the dispatch's all-to-all backward); it is
+summed over the expert-data group and divided by the world, where a
+dense leaf takes the mean over the whole data-parallel group. The
+gating's statistics are global over the data-parallel group
+(``model.moe_groups``). Not ported at ep > 1: an expert leaf's ZeRO
+shard over more than one expert-data rank (world > ep at stages 1-3),
+the offload tiers and bucketed reduction (ROADMAP A8).
+
 Not ported (``runtime/config.check_ported`` raises, naming the ROADMAP
 item): ZeRO-Infinity at more than one rank (A9), MiCS (A4), ZeRO++
 (A10), the remat policies beyond the ported ones (A3), pipeline,
-tensor, sequence and expert parallelism (A8), compression, curriculum
-and the profilers (A12), the hybrid engine (A11).
+tensor and sequence parallelism (A8), compression, curriculum and the
+profilers (A12), the hybrid engine (A11).
 """
 
 import logging
@@ -138,7 +152,8 @@ from .activation_checkpointing import checkpointing as ds_ckpt
 from .config import ConfigError, DeepSpeedConfig, OptimizerConfig, check_ported
 from .fp16.loss_scaler import (LossScaleConfig, from_fp16_config,
                                grads_finite, init_scale_state, update_scale)
-from .grad_overlap import (ALL_REDUCE, REDUCE_SCATTER, VJP, BucketedReducer,
+from .grad_overlap import (ALL_REDUCE, EXPERT, REDUCE_SCATTER, VJP,
+                           BucketedReducer,
                            leaf_kinds, plan_grad_buckets, reduce_leaves,
                            resolve_overlap_mode)
 from .lr_schedules import LRScheduler, build_lr_schedule
@@ -175,7 +190,8 @@ def _unflatten(items: List[Tuple[str, Any]]) -> Dict[str, Any]:
 def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
                        fp16: bool, sharded: Optional[List[bool]] = None,
                        group=None, frozen: Sequence[int] = (),
-                       with_leaf_sqnorms: bool = False):
+                       with_leaf_sqnorms: bool = False,
+                       replicas: Optional[Dict[int, int]] = None):
     """In place: unscale by ``inv`` (1 / (gas * loss_scale)), zero the
     frozen leaves' gradients (indices ``frozen``), global inf/nan check
     under fp16 (on the unclipped grads: clipping an inf makes a nan),
@@ -190,7 +206,9 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
     marks a gradient each rank holds a shard of: its partial sum of
     squares is summed over the group (one all-reduce for all of them) and
     the leaves' squares are then added in leaf order, as at one rank; the
-    overflow check is agreed over the group."""
+    overflow check is agreed over the group. ``replicas[i]``: leaf ``i``'s
+    part is held by that many ranks of the group (expert leaves replicated
+    over their expert-data group), so its partial sum counts once."""
     for g in grads:
         g.mul_(inv)
     for i in frozen:
@@ -204,7 +222,8 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
     sq = [torch.sum(torch.square(g.float())) for g in grads]
     idx = [i for i, s in enumerate(sharded or []) if s]
     if idx and world > 1:
-        part = torch.stack([sq[i] for i in idx])
+        part = torch.stack([sq[i] / replicas[i] if replicas and i in replicas
+                            else sq[i] for i in idx])
         comm.all_reduce(part, group=group)
         for j, i in enumerate(idx):
             sq[i] = part[j]
@@ -262,6 +281,7 @@ class DeepSpeedTpuEngine:
         self.group = self.topology.group()
         self.dp_world_size = self.topology.dp_world_size
         self.dp_rank = self.topology.dp_rank
+        self.ep = self.topology.axis_size("expert")
         self.training_dataloader = dataloader
         self.global_steps = 0
         self.skipped_steps = 0
@@ -294,6 +314,7 @@ class DeepSpeedTpuEngine:
                                    and off.pin_memory)
         self.host_opt = None
         self._init_param_offload(model)
+        self._init_experts(model)
         self._pending_saves: List[threading.Thread] = []
         self._async_save_errors: List[BaseException] = []
         ds_ckpt.configure(deepspeed_config=self.config)
@@ -575,6 +596,48 @@ class DeepSpeedTpuEngine:
         model.stream_params_from_host = self.param_offload
         model.host_stream = None
 
+    def _init_experts(self, model):
+        """Expert parallelism (JAX: the expert mesh axis, the model's
+        ``param_partition_specs``): which leaves hold experts, the refusals
+        at ep > 1, and the MoE layers' process groups."""
+        self._expert_dims: Dict[str, int] = dict(
+            getattr(model, "expert_leaves", None) or {})
+        ep = self.ep
+        if ep > 1:
+            cfg = getattr(model, "cfg", None)
+            E = getattr(cfg, "moe_num_experts", 0)
+            if not self._expert_dims or E % ep:
+                raise ValueError(
+                    f"expert_parallel_size {ep} needs an MoE model whose "
+                    f"expert count divides by it (got {E} experts)")
+            if self.offload_device or self.param_offload:
+                raise NotImplementedError(
+                    "ZeRO-Offload with expert parallelism (ep > 1) is not "
+                    "ported to deepspeed_tpu_torch yet (ROADMAP A8)")
+        if hasattr(model, "moe_groups"):
+            from ..moe.sharded_moe import MoEGroups
+            model.moe_groups = None
+            if self.dp_world_size > 1:
+                model.moe_groups = MoEGroups(
+                    self.group, self.dp_world_size, self.dp_rank,
+                    self.topology.expert_group(), ep, self.topology.ep_rank)
+
+    def _expert_cut(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        """This rank's experts of a whole expert leaf (identity at ep 1 and
+        for other leaves)."""
+        d = self._expert_dims.get(name)
+        if self.ep == 1 or d is None:
+            return v
+        return shard_of(v, d, self.topology.ep_rank, self.ep)
+
+    def _ckpt_shape(self, name: str) -> Tuple[int, ...]:
+        """A leaf's whole shape (what a checkpoint holds)."""
+        shape = list(self._full_shapes[name])
+        d = self._expert_dims.get(name)
+        if self.ep > 1 and d is not None:
+            shape[d] *= self.ep
+        return tuple(shape)
+
     def _check_infinity_supported(self):
         """The refusals of ``offload_param.device='nvme'`` (JAX
         ``_check_infinity_supported`` :544)."""
@@ -647,11 +710,14 @@ class DeepSpeedTpuEngine:
             gen.manual_seed(seed)
             # drawn on the device in the compute dtype; the fp32 master
             # is cast up from it (a 7B tree never exists in f32 on host)
-            return _flatten(self.model.init_params(gen,
-                                                   dtype=self.compute_dtype))
-        return [(k, torch.as_tensor(np.asarray(v)) if not
-                 isinstance(v, torch.Tensor) else v)
-                for k, v in _flatten(params)]
+            items = _flatten(self.model.init_params(
+                gen, dtype=self.compute_dtype))
+        else:
+            items = [(k, torch.as_tensor(np.asarray(v)) if not
+                      isinstance(v, torch.Tensor) else v)
+                     for k, v in _flatten(params)]
+        # ep > 1: this rank keeps its experts
+        return [(k, self._expert_cut(k, v)) for k, v in items]
 
     # ------------------------------------------------------------------
     def _init_state(self, params, seed: int):
@@ -669,8 +735,17 @@ class DeepSpeedTpuEngine:
                       else self.zero_stage)
         self.zero_plan: ZeroPlan = build_zero_plan(
             self.dp_world_size, plan_stage, self._full_shapes,
-            persistence_threshold=zc.stage3_param_persistence_threshold)
+            persistence_threshold=zc.stage3_param_persistence_threshold,
+            expert_dims=self._expert_dims, ep=self.ep)
         names = self._leaf_names
+        if self.ep > 1 and any(self.zero_plan.master_dims[k] is not None
+                               for k in self._expert_dims):
+            raise NotImplementedError(
+                f"an expert leaf's ZeRO shard over the "
+                f"{self.dp_world_size // self.ep} expert-data ranks (world "
+                f"{self.dp_world_size}, ep {self.ep}, stage "
+                f"{self.zero_stage}) is not ported to deepspeed_tpu_torch "
+                f"yet (ROADMAP A8); at world = ep every stage runs")
         self._pdims = [self.zero_plan.param_dims[k] for k in names]
         self._gdims = [self.zero_plan.grad_dims[k] for k in names]
         self._odims = [self.zero_plan.master_dims[k] for k in names]
@@ -722,8 +797,8 @@ class DeepSpeedTpuEngine:
                               master if master is not None else compute))
         self.scale_state = (init_scale_state(self.scale_cfg, self.device)
                             if self.fp16_enabled else None)
-        self.param_count = int(sum(torch.Size(s).numel()
-                                   for s in self._full_shapes.values()))
+        self.param_count = int(sum(torch.Size(self._ckpt_shape(k)).numel()
+                                   for k in self._full_shapes))
         self._step = 0          # optimizer steps applied (JAX _step_arr)
         self._grad_acc: Optional[List[torch.Tensor]] = None
         self._grad_shards: Optional[List[Optional[torch.Tensor]]] = None
@@ -780,6 +855,10 @@ class DeepSpeedTpuEngine:
         plan (JAX ``make_overlapped_grad_fn``'s planning, :648-758)."""
         names = self._leaf_names
         self._kinds = leaf_kinds(names, self.zero_plan)
+        if self.ep > 1:
+            # an expert leaf's gradient reduces over its expert-data group
+            self._kinds = [EXPERT if n in self._expert_dims else k
+                           for n, k in zip(names, self._kinds)]
         stack = tuple(getattr(self.model, "param_offload_keys", ()) or ())
         stacked = [any(n.startswith(k + "/") for k in stack) for n in names]
         # stage 3: a stacked leaf cut along a layer's own dimension is
@@ -1094,8 +1173,7 @@ class DeepSpeedTpuEngine:
             if self._reducer is not None:
                 self._reducer.finish(acc, shards)
             else:
-                reduce_leaves(acc, self._kinds, self._gdims, shards,
-                              self.group)
+                self._reduce(acc, shards)
             loss = self._mean_over_group(torch.stack(losses).mean())
             ok, gnorm, leaf_sq = self._apply_grads(acc, shards, scale, lr,
                                                    events)
@@ -1105,6 +1183,17 @@ class DeepSpeedTpuEngine:
         if self.fp16_enabled:
             out["loss_scale"] = scale
         return out
+
+    def _reduce(self, acc, shards):
+        """``overlap_grad_reduce`` off: every leaf's reduction after the
+        backward. An expert leaf (ep > 1) already holds its expert group's
+        sum (the all-to-all backward): summed over its expert-data group
+        and divided by the world, it is the mean loss's gradient."""
+        reduce_leaves(acc, self._kinds, self._gdims, shards, self.group)
+        for a, kind in zip(acc, self._kinds):
+            if kind == EXPERT:
+                comm.all_reduce(a, group=self.topology.expert_data_group())
+                a.div_(self.dp_world_size)
 
     def _apply_grads(self, acc, shards, scale, lr, events=None):
         """Unscale, clip and check the reduced gradients, then the update
@@ -1120,7 +1209,9 @@ class DeepSpeedTpuEngine:
             sharded=[k != ALL_REDUCE or d is not None
                      for k, d in zip(self._kinds, self._odims)],
             group=self.group, frozen=self._frozen_idx,
-            with_leaf_sqnorms=self._grad_attribution)
+            with_leaf_sqnorms=self._grad_attribution,
+            replicas={i: self.dp_world_size // self.ep
+                      for i, k in enumerate(self._kinds) if k == EXPERT})
         if events is not None:
             events[1].record()
         ok = True if finite is None else bool(finite.item())
@@ -1283,7 +1374,7 @@ class DeepSpeedTpuEngine:
                  else None)
         lr = self._lr_fn(self._step)
         with torch.no_grad():
-            reduce_leaves(acc, self._kinds, self._gdims, shards, self.group)
+            self._reduce(acc, shards)
             ok, _, _ = self._apply_grads(acc, shards, scale, lr)
         self._shim_grads = False
         if not ok:
@@ -1346,7 +1437,15 @@ class DeepSpeedTpuEngine:
     def _gathered(self, leaves, dims) -> List[torch.Tensor]:
         if self.dp_world_size > 1:      # a collective runs on the device
             leaves = [v.to(self.device) for v in leaves]
-        return ckpt.gather_shards(leaves, dims, self.group)
+        out = ckpt.gather_shards(leaves, dims, self.group)
+        if self.ep > 1:
+            # whole expert leaves: every expert rank's experts joined
+            out = [all_gather_leaf(v.detach().contiguous(),
+                                   self._expert_dims[n],
+                                   self.topology.expert_group())
+                   if n in self._expert_dims else v
+                   for n, v in zip(self._leaf_names, out)]
+        return out
 
     @property
     def _state_tier(self):
@@ -1465,7 +1564,7 @@ class DeepSpeedTpuEngine:
 
         def meta_like(leaves):
             return None if leaves is None else self._tree([
-                torch.empty(self._full_shapes[k], dtype=v.dtype,
+                torch.empty(self._ckpt_shape(k), dtype=v.dtype,
                             device="meta")
                 for k, v in zip(self._leaf_names, leaves)])
 
@@ -1476,7 +1575,7 @@ class DeepSpeedTpuEngine:
             master, moments = self._master_leaves, self.opt_state
         template = {
             "params": self._tree([
-                torch.empty(self._full_shapes[k], dtype=self.compute_dtype
+                torch.empty(self._ckpt_shape(k), dtype=self.compute_dtype
                             if self._infinity is not None else v.dtype,
                             device="meta")
                 for k, v in zip(self._leaf_names,
@@ -1500,7 +1599,7 @@ class DeepSpeedTpuEngine:
             )[0]["params"]
 
         def leaves(name, sub=None, dims=None):
-            whole = [v for _, v in ckpt.leaf_paths(
+            whole = [self._expert_cut(k, v) for k, v in ckpt.leaf_paths(
                 state[name] if sub is None else sub)]
             return ckpt.take_shards(whole, dims or [None] * len(whole),
                                     self.dp_rank, self.dp_world_size)
@@ -1585,6 +1684,10 @@ class DeepSpeedTpuEngine:
             raise NotImplementedError(
                 "load_universal_checkpoint under offload_param nvme is not "
                 "ported to deepspeed_tpu_torch yet (ROADMAP A9)")
+        if self.ep > 1:
+            raise NotImplementedError(
+                "load_universal_checkpoint with expert parallelism (ep > 1) "
+                "is not ported to deepspeed_tpu_torch yet (ROADMAP A8)")
 
         def template(dtype_of):
             return self._tree([

@@ -51,6 +51,7 @@ VJP = "vjp"                      # reduced by the stage-3 gather's VJP
 REDUCE_SCATTER = "reduce_scatter"  # dim-sharded grad: bucketed reduce-scatter
 ALL_REDUCE = "all_reduce"        # replicated grad: bucketed all-reduce (mean)
 CROSS_GROUP = "cross_group"      # hpZ: cross-group mean of a VJP-reduced leaf
+EXPERT = "expert"                # ep > 1: summed over the expert-data group
 
 # 256 bytes of f32: where every unit of a flat bucket starts
 ALIGN_ELEMS = 64
@@ -429,6 +430,9 @@ def overlap_blockers(engine, forced: bool) -> List[Tuple[str, str]]:
     if engine.offload_device:
         out.append(("hard", "offload_optimizer moves the gradients to the "
                             "host tier after the backward"))
+    if engine.ep > 1:
+        out.append(("hard", "expert parallelism reduces the expert leaves "
+                            "over their expert-data group (ROADMAP A8)"))
     if not forced:
         if not engine.config.zero_optimization.overlap_comm:
             out.append(("soft", "overlap_comm is disabled"))

@@ -323,7 +323,11 @@ class InfinityParamEngine:
         """``dev_batch``: ``[gas, micro, ...]`` tensors on the device;
         ``step`` is 1-based."""
         L = self.L
-        layer = self.model._layer
+
+        def layer(*args):
+            # ZeRO-Infinity refuses MoE: a layer's aux output is None
+            return self.model._layer(*args)[0]
+
         self.model._check_trainable()
         t_start = time.perf_counter()
         r0 = self._pstream.read_bytes
@@ -488,7 +492,7 @@ class InfinityParamEngine:
             h = self._stem(self.pp_dev, ids)
             for i in range(self.L):
                 lp = self._fetch_layer(i, i + 1 if i + 1 < self.L else None)
-                h = self.model._layer(h, lp, cos, sin)
+                h = self.model._layer(h, lp, cos, sin)[0]
             losses.append(float(self._crown(self.pp_dev, h, ids, mask)))
         return float(sum(losses) / len(losses))
 

@@ -15,7 +15,11 @@ collectives itself (reference stage_1_and_2.py:96, stage3.py:72):
 
 The dimension is the JAX choice: the largest dimension divisible by the
 ZeRO world. Compute params below ``stage3_param_persistence_threshold``
-elements stay replicated (their master is still sharded). One difference:
+elements stay replicated (their master is still sharded). Under expert
+parallelism an expert leaf (sharded over the expert axis by its expert
+dimension) takes its ZeRO shard over the free data axes only, on another
+dimension (JAX :56-67): a ZeRO world of ``world / ep``, replicated when
+that is 1. One difference:
 at world 1 the JAX plan is replicated, while this plan keeps the
 dimensions — one shard is the whole leaf, so a one-rank run goes through
 every collective of the sharded path (each a copy).
@@ -96,20 +100,34 @@ class ZeroPlan:
 
 def build_zero_plan(world: int, stage: int,
                     param_shapes: Dict[str, Tuple[int, ...]],
-                    persistence_threshold: int = 0) -> ZeroPlan:
+                    persistence_threshold: int = 0,
+                    expert_dims: Optional[Dict[str, int]] = None,
+                    ep: int = 1) -> ZeroPlan:
     """The plan of ``stage`` over a ZeRO world of ``world`` ranks for the
     leaves ``{path: shape}`` (JAX ``build_zero_plan``: master, moments and
     gradient shards always partition; stage-3 compute params only from
-    ``persistence_threshold`` elements up)."""
+    ``persistence_threshold`` elements up). ``expert_dims`` (``ep`` > 1):
+    the expert leaves and their expert dimension, planned over
+    ``world / ep`` ranks on the other dimensions."""
+    experts = expert_dims if ep > 1 else {}
+
+    def dim_of(k, s, threshold=0):
+        if k not in experts:
+            return zero_dim(s, world, threshold)
+        if world // ep <= 1:
+            return None
+        return zero_dim(s, world // ep, threshold,
+                        free=[d for d in range(len(s)) if d != experts[k]])
+
     none = {k: None for k in param_shapes}
-    opt = {k: zero_dim(s, world) for k, s in param_shapes.items()}
+    opt = {k: dim_of(k, s) for k, s in param_shapes.items()}
     if stage <= 0:
         return ZeroPlan(stage, world, none, none, none)
     if stage == 1:
         return ZeroPlan(stage, world, none, none, opt)
     if stage == 2:
         return ZeroPlan(stage, world, none, opt, opt)
-    param3 = {k: zero_dim(s, world, persistence_threshold)
+    param3 = {k: dim_of(k, s, persistence_threshold)
               for k, s in param_shapes.items()}
     return ZeroPlan(stage, world, param3, opt, opt)
 

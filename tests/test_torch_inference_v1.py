@@ -227,6 +227,11 @@ def test_forward_cached_matches_jax_and_full_forward(weights, decode_kernel):
 def test_cached_forward_families_not_ported_raise(kw, item):
     model = TransformerLM(TransformerConfig(**dataclasses.asdict(
         _jcfg(**kw))))
+    if "moe_num_experts" in kw:
+        # MoE generation is ported now (tests/test_torch_moe.py)
+        cache = model.init_kv_cache(1, 8, torch.float32, "cpu")
+        assert cache["k"].shape[0] == model.cfg.num_layers
+        return
     with pytest.raises(NotImplementedError, match=item):
         model.init_kv_cache(1, 8, torch.float32, "cpu")
 

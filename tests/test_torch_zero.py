@@ -258,6 +258,16 @@ def test_config_rejects_unported_zero_keys(extra, world, item):
     ("model", "A8"), ("pipe", "A8"), ("seq", "A8"), ("expert", "A8"),
     ("mics_shard", "A4"), ("hpz_shard", "A10")])
 def test_topology_raises_for_unported_axes(field, item):
+    if field == "expert":
+        # the expert axis is ported now: it factors the data axis as in
+        # JAX (tests/test_torch_moe_distributed.py runs it at world 2)
+        got = ttopo.MeshTopology(ttopo.TopologyConfig(expert=2),
+                                 world_size=4, rank=3)
+        ref = JTopo(JTopoCfg(expert=2), devices=jax.devices()[:4])
+        assert got.sizes == ref.sizes and got.dp_axes == ref.dp_axes
+        assert got.dp_world_size == ref.dp_world_size == 4
+        assert got.ep_rank == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
         ttopo.MeshTopology(ttopo.TopologyConfig(**{field: 2}), world_size=4)
 
@@ -278,6 +288,13 @@ def test_topology_answers_like_jax(world):
                                   "send_next", "send_prev", "recv_prev",
                                   "all_to_all_single"])
 def test_unported_collectives_raise_a8(name):
+    if name == "all_to_all_single":
+        # the MoE dispatch's collective is ported now: without a process
+        # group it is a copy
+        out = torch.empty(2)
+        comm.all_to_all_single(out, torch.arange(2.0))
+        assert out.tolist() == [0.0, 1.0]
+        return
     with pytest.raises(NotImplementedError, match="A8"):
         getattr(comm, name)(torch.zeros(2))
 
