@@ -14,7 +14,10 @@ through the forward / backward / step shims and through universal
 checkpoints), then at 8 layers
 through both ZeRO-Offload backends (the host C++ optimizer and the tiered
 pinned-memory state), with the NVMe tier and checkpoints at 2 layers,
-trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group,
+trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group
+and with the tensor / sequence / MiCS keys at one rank (after checking
+the attention kernels at tensor-parallel head counts and ring attention
+against them),
 with its layer stack and activations offloaded to the host and through
 ZeRO-Infinity's per-layer files, serves returning conversations through
 the KV spill tier and through the stitched ``ragged_attention="off"``
@@ -275,6 +278,21 @@ exit 0):
    stage-3 step under torch.profiler, whose NCCL all-gather and
    reduce-scatter calls (at one rank NCCL runs them as device copies) are
    counted with their device ms; the process group destroyed at the end;
+8h. tensor / sequence parallelism and the rest of ZeRO on one card:
+   (a) the paged (bf16 and int8 pools), ragged (both pools), dense-decode
+   and flash fwd / dq / dk-dv kernels at the per-rank head counts tensor
+   parallelism gives Mistral-7B / Mixtral width (nh / kvh 16 / 4, 8 / 2,
+   4 / 1 at tp 2, 4, 8; hd 128, bf16), each against its plain version at
+   phase 2's / 3's tolerances, each split plan logged; (b) ring attention
+   over a one-rank seq group at B 1, nh 32, kvh 8, S 8192, q_chunk =
+   kv_chunk = 1024, causal, its output within 1e-2 of the flash kernels'
+   (one bf16 step where |o| >= 2) and its gradients within 2e-2 of max
+   |flash|, fwd+bwd ms (CUDA events, median) and peak memory of both;
+   (c) the engine through initialize() at one NCCL rank on 8c's model,
+   settings and batch with tensor_parallel_size / sequence_parallel_size
+   / mics_shard_size 1 and reduce_scatter false at stage 3: its 2-step
+   losses and params torch.equal to 8c's stage-3 engine, flash launches
+   2 x L x gas and L x gas a step, check_engine_sanity clean;
 8b. offload and checkpoints (the engines of each step freed before the
    next): the host C++ ops built by g++ from csrc/host (seconds logged);
    DeepSpeedCPUAdam with f32 and bf16 gradients, Adagrad and Lion on one
@@ -339,7 +357,7 @@ exit 0):
    under impl="auto" on the card raises;
 10. the card's name and power limit, the host_ops JSON line (the host
    optimizers' times, rates, yardstick and errors), the kernels JSON line
-   (the flash launches of phases 2e, 8, 8f, 8g, 8c, 8b, 8d and 8e
+   (the flash launches of phases 2e, 8, 8f, 8g, 8c, 8h, 8b, 8d and 8e
    together, the paged and ragged ones of phases 6, 2e, 2c, 2d and 2f,
    the dense decode ones of phases 6 and 2f, the quantizer ones of the
    WOQ phases and 2f), then the last line
@@ -4147,7 +4165,9 @@ def nccl_calls(prof):
 
 def zero_dp_phase(dev, card):
     """Phase 8c: the data-parallel engine at stages 1-3, bucketed and off,
-    against stage 0 at world 1 over NCCL. Returns the flash launches."""
+    against stage 0 at world 1 over NCCL. Returns the flash launches and
+    the stage-3 "off" engine's losses and params after 2 steps (what phase
+    8h's engine must equal)."""
     import dataclasses
 
     import torch.distributed as dist
@@ -4201,6 +4221,9 @@ def zero_dp_phase(dev, card):
             losses.append(eng.train_batch(batch=batch))
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
+            if (stage, mode, len(losses)) == (3, "off", 2):
+                two_steps = (list(losses), [p.detach().clone()
+                                            for p in eng._param_leaves])
         launches = {kfn.__name__: kfn.launches for kfn in kernels}
         for k, n in launches.items():
             total[k] += n
@@ -4266,7 +4289,275 @@ def zero_dp_phase(dev, card):
         raise AssertionError("phase 8c: " + "; ".join(bad))
     gc.collect()
     torch.cuda.empty_cache()
-    return total
+    return total, two_steps
+
+
+# ---------------------------------------------------------------------------
+# phase 8h: tensor / sequence parallelism and the rest of ZeRO on one card
+# ---------------------------------------------------------------------------
+RING_S, RING_CHUNK = 8192, 1024
+
+
+def tp_head_checks(dev):
+    """8h (a): the attention kernels at the per-rank head counts tensor
+    parallelism gives Mistral-7B / Mixtral width (nh 32, kvh 8, hd 128):
+    16 / 4, 8 / 2 and 4 / 1 heads at tp 2, 4 and 8. Paged decode (bf16 and
+    int8 pools), a mixed ragged batch (both pools), dense decode and the
+    three flash kernels, each against its plain version at phase 2's and
+    phase 3's tolerances; each split plan logged."""
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import (
+        page_split_plan, paged_attention, paged_attention_plain)
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import (
+        ragged_attention, ragged_attention_plain, singleton_plans)
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        dense_decode_attention, dense_decode_attention_plain, split_plan)
+
+    rng = np.random.default_rng(8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    mb = 2048 // BS
+    dec_lens = [1, 63, 64, 65, 500, 1024, 1537, 2048]
+    N = len(dec_lens)
+    n_pages = 1 + sum(-(-n // BS) for n in dec_lens) + 64
+    lengths = torch.as_tensor(dec_lens, dtype=torch.int32, device=dev)
+    rows_pos = [list(range(512)), list(range(704, 800))] + [
+        [n - 1] for n in (1, 100, 640, 1000, 1536, 2048)]
+    worst = 0.0
+    for tp in (2, 4, 8):
+        nh, kvh = NH // tp, KVH // tp
+        tag = f"tp {tp} (nh {nh}, kvh {kvh})"
+        tables = torch.as_tensor(tables_for(rng, dec_lens, n_pages, mb),
+                                 device=dev)
+        q = torch.randn((N, nh, HD), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        chunk, n_split = page_split_plan(N, kvh, mb, BS)
+        log(f"8h {tag}: paged plan grid ({N * kvh}, {n_split}) = "
+            f"{N * kvh * n_split} blocks of {chunk}-page chunks")
+        k_cache, v_cache = make_pool(gen, n_pages, dev, kvh=kvh)
+        args = (q, k_cache, v_cache, tables, lengths)
+        worst = max(worst, check_close(f"8h {tag} paged_attention",
+                                       paged_attention(*args),
+                                       paged_attention_plain(*args), TOL))
+        kq, vq, ks, vs = make_q8_pool(gen, n_pages, dev, kvh=kvh)
+        pool = (kq, vq, tables, lengths, ks, vs)
+        worst = max(worst, check_close(f"8h {tag} paged_attention_q8",
+                                       paged_attention(q, *pool),
+                                       paged_attention_plain(q, *pool), TOL))
+        for q8 in (False, True):
+            case = ragged_case(gen, rng, dev, list(enumerate(rows_pos)),
+                               T=1024, nh=nh, kvh=kvh, q8=q8)
+            rargs = case["args"]
+            R, MB = rargs[5].shape
+            plans = singleton_plans(rargs[0].shape[0], R, kvh, MB, BS)
+            name = "ragged_attention" + ("_q8" if q8 else "")
+            log(f"8h {tag} {name}: tile grid ({nh // 2}, "
+                f"{rargs[0].shape[0] // 64 + 1}), singleton plans {plans}")
+            worst = max(worst, check_close(f"8h {tag} {name}",
+                                           ragged_attention(*rargs),
+                                           ragged_attention_plain(*rargs),
+                                           TOL))
+        M, B = 2048, 8
+        dl = torch.as_tensor([1536, 2048] * (B // 2), dtype=torch.int32,
+                             device=dev)
+        dq = torch.randn((B, nh, HD), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        kc, vc = (torch.randn((B, kvh, M, HD), generator=gen, device=dev,
+                              dtype=torch.bfloat16) for _ in range(2))
+        chunk, n_split = split_plan(B, kvh, M)
+        log(f"8h {tag}: dense decode plan grid ({B * kvh}, {n_split}) = "
+            f"{B * kvh * n_split} blocks of {chunk}-slot chunks")
+        worst = max(worst, check_close(
+            f"8h {tag} dense_decode_attention",
+            dense_decode_attention(dq, kc, vc, dl),
+            dense_decode_attention_plain(dq, kc, vc, dl), TOL))
+        bh, bhk, S = TRAIN_B * nh, TRAIN_B * kvh, TRAIN_S
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+
+        log(f"8h {tag}: flash grids over {bh} q heads x {S // 64} 64-row "
+            f"tiles, {bhk} kv heads (group {bh // bhk})")
+        err_o, err_g = flash_check(fa, f"8h {tag} flash bf16 causal S {S}",
+                                   rnd(bh, S, HD), rnd(bhk, S, HD),
+                                   rnd(bhk, S, HD), rnd(bh, S, HD), True,
+                                   TOL, 2e-2)
+        worst = max(worst, err_o)
+        del k_cache, v_cache, kq, vq, pool, kc, vc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def cuda_median_ms(fn, reps=3, warmup=1):
+    """Median ms of ``fn`` on the card's clock (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def ring_check(dev, card):
+    """8h (b): ring attention over a one-rank seq group at B 1, nh 32, kvh
+    8, hd 128, S 8192, q_chunk = kv_chunk = 1024, causal, bf16: its output
+    within 1e-2 absolute of the flash kernels' on the same inputs (one
+    bf16 rounding step where |o| >= 2, where that step is 0.0156) and its
+    gradients within 2e-2 of max |flash|; forward+backward ms (median of
+    CUDA events) and peak memory of both."""
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+    from deepspeed_tpu_torch.sequence.ring_attention import ring_attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k, v = (rnd(1, NH, RING_S, HD), rnd(1, KVH, RING_S, HD),
+               rnd(1, KVH, RING_S, HD))
+    do = rnd(1, NH, RING_S, HD)
+
+    def run(fn):
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = fn(qs, ks, vs)
+        o.backward(do)
+        return o.detach(), (qs.grad, ks.grad, vs.grad)
+
+    def ring(a, b, c):
+        return ring_attention(a, b, c, causal=True, q_chunk=RING_CHUNK,
+                              kv_chunk=RING_CHUNK)
+
+    def flash(a, b, c):
+        return flash_attention(a, b, c, causal=True)
+
+    rows = {}
+    outs = {}
+    for name, fn in (("ring", ring), ("flash", flash)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        outs[name] = run(fn)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        ms = cuda_median_ms(lambda: run(fn))
+        rows[name] = (ms, peak)
+    (o_r, g_r), (o_f, g_f) = outs["ring"], outs["flash"]
+    diff = (o_r.float() - o_f.float()).abs()
+    err_o = diff.max().item()
+    # both outputs are f32 results rounded to bf16: where |o| >= 2 one
+    # rounding step (2^-6 = 0.0156) exceeds 1e-2, so there the bound is
+    # one bf16 step of the flash output's magnitude
+    step = torch.exp2(torch.floor(torch.log2(
+        o_f.float().abs().clamp_min(2.0 ** -126))) - 7)
+    limit = torch.maximum(torch.full_like(step, 1e-2), step)
+    past = diff > 1e-2
+    over = int(past.sum())
+    steps = (diff[past] / step[past]).max().item() if over else 0.0
+    err_g = {n: (a.float() - b.float()).abs().max().item()
+             / max(b.float().abs().max().item(), 1e-30)
+             for n, a, b in zip(("dq", "dk", "dv"), g_r, g_f)}
+    log(f"8h ring S {RING_S} chunks {RING_CHUNK}: o max_abs_err vs flash "
+        f"{err_o:.3e} (1e-2, or one bf16 step where |o| >= 2: {over} of "
+        f"{diff.numel()} elements past 1e-2, at most {steps:.2f} steps), "
+        f"grads rel {err_g} (2e-2); fwd+bwd ms ring "
+        f"{rows['ring'][0]:.2f} / flash {rows['flash'][0]:.2f}, extra peak "
+        f"GiB ring {rows['ring'][1]:.2f} / flash {rows['flash'][1]:.2f} "
+        f"[{card}]")
+    finite = bool(torch.isfinite(o_r).all()) and all(
+        bool(torch.isfinite(g).all()) for g in g_r)
+    if not (finite and bool((diff <= limit).all())
+            and all(e <= 2e-2 for e in err_g.values())):
+        raise AssertionError(f"8h: ring attention disagrees with flash: o "
+                             f"{err_o}, grads {err_g}")
+    del q, k, v, do, outs, o_r, g_r, o_f, g_f
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def parallel_phase(dev, card, ref):
+    """Phase 8h: (a) the kernels at tensor-parallel head counts, (b) ring
+    attention against flash at S 8192, (c) the training engine at one NCCL
+    rank with tensor_parallel_size / sequence_parallel_size /
+    mics_shard_size 1 and reduce_scatter false: its 2-step losses and
+    params torch.equal to phase 8c's stage-3 engine (``ref``), the flash
+    kernels launched on its path, check_engine_sanity clean. Returns the
+    flash launches of (c)."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_7b
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.utils.sanity import check_engine_sanity
+
+    t_phase = time.perf_counter()
+    worst = tp_head_checks(dev)
+    log(f"8h (a): every kernel within its tolerance at tp 2 / 4 / 8 head "
+        f"counts (worst {worst:.3e}); {time.perf_counter() - t_phase:.0f}s")
+    t0 = time.perf_counter()
+    ring_check(dev, card)
+    log(f"8h (b): {time.perf_counter() - t0:.0f}s")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mistral_7b(), num_layers=4)
+    L, gas, steps = cfg.num_layers, 2, 2
+    rng = np.random.default_rng(4)          # phase 8's fixed batch
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (gas, TRAIN_B, TRAIN_S))}
+    config = {"train_micro_batch_size_per_gpu": TRAIN_B,
+              "gradient_accumulation_steps": gas,
+              "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+              "gradient_clipping": 1.0, "bf16": {"enabled": True},
+              "steps_per_print": 10 ** 9,
+              "tensor_parallel_size": 1, "sequence_parallel_size": 1,
+              "zero_optimization": {
+                  "stage": 3, "overlap_grad_reduce": "off",
+                  "stage3_param_persistence_threshold": 0,
+                  "mics_shard_size": 1, "reduce_scatter": False}}
+    eng, *_ = deepspeed_tpu_torch.initialize(model=TransformerLM(cfg),
+                                             config=config)
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for kfn in kernels:
+        kfn.launches = 0
+    losses = [eng.train_batch(batch=batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    launches = {kfn.__name__: kfn.launches for kfn in kernels}
+    want = {"flash_fwd": steps * 2 * L * gas,
+            "flash_bwd_dq": steps * L * gas, "flash_bwd_dkv": steps * L * gas}
+    equal = losses == ref[0] and all(
+        torch.equal(a.detach(), b) for a, b in zip(eng._param_leaves, ref[1]))
+    report = check_engine_sanity(eng, raise_on_error=False)
+    log(f"8h (c): world-1 engine with the tp / sp / MiCS keys at 1 and "
+        f"reduce_scatter false: losses {losses}, torch.equal to phase 8c's "
+        f"stage 3: {equal}; launches {launches}; check_engine_sanity "
+        f"{report}; {time.perf_counter() - t0:.0f}s [{card}]")
+    eng.close()
+    del eng
+    comm.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = []
+    if not equal:
+        bad.append("the engine differs from phase 8c's stage 3")
+    if launches != want:
+        bad.append(f"launches {launches} != {want}")
+    if not report["ok"]:
+        bad.append(f"check_engine_sanity reported {report['problems']}")
+    if bad:
+        raise AssertionError("phase 8h: " + "; ".join(bad))
+    log(f"phase 8h: {time.perf_counter() - t_phase:.0f}s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5821,8 +6112,12 @@ def main() -> int:
     for k, n in moe_train_phase(dev).items():
         launches[k] += n
     log(f"phase 8g: {time.perf_counter() - t0:.0f}s")
-    for k, n in zero_dp_phase(dev, card).items():
+    dp_launches, stage3_two_steps = zero_dp_phase(dev, card)
+    for k, n in dp_launches.items():
         launches[k] += n
+    for k, n in parallel_phase(dev, card, stage3_two_steps).items():
+        launches[k] += n
+    del stage3_two_steps
     t0 = time.perf_counter()
     offload_launches, host_ops = offload_phase(dev)
     log(f"phase 8b: {time.perf_counter() - t0:.0f}s; flash launches of the "

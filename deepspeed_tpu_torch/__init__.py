@@ -19,7 +19,11 @@ the :class:`~.runtime.engine.DeepSpeedTpuEngine`, data parallel over
 gradient reduction in ``runtime/grad_overlap.py``; ranks started by
 ``launcher/launch.py``, fed by ``runtime/dataloader.py``; NCCL on the
 card, gloo on the CPU), whose ``train_batch()`` runs the flash-attention
-kernels forward and backward. At one rank its optimizer state may live
+kernels forward and backward, also tensor parallel (Megatron-style on the
+JAX partition specs, ``models/transformer.py``), sequence parallel
+(Ulysses or ring, ``sequence/``) and under MiCS, with the v1 and v2
+engines serving at ``tp_size`` > 1 (``utils/sanity.py`` is the safe-mode
+sweep). At one rank its optimizer state may live
 on the card, in page-locked host memory with the update streamed through
 the card (``offload_optimizer {device: cpu, pin_memory: true}``,
 ``runtime/offload.py``), or with the host C++ optimizer in host memory or
@@ -40,8 +44,8 @@ detector and the monitor backends (``monitor/``), loads universal
 checkpoints (``checkpoint/universal.py``, also a CLI), and has the
 ``forward`` / ``backward`` / ``step`` shims; ``runtime/checkpoint_engine``
 holds the synchronous and background checkpoint writers. Still raising:
-ZeRO-Infinity at more than one rank (ROADMAP A9), tensor / sequence /
-pipeline / expert parallelism (A8), ZeRO++ (A10), the other remat
+ZeRO-Infinity at more than one rank (ROADMAP A9), the pipeline (A8),
+ZeRO++ (A10), the other remat
 policies (A3); ``init_inference(use_ragged=True, checkpoint=...)``
 raises as in the JAX package. Entry points run on the GPU unless the
 caller passes ``device="cpu"``.

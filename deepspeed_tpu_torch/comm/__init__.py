@@ -36,6 +36,8 @@ from .comm import (  # noqa: F401
     resolve_group,
     send_next,
     send_prev,
+    seq_all_to_all,
+    set_axis_groups,
     timed_op,
     tp_copy,
     tp_reduce,

@@ -13,9 +13,13 @@ Port of ``deepspeed_tpu/comm/comm.py`` (``init_distributed`` :41,
    ``reduce_scatter_tensor(out, in)``). Where the JAX package names a mesh
    axis (``axis_name="data"``) this takes a process group; the data-like
    axes (``data``, ``shard``, ``expert``) default to the world group (an
-   expert group is passed as ``group``, ``parallel/topology.py``). The
-   expert dispatch's :func:`all_to_all_single` runs; tensor, sequence and
-   pipeline groups come with ROADMAP A8, and their functions raise.
+   expert group is passed as ``group``, ``parallel/topology.py``). A
+   topology registers this rank's model and seq groups
+   (:func:`set_axis_groups`), and those axis names then resolve to them. The tensor-parallel pair :func:`tp_copy` /
+   :func:`tp_reduce` (autograd functions), the Ulysses
+   :func:`seq_all_to_all` and the ring's :func:`permute` /
+   :func:`send_next` / :func:`send_prev` run over those groups; the
+   pipeline's p2p stays ROADMAP A8.
 
 At world 1 without a process group every collective is local (a copy or
 nothing); with a group, even at world 1, it runs on the backend, so the
@@ -37,8 +41,18 @@ from ..utils.logging import logger
 _comms_logger = None
 
 _UNPORTED = "ROADMAP A8 (parallel modes)"
-# mesh axes whose groups the port has: the data-parallel world
+# mesh axes that default to the data-parallel world
 _DATA_AXES = ("data", "shard", "expert")
+# this rank's process group of the model and seq axes of the current
+# topology (``parallel/topology.MeshTopology`` registers them)
+_AXIS_GROUPS = {}
+
+
+def set_axis_groups(groups) -> None:
+    """Register this rank's process group of each mesh axis name (a dict
+    ``{axis: group}``), replacing the previous topology's."""
+    _AXIS_GROUPS.clear()
+    _AXIS_GROUPS.update(groups or {})
 
 
 # ---------------------------------------------------------------------------
@@ -233,13 +247,22 @@ def resolve_group(group=None, axis_name="data"):
     name(s); None is the default (world) group."""
     if group is not None:
         return group
-    names = axis_name if isinstance(axis_name, (tuple, list)) else (axis_name,)
+    key = tuple(axis_name) if isinstance(axis_name, (tuple, list)) \
+        else axis_name
+    if key in _AXIS_GROUPS:
+        return _AXIS_GROUPS[key]
+    names = key if isinstance(key, tuple) else (key,)
+    if "pipe" in names:
+        raise NotImplementedError(
+            f"collectives over the pipeline mesh axis are not ported to "
+            f"deepspeed_tpu_torch yet ({_UNPORTED})")
     bad = [a for a in names if a not in _DATA_AXES]
     if bad:
-        raise NotImplementedError(
-            f"collectives over the {bad} mesh axes are not ported to "
-            f"deepspeed_tpu_torch yet ({_UNPORTED}); the port runs data "
-            f"parallelism only")
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError(
+                f"no process group for the {bad} mesh axes: build a "
+                f"MeshTopology with them (parallel/topology.py) first")
+        return None     # one rank: every axis is the whole world
     return None
 
 
@@ -286,10 +309,9 @@ def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM, group=None,
 
 def inference_all_reduce(tensor, op: str = ReduceOp.SUM, group=None,
                          axis_name="model"):
-    """The tensor-parallel all-reduce (JAX comm.py:213) over the model
-    axis: ROADMAP A8."""
-    resolve_group(group, axis_name)
-    return all_reduce(tensor, op=op, group=group)
+    """The tensor-parallel all-reduce (JAX comm.py:213), in place over the
+    model axis's group (or ``group``)."""
+    return all_reduce(tensor, op=op, group=resolve_group(group, axis_name))
 
 
 @timed_op
@@ -346,15 +368,6 @@ def broadcast(tensor: torch.Tensor, src: int = 0, group=None,
     return dist.broadcast(tensor, src, group=group, async_op=async_op)
 
 
-def _unported(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"comm.{name} is not ported to deepspeed_tpu_torch yet "
-            f"({_UNPORTED})")
-    fn.__name__ = name
-    return fn
-
-
 @timed_op
 def all_to_all_single(output: torch.Tensor, input: torch.Tensor,
                       output_split_sizes=None, input_split_sizes=None,
@@ -374,18 +387,170 @@ def all_to_all_single(output: torch.Tensor, input: torch.Tensor,
 
 all_to_all = all_to_all_single
 
-# the tensor-, sequence- and pipeline-parallel primitives (JAX comm.py:222-
-# 352): their groups come with A8
-tp_copy = _unported("tp_copy")
-tp_reduce = _unported("tp_reduce")
-permute = _unported("permute")
-send_next = _unported("send_next")
-recv_prev = _unported("recv_prev")
-send_prev = _unported("send_prev")
+
+# --- Megatron-style tensor-parallel boundary ops (JAX comm.py:222-262) ---
+
+class _TPCopy(torch.autograd.Function):
+    """Identity forward, all-reduce (sum) backward: a replicated activation
+    entering a column-parallel region (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if get_world_size(ctx.group) > 1:
+            g = g.clone()
+            dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _TPReduce(torch.autograd.Function):
+    """All-reduce (sum) forward, identity backward: the partial outputs of
+    a row-parallel region summed to the replicated activation (Megatron's
+    ``g``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        if get_world_size(group) <= 1:
+            return x.view_as(x)
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_copy(x: torch.Tensor, axis_name="model", group=None) -> torch.Tensor:
+    """Identity forward / all-reduce backward over the model group (JAX
+    :224); the identity at one rank."""
+    group = resolve_group(group, axis_name)
+    if get_world_size(group) <= 1:
+        return x
+    return _TPCopy.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, axis_name="model", group=None) -> torch.Tensor:
+    """All-reduce forward / identity backward over the model group (JAX
+    :246); the identity at one rank."""
+    group = resolve_group(group, axis_name)
+    if get_world_size(group) <= 1:
+        return x
+    return _TPReduce.apply(x, group)
+
+
+# --- the Ulysses all-to-all (JAX sequence/layer.py:28) ---
+
+def _all_to_all_dims(x, group, scatter_dim: int, gather_dim: int):
+    world = get_world_size(group)
+    if world == 1:
+        return x
+    # [world, ...] blocks of the scattered dim, rank-major
+    parts = x.movedim(scatter_dim, 0)
+    n = parts.shape[0] // world
+    send = parts.reshape((world, n) + tuple(parts.shape[1:])).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # recv[r]: rank r's block of our scattered slice; join on gather_dim
+    recv = recv.movedim(1, scatter_dim + 1)
+    return torch.cat(torch.unbind(recv, 0), dim=gather_dim).contiguous()
+
+
+class _SeqAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, scatter_dim, gather_dim):
+        ctx.group, ctx.dims = group, (scatter_dim, gather_dim)
+        return _all_to_all_dims(x, group, scatter_dim, gather_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        s, d = ctx.dims
+        return _all_to_all_dims(g, ctx.group, d, s), None, None, None
+
+
+def seq_all_to_all(x: torch.Tensor, scatter_dim: int, gather_dim: int,
+                   axis_name="seq", group=None) -> torch.Tensor:
+    """Scatter ``scatter_dim`` over the group and gather ``gather_dim``
+    (JAX ``lax.all_to_all(tiled=True)``; the reference's
+    ``_SeqAllToAll``), differentiable: its backward is the reverse
+    all-to-all."""
+    group = resolve_group(group, axis_name)
+    if get_world_size(group) <= 1:
+        return x
+    return _SeqAllToAll.apply(x, group, scatter_dim, gather_dim)
+
+
+# --- point-to-point over an axis (JAX :316-352) ---
+
+def _global_rank(group, r: int) -> int:
+    return dist.get_global_rank(group, r) if group is not None else r
+
+
+def permute(x, perm=None, axis_name="pipe", group=None):
+    """``lax.ppermute``: each ``(src, dst)`` of ``perm`` (group ranks)
+    sends ``src``'s tensor to ``dst``; a rank no pair sends to gets
+    zeros. ``x`` is a tensor, or a list of tensors that all travel in
+    one ``batch_isend_irecv`` (a list comes back). The pipeline axis (the
+    JAX default) has no group in the port: ROADMAP A8."""
+    if axis_name == "pipe" and group is None:
+        raise NotImplementedError(
+            f"comm.permute over the pipeline axis is not ported to "
+            f"deepspeed_tpu_torch yet ({_UNPORTED})")
+    group = resolve_group(group, axis_name)
+    many = isinstance(x, (list, tuple))
+    xs = [t.contiguous() for t in (x if many else [x])]
+    if get_world_size(group) == 1:
+        keep = any(s == d == 0 for s, d in perm)
+        outs = [t.clone() if keep else torch.zeros_like(t) for t in xs]
+        return outs if many else outs[0]
+    me = dist.get_rank(group)
+    outs = [torch.zeros_like(t) for t in xs]
+    ops = []
+    for s, d in perm:
+        for t, o in zip(xs, outs):
+            if s == me:
+                ops.append(dist.P2POp(dist.isend, t, _global_rank(group, d),
+                                      group))
+            if d == me:
+                ops.append(dist.P2POp(dist.irecv, o, _global_rank(group, s),
+                                      group))
+    for w in dist.batch_isend_irecv(ops) if ops else []:
+        w.wait()
+    return outs if many else outs[0]
+
+
+def _axis_world(axis_name, group) -> int:
+    if axis_name == "pipe" and group is None:
+        return 1        # permute raises
+    return get_world_size(resolve_group(group, axis_name))
+
+
+def send_next(x, axis_name="pipe", n: Optional[int] = None, group=None):
+    """Ring shift: rank i's ``x`` (a tensor or a list of tensors) goes to
+    rank i + 1 (mod n); returns what rank i - 1 sent."""
+    n = n or _axis_world(axis_name, group)
+    return permute(x, [(i, (i + 1) % n) for i in range(n)], axis_name,
+                   group)
+
+
+def recv_prev(x, axis_name="pipe", n: Optional[int] = None, group=None):
+    return send_next(x, axis_name, n, group)
+
+
+def send_prev(x, axis_name="pipe", n: Optional[int] = None, group=None):
+    n = n or _axis_world(axis_name, group)
+    return permute(x, [(i, (i - 1) % n) for i in range(n)], axis_name,
+                   group)
 
 
 def axis_rank(axis_name="data") -> int:
-    return get_rank(resolve_group(None, axis_name))
+    group = resolve_group(None, axis_name)
+    return dist.get_rank(group) if dist.is_initialized() else 0
 
 
 def axis_size(axis_name="data") -> int:

@@ -21,8 +21,16 @@ package) supplies the weights when ``params`` is not given: the master
 weights where the checkpoint holds them, else its params, cast to the
 engine's dtype (JAX :66-67, :107).
 
-Not ported yet, raising ``NotImplementedError``: tensor parallelism
-(``tensor_parallel.tp_size`` > 1, ROADMAP A8).
+At ``tensor_parallel.tp_size`` > 1 every rank of a process group of tp
+ranks (``comm.init_distributed()``; the launcher starts them) runs the
+same engine on the same inputs, SPMD: a rank holds its slices of the
+leaves (``models/transformer.tp_shard_dims``) and its heads' dense
+cache, the wo / down / embedding products are all-reduced over the model
+group, the logits all-gathered, so every rank samples the same token. The
+decode step stays on the dense decode kernel over the local heads (JAX
+keeps the einsum at tp > 1 only because its partitioner cannot split a
+bare kernel call; the function is the same). ``quant_bits`` with tp > 1
+is refused, as in the JAX v2 engine.
 """
 
 from typing import Optional
@@ -44,14 +52,19 @@ class InferenceEngine:
 
     def __init__(self, model, config: DeepSpeedInferenceConfig, params=None,
                  device=None):
-        if config.tensor_parallel.tp_size != 1:
-            raise NotImplementedError(
-                "tensor-parallel v1 inference (tensor_parallel.tp_size > 1) "
-                "is not ported to deepspeed_tpu_torch yet (ROADMAP A8)")
+        tp = config.tensor_parallel.tp_size
+        if tp > 1 and config.quant_bits:
+            raise ValueError(
+                "quant_bits requires tensor_parallel.tp_size == 1 (the "
+                "slices are declared against dense leaves)")
         self.module = self.model = model
         self.config = config
         self.device = resolve_device(device)
         self.dtype = DTYPES[config.dtype]
+        self.topology = None
+        if tp > 1:
+            self.topology = tensor_parallel_topology(tp, self.device)
+            model.set_topology(self.topology)
         if params is not None:
             self.params = _cast_tree(params, self.device, self.dtype)
         elif config.checkpoint:
@@ -63,6 +76,8 @@ class InferenceEngine:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             self.params = model.init_params(gen, dtype=self.dtype)
+        if self.topology is not None:
+            self.params = tp_slices(model, self.params, self.topology)
         if config.quant_bits:
             # quantize_params validates bits in {4, 8}: an invalid value
             # raises instead of serving unquantized weights
@@ -115,6 +130,37 @@ class InferenceEngine:
         # the loop's one device-to-host transfer
         return np.concatenate([ids.astype(np.int32), toks.cpu().numpy()],
                               axis=1)
+
+
+def tensor_parallel_topology(tp: int, device):
+    """The process topology of a tensor-parallel engine: the default group
+    (started here from the launcher's environment if it is not yet) with
+    its ranks on the model axis (tp must divide the world; more ranks are
+    replicas)."""
+    from ..comm import comm
+    from ..parallel.topology import MeshTopology, TopologyConfig
+
+    comm.init_distributed(dist_backend="nccl" if device.type == "cuda"
+                          else "gloo")
+    world = comm.get_world_size()
+    if world % tp:
+        raise ValueError(f"tensor_parallel tp_size={tp} does not divide the "
+                         f"process group's {world} ranks")
+    return MeshTopology(TopologyConfig(model=tp))
+
+
+def tp_slices(model, params, topology):
+    """This rank's tensor-parallel slices of a whole parameter tree (the
+    model's ``tp_shard_dims``), contiguous."""
+    from ..comm.quantized import shard_of
+    from ..runtime.engine import _flatten, _unflatten
+
+    dims = model.tp_shard_dims
+    tp, r = topology.tp_size, topology.tp_rank
+    return _unflatten([
+        (k, v if dims.get(k) is None else
+         shard_of(v, dims[k], r, tp).contiguous())
+        for k, v in _flatten(params)])
 
 
 @torch.no_grad()

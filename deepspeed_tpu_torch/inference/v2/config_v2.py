@@ -129,8 +129,11 @@ class RaggedInferenceEngineConfig:
         if self.max_lora_adapters:
             raise _not_ported("the LoRA adapter bank (max_lora_adapters)",
                               "A11")
-        if self.tensor_parallel_size != 1 or self.expert_parallel_size != 1:
-            raise _not_ported("tensor/expert-parallel serving", "A8")
+        if self.expert_parallel_size != 1:
+            raise _not_ported("expert-parallel serving "
+                              "(expert_parallel_size > 1)", "A8")
+        if self.tensor_parallel_size < 1:
+            raise ValueError("tensor_parallel_size must be >= 1")
 
     @classmethod
     def from_dict(cls, d: dict) -> "RaggedInferenceEngineConfig":

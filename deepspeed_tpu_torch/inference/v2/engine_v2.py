@@ -36,8 +36,14 @@ hot-swaps (A7).
 Under ``quant_bits`` 8 or 4 the weights rest quantized
 (``inference/quantization.py``) and are dequantized right before use.
 MoE models (Mixtral) serve at ``expert_parallel_size`` 1, any top-k
-(``paged_model._moe_mlp``); expert- and tensor-parallel serving raise
-(ROADMAP A8).
+(``paged_model._moe_mlp``); expert-parallel serving raises (ROADMAP A8).
+
+At ``tensor_parallel_size`` > 1 the engine is SPMD over a process group
+of tp ranks (``comm.init_distributed()``): every rank runs the same
+scheduler on the same ``put()``s, holds its slices of the weights and a
+pool of its ``kv_heads / tp`` heads, and runs the paged and ragged
+kernels on them (``paged_model.ShardedServeConfig``); the logits are
+all-gathered before sampling, so every rank draws the same token.
 
 The engine runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda`` and raises when no GPU is present. On the
@@ -100,6 +106,18 @@ class InferenceEngineV2:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             self.params = model.init_params(gen, dtype=self.dtype)
+        # the layer loop's view of the model: this rank's heads under
+        # tensor parallelism
+        self.topology = None
+        self.serve_cfg = cfg
+        if config.tensor_parallel_size > 1:
+            from ..engine import tensor_parallel_topology, tp_slices
+            from .paged_model import shard_serve_config
+            tp = config.tensor_parallel_size
+            self.topology = tensor_parallel_topology(tp, self.device)
+            self.serve_cfg = shard_serve_config(
+                cfg, tp, self.topology.tp_rank, self.topology.group("model"))
+            self.params = tp_slices(model, self.params, self.topology)
         if config.quant_bits:
             # weights rest as int8 / packed int4 with per-block scales,
             # quantized from the engine's dtype; paged_model dequantizes
@@ -111,7 +129,7 @@ class InferenceEngineV2:
         self.state_manager = DSStateManager(sm)
         # kv_quant: an int8 pool with per-(block, head) scales, about half
         # the bytes of a bf16 pool for the same blocks
-        self.kv_cache = init_paged_kv_cache(cfg, sm.num_blocks,
+        self.kv_cache = init_paged_kv_cache(self.serve_cfg, sm.num_blocks,
                                             sm.block_size, self.dtype,
                                             self.device,
                                             kv_quant=config.kv_quant)
@@ -153,7 +171,8 @@ class InferenceEngineV2:
             # layout frees vs the same pool at the serving dtype
             itemsize = torch.empty((), dtype=self.dtype).element_size()
             unquant = 2 * (cfg.num_layers * sm.num_blocks * sm.block_size
-                           * cfg.kv_heads * cfg.head_dim * itemsize)
+                           * self.serve_cfg.kv_heads * cfg.head_dim
+                           * itemsize)
             quant = ds_memory.tree_bytes(self.kv_cache)
             self._m_kv_quant_saved.set(max(unquant - quant, 0))
         ds_memory.record_buffer("kv_pool",
@@ -364,7 +383,7 @@ class InferenceEngineV2:
             active = np.zeros(N, bool)
             active[:len(uids)] = True
             logits = self._decode_fn(
-                self.model.cfg, self.params, self._i32(toks),
+                self.serve_cfg, self.params, self._i32(toks),
                 self._i32(pos), self._i32(tables), self.kv_cache,
                 torch.as_tensor(active).to(self.device), self.block_size,
                 use_kernel=self.use_kernel)
@@ -446,7 +465,7 @@ class InferenceEngineV2:
             eos = np.full(N, -1, np.int32)
             eos[:len(uids)] = eos_ids
             out = self._window_fn(
-                self.model.cfg, self.params, self._i32(toks),
+                self.serve_cfg, self.params, self._i32(toks),
                 self._i32(pos), self._i32(tables), self.kv_cache,
                 self._pad_i32(N, steps_left), self._i32(eos),
                 self.block_size, self.decode_window,
@@ -562,7 +581,7 @@ class InferenceEngineV2:
                         uids=[u for u, _ in entries],
                         **self._trace_attrs(u for u, _ in entries)):
             logits = self._ragged_fn(
-                self.model.cfg, self.params, i32(rb.ids), i32(rb.row_ids),
+                self.serve_cfg, self.params, i32(rb.ids), i32(rb.row_ids),
                 i32(rb.positions), i32(rb.lengths), i32(rb.write_blocks),
                 i32(rb.write_offsets), i32(rb.block_tables),
                 i32(rb.last_index), self.kv_cache, self.block_size,
@@ -627,7 +646,7 @@ class InferenceEngineV2:
         with trace.span("prefill", uid=int(uid), tokens=int(n),
                         **self._trace_attr(uid)):
             logits = self._prefill_fn(
-                self.model.cfg, self.params, self._i32(ids), n,
+                self.serve_cfg, self.params, self._i32(ids), n,
                 self.kv_cache, self._i32(table), self._i32(offs),
                 use_kernel=self.use_kernel,
                 touched_blocks=self._i32(touched))
@@ -654,7 +673,7 @@ class InferenceEngineV2:
         with trace.span("continue", uid=int(uid), tokens=int(n),
                         spec=False, **self._trace_attr(uid)):
             logits = self._continue_fn(
-                self.model.cfg, self.params, self._i32(ids), start, n,
+                self.serve_cfg, self.params, self._i32(ids), start, n,
                 self.kv_cache, self._i32(table), self._i32(offs),
                 self._i32(sm.block_table_for(uid)), self.block_size,
                 touched_blocks=self._i32(touched))

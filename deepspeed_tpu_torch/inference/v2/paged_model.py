@@ -1,7 +1,7 @@
 """Paged (blocked-KV) transformer forward for the ragged engine.
 
-Port of ``deepspeed_tpu/inference/v2/paged_model.py``, the bf16/fp32,
-tensor-parallel-1 path:
+Port of ``deepspeed_tpu/inference/v2/paged_model.py``, the bf16/fp32
+path:
 
 * ``paged_ragged_step`` — one mixed batch (prefill chunks, continuations
   and decode rows as one flat token buffer); attention through the ragged
@@ -38,13 +38,23 @@ entry point dequantizes the embedding and the head at entry (a decode
 window once), and the loop dequantizes one layer's weights at the top of
 its iteration (``inference/quantization.py``), so no dense copy of the
 stack is ever held.
+
+Tensor parallelism: under a :class:`ShardedServeConfig` (a rank's view of
+the model: its heads, its model group) the leaves are the rank's slices
+(``models/transformer.tp_shard_dims``), the pool holds its ``kv_heads /
+tp`` heads and the attention kernels run on them; the embedding is a
+masked lookup all-reduced over the model group, the wo and down products
+are all-reduced before their biases, and the logits are all-gathered, so
+every rank samples the same token.
 """
 
-from typing import Dict
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict
 
 import torch
 
-from ...models.transformer import (TransformerConfig, dense_mlp, gate_act,
+from ...models.transformer import (TransformerConfig, dense_mlp,
+                                   embed_lookup, gated_mlp, gather_vocab,
                                    out_proj, qkv_proj, rotary_dims)
 from ...ops.norms import layer_norm, rms_norm
 from ..quantization import dequantize_nonlayer, dequantize_params
@@ -54,6 +64,52 @@ from .kernels.ragged_attention import (ragged_attention,
                                        ragged_attention_plain)
 from .sampling import (fold_in_rows, greedy_tokens, key_uniforms,
                        sample_tokens_uniform)
+
+
+@dataclass(frozen=True)
+class ShardedServeConfig(TransformerConfig):
+    """A tensor-parallel rank's view of the model: ``num_heads`` and
+    ``num_kv_heads`` are its own heads (the head size kept), and the model
+    group is ``tp_group``."""
+
+    tp_size: int = 1
+    tp_rank: int = 0
+    tp_group: Any = field(default=None, compare=False, hash=False,
+                          repr=False)
+
+
+def shard_serve_config(cfg: TransformerConfig, tp: int, rank: int,
+                       group) -> ShardedServeConfig:
+    """The :class:`ShardedServeConfig` of rank ``rank`` of ``tp``."""
+    from ...models.transformer import check_tp
+
+    check_tp(cfg, tp)
+    kw = {f.name: getattr(cfg, f.name) for f in fields(TransformerConfig)}
+    kw.update(num_heads=cfg.num_heads // tp,
+              num_kv_heads=cfg.kv_heads // tp,
+              head_dim_override=cfg.head_dim)
+    return ShardedServeConfig(**kw, tp_size=tp, tp_rank=rank, tp_group=group)
+
+
+def _tp(cfg):
+    return getattr(cfg, "tp_size", 1), getattr(cfg, "tp_rank", 0), \
+        getattr(cfg, "tp_group", None)
+
+
+def _row(cfg):
+    """The reduction of a row-split product's partial sums: the
+    all-reduce over the model group (identity at tp 1)."""
+    tp, _, g = _tp(cfg)
+    if tp == 1:
+        return lambda x: x
+
+    def reduce(x):
+        from ...comm import comm
+        x = x.contiguous()
+        comm.all_reduce(x, group=g)
+        return x
+
+    return reduce
 
 
 def check_servable(cfg: TransformerConfig) -> None:
@@ -171,11 +227,13 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 def _mlp(cfg, lp, x):
     if cfg.moe_num_experts > 0:
-        return _moe_mlp(cfg, lp, x)
+        # under tensor parallelism each expert's f columns are this
+        # rank's: the combined output is a partial sum
+        return _row(cfg)(_moe_mlp(cfg, lp, x))
     if cfg.is_gated_mlp:
-        return (gate_act(cfg)(x @ lp["w_gate"]) * (x @ lp["w_up"])) \
-            @ lp["w_down"]
-    return dense_mlp(cfg, lp, x)
+        return gated_mlp(cfg, lp["w_gate"], lp["w_up"], lp["w_down"], x,
+                         _row(cfg))
+    return dense_mlp(cfg, lp, x, _row(cfg))
 
 
 def _moe_mlp(cfg, lp, x):
@@ -208,7 +266,9 @@ def _embed_ln(cfg, params, x):
 
 
 def _embed(cfg, params, ids):
-    x = params["embed"][ids.long()]
+    tp, r, _ = _tp(cfg)
+    x = embed_lookup(params["embed"], ids.long(), r,
+                     _row(cfg) if tp > 1 else None)
     if cfg.embed_scale != 1.0:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
     return _embed_ln(cfg, params, x)
@@ -219,7 +279,9 @@ def _logits(cfg, params, x):
     out = (x @ head.to(x.dtype)).float()
     if "lm_head_b" in params:
         out = out + params["lm_head_b"].float()
-    return out
+    # every rank's vocab columns, so every rank samples alike
+    tp, _, g = _tp(cfg)
+    return gather_vocab(out, tp, g)
 
 
 def _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
@@ -252,7 +314,7 @@ def _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
         _kv_write(vc, vsc, l, write_blocks, write_offsets, v, touched)
         o = attend(q, k, v, kc[l], vc[l], None if ksc is None else ksc[l],
                    None if vsc is None else vsc[l]).reshape(T, nh * hd)
-        x = x + out_proj(lp, o)
+        x = x + out_proj(lp, o, _row(cfg))
         hn = _norm(cfg, x, lp["mlp_norm"], lp.get("mlp_norm_b"))
         x = x + _mlp(cfg, lp, hn)
     return _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))

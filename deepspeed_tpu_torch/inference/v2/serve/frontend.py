@@ -229,6 +229,12 @@ class ServingEngine:
         replica name under a router; see telemetry/trace.py
         ``set_lane``) — the stitched fleet timeline groups spans into
         one process row per lane."""
+        if getattr(engine, "topology", None) is not None:
+            raise NotImplementedError(
+                "the serving runtime over a tensor-parallel engine "
+                "(tensor_parallel_size > 1: the front end would have to "
+                "send each request to every rank) is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A8)")
         self.config = config or ServingConfig()
         if self.config.autotune is not None:
             raise NotImplementedError(

@@ -16,10 +16,25 @@ whose one-token decode runs the dense decode kernel. An MoE layer
 (``moe_num_experts`` > 0) replaces the MLP with capacity, dropless or
 residual routing (``moe/sharded_moe.py``); the engine sets
 ``moe_groups`` for its collectives across ranks. The ragged engine keeps
-its own layer loop (``inference/v2/paged_model.py``). Not ported yet,
-each raising ``NotImplementedError``: sequence parallelism (ROADMAP A8),
-PPO batches (A11), alibi, post-LN and the MLM family (A12), and in the
-cached forward learned positions, alibi and parallel residual (A6d).
+its own layer loop (``inference/v2/paged_model.py``).
+
+Tensor parallelism (``set_topology`` with a model axis > 1): the leaves
+are this rank's slices of the JAX ``param_partition_specs`` (JAX :487;
+:func:`tp_shard_dims`), and the forward runs Megatron-style on them:
+``tp_copy`` before each column-split group (q / k / v, gate / up), a
+``tp_reduce`` after each row-split product (wo, down) with the row's bias
+added after it, a vocab-parallel embedding (a masked lookup, then the
+all-reduce) and a vocab-parallel chunked cross-entropy (the row max and
+the sum of exponentials all-reduced over the model group, the target
+logit from the rank that owns it). Sequence parallelism (a seq axis >
+1): each rank embeds its chunk of the sequence, its RoPE positions offset
+by the chunk's start, attention is Ulysses or ring
+(``sequence/layer.py``), and the loss sums the chunks' parts over the seq
+group. At one rank on both axes every hook is the identity. Not ported
+yet, each raising ``NotImplementedError``: PPO batches (A11), alibi,
+post-LN and the MLM family (A12), MoE under sequence parallelism (A8),
+and in the cached forward learned positions, alibi and parallel residual
+(A6d).
 """
 
 import math
@@ -30,6 +45,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..comm import comm
 from ..ops.norms import layer_norm, rms_norm
 
 
@@ -149,15 +165,49 @@ def ffn_act(cfg: TransformerConfig):
     raise ValueError(f"unknown FFN activation {cfg.activation!r}")
 
 
-def dense_mlp(cfg: TransformerConfig, lp, x):
-    """Non-gated dense MLP with optional biases."""
+def _identity(x):
+    return x
+
+
+def dense_mlp(cfg: TransformerConfig, lp, x, row=_identity):
+    """Non-gated dense MLP with optional biases. ``row`` reduces the
+    down product's partial sums (tensor parallelism) before its bias."""
     u = x @ lp["w_up"]
     if cfg.mlp_bias:
         u = u + lp["b_up"]
-    out = ffn_act(cfg)(u) @ lp["w_down"]
+    out = row(ffn_act(cfg)(u) @ lp["w_down"])
     if cfg.mlp_bias:
         out = out + lp["b_down"]
     return out
+
+
+def gated_mlp(cfg: TransformerConfig, wg, wu, wd, x, row=_identity):
+    """Gated MLP (SwiGLU / GeGLU); ``row`` as in :func:`dense_mlp`."""
+    return row((gate_act(cfg)(x @ wg) * (x @ wu)) @ wd)
+
+
+def embed_lookup(table, ids, tp_rank: int = 0, row=None):
+    """The embedding rows of ``ids``. Under tensor parallelism (``row``:
+    the all-reduce over the model group) ``table`` is this rank's vocab
+    rows: a masked lookup, zeros elsewhere, summed by ``row``."""
+    if row is None:
+        return F.embedding(ids, table)
+    vl = table.shape[0]
+    local = ids.long() - tp_rank * vl
+    mine = (local >= 0) & (local < vl)
+    x = F.embedding(torch.where(mine, local, torch.zeros_like(local)), table)
+    return row(torch.where(mine[..., None], x, torch.zeros_like(x)))
+
+
+def gather_vocab(logits, tp: int, group):
+    """[..., V / tp] -> [..., V]: every rank's vocab columns (no
+    gradient flows through the gather)."""
+    if tp == 1:
+        return logits
+    import torch.distributed as dist
+    parts = [torch.empty_like(logits) for _ in range(tp)]
+    dist.all_gather(parts, logits.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)
 
 
 def _rope_tables(cfg: TransformerConfig, seq_len: int, offset=0,
@@ -217,6 +267,146 @@ def _chunked_ce_loss(x, targets, mask, head, chunk: int, bias=None):
     return total, torch.sum(mask)
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token ``logsumexp(logits) - logits[target]`` of vocab-split f32
+    logits [..., V / tp] (this rank's columns ``[start, start + V / tp)``):
+    the row max (MAX) and the sum of exponentials (SUM) all-reduced over
+    the model group, the target logit from its owning rank (SUM of the
+    others' zeros). Backward: ``softmax - onehot`` on this rank's
+    columns."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, group):
+        multi = comm.get_world_size(group) > 1
+        m = logits.amax(dim=-1)
+        if multi:
+            m = m.contiguous()
+            comm.all_reduce(m, op=comm.ReduceOp.MAX, group=group)
+        e = torch.exp(logits - m[..., None])
+        se = e.sum(dim=-1)
+        if multi:
+            comm.all_reduce(se, group=group)
+        lse = m + torch.log(se)
+        local = targets.long() - start
+        mine = (local >= 0) & (local < logits.shape[-1])
+        idx = torch.where(mine, local, torch.zeros_like(local))
+        tgt = torch.gather(logits, -1, idx[..., None])[..., 0]
+        tgt = torch.where(mine, tgt, torch.zeros_like(tgt))
+        if multi:
+            comm.all_reduce(tgt, group=group)
+        ctx.save_for_backward(e, se, idx, mine)
+        return lse - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, idx, mine = ctx.saved_tensors
+        grad = e / se[..., None] * g[..., None]
+        hit = torch.where(mine, g, torch.zeros_like(g))
+        grad.scatter_add_(-1, idx[..., None], -hit[..., None])
+        return grad, None, None, None
+
+
+def vocab_parallel_nll(logits, targets, start: int = 0, group=None):
+    """Per-token NLL of vocab-split f32 logits over the model group (see
+    :class:`_VocabParallelNLL`); at one rank it is the whole-vocab NLL."""
+    return _VocabParallelNLL.apply(logits, targets, start, group)
+
+
+def _vocab_parallel_ce_loss(x, targets, mask, head, chunk: int, start: int,
+                            group):
+    """The chunked cross-entropy of :func:`_chunked_ce_loss` over this
+    rank's vocab columns (``head`` [H, V / tp]): every rank enters every
+    chunk's collectives. Returns (sum of masked nll, sum of mask)."""
+    B, S, H = x.shape
+    chunk = min(chunk, S) if chunk and chunk > 0 else S
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def chunk_nll(x_c, t_c, m_c, head):
+        logits = (x_c @ head.to(x_c.dtype)).float()
+        return torch.sum(vocab_parallel_nll(logits, t_c, start, group) * m_c)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in range(0, x.shape[1], chunk):
+        total = total + torch.utils.checkpoint.checkpoint(
+            chunk_nll, x[:, a:a + chunk], targets[:, a:a + chunk],
+            mask[:, a:a + chunk], head, use_reentrant=False,
+            preserve_rng_state=False)
+    return total, torch.sum(mask)
+
+
+def tp_shard_dims(cfg: "TransformerConfig") -> Dict[str, Optional[int]]:
+    """The tensor-parallel plan: for each leaf path of the parameter
+    tree, the dimension cut over the model axis (None: replicated) — the
+    "model" entries of JAX ``param_partition_specs`` (:487-556) for one
+    pipeline stage. Column-split: wq / wk / wv / w_gate / w_up, the res_*
+    columns, the q / k / v biases and b_up; row-split: wo / w_down /
+    res_down; the experts' e_gate / e_up on f and e_down on its f rows;
+    embed, lm_head and lm_head_b on the vocab."""
+    col, row = 2, 1
+    layer = {"attn_norm": None, "mlp_norm": None, "wq": col, "wk": col,
+             "wv": col, "wo": row}
+    if cfg.moe_num_experts > 0:
+        layer.update({"moe_gate_w": None, "e_gate": 3, "e_up": 3,
+                      "e_down": 2})
+        if cfg.moe_use_residual:
+            layer.update({"res_gate": col, "res_up": col, "res_down": row,
+                          "res_coef_w": None, "res_coef_b": None})
+    else:
+        layer.update({"w_up": col, "w_down": row})
+        if cfg.is_gated_mlp:
+            layer["w_gate"] = col
+        elif cfg.mlp_bias:
+            layer.update({"b_up": 1, "b_down": None})
+    if cfg.norm == "layernorm":
+        layer["attn_norm_b"] = None
+        if not cfg.parallel_residual or cfg.parallel_norms:
+            layer["mlp_norm_b"] = None
+    if cfg.parallel_residual and not cfg.parallel_norms:
+        layer.pop("mlp_norm")
+    if cfg.attn_bias:
+        layer.update({"b_q": 1, "b_k": 1, "b_v": 1, "b_o": None})
+    out = {f"layers/{k}": v for k, v in layer.items()}
+    out["embed"] = 0
+    if cfg.norm_scheme == "pre":
+        out["final_norm"] = None
+        if cfg.norm == "layernorm":
+            out["final_norm_b"] = None
+    if cfg.positional == "learned":
+        out["pos_embed"] = None
+    if cfg.embed_ln:
+        out["embed_ln_w"] = out["embed_ln_b"] = None
+    if cfg.lm_head_bias:
+        out["lm_head_b"] = 0
+    if cfg.mlm_head:
+        for k in ("mlm_transform_w", "mlm_transform_b", "mlm_ln_w",
+                  "mlm_ln_b", "mlm_bias"):
+            out[k] = None
+    if not cfg.tie_embeddings:
+        out["lm_head"] = 1
+    return out
+
+
+def check_tp(cfg: "TransformerConfig", tp: int) -> None:
+    """The head and width counts a model axis of ``tp`` must divide."""
+    if tp <= 1:
+        return
+    bad = [(n, v) for n, v in (("num_heads", cfg.num_heads),
+                               ("num_kv_heads", cfg.kv_heads),
+                               ("vocab_size", cfg.vocab_size),
+                               ("intermediate_size", cfg.intermediate_size))
+           if v % tp]
+    if bad:
+        raise NotImplementedError(
+            f"tensor parallelism at tp={tp} needs each of "
+            f"{', '.join(f'{n}={v}' for n, v in bad)} divisible by it; "
+            f"uneven head or width splits (e.g. num_kv_heads % tp != 0) "
+            f"are not ported to deepspeed_tpu_torch yet (ROADMAP A8)")
+
+
 def qkv_proj(lp, hn):
     """q/k/v projections with optional biases. hn: [..., H]; returns flat
     [..., nh*hd] / [..., nkv*hd] projections."""
@@ -230,9 +420,10 @@ def qkv_proj(lp, hn):
     return q, k, v
 
 
-def out_proj(lp, o):
-    """Attention output projection with optional bias."""
-    x = o @ lp["wo"]
+def out_proj(lp, o, row=_identity):
+    """Attention output projection with optional bias; ``row`` as in
+    :func:`dense_mlp`."""
+    x = row(o @ lp["wo"])
     if "b_o" in lp:
         x = x + lp["b_o"]
     return x
@@ -276,6 +467,50 @@ class TransformerLM:
         # data-parallel group of the global gating and the expert group;
         # set by the training engine, None at one rank
         self.moe_groups = None
+        # the process topology (``parallel/topology.MeshTopology``) whose
+        # model and seq axes the forward runs on; None: one rank
+        self.topology = None
+        self._tp = (1, 0, None)
+        self._sp = (1, 0, None)
+
+    def set_topology(self, topo):
+        """Run on ``topo``'s model and seq groups (JAX :400); the leaves
+        the model is given are then this rank's tensor-parallel slices."""
+        self.topology = topo
+        tp = topo.axis_size("model") if topo is not None else 1
+        sp = topo.axis_size("seq") if topo is not None else 1
+        check_tp(self.cfg, tp)
+        if sp > 1 and self.cfg.moe_num_experts > 0:
+            raise NotImplementedError(
+                "MoE layers under sequence parallelism are not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A8)")
+        self._tp = ((tp, topo.tp_rank, topo.group("model")) if tp > 1
+                    else (1, 0, None))
+        self._sp = ((sp, topo.sp_rank, topo.group("seq")) if sp > 1
+                    else (1, 0, None))
+
+    @property
+    def tp_shard_dims(self) -> Dict[str, Optional[int]]:
+        """The leaves' tensor-parallel dimensions (:func:`tp_shard_dims`)."""
+        return tp_shard_dims(self.cfg)
+
+    # -- tensor-parallel hooks (identities at tp 1) ------------------------
+    def _col(self, x):
+        """Entering a column-split group: all-reduce of the backward."""
+        tp, _, g = self._tp
+        return comm.tp_copy(x, group=g) if tp > 1 else x
+
+    def _row(self, x):
+        """After a row-split product: all-reduce of the partial sums."""
+        tp, _, g = self._tp
+        return comm.tp_reduce(x, group=g) if tp > 1 else x
+
+    def _embed(self, table, ids):
+        tp, r, _ = self._tp
+        return embed_lookup(table, ids, r, self._row if tp > 1 else None)
+
+    def _gather_vocab(self, logits):
+        return gather_vocab(logits, self._tp[0], self._tp[2])
 
     def init_params(self, generator: torch.Generator,
                     dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
@@ -363,10 +598,6 @@ class TransformerLM:
     # -- training forward ------------------------------------------------
     def _check_trainable(self):
         cfg = self.cfg
-        if cfg.seq_parallel:
-            raise NotImplementedError(
-                "sequence-parallel layers are not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A8)")
         if cfg.moe_dropless and cfg.moe_top_k != 1:
             raise NotImplementedError(
                 "moe_dropless supports top-1 routing only "
@@ -388,55 +619,70 @@ class TransformerLM:
         cfg = self.cfg
         # the flash kernels once the S^2 score tensor dominates
         use_flash = cfg.use_flash and q.shape[2] >= cfg.flash_min_seq
-        return sharded_attention(q, k, v, None, causal=cfg.is_causal,
+        return sharded_attention(q, k, v, self.topology,
+                                 causal=cfg.is_causal,
                                  use_flash=use_flash,
                                  block_q=cfg.attn_block_q,
                                  block_kv=cfg.attn_block_kv,
                                  impl=cfg.seq_parallel_impl)
 
     def _moe(self, lp, hn):
-        """The MoE MLP of one layer (JAX :640-697): (output, aux)."""
-        from ..moe.sharded_moe import moe_mlp, swiglu_experts
+        """The MoE MLP of one layer (JAX :640-697): (output, aux). The
+        gating and routing run replicated; under tensor parallelism each
+        expert and the residual branch is a column-then-row pair on this
+        rank's f columns (``_col`` / ``_row`` are identities at tp 1)."""
+        from ..moe.sharded_moe import (moe_mlp, ragged_swiglu_experts,
+                                       swiglu_experts)
 
         cfg = self.cfg
+
+        def experts_fn(p, xe):
+            return self._row(swiglu_experts(p, self._col(xe)))
+
+        def ragged_fn(p, xs, sizes):
+            return self._row(ragged_swiglu_experts(p, self._col(xs), sizes))
+
         residual = tuple(lp[k] for k in ("res_gate", "res_up", "res_down",
                                          "res_coef_w", "res_coef_b")) \
             if cfg.moe_use_residual else None
         return moe_mlp(hn, lp["moe_gate_w"],
-                       (lp["e_gate"], lp["e_up"], lp["e_down"]),
-                       swiglu_experts, self.moe_groups, top_k=cfg.moe_top_k,
+                       (lp["e_gate"], lp["e_up"], lp["e_down"]), experts_fn,
+                       self.moe_groups, top_k=cfg.moe_top_k,
                        capacity_factor=cfg.moe_capacity_factor,
                        min_capacity=cfg.moe_min_capacity,
-                       dropless=cfg.moe_dropless, residual=residual)
+                       dropless=cfg.moe_dropless, residual=residual,
+                       ragged_expert_fn=ragged_fn, dense_fn=experts_fn)
 
     def _layer(self, x, lp, cos, sin):
         """One layer: (output, the MoE aux loss or None)."""
         cfg = self.cfg
         B, S, H = x.shape
-        nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        hd = cfg.head_dim
         hn = self._norm(x, lp["attn_norm"], lp.get("attn_norm_b"))
-        q, k, v = qkv_proj(lp, hn)
-        q = q.reshape(B, S, nh, hd).transpose(1, 2)
-        k = k.reshape(B, S, nkv, hd).transpose(1, 2)
-        v = v.reshape(B, S, nkv, hd).transpose(1, 2)
+        q, k, v = qkv_proj(lp, self._col(hn))
+        # this rank's heads (all of them at tp 1)
+        q = q.reshape(B, S, -1, hd).transpose(1, 2)
+        k = k.reshape(B, S, -1, hd).transpose(1, 2)
+        v = v.reshape(B, S, -1, hd).transpose(1, 2)
         if cfg.positional == "rope":
             q = apply_rotary(q, cos, sin)
             k = apply_rotary(k, cos, sin)
         o = self._attention(q, k, v)
-        o = o.transpose(1, 2).reshape(B, S, nh * hd)
+        o = o.transpose(1, 2).reshape(B, S, -1)
         if cfg.parallel_residual:
             hn2 = (self._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"))
                    if cfg.parallel_norms else hn)
-            return x + out_proj(lp, o) + dense_mlp(cfg, lp, hn2), None
-        x = x + out_proj(lp, o)
+            return x + out_proj(lp, o, self._row) + \
+                dense_mlp(cfg, lp, self._col(hn2), self._row), None
+        x = x + out_proj(lp, o, self._row)
         hn = self._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"))
         if cfg.moe_num_experts > 0:
             out, aux = self._moe(lp, hn)
             return x + out, aux
         if cfg.is_gated_mlp:
-            g = gate_act(cfg)(hn @ lp["w_gate"])
-            return x + (g * (hn @ lp["w_up"])) @ lp["w_down"], None
-        return x + dense_mlp(cfg, lp, hn), None
+            return x + gated_mlp(cfg, lp["w_gate"], lp["w_up"], lp["w_down"],
+                                 self._col(hn), self._row), None
+        return x + dense_mlp(cfg, lp, self._col(hn), self._row), None
 
     def forward_hidden(self, params, input_ids):
         """Final-normed hidden states [B, S, H]."""
@@ -449,14 +695,16 @@ class TransformerLM:
         inside the configured activation checkpoint."""
         cfg = self.cfg
         self._check_trainable()
-        x = F.embedding(input_ids, params["embed"])
+        x = self._embed(params["embed"], input_ids)
         if cfg.embed_scale != 1.0:
             x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
         S = input_ids.shape[1]
+        # under sequence parallelism input_ids is this rank's chunk
+        start = self._sp[1] * S
         if cfg.positional == "learned":
-            x = x + params["pos_embed"][:S][None]
+            x = x + params["pos_embed"][start:start + S][None]
         if cfg.positional == "rope":
-            cos, sin = _rope_tables(cfg, S, device=x.device)
+            cos, sin = _rope_tables(cfg, S, start, device=x.device)
             cos, sin = cos.to(x.dtype), sin.to(x.dtype)
         else:
             cos = sin = torch.zeros((S, 1), dtype=x.dtype, device=x.device)
@@ -503,12 +751,14 @@ class TransformerLM:
         return x, head, params.get("lm_head_b")
 
     def forward_logits(self, params, input_ids):
+        """[B, S, V] logits; under tensor parallelism the vocab columns are
+        all-gathered (no gradient flows through the gather)."""
         x = self.forward_hidden(params, input_ids)
         x, head, bias = self._head_inputs(params, x)
-        logits = x @ head.to(x.dtype)
+        logits = self._col(x) @ head.to(x.dtype)
         if bias is not None:
             logits = logits + bias.to(logits.dtype)
-        return logits
+        return self._gather_vocab(logits)
 
     def apply(self, params, batch, train: bool = True, rng=None):
         """Next-token loss on {input_ids [B, S], optional loss_mask [B, S]}:
@@ -518,16 +768,47 @@ class TransformerLM:
                 "PPO learner batches are not ported to deepspeed_tpu_torch "
                 "yet (ROADMAP A11)")
         ids = batch["input_ids"]
-        x, aux = self.forward_hidden_aux(params, ids)
-        # the logit bias of the head is not in the JAX training loss either
-        _, head, _ = self._head_inputs(params, x)
         mask = batch.get("loss_mask")
         mask = (mask[:, 1:].float() if mask is not None
                 else torch.ones(ids[:, 1:].shape, dtype=torch.float32,
                                 device=ids.device))
-        total, count = _chunked_ce_loss(x[:, :-1], ids[:, 1:], mask, head,
-                                        self.cfg.loss_chunk)
-        loss = total / torch.clamp(count, min=1.0)
+        sp, r, sg = self._sp
+        if sp > 1:
+            # this rank's chunk of the sequence: its tokens, and the next
+            # token of each as the target (the last position has none)
+            S = ids.shape[1]
+            if S % sp:
+                raise ValueError(f"sequence length {S} is not divisible by "
+                                 f"sequence_parallel_size {sp}")
+            n = S // sp
+            tgt = F.pad(ids[:, 1:], (0, 1))[:, r * n:(r + 1) * n]
+            mask = F.pad(mask, (0, 1))[:, r * n:(r + 1) * n]
+            ids = ids[:, r * n:(r + 1) * n]
+            x, aux = self.forward_hidden_aux(params, ids)
+        else:
+            tgt = ids[:, 1:]
+            x, aux = self.forward_hidden_aux(params, ids)
+            x = x[:, :-1]
+        # the logit bias of the head is not in the JAX training loss either
+        _, head, _ = self._head_inputs(params, x)
+        tp, tr, tg = self._tp
+        if tp > 1:
+            total, count = _vocab_parallel_ce_loss(
+                self._col(x), tgt, mask, head, self.cfg.loss_chunk,
+                tr * head.shape[-1], tg)
+        else:
+            total, count = _chunked_ce_loss(x, tgt, mask, head,
+                                            self.cfg.loss_chunk)
+        if sp > 1:
+            # the mean over the whole sequence: this rank's sum over the
+            # global count; the sum over the seq group (forward) is the
+            # loss, and each rank's backward starts from its own part
+            count = count.detach().clone()
+            comm.all_reduce(count, group=sg)
+            loss = comm.tp_reduce(total / torch.clamp(count, min=1.0),
+                                  group=sg)
+        else:
+            loss = total / torch.clamp(count, min=1.0)
         if aux is not None:
             loss = loss + self.cfg.moe_aux_loss_coef * aux
         return loss
@@ -556,8 +837,9 @@ class TransformerLM:
         """Zeroed dense cache ``{"k", "v"}`` of [L, B, kvh, max_len, hd]."""
         cfg = self.cfg
         self._check_cached()
-        shape = (cfg.num_layers, batch_size, cfg.kv_heads, max_len,
-                 cfg.head_dim)
+        # under tensor parallelism: this rank's kv heads
+        shape = (cfg.num_layers, batch_size, cfg.kv_heads // self._tp[0],
+                 max_len, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -572,7 +854,9 @@ class TransformerLM:
 
         cfg = self.cfg
         B, S, H = x.shape
-        nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        # this rank's heads (all of them at tp 1)
+        tp = self._tp[0]
+        nh, nkv, hd = cfg.num_heads // tp, cfg.kv_heads // tp, cfg.head_dim
         hn = self._norm(x, lp["attn_norm"], lp.get("attn_norm_b"))
         q, k, v = qkv_proj(lp, hn)
         # f32 tables: the products promote to f32 and cast back, as in JAX
@@ -601,14 +885,14 @@ class TransformerLM:
             p = torch.softmax(s, dim=-1)
             o = torch.matmul(p.to(vv.dtype).float(), vv.float()).to(x.dtype)
         o = o.transpose(1, 2).reshape(B, S, nh * hd)
-        x = x + out_proj(lp, o)
+        x = x + out_proj(lp, o, self._row)
         hn = self._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"))
         if cfg.moe_num_experts > 0:
-            return x + self._moe_cached(lp, hn)
+            return x + self._row(self._moe_cached(lp, hn))
         if cfg.is_gated_mlp:
-            g = gate_act(cfg)(hn @ lp["w_gate"])
-            return x + (g * (hn @ lp["w_up"])) @ lp["w_down"]
-        return x + dense_mlp(cfg, lp, hn)
+            return x + gated_mlp(cfg, lp["w_gate"], lp["w_up"], lp["w_down"],
+                                 hn, self._row)
+        return x + dense_mlp(cfg, lp, hn, self._row)
 
     def _moe_cached(self, lp, hn):
         """Inference MoE of the cached forward (JAX :1192-1206): top-k
@@ -632,7 +916,8 @@ class TransformerLM:
         cfg = self.cfg
         self._check_cached()
         S = input_ids.shape[1]
-        x = params["embed"][input_ids.long()].to(cache["k"].dtype)
+        x = self._embed(params["embed"], input_ids.long()).to(
+            cache["k"].dtype)
         if cfg.embed_scale != 1.0:
             x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
         from ..inference.quantization import dequantize_params
@@ -648,7 +933,7 @@ class TransformerLM:
         logits = (x @ head.to(x.dtype)).float()
         if bias is not None:
             logits = logits + bias.float()
-        return logits
+        return self._gather_vocab(logits)
 
 
 # -- canonical configs (model zoo) ------------------------------------------

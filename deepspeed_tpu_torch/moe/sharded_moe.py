@@ -479,29 +479,30 @@ def moe_mlp(x, gate_w, expert_params, expert_fn,
             groups: Optional[MoEGroups] = None, top_k: int = 1,
             capacity_factor: float = 1.0, min_capacity: int = 4,
             dropless: bool = False, residual=None, generator=None,
-            noisy_gate_policy: Optional[str] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            noisy_gate_policy: Optional[str] = None, ragged_expert_fn=None,
+            dense_fn=swiglu_experts) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed MLP of a training MoE layer, shared by
     ``TransformerLM`` (JAX ``transformer.py:640-697``) and the ``MoE``
     facade (JAX ``layer.py``): capacity routing (:func:`moe_layer`), or
-    dropless top-1 (:func:`moe_layer_dropless`; at ep > 1 the worst-case
-    capacity of :func:`moe_layer_dropless_ep`), then the residual MoE's
-    dense branch where ``residual`` holds ``(res_gate, res_up, res_down,
-    coef_w, coef_b)``. x: [B, S, H]. Returns (output, aux)."""
+    dropless top-1 (:func:`moe_layer_dropless` through
+    ``ragged_expert_fn``; at ep > 1 the worst-case capacity of
+    :func:`moe_layer_dropless_ep`), then the residual MoE's SwiGLU dense
+    branch ``dense_fn`` where ``residual`` holds ``(res_gate, res_up,
+    res_down, coef_w, coef_b)``. x: [B, S, H]. Returns (output, aux)."""
     if dropless and _ep(groups) > 1:
         out, aux = moe_layer_dropless_ep(
             x, gate_w, expert_params, expert_fn, groups, generator=generator,
             noisy_gate_policy=noisy_gate_policy)
     elif dropless:
         out, aux = moe_layer_dropless(
-            x, gate_w, expert_params, groups=groups, generator=generator,
-            noisy_gate_policy=noisy_gate_policy)
+            x, gate_w, expert_params, ragged_expert_fn, groups=groups,
+            generator=generator, noisy_gate_policy=noisy_gate_policy)
     else:
         out, aux = moe_layer(
             x, gate_w, expert_params, expert_fn, groups, top_k=top_k,
             capacity_factor=capacity_factor, min_capacity=min_capacity,
             generator=generator, noisy_gate_policy=noisy_gate_policy)
     if residual is not None:
-        dense = swiglu_experts(residual[:3], x)
+        dense = dense_fn(residual[:3], x)
         out = residual_moe_combine(x, out, dense, *residual[3:])
     return out, aux

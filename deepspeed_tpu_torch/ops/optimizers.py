@@ -93,20 +93,31 @@ class FusedLamb(TpuOptimizer):
                 "exp_avg_sq": _zeros_like(master_params)}
 
     @torch.no_grad()
-    def apply(self, master_params, grads, state, step, lr=None):
+    def apply(self, master_params, grads, state, step, lr=None,
+              norm_reduce=None):
+        """``norm_reduce(i, t)``: where leaf ``i`` is cut over ranks (a
+        ZeRO shard, a tensor-parallel slice), sums its partial squares
+        ``t`` = [|p|^2, |update|^2] over them in place, so the trust ratio
+        is the whole leaf's."""
         lr = self.lr if lr is None else lr
         b1, b2 = self.betas
         bc1, bc2 = 1.0 - b1 ** step, 1.0 - b2 ** step
-        for p, g, m, v in zip(master_params, grads, state["exp_avg"],
-                              state["exp_avg_sq"]):
+        for i, (p, g, m, v) in enumerate(zip(master_params, grads,
+                                             state["exp_avg"],
+                                             state["exp_avg_sq"])):
             g = g.float()
             m.mul_(b1).add_(g, alpha=1.0 - b1)
             v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
             update = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
             if self.weight_decay:
                 update.add_(p, alpha=self.weight_decay)
-            w_norm = torch.linalg.vector_norm(p)
-            u_norm = torch.linalg.vector_norm(update)
+            if norm_reduce is None:
+                w_norm = torch.linalg.vector_norm(p)
+                u_norm = torch.linalg.vector_norm(update)
+            else:
+                sq = torch.stack([torch.sum(p * p), torch.sum(update * update)])
+                norm_reduce(i, sq)
+                w_norm, u_norm = torch.sqrt(sq[0]), torch.sqrt(sq[1])
             trust = torch.where(
                 (w_norm > 0) & (u_norm > 0),
                 torch.clamp(w_norm / u_norm, self.min_coeff, self.max_coeff),

@@ -1,20 +1,23 @@
 """Process topology.
 
-Port of ``deepspeed_tpu/parallel/topology.py`` (``MeshTopology`` :55,
-``build_topology`` :194): the same named axes and the same answers
-(``sizes``, ``axis_size``, ``dp_axes``, ``zero_shard_axes``,
-``dp_world_size``), over ``torch.distributed`` process
-groups instead of a device mesh. A JAX collective over a mesh axis is a
-collective over the axis's process group here (:meth:`MeshTopology.group`).
+Port of ``deepspeed_tpu/parallel/topology.py`` (``TopologyConfig`` :35,
+``MeshTopology`` :55, ``build_topology`` :194): the same named axes and
+the same answers (``sizes``, ``axis_size``, ``mics_enabled``,
+``dp_axes``, ``zero_shard_axes``, ``batch_axes``, ``dp_world_size``),
+over ``torch.distributed`` process groups instead of a device mesh. A
+JAX collective over a mesh axis is a collective over the axis's process
+group here (:meth:`MeshTopology.group`).
 
-The port runs data and expert parallelism. The data-parallel group is the
-default (world) group. The expert axis factors it, as in JAX (:41,
-:59-62): rank ``d * ep + j`` is data index ``d``, expert index ``j`` (the
-JAX mesh order, expert inside data), its expert group the ``ep`` ranks of
-its data index (one copy of every expert between them) and its
-expert-data group the ranks of its expert index (the replicas of its
-experts). A pipeline, tensor or sequence axis > 1 raises (ROADMAP A8), as
-do the ZeRO sub-groups: MiCS (A4) and ZeRO++ hpZ (A10).
+Ranks are laid out in the JAX ``AXIS_ORDER`` (pipe, data, shard, expert,
+seq, model; model innermost), so rank ``r`` has the mesh coordinates of
+JAX device ``r`` of a mesh built on ``jax.devices()[:world]``. MiCS
+(``mics_shard`` > 1) factors the data-parallel world into the ``shard``
+axis (the within-group ZeRO axis) and the ``data`` axis (the replica
+groups), as JAX does (:84-99). Every rank builds every group of the axis
+sets the engines use (``torch.distributed.new_group`` is collective) and
+keeps its own; a group spanning the whole world is the default group
+(None). A pipeline axis > 1 raises (ROADMAP A8), as does ZeRO++ hpZ
+(A10).
 """
 
 from dataclasses import dataclass
@@ -45,23 +48,21 @@ class TopologyConfig:
 
 _UNPORTED_AXES = (
     ("pipe", "pipeline parallelism", "A8 (parallel modes)"),
-    ("model", "tensor parallelism", "A8 (parallel modes)"),
-    ("seq", "sequence parallelism", "A8 (parallel modes)"),
-    ("mics_shard", "MiCS shard groups (mics_shard_size)",
-     "A4 (ZeRO over torch.distributed)"),
     ("hpz_shard", "ZeRO++ hpZ (zero_hpz_partition_size)", "A10 (ZeRO++)"),
 )
 
 
+def _key(axes) -> Tuple[str, ...]:
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(a for a in AXIS_ORDER if a in names)
+
+
 class MeshTopology:
-    """The data-parallel world of this process group, factored by the
-    expert axis.
+    """The process group's mesh: this rank's coordinates and its group on
+    each axis set.
 
     ``world_size`` / ``rank`` default to the default group's (1 / 0 when
-    no group is initialized: then every collective is local). With an
-    expert axis > 1 over the process group's world, every rank builds
-    every expert and expert-data group (``torch.distributed.new_group``
-    is collective) and keeps its own."""
+    no group is initialized: then every collective is local)."""
 
     def __init__(self, topo: TopologyConfig = TopologyConfig(),
                  world_size: Optional[int] = None, rank: Optional[int] = None):
@@ -69,38 +70,136 @@ class MeshTopology:
             if getattr(topo, field) > 1:
                 raise NotImplementedError(
                     f"{what} = {getattr(topo, field)} is not ported to "
-                    f"deepspeed_tpu_torch yet (ROADMAP {item}); the port "
-                    f"runs data parallelism only")
+                    f"deepspeed_tpu_torch yet (ROADMAP {item})")
         self.topo = topo
         self.world = comm.get_world_size() if world_size is None else world_size
         self.rank = comm.get_rank() if rank is None else rank
-        ep = topo.expert
-        if self.world % ep:
+        mp = topo.model * topo.seq * topo.expert
+        if self.world % mp:
             raise ValueError(f"{self.world} ranks not divisible by "
-                             f"expert={ep}")
+                             f"model*seq*expert={mp}")
+        data, shard = self.world // mp, 1
+        if topo.mics_shard > 1:
+            if data % topo.mics_shard:
+                raise ValueError(
+                    f"mics_shard_size={topo.mics_shard} does not divide the "
+                    f"data-parallel world of {data}")
+            shard, data = topo.mics_shard, data // topo.mics_shard
         self.sizes: Dict[str, int] = {
-            PIPE_AXIS: 1, DATA_AXIS: self.world // ep, SHARD_AXIS: 1,
-            EXPERT_AXIS: ep, SEQ_AXIS: 1, MODEL_AXIS: 1,
+            PIPE_AXIS: 1, DATA_AXIS: data, SHARD_AXIS: shard,
+            EXPERT_AXIS: topo.expert, SEQ_AXIS: topo.seq,
+            MODEL_AXIS: topo.model,
         }
-        self._expert_group = self._expert_data_group = None
-        if ep > 1 and comm.is_initialized() and \
-                self.world == comm.get_world_size():
-            import torch.distributed as dist
-            for d in range(self.world // ep):
-                g = dist.new_group(list(range(d * ep, (d + 1) * ep)))
-                if d == self.rank // ep:
-                    self._expert_group = g
-            for j in range(ep):
-                g = dist.new_group(list(range(j, self.world, ep)))
-                if j == self.rank % ep:
-                    self._expert_data_group = g
+        self.coords: Dict[str, int] = self._coords_of(self.rank)
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        self._live = (comm.is_initialized()
+                      and self.world == comm.get_world_size()
+                      and self.world > 1)
+        if self._live:
+            for axes in self._used_axis_sets():
+                self._build(axes)
+            # the axes that name a group by themselves; an explicit None
+            # group stays the default (world) group for the data axes
+            comm.set_axis_groups({MODEL_AXIS: self.group(MODEL_AXIS),
+                                  SEQ_AXIS: self.group(SEQ_AXIS)})
+
+    # -- coordinates and groups ------------------------------------------
+    def _coords_of(self, rank: int) -> Dict[str, int]:
+        out = {}
+        for a in reversed(AXIS_ORDER):
+            out[a] = rank % self.sizes[a]
+            rank //= self.sizes[a]
+        return out
+
+    def _rank_of(self, coords: Dict[str, int]) -> int:
+        r = 0
+        for a in AXIS_ORDER:
+            r = r * self.sizes[a] + coords[a]
+        return r
+
+    def _used_axis_sets(self):
+        sets = [(MODEL_AXIS,), (SEQ_AXIS,), (EXPERT_AXIS,), (SHARD_AXIS,),
+                (DATA_AXIS,), (DATA_AXIS, SHARD_AXIS), self.batch_axes,
+                self.dp_axes, self.zero_shard_axes,
+                self.batch_axes + (SEQ_AXIS,)]
+        out = []
+        for s in sets:
+            k = _key(s)
+            if k not in out:
+                out.append(k)
+        return out
+
+    def _build(self, axes: Tuple[str, ...]):
+        """Every partition of the world into groups along ``axes`` (the
+        same calls in the same order on every rank); keeps this rank's."""
+        import itertools
+        import torch.distributed as dist
+
+        n = 1
+        for a in axes:
+            n *= self.sizes[a]
+        if n == self.world:
+            self._groups[axes] = None          # the default group
+            return
+        others = [a for a in AXIS_ORDER if a not in axes]
+        mine = None
+        for fixed in itertools.product(*(range(self.sizes[a])
+                                         for a in others)):
+            base = dict(zip(others, fixed))
+            ranks = sorted(
+                self._rank_of({**base, **dict(zip(axes, idx))})
+                for idx in itertools.product(*(range(self.sizes[a])
+                                               for a in axes)))
+            g = dist.new_group(ranks)
+            if self.rank in ranks:
+                mine = g
+        self._groups[axes] = mine
+
+    def group(self, axes=DATA_AXIS):
+        """This rank's process group over a mesh axis or tuple of axes
+        (None: the default group, also at one rank)."""
+        k = _key(axes)
+        if not self._live:
+            return None
+        if k not in self._groups:
+            self._build(k)          # collective: every rank asks alike
+        return self._groups[k]
+
+    def axis_index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def group_rank(self, axes) -> int:
+        """This rank's index inside its group over ``axes`` (row-major in
+        the axis order)."""
+        r = 0
+        for a in _key(axes):
+            r = r * self.sizes[a] + self.coords[a]
+        return r
+
+    def group_size(self, axes) -> int:
+        n = 1
+        for a in _key(axes):
+            n *= self.sizes[a]
+        return n
+
+    # -- the JAX answers ---------------------------------------------------
+    @property
+    def world_size(self) -> int:
+        return self.world
 
     def axis_size(self, axis: str) -> int:
         return self.sizes[axis]
 
     @property
+    def mics_enabled(self) -> bool:
+        return self.sizes[SHARD_AXIS] > 1 and self.topo.mics_shard > 1
+
+    @property
     def dp_axes(self) -> Tuple[str, ...]:
-        """Axes a dense parameter's ZeRO shard spans (JAX :124)."""
+        """Axes a dense parameter's ZeRO shard spans (JAX :124): the MiCS
+        shard axis alone under MiCS, else the data-parallel world."""
+        if self.mics_enabled:
+            return (SHARD_AXIS,)
         axes = (DATA_AXIS, SHARD_AXIS)
         if self.sizes[EXPERT_AXIS] > 1:
             axes = axes + (EXPERT_AXIS,)
@@ -108,9 +207,20 @@ class MeshTopology:
 
     @property
     def zero_shard_axes(self) -> Tuple[str, ...]:
-        """Axes ZeRO storage may span (JAX :143); the seq axis joins them
-        only when it is > 1, which the port does not run."""
-        return self.dp_axes
+        """Axes ZeRO storage may span (JAX :143): the seq axis joins the
+        dp axes when it is > 1."""
+        axes = self.dp_axes
+        if self.sizes[SEQ_AXIS] > 1:
+            axes = axes + (SEQ_AXIS,)
+        return axes
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """Axes the global batch is split over (JAX :160)."""
+        axes = (DATA_AXIS, SHARD_AXIS)
+        if self.sizes[EXPERT_AXIS] > 1:
+            axes = axes + (EXPERT_AXIS,)
+        return axes
 
     @property
     def dp_world_size(self) -> int:
@@ -119,30 +229,41 @@ class MeshTopology:
 
     @property
     def dp_rank(self) -> int:
-        return self.rank
+        """This rank's index among the data-parallel (batch) ranks."""
+        return self.group_rank(self.batch_axes)
 
     @property
     def ep_rank(self) -> int:
         """This rank's index on the expert axis."""
-        return self.rank % self.sizes[EXPERT_AXIS]
+        return self.coords[EXPERT_AXIS]
+
+    @property
+    def tp_size(self) -> int:
+        return self.sizes[MODEL_AXIS]
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coords[MODEL_AXIS]
+
+    @property
+    def sp_size(self) -> int:
+        return self.sizes[SEQ_AXIS]
+
+    @property
+    def sp_rank(self) -> int:
+        return self.coords[SEQ_AXIS]
 
     def expert_group(self):
         """The ``ep`` ranks sharing this rank's data index (one copy of
         every expert); None at ep 1."""
-        return self._expert_group
+        if self.sizes[EXPERT_AXIS] == 1:
+            return None
+        return self.group(EXPERT_AXIS)
 
     def expert_data_group(self):
         """The ranks holding this rank's experts (its expert index); the
         default group at ep 1."""
-        return self._expert_data_group
-
-    def group(self, axes=DATA_AXIS):
-        """The process group of a mesh axis (or tuple of axes): the expert
-        group for the expert axis alone, the default group for the other
-        data-like axes."""
-        if axes == EXPERT_AXIS and self.sizes[EXPERT_AXIS] > 1:
-            return self._expert_group
-        return comm.resolve_group(None, axes)
+        return self.group((DATA_AXIS, SHARD_AXIS))
 
     def __repr__(self):
         return f"MeshTopology({self.sizes})"

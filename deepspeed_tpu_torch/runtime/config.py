@@ -615,6 +615,13 @@ _PORTED = {
     # reads enabled / expert_parallel_size; the layer's routing comes from
     # the model config, the rest is accepted as JAX accepts it
     "moe",
+    # tensor and sequence parallelism and MiCS (parallel/topology.py,
+    # models/transformer.py, sequence/)
+    "tensor_parallel_size", "sequence_parallel_size",
+    "zero_optimization.mics_shard_size",
+    # accepted as the JAX package accepts it, which reads it nowhere (its
+    # config.py defines it): false changes no number
+    "zero_optimization.reduce_scatter",
 }
 # keys and the values that run
 _PORTED_VALUES = {"activation_checkpointing.policy": POLICIES}
@@ -641,7 +648,6 @@ _INERT = {
 # everything else, by the ROADMAP item (section A) that ports it; the
 # longest matching prefix wins
 _ROADMAP = {
-    "zero_optimization": "A4 (ZeRO over torch.distributed)",
     "zero_optimization.offload_optimizer": "A9 (memory tiers)",
     "zero_optimization.offload_param": "A9 (memory tiers)",
     "zero_optimization.zero_hpz_partition_size": "A10 (ZeRO++)",
@@ -653,8 +659,6 @@ _ROADMAP = {
     "zero_optimization.quant_block": "A10 (quantized communication)",
     "aio": "A9 (memory tiers)",
     "pipeline": "A8 (parallel modes)",
-    "tensor_parallel_size": "A8 (parallel modes)",
-    "sequence_parallel_size": "A8 (parallel modes)",
     "activation_checkpointing": "A3 (the remaining remat policies)",
     "hybrid_engine": "A11 (RLHF and hybrid engine)",
 }
@@ -708,5 +712,5 @@ def check_ported(ds_config: DeepSpeedConfig) -> None:
                            for k, v, item in bad)
         raise NotImplementedError(
             f"config keys not ported to deepspeed_tpu_torch yet: {listed}. "
-            f"The port trains data parallel at ZeRO stages 0-3, with "
-            f"optimizer and parameter offload")
+            f"The port trains data, tensor and sequence parallel at ZeRO "
+            f"stages 0-3 (MiCS too), with optimizer and parameter offload")

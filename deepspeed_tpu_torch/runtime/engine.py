@@ -123,11 +123,25 @@ gating's statistics are global over the data-parallel group
 shard over more than one expert-data rank (world > ep at stages 1-3),
 the offload tiers and bucketed reduction (ROADMAP A8).
 
+Tensor and sequence parallelism and MiCS (the topology's model, seq and
+shard axes; ``_init_groups``): a tensor-parallel rank holds its slices of
+the leaves (``model.tp_shard_dims``), on which the ZeRO plan is made,
+and a checkpoint gathers them whole. The batch splits over the data
+ranks only; under sequence parallelism each rank's ``model.apply``
+embeds its chunk of the sequence and returns the whole loss, and the
+backward starts from ``loss * sp``, so the mean over the ZeRO group
+(data x seq ranks, the JAX ``include_seq``) is the gradient of the mean
+loss. The global norm sums a tensor-parallel leaf's squares over the
+model group too; LAMB's trust ratio reads whole-leaf norms
+(``norm_reduce``). Under MiCS the ZeRO group is the shard group and the
+gradients are also averaged over the replica groups.
+
 Not ported (``runtime/config.check_ported`` raises, naming the ROADMAP
-item): ZeRO-Infinity at more than one rank (A9), MiCS (A4), ZeRO++
-(A10), the remat policies beyond the ported ones (A3), pipeline,
-tensor and sequence parallelism (A8), compression, curriculum and the
-profilers (A12), the hybrid engine (A11).
+item): ZeRO-Infinity at more than one rank (A9), ZeRO++ (A10), the
+remat policies beyond the ported ones (A3), the pipeline (A8),
+compression, curriculum and the profilers (A12), the hybrid engine
+(A11); the offload tiers at tp, sp or MiCS > 1 (A9), MiCS with sequence
+parallelism and expert with tensor, sequence or MiCS parallelism (A8).
 """
 
 import logging
@@ -191,7 +205,9 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
                        fp16: bool, sharded: Optional[List[bool]] = None,
                        group=None, frozen: Sequence[int] = (),
                        with_leaf_sqnorms: bool = False,
-                       replicas: Optional[Dict[int, int]] = None):
+                       replicas: Optional[Dict[int, int]] = None,
+                       model_split: Optional[List[bool]] = None,
+                       model_group=None):
     """In place: unscale by ``inv`` (1 / (gas * loss_scale)), zero the
     frozen leaves' gradients (indices ``frozen``), global inf/nan check
     under fp16 (on the unclipped grads: clipping an inf makes a nan),
@@ -208,16 +224,24 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
     the leaves' squares are then added in leaf order, as at one rank; the
     overflow check is agreed over the group. ``replicas[i]``: leaf ``i``'s
     part is held by that many ranks of the group (expert leaves replicated
-    over their expert-data group), so its partial sum counts once."""
+    over their expert-data group), so its partial sum counts once.
+    ``model_split[i]`` marks a tensor-parallel leaf: its (ZeRO-summed)
+    square is then summed over ``model_group`` too, while a replicated
+    leaf counts once; the overflow check is agreed over that group
+    too."""
     for g in grads:
         g.mul_(inv)
     for i in frozen:
         grads[i].zero_()
     world = comm.get_world_size(group)
     finite = grads_finite(grads) if fp16 else None
-    if finite is not None and world > 1:
+    tp = comm.get_world_size(model_group) if model_split else 1
+    if finite is not None and (world > 1 or tp > 1):
         flag = finite.to(torch.float32).reshape(1)
-        comm.all_reduce(flag, op=comm.ReduceOp.MIN, group=group)
+        if world > 1:
+            comm.all_reduce(flag, op=comm.ReduceOp.MIN, group=group)
+        if tp > 1:
+            comm.all_reduce(flag, op=comm.ReduceOp.MIN, group=model_group)
         finite = flag[0] > 0
     sq = [torch.sum(torch.square(g.float())) for g in grads]
     idx = [i for i, s in enumerate(sharded or []) if s]
@@ -226,6 +250,12 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
                             else sq[i] for i in idx])
         comm.all_reduce(part, group=group)
         for j, i in enumerate(idx):
+            sq[i] = part[j]
+    tidx = [i for i, s in enumerate(model_split or []) if s]
+    if tidx and tp > 1:
+        part = torch.stack([sq[i] for i in tidx])
+        comm.all_reduce(part, group=model_group)
+        for j, i in enumerate(tidx):
             sq[i] = part[j]
     gnorm = torch.sqrt(sum(sq))
     if clip and clip > 0:
@@ -239,16 +269,18 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
 
 def apply_update_with_skip(optimizer: TpuOptimizer, target, grads,
                            opt_state, step: int, lr: float,
-                           finite: bool, frozen: Sequence[int] = ()) -> int:
+                           finite: bool, frozen: Sequence[int] = (),
+                           **kw) -> int:
     """The optimizer update unless the step overflowed (reference
     stage3.py:2018): a skipped step leaves target, moments and step
     untouched. Frozen leaves (indices ``frozen``) are restored after the
     update, which undoes decoupled weight decay on them too (JAX :106).
-    Returns the new (1-based count of applied) step."""
+    Returns the new (1-based count of applied) step. ``kw`` reaches the
+    optimizer (LAMB's ``norm_reduce`` on a master cut over ranks)."""
     if not finite:
         return step
     held = [target[i].detach().clone() for i in frozen]
-    optimizer.apply(target, grads, opt_state, step + 1, lr=lr)
+    optimizer.apply(target, grads, opt_state, step + 1, lr=lr, **kw)
     with torch.no_grad():
         for i, h in zip(frozen, held):
             target[i].copy_(h)
@@ -278,9 +310,7 @@ class DeepSpeedTpuEngine:
         self.ds_config = config
         self.config = config.cfg
         self.topology = topology or build_topology(config)
-        self.group = self.topology.group()
-        self.dp_world_size = self.topology.dp_world_size
-        self.dp_rank = self.topology.dp_rank
+        self._init_groups()
         self.ep = self.topology.axis_size("expert")
         self.training_dataloader = dataloader
         self.global_steps = 0
@@ -539,6 +569,57 @@ class DeepSpeedTpuEngine:
         self._frozen_idx = [i for i, n in enumerate(self._leaf_names)
                             if flags.get(n)]
 
+    def _init_groups(self):
+        """The process groups of the step (JAX ``_init_state`` :606-627).
+
+        * ``dp_world_size`` / ``dp_rank``: the data-parallel ranks the
+          global batch is split over (``batch_axes``); the tensor- and
+          seq-parallel ranks of one data index read the same rows.
+        * ``group`` / ``zero_world`` / ``zero_rank``: the ZeRO group. A
+          rank's ZeRO shard and its gradient reduction span the data axes
+          and, under sequence parallelism, the seq axis (the JAX
+          ``include_seq``: the seq ranks are data ranks to ZeRO); under
+          MiCS the shard axis alone, the gradients then all-reduced over
+          the replica groups (``data``) too.
+        * the model group: the tensor-parallel ranks, over which a split
+          leaf's squared norm is summed."""
+        topo = self.topology
+        self.tp = topo.axis_size("model")
+        self.sp = topo.axis_size("seq")
+        self.dp_world_size = topo.dp_world_size
+        self.dp_rank = topo.dp_rank
+        self._batch_group = topo.group(topo.batch_axes)
+        self.mics = topo.mics_enabled
+        if self.mics and self.sp > 1:
+            raise NotImplementedError(
+                "MiCS (mics_shard_size) with sequence parallelism is not "
+                "ported to deepspeed_tpu_torch yet (ROADMAP A8)")
+        axes = topo.zero_shard_axes if not self.mics else topo.dp_axes
+        self.group = topo.group(axes)
+        self.zero_world = topo.group_size(axes)
+        self.zero_rank = topo.group_rank(axes)
+        self._replica_group = topo.group("data") if self.mics else None
+        self._replicas = topo.axis_size("data") if self.mics else 1
+        self._model_group = topo.group("model") if self.tp > 1 else None
+        if hasattr(self.model, "set_topology"):
+            self.model.set_topology(topo if self.tp > 1 or self.sp > 1
+                                    else None)
+        self._tp_dims: Dict[str, int] = {}
+        if self.tp > 1:
+            dims = getattr(self.model, "tp_shard_dims", None)
+            if dims is None:
+                raise NotImplementedError(
+                    "tensor_parallel_size > 1 needs a model that declares "
+                    "its tensor-parallel plan (tp_shard_dims; "
+                    "TransformerLM does)")
+            self._tp_dims = {k: d for k, d in dims.items() if d is not None}
+        if (self.tp > 1 or self.sp > 1 or self.mics) and \
+                self.topology.axis_size("expert") > 1:
+            raise NotImplementedError(
+                "expert parallelism with tensor, sequence or MiCS "
+                "parallelism is not ported to deepspeed_tpu_torch yet "
+                "(ROADMAP A8)")
+
     def _check_world(self):
         world = self.topology.dp_world_size
         if world != self.ds_config.dp_world_size:
@@ -553,13 +634,21 @@ class DeepSpeedTpuEngine:
             raise RuntimeError(
                 f"a {self.device.type} engine needs the {want!r} process "
                 f"group, not {backend!r}")
-        if world > 1 and self.zero_stage >= 1 and \
+        zc = self.config.zero_optimization
+        offloaded = (zc.offload_optimizer.device not in ("none", None, "")
+                     or zc.offload_param.device not in ("none", None, ""))
+        if offloaded and (self.tp > 1 or self.sp > 1 or self.mics):
+            raise NotImplementedError(
+                "ZeRO-Offload, ZeRO-Infinity and the parameter tier with "
+                "tensor, sequence or MiCS parallelism are not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A9)")
+        if offloaded and world > 1 and self.zero_stage >= 1 and \
                 not self.optimizer.elementwise:
             raise NotImplementedError(
                 f"optimizer {self.config.optimizer.type!r} reads whole "
-                f"leaves (a trust ratio), which a sharded master does not "
-                f"hold at {world} ranks; not ported to deepspeed_tpu_torch "
-                f"yet (ROADMAP A4)")
+                f"leaves (a trust ratio), which an offloaded tier holding "
+                f"shards at {world} ranks does not; not ported to "
+                f"deepspeed_tpu_torch yet (ROADMAP A9)")
 
     def _init_param_offload(self, model):
         """``offload_param``: the device check and its refusals (JAX
@@ -619,7 +708,7 @@ class DeepSpeedTpuEngine:
             model.moe_groups = None
             if self.dp_world_size > 1:
                 model.moe_groups = MoEGroups(
-                    self.group, self.dp_world_size, self.dp_rank,
+                    self._batch_group, self.dp_world_size, self.dp_rank,
                     self.topology.expert_group(), ep, self.topology.ep_rank)
 
     def _expert_cut(self, name: str, v: torch.Tensor) -> torch.Tensor:
@@ -630,12 +719,23 @@ class DeepSpeedTpuEngine:
             return v
         return shard_of(v, d, self.topology.ep_rank, self.ep)
 
+    def _tp_cut(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        """This rank's tensor-parallel slice of a whole leaf (identity at
+        tp 1 and for replicated leaves)."""
+        d = self._tp_dims.get(name)
+        if d is None:
+            return v
+        return shard_of(v, d, self.topology.tp_rank, self.tp).contiguous()
+
     def _ckpt_shape(self, name: str) -> Tuple[int, ...]:
         """A leaf's whole shape (what a checkpoint holds)."""
         shape = list(self._full_shapes[name])
         d = self._expert_dims.get(name)
         if self.ep > 1 and d is not None:
             shape[d] *= self.ep
+        d = self._tp_dims.get(name)
+        if d is not None:
+            shape[d] *= self.tp
         return tuple(shape)
 
     def _check_infinity_supported(self):
@@ -716,8 +816,9 @@ class DeepSpeedTpuEngine:
             items = [(k, torch.as_tensor(np.asarray(v)) if not
                       isinstance(v, torch.Tensor) else v)
                      for k, v in _flatten(params)]
-        # ep > 1: this rank keeps its experts
-        return [(k, self._expert_cut(k, v)) for k, v in items]
+        # ep > 1: this rank keeps its experts; tp > 1: its slices
+        return [(k, self._tp_cut(k, self._expert_cut(k, v)))
+                for k, v in items]
 
     # ------------------------------------------------------------------
     def _init_state(self, params, seed: int):
@@ -731,12 +832,13 @@ class DeepSpeedTpuEngine:
         # an offloaded engine at one rank runs on the identity plan (its
         # host tier holds whole leaves); at more than one, on the stage's
         # plan, each rank's host tier holding its master shards
-        plan_stage = (0 if self.offload_device and self.dp_world_size == 1
+        plan_stage = (0 if self.offload_device and self.zero_world == 1
                       else self.zero_stage)
         self.zero_plan: ZeroPlan = build_zero_plan(
-            self.dp_world_size, plan_stage, self._full_shapes,
+            self.zero_world, plan_stage, self._full_shapes,
             persistence_threshold=zc.stage3_param_persistence_threshold,
-            expert_dims=self._expert_dims, ep=self.ep)
+            expert_dims=self._expert_dims, ep=self.ep,
+            model_dims=self._tp_dims)
         names = self._leaf_names
         if self.ep > 1 and any(self.zero_plan.master_dims[k] is not None
                                for k in self._expert_dims):
@@ -749,7 +851,7 @@ class DeepSpeedTpuEngine:
         self._pdims = [self.zero_plan.param_dims[k] for k in names]
         self._gdims = [self.zero_plan.grad_dims[k] for k in names]
         self._odims = [self.zero_plan.master_dims[k] for k in names]
-        world, rank = self.dp_world_size, self.dp_rank
+        world, rank = self.zero_world, self.zero_rank
 
         def local(v, dim):
             return v if dim is None else shard_of(v, dim, rank, world)
@@ -816,7 +918,7 @@ class DeepSpeedTpuEngine:
         """The shape of this rank's shard of leaf ``name`` along ``dim``."""
         shape = list(self._full_shapes[name])
         if dim is not None:
-            shape[dim] //= self.dp_world_size
+            shape[dim] //= self.zero_world
         return tuple(shape)
 
     def _offload_layers(self, compute):
@@ -875,7 +977,7 @@ class DeepSpeedTpuEngine:
             elif n in self._streamed:
                 raise NotImplementedError(
                     f"offload_param: {n} is cut along its layer axis at "
-                    f"{self.dp_world_size} ranks, so no rank holds whole "
+                    f"{self.zero_world} ranks, so no rank holds whole "
                     f"layers to stream")
             else:
                 self._whole_gathers[i] = make_zero3_gather(d, self.group)
@@ -1025,8 +1127,8 @@ class DeepSpeedTpuEngine:
             elif kind == VJP or self._odims[i] is None:
                 out.append(acc[i])
             else:
-                g = shard_of(acc[i], self._odims[i], self.dp_rank,
-                             self.dp_world_size)
+                g = shard_of(acc[i], self._odims[i], self.zero_rank,
+                             self.zero_world)
                 # the host tiers read flat, contiguous gradients
                 out.append(g.contiguous() if self.host_opt is not None
                            else g)
@@ -1068,11 +1170,22 @@ class DeepSpeedTpuEngine:
                 p.copy_(all_gather_leaf(b, od, self.group))
 
     def _mean_over_group(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the data-parallel ranks (the tensor- and
+        seq-parallel ranks already hold the same loss)."""
         if self.dp_world_size > 1:
             x = x.reshape(1).clone()
-            comm.all_reduce(x, group=self.group)
+            comm.all_reduce(x, group=self._batch_group)
             x = x[0] / self.dp_world_size
         return x
+
+    def _root(self, loss, scale):
+        """What a micro-batch's backward starts from: the (fp16-scaled)
+        loss, times sp under sequence parallelism, whose ranks each
+        differentiate their own part of the loss while the reduction takes
+        the mean over data x seq ranks."""
+        if scale is not None:
+            loss = loss * scale
+        return loss * self.sp if self.sp > 1 else loss
 
     # ------------------------------------------------------------------
     def train_batch(self, data_iter=None, batch=None) -> float:
@@ -1156,9 +1269,8 @@ class DeepSpeedTpuEngine:
             reducer = self._reducer if g == self.gas - 1 else None
             params = self._model_params(reducer, acc)
             loss = self.model.apply(params, micro, train=True).float()
-            grads = torch.autograd.grad(
-                loss * scale if scale is not None else loss, leaves,
-                allow_unused=True)
+            grads = torch.autograd.grad(self._root(loss, scale), leaves,
+                                        allow_unused=True)
             del params
             with torch.no_grad():
                 for a, gr, kind in zip(acc, grads, self._kinds):
@@ -1194,6 +1306,18 @@ class DeepSpeedTpuEngine:
             if kind == EXPERT:
                 comm.all_reduce(a, group=self.topology.expert_data_group())
                 a.div_(self.dp_world_size)
+        self._reduce_replicas(acc, shards)
+
+    def _reduce_replicas(self, acc, shards):
+        """MiCS: each gradient reduced within the shard group (its shard,
+        or the whole leaf) is averaged over the replica groups too (JAX
+        ``dp_axes``: reduce-scatter within, all-reduce across)."""
+        if self._replicas <= 1:
+            return
+        for a, s, kind in zip(acc, shards, self._kinds):
+            t = s if kind == REDUCE_SCATTER else a
+            comm.all_reduce(t, group=self._replica_group)
+            t.div_(self._replicas)
 
     def _apply_grads(self, acc, shards, scale, lr, events=None):
         """Unscale, clip and check the reduced gradients, then the update
@@ -1209,6 +1333,8 @@ class DeepSpeedTpuEngine:
             sharded=[k != ALL_REDUCE or d is not None
                      for k, d in zip(self._kinds, self._odims)],
             group=self.group, frozen=self._frozen_idx,
+            model_split=[n in self._tp_dims for n in self._leaf_names],
+            model_group=self._model_group,
             with_leaf_sqnorms=self._grad_attribution,
             replicas={i: self.dp_world_size // self.ep
                       for i, k in enumerate(self._kinds) if k == EXPERT})
@@ -1220,7 +1346,8 @@ class DeepSpeedTpuEngine:
                       else self._param_leaves)
             self._step = apply_update_with_skip(
                 self.optimizer, target, grads, self.opt_state,
-                self._step, lr, ok, frozen=self._frozen_idx)
+                self._step, lr, ok, frozen=self._frozen_idx,
+                **self._whole_leaf_kw())
             if ok and self.has_master:
                 self._publish_params()
         elif ok:
@@ -1240,6 +1367,26 @@ class DeepSpeedTpuEngine:
         if events is not None:
             events[2].record()
         return ok, gnorm, (leaf_sq[0] if leaf_sq else None)
+
+    def _whole_leaf_kw(self):
+        """An optimizer that reads whole leaves (LAMB's trust ratio) on a
+        master cut over ranks: ``norm_reduce(i, t)`` sums leaf ``i``'s
+        partial squares ``t`` over its ZeRO group and, for a
+        tensor-parallel leaf, its model group."""
+        if self.optimizer.elementwise or (self.zero_world == 1
+                                          and self.tp == 1):
+            return {}
+        dims = self._odims if self.has_master else self._pdims
+        zero = [d is not None and self.zero_world > 1 for d in dims]
+        model = [n in self._tp_dims for n in self._leaf_names]
+
+        def norm_reduce(i, t):
+            if zero[i]:
+                comm.all_reduce(t, group=self.group)
+            if model[i]:
+                comm.all_reduce(t, group=self._model_group)
+
+        return {"norm_reduce": norm_reduce}
 
     def _fetch_metrics(self, out):
         """The step's numbers on the host: the loss and the grad norm,
@@ -1352,9 +1499,8 @@ class DeepSpeedTpuEngine:
             self._shim_grads = True
         scale = (self.scale_state["loss_scale"] if self.fp16_enabled
                  else None)
-        grads = torch.autograd.grad(
-            loss * scale if scale is not None else loss, leaves,
-            allow_unused=True)
+        grads = torch.autograd.grad(self._root(loss, scale), leaves,
+                                    allow_unused=True)
         with torch.no_grad():
             for a, g in zip(acc, grads):
                 if g is not None:
@@ -1435,9 +1581,17 @@ class DeepSpeedTpuEngine:
         return _unflatten(list(zip(self._leaf_names, leaves)))
 
     def _gathered(self, leaves, dims) -> List[torch.Tensor]:
-        if self.dp_world_size > 1:      # a collective runs on the device
+        """Whole leaves: the ZeRO shards joined over the ZeRO group, the
+        experts over the expert group and the tensor-parallel slices over
+        the model group (every rank takes part)."""
+        if self.zero_world > 1 or self.tp > 1:  # collectives on the device
             leaves = [v.to(self.device) for v in leaves]
         out = ckpt.gather_shards(leaves, dims, self.group)
+        if self.tp > 1:
+            out = [all_gather_leaf(v.detach().contiguous(),
+                                   self._tp_dims[n], self._model_group)
+                   if n in self._tp_dims else v
+                   for n, v in zip(self._leaf_names, out)]
         if self.ep > 1:
             # whole expert leaves: every expert rank's experts joined
             out = [all_gather_leaf(v.detach().contiguous(),
@@ -1519,9 +1673,9 @@ class DeepSpeedTpuEngine:
         if not self.config.checkpoint.async_save:
             ckpt.save_state(save_dir, tag, state, meta,
                             save_latest=save_latest)
-            comm.barrier(self.group)
+            comm.barrier()
             logger.info(f"saved checkpoint {save_dir}/{tag}")
-        elif self.dp_rank == 0:
+        elif comm.get_rank() == 0:
             self._save_in_background(save_dir, tag, state, meta, save_latest)
         return True
 
@@ -1557,7 +1711,7 @@ class DeepSpeedTpuEngine:
         any other. Returns ``(load_dir, client_state)``, or ``(None, {})``
         when ``load_dir`` names no checkpoint."""
         self._join_pending_saves()
-        comm.barrier(self.group)   # rank 0's write is complete
+        comm.barrier()   # rank 0's write is complete
         tag = tag or ckpt.read_latest(load_dir)
         if tag is None:
             return None, {}
@@ -1599,10 +1753,11 @@ class DeepSpeedTpuEngine:
             )[0]["params"]
 
         def leaves(name, sub=None, dims=None):
-            whole = [self._expert_cut(k, v) for k, v in ckpt.leaf_paths(
-                state[name] if sub is None else sub)]
+            whole = [self._tp_cut(k, self._expert_cut(k, v))
+                     for k, v in ckpt.leaf_paths(
+                         state[name] if sub is None else sub)]
             return ckpt.take_shards(whole, dims or [None] * len(whole),
-                                    self.dp_rank, self.dp_world_size)
+                                    self.zero_rank, self.zero_world)
 
         if tier is not None:
             moments = None
@@ -1655,12 +1810,12 @@ class DeepSpeedTpuEngine:
         the JAX package writes them). Every rank gathers; rank 0 writes."""
         params = self._tree(self._full_params())
         path = os.path.join(save_dir, save_filename)
-        if self.dp_rank == 0:
+        if comm.get_rank() == 0:
             os.makedirs(save_dir, exist_ok=True)
             np.savez(path, **{k: ckpt.to_numpy(v)
                               for k, v in ckpt.leaf_paths(params)})
             logger.info(f"saved 16-bit model -> {path}")
-        comm.barrier(self.group)
+        comm.barrier()
         return path
 
     @torch.no_grad()
@@ -1691,18 +1846,20 @@ class DeepSpeedTpuEngine:
 
         def template(dtype_of):
             return self._tree([
-                torch.empty(self._full_shapes[k], dtype=dtype_of(i),
+                torch.empty(self._ckpt_shape(k), dtype=dtype_of(i),
                             device="meta")
                 for i, k in enumerate(self._leaf_names)])
 
         def leaves_of(tree):
             out = [v for _, v in ckpt.leaf_paths(tree)]
             for k, v in zip(self._leaf_names, out):
-                if tuple(v.shape) != self._full_shapes[k]:
+                if tuple(v.shape) != self._ckpt_shape(k):
                     raise KeyError(f"shape mismatch for {k}: "
                                    f"{tuple(v.shape)} vs "
-                                   f"{self._full_shapes[k]}")
-            return out
+                                   f"{self._ckpt_shape(k)}")
+            # this rank's tensor-parallel slices
+            return [self._tp_cut(k, v) for k, v in zip(self._leaf_names,
+                                                        out)]
 
         try:
             host = leaves_of(load_universal_into_tree(
@@ -1726,8 +1883,8 @@ class DeepSpeedTpuEngine:
                     {k: template(lambda i, v=v: v[i].dtype)
                      for k, v in moments.items()}, section="opt_state")
                 opt = {k: ckpt.take_shards(leaves_of(tree[k]), mdims,
-                                           self.dp_rank,
-                                           self.dp_world_size)
+                                           self.zero_rank,
+                                           self.zero_world)
                        for k in moments}
             except KeyError as exc:
                 logger.warning(
@@ -1736,8 +1893,8 @@ class DeepSpeedTpuEngine:
                     f"step counter and LR schedule restart at 0")
         if tier is not None:
             tier.load_leaves(ckpt.take_shards(host, self._odims,
-                                              self.dp_rank,
-                                              self.dp_world_size), opt)
+                                              self.zero_rank,
+                                              self.zero_world), opt)
             # the compute params are the master's cast, as in JAX
             master, _ = tier.get_all_leaves()
             for p, m, pd, od in zip(self._param_leaves, master, self._pdims,
@@ -1751,14 +1908,14 @@ class DeepSpeedTpuEngine:
         else:
             if self.has_master:
                 for m, v in zip(self._master_leaves, ckpt.take_shards(
-                        host, self._odims, self.dp_rank,
-                        self.dp_world_size)):
+                        host, self._odims, self.zero_rank,
+                        self.zero_world)):
                     copy_rows(m, v)
                 self._publish_params()
             else:
                 for p, v in zip(self._param_leaves, ckpt.take_shards(
-                        host, self._pdims, self.dp_rank,
-                        self.dp_world_size)):
+                        host, self._pdims, self.zero_rank,
+                        self.zero_world)):
                     copy_rows(p.detach(), v)
             if opt is not None:
                 for k, vals in opt.items():

@@ -433,13 +433,16 @@ def overlap_blockers(engine, forced: bool) -> List[Tuple[str, str]]:
     if engine.ep > 1:
         out.append(("hard", "expert parallelism reduces the expert leaves "
                             "over their expert-data group (ROADMAP A8)"))
+    if getattr(engine, "mics", False):
+        out.append(("hard", "MiCS all-reduces the gradients over its "
+                            "replica groups after the backward"))
     if not forced:
         if not engine.config.zero_optimization.overlap_comm:
             out.append(("soft", "overlap_comm is disabled"))
         if engine.zero_stage == 3:
             out.append(("soft", "stage-3 gathers reduce in their own "
                                 "backward"))
-        if engine.topology.dp_world_size <= 1:
+        if engine.zero_world <= 1:
             out.append(("soft", "data-parallel world is 1 (nothing to "
                                 "reduce)"))
     return out

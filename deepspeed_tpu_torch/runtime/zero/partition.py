@@ -19,7 +19,11 @@ elements stay replicated (their master is still sharded). Under expert
 parallelism an expert leaf (sharded over the expert axis by its expert
 dimension) takes its ZeRO shard over the free data axes only, on another
 dimension (JAX :56-67): a ZeRO world of ``world / ep``, replicated when
-that is 1. One difference:
+that is 1. Under tensor parallelism the plan is made on each rank's
+tensor-parallel slices, the model dimension taken (``model_dims``), as
+JAX's ``add_zero_axes`` leaves a dimension of the base spec alone. Under
+sequence parallelism or MiCS the ZeRO world is the engine's ZeRO group
+(data x seq ranks, or the MiCS shard group). One difference:
 at world 1 the JAX plan is replicated, while this plan keeps the
 dimensions — one shard is the whole leaf, so a one-rank run goes through
 every collective of the sharded path (each a copy).
@@ -102,16 +106,23 @@ def build_zero_plan(world: int, stage: int,
                     param_shapes: Dict[str, Tuple[int, ...]],
                     persistence_threshold: int = 0,
                     expert_dims: Optional[Dict[str, int]] = None,
-                    ep: int = 1) -> ZeroPlan:
+                    ep: int = 1,
+                    model_dims: Optional[Dict[str, int]] = None) -> ZeroPlan:
     """The plan of ``stage`` over a ZeRO world of ``world`` ranks for the
     leaves ``{path: shape}`` (JAX ``build_zero_plan``: master, moments and
     gradient shards always partition; stage-3 compute params only from
     ``persistence_threshold`` elements up). ``expert_dims`` (``ep`` > 1):
     the expert leaves and their expert dimension, planned over
-    ``world / ep`` ranks on the other dimensions."""
+    ``world / ep`` ranks on the other dimensions. ``model_dims``: the
+    tensor-parallel dimension of each split leaf, never a ZeRO one."""
     experts = expert_dims if ep > 1 else {}
+    model_dims = model_dims or {}
 
     def dim_of(k, s, threshold=0):
+        if k in model_dims:
+            return zero_dim(s, world, threshold,
+                            free=[d for d in range(len(s))
+                                  if d != model_dims[k]])
         if k not in experts:
             return zero_dim(s, world, threshold)
         if world // ep <= 1:

@@ -168,11 +168,20 @@ def test_routing_flash_only_at_multiples_of_128(monkeypatch):
 
 
 def test_unported_attention_modes_raise():
-    x = torch.zeros(1, 2, 128, D)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tlayer._inner_attention(x, x, x, True, True, 0, 0, sp_size=2)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tlayer.sharded_attention(x, x, x, topo=object())
+    # Ulysses and ring run now (tests/test_torch_tensor_parallel.py); a
+    # one-rank topology is the plain dispatch, and an unknown sequence-
+    # parallel strategy raises
+    from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
+                                                       TopologyConfig)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 2, 128, D, generator=g)
+    want = tlayer.sharded_attention(x, x, x, use_flash=False)
+    got = tlayer.sharded_attention(x, x, x, topo=MeshTopology(
+        TopologyConfig(), world_size=1, rank=0), use_flash=False)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="seq_parallel_impl"):
+        tlayer._inner_attention(x, x, x, True, False, 0, 0, sp_size=2,
+                                impl="bogus")
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "seq", "heads",

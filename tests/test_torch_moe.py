@@ -577,6 +577,12 @@ def test_mixtral_preset_serves_scaled_down():
 def test_parallel_serving_still_raises(field):
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineConfig
 
+    if field == "tensor_parallel_size":
+        # tensor-parallel serving runs now (tests/test_torch_tensor_
+        # parallel.py); expert-parallel serving still raises
+        assert RaggedInferenceEngineConfig(
+            tensor_parallel_size=2).tensor_parallel_size == 2
+        return
     with pytest.raises(NotImplementedError, match="A8"):
         RaggedInferenceEngineConfig(**{field: 2})
 

@@ -14,7 +14,8 @@ Held: losses within 1e-5 relative and master params after 3 steps within
 tokens: capacity, positions and aux statistics), ep 2 at ZeRO 1 and 3,
 and dropless ep 2; the ranks agree; an ep-2 checkpoint holds one
 fragment per expert tensor and loads at world 1 (ep 1) and into the JAX
-engine.
+engine; the safe-mode sweep passes a healthy ep-2 engine (each rank holds
+other experts) and reports a replicated leaf one rank changed.
 """
 
 import glob
@@ -140,6 +141,18 @@ def test_ranks_agree(ranks):
             np.testing.assert_array_equal(r0[f"params_{name}"][k],
                                           r1[f"params_{name}"][k],
                                           err_msg=f"{name} {k}")
+
+
+def test_sanity_at_ep2(ranks):
+    names = [n for n, c in W.CASES.items() if c[2] > 1]
+    for r in ranks[0]:
+        for name in names:
+            assert r[f"sanity_{name}"] == {"ok": True, "problems": []}, name
+        rep = r["sanity_desync_ep2"]
+        assert not rep["ok"]
+        assert any(p.startswith("params['final_norm']")
+                   for p in rep["problems"]), rep
+        assert not any("['e_" in p for p in rep["problems"]), rep
 
 
 def test_ep2_checkpoint_loads_at_world_1_and_in_jax(oracle, ranks):

@@ -343,6 +343,11 @@ def test_unported_config_features_raise(field, value):
         assert RaggedInferenceEngineConfig(
             ragged_attention=value).ragged_attention == "off"
         return
+    if field == "tensor_parallel_size":
+        # and so is tensor parallelism (tests/test_torch_tensor_parallel.py)
+        assert RaggedInferenceEngineConfig(
+            tensor_parallel_size=value).tensor_parallel_size == 2
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         RaggedInferenceEngineConfig(**{field: value})
 
@@ -376,8 +381,9 @@ def test_generate_options_not_ported_raise(models):
         te.generate([[1, 2, 3]], max_new_tokens=4, adapter="a")
     with pytest.raises(NotImplementedError):
         deepspeed_tpu_torch.pipeline("mistralai/Mistral-7B-v0.1")
-    # the v1 engine serves one device
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # the v1 engine serves at tp 2 over two ranks now (tests/test_torch_
+    # tensor_parallel.py); one rank cannot hold a model axis of 2
+    with pytest.raises(ValueError, match="does not divide"):
         deepspeed_tpu_torch.init_inference(
             te.model, config={"dtype": "fp32", "tensor_parallel": 2},
             device="cpu")

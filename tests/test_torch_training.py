@@ -290,8 +290,10 @@ def test_device_none_raises_without_gpu():
 
 
 @pytest.mark.parametrize("extra,item", [
-    # MiCS shard groups are A4's remainder (ZeRO 3 itself runs)
-    ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}}, "A4"),
+    # MiCS runs now (tests/test_torch_tensor_parallel.py); ZeRO++ hpZ,
+    # its sibling sub-group, is A10
+    ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
+     "A10"),
     ({"zero_optimization": {"stage": 3, "offload_param":
                             {"device": "cpu", "ratio": 0.5}}}, "A9"),
     ({"activation_checkpointing": {
@@ -336,13 +338,18 @@ def test_ported_and_inert_keys_run():
 def test_unported_model_families_raise(field, item):
     model = TransformerLM(TransformerConfig(**dict(FLAGSHIP_SMALL, **field)))
     if "moe_num_experts" in field:
-        # MoE trains now (tests/test_torch_moe.py); sequence parallelism,
-        # the rest of A8, still raises
+        # MoE trains now (tests/test_torch_moe.py), and so does sequence
+        # parallelism (tests/test_torch_tensor_parallel.py); MoE layers
+        # under sequence parallelism still raise
         params = model.init_params(torch.Generator().manual_seed(0))
         loss = model.apply(params, {"input_ids": torch.from_numpy(_ids(0))})
         assert torch.isfinite(loss)
-        model = TransformerLM(TransformerConfig(**dict(
-            FLAGSHIP_SMALL, seq_parallel=True)))
+        from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
+                                                           TopologyConfig)
+        with pytest.raises(NotImplementedError, match=item):
+            model.set_topology(MeshTopology(TopologyConfig(seq=2),
+                                            world_size=2, rank=0))
+        return
     with pytest.raises(NotImplementedError, match=item):
         model.apply({}, {"input_ids": torch.from_numpy(_ids(0))})
 

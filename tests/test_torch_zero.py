@@ -213,6 +213,12 @@ ADMITTED = [
     ({"zero_optimization": {"stage": 3, "offload_param":
                             {"device": "nvme", "nvme_path": "/nvme"}}}, 1),
     ({"activation_checkpointing": {"cpu_checkpointing": True}}, 1),
+    # tensor and sequence parallelism, MiCS, and reduce_scatter off (read
+    # nowhere, as in JAX)
+    ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}}, 2),
+    ({"tensor_parallel_size": 2}, 2),
+    ({"tensor_parallel_size": 2, "sequence_parallel_size": 2}, 4),
+    ({"zero_optimization": {"stage": 2, "reduce_scatter": False}}, 2),
 ]
 
 
@@ -240,8 +246,7 @@ REJECTED = [
      2, "A10"),
     ({"zero_optimization": {"stage": 2, "quantized_reduce": "int8"}},
      2, "A10"),
-    ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}}, 2, "A4"),
-    ({"tensor_parallel_size": 2}, 2, "A8"),
+    ({"pipeline": {"stages": 2}}, 2, "A8"),
 ]
 
 
@@ -258,15 +263,25 @@ def test_config_rejects_unported_zero_keys(extra, world, item):
     ("model", "A8"), ("pipe", "A8"), ("seq", "A8"), ("expert", "A8"),
     ("mics_shard", "A4"), ("hpz_shard", "A10")])
 def test_topology_raises_for_unported_axes(field, item):
-    if field == "expert":
-        # the expert axis is ported now: it factors the data axis as in
-        # JAX (tests/test_torch_moe_distributed.py runs it at world 2)
-        got = ttopo.MeshTopology(ttopo.TopologyConfig(expert=2),
+    if field in ("expert", "model", "seq", "mics_shard"):
+        # these axes are ported now: the expert axis factors the data axis
+        # as in JAX (tests/test_torch_moe_distributed.py runs it at world
+        # 2), the model and seq axes and MiCS' shard axis lay ranks out in
+        # the JAX axis order (tests/test_torch_tensor_parallel.py)
+        got = ttopo.MeshTopology(ttopo.TopologyConfig(**{field: 2}),
                                  world_size=4, rank=3)
-        ref = JTopo(JTopoCfg(expert=2), devices=jax.devices()[:4])
+        ref = JTopo(JTopoCfg(**{field: 2}), devices=jax.devices()[:4])
         assert got.sizes == ref.sizes and got.dp_axes == ref.dp_axes
-        assert got.dp_world_size == ref.dp_world_size == 4
-        assert got.ep_rank == 1
+        assert got.zero_shard_axes == ref.zero_shard_axes
+        assert got.dp_world_size == ref.dp_world_size
+        if field == "expert":
+            assert got.dp_world_size == 4 and got.ep_rank == 1
+        # rank 3 has JAX device 3's mesh coordinates
+        import numpy as np
+        where = np.argwhere(np.vectorize(lambda d: d.id)(ref.mesh.devices)
+                            == jax.devices()[3].id)[0]
+        assert tuple(got.coords[a] for a in ttopo.AXIS_ORDER) == \
+            tuple(int(i) for i in where)
         return
     with pytest.raises(NotImplementedError, match=item):
         ttopo.MeshTopology(ttopo.TopologyConfig(**{field: 2}), world_size=4)
@@ -288,6 +303,12 @@ def test_topology_answers_like_jax(world):
                                   "send_next", "send_prev", "recv_prev",
                                   "all_to_all_single"])
 def test_unported_collectives_raise_a8(name):
+    if name in ("tp_copy", "tp_reduce"):
+        # the tensor-parallel pair is ported now: at one rank both are the
+        # identity (tests/test_torch_tensor_parallel.py runs them at 2)
+        x = torch.arange(2.0)
+        assert getattr(comm, name)(x) is x
+        return
     if name == "all_to_all_single":
         # the MoE dispatch's collective is ported now: without a process
         # group it is a copy
@@ -300,8 +321,13 @@ def test_unported_collectives_raise_a8(name):
 
 
 def test_model_axis_group_raises_a8():
+    # the model axis has a group now; at one rank it is the whole world
+    x = torch.ones(2)
+    comm.all_reduce(x, axis_name="model")
+    assert x.tolist() == [1.0, 1.0]
+    # the pipeline axis still has none
     with pytest.raises(NotImplementedError, match="A8"):
-        comm.all_reduce(torch.zeros(2), axis_name="model")
+        comm.all_reduce(torch.zeros(2), axis_name="pipe")
 
 
 def test_quantized_gather_raises_a10():

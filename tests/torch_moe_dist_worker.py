@@ -3,7 +3,8 @@
 Runs in processes started by ``torch.multiprocessing.spawn`` and imports only
 the port (no ``jax``): it trains ``deepspeed_tpu_torch`` MoE engines at world
 2 over gloo on the inputs the test wrote (``inputs.pt``: numpy weights and
-batches) and writes what each rank saw to ``rank<r>.pt``.
+batches), runs the safe-mode sweep on the expert-parallel engines and
+writes what each rank saw to ``rank<r>.pt``.
 """
 
 import os
@@ -72,6 +73,7 @@ def run(rank, world, port, workdir):
     torch.set_num_threads(2)
     from deepspeed_tpu_torch.checkpoint.interop import params_from_numpy
     from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.utils.sanity import check_engine_sanity
 
     inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
     out = {}
@@ -94,8 +96,18 @@ def run(rank, world, port, workdir):
         out[f"dropped_{name}"] = dropped[0]
         out[f"local_e_up_{name}"] = tuple(
             eng.params["layers"]["e_up"].shape)
+        if CASES[name][2] > 1:
+            # the safe-mode sweep holds each rank's experts against the
+            # ranks holding the same experts only
+            out[f"sanity_{name}"] = check_engine_sanity(
+                eng, raise_on_error=False)
         if name == "ep2_z1":
             eng.save_checkpoint(os.path.join(workdir, "ck_ep2"), tag="t")
+            if rank == 1:
+                with torch.no_grad():
+                    eng.params["final_norm"].add_(1.0)
+            out["sanity_desync_ep2"] = check_engine_sanity(
+                eng, raise_on_error=False)
         eng.close()
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     import torch.distributed as dist
