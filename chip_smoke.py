@@ -17,7 +17,8 @@ pinned-memory state), with the NVMe tier and checkpoints at 2 layers,
 trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group
 and with the tensor / sequence / MiCS keys at one rank (after checking
 the attention kernels at tensor-parallel head counts and ring attention
-against them),
+against them), through the 1F1B pipeline schedule at one stage and as
+one middle stage of a 4-stage split of its 32 layers,
 with its layer stack and activations offloaded to the host and through
 ZeRO-Infinity's per-layer files, serves returning conversations through
 the KV spill tier and through the stitched ``ragged_attention="off"``
@@ -293,6 +294,23 @@ exit 0):
    / mics_shard_size 1 and reduce_scatter false at stage 3: its 2-step
    losses and params torch.equal to 8c's stage-3 engine, flash launches
    2 x L x gas and L x gas a step, check_engine_sanity clean;
+8i. pipeline parallelism on one card: (a) phase 8's model, weights and
+   batch (4 layers, bf16, remat, micro 2 x M 2 x S 2048): the engine's
+   stage-0 step (run twice, its update skipped) up to its reduced
+   gradients, then TransformerLM.loss_and_grads through the 1F1B
+   schedule at a pp-1 topology on the same weights and micro-batches:
+   the loss within 1e-3 relative, each leaf's gradient within 2e-2 of its
+   max |engine| (whether torch.equal is logged), flash launches 2 x L x M
+   and L x M (the engine's), ms and peak above the resident state of
+   both; (b) stage 1 of a pp-4 split of Mistral-7B's 32 layers (8 layers,
+   the replicated embedding, norm and head, 2.007 B parameters, bf16,
+   with the f32 master, AdamW moments and gradient accumulator resident):
+   the schedule's stage function and backward slot (accumulating into
+   buffers like the engine's) on a random incoming activation and
+   cotangent, a 7-deep stash of inputs held, forward and backward slot ms
+   and the AdamW update ms (CUDA events), peak GiB, the state's bytes,
+   outputs finite, and the step time 14 ticks predict at M 8 (labelled a
+   prediction for a 4-card run);
 8b. offload and checkpoints (the engines of each step freed before the
    next): the host C++ ops built by g++ from csrc/host (seconds logged);
    DeepSpeedCPUAdam with f32 and bf16 gradients, Adagrad and Lion on one
@@ -357,7 +375,7 @@ exit 0):
    under impl="auto" on the card raises;
 10. the card's name and power limit, the host_ops JSON line (the host
    optimizers' times, rates, yardstick and errors), the kernels JSON line
-   (the flash launches of phases 2e, 8, 8f, 8g, 8c, 8h, 8b, 8d and 8e
+   (the flash launches of phases 2e, 8, 8f, 8g, 8c, 8h, 8i, 8b, 8d and 8e
    together, the paged and ragged ones of phases 6, 2e, 2c, 2d and 2f,
    the dense decode ones of phases 6 and 2f, the quantizer ones of the
    WOQ phases and 2f), then the last line
@@ -4561,6 +4579,208 @@ def parallel_phase(dev, card, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 8i: pipeline parallelism on one card
+# ---------------------------------------------------------------------------
+PIPE_STAGES, PIPE_M = 4, 8     # the pp-4 split of 32 layers; M predicted
+
+
+def pipeline_phase(dev, card):
+    """Phase 8i: (a) ``TransformerLM.loss_and_grads`` through the 1F1B
+    schedule at a pp-1 topology against the engine's stage-0 step on
+    phase 8's model, weights and batch; (b) one middle stage of a pp-4
+    split of Mistral-7B's 32 layers (8 layers, the replicated embedding,
+    norm and head, AdamW state resident): its forward and backward slots
+    through the schedule's stage function with a 7-deep stash, the state
+    bytes, and the step time 14 ticks predict at M 8 (a prediction for a
+    4-card run). Returns the flash launches of both."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_7b
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+    from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
+                                                       TopologyConfig)
+    from deepspeed_tpu_torch.runtime.engine import _flatten
+    from deepspeed_tpu_torch.runtime.pipe.pipeline import backward_slot
+
+    t_phase = time.perf_counter()
+    gib = 2 ** 30
+    cfg = dataclasses.replace(mistral_7b(), num_layers=4)
+    L, gas = cfg.num_layers, 2
+    rng = np.random.default_rng(4)          # phase 8's fixed batch
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (gas, TRAIN_B, TRAIN_S))}
+    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=gas,
+                  telemetry={"enabled": False})
+    # phase 8's engine, seed and weights
+    eng, *_ = deepspeed_tpu_torch.initialize(model=TransformerLM(cfg),
+                                             config=config)
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for kfn in kernels:
+        kfn.launches = 0
+    # -- (a) the engine's stage-0 step up to its reduced gradients ---------
+    got = {}
+
+    def capture(acc, shards, scale, lr, events=None, inv=None):
+        got["acc"] = acc       # the engine's own buffers; no update runs
+        return True, torch.zeros((), device=dev), None
+
+    eng._apply_grads = capture
+    eng.train_batch(batch=batch)           # warm-up: the same step again
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref_loss = eng.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    ref_peak = (torch.cuda.max_memory_allocated() - base) / gib
+    ref = [a.div_(gas) for a in got.pop("acc")]   # the unscale by 1 / gas
+    eng_launches = {k.__name__: k.launches // 2 for k in kernels}
+    # -- (a) the same micro-batches through the 1F1B schedule ------------
+    model = eng.model
+    model.set_topology(eng.topology)       # pp 1
+    dev_batch = eng._shard_batch(batch)
+    params = eng._model_params()
+    for kfn in kernels:
+        kfn.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = model.loss_and_grads(params, dev_batch)
+    torch.cuda.synchronize()
+    pp_ms = (time.perf_counter() - t0) * 1e3
+    pp_peak = (torch.cuda.max_memory_allocated() - base) / gib
+    launches = {k.__name__: k.launches for k in kernels}
+    names = [n for n, _ in _flatten(grads)]
+    errs, equal = {}, True
+    for n, g, r in zip(names, (g for _, g in _flatten(grads)), ref):
+        errs[n] = ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)
+                   ).item()
+        equal = equal and torch.equal(g, r)
+    worst = max(errs, key=errs.get)
+    loss_gap = abs(float(loss) - ref_loss)
+    want = {"flash_fwd": 2 * L * gas, "flash_bwd_dq": L * gas,
+            "flash_bwd_dkv": L * gas}
+    log(f"8i (a): 1F1B at pp 1 (mistral_7b width, L={L}, bf16, remat, "
+        f"micro {TRAIN_B} x M {gas} x S {TRAIN_S}): loss {float(loss)!r} "
+        f"against the engine's stage-0 step {ref_loss!r} (gap "
+        f"{loss_gap:.3e}); gradients: worst |1F1B - engine| / max "
+        f"|engine| {errs[worst]:.3e} ({worst}; tolerance 2e-2), every leaf "
+        f"torch.equal: {equal}; flash launches {launches} (predicted "
+        f"{want}; the engine's step {eng_launches}); ms 1F1B {pp_ms:.1f}, "
+        f"engine step to its gradients {ref_ms:.1f} (its second; phase 8's "
+        f"step includes the update); peak above the resident state 1F1B "
+        f"{pp_peak:.2f} GiB, engine {ref_peak:.2f} GiB [{card}]")
+    model.set_topology(None)
+    del grads, ref, params, dev_batch, got
+    eng.close()
+    del eng, model
+    comm.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = []
+    if errs[worst] > 2e-2 or not np.isfinite(float(loss)):
+        bad.append(f"gradient {worst} differs by {errs[worst]:.3e}")
+    if loss_gap > 1e-3 * abs(ref_loss):
+        bad.append(f"loss {float(loss)} against {ref_loss}")
+    if launches != want:
+        bad.append(f"launches {launches} != {want}")
+    # -- (b) a middle stage of the pp-4 split of 32 layers ----------------
+    full = mistral_7b()
+    pp, k = PIPE_STAGES, full.num_layers // PIPE_STAGES
+    stage = 1
+    model = TransformerLM(full)
+    model.set_topology(MeshTopology(TopologyConfig(pipe=pp), world_size=pp,
+                                    rank=stage))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = TransformerLM(dataclasses.replace(full, num_layers=k)
+                           ).init_params(gen, dtype=torch.bfloat16)
+    leaves = [v.requires_grad_(True) for _, v in _flatten(params)]
+    n_params = sum(v.numel() for v in leaves)
+    # the resident AdamW state: f32 master, m and v, and the engine's f32
+    # gradient buffers, which the schedule accumulates into (18 bytes a
+    # parameter with the bf16 copy)
+    master = [v.detach().float() for v in leaves]
+    opt = build_optimizer("adamw", {"lr": 3e-4})
+    state = opt.init_state(master)
+    acc = [torch.zeros_like(m) for m in master]
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      leaves + master + acc
+                      + [x for v in state.values() for x in v])
+    stage_fn = model.stage_function(stage, TRAIN_S, torch.bfloat16, dev)
+    ids = torch.as_tensor(batch["input_ids"][0], device=dev)
+    hshape = (TRAIN_B, TRAIN_S, full.hidden_size)
+    stash = [torch.randn(hshape, generator=gen, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2 * pp - 1)]
+    cot = torch.randn(hshape, generator=gen, device=dev,
+                      dtype=torch.bfloat16) * 1e-3
+    for kfn in kernels:
+        kfn.launches = 0
+
+    def fwd_slot():
+        with torch.no_grad():
+            return stage_fn(params, ids, stash[0])
+
+    def run(x_raw, h):
+        return stage_fn(params, x_raw, h), None
+
+    diff = list(range(len(leaves)))
+
+    def bwd_slot():
+        # the schedule's own slot: a middle stage reads neither the
+        # embedding nor the head (their gradients stay None)
+        _, gh = backward_slot(run, params, leaves, diff, acc, ids, stash[-1],
+                              cot=cot)
+        return gh.to(torch.bfloat16)
+
+    fwd_ms = cuda_median_ms(fwd_slot)
+    out = fwd_slot()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bwd_ms = cuda_median_ms(bwd_slot)
+    gh = bwd_slot()
+    peak = torch.cuda.max_memory_allocated() / gib
+    upd_ms = cuda_median_ms(lambda: opt.apply(master, acc, state, 1,
+                                              lr=3e-4))
+    b_launches = {kf.__name__: kf.launches for kf in kernels}
+    ticks = PIPE_M + 2 * (pp - 1)
+    predicted = ticks * (fwd_ms + bwd_ms) + upd_ms
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(gh).all())
+    log(f"8i (b): stage {stage} of a pp-{pp} split of mistral_7b's "
+        f"{full.num_layers} layers: {k} layers + embedding, norm and head, "
+        f"{n_params / 1e9:.3f} B params, state {state_bytes / 1e9:.2f} GB "
+        f"resident (bf16 params, f32 master, m, v, gradient accumulator; "
+        f"reckoned ~36 GB at 18 B a parameter); a {2 * pp - 1}-deep stash "
+        f"of [{TRAIN_B}, {TRAIN_S}, {full.hidden_size}] bf16; forward slot "
+        f"{fwd_ms:.2f} ms, backward slot {bwd_ms:.2f} ms, AdamW update "
+        f"{upd_ms:.2f} ms (CUDA events, median of 3); peak "
+        f"{peak:.2f} GiB; outputs finite {finite}; flash launches "
+        f"{b_launches}; PREDICTION for a {pp}-card run (not a "
+        f"measurement): {ticks} ticks x (forward + backward) + update = "
+        f"{predicted:.1f} ms a step at M {PIPE_M} "
+        f"({PIPE_M * TRAIN_B * TRAIN_S} tokens) [{card}]")
+    if not finite:
+        bad.append("stage outputs not finite")
+    if peak > 79:
+        bad.append(f"peak {peak:.2f} GiB")
+    del params, leaves, master, state, acc, stash, out, gh
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {n: launches[n] + 2 * eng_launches[n] + b_launches[n]
+             for n in launches}
+    log(f"phase 8i: {time.perf_counter() - t_phase:.0f}s; flash launches "
+        f"{total}")
+    if bad:
+        raise AssertionError("phase 8i: " + "; ".join(bad))
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 8b: ZeRO-Offload and native checkpoints
 # ---------------------------------------------------------------------------
 HOST_SRC = "deepspeed_tpu_torch/csrc/host/"
@@ -6118,6 +6338,8 @@ def main() -> int:
     for k, n in parallel_phase(dev, card, stage3_two_steps).items():
         launches[k] += n
     del stage3_two_steps
+    for k, n in pipeline_phase(dev, card).items():
+        launches[k] += n
     t0 = time.perf_counter()
     offload_launches, host_ops = offload_phase(dev)
     log(f"phase 8b: {time.perf_counter() - t0:.0f}s; flash launches of the "

@@ -43,8 +43,13 @@ engine reports to the metrics registry, the flight recorder, the anomaly
 detector and the monitor backends (``monitor/``), loads universal
 checkpoints (``checkpoint/universal.py``, also a CLI), and has the
 ``forward`` / ``backward`` / ``step`` shims; ``runtime/checkpoint_engine``
-holds the synchronous and background checkpoint writers. Still raising:
-ZeRO-Infinity at more than one rank (ROADMAP A9), the pipeline (A8),
+holds the synchronous and background checkpoint writers. Pipeline
+parallelism (``pipeline.stages`` > 1, ``runtime/pipe/``): the 1F1B
+schedule over the ranks of the pipe axis trains ``TransformerLM`` or a
+``PipelineModule`` of ``LayerSpec`` / ``TiedLayerSpec`` layers, with
+ZeRO-1, tensor, sequence and expert parallelism and the optimizer
+offload. Still raising:
+ZeRO-Infinity at more than one rank (ROADMAP A9),
 ZeRO++ (A10), the other remat
 policies (A3); ``init_inference(use_ragged=True, checkpoint=...)``
 raises as in the JAX package. Entry points run on the GPU unless the
@@ -74,6 +79,8 @@ from .pipeline import ServePipeline, pipeline  # noqa: F401
 from .runtime.config import DeepSpeedConfig  # noqa: F401
 from .runtime.engine import DeepSpeedTpuEngine  # noqa: F401
 from .runtime.lr_schedules import LRScheduler  # noqa: F401
+from .runtime.pipe import (LayerSpec, PipelineModule,  # noqa: F401
+                           TiedLayerSpec)
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

@@ -18,8 +18,11 @@ Port of ``deepspeed_tpu/comm/comm.py`` (``init_distributed`` :41,
    (:func:`set_axis_groups`), and those axis names then resolve to them. The tensor-parallel pair :func:`tp_copy` /
    :func:`tp_reduce` (autograd functions), the Ulysses
    :func:`seq_all_to_all` and the ring's :func:`permute` /
-   :func:`send_next` / :func:`send_prev` run over those groups; the
-   pipeline's p2p stays ROADMAP A8.
+   :func:`send_next` / :func:`send_prev` run over those groups, and so do
+   the pipeline's point-to-point transfers over the pipe axis:
+   :func:`exchange` (one ``batch_isend_irecv`` of a tick's sends and
+   receives, the 1F1B schedule's) and :func:`permute_grad` (``permute``
+   whose backward is the opposite permute, JAX's VJP of ``ppermute``).
 
 At world 1 without a process group every collective is local (a copy or
 nothing); with a group, even at world 1, it runs on the backend, so the
@@ -40,10 +43,9 @@ from ..utils.logging import logger
 
 _comms_logger = None
 
-_UNPORTED = "ROADMAP A8 (parallel modes)"
 # mesh axes that default to the data-parallel world
 _DATA_AXES = ("data", "shard", "expert")
-# this rank's process group of the model and seq axes of the current
+# this rank's process group of the model, seq and pipe axes of the current
 # topology (``parallel/topology.MeshTopology`` registers them)
 _AXIS_GROUPS = {}
 
@@ -252,10 +254,6 @@ def resolve_group(group=None, axis_name="data"):
     if key in _AXIS_GROUPS:
         return _AXIS_GROUPS[key]
     names = key if isinstance(key, tuple) else (key,)
-    if "pipe" in names:
-        raise NotImplementedError(
-            f"collectives over the pipeline mesh axis are not ported to "
-            f"deepspeed_tpu_torch yet ({_UNPORTED})")
     bad = [a for a in names if a not in _DATA_AXES]
     if bad:
         if dist.is_initialized() and dist.get_world_size() > 1:
@@ -392,20 +390,26 @@ all_to_all = all_to_all_single
 
 class _TPCopy(torch.autograd.Function):
     """Identity forward, all-reduce (sum) backward: a replicated activation
-    entering a column-parallel region (Megatron's ``f``)."""
+    entering a column-parallel region (Megatron's ``f``). Over several
+    tensors it is one node: its backward runs once, when every output's
+    gradient is in (a zero for an unused one), and reduces them in the
+    inputs' order, the same on every rank."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, group, *xs):
         ctx.group = group
-        return x.view_as(x)
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        if get_world_size(ctx.group) > 1:
-            g = g.clone()
-            dist.all_reduce(g, group=ctx.group)
-        return g, None
+    def backward(ctx, *gs):
+        out = []
+        for g in gs:
+            g = g.contiguous()
+            if get_world_size(ctx.group) > 1:
+                g = g.clone()
+                dist.all_reduce(g, group=ctx.group)
+            out.append(g)
+        return (None, *out)
 
 
 class _TPReduce(torch.autograd.Function):
@@ -426,13 +430,16 @@ class _TPReduce(torch.autograd.Function):
         return g, None
 
 
-def tp_copy(x: torch.Tensor, axis_name="model", group=None) -> torch.Tensor:
+def tp_copy(x, axis_name="model", group=None):
     """Identity forward / all-reduce backward over the model group (JAX
-    :224); the identity at one rank."""
+    :224); the identity at one rank. ``x``: a tensor, or a list of them
+    (returned as a list, their gradients reduced by one node)."""
     group = resolve_group(group, axis_name)
     if get_world_size(group) <= 1:
         return x
-    return _TPCopy.apply(x, group)
+    if isinstance(x, (list, tuple)):
+        return list(_TPCopy.apply(group, *x))
+    return _TPCopy.apply(group, x)[0]
 
 
 def tp_reduce(x: torch.Tensor, axis_name="model", group=None) -> torch.Tensor:
@@ -491,16 +498,32 @@ def _global_rank(group, r: int) -> int:
     return dist.get_global_rank(group, r) if group is not None else r
 
 
+def exchange(sends=(), recvs=(), axis_name="pipe", group=None):
+    """Point-to-point transfers over an axis's group in one
+    ``batch_isend_irecv``: ``sends`` are ``(tensor, dst)``, ``recvs``
+    ``(out, src)`` (group ranks); the receives land in their ``out``
+    tensors. Both ends of each transfer must name it in the same call
+    (the pipeline derives both from one tick table). At one rank nothing
+    may cross."""
+    group = resolve_group(group, axis_name)
+    ops = [dist.P2POp(dist.isend, t.contiguous(), _global_rank(group, d),
+                      group) for t, d in sends]
+    ops += [dist.P2POp(dist.irecv, o, _global_rank(group, s), group)
+            for o, s in recvs]
+    if not ops:
+        return
+    if get_world_size(group) == 1:
+        raise ValueError("exchange: a transfer at one rank")
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+
+
 def permute(x, perm=None, axis_name="pipe", group=None):
     """``lax.ppermute``: each ``(src, dst)`` of ``perm`` (group ranks)
     sends ``src``'s tensor to ``dst``; a rank no pair sends to gets
     zeros. ``x`` is a tensor, or a list of tensors that all travel in
-    one ``batch_isend_irecv`` (a list comes back). The pipeline axis (the
-    JAX default) has no group in the port: ROADMAP A8."""
-    if axis_name == "pipe" and group is None:
-        raise NotImplementedError(
-            f"comm.permute over the pipeline axis is not ported to "
-            f"deepspeed_tpu_torch yet ({_UNPORTED})")
+    one ``batch_isend_irecv`` (a list comes back). The pipe axis is the
+    JAX default."""
     group = resolve_group(group, axis_name)
     many = isinstance(x, (list, tuple))
     xs = [t.contiguous() for t in (x if many else [x])]
@@ -510,23 +533,39 @@ def permute(x, perm=None, axis_name="pipe", group=None):
         return outs if many else outs[0]
     me = dist.get_rank(group)
     outs = [torch.zeros_like(t) for t in xs]
-    ops = []
-    for s, d in perm:
-        for t, o in zip(xs, outs):
-            if s == me:
-                ops.append(dist.P2POp(dist.isend, t, _global_rank(group, d),
-                                      group))
-            if d == me:
-                ops.append(dist.P2POp(dist.irecv, o, _global_rank(group, s),
-                                      group))
-    for w in dist.batch_isend_irecv(ops) if ops else []:
-        w.wait()
+    exchange([(t, d) for s, d in perm if s == me for t in xs],
+             [(o, s) for s, d in perm if d == me for o in outs],
+             group=group)
     return outs if many else outs[0]
 
 
+class _Permute(torch.autograd.Function):
+    """``permute`` forward; the opposite permute of the cotangent
+    backward (JAX's VJP of ``ppermute``). ``token`` orders the nodes: it
+    passes from each permute to the next, so every rank runs the
+    backward permutes in the reverse of the forward order."""
+
+    @staticmethod
+    def forward(ctx, x, token, perm, group):
+        ctx.perm, ctx.group = perm, group
+        return permute(x, perm, group=group), token.clone()
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        back = [(d, s) for s, d in ctx.perm]
+        return permute(g, back, group=ctx.group), g_token, None, None
+
+
+def permute_grad(x, perm, token, axis_name="pipe", group=None):
+    """Differentiable :func:`permute`: returns ``(received, token)``.
+    Thread one ``token`` (a 0-d tensor that requires grad) through a
+    sequence of calls and add the last one, times 0, to the loss: the
+    backward permutes then run in reverse order on every rank, as
+    point-to-point pairs must."""
+    return _Permute.apply(x, token, perm, resolve_group(group, axis_name))
+
+
 def _axis_world(axis_name, group) -> int:
-    if axis_name == "pipe" and group is None:
-        return 1        # permute raises
     return get_world_size(resolve_group(group, axis_name))
 
 

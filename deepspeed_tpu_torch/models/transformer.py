@@ -436,6 +436,9 @@ class TransformerLM:
 
     # the stacked [L, ...] subtree the layer loop walks (JAX :387)
     param_offload_keys = ("layers",)
+    # pp x ep composes: inside the 1F1B schedule the MoE layers dispatch
+    # through moe_layer_manual (JAX :380)
+    supports_pp_ep = True
 
     @property
     def supports_param_offload(self) -> bool:
@@ -472,14 +475,26 @@ class TransformerLM:
         self.topology = None
         self._tp = (1, 0, None)
         self._sp = (1, 0, None)
+        self._pp = (1, 0, None)
+        # set while the 1F1B schedule or the pipelined forward runs (JAX
+        # ``_inside_manual_pipe``): MoE layers then dispatch through
+        # ``moe_layer_manual`` at ep > 1
+        self._inside_manual_pipe = False
 
     def set_topology(self, topo):
-        """Run on ``topo``'s model and seq groups (JAX :400); the leaves
-        the model is given are then this rank's tensor-parallel slices."""
+        """Run on ``topo``'s model, seq and pipe groups (JAX :400); the
+        leaves the model is given are then this rank's tensor-parallel
+        slices, and under a pipe axis > 1 its stage's ``[L / pp, ...]``
+        slice of the layer stack (JAX ``param_partition_specs`` :487-530
+        puts ``pipe`` on dim 0 of every layer leaf)."""
         self.topology = topo
         tp = topo.axis_size("model") if topo is not None else 1
         sp = topo.axis_size("seq") if topo is not None else 1
+        pp = topo.axis_size("pipe") if topo is not None else 1
         check_tp(self.cfg, tp)
+        if pp > 1 and self.cfg.num_layers % pp:
+            raise ValueError(f"num_layers={self.cfg.num_layers} is not "
+                             f"divisible by the pipeline stages {pp}")
         if sp > 1 and self.cfg.moe_num_experts > 0:
             raise NotImplementedError(
                 "MoE layers under sequence parallelism are not ported to "
@@ -488,11 +503,20 @@ class TransformerLM:
                     else (1, 0, None))
         self._sp = ((sp, topo.sp_rank, topo.group("seq")) if sp > 1
                     else (1, 0, None))
+        self._pp = ((pp, topo.pp_rank, topo.group("pipe")) if pp > 1
+                    else (1, 0, None))
 
     @property
     def tp_shard_dims(self) -> Dict[str, Optional[int]]:
         """The leaves' tensor-parallel dimensions (:func:`tp_shard_dims`)."""
         return tp_shard_dims(self.cfg)
+
+    @property
+    def pipe_shard_dims(self) -> Dict[str, int]:
+        """The leaves cut over the pipe axis: every layer leaf on its layer
+        dimension (JAX ``param_partition_specs``)."""
+        return {k: 0 for k in tp_shard_dims(self.cfg)
+                if k.startswith("layers/")}
 
     # -- tensor-parallel hooks (identities at tp 1) ------------------------
     def _col(self, x):
@@ -645,13 +669,20 @@ class TransformerLM:
         residual = tuple(lp[k] for k in ("res_gate", "res_up", "res_down",
                                          "res_coef_w", "res_coef_b")) \
             if cfg.moe_use_residual else None
+        manual = (self._inside_manual_pipe and self.moe_groups is not None
+                  and self.moe_groups.ep > 1)
+        if manual and cfg.moe_dropless:
+            raise NotImplementedError(
+                "dropless MoE is not supported inside the manual pipeline "
+                "program with ep>1 (use capacity routing for pp x ep)")
         return moe_mlp(hn, lp["moe_gate_w"],
                        (lp["e_gate"], lp["e_up"], lp["e_down"]), experts_fn,
                        self.moe_groups, top_k=cfg.moe_top_k,
                        capacity_factor=cfg.moe_capacity_factor,
                        min_capacity=cfg.moe_min_capacity,
                        dropless=cfg.moe_dropless, residual=residual,
-                       ragged_expert_fn=ragged_fn, dense_fn=experts_fn)
+                       ragged_expert_fn=ragged_fn, dense_fn=experts_fn,
+                       manual=manual)
 
     def _layer(self, x, lp, cos, sin):
         """One layer: (output, the MoE aux loss or None)."""
@@ -695,19 +726,11 @@ class TransformerLM:
         inside the configured activation checkpoint."""
         cfg = self.cfg
         self._check_trainable()
-        x = self._embed(params["embed"], input_ids)
-        if cfg.embed_scale != 1.0:
-            x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
         S = input_ids.shape[1]
         # under sequence parallelism input_ids is this rank's chunk
         start = self._sp[1] * S
-        if cfg.positional == "learned":
-            x = x + params["pos_embed"][start:start + S][None]
-        if cfg.positional == "rope":
-            cos, sin = _rope_tables(cfg, S, start, device=x.device)
-            cos, sin = cos.to(x.dtype), sin.to(x.dtype)
-        else:
-            cos = sin = torch.zeros((S, 1), dtype=x.dtype, device=x.device)
+        x = self._embed_tokens(params, input_ids, start)
+        cos, sin = self._rope(S, x.dtype, x.device, start)
         layer, gather = self._layer, self.layer_gather
         stream = self.host_stream if self.stream_params_from_host else None
 
@@ -744,6 +767,181 @@ class TransformerLM:
         x = self._norm(x, params["final_norm"], params.get("final_norm_b"))
         return x, (torch.mean(torch.stack(auxs)) if auxs else None)
 
+    # -- pipeline parallelism (JAX :793-996) ------------------------------
+    def _stage_layers(self, x, layers, cos, sin):
+        """This stage's layers (the ``[L / pp, ...]`` leaves) on ``x``:
+        (output, the sum of their MoE aux losses or None)."""
+        body = self._layer
+        if self.cfg.remat:
+            from ..runtime.activation_checkpointing import \
+                checkpointing as ds_ckpt
+            body = ds_ckpt.checkpoint_wrapper(body)
+        views = {k: torch.unbind(v) for k, v in layers.items()}
+        aux = None
+        for l in range(len(next(iter(views.values())))):
+            x, a = body(x, {k: v[l] for k, v in views.items()}, cos, sin)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
+
+    def _embed_tokens(self, params, ids, start: int = 0):
+        """The embedding of ``ids`` (positions ``start`` on), scaled, with
+        the learned positions added."""
+        x = self._embed(params["embed"], ids)
+        if self.cfg.embed_scale != 1.0:
+            x = x * torch.tensor(self.cfg.embed_scale, dtype=x.dtype)
+        if self.cfg.positional == "learned":
+            S = ids.shape[-1]
+            x = x + params["pos_embed"][start:start + S].to(x.dtype)
+        return x
+
+    def _rope(self, S, dtype, device, start: int = 0):
+        """(cos, sin) at positions ``start`` .. ``start + S - 1`` in
+        ``dtype`` (zeros [S, 1] without RoPE)."""
+        if self.cfg.positional == "rope":
+            cos, sin = _rope_tables(self.cfg, S, start, device=device)
+            return cos.to(dtype), sin.to(dtype)
+        z = torch.zeros((S, 1), dtype=dtype, device=device)
+        return z, z
+
+    def _stage_aux(self, aux):
+        """A stage's pre-scaled share of the layer-mean aux loss."""
+        return (self.cfg.moe_aux_loss_coef * aux / self.cfg.num_layers
+                ).float()
+
+    def stage_function(self, stage: int, S: int, dtype, device):
+        """The 1F1B schedule's stage function ``(params, ids_mb, h) ->
+        h_out`` of pipeline stage ``stage`` at sequence length ``S``:
+        stage 0 embeds ``ids_mb``, the others read ``h``; then this rank's
+        ``L / pp`` layers (remat as configured). An MoE model returns
+        ``(h_out, this stage's pre-scaled share of the aux loss)``."""
+        cos, sin = self._rope(S, dtype, device)
+        moe = self.cfg.moe_num_experts > 0
+
+        def stage_fn(p, ids_mb, h):
+            x = self._embed_tokens(p, ids_mb) if stage == 0 else h
+            out, aux = self._stage_layers(x, p["layers"], cos, sin)
+            return (out, self._stage_aux(aux)) if moe else out
+
+        return stage_fn
+
+    def loss_and_grads(self, params, batch, rng=None, grad_acc=None):
+        """(loss, grads) through the 1F1B schedule (``runtime/pipe/
+        pipeline.pipeline_1f1b``), the training path at pp > 1 (JAX
+        :883-996). ``batch``: this rank's ``{input_ids [M, b, S],
+        optional loss_mask}``. Stage 0 embeds, each stage runs its
+        ``L / pp`` layers (remat as configured), the last stage takes the
+        final norm, the head and the chunked cross-entropy of each
+        micro-batch; an MoE stage differentiates its share of the aux loss
+        in its own backward slot. The layer leaves' gradients stay on
+        their stage; every other leaf's is summed over the pipe group.
+        The data-parallel mean is the engine's (JAX ``dp_reduce``).
+        ``grad_acc``: the caller's f32 buffers the gradients accumulate
+        in (``pipeline_1f1b``)."""
+        from ..runtime.pipe.pipeline import pipeline_1f1b
+
+        cfg = self.cfg
+        self._check_trainable()
+        pp, stage, group = self._pp
+        ids = batch["input_ids"]
+        M, B, S = ids.shape
+        mask = batch.get("loss_mask")
+        moe = cfg.moe_num_experts > 0
+        dtype = params["embed"].dtype
+        stage_fn = self.stage_function(stage, S, dtype, ids.device)
+
+        def loss_fn(p, ys, ids_mb, *m_mb):
+            # per-micro-batch masked mean, averaged over micro-batches by
+            # the schedule (the engine's GAS mean-of-means)
+            ys = self._norm(ys, p["final_norm"], p.get("final_norm_b"))
+            _, head, _ = self._head_inputs(p, ys)
+            m = (m_mb[0][:, 1:].float() if m_mb else
+                 torch.ones(ids_mb[:, 1:].shape, dtype=torch.float32,
+                            device=ids_mb.device))
+            total, count = _chunked_ce_loss(ys[:, :-1], ids_mb[:, 1:], m,
+                                            head, cfg.loss_chunk)
+            return total / torch.clamp(count, min=1.0)
+
+        # the layer stack is cut over the pipe axis; every other leaf is
+        # replicated over it (the mask's default)
+        reduce_mask = {"layers": {n: False for n in params["layers"]}}
+        self._inside_manual_pipe = True
+        try:
+            return pipeline_1f1b(
+                stage_fn, loss_fn, params, ids, pp,
+                h_spec=((B, S, cfg.hidden_size), dtype),
+                loss_args=(ids,) + ((mask,) if mask is not None else ()),
+                pipe_reduce_mask=reduce_mask, stage_aux=moe, group=group,
+                grad_acc=grad_acc)
+        finally:
+            self._inside_manual_pipe = False
+
+    def _apply_pipelined(self, params, batch, train: bool = True, rng=None):
+        """The pipelined loss (JAX :793-880): ``{input_ids [M, b, S]}``
+        through ``pipeline_scan``, then the last stage's masked mean over
+        all M micro-batches, broadcast to every stage (plus the stages'
+        aux). Eval, and the fp16 path, which differentiates it through
+        the schedule's permutes. Under autograd the gradients are whole:
+        a stage holds its slice of the layer stack, and each replicated
+        leaf (embedding, norm, head) passes through one ``tp_copy`` over
+        the pipe group, whose backward sums the stages' contributions
+        (JAX: the transpose of the shard_map's replicated inputs)."""
+        from ..runtime.pipe.pipeline import (broadcast_from_last,
+                                             pipeline_scan)
+
+        cfg = self.cfg
+        self._check_trainable()
+        pp, stage, group = self._pp
+        if torch.is_grad_enabled():
+            rep = sorted(k for k in params if k != "layers")
+            params = dict(params, **dict(zip(rep, comm.tp_copy(
+                [params[k] for k in rep], axis_name="pipe", group=group))))
+        ids = batch["input_ids"]
+        M, B, S = ids.shape
+        moe = cfg.moe_num_experts > 0
+        dtype = params["embed"].dtype
+        cos, sin = self._rope(S, dtype, ids.device)
+        if stage == 0:
+            x = self._embed_tokens(params, ids)
+        else:       # stage 0 alone reads the micro-batches
+            x = torch.zeros((1, B, S, cfg.hidden_size), dtype=dtype,
+                            device=ids.device).expand(M, -1, -1, -1)
+
+        def stage_fn(h):
+            out, aux = self._stage_layers(h, params["layers"], cos, sin)
+            return (out, self._stage_aux(aux)) if moe else out
+
+        self._inside_manual_pipe = True
+        try:
+            r = pipeline_scan(stage_fn, x, pp, remat=False, stage_aux=moe,
+                              group=group, anchor=params["final_norm"])
+        finally:
+            self._inside_manual_pipe = False
+        ys, aux_sum = r if moe else (r, None)
+        if stage == pp - 1:
+            ys = self._norm(ys, params["final_norm"],
+                            params.get("final_norm_b"))
+            _, head, bias = self._head_inputs(params, ys)
+            mask = batch.get("loss_mask")
+            m = (mask[..., 1:].float() if mask is not None else
+                 torch.ones(ids[..., 1:].shape, dtype=torch.float32,
+                            device=ids.device))
+            total = count = 0.0
+            for i in range(M):
+                t_i, c_i = _chunked_ce_loss(ys[i, :, :-1], ids[i, :, 1:],
+                                            m[i], head, cfg.loss_chunk,
+                                            bias=bias)
+                total, count = total + t_i, count + c_i
+            loss_local = total / torch.clamp(count, min=1.0)
+        else:       # no loss here; the graph still reaches the outputs
+            loss_local = ys.float().sum() * 0
+        loss = broadcast_from_last(loss_local, pp, group)
+        if aux_sum is not None:
+            # every stage contributed aux for its own layers
+            loss = loss + comm.tp_reduce(aux_sum, axis_name="pipe",
+                                         group=group) / M
+        return loss
+
     def _head_inputs(self, params, x):
         """(hidden, head matrix, logit bias) of the causal LM head."""
         head = (params["embed"].T if self.cfg.tie_embeddings
@@ -767,6 +965,9 @@ class TransformerLM:
             raise NotImplementedError(
                 "PPO learner batches are not ported to deepspeed_tpu_torch "
                 "yet (ROADMAP A11)")
+        if self._pp[0] > 1:
+            # input_ids [M, b, S] through the pipeline (JAX :1011-1016)
+            return self._apply_pipelined(params, batch, train=train, rng=rng)
         ids = batch["input_ids"]
         mask = batch.get("loss_mask")
         mask = (mask[:, 1:].float() if mask is not None

@@ -35,8 +35,9 @@ offsets on the device (``torch._grouped_mm``, JAX's ``ragged_dot``), so
 a decode window reads no size on the host. ``moe_mlp`` is the training
 layer shared by ``TransformerLM`` and the ``MoE`` facade.
 
-``moe_layer_manual`` (pp x ep inside the 1F1B program) waits for the
-pipeline (ROADMAP A8).
+Inside the 1F1B schedule (pp x ep) the layer dispatches through
+``moe_layer_manual`` (JAX :160): the same exchange with the gating local
+to this rank's tokens, as in the JAX package's manual pipeline program.
 """
 
 import math
@@ -305,12 +306,27 @@ def moe_layer(x, gate_w, expert_params, expert_fn,
     return out.reshape(B, S, H), r.aux.float()
 
 
-def moe_layer_manual(*args, **kwargs):
-    """pp x ep inside the 1F1B program (JAX :160)."""
-    raise NotImplementedError(
-        "moe_layer_manual (expert parallelism inside the 1F1B pipeline "
-        "program) is not ported to deepspeed_tpu_torch yet (ROADMAP A8, "
-        "pipeline)")
+def moe_layer_manual(x, gate_w, expert_params_local, expert_fn,
+                     groups: Optional[MoEGroups] = None, top_k: int = 1,
+                     capacity_factor: float = 1.0, min_capacity: int = 4,
+                     generator=None, noisy_gate_policy: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE with the explicit all-to-all dispatch for the
+    1F1B schedule (JAX :160): capacity routing of this rank's tokens alone
+    (capacity, positions and the aux loss local, no collective over the
+    data ranks) into ``[E, C, H]``, one ``all_to_all_single`` to the
+    expert owners of ``groups.expert_group``, the local experts on
+    ``[E / ep, ep * C, H]``, and one back. ``expert_params_local``: this
+    rank's ``E / ep`` experts. Returns (output [B, S, H], aux f32)."""
+    E, ep = gate_w.shape[-1], _ep(groups)
+    if E % ep:
+        raise ValueError(f"num_experts {E} not divisible by ep {ep}")
+    local = (MoEGroups(None, 1, 0, groups.expert_group, ep, groups.ep_rank)
+             if ep > 1 else None)
+    return moe_layer(x, gate_w, expert_params_local, expert_fn, local,
+                     top_k=top_k, capacity_factor=capacity_factor,
+                     min_capacity=min_capacity, generator=generator,
+                     noisy_gate_policy=noisy_gate_policy)
 
 
 def swiglu_experts(expert_params, xe):
@@ -480,7 +496,8 @@ def moe_mlp(x, gate_w, expert_params, expert_fn,
             capacity_factor: float = 1.0, min_capacity: int = 4,
             dropless: bool = False, residual=None, generator=None,
             noisy_gate_policy: Optional[str] = None, ragged_expert_fn=None,
-            dense_fn=swiglu_experts) -> Tuple[torch.Tensor, torch.Tensor]:
+            dense_fn=swiglu_experts, manual: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed MLP of a training MoE layer, shared by
     ``TransformerLM`` (JAX ``transformer.py:640-697``) and the ``MoE``
     facade (JAX ``layer.py``): capacity routing (:func:`moe_layer`), or
@@ -488,7 +505,9 @@ def moe_mlp(x, gate_w, expert_params, expert_fn,
     ``ragged_expert_fn``; at ep > 1 the worst-case capacity of
     :func:`moe_layer_dropless_ep`), then the residual MoE's SwiGLU dense
     branch ``dense_fn`` where ``residual`` holds ``(res_gate, res_up,
-    res_down, coef_w, coef_b)``. x: [B, S, H]. Returns (output, aux)."""
+    res_down, coef_w, coef_b)``. ``manual``: the capacity routing of the
+    1F1B schedule at ep > 1 (:func:`moe_layer_manual`). x: [B, S, H].
+    Returns (output, aux)."""
     if dropless and _ep(groups) > 1:
         out, aux = moe_layer_dropless_ep(
             x, gate_w, expert_params, expert_fn, groups, generator=generator,
@@ -498,7 +517,7 @@ def moe_mlp(x, gate_w, expert_params, expert_fn,
             x, gate_w, expert_params, ragged_expert_fn, groups=groups,
             generator=generator, noisy_gate_policy=noisy_gate_policy)
     else:
-        out, aux = moe_layer(
+        out, aux = (moe_layer_manual if manual else moe_layer)(
             x, gate_w, expert_params, expert_fn, groups, top_k=top_k,
             capacity_factor=capacity_factor, min_capacity=min_capacity,
             generator=generator, noisy_gate_policy=noisy_gate_policy)

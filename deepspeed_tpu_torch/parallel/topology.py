@@ -16,8 +16,10 @@ axis (the within-group ZeRO axis) and the ``data`` axis (the replica
 groups), as JAX does (:84-99). Every rank builds every group of the axis
 sets the engines use (``torch.distributed.new_group`` is collective) and
 keeps its own; a group spanning the whole world is the default group
-(None). A pipeline axis > 1 raises (ROADMAP A8), as does ZeRO++ hpZ
-(A10).
+(None). The pipeline axis (``pipe``, outermost) holds the stages of the
+1F1B schedule (``runtime/pipe/``); it is never a data axis, so the batch,
+the ZeRO shard and the data-parallel world exclude it (JAX
+``runtime/config.py:576-580``). ZeRO++ hpZ raises (ROADMAP A10).
 """
 
 from dataclasses import dataclass
@@ -47,7 +49,6 @@ class TopologyConfig:
 
 
 _UNPORTED_AXES = (
-    ("pipe", "pipeline parallelism", "A8 (parallel modes)"),
     ("hpz_shard", "ZeRO++ hpZ (zero_hpz_partition_size)", "A10 (ZeRO++)"),
 )
 
@@ -74,10 +75,10 @@ class MeshTopology:
         self.topo = topo
         self.world = comm.get_world_size() if world_size is None else world_size
         self.rank = comm.get_rank() if rank is None else rank
-        mp = topo.model * topo.seq * topo.expert
+        mp = topo.pipe * topo.model * topo.seq * topo.expert
         if self.world % mp:
             raise ValueError(f"{self.world} ranks not divisible by "
-                             f"model*seq*expert={mp}")
+                             f"pipe*model*seq*expert={mp}")
         data, shard = self.world // mp, 1
         if topo.mics_shard > 1:
             if data % topo.mics_shard:
@@ -86,7 +87,7 @@ class MeshTopology:
                     f"data-parallel world of {data}")
             shard, data = topo.mics_shard, data // topo.mics_shard
         self.sizes: Dict[str, int] = {
-            PIPE_AXIS: 1, DATA_AXIS: data, SHARD_AXIS: shard,
+            PIPE_AXIS: topo.pipe, DATA_AXIS: data, SHARD_AXIS: shard,
             EXPERT_AXIS: topo.expert, SEQ_AXIS: topo.seq,
             MODEL_AXIS: topo.model,
         }
@@ -101,7 +102,8 @@ class MeshTopology:
             # the axes that name a group by themselves; an explicit None
             # group stays the default (world) group for the data axes
             comm.set_axis_groups({MODEL_AXIS: self.group(MODEL_AXIS),
-                                  SEQ_AXIS: self.group(SEQ_AXIS)})
+                                  SEQ_AXIS: self.group(SEQ_AXIS),
+                                  PIPE_AXIS: self.group(PIPE_AXIS)})
 
     # -- coordinates and groups ------------------------------------------
     def _coords_of(self, rank: int) -> Dict[str, int]:
@@ -118,8 +120,9 @@ class MeshTopology:
         return r
 
     def _used_axis_sets(self):
-        sets = [(MODEL_AXIS,), (SEQ_AXIS,), (EXPERT_AXIS,), (SHARD_AXIS,),
-                (DATA_AXIS,), (DATA_AXIS, SHARD_AXIS), self.batch_axes,
+        sets = [(PIPE_AXIS,), (MODEL_AXIS,), (SEQ_AXIS,), (EXPERT_AXIS,),
+                (SHARD_AXIS,), (DATA_AXIS,), (DATA_AXIS, SHARD_AXIS),
+                self.batch_axes,
                 self.dp_axes, self.zero_shard_axes,
                 self.batch_axes + (SEQ_AXIS,)]
         out = []
@@ -244,6 +247,15 @@ class MeshTopology:
     @property
     def tp_rank(self) -> int:
         return self.coords[MODEL_AXIS]
+
+    @property
+    def pp_size(self) -> int:
+        return self.sizes[PIPE_AXIS]
+
+    @property
+    def pp_rank(self) -> int:
+        """This rank's pipeline stage."""
+        return self.coords[PIPE_AXIS]
 
     @property
     def sp_size(self) -> int:

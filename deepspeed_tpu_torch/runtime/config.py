@@ -622,6 +622,10 @@ _PORTED = {
     # accepted as the JAX package accepts it, which reads it nowhere (its
     # config.py defines it): false changes no number
     "zero_optimization.reduce_scatter",
+    # pipeline parallelism (runtime/pipe/): the engine reads stages; the
+    # other keys are accepted and ignored, as in JAX (partition_method is
+    # PipelineModule's argument, M is gradient_accumulation_steps)
+    "pipeline",
 }
 # keys and the values that run
 _PORTED_VALUES = {"activation_checkpointing.policy": POLICIES}
@@ -658,7 +662,6 @@ _ROADMAP = {
         "A10 (quantized communication)",
     "zero_optimization.quant_block": "A10 (quantized communication)",
     "aio": "A9 (memory tiers)",
-    "pipeline": "A8 (parallel modes)",
     "activation_checkpointing": "A3 (the remaining remat policies)",
     "hybrid_engine": "A11 (RLHF and hybrid engine)",
 }
@@ -712,5 +715,6 @@ def check_ported(ds_config: DeepSpeedConfig) -> None:
                            for k, v, item in bad)
         raise NotImplementedError(
             f"config keys not ported to deepspeed_tpu_torch yet: {listed}. "
-            f"The port trains data, tensor and sequence parallel at ZeRO "
-            f"stages 0-3 (MiCS too), with optimizer and parameter offload")
+            f"The port trains data, tensor, sequence and pipeline parallel "
+            f"at ZeRO stages 0-3 (MiCS too), with optimizer and parameter "
+            f"offload")

@@ -125,8 +125,9 @@ the offload tiers and bucketed reduction (ROADMAP A8).
 
 Tensor and sequence parallelism and MiCS (the topology's model, seq and
 shard axes; ``_init_groups``): a tensor-parallel rank holds its slices of
-the leaves (``model.tp_shard_dims``), on which the ZeRO plan is made,
-and a checkpoint gathers them whole. The batch splits over the data
+the leaves (``model.tp_shard_dims``; with the pipe and a model-owned seq
+axis, ``_cuts``), on which the ZeRO plan is made, and a checkpoint
+gathers them whole. The batch splits over the data
 ranks only; under sequence parallelism each rank's ``model.apply``
 embeds its chunk of the sequence and returns the whole loss, and the
 backward starts from ``loss * sp``, so the mean over the ZeRO group
@@ -136,9 +137,27 @@ model group too; LAMB's trust ratio reads whole-leaf norms
 (``norm_reduce``). Under MiCS the ZeRO group is the shard group and the
 gradients are also averaged over the replica groups.
 
+Pipeline parallelism (``pipeline.stages`` = pp > 1, JAX :993-1080):
+each rank is one stage of the pipe group and holds its slice of the
+layer stack (``model.pipe_shard_dims``); ``train_batch`` hands the whole
+``[M, micro, ...]`` batch (M = gas) to ``model.loss_and_grads``, the 1F1B
+schedule (``runtime/pipe/``), which accumulates into the engine's f32
+buffers (``grad_acc``) the mean over the micro-batches, summed over the
+pipe group where a leaf is replicated over it; the data-parallel
+reduction, the norms (a stage's leaves summed over the pipe group) and
+the update follow as at pp 1.
+ZeRO 1 at most; tensor / seq parallelism only for a model that owns
+those axes (``pp_manual_axes``, ``PipelineModule``), expert parallelism
+only for ``supports_pp_ep`` (``TransformerLM``, gating local to each
+rank as in JAX); fp16 takes autograd through the pipelined forward
+(``model.apply``, whose gradients the model makes whole over the pipe
+group) with a warning; the optimizer offload only in bf16 / fp32;
+``eval_batch`` through ``model.apply``; the shims and ``offload_param``
+refuse.
+
 Not ported (``runtime/config.check_ported`` raises, naming the ROADMAP
 item): ZeRO-Infinity at more than one rank (A9), ZeRO++ (A10), the
-remat policies beyond the ported ones (A3), the pipeline (A8),
+remat policies beyond the ported ones (A3),
 compression, curriculum and the profilers (A12), the hybrid engine
 (A11); the offload tiers at tp, sp or MiCS > 1 (A9), MiCS with sequence
 parallelism and expert with tensor, sequence or MiCS parallelism (A8).
@@ -206,8 +225,7 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
                        group=None, frozen: Sequence[int] = (),
                        with_leaf_sqnorms: bool = False,
                        replicas: Optional[Dict[int, int]] = None,
-                       model_split: Optional[List[bool]] = None,
-                       model_group=None):
+                       splits: Sequence[Tuple[Any, List[bool]]] = ()):
     """In place: unscale by ``inv`` (1 / (gas * loss_scale)), zero the
     frozen leaves' gradients (indices ``frozen``), global inf/nan check
     under fp16 (on the unclipped grads: clipping an inf makes a nan),
@@ -225,23 +243,24 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
     overflow check is agreed over the group. ``replicas[i]``: leaf ``i``'s
     part is held by that many ranks of the group (expert leaves replicated
     over their expert-data group), so its partial sum counts once.
-    ``model_split[i]`` marks a tensor-parallel leaf: its (ZeRO-summed)
-    square is then summed over ``model_group`` too, while a replicated
-    leaf counts once; the overflow check is agreed over that group
-    too."""
+    ``splits``: ``(group, flags)`` for each model-parallel axis (model,
+    seq, pipe) of more than one rank; ``flags[i]`` marks a leaf cut over
+    that group: its (ZeRO-summed) square is then summed over the group
+    too, while a replicated leaf counts once; the overflow check is
+    agreed over those groups too."""
     for g in grads:
         g.mul_(inv)
     for i in frozen:
         grads[i].zero_()
     world = comm.get_world_size(group)
     finite = grads_finite(grads) if fp16 else None
-    tp = comm.get_world_size(model_group) if model_split else 1
-    if finite is not None and (world > 1 or tp > 1):
+    splits = [(g, f) for g, f in splits if comm.get_world_size(g) > 1]
+    if finite is not None and (world > 1 or splits):
         flag = finite.to(torch.float32).reshape(1)
         if world > 1:
             comm.all_reduce(flag, op=comm.ReduceOp.MIN, group=group)
-        if tp > 1:
-            comm.all_reduce(flag, op=comm.ReduceOp.MIN, group=model_group)
+        for g, _ in splits:
+            comm.all_reduce(flag, op=comm.ReduceOp.MIN, group=g)
         finite = flag[0] > 0
     sq = [torch.sum(torch.square(g.float())) for g in grads]
     idx = [i for i, s in enumerate(sharded or []) if s]
@@ -251,12 +270,13 @@ def unscale_clip_check(grads: List[torch.Tensor], inv, clip: float,
         comm.all_reduce(part, group=group)
         for j, i in enumerate(idx):
             sq[i] = part[j]
-    tidx = [i for i, s in enumerate(model_split or []) if s]
-    if tidx and tp > 1:
-        part = torch.stack([sq[i] for i in tidx])
-        comm.all_reduce(part, group=model_group)
-        for j, i in enumerate(tidx):
-            sq[i] = part[j]
+    for g, flags in splits:
+        tidx = [i for i, s in enumerate(flags) if s]
+        if tidx:
+            part = torch.stack([sq[i] for i in tidx])
+            comm.all_reduce(part, group=g)
+            for j, i in enumerate(tidx):
+                sq[i] = part[j]
     gnorm = torch.sqrt(sum(sq))
     if clip and clip > 0:
         factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
@@ -343,6 +363,7 @@ class DeepSpeedTpuEngine:
         self.offload_tiered = bool(self.offload_device == "cpu"
                                    and off.pin_memory)
         self.host_opt = None
+        self._check_pipeline(model)
         self._init_param_offload(model)
         self._init_experts(model)
         self._pending_saves: List[threading.Thread] = []
@@ -582,10 +603,29 @@ class DeepSpeedTpuEngine:
           MiCS the shard axis alone, the gradients then all-reduced over
           the replica groups (``data``) too.
         * the model group: the tensor-parallel ranks, over which a split
-          leaf's squared norm is summed."""
+          leaf's squared norm is summed; likewise the pipe group (the
+          pipeline's stages, each holding its slice of the layer stack)
+          and, for a model whose layers own the seq axis
+          (``pp_manual_axes``), the seq group.
+        * ``_cuts``: each leaf's dimension per model-parallel axis it is
+          cut over (``model.tp_shard_dims``, ``pipe_shard_dims``,
+          ``seq_shard_dims``); a rank holds its slices.
+
+        Under the pipeline (and a model that owns the seq axis) the ZeRO
+        group is the data axes alone, as JAX leaves ``include_seq`` off
+        there."""
         topo = self.topology
+        model = self.model
         self.tp = topo.axis_size("model")
         self.sp = topo.axis_size("seq")
+        self.pp = topo.axis_size("pipe")
+        manual = set(getattr(model, "pp_manual_axes", ()))
+        if getattr(model, "supports_pp_tp", False):
+            manual.add("model")
+        self._manual_axes = manual
+        # the layers own the seq axis (a PipelineModule's seq-cut layers):
+        # no Ulysses loss split, the seq ranks hold the same rows
+        self._seq_manual = self.sp > 1 and "seq" in manual
         self.dp_world_size = topo.dp_world_size
         self.dp_rank = topo.dp_rank
         self._batch_group = topo.group(topo.batch_axes)
@@ -594,25 +634,32 @@ class DeepSpeedTpuEngine:
             raise NotImplementedError(
                 "MiCS (mics_shard_size) with sequence parallelism is not "
                 "ported to deepspeed_tpu_torch yet (ROADMAP A8)")
-        axes = topo.zero_shard_axes if not self.mics else topo.dp_axes
+        axes = (topo.dp_axes if self.mics or self.pp > 1 or self._seq_manual
+                else topo.zero_shard_axes)
         self.group = topo.group(axes)
         self.zero_world = topo.group_size(axes)
         self.zero_rank = topo.group_rank(axes)
         self._replica_group = topo.group("data") if self.mics else None
         self._replicas = topo.axis_size("data") if self.mics else 1
         self._model_group = topo.group("model") if self.tp > 1 else None
-        if hasattr(self.model, "set_topology"):
-            self.model.set_topology(topo if self.tp > 1 or self.sp > 1
-                                    else None)
-        self._tp_dims: Dict[str, int] = {}
-        if self.tp > 1:
-            dims = getattr(self.model, "tp_shard_dims", None)
+        if hasattr(model, "set_topology"):
+            model.set_topology(topo if self.tp > 1 or self.sp > 1
+                               or self.pp > 1 else None)
+        self._cuts: Dict[str, Dict[str, int]] = {}
+        for axis, attr, on in (("model", "tp_shard_dims", self.tp > 1),
+                               ("seq", "seq_shard_dims", self._seq_manual),
+                               ("pipe", "pipe_shard_dims", self.pp > 1)):
+            if not on:
+                continue
+            dims = getattr(model, attr, None)
             if dims is None:
                 raise NotImplementedError(
-                    "tensor_parallel_size > 1 needs a model that declares "
-                    "its tensor-parallel plan (tp_shard_dims; "
-                    "TransformerLM does)")
-            self._tp_dims = {k: d for k, d in dims.items() if d is not None}
+                    f"a {axis} axis > 1 needs a model that declares which "
+                    f"dimension of each leaf it cuts ({attr}; "
+                    f"TransformerLM and PipelineModule do)")
+            for k, d in dims.items():
+                if d is not None:
+                    self._cuts.setdefault(k, {})[axis] = d
         if (self.tp > 1 or self.sp > 1 or self.mics) and \
                 self.topology.axis_size("expert") > 1:
             raise NotImplementedError(
@@ -649,6 +696,62 @@ class DeepSpeedTpuEngine:
                 f"leaves (a trust ratio), which an offloaded tier holding "
                 f"shards at {world} ranks does not; not ported to "
                 f"deepspeed_tpu_torch yet (ROADMAP A9)")
+
+    def _check_pipeline(self, model):
+        """Pipeline mode (JAX :993-1048, :253-280): the compositions it
+        runs and its refusals, before any state is built, with JAX's
+        exception types (``AssertionError`` for the compositions). With
+        fp16 the 1F1B schedule (which computes unscaled gradients) gives
+        way to autograd through the pipelined forward, with a warning."""
+        self._pipe_own_grads = False
+        if self.pp <= 1:
+            return
+        manual = self._manual_axes
+        refusals = [
+            # PP composes with DP / ZeRO-1 only (the reference
+            # PipelineEngine asserts no ZeRO-2/3)
+            (self.zero_stage <= 1,
+             "pipeline parallelism requires ZeRO stage <= 1"),
+            (self.tp == 1 or "model" in manual,
+             "pipeline + tensor parallel requires a model with manual TP "
+             "layers (PipelineModule); this model does not declare "
+             "'model' in pp_manual_axes"),
+            (self.sp == 1 or "seq" in manual,
+             "pipeline + sequence parallel requires a model declaring "
+             "'seq' in pp_manual_axes (manual seq-axis layers)"),
+            (self.topology.axis_size("expert") == 1
+             or getattr(model, "supports_pp_ep", False),
+             "pipeline + expert-parallel (ep>1) requires a model with a "
+             "manual expert-dispatch path (supports_pp_ep); this model "
+             "does not declare one")]
+        for ok, msg in refusals:
+            if not ok:
+                raise AssertionError(msg)
+        zc = self.config.zero_optimization
+        if zc.offload_param.device not in ("none", None, ""):
+            raise NotImplementedError(
+                "offload_param x pipeline parallelism is not supported "
+                "(the 1F1B program owns its own layer storage)")
+        own = hasattr(model, "loss_and_grads")
+        if self.offload_device:
+            if self.fp16_enabled:
+                # before the host optimizer is built: it has no loss-scale
+                # unwind for the autograd fallback
+                raise ConfigError(
+                    "offload_optimizer x pipeline parallelism requires bf16 "
+                    "(fp16 loss scaling disables the 1F1B schedule)")
+            if not own:
+                raise AssertionError(
+                    "offload_optimizer + pipeline requires a 1F1B-capable "
+                    "model (loss_and_grads) and bf16")
+        if self.fp16_enabled and own:
+            logger.warning(
+                "fp16 + pipeline parallelism: loss scaling disables the "
+                "1F1B schedule; this run uses whole-graph autograd through "
+                "the pipelined forward with UNBOUNDED activation memory "
+                "across all microbatches. Prefer bf16 (no scaling needed) "
+                "to keep the pipeline's memory bound.")
+        self._pipe_own_grads = own and not self.fp16_enabled
 
     def _init_param_offload(self, model):
         """``offload_param``: the device check and its refusals (JAX
@@ -706,7 +809,14 @@ class DeepSpeedTpuEngine:
         if hasattr(model, "moe_groups"):
             from ..moe.sharded_moe import MoEGroups
             model.moe_groups = None
-            if self.dp_world_size > 1:
+            if self.pp > 1:
+                # inside the pipeline the gating is local to this rank's
+                # tokens, as in JAX's manual program
+                if ep > 1:
+                    model.moe_groups = MoEGroups(
+                        None, 1, 0, self.topology.expert_group(), ep,
+                        self.topology.ep_rank)
+            elif self.dp_world_size > 1:
                 model.moe_groups = MoEGroups(
                     self._batch_group, self.dp_world_size, self.dp_rank,
                     self.topology.expert_group(), ep, self.topology.ep_rank)
@@ -719,13 +829,24 @@ class DeepSpeedTpuEngine:
             return v
         return shard_of(v, d, self.topology.ep_rank, self.ep)
 
-    def _tp_cut(self, name: str, v: torch.Tensor) -> torch.Tensor:
-        """This rank's tensor-parallel slice of a whole leaf (identity at
-        tp 1 and for replicated leaves)."""
-        d = self._tp_dims.get(name)
-        if d is None:
+    def _manual_cut(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole leaf over the model-parallel axes
+        that cut it (tensor, seq, pipe; identity for a replicated leaf)."""
+        cuts = self._cuts.get(name)
+        if not cuts:
             return v
-        return shard_of(v, d, self.topology.tp_rank, self.tp).contiguous()
+        topo = self.topology
+        for axis, d in cuts.items():
+            v = shard_of(v, d, topo.axis_index(axis), topo.axis_size(axis))
+        return v.contiguous()
+
+    def _norm_splits(self):
+        """(group, flags) of each model-parallel axis of more than one
+        rank: the leaves cut over it, whose squared norms sum over it."""
+        topo = self.topology
+        return [(topo.group(a), [a in self._cuts.get(n, {})
+                                 for n in self._leaf_names])
+                for a in ("model", "seq", "pipe") if topo.axis_size(a) > 1]
 
     def _ckpt_shape(self, name: str) -> Tuple[int, ...]:
         """A leaf's whole shape (what a checkpoint holds)."""
@@ -733,9 +854,8 @@ class DeepSpeedTpuEngine:
         d = self._expert_dims.get(name)
         if self.ep > 1 and d is not None:
             shape[d] *= self.ep
-        d = self._tp_dims.get(name)
-        if d is not None:
-            shape[d] *= self.tp
+        for axis, d in self._cuts.get(name, {}).items():
+            shape[d] *= self.topology.axis_size(axis)
         return tuple(shape)
 
     def _check_infinity_supported(self):
@@ -816,8 +936,8 @@ class DeepSpeedTpuEngine:
             items = [(k, torch.as_tensor(np.asarray(v)) if not
                       isinstance(v, torch.Tensor) else v)
                      for k, v in _flatten(params)]
-        # ep > 1: this rank keeps its experts; tp > 1: its slices
-        return [(k, self._tp_cut(k, self._expert_cut(k, v)))
+        # ep > 1: this rank keeps its experts; tp / pp > 1: its slices
+        return [(k, self._manual_cut(k, self._expert_cut(k, v)))
                 for k, v in items]
 
     # ------------------------------------------------------------------
@@ -838,7 +958,7 @@ class DeepSpeedTpuEngine:
             self.zero_world, plan_stage, self._full_shapes,
             persistence_threshold=zc.stage3_param_persistence_threshold,
             expert_dims=self._expert_dims, ep=self.ep,
-            model_dims=self._tp_dims)
+            model_dims={k: tuple(c.values()) for k, c in self._cuts.items()})
         names = self._leaf_names
         if self.ep > 1 and any(self.zero_plan.master_dims[k] is not None
                                for k in self._expert_dims):
@@ -1182,10 +1302,13 @@ class DeepSpeedTpuEngine:
         """What a micro-batch's backward starts from: the (fp16-scaled)
         loss, times sp under sequence parallelism, whose ranks each
         differentiate their own part of the loss while the reduction takes
-        the mean over data x seq ranks."""
+        the mean over data x seq ranks (not where the layers own the seq
+        axis: each seq rank then holds the whole loss)."""
         if scale is not None:
             loss = loss * scale
-        return loss * self.sp if self.sp > 1 else loss
+        if self.sp > 1 and not self._seq_manual:
+            return loss * self.sp
+        return loss
 
     # ------------------------------------------------------------------
     def train_batch(self, data_iter=None, batch=None) -> float:
@@ -1247,13 +1370,12 @@ class DeepSpeedTpuEngine:
         return self._grad_acc, self._grad_shards
 
     def _run_step(self, dev_batch) -> Dict[str, Any]:
-        """The step on the card: the GAS loop, the reduction, then
-        :meth:`_apply_grads`. Returns the loss, the norms and the skip
-        flag, the loss and the norms still on the device."""
+        """The step on the card: the GAS loop (under the pipeline,
+        :meth:`_pipeline_grads`), the reduction, then :meth:`_apply_grads`.
+        Returns the loss, the norms and the skip flag, the loss and the
+        norms still on the device."""
         leaves = self._grad_inputs()
         acc, shards = self._grad_buffers()
-        for a in acc:
-            a.zero_()
         scale = (self.scale_state["loss_scale"] if self.fp16_enabled
                  else None)
         lr = self._lr_fn(self._step)
@@ -1264,37 +1386,72 @@ class DeepSpeedTpuEngine:
         if self.offload_tiered:
             # the state fetches ride under the forward and backward
             self.host_opt.prefetch()
-        losses = []
-        for g, micro in enumerate(self._micro_batches(dev_batch)):
-            reducer = self._reducer if g == self.gas - 1 else None
-            params = self._model_params(reducer, acc)
-            loss = self.model.apply(params, micro, train=True).float()
-            grads = torch.autograd.grad(self._root(loss, scale), leaves,
-                                        allow_unused=True)
-            del params
-            with torch.no_grad():
-                for a, gr, kind in zip(acc, grads, self._kinds):
-                    # a bucketed leaf's last gradient went to its bucket
-                    if gr is not None and (reducer is None or kind == VJP):
-                        a.add_(gr)
-            # a bf16 grad tree of 7B is 14.5 GB: the next micro-batch's
-            # backward must not find this one alive
-            del grads
-            losses.append(loss.detach())
+        inv = None
+        if self.pp > 1:
+            loss, inv = self._pipeline_grads(dev_batch, acc, scale)
+        else:
+            for a in acc:
+                a.zero_()
+            losses = []
+            for g, micro in enumerate(self._micro_batches(dev_batch)):
+                reducer = self._reducer if g == self.gas - 1 else None
+                params = self._model_params(reducer, acc)
+                loss = self.model.apply(params, micro, train=True).float()
+                grads = torch.autograd.grad(self._root(loss, scale), leaves,
+                                            allow_unused=True)
+                del params
+                with torch.no_grad():
+                    for a, gr, kind in zip(acc, grads, self._kinds):
+                        # a bucketed leaf's last gradient went to its bucket
+                        if gr is not None and (reducer is None
+                                               or kind == VJP):
+                            a.add_(gr)
+                # a bf16 grad tree of 7B is 14.5 GB: the next micro-batch's
+                # backward must not find this one alive
+                del grads
+                losses.append(loss.detach())
+            loss = torch.stack(losses).mean()
         with torch.no_grad():
             if self._reducer is not None:
                 self._reducer.finish(acc, shards)
             else:
                 self._reduce(acc, shards)
-            loss = self._mean_over_group(torch.stack(losses).mean())
+            loss = self._mean_over_group(loss)
             ok, gnorm, leaf_sq = self._apply_grads(acc, shards, scale, lr,
-                                                   events)
+                                                   events, inv=inv)
         self._step_events = events
         out = {"loss": loss, "grad_norm": gnorm, "lr": lr,
                "skipped": 0 if ok else 1, "leaf_sqnorms": leaf_sq}
         if self.fp16_enabled:
             out["loss_scale"] = scale
         return out
+
+    def _pipeline_grads(self, dev_batch, acc, scale):
+        """Pipeline mode's gradients into ``acc`` (JAX ``train_step``,
+        :1055-1079): the whole ``[M, micro, ...]`` batch (M = gas)
+        through ``model.loss_and_grads``, the 1F1B schedule, which
+        accumulates into ``acc`` the mean over the micro-batches, summed
+        over the pipe group where a leaf is replicated over it. Under fp16
+        (or for a model without it) autograd of the loss scale times
+        ``model.apply``'s pipelined loss instead, whose gradients the
+        model makes whole over the pipe group. Returns the loss (the mean
+        over the micro-batches, on the device) and the unscale factor."""
+        params = self._model_params()
+        if self._pipe_own_grads:
+            loss, _ = self.model.loss_and_grads(params, dev_batch,
+                                                grad_acc=acc)
+            return loss.detach(), 1.0
+        loss = self.model.apply(params, dev_batch, train=True).float()
+        grads = torch.autograd.grad(
+            loss * scale if scale is not None else loss, self._grad_inputs(),
+            allow_unused=True)
+        with torch.no_grad():
+            for a, g in zip(acc, grads):
+                if g is None:
+                    a.zero_()
+                else:
+                    a.copy_(g)
+        return loss.detach(), (1.0 / scale if scale is not None else 1.0)
 
     def _reduce(self, acc, shards):
         """``overlap_grad_reduce`` off: every leaf's reduction after the
@@ -1319,22 +1476,23 @@ class DeepSpeedTpuEngine:
             comm.all_reduce(t, group=self._replica_group)
             t.div_(self._replicas)
 
-    def _apply_grads(self, acc, shards, scale, lr, events=None):
+    def _apply_grads(self, acc, shards, scale, lr, events=None, inv=None):
         """Unscale, clip and check the reduced gradients, then the update
         (resident, tiered or host optimizer) unless the step overflowed,
         and the fp16 scale update. Returns (ok, grad norm on the device,
         stacked per-leaf squared norms or None). Reads ``finite`` on the
-        host once per fp16 step (other precisions never skip)."""
-        inv = 1.0 / (self.gas * scale) if scale is not None \
-            else 1.0 / self.gas
+        host once per fp16 step (other precisions never skip). ``inv``:
+        the unscale factor, 1 / (gas * loss_scale) unless given."""
+        if inv is None:
+            inv = 1.0 / (self.gas * scale) if scale is not None \
+                else 1.0 / self.gas
         grads, finite, gnorm, *leaf_sq = unscale_clip_check(
             self._optimizer_grads(acc, shards), inv,
             self.config.gradient_clipping, self.fp16_enabled,
             sharded=[k != ALL_REDUCE or d is not None
                      for k, d in zip(self._kinds, self._odims)],
             group=self.group, frozen=self._frozen_idx,
-            model_split=[n in self._tp_dims for n in self._leaf_names],
-            model_group=self._model_group,
+            splits=self._norm_splits(),
             with_leaf_sqnorms=self._grad_attribution,
             replicas={i: self.dp_world_size // self.ep
                       for i, k in enumerate(self._kinds) if k == EXPERT})
@@ -1374,17 +1532,18 @@ class DeepSpeedTpuEngine:
         partial squares ``t`` over its ZeRO group and, for a
         tensor-parallel leaf, its model group."""
         if self.optimizer.elementwise or (self.zero_world == 1
-                                          and self.tp == 1):
+                                          and not self._cuts):
             return {}
         dims = self._odims if self.has_master else self._pdims
         zero = [d is not None and self.zero_world > 1 for d in dims]
-        model = [n in self._tp_dims for n in self._leaf_names]
+        axes = [[self.topology.group(a) for a in self._cuts.get(n, {})]
+                for n in self._leaf_names]
 
         def norm_reduce(i, t):
             if zero[i]:
                 comm.all_reduce(t, group=self.group)
-            if model[i]:
-                comm.all_reduce(t, group=self._model_group)
+            for g in axes[i]:
+                comm.all_reduce(t, group=g)
 
         return {"norm_reduce": norm_reduce}
 
@@ -1439,6 +1598,11 @@ class DeepSpeedTpuEngine:
     # torch-style forward / backward / step (JAX :1828-1960)
     # ------------------------------------------------------------------
     def _check_shims(self):
+        if self.pp > 1:
+            raise RuntimeError(
+                "forward/backward/step are not supported in pipeline mode; "
+                "use train_batch/eval_batch (same restriction as the "
+                "reference PipelineEngine)")
         if self._infinity is not None:
             raise RuntimeError(
                 "forward/backward/step are not supported with "
@@ -1485,6 +1649,8 @@ class DeepSpeedTpuEngine:
         fp16 they are the gradients of the SCALED loss (reference
         FP16_Optimizer scales inside backward); :meth:`step` unscales and
         checks for overflow."""
+        if self.pp > 1:
+            self._check_shims()
         if not self._cached_losses:
             raise RuntimeError("backward() without forward()")
         loss = self._cached_losses.pop(0)
@@ -1513,6 +1679,8 @@ class DeepSpeedTpuEngine:
         loss_scale, the global inf/nan check, the skip on overflow, the
         scale update, and the host bookkeeping (global_steps / the lr
         schedule) gated on the skip (reference stage3.py:2018)."""
+        if self.pp > 1:
+            self._check_shims()
         if not self._shim_grads:
             raise RuntimeError("step() without backward()")
         acc, shards = self._grad_buffers()
@@ -1545,6 +1713,10 @@ class DeepSpeedTpuEngine:
         if self._infinity is not None:
             return self._infinity.eval_batch(dev_batch)
         params = self._model_params()
+        if self.pp > 1:
+            # the pipelined apply takes the whole [M, micro, ...] batch
+            return float(self._mean_over_group(
+                self.model.apply(params, dev_batch, train=False).float()))
         losses = [self.model.apply(params, m, train=False).float()
                   for m in self._micro_batches(dev_batch)]
         return float(self._mean_over_group(torch.stack(losses).mean()))
@@ -1582,16 +1754,17 @@ class DeepSpeedTpuEngine:
 
     def _gathered(self, leaves, dims) -> List[torch.Tensor]:
         """Whole leaves: the ZeRO shards joined over the ZeRO group, the
-        experts over the expert group and the tensor-parallel slices over
-        the model group (every rank takes part)."""
-        if self.zero_world > 1 or self.tp > 1:  # collectives on the device
+        slices over the model-parallel groups that cut them (model, seq,
+        pipe) and the experts over the expert group (every rank takes
+        part)."""
+        if self.zero_world > 1 or self._cuts:  # collectives on the device
             leaves = [v.to(self.device) for v in leaves]
         out = ckpt.gather_shards(leaves, dims, self.group)
-        if self.tp > 1:
-            out = [all_gather_leaf(v.detach().contiguous(),
-                                   self._tp_dims[n], self._model_group)
-                   if n in self._tp_dims else v
-                   for n, v in zip(self._leaf_names, out)]
+        topo = self.topology
+        for i, n in enumerate(self._leaf_names):
+            for axis, d in self._cuts.get(n, {}).items():
+                out[i] = all_gather_leaf(out[i].detach().contiguous(), d,
+                                         topo.group(axis))
         if self.ep > 1:
             # whole expert leaves: every expert rank's experts joined
             out = [all_gather_leaf(v.detach().contiguous(),
@@ -1753,7 +1926,7 @@ class DeepSpeedTpuEngine:
             )[0]["params"]
 
         def leaves(name, sub=None, dims=None):
-            whole = [self._tp_cut(k, self._expert_cut(k, v))
+            whole = [self._manual_cut(k, self._expert_cut(k, v))
                      for k, v in ckpt.leaf_paths(
                          state[name] if sub is None else sub)]
             return ckpt.take_shards(whole, dims or [None] * len(whole),
@@ -1858,7 +2031,7 @@ class DeepSpeedTpuEngine:
                                    f"{tuple(v.shape)} vs "
                                    f"{self._ckpt_shape(k)}")
             # this rank's tensor-parallel slices
-            return [self._tp_cut(k, v) for k, v in zip(self._leaf_names,
+            return [self._manual_cut(k, v) for k, v in zip(self._leaf_names,
                                                         out)]
 
         try:

@@ -436,6 +436,9 @@ def overlap_blockers(engine, forced: bool) -> List[Tuple[str, str]]:
     if getattr(engine, "mics", False):
         out.append(("hard", "MiCS all-reduces the gradients over its "
                             "replica groups after the backward"))
+    if getattr(engine, "pp", 1) > 1:
+        out.append(("hard", "the pipeline schedule computes the gradients "
+                            "itself; they reduce after it"))
     if not forced:
         if not engine.config.zero_optimization.overlap_comm:
             out.append(("soft", "overlap_comm is disabled"))

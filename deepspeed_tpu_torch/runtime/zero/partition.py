@@ -114,21 +114,23 @@ def build_zero_plan(world: int, stage: int,
     ``persistence_threshold`` elements up). ``expert_dims`` (``ep`` > 1):
     the expert leaves and their expert dimension, planned over
     ``world / ep`` ranks on the other dimensions. ``model_dims``: the
-    tensor-parallel dimension of each split leaf, never a ZeRO one."""
+    dimension (or dimensions) of each leaf cut over a model-parallel axis
+    (tensor, seq, pipe), never a ZeRO one."""
     experts = expert_dims if ep > 1 else {}
-    model_dims = model_dims or {}
+    model_dims = {k: (d,) if isinstance(d, int) else tuple(d)
+                  for k, d in (model_dims or {}).items()}
 
     def dim_of(k, s, threshold=0):
-        if k in model_dims:
+        taken = model_dims.get(k, ())
+        if k not in experts:
             return zero_dim(s, world, threshold,
                             free=[d for d in range(len(s))
-                                  if d != model_dims[k]])
-        if k not in experts:
-            return zero_dim(s, world, threshold)
+                                  if d not in taken])
         if world // ep <= 1:
             return None
         return zero_dim(s, world // ep, threshold,
-                        free=[d for d in range(len(s)) if d != experts[k]])
+                        free=[d for d in range(len(s))
+                              if d != experts[k] and d not in taken])
 
     none = {k: None for k in param_shapes}
     opt = {k: dim_of(k, s) for k, s in param_shapes.items()}

@@ -137,23 +137,26 @@ def find_nonfinite(tree, name: str = "params") -> List[str]:
 
 def _engine_groups(engine, dims) -> Dict[Any, List[int]]:
     """Leaf indices by the group whose ranks hold the same bits of them:
-    the world (key ``"world"``) for a leaf no axis cuts, the ranks of this
-    tensor-parallel index for a tensor-parallel slice, the ranks of this
-    expert index for an expert leaf at ep > 1, the MiCS replica group for a
-    ZeRO shard under MiCS (elsewhere a shard is this rank's own)."""
+    the world (key ``"world"``) for a leaf no axis cuts, the ranks of the
+    same coordinates on the model-parallel axes that cut a slice (tensor,
+    seq, pipe), the ranks of this expert index for an expert leaf at
+    ep > 1, the MiCS replica group for a ZeRO shard under MiCS (elsewhere
+    a shard is this rank's own)."""
+    from ..parallel.topology import AXIS_ORDER
+
     topo = engine.topology
-    tp_dims = getattr(engine, "_tp_dims", {})
+    cuts = getattr(engine, "_cuts", {})
     expert_dims = (getattr(engine, "_expert_dims", {})
                    if getattr(engine, "ep", 1) > 1 else {})
-    same_tp = topo.group(topo.batch_axes + ("seq",))
     out: Dict[Any, List[int]] = {}
     for i, (n, d) in enumerate(zip(engine._leaf_names, dims)):
         if d is not None:
             if not getattr(engine, "mics", False):
                 continue
             key = ("replica", engine._replica_group)
-        elif n in tp_dims:
-            key = ("same_tp", same_tp)
+        elif n in cuts:
+            axes = tuple(a for a in AXIS_ORDER if a not in cuts[n])
+            key = ("same_" + "_".join(sorted(cuts[n])), topo.group(axes))
         elif n in expert_dims:
             key = ("same_experts", topo.expert_data_group())
         else:

@@ -255,6 +255,11 @@ def test_config_rejects_unported_zero_keys(extra, world, item):
     from deepspeed_tpu_torch.runtime.config import check_ported
 
     cfg = dict(W.train_config(0), **extra)
+    if "pipeline" in extra:
+        # the pipeline is ported now (tests/test_torch_pipeline*.py): its
+        # keys pass the config check
+        check_ported(DeepSpeedConfig(cfg, world_size=world))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         check_ported(DeepSpeedConfig(cfg, world_size=world))
 
@@ -263,11 +268,12 @@ def test_config_rejects_unported_zero_keys(extra, world, item):
     ("model", "A8"), ("pipe", "A8"), ("seq", "A8"), ("expert", "A8"),
     ("mics_shard", "A4"), ("hpz_shard", "A10")])
 def test_topology_raises_for_unported_axes(field, item):
-    if field in ("expert", "model", "seq", "mics_shard"):
+    if field in ("expert", "model", "seq", "mics_shard", "pipe"):
         # these axes are ported now: the expert axis factors the data axis
         # as in JAX (tests/test_torch_moe_distributed.py runs it at world
         # 2), the model and seq axes and MiCS' shard axis lay ranks out in
-        # the JAX axis order (tests/test_torch_tensor_parallel.py)
+        # the JAX axis order (tests/test_torch_tensor_parallel.py), and so
+        # does the pipe axis, outermost (tests/test_torch_pipeline*.py)
         got = ttopo.MeshTopology(ttopo.TopologyConfig(**{field: 2}),
                                  world_size=4, rank=3)
         ref = JTopo(JTopoCfg(**{field: 2}), devices=jax.devices()[:4])
@@ -316,8 +322,13 @@ def test_unported_collectives_raise_a8(name):
         comm.all_to_all_single(out, torch.arange(2.0))
         assert out.tolist() == [0.0, 1.0]
         return
-    with pytest.raises(NotImplementedError, match="A8"):
-        getattr(comm, name)(torch.zeros(2))
+    # the pipe axis's point-to-point is ported now: at one rank a ring
+    # shift keeps the tensor (tests/test_torch_pipeline_distributed.py
+    # runs it at 4)
+    x = torch.arange(2.0)
+    got = (comm.permute(x, [(0, 0)]) if name == "permute"
+           else getattr(comm, name)(x))
+    assert torch.equal(got, x)
 
 
 def test_model_axis_group_raises_a8():
@@ -325,9 +336,10 @@ def test_model_axis_group_raises_a8():
     x = torch.ones(2)
     comm.all_reduce(x, axis_name="model")
     assert x.tolist() == [1.0, 1.0]
-    # the pipeline axis still has none
-    with pytest.raises(NotImplementedError, match="A8"):
-        comm.all_reduce(torch.zeros(2), axis_name="pipe")
+    # so does the pipeline axis now (at one rank, the whole world)
+    y = torch.ones(2)
+    comm.all_reduce(y, axis_name="pipe")
+    assert y.tolist() == [1.0, 1.0]
 
 
 def test_quantized_gather_raises_a10():
