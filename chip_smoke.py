@@ -11,7 +11,7 @@ full-width Mistral-7B at 4 layers
 through ``initialize()`` and ``train_batch()`` (and, with telemetry,
 diagnostics and the monitor on, under each selective remat policy,
 through the forward / backward / step shims and through universal
-checkpoints), then at 8 layers
+checkpoints), then at 6 layers
 through both ZeRO-Offload backends (the host C++ optimizer and the tiered
 pinned-memory state), with the NVMe tier and checkpoints at 2 layers,
 trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group
@@ -220,7 +220,17 @@ exit 0):
    whose own top-2 differs are logged), TTFT, decode tokens/s, the put's
    and a decode window's device ms and launches, one layer's MoE MLP
    profiled at both shapes (ms, launches, share of the step; no host
-   sync in it, under CUDA's sync debug mode), and the v1 engine on the
+   sync in it, under CUDA's sync debug mode); 2g, expert-parallel
+   serving's one-rank path on the same engine: the MoE MLP through
+   moe_layer_dropless_ep over a one-rank expert group (paged_model's ep
+   route; capacity C = k T, nothing dropped), the first 4 prompts, 64 new
+   tokens: put() logits within 0.05 x max|grouped| of the grouped-GEMM
+   route's on the same engine, the greedy streams' first divergence,
+   TTFT and decode tokens/s of both routes, ragged and paged launches,
+   one layer's MoE MLP on both routes at the put and decode shapes (CUDA
+   events), the dispatch buffer's bytes (E k T H 2) and the peak GiB, and
+   the expert products alone at one rank's share of ep 2 / 4 / 8 (E / ep
+   experts on ep copies of the capacity); then the v1 engine on the
    same weights (8 x 512, 16 new: 8 x 15 dense decode launches); (b) all
    32 layers under WOQ int8, built a layer at a time (8 x 32 + 2
    quantize launches; the quantizer kernels bit-equal to their plain
@@ -268,6 +278,13 @@ exit 0):
    finite, the share of (token, choice) pairs dropped, flash launches 2 x
    L x gas and L x gas a step, step ms, tokens/s, peak GiB; then one
    dropless top-1 step, its loss finite;
+8j. 8g's model, weights and batch at ZeRO 1 and ZeRO 3 with
+   moe.expert_parallel_size 1, 3 steps each, through the engine's
+   per-leaf ZeRO groups (an expert leaf's: the ranks holding its experts,
+   here the one rank): losses and every compute and master leaf
+   torch.equal to 8g's engine (by bit fingerprint), flash launches 2 x L x
+   gas and L x gas a step, step ms, peak GiB (the multi-rank parts of
+   ROADMAP A8 run under gloo on the CPU only);
 8c. ZeRO over torch.distributed at world 1: comm.init_distributed() with
    no environment (backend nccl and world 1 asserted); on phase 8's model,
    settings, seed and fixed batch, a stage-0 engine, then stages 1, 2 and
@@ -283,8 +300,11 @@ exit 0):
    (a) the paged (bf16 and int8 pools), ragged (both pools), dense-decode
    and flash fwd / dq / dk-dv kernels at the per-rank head counts tensor
    parallelism gives Mistral-7B / Mixtral width (nh / kvh 16 / 4, 8 / 2,
-   4 / 1 at tp 2, 4, 8; hd 128, bf16), each against its plain version at
-   phase 2's / 3's tolerances, each split plan logged; (b) ring attention
+   4 / 1 at tp 2, 4, 8; hd 128, bf16), and (d) at the counts a padded
+   layout of uneven TP would give (12 / 3 at tp 3, 2 / 1 at tp 16, where
+   kvh < tp; the layout itself is not built, ROADMAP A8), each
+   against its plain version at phase 2's / 3's tolerances, each split
+   plan logged; (b) ring attention
    over a one-rank seq group at B 1, nh 32, kvh 8, S 8192, q_chunk =
    kv_chunk = 1024, causal, its output within 1e-2 of the flash kernels'
    (one bf16 step where |o| >= 2) and its gradients within 2e-2 of max
@@ -322,8 +342,8 @@ exit 0):
    the resident (ZeRO 2), tiered (offload_optimizer {device: cpu,
    pin_memory: true}) and legacy ({device: cpu}) engines: tiered equal to
    resident bit for bit (losses, params, master, moments: torch.equal),
-   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 8 layers
-   (``DEEP_LAYERS``: earlier versions ran 32, then 12 here; cut for the
+   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 6 layers
+   (``DEEP_LAYERS``: earlier versions ran 32, then 12, then 8 here; cut for the
    run's time limit), bf16, AdamW, micro 2 x gas 2 x S 2048, remat, through the
    legacy and the tiered engine, 2 steps each (``DEEP_STEPS``; 3 before)
    on one fixed batch: losses finite, the last below
@@ -345,8 +365,8 @@ exit 0):
    optimizer offload at stage 3 refused, as in JAX), 3 steps each: losses
    and params torch.equal, flash launches 2 x L x gas and L x gas a
    step, the stack in pinned host memory; then offload_param cpu with
-   the host C++ optimizer at 8 layers, 2 steps (26 layers, the host's
-   cap, and 3 steps, then 12 layers before; cut for the run's time
+   the host C++ optimizer at 6 layers, 2 steps (26 layers, the host's
+   cap, and 3 steps, then 12 and 8 layers before; cut for the run's time
    limit): losses
    finite and falling, step ms, tokens/s, peak device GiB beside phase
    8b's 32-layer runs, host RSS, layer copies a step and their exposed
@@ -358,7 +378,7 @@ exit 0):
    no layer on the device after init (no stacked leaf among the
    persistent ones, the init's device bytes at most the persistent
    leaves' plus less than one layer), the files removed by close(); then
-   at 8 layers (20, where the host capped it, then 12 before; cut for
+   at 6 layers (20, where the host capped it, then 12 and 8 before; cut for
    the run's time limit), the same init check, 2 steps: losses finite and falling,
    step ms,
    tokens/s, peak device GiB, bytes read from the layer files and their
@@ -375,8 +395,9 @@ exit 0):
    under impl="auto" on the card raises;
 10. the card's name and power limit, the host_ops JSON line (the host
    optimizers' times, rates, yardstick and errors), the kernels JSON line
-   (the flash launches of phases 2e, 8, 8f, 8g, 8c, 8h, 8i, 8b, 8d and 8e
-   together, the paged and ragged ones of phases 6, 2e, 2c, 2d and 2f,
+   (the flash launches of phases 2e, 8, 8f, 8g, 8j, 8c, 8h, 8i, 8b, 8d and
+   8e together, the paged and ragged ones of phases 6, 2e, 2c, 2d, 2f and
+   2g,
    the dense decode ones of phases 6 and 2f, the quantizer ones of the
    WOQ phases and 2f), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
@@ -4316,13 +4337,23 @@ def zero_dp_phase(dev, card):
 RING_S, RING_CHUNK = 8192, 1024
 
 
+# 8h (d): the per-rank (q, kv) heads that a padded layout of uneven tensor
+# parallelism would give Mistral-7B: at tp 3 the 8 kv heads padded to 9, 3
+# a rank, each with its 4 query heads (12); at tp 16 (kvh 8 < tp) a rank's
+# 2 query heads and the one kv head they read. The layout is not built
+# (check_tp refuses uneven splits, ROADMAP A8, and the JAX engine refuses
+# them too); this checks only that the kernels take such shapes.
+UNEVEN_TP_HEADS = (("tp 3, padded", 12, 3), ("tp 16, kvh < tp", 2, 1))
+
+
 def tp_head_checks(dev):
     """8h (a): the attention kernels at the per-rank head counts tensor
     parallelism gives Mistral-7B / Mixtral width (nh 32, kvh 8, hd 128):
-    16 / 4, 8 / 2 and 4 / 1 heads at tp 2, 4 and 8. Paged decode (bf16 and
-    int8 pools), a mixed ragged batch (both pools), dense decode and the
-    three flash kernels, each against its plain version at phase 2's and
-    phase 3's tolerances; each split plan logged."""
+    16 / 4, 8 / 2 and 4 / 1 heads at tp 2, 4 and 8; 8h (d): those a padded
+    uneven layout would give at tp 3 and tp 16 (``UNEVEN_TP_HEADS``). Paged
+    decode (bf16 and int8 pools), a mixed ragged batch (both pools), dense
+    decode and the three flash kernels, each against its plain version at
+    phase 2's and phase 3's tolerances; each split plan logged."""
     from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import (
         page_split_plan, paged_attention, paged_attention_plain)
     from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import (
@@ -4342,9 +4373,9 @@ def tp_head_checks(dev):
     rows_pos = [list(range(512)), list(range(704, 800))] + [
         [n - 1] for n in (1, 100, 640, 1000, 1536, 2048)]
     worst = 0.0
-    for tp in (2, 4, 8):
-        nh, kvh = NH // tp, KVH // tp
-        tag = f"tp {tp} (nh {nh}, kvh {kvh})"
+    layouts = [(f"tp {tp}", NH // tp, KVH // tp) for tp in (2, 4, 8)]
+    for label, nh, kvh in layouts + list(UNEVEN_TP_HEADS):
+        tag = f"{label} (nh {nh}, kvh {kvh})"
         tables = torch.as_tensor(tables_for(rng, dec_lens, n_pages, mb),
                                  device=dev)
         q = torch.randn((N, nh, HD), generator=gen, device=dev,
@@ -4522,8 +4553,10 @@ def parallel_phase(dev, card, ref):
 
     t_phase = time.perf_counter()
     worst = tp_head_checks(dev)
-    log(f"8h (a): every kernel within its tolerance at tp 2 / 4 / 8 head "
-        f"counts (worst {worst:.3e}); {time.perf_counter() - t_phase:.0f}s")
+    log(f"8h (a), (d): every kernel within its tolerance at the tp 2 / 4 / "
+        f"8 head counts and those of a padded uneven layout (tp 3: 12 / 3, "
+        f"tp 16: 2 / 1) (worst {worst:.3e}); "
+        f"{time.perf_counter() - t_phase:.0f}s")
     t0 = time.perf_counter()
     ring_check(dev, card)
     log(f"8h (b): {time.perf_counter() - t0:.0f}s")
@@ -5037,13 +5070,14 @@ def offload_width_phase(dev, cfg, batch):
 
 
 # the depth and steps of the deep offload runs of phases 8b, 8d and 8e:
-# 8 layers and 2 steps, cut from 32 (8b), 26 (8d) and 20 (8e) layers
+# 6 layers and 2 steps, cut from 32 (8b), 26 (8d) and 20 (8e) layers
 # (their host caps) and 3 steps to make room for phases 2e and 8f, then
-# from 12 layers for phases 2f and 8g, within the run's time limit. At 8
-# layers the resident state (18 B a parameter, 36 GB) would still fit the
-# card: these runs show the offloaded engines at depth, not a depth only
-# offload reaches (earlier versions of this script did, at 20-32 layers)
-DEEP_LAYERS = 8
+# from 12 layers for phases 2f and 8g and from 8 for phases 2g and 8j,
+# within the run's time limit. At 6 layers the resident state (18 B a
+# parameter, 28 GB) would still fit the card: these runs show the
+# offloaded engines at depth, not a depth only offload reaches (earlier
+# versions of this script did, at 20-32 layers)
+DEEP_LAYERS = 6
 DEEP_STEPS = 2
 
 
@@ -5867,6 +5901,135 @@ def moe_mlp_share(cfg, eng, put_ms, win_ms, n_tok, n_rows, reps=10):
             f"= {share} of the step's {step_ms:.2f} device ms")
 
 
+def ep_serve_phase(cfg, eng, prompts, new):
+    """2g: expert-parallel serving, one rank's path at full width: 2f's
+    engine and weights (Mixtral-8x7B, 8 of 32 layers, bf16) with its MoE
+    MLP routed through ``moe_layer_dropless_ep`` over a one-rank expert
+    group (``paged_model._moe_mlp``'s ep route, given a ``MoEGroups``: the
+    worst-case capacity C = k T, dispatch and combine on indices into
+    ``[E, C, H]``), the first 4 of 2f's prompts. Against 2f's grouped-GEMM
+    route on the same engine: the put() logits at 2f's tolerance (0.05 x
+    max|grouped|; both routes gate in f32 and pick the same experts unless
+    bf16 rounding moves a token), the greedy streams (first divergence
+    logged); TTFT and decode tokens/s of each; the MoE MLP of one layer at
+    the put and decode shapes on both routes (CUDA events); the dispatch
+    buffer's bytes (E k T H 2) and the peak; then the expert products alone
+    at one rank's share for ep 2 / 4 / 8 (E / ep local experts on the ep
+    copies of every row the all-to-all brings them). Returns the paged and
+    ragged launches of the ep route's generate()."""
+    from functools import partial
+
+    from deepspeed_tpu_torch.inference.quantization import dequantize_params
+    from deepspeed_tpu_torch.inference.v2 import paged_model
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_attention
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import \
+        ragged_attention
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    t_phase = time.perf_counter()
+    N, L = len(prompts), cfg.num_layers
+    E, k, H = cfg.moe_num_experts, cfg.moe_top_k, cfg.hidden_size
+    uids = list(range(2000, 2000 + N))
+    grouped = paged_model._moe_mlp
+    ep_mlp = partial(grouped, ep_route=sharded_moe.MoEGroups())
+    dispatch = sharded_moe.moe_layer_dropless_ep
+    seen = []
+
+    def recording(x, *args, **kwargs):
+        seen.append(int(x.shape[0] * x.shape[1]))
+        return dispatch(x, *args, **kwargs)
+
+    def run(mlp):
+        paged_model._moe_mlp = mlp
+        try:
+            logits = eng.put(uids, prompts)
+            for u in uids:
+                eng.flush(u)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = eng.generate(prompts, max_new_tokens=new)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+        finally:
+            paged_model._moe_mlp = grouped
+        ttft = eng.last_ttft_s
+        return logits, gen, ttft, N * (new - 1) / (s - ttft)
+
+    ref, ref_gen, ref_ttft, ref_tps = run(grouped)
+    sharded_moe.moe_layer_dropless_ep = recording
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    ragged_attention.launches = 0
+    try:
+        # -- the main path: put() and generate() through the ep route -----
+        logits, gen, ttft, tps = run(ep_mlp)
+    finally:
+        sharded_moe.moe_layer_dropless_ep = dispatch
+    launches = dict(paged_attention=paged_attention.launches,
+                    ragged_attention=ragged_attention.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gap = float(np.abs(logits - ref).max())
+    tol = 0.05 * float(np.abs(ref).max())
+    div = [first_divergence(a, b) for a, b in zip(gen, ref_gen)]
+    put_T, dec_T = max(seen), min(seen)
+    buf = {T: E * k * T * H * 2 for T in (put_T, dec_T)}
+    log(f"2g: ep route (one-rank expert group) put() logits max|ep - "
+        f"grouped| = {gap:.4f} against {tol:.4f} (0.05 x max|grouped|), "
+        f"argmax agreement "
+        f"{float((logits.argmax(-1) == ref.argmax(-1)).mean()):.3f}; greedy "
+        f"streams' first divergence {div} (None: identical)")
+    log(f"2g: TTFT {ttft * 1e3:.1f} ms, decode {tps:.1f} tokens/s (grouped "
+        f"GEMM on the same engine: {ref_ttft * 1e3:.1f} ms, {ref_tps:.1f}); "
+        f"dispatch buffers [E, kT, H] at T = {put_T} (put) / {dec_T} "
+        f"(decode) = {buf[put_T] / 2**20:.1f} / {buf[dec_T] / 2**20:.3f} "
+        f"MiB a layer; peak {peak:.2f} GiB; launches {launches}; "
+        f"{len(seen)} dispatch calls")
+    if logits.shape != ref.shape or not np.isfinite(logits).all() or \
+            not gap <= tol or launches["ragged_attention"] == 0 or \
+            launches["paged_attention"] == 0 or not seen:
+        raise AssertionError(f"2g: ep route logits off by {gap} > {tol}, "
+                             f"or launches {launches}, or no dispatch")
+    for g, p in zip(gen, prompts):
+        if len(g) != len(p) + new or not ((g >= 0)
+                                          & (g < cfg.vocab_size)).all():
+            raise AssertionError("2g: a stream is short or out of vocab")
+    # one layer's MoE MLP on both routes at the put and decode shapes
+    lp = dequantize_params({n: v[0] for n, v in eng.params["layers"].items()})
+    gen_x = torch.Generator(device=eng.device).manual_seed(6)
+    no_flush = torch.empty(1, device=eng.device)
+    for label, rows in (("put", put_T), ("decode", dec_T)):
+        x = torch.randn((rows, H), generator=gen_x, device=eng.device,
+                        dtype=eng.dtype)
+        ms = {name: statistics.median(time_samples(
+            lambda f=f: f(cfg, lp, x), no_flush, reps=10, warmup=2))
+            for name, f in (("ep", ep_mlp), ("grouped", grouped))}
+        log(f"2g MoE MLP, one layer, {label} shape ({rows} rows): ep route "
+            f"{ms['ep']:.3f} ms, grouped GEMM {ms['grouped']:.3f} ms (CUDA "
+            f"events, median of 10)")
+    # the expert products alone at one rank's share of ep 2 / 4 / 8
+    wg, wu, wd = lp["e_gate"], lp["e_up"], lp["e_down"]
+    F = wg.shape[-1]
+    for ep in (2, 4, 8):
+        e_loc = E // ep
+        for label, T in (("put", put_T), ("decode", dec_T)):
+            rows = ep * k * T          # ep copies of the capacity C = k T
+            x = torch.randn((e_loc, rows, H), generator=gen_x,
+                            device=eng.device, dtype=eng.dtype)
+            p = (wg[:e_loc], wu[:e_loc], wd[:e_loc])
+            ms = statistics.median(time_samples(
+                lambda: sharded_moe.swiglu_experts(p, x), no_flush, reps=5,
+                warmup=1))
+            tflops = 2 * 3 * e_loc * rows * H * F / (ms * 1e-3) / 1e12
+            log(f"2g ep {ep}: {e_loc} local experts x {rows} rows "
+                f"({label}, T {T}): {ms:.3f} ms, {tflops:.0f} TFLOP/s")
+            del x
+    log(f"phase 2g: {time.perf_counter() - t_phase:.0f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def moe_serve_phase(dev):
     """2f (a): Mixtral-8x7B width at 8 layers in bf16 through pipeline() and
     generate(), the serve phase's 8 prompts; then (b) all 32 layers under
@@ -5988,6 +6151,8 @@ def moe_serve_phase(dev):
         log(f"   {t / eng.decode_window:.3f} ms/step "
             f"{c / eng.decode_window:.0f}x  {k[:90]}")
     moe_mlp_share(cfg, eng, put_ms, win_ms, sum(map(len, prompts)), N)
+    for k, n in ep_serve_phase(cfg, eng, prompts[:4], new).items():
+        launches[k] = launches.get(k, 0) + n
 
     # the v1 engine on the same weights: 8 prompts of 512 tokens, 16 new
     v1 = deepspeed_tpu_torch.init_inference(
@@ -6170,11 +6335,30 @@ def moe_woq_phase(dev, prompts, new):
 MOE_TRAIN_LAYERS = 2
 
 
+def moe_train_config(stage, gas=2, **moe):
+    return dict(TRAIN_CONFIG, gradient_accumulation_steps=gas,
+                zero_optimization={"stage": stage},
+                moe={"enabled": True, "num_experts": 8, **moe},
+                telemetry={"enabled": False})
+
+
+def leaf_prints(engine):
+    """Each compute and master leaf's fingerprint (``utils.sanity``: two
+    int64 sums over its bit pattern), on the host: equal prints are the
+    same bits."""
+    from deepspeed_tpu_torch.utils.sanity import _fingerprint
+
+    leaves = list(engine._param_leaves) + list(engine._master_leaves or [])
+    return torch.stack([_fingerprint(v) for v in leaves]).cpu()
+
+
 def moe_train_phase(dev):
     """8g: Mixtral-8x7B width at 2 layers through initialize() /
     train_batch() at one NCCL rank: ZeRO 1, bf16, AdamW, clip 1.0, micro 2
     x gas 2 x S 2048, remat, top-2 at capacity 1.0; then one dropless top-1
-    step. Returns the flash launches of the main path."""
+    step. Returns the flash launches of the main path and the stage-1
+    run (losses, leaf fingerprints, batch) phase 8j holds its engines
+    to."""
     import dataclasses
 
     import deepspeed_tpu_torch
@@ -6184,10 +6368,7 @@ def moe_train_phase(dev):
 
     cfg = dataclasses.replace(mixtral_8x7b(), num_layers=MOE_TRAIN_LAYERS)
     L, gas, steps = cfg.num_layers, 2, 3
-    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=gas,
-                  zero_optimization={"stage": 1},
-                  moe={"enabled": True, "num_experts": cfg.moe_num_experts},
-                  telemetry={"enabled": False})
+    config = moe_train_config(1, gas)
     routed = {"kept": [], "aux": []}
     route = sharded_moe._route_top2
 
@@ -6250,6 +6431,7 @@ def moe_train_phase(dev):
                              f"finite: {losses}")
     if launches != want:
         raise AssertionError(f"8g: launches {launches} != {want}")
+    ref = {"losses": losses, "prints": leaf_prints(engine), "batch": batch}
     engine.close()
     del engine
     gc.collect()
@@ -6269,6 +6451,82 @@ def moe_train_phase(dev):
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, ref
+
+
+# ---------------------------------------------------------------------------
+# phase 8j: the engine through the expert leaves' ZeRO groups, one rank
+# ---------------------------------------------------------------------------
+def moe_zero_phase(dev, ref):
+    """8j: phase 8g's engine (Mixtral-8x7B width, 2 layers, bf16, micro 2 x
+    gas 2 x S 2048, capacity 1.0, its seeded weights and batch) at ZeRO 1
+    and ZeRO 3 with ``moe.expert_parallel_size`` 1 set, 3 steps each: the
+    engine's per-leaf ZeRO groups (an expert leaf's is the ranks holding
+    its experts: at one NCCL rank a single rank, the whole ZeRO group), its
+    stage-3 gathers and reduce-scatters over them, the expert leaves'
+    clip-norm sums and gradient scaling. Losses and every compute and
+    master leaf torch.equal (by bit fingerprint) to 8g's stage-1 engine,
+    as 8c holds the stages to stage 0; step ms and peak GiB.
+
+    Only under gloo on the CPU (tests/test_torch_expert_zero_distributed.
+    py, tests/test_torch_parallel_serving.py) run the parts of ROADMAP A8
+    that need more than one rank: an expert leaf's shard over 2+
+    expert-data ranks, the all-to-all dispatch at ep > 1 (training and
+    serving), tp / sp / MiCS x ep, MiCS x sp, and the serving runtime's
+    leader / follower loop. Returns the flash launches."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM, mixtral_8x7b
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(mixtral_8x7b(), num_layers=MOE_TRAIN_LAYERS)
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    launches = {kfn.__name__: 0 for kfn in kernels}
+    bad = []
+    for stage in (1, 3):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=TransformerLM(cfg),
+            config=moe_train_config(stage, expert_parallel_size=1))
+        groups = {i: engine._zero[i][1] for i in engine._expert_idx}
+        for kfn in kernels:
+            kfn.launches = 0
+        # -- the main path: train_batch() x 3 -----------------------------
+        losses, step_s = [], []
+        for _ in range(len(ref["losses"])):
+            t0 = time.perf_counter()
+            losses.append(engine.train_batch(batch=ref["batch"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        got = {kfn.__name__: kfn.launches for kfn in kernels}
+        steps, L = len(losses), cfg.num_layers
+        if got != {"flash_fwd": steps * 2 * L * 2,
+                   "flash_bwd_dq": steps * L * 2,
+                   "flash_bwd_dkv": steps * L * 2}:
+            bad.append(f"ZeRO {stage}: flash launches {got}")
+        for k, n in got.items():
+            launches[k] += n
+        same = losses == ref["losses"] and torch.equal(leaf_prints(engine),
+                                                       ref["prints"])
+        log(f"8j ZeRO {stage}, ep 1: {len(groups)} expert leaves on their "
+            f"expert ZeRO groups of {sorted(set(groups.values()))} rank(s); "
+            f"losses {[f'{x:.4f}' for x in losses]}; losses and leaves "
+            f"torch.equal to 8g's stage-1 engine: {same}; step s "
+            f"{[f'{x:.3f}' for x in step_s]} (median of steps 2-3 "
+            f"{statistics.median(step_s[1:]) * 1e3:.1f} ms); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not same or not groups:
+            bad.append(f"ZeRO {stage}: equal {same}, expert leaves "
+                       f"{len(groups)}")
+        engine.close()
+        del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("8j: " + "; ".join(bad))
     return launches
 
 
@@ -6329,9 +6587,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    for k, n in moe_train_phase(dev).items():
+    moe_launches, moe_ref = moe_train_phase(dev)
+    for k, n in moe_launches.items():
         launches[k] += n
     log(f"phase 8g: {time.perf_counter() - t0:.0f}s")
+    t0 = time.perf_counter()
+    for k, n in moe_zero_phase(dev, moe_ref).items():
+        launches[k] += n
+    del moe_ref
+    log(f"phase 8j: {time.perf_counter() - t0:.0f}s")
     dp_launches, stage3_two_steps = zero_dp_phase(dev, card)
     for k, n in dp_launches.items():
         launches[k] += n

@@ -132,21 +132,23 @@ class InferenceEngine:
                               axis=1)
 
 
-def tensor_parallel_topology(tp: int, device):
-    """The process topology of a tensor-parallel engine: the default group
-    (started here from the launcher's environment if it is not yet) with
-    its ranks on the model axis (tp must divide the world; more ranks are
-    replicas)."""
+def tensor_parallel_topology(tp: int, device, ep: int = 1):
+    """The process topology of a tensor- (and expert-) parallel engine: the
+    default group (started here from the launcher's environment if it is
+    not yet) with its ranks on the model and expert axes (tp x ep must
+    divide the world; more ranks are replicas)."""
     from ..comm import comm
     from ..parallel.topology import MeshTopology, TopologyConfig
 
     comm.init_distributed(dist_backend="nccl" if device.type == "cuda"
                           else "gloo")
     world = comm.get_world_size()
-    if world % tp:
-        raise ValueError(f"tensor_parallel tp_size={tp} does not divide the "
-                         f"process group's {world} ranks")
-    return MeshTopology(TopologyConfig(model=tp))
+    if world % (tp * ep):
+        what = (f"tensor_parallel tp_size={tp}" if ep == 1 else
+                f"tp_size={tp} x expert_parallel_size={ep}")
+        raise ValueError(f"{what} does not divide the process group's "
+                         f"{world} ranks")
+    return MeshTopology(TopologyConfig(model=tp, expert=ep))
 
 
 def tp_slices(model, params, topology):
@@ -160,6 +162,23 @@ def tp_slices(model, params, topology):
     return _unflatten([
         (k, v if dims.get(k) is None else
          shard_of(v, dims[k], r, tp).contiguous())
+        for k, v in _flatten(params)])
+
+
+def expert_slices(model, params, topology):
+    """This rank's experts of a parameter tree (the model's
+    ``expert_leaves`` cut over the expert axis), contiguous; the tree
+    itself at ep 1."""
+    from ..comm.quantized import shard_of
+    from ..runtime.engine import _flatten, _unflatten
+
+    ep = topology.axis_size("expert")
+    if ep == 1:
+        return params
+    dims = getattr(model, "expert_leaves", {}) or {}
+    return _unflatten([
+        (k, v if k not in dims else
+         shard_of(v, dims[k], topology.ep_rank, ep).contiguous())
         for k, v in _flatten(params)])
 
 

@@ -129,9 +129,8 @@ class RaggedInferenceEngineConfig:
         if self.max_lora_adapters:
             raise _not_ported("the LoRA adapter bank (max_lora_adapters)",
                               "A11")
-        if self.expert_parallel_size != 1:
-            raise _not_ported("expert-parallel serving "
-                              "(expert_parallel_size > 1)", "A8")
+        if self.expert_parallel_size < 1:
+            raise ValueError("expert_parallel_size must be >= 1")
         if self.tensor_parallel_size < 1:
             raise ValueError("tensor_parallel_size must be >= 1")
 

@@ -35,15 +35,19 @@ hot-swaps (A7).
 
 Under ``quant_bits`` 8 or 4 the weights rest quantized
 (``inference/quantization.py``) and are dequantized right before use.
-MoE models (Mixtral) serve at ``expert_parallel_size`` 1, any top-k
-(``paged_model._moe_mlp``); expert-parallel serving raises (ROADMAP A8).
+MoE models (Mixtral) serve at ``expert_parallel_size`` 1, any top-k, on
+the grouped GEMM (``paged_model._moe_mlp``); at ``expert_parallel_size``
+> 1 (JAX :140-199; top-1 / top-2) each rank holds ``E / ep`` experts of
+every layer and the tokens go through the worst-case-capacity dispatch
+and its all-to-alls over the expert group.
 
-At ``tensor_parallel_size`` > 1 the engine is SPMD over a process group
-of tp ranks (``comm.init_distributed()``): every rank runs the same
-scheduler on the same ``put()``s, holds its slices of the weights and a
-pool of its ``kv_heads / tp`` heads, and runs the paged and ragged
-kernels on them (``paged_model.ShardedServeConfig``); the logits are
-all-gathered before sampling, so every rank draws the same token.
+At ``tensor_parallel_size`` (or ``expert_parallel_size``) > 1 the engine
+is SPMD over a process group of tp x ep ranks (``comm.init_distributed()``):
+every rank runs the same scheduler on the same ``put()``s, holds its
+slices of the weights and a pool of its ``kv_heads / tp`` heads, and runs
+the paged and ragged kernels on them (``paged_model.ShardedServeConfig``);
+the logits are all-gathered before sampling, and the sampler draws from a
+counter hash, so every rank draws the same token.
 
 The engine runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda`` and raises when no GPU is present. On the
@@ -86,13 +90,19 @@ class InferenceEngineV2:
         self.model = model
         cfg: TransformerConfig = model.cfg
         check_servable(cfg)
-        if cfg.moe_num_experts > 0 and config.expert_parallel_size > 1:
-            # as JAX (:140): ep > 1 would route through the capacity
-            # dispatch, whose gating has the top-1 / top-2 conventions only
-            # (the config refuses ep > 1 first: ROADMAP A8)
+        ep = config.expert_parallel_size
+        if cfg.moe_num_experts > 0 and ep > 1:
+            # as JAX (:140): ep > 1 routes through the capacity dispatch,
+            # whose gating has the top-1 / top-2 conventions only
             assert cfg.moe_top_k <= 2, \
                 f"expert-parallel serving is top-1/top-2 only " \
                 f"(got moe_top_k={cfg.moe_top_k}); serve top-k>2 at ep=1"
+        if ep > 1:
+            assert cfg.moe_num_experts > 0, \
+                "expert_parallel_size > 1 requires an MoE model"
+            assert cfg.moe_num_experts % ep == 0, \
+                f"num experts {cfg.moe_num_experts} not divisible by " \
+                f"expert_parallel_size {ep}"
         self.device = resolve_device(device)
         sm = config.state_manager
         if sm.max_seq_len > cfg.max_seq_len:
@@ -110,14 +120,18 @@ class InferenceEngineV2:
         # tensor parallelism
         self.topology = None
         self.serve_cfg = cfg
-        if config.tensor_parallel_size > 1:
-            from ..engine import tensor_parallel_topology, tp_slices
+        tp = config.tensor_parallel_size
+        if tp > 1 or ep > 1:
+            from ..engine import expert_slices, tensor_parallel_topology, \
+                tp_slices
             from .paged_model import shard_serve_config
-            tp = config.tensor_parallel_size
-            self.topology = tensor_parallel_topology(tp, self.device)
+            topo = tensor_parallel_topology(tp, self.device, ep=ep)
+            self.topology = topo
             self.serve_cfg = shard_serve_config(
-                cfg, tp, self.topology.tp_rank, self.topology.group("model"))
-            self.params = tp_slices(model, self.params, self.topology)
+                cfg, tp, topo.tp_rank, topo.group("model") if tp > 1
+                else None, ep, topo.ep_rank, topo.expert_group())
+            self.params = expert_slices(model, tp_slices(
+                model, self.params, topo), topo)
         if config.quant_bits:
             # weights rest as int8 / packed int4 with per-block scales,
             # quantized from the engine's dtype; paged_model dequantizes

@@ -29,7 +29,12 @@ experts (``_moe_mlp``, JAX :216): softmax in f32, renormalized over the
 chosen set for k >= 2. Its tokens, sorted by expert, go through a grouped
 GEMM whose group offsets stay on the device
 (``moe.sharded_moe.serve_topk_experts``), so a decode window keeps its
-one host sync.
+one host sync. Under expert parallelism (a :class:`ShardedServeConfig`
+with ``ep_size`` > 1, JAX :238-255) a rank holds ``E / ep`` experts of
+each layer and the tokens go through the worst-case-capacity dispatch of
+``moe.sharded_moe.moe_layer_dropless_ep`` (C = k T, so no token is
+dropped) and its all-to-alls over the expert group; every rank runs the
+same tokens and gets every token's output back.
 
 The layer loop is a Python loop over views of the stacked ``[L, ...]``
 leaves: ``params["layers"][k][l]`` copies nothing. Under weight-only
@@ -68,19 +73,27 @@ from .sampling import (fold_in_rows, greedy_tokens, key_uniforms,
 
 @dataclass(frozen=True)
 class ShardedServeConfig(TransformerConfig):
-    """A tensor-parallel rank's view of the model: ``num_heads`` and
-    ``num_kv_heads`` are its own heads (the head size kept), and the model
-    group is ``tp_group``."""
+    """A tensor- or expert-parallel rank's view of the model:
+    ``num_heads`` and ``num_kv_heads`` are its own heads (the head size
+    kept), the model group is ``tp_group``; the expert group of ``ep_size``
+    ranks is ``ep_group``, this rank holding experts ``[ep_rank * E / ep,
+    (ep_rank + 1) * E / ep)``."""
 
     tp_size: int = 1
     tp_rank: int = 0
     tp_group: Any = field(default=None, compare=False, hash=False,
                           repr=False)
+    ep_size: int = 1
+    ep_rank: int = 0
+    ep_group: Any = field(default=None, compare=False, hash=False,
+                          repr=False)
 
 
 def shard_serve_config(cfg: TransformerConfig, tp: int, rank: int,
-                       group) -> ShardedServeConfig:
-    """The :class:`ShardedServeConfig` of rank ``rank`` of ``tp``."""
+                       group, ep: int = 1, ep_rank: int = 0,
+                       ep_group=None) -> ShardedServeConfig:
+    """The :class:`ShardedServeConfig` of rank ``rank`` of ``tp`` (and
+    ``ep_rank`` of ``ep``)."""
     from ...models.transformer import check_tp
 
     check_tp(cfg, tp)
@@ -88,7 +101,8 @@ def shard_serve_config(cfg: TransformerConfig, tp: int, rank: int,
     kw.update(num_heads=cfg.num_heads // tp,
               num_kv_heads=cfg.kv_heads // tp,
               head_dim_override=cfg.head_dim)
-    return ShardedServeConfig(**kw, tp_size=tp, tp_rank=rank, tp_group=group)
+    return ShardedServeConfig(**kw, tp_size=tp, tp_rank=rank, tp_group=group,
+                              ep_size=ep, ep_rank=ep_rank, ep_group=ep_group)
 
 
 def _tp(cfg):
@@ -236,18 +250,29 @@ def _mlp(cfg, lp, x):
     return dense_mlp(cfg, lp, x, _row(cfg))
 
 
-def _moe_mlp(cfg, lp, x):
-    """Routed-expert MLP for serving (JAX :216), ep 1, dropless: top-1
-    keeps the raw gate probability, top-k >= 2 renormalizes over the
-    chosen set (the Mixtral convention)."""
-    from ...moe.sharded_moe import residual_moe_combine, serve_moe
+def _moe_mlp(cfg, lp, x, ep_route=None):
+    """Routed-expert MLP for serving (JAX :216), dropless: top-1 keeps the
+    raw gate probability, top-k >= 2 renormalizes over the chosen set (the
+    Mixtral convention). At ep 1 the grouped GEMM; at ep > 1 (or
+    ``ep_route``, a ``MoEGroups``) the worst-case-capacity dispatch over
+    the expert group (top-1 / top-2)."""
+    from ...moe.sharded_moe import (MoEGroups, moe_layer_dropless_ep,
+                                    residual_moe_combine, serve_moe,
+                                    swiglu_experts)
 
     orig_shape = x.shape
     xt = x.reshape(-1, orig_shape[-1])
-    out = serve_moe(xt, lp["moe_gate_w"],
-                    (lp["e_gate"], lp["e_up"], lp["e_down"]),
-                    cfg.moe_top_k, renormalize_top1=False,
-                    logits_in_f32=True)
+    experts = (lp["e_gate"], lp["e_up"], lp["e_down"])
+    ep = getattr(cfg, "ep_size", 1)
+    if ep > 1 and ep_route is None:
+        ep_route = MoEGroups(None, 1, 0, cfg.ep_group, ep, cfg.ep_rank)
+    if ep_route is not None:
+        out = moe_layer_dropless_ep(xt[None], lp["moe_gate_w"], experts,
+                                    swiglu_experts, ep_route,
+                                    top_k=cfg.moe_top_k)[0][0]
+    else:
+        out = serve_moe(xt, lp["moe_gate_w"], experts, cfg.moe_top_k,
+                        renormalize_top1=False, logits_in_f32=True)
     if cfg.moe_use_residual:
         dense = (torch.nn.functional.silu(xt @ lp["res_gate"])
                  * (xt @ lp["res_up"])) @ lp["res_down"]

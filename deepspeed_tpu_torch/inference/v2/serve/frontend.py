@@ -38,7 +38,7 @@ from ....telemetry.anomaly import (DiagnosticsConfig, KVLeakDetector,
 from ....telemetry.recorder import get_recorder
 from ..scheduler import DynamicSplitFuseScheduler
 from .admission import AdmissionConfig, AdmissionController
-from .loop import ServingLoop
+from .loop import FollowerLoop, LeaderEngine, ModelGroup, ServingLoop
 
 
 def _fleet_not_ported(what: str) -> NotImplementedError:
@@ -228,19 +228,30 @@ class ServingEngine:
         ``lane``: fleet lane name for the serving loop's spans (the
         replica name under a router; see telemetry/trace.py
         ``set_lane``) — the stitched fleet timeline groups spans into
-        one process row per lane."""
-        if getattr(engine, "topology", None) is not None:
-            raise NotImplementedError(
-                "the serving runtime over a tensor-parallel engine "
-                "(tensor_parallel_size > 1: the front end would have to "
-                "send each request to every rank) is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A8)")
+        one process row per lane.
+
+        Over an SPMD engine (tensor or expert parallel) every rank of the
+        engine builds its ``ServingEngine``: the group's rank 0 serves
+        (front end, admission, scheduler; its engine calls reach the
+        others through ``loop.LeaderEngine``) and every other rank
+        follows (``loop.FollowerLoop``; ``submit`` refuses there), from
+        ``start()`` until the leader's loop ends."""
         self.config = config or ServingConfig()
         if self.config.autotune is not None:
             raise NotImplementedError(
                 "ServingConfig.autotune (the online adapter, "
                 "autotuning/online.py) is not ported to deepspeed_tpu_torch "
                 "yet (ROADMAP A12)")
+        self._stopped = False
+        self.follower = False
+        if getattr(engine, "topology", None) is not None:
+            group = ModelGroup(engine)
+            if not group.leader:
+                self.follower = True
+                self.diagnostics = None
+                self._loop_runner = FollowerLoop(engine, group)
+                return
+            engine = LeaderEngine(engine, group)
         self.clock = clock
         if self.config.ragged_attention is not None:
             engine.set_ragged_mode(self.config.ragged_attention)
@@ -255,7 +266,6 @@ class ServingEngine:
             idle_wait_s=self.config.idle_wait_s, clock=clock,
             bridge=bridge, diagnostics=self.diagnostics, lane=lane)
         self._uids = itertools.count(1)
-        self._stopped = False
 
     @property
     def loop_runner(self) -> ServingLoop:
@@ -283,7 +293,8 @@ class ServingEngine:
             # never started: end anything parked in the queues
             self._loop_runner.start()
         await asyncio.to_thread(self._loop_runner.join, timeout)
-        self.diagnostics.close()
+        if self.diagnostics is not None:
+            self.diagnostics.close()
 
     async def __aenter__(self) -> "ServingEngine":
         return await self.start()
@@ -311,6 +322,10 @@ class ServingEngine:
         adapter to serve the request through (None = base model); it
         scopes admission fairness within the tenant and the engine's
         per-row adapter gather."""
+        if self.follower:
+            raise RuntimeError(
+                "this rank follows its engine group's rank 0, which serves "
+                "the requests")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         uid = next(self._uids)

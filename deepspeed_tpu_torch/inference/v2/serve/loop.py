@@ -23,13 +23,219 @@ host counters). The KV handoff entry points (``resume``,
 keeps none of the fleet's state (chunked restores, weight staging, the
 online adapter), which comes with those modules (ROADMAP A7, A12). The
 drain closes the engine's KV spill tier (``ragged/spill.py``), as in JAX.
+
+Over an SPMD engine (tensor or expert parallel: ``engine.topology`` set)
+the runtime runs on the engine group's rank 0 (the leader): its loop
+drives a :class:`LeaderEngine`, which broadcasts each engine call that
+changes what a rank holds (``MIRRORED``: the step's uids, token ids and
+finished sequences) over the group before making it, and every other
+rank runs :class:`FollowerLoop`, which makes the same calls in the same
+order. The leader samples on the host; the followers never read a token.
+After each mirrored call the group agrees, in one small all-reduce,
+whether the call raised everywhere or nowhere: a call that raised on
+some ranks only (an out-of-memory, say) leaves their KV state out of
+step, so the followers log it and end, and the leader's loop fails every
+request and ends (:class:`GroupDiverged`). A failure between the
+collectives of one call cannot reach that agreement; the process
+group's timeout ends it. An engine call that is neither mirrored nor
+known to run no collective (``LOCAL``) raises on the leader rather than
+leave the followers behind. When the leader's loop exits (drain or stop)
+it sends a final message, and the followers' loops end: a follower never
+waits on a step the leader will not take. The JAX package is one
+controller over all devices, so this layer has no JAX counterpart.
 """
 
 import heapq
+import logging
 import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
+
+logger = logging.getLogger(__name__)
+
+# the engine calls that change what a rank of an SPMD engine holds (its KV
+# pool and sequences, its dispatch): mirrored on every rank in order
+MIRRORED = ("put", "flush", "_decode_batch_greedy", "_decode_window_greedy",
+            "set_ragged_mode", "set_decode_window")
+# the engine calls the runtime makes on the leader alone: they read host
+# state and run no collective
+LOCAL = ("can_schedule", "_window_steps_left", "bind_trace")
+
+
+class GroupDiverged(RuntimeError):
+    """A mirrored engine call raised on some ranks of the group and not on
+    others: their engine states no longer match."""
+
+
+class ModelGroup:
+    """The ranks of one SPMD engine (its model and expert axes) and the
+    channel its leader (group rank 0) sends each mirrored call on: one
+    pickled ``(name, args, kwargs)`` object broadcast a call, None at the
+    end."""
+
+    def __init__(self, engine):
+        import torch.distributed as dist
+
+        from ....comm import comm
+
+        topo = engine.topology
+        axes = ("expert", "model")
+        self.group = topo.group(axes)
+        self.size = topo.group_size(axes)
+        self.rank = topo.group_rank(axes)
+        self.src = (dist.get_global_rank(self.group, 0)
+                    if self.group is not None else 0)
+        # an object broadcast over NCCL stages through the device
+        self.device = (engine.device if comm.get_backend(self.group)
+                       == "nccl" else None)
+
+    @property
+    def leader(self) -> bool:
+        return self.rank == 0
+
+    def send(self, msg) -> None:
+        import torch.distributed as dist
+        dist.broadcast_object_list([msg], src=self.src, group=self.group,
+                                   device=self.device)
+
+    def recv(self):
+        import torch.distributed as dist
+        box = [None]
+        dist.broadcast_object_list(box, src=self.src, group=self.group,
+                                   device=self.device)
+        return box[0]
+
+    def agree(self, raised: bool) -> bool:
+        """Whether every rank's last mirrored call raised, or none did."""
+        import torch
+        import torch.distributed as dist
+        flag = torch.tensor([int(raised), -int(raised)],
+                            device=self.device or "cpu")
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        any_raised, none_clean = flag.tolist()
+        return any_raised == -none_clean
+
+
+class LeaderEngine:
+    """The leader's view of an SPMD engine: every ``MIRRORED`` call is
+    broadcast to the followers, made here, and agreed on (it raised on
+    every rank or on none, else :class:`GroupDiverged`, then and on every
+    later call); a ``LOCAL`` call or an attribute that is no call is the
+    engine's own, and any other call raises. :meth:`release_followers`
+    sends the final message (once)."""
+
+    def __init__(self, engine, group: ModelGroup):
+        self._engine = engine
+        self._group = group
+        self._released = False
+        self._diverged: Optional[GroupDiverged] = None
+
+    def __getattr__(self, name):
+        attr = getattr(self._engine, name)
+        if name in LOCAL or not callable(attr):
+            return attr
+        if name not in MIRRORED:
+            raise TypeError(
+                f"engine call {name!r} is neither mirrored on the engine "
+                f"group's followers nor known to run no collective "
+                f"(serve/loop.py MIRRORED, LOCAL)")
+
+        def mirrored(*args, **kwargs):
+            if self._diverged is not None:
+                raise self._diverged
+            self._group.send((name, args, kwargs))
+            err = None
+            try:
+                out = attr(*args, **kwargs)
+            except Exception as e:
+                err = e
+            if not self._group.agree(err is not None):
+                # the followers have left their loop: nothing more to send
+                self._released = True
+                self._diverged = GroupDiverged(
+                    f"engine call {name!r} raised on some ranks of the "
+                    f"engine group and not on others"
+                    + (f" (here: {type(err).__name__}: {err})" if err
+                       else " (not here)"))
+                raise self._diverged from err
+            if err is not None:
+                raise err
+            return out
+
+        return mirrored
+
+    def release_followers(self) -> None:
+        if not self._released:
+            self._released = True
+            self._group.send(None)
+
+
+class FollowerLoop:
+    """A follower rank's runtime: a thread that makes the leader's
+    mirrored engine calls in the leader's order, until its final message
+    (then it closes the engine's spill tier, as the leader's drain does).
+    A call that raises is logged; if it raised on every rank (a request
+    the engine refuses) the loop goes on, as the leader's does, else it
+    ends, with the :class:`GroupDiverged` in :attr:`error`."""
+
+    def __init__(self, engine, group: ModelGroup):
+        self.engine = engine
+        self.group = group
+        self.calls = 0
+        self.error: Optional[GroupDiverged] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def _run(self) -> None:
+        device = getattr(self.engine, "device", None)
+        if device is not None and device.type == "cuda":
+            import torch
+            torch.cuda.set_device(device)
+        while True:
+            msg = self.group.recv()
+            if msg is None:
+                break
+            name, args, kwargs = msg
+            self.calls += 1
+            err = None
+            try:
+                getattr(self.engine, name)(*args, **kwargs)
+            except Exception as e:
+                err = e
+                logger.warning("serving follower (engine group rank %d): "
+                               "engine call %r raised %s: %s", self.group.rank,
+                               name, type(e).__name__, e)
+            if not self.group.agree(err is not None):
+                self.error = GroupDiverged(
+                    f"engine call {name!r} raised on some ranks of the "
+                    f"engine group and not on others")
+                logger.error("serving follower (engine group rank %d): %s; "
+                             "the follower loop ends", self.group.rank,
+                             self.error)
+                break
+        spill = getattr(self.engine, "spill", None)
+        if spill is not None:
+            spill.close()
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run,
+                                            name="ds-tpu-serving-follower",
+                                            daemon=True)
+            self._thread.start()
+
+    def request_drain(self) -> None:
+        """The leader's final message ends the loop."""
+
+    request_stop = request_drain
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
 
 
 def _handoff_not_ported() -> NotImplementedError:
@@ -318,6 +524,39 @@ class ServingLoop:
                 self._end(entry, "cancelled")
 
     def _run(self) -> None:
+        try:
+            self._serve()
+        except GroupDiverged as e:
+            self._fail_all(e)
+        finally:
+            # an SPMD engine's followers end with this loop
+            release = getattr(self.scheduler.engine, "release_followers",
+                              None)
+            if release is not None:
+                release()
+
+    def _fail_all(self, e: GroupDiverged) -> None:
+        """The engine group's states diverged: fail every request, make
+        no more engine calls, and end the loop."""
+        logger.error("serving loop: %s; every request fails and the loop "
+                     "ends", e)
+        self.admission.close()
+        reason = f"{type(e).__name__}: {e}"
+        for entry in list(self._entries.values()):
+            self._end(entry, "error", reason)
+        while (entry := self.admission.pop()) is not None:
+            if entry.state != "done":
+                self._end(entry, "error", reason)
+        spill = getattr(self.scheduler.engine, "spill", None)
+        if spill is not None:
+            spill.close()
+        if self.bridge is not None:
+            try:
+                self.bridge.close()
+            except Exception:
+                pass
+
+    def _serve(self) -> None:
         device = getattr(self.scheduler.engine, "device", None)
         if device is not None and device.type == "cuda":
             import torch
@@ -334,6 +573,8 @@ class ServingLoop:
             if self.scheduler.pending():
                 try:
                     self._diag_step(self.scheduler.step)
+                except GroupDiverged:
+                    raise
                 except Exception as e:
                     self._step_error(e)
                 self._cancel_dead()

@@ -30,11 +30,13 @@ logit from the rank that owns it). Sequence parallelism (a seq axis >
 1): each rank embeds its chunk of the sequence, its RoPE positions offset
 by the chunk's start, attention is Ulysses or ring
 (``sequence/layer.py``), and the loss sums the chunks' parts over the seq
-group. At one rank on both axes every hook is the identity. Not ported
-yet, each raising ``NotImplementedError``: PPO batches (A11), alibi,
-post-LN and the MLM family (A12), MoE under sequence parallelism (A8),
-and in the cached forward learned positions, alibi and parallel residual
-(A6d).
+group; an MoE layer gates each rank's chunk globally over the data x seq
+ranks (its aux loss's gradient reaching each rank as 1 / sp of it, the
+backward starting from sp times the loss). At one rank on both axes
+every hook is the identity. Not ported yet, each raising
+``NotImplementedError``: PPO batches (A11), alibi, post-LN and the MLM
+family (A12), uneven tensor-parallel splits (A8), and in the cached
+forward learned positions, alibi and parallel residual (A6d).
 """
 
 import math
@@ -391,7 +393,11 @@ def tp_shard_dims(cfg: "TransformerConfig") -> Dict[str, Optional[int]]:
 
 
 def check_tp(cfg: "TransformerConfig", tp: int) -> None:
-    """The head and width counts a model axis of ``tp`` must divide."""
+    """The head and width counts a model axis of ``tp`` must divide. The
+    JAX engine raises ``ValueError`` on such a split too (its attention's
+    ``shard_map`` and its state's output shardings need every sharded
+    dimension to divide by the model axis), so no JAX run holds a padded
+    layout yet."""
     if tp <= 1:
         return
     bad = [(n, v) for n, v in (("num_heads", cfg.num_heads),
@@ -495,10 +501,6 @@ class TransformerLM:
         if pp > 1 and self.cfg.num_layers % pp:
             raise ValueError(f"num_layers={self.cfg.num_layers} is not "
                              f"divisible by the pipeline stages {pp}")
-        if sp > 1 and self.cfg.moe_num_experts > 0:
-            raise NotImplementedError(
-                "MoE layers under sequence parallelism are not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A8)")
         self._tp = ((tp, topo.tp_rank, topo.group("model")) if tp > 1
                     else (1, 0, None))
         self._sp = ((sp, topo.sp_rank, topo.group("seq")) if sp > 1
@@ -1011,6 +1013,11 @@ class TransformerLM:
         else:
             loss = total / torch.clamp(count, min=1.0)
         if aux is not None:
+            if sp > 1:
+                # the aux loss is global over the data x seq ranks, and
+                # each rank's backward (from sp times its loss) reaches it
+                # through its own tokens: 1 / sp of it each
+                aux = aux.detach() + (aux - aux.detach()) / sp
             loss = loss + self.cfg.moe_aux_loss_coef * aux
         return loss
 

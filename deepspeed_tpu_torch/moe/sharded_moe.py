@@ -61,12 +61,16 @@ class MoEGroups:
     ``group`` (``world`` ranks, this one ``rank``) is the data-parallel
     group the gating statistics are global over; ``expert_group`` (``ep``
     ranks, this one ``ep_rank``) holds one copy of the experts, this rank
-    experts ``[ep_rank * E / ep, (ep_rank + 1) * E / ep)``."""
+    experts ``[ep_rank * E / ep, (ep_rank + 1) * E / ep)``. Under sequence
+    parallelism (``sp`` > 1) the group is the data x seq ranks (seq
+    innermost), each holding its chunk of the sequence of its rows."""
 
     def __init__(self, group=None, world: int = 1, rank: int = 0,
-                 expert_group=None, ep: int = 1, ep_rank: int = 0):
+                 expert_group=None, ep: int = 1, ep_rank: int = 0,
+                 sp: int = 1):
         self.group, self.world, self.rank = group, world, rank
         self.expert_group, self.ep, self.ep_rank = expert_group, ep, ep_rank
+        self.sp = sp
 
 
 def _world(groups: Optional[MoEGroups]) -> int:
@@ -96,17 +100,35 @@ class _AllToAll(torch.autograd.Function):
         return out, None
 
 
-def _global_counts(counts: torch.Tensor, groups: Optional[MoEGroups]):
-    """(this rank's exclusive prefix, the total) of per-expert counts over
-    the data-parallel ranks, rank 0's first."""
+def _global_counts(mask: torch.Tensor, groups: Optional[MoEGroups],
+                   rows: int = 1):
+    """(each token's exclusive prefix [T, E] or [E], the total [E]) of the
+    per-expert counts of a [T, E] mask over the global token order: the
+    data-parallel ranks' tokens rank 0's first and, under sequence
+    parallelism, row by row, each row's chunks in seq order (JAX's
+    ``[B * S]`` order). ``rows``: the batch rows of this rank's T tokens,
+    row-major."""
     if _world(groups) == 1:
+        counts = mask.sum(0)
         return torch.zeros_like(counts), counts
-    every = torch.empty(groups.world * counts.numel(), dtype=counts.dtype,
-                        device=counts.device)
-    comm.all_gather_into_tensor(every, counts.contiguous(),
-                                group=groups.group)
-    every = every.view(groups.world, -1)
-    return every[:groups.rank].sum(0), every.sum(0)
+    sp = groups.sp
+    E = mask.shape[-1]
+    mine = mask.reshape(rows, -1, E).sum(1)                      # [R, E]
+    every = torch.empty((groups.world * rows, E), dtype=mine.dtype,
+                        device=mine.device)
+    comm.all_gather_into_tensor(every, mine.contiguous(), group=groups.group)
+    every = every.view(groups.world // sp, sp, rows, E)
+    d, r = divmod(groups.rank, sp)
+    here = every[d]                                              # [sp, R, E]
+    # before row b of this chunk: the lower data ranks, rows < b of every
+    # chunk, row b of the lower chunks; less this rank's rows < b, which
+    # the local cumsum counts
+    before = (every[:d].sum((0, 1, 2))
+              + torch.cumsum(here.sum(0), 0) - here.sum(0)
+              - (torch.cumsum(mine, 0) - mine)
+              + here[:r].sum(0))                                 # [R, E]
+    return (before.repeat_interleave(mask.shape[0] // rows, dim=0),
+            every.sum((0, 1, 2)))
 
 
 def _global_mean(x: torch.Tensor, groups: Optional[MoEGroups]):
@@ -150,7 +172,7 @@ class Routing(NamedTuple):
 
 
 def _route_top1(logits, capacity_factor, min_capacity, noisy_gate_policy,
-                generator, groups):
+                generator, groups, rows=1):
     T, E = logits.shape
     C = _capacity(T * _world(groups), E, capacity_factor, min_capacity)
     gates = torch.softmax(logits, dim=-1)                       # [T, E]
@@ -160,7 +182,7 @@ def _route_top1(logits, capacity_factor, min_capacity, noisy_gate_policy,
     me = _global_mean(gates, groups)
     ce = _global_mean(mask1, groups)
     aux = torch.sum(me * ce) * E
-    prefix, _ = _global_counts(mask1.sum(0), groups)
+    prefix, _ = _global_counts(mask1, groups, rows)
     pos = (torch.cumsum(mask1, dim=0) - mask1 + prefix)         # [T, E]
     pos1 = torch.sum(pos * mask1, dim=-1)
     keep = pos1 < C
@@ -169,7 +191,7 @@ def _route_top1(logits, capacity_factor, min_capacity, noisy_gate_policy,
                    w[:, None], C, aux)
 
 
-def _route_top2(logits, capacity_factor, min_capacity, groups):
+def _route_top2(logits, capacity_factor, min_capacity, groups, rows=1):
     T, E = logits.shape
     C = _capacity(T * _world(groups), E, capacity_factor * 2.0,
                   min_capacity)
@@ -181,8 +203,8 @@ def _route_top2(logits, capacity_factor, min_capacity, groups):
     me = _global_mean(gates, groups)
     ce = _global_mean(mask1, groups)
     aux = torch.sum(me * ce) * E
-    prefix1, total1 = _global_counts(mask1.sum(0), groups)
-    prefix2, _ = _global_counts(mask2.sum(0), groups)
+    prefix1, total1 = _global_counts(mask1, groups, rows)
+    prefix2, _ = _global_counts(mask2, groups, rows)
     pos1 = torch.sum((torch.cumsum(mask1, 0) - mask1 + prefix1) * mask1, -1)
     # expert-2 positions come after every expert-1 claim (reference
     # locations2 += sum of mask1)
@@ -244,14 +266,15 @@ def top2gating(logits, capacity_factor: float = 1.0, min_capacity: int = 4,
 
 
 def _gate_and_route(xt, gate_w, top_k, capacity_factor, min_capacity,
-                    noisy_gate_policy, generator, groups) -> Routing:
+                    noisy_gate_policy, generator, groups, rows=1) -> Routing:
     """The gating prologue of every capacity-routed variant: f32 router
-    logits, then top-1 / top-2 routing (JAX ``_gate_and_dispatch``)."""
+    logits, then top-1 / top-2 routing (JAX ``_gate_and_dispatch``);
+    ``rows``: the batch rows of ``xt``'s tokens."""
     logits = xt.float() @ gate_w.float()
     if top_k == 1:
         return _route_top1(logits, capacity_factor, min_capacity,
-                           noisy_gate_policy, generator, groups)
-    return _route_top2(logits, capacity_factor, min_capacity, groups)
+                           noisy_gate_policy, generator, groups, rows)
+    return _route_top2(logits, capacity_factor, min_capacity, groups, rows)
 
 
 def _dispatch_combine(xt, r: Routing, num_experts: int, expert_params,
@@ -300,7 +323,7 @@ def moe_layer(x, gate_w, expert_params, expert_fn,
     B, S, H = x.shape
     xt = x.reshape(B * S, H)
     r = _gate_and_route(xt, gate_w, top_k, capacity_factor, min_capacity,
-                        noisy_gate_policy, generator, groups)
+                        noisy_gate_policy, generator, groups, rows=B)
     out = _dispatch_combine(xt, r, gate_w.shape[-1], expert_params,
                             expert_fn, groups)
     return out.reshape(B, S, H), r.aux.float()

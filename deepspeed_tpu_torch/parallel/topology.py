@@ -217,6 +217,15 @@ class MeshTopology:
             axes = axes + (SEQ_AXIS,)
         return axes
 
+    @staticmethod
+    def expert_axes(axes) -> Tuple[str, ...]:
+        """The axes of ``axes`` (a dense leaf's ZeRO axes: ``dp_axes`` or
+        ``zero_shard_axes``) an expert leaf's ZeRO shard spans: all but the
+        expert axis, which already cuts the leaf by experts (JAX
+        ``add_zero_axes`` :56-66). Its group is the ranks holding the same
+        experts."""
+        return tuple(a for a in _key(axes) if a != EXPERT_AXIS)
+
     @property
     def batch_axes(self) -> Tuple[str, ...]:
         """Axes the global batch is split over (JAX :160)."""
@@ -271,11 +280,6 @@ class MeshTopology:
         if self.sizes[EXPERT_AXIS] == 1:
             return None
         return self.group(EXPERT_AXIS)
-
-    def expert_data_group(self):
-        """The ranks holding this rank's experts (its expert index); the
-        default group at ep 1."""
-        return self.group((DATA_AXIS, SHARD_AXIS))
 
     def __repr__(self):
         return f"MeshTopology({self.sizes})"

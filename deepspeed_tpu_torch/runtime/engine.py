@@ -114,14 +114,18 @@ parallelism (``moe.expert_parallel_size`` = ep > 1) each rank holds the
 ``E / ep`` experts of its place in its expert group (the expert leaves
 are cut along their expert dimension at build, and a checkpoint holds
 them whole: gathered from the expert group at save, cut again at load,
-so it reloads under another ep). An expert leaf's gradient already sums
-its expert group's tokens (the dispatch's all-to-all backward); it is
-summed over the expert-data group and divided by the world, where a
-dense leaf takes the mean over the whole data-parallel group. The
-gating's statistics are global over the data-parallel group
-(``model.moe_groups``). Not ported at ep > 1: an expert leaf's ZeRO
-shard over more than one expert-data rank (world > ep at stages 1-3),
-the offload tiers and bucketed reduction (ROADMAP A8).
+so it reloads under another ep). Every leaf has its own ZeRO group
+(``_zero``): an expert leaf's is the ranks of the ZeRO axes holding the
+same experts (``MeshTopology.expert_axes``; JAX ``add_zero_axes``), over
+which its master and moments shard, its stage-3 gather and gradient
+reduce-scatter run and its checkpoint fragments join. An expert leaf's
+gradient already sums its expert group's tokens (the dispatch's
+all-to-all backward): its mean over that group divided by ep is the mean
+loss's gradient; a dense leaf takes the mean over the whole ZeRO group.
+The clip norm counts each expert shard once. The gating's statistics are
+global over the data-parallel (and under Ulysses the seq) ranks
+(``model.moe_groups``). As in JAX, bucketed reduction refuses ep > 1 and
+``offload_param`` nvme refuses MoE.
 
 Tensor and sequence parallelism and MiCS (the topology's model, seq and
 shard axes; ``_init_groups``): a tensor-parallel rank holds its slices of
@@ -135,7 +139,9 @@ backward starts from ``loss * sp``, so the mean over the ZeRO group
 loss. The global norm sums a tensor-parallel leaf's squares over the
 model group too; LAMB's trust ratio reads whole-leaf norms
 (``norm_reduce``). Under MiCS the ZeRO group is the shard group and the
-gradients are also averaged over the replica groups.
+gradients are also averaged over the replica groups (the data axis, with
+the seq axis under Ulysses, whose ranks hold the same shards as JAX
+leaves ``include_seq`` off, and the expert axis for a dense leaf).
 
 Pipeline parallelism (``pipeline.stages`` = pp > 1, JAX :993-1080):
 each rank is one stage of the pipe group and holds its slice of the
@@ -159,8 +165,7 @@ Not ported (``runtime/config.check_ported`` raises, naming the ROADMAP
 item): ZeRO-Infinity at more than one rank (A9), ZeRO++ (A10), the
 remat policies beyond the ported ones (A3),
 compression, curriculum and the profilers (A12), the hybrid engine
-(A11); the offload tiers at tp, sp or MiCS > 1 (A9), MiCS with sequence
-parallelism and expert with tensor, sequence or MiCS parallelism (A8).
+(A11); the offload tiers at tp, sp or MiCS > 1 (A9).
 """
 
 import logging
@@ -185,7 +190,7 @@ from .activation_checkpointing import checkpointing as ds_ckpt
 from .config import ConfigError, DeepSpeedConfig, OptimizerConfig, check_ported
 from .fp16.loss_scaler import (LossScaleConfig, from_fp16_config,
                                grads_finite, init_scale_state, update_scale)
-from .grad_overlap import (ALL_REDUCE, EXPERT, REDUCE_SCATTER, VJP,
+from .grad_overlap import (ALL_REDUCE, REDUCE_SCATTER, VJP,
                            BucketedReducer,
                            leaf_kinds, plan_grad_buckets, reduce_leaves,
                            resolve_overlap_mode)
@@ -601,7 +606,11 @@ class DeepSpeedTpuEngine:
           and, under sequence parallelism, the seq axis (the JAX
           ``include_seq``: the seq ranks are data ranks to ZeRO); under
           MiCS the shard axis alone, the gradients then all-reduced over
-          the replica groups (``data``) too.
+          the replica groups (``_replica``: data, with seq under Ulysses
+          and, for a dense leaf, expert) too.
+        * ``_expert_zero``: an expert leaf's ZeRO group, the ZeRO axes
+          less the expert axis (the ranks holding the same experts; the
+          ZeRO group itself at ep 1).
         * the model group: the tensor-parallel ranks, over which a split
           leaf's squared norm is summed; likewise the pipe group (the
           pipeline's stages, each holding its slice of the layer stack)
@@ -630,17 +639,29 @@ class DeepSpeedTpuEngine:
         self.dp_rank = topo.dp_rank
         self._batch_group = topo.group(topo.batch_axes)
         self.mics = topo.mics_enabled
-        if self.mics and self.sp > 1:
-            raise NotImplementedError(
-                "MiCS (mics_shard_size) with sequence parallelism is not "
-                "ported to deepspeed_tpu_torch yet (ROADMAP A8)")
+        ep = topo.axis_size("expert")
         axes = (topo.dp_axes if self.mics or self.pp > 1 or self._seq_manual
                 else topo.zero_shard_axes)
         self.group = topo.group(axes)
         self.zero_world = topo.group_size(axes)
         self.zero_rank = topo.group_rank(axes)
-        self._replica_group = topo.group("data") if self.mics else None
-        self._replicas = topo.axis_size("data") if self.mics else 1
+        # an expert leaf's ZeRO group: the ranks of the ZeRO axes holding
+        # the same experts (the whole ZeRO group at ep 1)
+        eaxes = topo.expert_axes(axes) if ep > 1 else axes
+        self._expert_zero = (topo.group(eaxes), topo.group_size(eaxes),
+                             topo.group_rank(eaxes))
+        # MiCS: the replica groups, over which the gradients reduced within
+        # the shard group are averaged: the data axis, and the expert axis
+        # for a dense leaf and the seq axis under Ulysses (their ranks hold
+        # the same shards, as JAX leaves include_seq off under MiCS)
+        self._replica = {}
+        if self.mics:
+            seq = ("seq",) if self.sp > 1 and not self._seq_manual else ()
+            for key, extra in ((False, ("expert",) if ep > 1 else ()),
+                               (True, ())):
+                raxes = ("data",) + extra + seq
+                self._replica[key] = (topo.group(raxes),
+                                      topo.group_size(raxes))
         self._model_group = topo.group("model") if self.tp > 1 else None
         if hasattr(model, "set_topology"):
             model.set_topology(topo if self.tp > 1 or self.sp > 1
@@ -660,12 +681,6 @@ class DeepSpeedTpuEngine:
             for k, d in dims.items():
                 if d is not None:
                     self._cuts.setdefault(k, {})[axis] = d
-        if (self.tp > 1 or self.sp > 1 or self.mics) and \
-                self.topology.axis_size("expert") > 1:
-            raise NotImplementedError(
-                "expert parallelism with tensor, sequence or MiCS "
-                "parallelism is not ported to deepspeed_tpu_torch yet "
-                "(ROADMAP A8)")
 
     def _check_world(self):
         world = self.topology.dp_world_size
@@ -802,10 +817,6 @@ class DeepSpeedTpuEngine:
                 raise ValueError(
                     f"expert_parallel_size {ep} needs an MoE model whose "
                     f"expert count divides by it (got {E} experts)")
-            if self.offload_device or self.param_offload:
-                raise NotImplementedError(
-                    "ZeRO-Offload with expert parallelism (ep > 1) is not "
-                    "ported to deepspeed_tpu_torch yet (ROADMAP A8)")
         if hasattr(model, "moe_groups"):
             from ..moe.sharded_moe import MoEGroups
             model.moe_groups = None
@@ -816,10 +827,17 @@ class DeepSpeedTpuEngine:
                     model.moe_groups = MoEGroups(
                         None, 1, 0, self.topology.expert_group(), ep,
                         self.topology.ep_rank)
-            elif self.dp_world_size > 1:
-                model.moe_groups = MoEGroups(
-                    self._batch_group, self.dp_world_size, self.dp_rank,
-                    self.topology.expert_group(), ep, self.topology.ep_rank)
+            else:
+                # the gating is global over the tokens of the data ranks
+                # and, under Ulysses, of the seq ranks (their chunks)
+                topo = self.topology
+                sp = self.sp if not self._seq_manual else 1
+                axes = topo.batch_axes + (("seq",) if sp > 1 else ())
+                if topo.group_size(axes) > 1:
+                    model.moe_groups = MoEGroups(
+                        topo.group(axes), topo.group_size(axes),
+                        topo.group_rank(axes), topo.expert_group(), ep,
+                        topo.ep_rank, sp=sp)
 
     def _expert_cut(self, name: str, v: torch.Tensor) -> torch.Tensor:
         """This rank's experts of a whole expert leaf (identity at ep 1 and
@@ -842,11 +860,17 @@ class DeepSpeedTpuEngine:
 
     def _norm_splits(self):
         """(group, flags) of each model-parallel axis of more than one
-        rank: the leaves cut over it, whose squared norms sum over it."""
+        rank: the leaves cut over it, whose squared norms sum over it.
+        Under MiCS at ep > 1 the expert axis is one (the shard group
+        holds one rank's experts)."""
         topo = self.topology
-        return [(topo.group(a), [a in self._cuts.get(n, {})
-                                 for n in self._leaf_names])
-                for a in ("model", "seq", "pipe") if topo.axis_size(a) > 1]
+        out = [(topo.group(a), [a in self._cuts.get(n, {})
+                                for n in self._leaf_names])
+               for a in ("model", "seq", "pipe") if topo.axis_size(a) > 1]
+        if self.mics and self.ep > 1:
+            out.append((topo.expert_group(),
+                        [n in self._expert_dims for n in self._leaf_names]))
+        return out
 
     def _ckpt_shape(self, name: str) -> Tuple[int, ...]:
         """A leaf's whole shape (what a checkpoint holds)."""
@@ -879,6 +903,11 @@ class DeepSpeedTpuEngine:
             raise NotImplementedError(
                 "offload_param nvme x MoE is not supported (capacity "
                 "routing needs the full layer stack resident)")
+        for ax in ("seq", "expert"):
+            if self.topology.axis_size(ax) > 1:
+                raise NotImplementedError(
+                    f"offload_param nvme does not compose with the "
+                    f"'{ax}' mesh axis (dp x tp only)")
         zc = self.config.zero_optimization
         if (zc.zero_quantized_weights or zc.zero_quantized_gradients
                 or zc.zero_hpz_partition_size > 1 or zc.mics_shard_size > 1):
@@ -910,6 +939,7 @@ class DeepSpeedTpuEngine:
             compute_dtype=self.compute_dtype)
         self.has_master = True
         self._pdims = self._gdims = self._odims = [None] * len(items)
+        self._zero, self._expert_idx = [], []
         self.zero_plan = None
         self.grad_overlap_mode = "off"
         self.grad_bucket_plan = None
@@ -957,23 +987,23 @@ class DeepSpeedTpuEngine:
         self.zero_plan: ZeroPlan = build_zero_plan(
             self.zero_world, plan_stage, self._full_shapes,
             persistence_threshold=zc.stage3_param_persistence_threshold,
-            expert_dims=self._expert_dims, ep=self.ep,
-            model_dims={k: tuple(c.values()) for k, c in self._cuts.items()})
+            expert_dims=self._expert_dims if self.ep > 1 else None,
+            model_dims={k: tuple(c.values()) for k, c in self._cuts.items()},
+            expert_world=self._expert_zero[1])
         names = self._leaf_names
-        if self.ep > 1 and any(self.zero_plan.master_dims[k] is not None
-                               for k in self._expert_dims):
-            raise NotImplementedError(
-                f"an expert leaf's ZeRO shard over the "
-                f"{self.dp_world_size // self.ep} expert-data ranks (world "
-                f"{self.dp_world_size}, ep {self.ep}, stage "
-                f"{self.zero_stage}) is not ported to deepspeed_tpu_torch "
-                f"yet (ROADMAP A8); at world = ep every stage runs")
+        # each leaf's ZeRO (group, world, rank): an expert leaf's is the
+        # ranks holding its experts, every other leaf's the ZeRO group
+        dense = (self.group, self.zero_world, self.zero_rank)
+        self._expert_idx = [i for i, k in enumerate(names)
+                            if k in self._expert_dims]
+        self._zero = [self._expert_zero if k in self._expert_dims else dense
+                      for k in names]
         self._pdims = [self.zero_plan.param_dims[k] for k in names]
         self._gdims = [self.zero_plan.grad_dims[k] for k in names]
         self._odims = [self.zero_plan.master_dims[k] for k in names]
-        world, rank = self.zero_world, self.zero_rank
 
-        def local(v, dim):
+        def local(i, v, dim):
+            _, world, rank = self._zero[i]
             return v if dim is None else shard_of(v, dim, rank, world)
 
         with torch.no_grad():
@@ -982,24 +1012,27 @@ class DeepSpeedTpuEngine:
                 # host (built by the offload tier from this rank's master
                 # shards); the card keeps the compute params only
                 master = None
-                compute = [local(v, pd).to(self.device, self.compute_dtype,
-                                           copy=params is not None)
-                           for (_, v), pd in zip(items, self._pdims)]
-                self._init_offload([(k, local(v, od)) for (k, v), od in
-                                    zip(items, self._odims)])
+                compute = [local(i, v, pd).to(self.device,
+                                              self.compute_dtype,
+                                              copy=params is not None)
+                           for i, ((_, v), pd) in enumerate(
+                               zip(items, self._pdims))]
+                self._init_offload([(k, local(i, v, od)) for i, ((k, v), od)
+                                    in enumerate(zip(items, self._odims))])
             elif self.has_master:
-                master = [local(v, d).to(self.device, torch.float32,
-                                         copy=True)
-                          for (_, v), d in zip(items, self._odims)]
+                master = [local(i, v, d).to(self.device, torch.float32,
+                                            copy=True)
+                          for i, ((_, v), d) in enumerate(zip(items,
+                                                              self._odims))]
                 # a compute leaf sharded like its master is the master's
                 # cast (the same tensor in fp32, as at stage 0)
                 compute = [m.to(self.compute_dtype) if pd is not None
                            or od is None else
-                           local(v, pd).to(self.device, self.compute_dtype,
-                                           copy=True)
-                           for m, (_, v), pd, od in zip(master, items,
-                                                        self._pdims,
-                                                        self._odims)]
+                           local(i, v, pd).to(self.device, self.compute_dtype,
+                                              copy=True)
+                           for i, (m, (_, v), pd, od) in enumerate(
+                               zip(master, items, self._pdims,
+                                   self._odims))]
             else:
                 master = None
                 compute = [v.to(self.device, torch.float32, copy=True)
@@ -1027,18 +1060,17 @@ class DeepSpeedTpuEngine:
         # an offloaded engine at more than one rank: the compute-dtype
         # shard a replicated leaf's host update writes, then all-gathered
         self._update_bufs = [
-            torch.empty(self._local_shape(k, od), dtype=self.compute_dtype,
+            torch.empty(self._local_shape(i, od), dtype=self.compute_dtype,
                         device=self.device)
             if self.offload_device and pd is None and od is not None
             else None
-            for k, pd, od in zip(self._leaf_names, self._pdims,
-                                 self._odims)]
+            for i, (pd, od) in enumerate(zip(self._pdims, self._odims))]
 
-    def _local_shape(self, name: str, dim: Optional[int]) -> Tuple[int, ...]:
-        """The shape of this rank's shard of leaf ``name`` along ``dim``."""
-        shape = list(self._full_shapes[name])
+    def _local_shape(self, i: int, dim: Optional[int]) -> Tuple[int, ...]:
+        """The shape of this rank's shard of leaf ``i`` along ``dim``."""
+        shape = list(self._full_shapes[self._leaf_names[i]])
         if dim is not None:
-            shape[dim] //= self.zero_world
+            shape[dim] //= self._zero[i][1]
         return tuple(shape)
 
     def _offload_layers(self, compute):
@@ -1077,34 +1109,31 @@ class DeepSpeedTpuEngine:
         plan (JAX ``make_overlapped_grad_fn``'s planning, :648-758)."""
         names = self._leaf_names
         self._kinds = leaf_kinds(names, self.zero_plan)
-        if self.ep > 1:
-            # an expert leaf's gradient reduces over its expert-data group
-            self._kinds = [EXPERT if n in self._expert_dims else k
-                           for n, k in zip(names, self._kinds)]
         stack = tuple(getattr(self.model, "param_offload_keys", ()) or ())
         stacked = [any(n.startswith(k + "/") for k in stack) for n in names]
         # stage 3: a stacked leaf cut along a layer's own dimension is
         # gathered layer by layer in the model's loop; any other sharded
         # leaf once before the forward
         self._whole_gathers: Dict[int, Any] = {}
-        layer_dims: Dict[str, int] = {}
+        layer_dims: Dict[str, Tuple[int, Any]] = {}
         for i, (n, d) in enumerate(zip(names, self._pdims)):
             if d is None:
                 continue
             if stacked[i] and d > 0 and hasattr(self.model,
                                                       "layer_gather"):
-                layer_dims[n.split("/", 1)[1]] = d - 1
+                layer_dims[n.split("/", 1)[1]] = (d - 1, self._zero[i][0])
             elif n in self._streamed:
                 raise NotImplementedError(
                     f"offload_param: {n} is cut along its layer axis at "
                     f"{self.zero_world} ranks, so no rank holds whole "
                     f"layers to stream")
             else:
-                self._whole_gathers[i] = make_zero3_gather(d, self.group)
+                self._whole_gathers[i] = make_zero3_gather(d,
+                                                           self._zero[i][0])
         self._layer_gather = None
         if layer_dims:
-            gathers = {k: make_zero3_gather(d, self.group)
-                       for k, d in layer_dims.items()}
+            gathers = {k: make_zero3_gather(d, g)
+                       for k, (d, g) in layer_dims.items()}
 
             def layer_gather(lp):
                 return {k: gathers[k](v) if k in gathers else v
@@ -1247,8 +1276,8 @@ class DeepSpeedTpuEngine:
             elif kind == VJP or self._odims[i] is None:
                 out.append(acc[i])
             else:
-                g = shard_of(acc[i], self._odims[i], self.zero_rank,
-                             self.zero_world)
+                _, world, rank = self._zero[i]
+                g = shard_of(acc[i], self._odims[i], rank, world)
                 # the host tiers read flat, contiguous gradients
                 out.append(g.contiguous() if self.host_opt is not None
                            else g)
@@ -1259,8 +1288,8 @@ class DeepSpeedTpuEngine:
         """The compute params from the updated master (JAX :1132-1136): a
         leaf sharded like its master is the master's cast; a replicated
         leaf with a sharded master gathers the cast shards."""
-        for p, m, pd, od in zip(self._param_leaves, self._master_leaves,
-                                self._pdims, self._odims):
+        for p, m, pd, od, z in zip(self._param_leaves, self._master_leaves,
+                                   self._pdims, self._odims, self._zero):
             if p.device != m.device:
                 # a streamed layer leaf in host memory: cast on the card
                 # (a cast across devices would run on the host), one layer
@@ -1270,8 +1299,7 @@ class DeepSpeedTpuEngine:
             elif pd is not None or od is None:
                 p.copy_(m)
             else:
-                p.copy_(all_gather_leaf(m.to(self.compute_dtype), od,
-                                        self.group))
+                p.copy_(all_gather_leaf(m.to(self.compute_dtype), od, z[0]))
 
     def _update_targets(self) -> List[torch.Tensor]:
         """Where the host tier writes the updated compute params: the
@@ -1284,10 +1312,10 @@ class DeepSpeedTpuEngine:
     def _gather_updated(self):
         """After a host-tier update at more than one rank: each replicated
         compute leaf from every rank's updated shard."""
-        for p, b, od in zip(self._param_leaves, self._update_bufs,
-                            self._odims):
+        for p, b, od, z in zip(self._param_leaves, self._update_bufs,
+                               self._odims, self._zero):
             if b is not None:
-                p.copy_(all_gather_leaf(b, od, self.group))
+                p.copy_(all_gather_leaf(b, od, z[0]))
 
     def _mean_over_group(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over the data-parallel ranks (the tensor- and
@@ -1362,11 +1390,10 @@ class DeepSpeedTpuEngine:
                                           device=self.device)
                               for p in self._grad_inputs()]
             self._grad_shards = [
-                torch.zeros(self._local_shape(n, d), dtype=torch.float32,
+                torch.zeros(self._local_shape(i, d), dtype=torch.float32,
                             device=self.device)
                 if k == REDUCE_SCATTER else None
-                for k, n, d in zip(self._kinds, self._leaf_names,
-                                   self._gdims)]
+                for i, (k, d) in enumerate(zip(self._kinds, self._gdims))]
         return self._grad_acc, self._grad_shards
 
     def _run_step(self, dev_batch) -> Dict[str, Any]:
@@ -1455,26 +1482,37 @@ class DeepSpeedTpuEngine:
 
     def _reduce(self, acc, shards):
         """``overlap_grad_reduce`` off: every leaf's reduction after the
-        backward. An expert leaf (ep > 1) already holds its expert group's
-        sum (the all-to-all backward): summed over its expert-data group
-        and divided by the world, it is the mean loss's gradient."""
-        reduce_leaves(acc, self._kinds, self._gdims, shards, self.group)
-        for a, kind in zip(acc, self._kinds):
-            if kind == EXPERT:
-                comm.all_reduce(a, group=self.topology.expert_data_group())
-                a.div_(self.dp_world_size)
+        backward, each over its ZeRO group (:attr:`_zero`), then
+        :meth:`_reduce_experts`."""
+        reduce_leaves(acc, self._kinds, self._gdims, shards,
+                      [z[0] for z in self._zero])
         self._reduce_replicas(acc, shards)
+        self._reduce_experts(acc, shards)
 
     def _reduce_replicas(self, acc, shards):
         """MiCS: each gradient reduced within the shard group (its shard,
         or the whole leaf) is averaged over the replica groups too (JAX
         ``dp_axes``: reduce-scatter within, all-reduce across)."""
-        if self._replicas <= 1:
+        if not self._replica:
             return
-        for a, s, kind in zip(acc, shards, self._kinds):
-            t = s if kind == REDUCE_SCATTER else a
-            comm.all_reduce(t, group=self._replica_group)
-            t.div_(self._replicas)
+        experts = set(self._expert_idx)
+        for i, (a, s, kind) in enumerate(zip(acc, shards, self._kinds)):
+            group, n = self._replica[i in experts]
+            if n > 1:
+                t = s if kind == REDUCE_SCATTER else a
+                comm.all_reduce(t, group=group)
+                t.div_(n)
+
+    def _reduce_experts(self, acc, shards):
+        """An expert leaf (ep > 1) already holds its expert group's sum
+        (the all-to-all backward): its mean over the ranks holding the
+        same experts, divided by ep, is the mean loss's gradient (the
+        world's sum over the world, as JAX's)."""
+        if self.ep <= 1:
+            return
+        for i in self._expert_idx:
+            t = shards[i] if self._kinds[i] == REDUCE_SCATTER else acc[i]
+            t.div_(self.ep)
 
     def _apply_grads(self, acc, shards, scale, lr, events=None, inv=None):
         """Unscale, clip and check the reduced gradients, then the update
@@ -1486,16 +1524,23 @@ class DeepSpeedTpuEngine:
         if inv is None:
             inv = 1.0 / (self.gas * scale) if scale is not None \
                 else 1.0 / self.gas
+        sharded = [k != ALL_REDUCE or d is not None
+                   for k, d in zip(self._kinds, self._odims)]
+        replicas = {}
+        if self.ep > 1:
+            # an expert leaf's part differs along the expert axis: summed
+            # over the ZeRO group, once for each of the ranks that hold
+            # the same part (its expert ZeRO group when not sharded)
+            for i in self._expert_idx:
+                sharded[i] = True
+                if self._odims[i] is None:
+                    replicas[i] = self._expert_zero[1]
         grads, finite, gnorm, *leaf_sq = unscale_clip_check(
             self._optimizer_grads(acc, shards), inv,
             self.config.gradient_clipping, self.fp16_enabled,
-            sharded=[k != ALL_REDUCE or d is not None
-                     for k, d in zip(self._kinds, self._odims)],
-            group=self.group, frozen=self._frozen_idx,
+            sharded=sharded, group=self.group, frozen=self._frozen_idx,
             splits=self._norm_splits(),
-            with_leaf_sqnorms=self._grad_attribution,
-            replicas={i: self.dp_world_size // self.ep
-                      for i, k in enumerate(self._kinds) if k == EXPERT})
+            with_leaf_sqnorms=self._grad_attribution, replicas=replicas)
         if events is not None:
             events[1].record()
         ok = True if finite is None else bool(finite.item())
@@ -1529,19 +1574,23 @@ class DeepSpeedTpuEngine:
     def _whole_leaf_kw(self):
         """An optimizer that reads whole leaves (LAMB's trust ratio) on a
         master cut over ranks: ``norm_reduce(i, t)`` sums leaf ``i``'s
-        partial squares ``t`` over its ZeRO group and, for a
-        tensor-parallel leaf, its model group."""
+        partial squares ``t`` over its ZeRO group, for a tensor-parallel
+        leaf its model group, and for an expert leaf its expert group."""
         if self.optimizer.elementwise or (self.zero_world == 1
                                           and not self._cuts):
             return {}
         dims = self._odims if self.has_master else self._pdims
-        zero = [d is not None and self.zero_world > 1 for d in dims]
+        zero = [d is not None and z[1] > 1 for d, z in zip(dims, self._zero)]
         axes = [[self.topology.group(a) for a in self._cuts.get(n, {})]
                 for n in self._leaf_names]
+        if self.ep > 1:
+            # an expert leaf is whole over its expert group too
+            for i in self._expert_idx:
+                axes[i].append(self.topology.expert_group())
 
         def norm_reduce(i, t):
             if zero[i]:
-                comm.all_reduce(t, group=self.group)
+                comm.all_reduce(t, group=self._zero[i][0])
             for g in axes[i]:
                 comm.all_reduce(t, group=g)
 
@@ -1752,6 +1801,13 @@ class DeepSpeedTpuEngine:
     def _tree(self, leaves) -> Dict[str, Any]:
         return _unflatten(list(zip(self._leaf_names, leaves)))
 
+    def _shards(self, whole, dims) -> List[torch.Tensor]:
+        """This rank's ZeRO shards (views) of whole leaves, each cut over
+        its own ZeRO group (:attr:`_zero`)."""
+        return [v if d is None else
+                shard_of(v, d, self._zero[i][2], self._zero[i][1])
+                for i, (v, d) in enumerate(zip(whole, dims))]
+
     def _gathered(self, leaves, dims) -> List[torch.Tensor]:
         """Whole leaves: the ZeRO shards joined over the ZeRO group, the
         slices over the model-parallel groups that cut them (model, seq,
@@ -1759,7 +1815,9 @@ class DeepSpeedTpuEngine:
         part)."""
         if self.zero_world > 1 or self._cuts:  # collectives on the device
             leaves = [v.to(self.device) for v in leaves]
-        out = ckpt.gather_shards(leaves, dims, self.group)
+        out = [v if d is None or self._zero[i][1] == 1 else
+               all_gather_leaf(v.detach(), d, self._zero[i][0])
+               for i, (v, d) in enumerate(zip(leaves, dims))]
         topo = self.topology
         for i, n in enumerate(self._leaf_names):
             for axis, d in self._cuts.get(n, {}).items():
@@ -1929,8 +1987,7 @@ class DeepSpeedTpuEngine:
             whole = [self._manual_cut(k, self._expert_cut(k, v))
                      for k, v in ckpt.leaf_paths(
                          state[name] if sub is None else sub)]
-            return ckpt.take_shards(whole, dims or [None] * len(whole),
-                                    self.zero_rank, self.zero_world)
+            return self._shards(whole, dims or [None] * len(whole))
 
         if tier is not None:
             moments = None
@@ -1943,12 +2000,13 @@ class DeepSpeedTpuEngine:
             if self.host_opt is not None:
                 # the compute params are the master's cast, as in JAX
                 master, _ = self.host_opt.get_all_leaves()
-                for p, m, pd, od in zip(self._param_leaves, master,
-                                        self._pdims, self._odims):
+                for p, m, pd, od, z in zip(self._param_leaves, master,
+                                           self._pdims, self._odims,
+                                           self._zero):
                     if pd is None and od is not None:
                         p.copy_(all_gather_leaf(m.to(self.device,
                                                      self.compute_dtype),
-                                                od, self.group))
+                                                od, z[0]))
                     else:
                         copy_rows(p.detach(), m)
         else:
@@ -2012,10 +2070,6 @@ class DeepSpeedTpuEngine:
             raise NotImplementedError(
                 "load_universal_checkpoint under offload_param nvme is not "
                 "ported to deepspeed_tpu_torch yet (ROADMAP A9)")
-        if self.ep > 1:
-            raise NotImplementedError(
-                "load_universal_checkpoint with expert parallelism (ep > 1) "
-                "is not ported to deepspeed_tpu_torch yet (ROADMAP A8)")
 
         def template(dtype_of):
             return self._tree([
@@ -2030,9 +2084,9 @@ class DeepSpeedTpuEngine:
                     raise KeyError(f"shape mismatch for {k}: "
                                    f"{tuple(v.shape)} vs "
                                    f"{self._ckpt_shape(k)}")
-            # this rank's tensor-parallel slices
-            return [self._manual_cut(k, v) for k, v in zip(self._leaf_names,
-                                                        out)]
+            # this rank's experts and tensor-parallel slices
+            return [self._manual_cut(k, self._expert_cut(k, v))
+                    for k, v in zip(self._leaf_names, out)]
 
         try:
             host = leaves_of(load_universal_into_tree(
@@ -2055,9 +2109,7 @@ class DeepSpeedTpuEngine:
                     universal_dir,
                     {k: template(lambda i, v=v: v[i].dtype)
                      for k, v in moments.items()}, section="opt_state")
-                opt = {k: ckpt.take_shards(leaves_of(tree[k]), mdims,
-                                           self.zero_rank,
-                                           self.zero_world)
+                opt = {k: self._shards(leaves_of(tree[k]), mdims)
                        for k in moments}
             except KeyError as exc:
                 logger.warning(
@@ -2065,30 +2117,26 @@ class DeepSpeedTpuEngine:
                     f"this optimizer ({exc}); restored weights only — the "
                     f"step counter and LR schedule restart at 0")
         if tier is not None:
-            tier.load_leaves(ckpt.take_shards(host, self._odims,
-                                              self.zero_rank,
-                                              self.zero_world), opt)
+            tier.load_leaves(self._shards(host, self._odims), opt)
             # the compute params are the master's cast, as in JAX
             master, _ = tier.get_all_leaves()
-            for p, m, pd, od in zip(self._param_leaves, master, self._pdims,
-                                    self._odims):
+            for p, m, pd, od, z in zip(self._param_leaves, master,
+                                       self._pdims, self._odims, self._zero):
                 if pd is None and od is not None:
                     p.copy_(all_gather_leaf(m.to(self.device,
                                                  self.compute_dtype),
-                                            od, self.group))
+                                            od, z[0]))
                 else:
                     copy_rows(p.detach(), m)
         else:
             if self.has_master:
-                for m, v in zip(self._master_leaves, ckpt.take_shards(
-                        host, self._odims, self.zero_rank,
-                        self.zero_world)):
+                for m, v in zip(self._master_leaves,
+                                self._shards(host, self._odims)):
                     copy_rows(m, v)
                 self._publish_params()
             else:
-                for p, v in zip(self._param_leaves, ckpt.take_shards(
-                        host, self._pdims, self.zero_rank,
-                        self.zero_world)):
+                for p, v in zip(self._param_leaves,
+                                self._shards(host, self._pdims)):
                     copy_rows(p.detach(), v)
             if opt is not None:
                 for k, vals in opt.items():

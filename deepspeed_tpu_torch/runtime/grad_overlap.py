@@ -51,7 +51,6 @@ VJP = "vjp"                      # reduced by the stage-3 gather's VJP
 REDUCE_SCATTER = "reduce_scatter"  # dim-sharded grad: bucketed reduce-scatter
 ALL_REDUCE = "all_reduce"        # replicated grad: bucketed all-reduce (mean)
 CROSS_GROUP = "cross_group"      # hpZ: cross-group mean of a VJP-reduced leaf
-EXPERT = "expert"                # ep > 1: summed over the expert-data group
 
 # 256 bytes of f32: where every unit of a flat bucket starts
 ALIGN_ELEMS = 64
@@ -289,19 +288,19 @@ def _unit_dim(unit: GradUnit, grad_dim: Optional[int]) -> Optional[int]:
 
 def reduce_leaves(acc: List[torch.Tensor], kinds: Sequence[str],
                   grad_dims: Sequence[Optional[int]], out: List[torch.Tensor],
-                  group=None) -> None:
+                  groups: Sequence) -> None:
     """``overlap_grad_reduce="off"``: after the backward, one synchronous
-    collective per leaf in tree order. An all-reduce leaf is reduced in
-    place in ``acc`` (the mean over the group), a reduce-scatter leaf into
-    ``out`` (this rank's shard of the mean). Stage-3 (``VJP``) leaves are
-    already reduced."""
-    world = comm.get_world_size(group)
-    for i, (a, kind) in enumerate(zip(acc, kinds)):
+    collective per leaf in tree order, over the leaf's group
+    (``groups[i]``; an expert leaf's ZeRO group is its own). An all-reduce
+    leaf is reduced in place in ``acc`` (the mean over the group), a
+    reduce-scatter leaf into ``out`` (this rank's shard of the mean).
+    Stage-3 (``VJP``) leaves are already reduced."""
+    for i, (a, kind, g) in enumerate(zip(acc, kinds, groups)):
         if kind == ALL_REDUCE:
-            comm.all_reduce(a, group=group)
-            a.div_(world)
+            comm.all_reduce(a, group=g)
+            a.div_(comm.get_world_size(g))
         elif kind == REDUCE_SCATTER:
-            out[i].copy_(reduce_scatter_leaf(a, grad_dims[i], group))
+            out[i].copy_(reduce_scatter_leaf(a, grad_dims[i], g))
 
 
 class BucketedReducer:
@@ -431,8 +430,8 @@ def overlap_blockers(engine, forced: bool) -> List[Tuple[str, str]]:
         out.append(("hard", "offload_optimizer moves the gradients to the "
                             "host tier after the backward"))
     if engine.ep > 1:
-        out.append(("hard", "expert parallelism reduces the expert leaves "
-                            "over their expert-data group (ROADMAP A8)"))
+        out.append(("hard", "'expert' mesh axis > 1 (refused as in "
+                            "deepspeed_tpu/runtime/grad_overlap.py:567)"))
     if getattr(engine, "mics", False):
         out.append(("hard", "MiCS all-reduces the gradients over its "
                             "replica groups after the backward"))

@@ -18,10 +18,12 @@ ZeRO world. Compute params below ``stage3_param_persistence_threshold``
 elements stay replicated (their master is still sharded). Under expert
 parallelism an expert leaf (sharded over the expert axis by its expert
 dimension) takes its ZeRO shard over the free data axes only, on another
-dimension (JAX :56-67): a ZeRO world of ``world / ep``, replicated when
-that is 1. Under tensor parallelism the plan is made on each rank's
-tensor-parallel slices, the model dimension taken (``model_dims``), as
-JAX's ``add_zero_axes`` leaves a dimension of the base spec alone. Under
+dimension (JAX :56-67): a ZeRO world of the ranks holding the same
+experts (``world / ep``; the MiCS shard group under MiCS, which holds no
+expert axis), replicated when that is 1. Under tensor parallelism the
+plan is made on each rank's tensor-parallel slices, the model dimension
+taken (``model_dims``), as JAX's ``add_zero_axes`` leaves a dimension of
+the base spec alone. Under
 sequence parallelism or MiCS the ZeRO world is the engine's ZeRO group
 (data x seq ranks, or the MiCS shard group). One difference:
 at world 1 the JAX plan is replicated, while this plan keeps the
@@ -106,17 +108,18 @@ def build_zero_plan(world: int, stage: int,
                     param_shapes: Dict[str, Tuple[int, ...]],
                     persistence_threshold: int = 0,
                     expert_dims: Optional[Dict[str, int]] = None,
-                    ep: int = 1,
-                    model_dims: Optional[Dict[str, int]] = None) -> ZeroPlan:
+                    model_dims: Optional[Dict[str, int]] = None,
+                    expert_world: int = 1) -> ZeroPlan:
     """The plan of ``stage`` over a ZeRO world of ``world`` ranks for the
     leaves ``{path: shape}`` (JAX ``build_zero_plan``: master, moments and
     gradient shards always partition; stage-3 compute params only from
-    ``persistence_threshold`` elements up). ``expert_dims`` (``ep`` > 1):
-    the expert leaves and their expert dimension, planned over
-    ``world / ep`` ranks on the other dimensions. ``model_dims``: the
+    ``persistence_threshold`` elements up). ``expert_dims`` (under expert
+    parallelism): the expert leaves and their expert dimension, planned
+    over the ``expert_world`` ranks that hold the same experts (replicated
+    at 1) on the other dimensions. ``model_dims``: the
     dimension (or dimensions) of each leaf cut over a model-parallel axis
     (tensor, seq, pipe), never a ZeRO one."""
-    experts = expert_dims if ep > 1 else {}
+    experts = expert_dims or {}
     model_dims = {k: (d,) if isinstance(d, int) else tuple(d)
                   for k, d in (model_dims or {}).items()}
 
@@ -126,9 +129,9 @@ def build_zero_plan(world: int, stage: int,
             return zero_dim(s, world, threshold,
                             free=[d for d in range(len(s))
                                   if d not in taken])
-        if world // ep <= 1:
+        if expert_world <= 1:
             return None
-        return zero_dim(s, world // ep, threshold,
+        return zero_dim(s, expert_world, threshold,
                         free=[d for d in range(len(s))
                               if d != experts[k] and d not in taken])
 

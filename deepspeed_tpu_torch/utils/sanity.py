@@ -138,29 +138,34 @@ def find_nonfinite(tree, name: str = "params") -> List[str]:
 def _engine_groups(engine, dims) -> Dict[Any, List[int]]:
     """Leaf indices by the group whose ranks hold the same bits of them:
     the world (key ``"world"``) for a leaf no axis cuts, the ranks of the
-    same coordinates on the model-parallel axes that cut a slice (tensor,
-    seq, pipe), the ranks of this expert index for an expert leaf at
-    ep > 1, the MiCS replica group for a ZeRO shard under MiCS (elsewhere
-    a shard is this rank's own)."""
+    same coordinates on the axes that cut a slice (tensor, seq, pipe, and
+    the expert axis for an expert leaf at ep > 1; a whole expert leaf is
+    held alike by the ranks of its expert index), the MiCS replica group
+    (an expert leaf's has no expert axis) for a ZeRO shard under MiCS
+    (elsewhere a shard is this rank's own)."""
     from ..parallel.topology import AXIS_ORDER
 
     topo = engine.topology
     cuts = getattr(engine, "_cuts", {})
     expert_dims = (getattr(engine, "_expert_dims", {})
                    if getattr(engine, "ep", 1) > 1 else {})
+    replica = getattr(engine, "_replica", {})
     out: Dict[Any, List[int]] = {}
     for i, (n, d) in enumerate(zip(engine._leaf_names, dims)):
         if d is not None:
-            if not getattr(engine, "mics", False):
+            if not replica:
                 continue
-            key = ("replica", engine._replica_group)
-        elif n in cuts:
-            axes = tuple(a for a in AXIS_ORDER if a not in cuts[n])
-            key = ("same_" + "_".join(sorted(cuts[n])), topo.group(axes))
-        elif n in expert_dims:
-            key = ("same_experts", topo.expert_data_group())
+            key = ("replica", replica[n in expert_dims][0])
         else:
-            key = ("world", None)
+            # the axes whose ranks hold other slices: those that cut the
+            # leaf, and for an expert leaf the expert axis (other experts)
+            drop = set(cuts.get(n, {})) | (
+                {"expert"} if n in expert_dims else set())
+            if not drop:
+                key = ("world", None)
+            else:
+                axes = tuple(a for a in AXIS_ORDER if a not in drop)
+                key = ("same_" + "_".join(sorted(drop)), topo.group(axes))
         out.setdefault(key, []).append(i)
     return out
 

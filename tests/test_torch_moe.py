@@ -582,14 +582,12 @@ def test_mixtral_preset_serves_scaled_down():
 def test_parallel_serving_still_raises(field):
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineConfig
 
-    if field == "tensor_parallel_size":
-        # tensor-parallel serving runs now (tests/test_torch_tensor_
-        # parallel.py); expert-parallel serving still raises
-        assert RaggedInferenceEngineConfig(
-            tensor_parallel_size=2).tensor_parallel_size == 2
-        return
-    with pytest.raises(NotImplementedError, match="A8"):
-        RaggedInferenceEngineConfig(**{field: 2})
+    # tensor-parallel serving runs now (tests/test_torch_tensor_
+    # parallel.py), and so does expert-parallel serving (tests/test_torch_
+    # parallel_serving.py); quant_bits still refuses either, as JAX does
+    assert getattr(RaggedInferenceEngineConfig(**{field: 2}), field) == 2
+    with pytest.raises(ValueError, match="quant_bits requires"):
+        RaggedInferenceEngineConfig(quant_bits=8, **{field: 2})
 
 
 def test_pipeline_with_moe_still_raises():
@@ -628,7 +626,7 @@ def test_zero_plan_of_expert_leaves_matches_jax(world, stage):
                                        if k in ("e_gate", "e_up", "e_down")
                                        else v.shape)
                        for k, v in w["layers"].items()},
-        expert_dims=tm.expert_leaves, ep=2)
+        expert_dims=tm.expert_leaves, expert_world=world // 2)
     for k in ("e_gate", "e_up", "e_down", "wq", "moe_gate_w"):
         spec = tuple(plan.master_sharding["layers"][k].spec)
         spec = spec + (None,) * (w["layers"][k].ndim - len(spec))
@@ -656,16 +654,62 @@ def _ep_engine(world=2, stage=1, ep=2, model_kw=None, **zero):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(world=4, stage=1), NotImplementedError, "expert-data"),
-    (dict(world=4, stage=3), NotImplementedError, "expert-data"),
-    (dict(offload_optimizer={"device": "cpu"}), NotImplementedError,
-     "ZeRO-Offload"),
+    # ported now (tests/test_torch_expert_zero_distributed.py holds them
+    # against JAX at world 4): no error
+    pytest.param(dict(world=4, stage=1), None, None,
+                 id="kw0-NotImplementedError-expert-data"),
+    pytest.param(dict(world=4, stage=3), None, None,
+                 id="kw1-NotImplementedError-expert-data"),
+    pytest.param(dict(offload_optimizer={"device": "cpu"}), None, None,
+                 id="kw2-NotImplementedError-ZeRO-Offload"),
     (dict(model_kw={"moe_num_experts": 0}), ValueError, "MoE model"),
     (dict(model_kw={"moe_num_experts": 3}), ValueError, "divides"),
-    (dict(overlap_grad_reduce="bucketed"), Exception, "expert-data group")])
+    # JAX refuses the bucketed reduction at ep > 1 too (its words,
+    # deepspeed_tpu/runtime/grad_overlap.py:567)
+    pytest.param(dict(overlap_grad_reduce="bucketed"), Exception,
+                 "'expert' mesh axis > 1",
+                 id="kw5-Exception-expert-data group")])
 def test_expert_parallel_refusals(kw, err, match):
+    if err is None:
+        eng = _ep_engine(**kw)
+        i = eng._leaf_names.index("layers/e_up")
+        if kw.get("world") == 4:
+            # the expert leaf's master is cut over the 2 ranks holding
+            # the same experts
+            assert eng._expert_zero[1] == 2 and eng._odims[i] is not None
+            assert eng._zero[i] is eng._expert_zero
+        else:
+            assert eng.host_opt is not None
+        eng.close()
+        return
     with pytest.raises(err, match=match):
         _ep_engine(**kw)
+
+
+def test_param_offload_nvme_refuses_moe_as_jax(tmp_path):
+    """``offload_param`` nvme stays refused for an MoE model, with the JAX
+    engine's words (``deepspeed_tpu/runtime/engine.py:566-574``)."""
+    from deepspeed_tpu.parallel.topology import MeshTopology, TopologyConfig
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig as JDSConfig
+    from deepspeed_tpu.runtime.engine import DeepSpeedTpuEngine as JEngine
+
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedTpuEngine
+
+    cfg = _train_config(3)
+    cfg["zero_optimization"]["offload_param"] = {
+        "device": "nvme", "nvme_path": str(tmp_path)}
+    kw = dict(SMALL, remat=True)
+    with pytest.raises(NotImplementedError) as want:
+        JEngine(JModel(JCfg(**kw)), JDSConfig(cfg, world_size=1),
+                topology=MeshTopology(TopologyConfig(),
+                                      devices=jax.devices()[:1]))
+    with pytest.raises(NotImplementedError) as got:
+        DeepSpeedTpuEngine(TransformerLM(TransformerConfig(**kw)),
+                           DeepSpeedConfig(cfg, world_size=1),
+                           device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "offload_param nvme x MoE" in str(got.value)
 
 
 def test_expert_parallel_topology_and_slicing():

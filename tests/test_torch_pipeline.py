@@ -14,6 +14,8 @@ without a process group.
   against autograd of the plain GAS loop (the engine's step) on the
   flagship small model, 1e-5, and against the JAX model's
   ``loss_and_grads`` on the same weights; ``PipelineModule`` the same way;
+  with ``embed_scale`` != 1 against the port's own GAS loop (JAX's
+  pipelined loss leaves the scale out);
 * the pipe axis in the topology and ``comm`` at one rank, the refusals
   that need no process group, ``moe_layer_manual``.
 """
@@ -280,6 +282,42 @@ def test_1f1b_at_pp1_matches_the_gas_loop_and_jax(flagship):
     np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
     for k, v in jgrads.items():
         np.testing.assert_allclose(got[k], v, rtol=0, atol=1e-5, err_msg=k)
+
+
+def test_1f1b_applies_embed_scale_like_the_engine_step(flagship):
+    """``embed_scale`` != 1 (Gemma's sqrt(H)): the pipelined loss (the
+    1F1B schedule's stage code, whose stage 0 embeds at every pp) equals
+    the port's own GAS loop (``apply``, the pp-1 engine step) on the same
+    weights, 1e-5. This departs from the JAX package on purpose: its
+    pipelined ``loss_and_grads`` leaves the scale out
+    (``deepspeed_tpu/models/transformer.py:921``, ``x0 =
+    pp_["embed"][ids_mb]``) while its own pp-1 forward applies it
+    (:711-712), so there JAX's pipelined loss differs from its pp-1
+    loss, and it is not an oracle for this case."""
+    w, ids, _, _ = flagship
+    model = TransformerLM(TransformerConfig(**dict(FLAGSHIP_SMALL,
+                                                   embed_scale=2.0)))
+    model.set_topology(ttopo.MeshTopology(world_size=1, rank=0))
+    params = _tree_requires_grad(params_from_numpy(w))
+    tids = torch.as_tensor(ids)
+    loss, grads = model.loss_and_grads(params, {"input_ids": tids})
+    got = _flat_np(grads)
+    leaves = [v for _, v in tpipe._flatten(params)]
+    losses, acc = [], None
+    for m in range(ids.shape[0]):
+        lm = model.apply(params, {"input_ids": tids[m]})
+        g = torch.autograd.grad(lm, leaves)
+        acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+        losses.append(float(lm.detach()))
+    np.testing.assert_allclose(float(loss), np.mean(losses), rtol=1e-5)
+    for (k, _), a in zip(tpipe._flatten(params), acc):
+        np.testing.assert_allclose(got[k], (a / 3).numpy(), rtol=0,
+                                   atol=1e-5, err_msg=k)
+    # the scale is in the loss: unscaled, the same weights give another
+    plain = TransformerLM(TransformerConfig(**FLAGSHIP_SMALL))
+    with torch.no_grad():
+        unscaled = float(plain.apply(params, {"input_ids": tids[0]}))
+    assert abs(unscaled - losses[0]) > 1e-3
 
 
 def test_1f1b_accumulates_into_the_callers_buffers(flagship):

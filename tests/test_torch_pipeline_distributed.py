@@ -17,8 +17,9 @@ Held: losses within 1e-5 relative and params after 3 steps within 2e-5
 absolute of JAX at pp 2 x dp 2 (ZeRO 0 and 1), pp 4, the MoE model at
 pp 2 x dp 2 (aux on) and pp 2 x ep 2 (aux off and on), the host C++
 optimizer at pp 2 x dp 2 (fp32; in bf16 the params by their updates, see
-``UPDATE_FRACTION``), ``PipelineModule`` at pp 2 x tp 2 and
-pp 2 x sp 2 (column / row layers), with tied layers, with stacked
+``UPDATE_FRACTION``), ``PipelineModule`` at pp 2 x tp 2,
+pp 2 x sp 2 and pp 1 x sp 2 (column / row layers; at pp 1 the engine's
+manual seq mode), with tied layers, with stacked
 storage at pp 4 and with stacked and replicated layers at pp 2 x dp 2;
 every rank returns the same loss and holds the same whole params;
 pp 2 x dp 2 equals the port's own pp 1 on the same global batch;
@@ -330,6 +331,9 @@ def test_each_stage_holds_its_slices(results):
         assert r["local_pm_stacked_pp4"]["stack_000/w"] == (2, W.HID, W.HID)
         assert r["local_pm_pp2_tp2"]["layer_000/w"] == (W.HID, W.HID)
         assert r["local_pm_pp2_sp2"]["layer_001/w"] == (W.HID, W.HID)
+        # at pp 1 the seq-owning layers hold their seq slices too (the
+        # engine's manual seq mode, not Ulysses)
+        assert r["local_pm_pp1_sp2"]["layer_001/w"] == (W.HID, W.HID)
         assert "tied/proj/w" in r["local_pm_tied_pp4"]
 
 

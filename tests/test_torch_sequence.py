@@ -94,6 +94,53 @@ def _rand(seed, shape, scale=1.0):
             ).astype(np.float32)
 
 
+def _jax_tp4_loss(model_cfg):
+    """One step of the JAX engine at tp 4 on 4 virtual devices."""
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig as JDSConfig
+    from deepspeed_tpu.runtime.engine import DeepSpeedTpuEngine as JEngine
+
+    cfg = {"train_micro_batch_size_per_gpu": 1,
+           "tensor_parallel_size": 4, "zero_optimization": {"stage": 0},
+           "steps_per_print": 10 ** 9}
+    ids = np.random.default_rng(0).integers(0, 128, (1, 1, 32))
+    jeng = JEngine(JModel(JCfg(**model_cfg)), JDSConfig(cfg, world_size=4),
+                   topology=MeshTopology(TopologyConfig(model=4),
+                                         devices=jax.devices()[:4]))
+    return float(jeng.train_batch(batch={"input_ids": ids}))
+
+
+UNEVEN_TP4 = dict(SMALL, num_heads=4, num_kv_heads=4, hidden_size=64)
+
+
+def test_jax_trains_even_tp4():
+    """The control of ``test_jax_refuses_uneven_tp_too``: the same model
+    with every sharded count divisible by 4 takes a step at tp 4."""
+    assert np.isfinite(_jax_tp4_loss(UNEVEN_TP4))
+
+
+@pytest.mark.parametrize("field,where", [
+    pytest.param(dict(num_kv_heads=2), r"shard_map .* not evenly divisible",
+                 id="field0"),
+    pytest.param(dict(vocab_size=130),
+                 r"pjit outputs .*\['embed'\].* divisible by 4", id="field1"),
+    pytest.param(dict(intermediate_size=190),
+                 r"pjit outputs .*\['w_down'\].* divisible by 4",
+                 id="field2")])
+def test_jax_refuses_uneven_tp_too(field, where):
+    """The JAX engine at tp 4 on 4 virtual devices refuses an uneven split
+    of the kv heads (in the attention's ``shard_map``), the vocabulary or
+    the FFN width (in its state's output shardings) with a ``ValueError``:
+    there is no JAX run of a padded layout to hold the port to, and the
+    port refuses the split before any collective runs."""
+    with pytest.raises(ValueError, match=where):
+        _jax_tp4_loss(dict(UNEVEN_TP4, **field))
+    from deepspeed_tpu_torch.parallel import topology as ttopo
+    with pytest.raises(NotImplementedError, match="A8"):
+        TransformerLM(TransformerConfig(**dict(UNEVEN_TP4, **field))).set_topology(
+            ttopo.MeshTopology(ttopo.TopologyConfig(model=4), world_size=4,
+                               rank=0))
+
+
 def test_vocab_parallel_loss_at_tp1_matches_jax():
     B, S, H, V, chunk = 2, 40, 32, 96, 16
     x, head = _rand(0, (B, S, H)), _rand(1, (H, V), 0.3)
@@ -256,11 +303,32 @@ def test_parallel_compositions_not_ported_raise(topo, extra, item):
     cfg = {"train_micro_batch_size_per_gpu": 1,
            "zero_optimization": {"stage": 1}, **extra}
     model_cfg = dict(SMALL, moe_num_experts=4) if "moe" in extra else SMALL
+
+    def build():
+        return DeepSpeedTpuEngine(
+            TransformerLM(TransformerConfig(**model_cfg)),
+            DeepSpeedConfig(cfg, world_size=4), device="cpu",
+            topology=MeshTopology(TopologyConfig(**topo), world_size=4,
+                                  rank=0))
+
+    if item == "A8":
+        # ported now (tests/test_torch_expert_zero_distributed.py trains
+        # both against JAX at world 4): MiCS x sp shards over the MiCS
+        # group, its gradients averaged over the data x seq replicas; tp x
+        # ep holds 2 of the 4 experts, each cut on F by tp
+        eng = build()
+        if "mics_shard_size" in str(extra):
+            assert eng.zero_world == 2
+            assert {k: n for k, (_, n) in eng._replica.items()} == \
+                {False: 2, True: 2}
+        else:
+            lp = eng.params["layers"]
+            assert tuple(lp["e_up"].shape) == (2, 2, 128, 128)
+            assert tuple(lp["wq"].shape) == (2, 128, 64)
+            assert eng._expert_zero[1] == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
-        DeepSpeedTpuEngine(TransformerLM(TransformerConfig(**model_cfg)),
-                           DeepSpeedConfig(cfg, world_size=4), device="cpu",
-                           topology=MeshTopology(TopologyConfig(**topo),
-                                                 world_size=4, rank=0))
+        build()
 
 
 def test_send_next_of_a_list_at_one_rank():

@@ -535,14 +535,31 @@ def test_fleet_surface_raises_with_its_label(engines, call, item):
 def test_unported_options_raise_with_their_label(engines, models, what,
                                                  item):
     eng, serve = engines["torch"]
+    if what == "tensor_parallel":
+        # the runtime over a tensor-parallel engine runs now (tests/
+        # test_torch_parallel_serving.py): rank 0 of the engine group
+        # serves, every other rank follows and refuses submit()
+        import types
+
+        class Topo:
+            def group(self, axes):
+                return None
+
+            def group_size(self, axes):
+                return 2
+
+            def group_rank(self, axes):
+                return 1
+
+        follower = serve.ServingEngine(types.SimpleNamespace(
+            topology=Topo(), device=torch.device("cpu")))
+        assert follower.follower
+        with pytest.raises(RuntimeError, match="follows"):
+            asyncio.run(follower.submit([1, 2, 3], 2))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         if what == "autotune":
             serve.ServingEngine(eng, serve.ServingConfig(autotune=object()))
-        elif what == "tensor_parallel":
-            # tensor-parallel engines serve now (tests/test_torch_tensor_
-            # parallel.py); the runtime over one does not
-            import types
-            serve.ServingEngine(types.SimpleNamespace(topology=object()))
         elif what == "adapter":
             DynamicSplitFuseScheduler(eng).submit(1, [1, 2, 3], 2,
                                                   adapter="a")

@@ -343,10 +343,11 @@ def test_unported_config_features_raise(field, value):
         assert RaggedInferenceEngineConfig(
             ragged_attention=value).ragged_attention == "off"
         return
-    if field == "tensor_parallel_size":
-        # and so is tensor parallelism (tests/test_torch_tensor_parallel.py)
-        assert RaggedInferenceEngineConfig(
-            tensor_parallel_size=value).tensor_parallel_size == 2
+    if field in ("tensor_parallel_size", "expert_parallel_size"):
+        # and so are tensor parallelism (tests/test_torch_tensor_parallel.
+        # py) and expert parallelism (tests/test_torch_parallel_serving.py)
+        assert getattr(RaggedInferenceEngineConfig(**{field: value}),
+                       field) == 2
         return
     with pytest.raises(NotImplementedError, match="not ported"):
         RaggedInferenceEngineConfig(**{field: value})

@@ -338,17 +338,17 @@ def test_ported_and_inert_keys_run():
 def test_unported_model_families_raise(field, item):
     model = TransformerLM(TransformerConfig(**dict(FLAGSHIP_SMALL, **field)))
     if "moe_num_experts" in field:
-        # MoE trains now (tests/test_torch_moe.py), and so does sequence
-        # parallelism (tests/test_torch_tensor_parallel.py); MoE layers
-        # under sequence parallelism still raise
+        # MoE trains now (tests/test_torch_moe.py), and so do sequence
+        # parallelism (tests/test_torch_tensor_parallel.py) and MoE layers
+        # under it (tests/test_torch_expert_zero_distributed.py)
         params = model.init_params(torch.Generator().manual_seed(0))
         loss = model.apply(params, {"input_ids": torch.from_numpy(_ids(0))})
         assert torch.isfinite(loss)
         from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
                                                            TopologyConfig)
-        with pytest.raises(NotImplementedError, match=item):
-            model.set_topology(MeshTopology(TopologyConfig(seq=2),
-                                            world_size=2, rank=0))
+        model.set_topology(MeshTopology(TopologyConfig(seq=2), world_size=2,
+                                        rank=0))
+        assert model._sp[0] == 2
         return
     with pytest.raises(NotImplementedError, match=item):
         model.apply({}, {"input_ids": torch.from_numpy(_ids(0))})

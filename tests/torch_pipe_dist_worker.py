@@ -49,6 +49,9 @@ CASES = {
         "stage": 1, "offload_optimizer": {"device": "cpu"}}}, {}),
     "pm_pp2_tp2": ("pm_tp", 2, {"tensor_parallel_size": 2}, {}),
     "pm_pp2_sp2": ("pm_sp", 2, {"sequence_parallel_size": 2}, {}),
+    # layers that own the seq axis at pp 1: the engine's manual seq mode
+    # (no Ulysses loss split; the seq ranks read the same rows)
+    "pm_pp1_sp2": ("pm_sp", 1, {"sequence_parallel_size": 2}, {}),
     "pm_mixed_pp2": ("pm_mixed", 2, {}, {}),
     "pm_tied_pp4": ("pm_tied", 4, {}, {}),
     "pm_stacked_pp4": ("pm_stacked", 4, {}, {}),
