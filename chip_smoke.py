@@ -18,7 +18,9 @@ trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group
 and with the tensor / sequence / MiCS keys at one rank (after checking
 the attention kernels at tensor-parallel head counts and ring attention
 against them), through the 1F1B pipeline schedule at one stage and as
-one middle stage of a 4-stage split of its 32 layers,
+one middle stage of a 4-stage split of its 32 layers, with the ZeRO++
+and quantized-reduce keys and the 1-bit optimizers at one rank (and the
+quantized transports at its full width),
 with its layer stack and activations offloaded to the host and through
 ZeRO-Infinity's per-layer files, serves returning conversations through
 the KV spill tier and through the stitched ``ragged_attention="off"``
@@ -331,6 +333,29 @@ exit 0):
    and the AdamW update ms (CUDA events), peak GiB, the state's bytes,
    outputs finite, and the step time 14 ticks predict at M 8 (labelled a
    prediction for a 4-card run);
+8k. quantized communication at one NCCL rank on phase 8's model, settings
+   and batch (ROADMAP A10): (a) ZeRO-3 with zero_quantized_weights and
+   zero_quantized_gradients, ZeRO-2 with quantized_reduce int8 and fp8
+   (overlap_grad_reduce off), 2 steps each: losses and params torch.equal
+   to phase 8c's stage-3 / stage-2 "off" engines (the JAX engine
+   quantizes nothing at a data-parallel world of 1), no quantizer launch,
+   flash launches 2 x L x gas and L x gas a step, step ms beside 8c's;
+   hpZ 2 refused with the JAX topology's ValueError; (b) the ZeRO-3
+   gather (make_zero3_gather, qwZ and qgZ) forward and backward on every
+   stacked leaf of the cell over the one-rank group: outputs and
+   gradients equal to the same calls through the plain quantizer (max
+   |diff| 0), a repeat bit-identical, the quantizer launches of one
+   forward + backward, its ms against the unquantized gather (CUDA
+   events, L2 flushed), and the wire bytes 4 ranks would send (computed);
+   (c) the int8 and fp8 wire (_quantize_wire / _dequantize_wire) on the
+   largest stage-2 gradient bucket: equal to the plain versions (the fp8
+   route, plain torch, to the CPU's on 1 M elements), clamped 100- and
+   1-element messages, quantize and dequantize ms; (d)
+   compressed_allreduce_padded over the cell's flat f32 momentum buffer
+   at one rank (ms, peak; a 1 M-element buffer equal to the CPU's
+   result), then OneBitAdam, OneBitLamb and ZeroOneAdam (freeze at step
+   1, 3 steps, ZeRO 0, no clipping): losses finite and falling, step ms,
+   peak GiB, flash launches as above;
 8b. offload and checkpoints (the engines of each step freed before the
    next): the host C++ ops built by g++ from csrc/host (seconds logged);
    DeepSpeedCPUAdam with f32 and bf16 gradients, Adagrad and Lion on one
@@ -395,11 +420,11 @@ exit 0):
    under impl="auto" on the card raises;
 10. the card's name and power limit, the host_ops JSON line (the host
    optimizers' times, rates, yardstick and errors), the kernels JSON line
-   (the flash launches of phases 2e, 8, 8f, 8g, 8j, 8c, 8h, 8i, 8b, 8d and
-   8e together, the paged and ragged ones of phases 6, 2e, 2c, 2d, 2f and
-   2g,
+   (the flash launches of phases 2e, 8, 8f, 8g, 8j, 8c, 8h, 8i, 8k, 8b,
+   8d and 8e together, the paged and ragged ones of phases 6, 2e, 2c, 2d,
+   2f and 2g,
    the dense decode ones of phases 6 and 2f, the quantizer ones of the
-   WOQ phases and 2f), then the last line
+   WOQ phases, 2f and 8k (b)-(c)), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 Everything it builds goes under build/ of the checkout. It imports nothing
@@ -4205,8 +4230,9 @@ def nccl_calls(prof):
 def zero_dp_phase(dev, card):
     """Phase 8c: the data-parallel engine at stages 1-3, bucketed and off,
     against stage 0 at world 1 over NCCL. Returns the flash launches and
-    the stage-3 "off" engine's losses and params after 2 steps (what phase
-    8h's engine must equal)."""
+    the stage-3 and stage-2 "off" engines' losses and params after 2 steps
+    (what phases 8h and 8k's engines must equal), with their median step
+    ms."""
     import dataclasses
 
     import torch.distributed as dist
@@ -4233,7 +4259,7 @@ def zero_dp_phase(dev, card):
     want = {"flash_fwd": steps * 2 * L * gas,
             "flash_bwd_dq": steps * L * gas, "flash_bwd_dkv": steps * L * gas}
     total = {k: 0 for k in want}
-    ref, bad, rows = None, [], []
+    ref, bad, rows, two_steps = None, [], [], {}
     for stage, mode in [(0, "off")] + [(s, m) for s in (1, 2, 3)
                                        for m in ("bucketed", "off")]:
         gc.collect()
@@ -4260,9 +4286,9 @@ def zero_dp_phase(dev, card):
             losses.append(eng.train_batch(batch=batch))
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
-            if (stage, mode, len(losses)) == (3, "off", 2):
-                two_steps = (list(losses), [p.detach().clone()
-                                            for p in eng._param_leaves])
+            if mode == "off" and stage in (2, 3) and len(losses) == 2:
+                two_steps[stage] = (list(losses), [
+                    p.detach().clone() for p in eng._param_leaves])
         launches = {kfn.__name__: kfn.launches for kfn in kernels}
         for k, n in launches.items():
             total[k] += n
@@ -4277,6 +4303,8 @@ def zero_dp_phase(dev, card):
                 torch.equal(a, b) for a, b in zip(params, ref[1]))
         tag = f"stage {stage} {mode}"
         rows.append((tag, med, peak))
+        if mode == "off":
+            two_steps[f"ms{stage}"] = med
         log(f"phase 8c {tag}: grad reduction {eng.grad_overlap_mode}, "
             f"losses {losses}, equal to stage 0: {equal}; step ms "
             f"{[f'{x * 1e3:.1f}' for x in step_s]}, median of steps 2-3 "
@@ -4608,6 +4636,382 @@ def parallel_phase(dev, card, ref):
     if bad:
         raise AssertionError("phase 8h: " + "; ".join(bad))
     log(f"phase 8h: {time.perf_counter() - t_phase:.0f}s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8k: quantized communication (ZeRO++, the quantized rings, 1-bit)
+# ---------------------------------------------------------------------------
+# the 1-bit runs' lr: past a freeze at step 1 an Adam update is m / (sqrt(v)
+# + eps) with one step's variance (large where v is small); LAMB's is
+# scaled by its trust ratio
+ONEBIT_LR = {"OneBitAdam": 3e-5, "OneBitLamb": 1e-3, "ZeroOneAdam": 3e-5}
+
+
+def quant_counts(reset=False):
+    from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+    out = {"quantize_blocks": qk.quantize_blocks.launches,
+           "dequantize_blocks": qk.dequantize_blocks.launches}
+    if reset:
+        qk.quantize_blocks.launches = qk.dequantize_blocks.launches = 0
+    return out
+
+
+class plain_quantizer:
+    """Routes ``comm/quantized.py``'s quantize / dequantize calls through
+    the plain versions for a comparison run."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+        self.saved = (qk.quantize_blocks, qk.dequantize_blocks)
+        qk.quantize_blocks = qk.quantize_blocks_plain
+        qk.dequantize_blocks = qk.dequantize_blocks_plain
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+        qk.quantize_blocks, qk.dequantize_blocks = self.saved
+
+
+def zeropp_engines(dev, card, refs, cfg, batch):
+    """8k (a): ZeRO++ and quantized_reduce at one NCCL rank, where the JAX
+    engine quantizes nothing: each engine's 2-step losses and params
+    torch.equal to phase 8c's unquantized engine of its stage; hpZ 2
+    refused as the JAX topology refuses it. Returns the flash launches."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    L, gas, steps = cfg.num_layers, 2, 2
+    want = {"flash_fwd": steps * 2 * L * gas,
+            "flash_bwd_dq": steps * L * gas, "flash_bwd_dkv": steps * L * gas}
+    total = {k: 0 for k in want}
+    bad = []
+    runs = [("qwZ + qgZ", 3, {"zero_quantized_weights": True,
+                              "zero_quantized_gradients": True}),
+            ("quantized_reduce int8", 2, {"quantized_reduce": "int8"}),
+            ("quantized_reduce fp8", 2, {"quantized_reduce": "fp8"})]
+    for tag, stage, extra in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        config = {"train_micro_batch_size_per_gpu": TRAIN_B,
+                  "gradient_accumulation_steps": gas,
+                  "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+                  "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                  "steps_per_print": 10 ** 9,
+                  "zero_optimization": {
+                      "stage": stage, "overlap_grad_reduce": "off",
+                      "stage3_param_persistence_threshold": 0, **extra}}
+        eng, *_ = deepspeed_tpu_torch.initialize(model=TransformerLM(cfg),
+                                                 config=config)
+        for kfn in kernels:
+            kfn.launches = 0
+        before = quant_counts()
+        losses, step_s = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch(batch=batch))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = {kfn.__name__: kfn.launches for kfn in kernels}
+        for k, n in launches.items():
+            total[k] += n
+        ref = refs[stage]
+        equal = losses == ref[0] and all(
+            torch.equal(a.detach(), b)
+            for a, b in zip(eng._param_leaves, ref[1]))
+        quantized = quant_counts() != before
+        log(f"8k (a) ZeRO {stage} {tag} at one rank: losses {losses}, "
+            f"torch.equal to 8c's stage {stage}: {equal}; quantizer "
+            f"launches {quant_counts()} (unchanged: {not quantized}); "
+            f"residual state {eng.quant_reduce_state}; step ms "
+            f"{[f'{x * 1e3:.1f}' for x in step_s]} (8c stage {stage}: "
+            f"{refs[f'ms{stage}']:.1f}); peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+            f"launches {launches} [{card}]")
+        if not equal:
+            bad.append(f"{tag} differs from 8c's stage {stage}")
+        if quantized:
+            bad.append(f"{tag} quantized at one rank")
+        if launches != want:
+            bad.append(f"{tag}: launches {launches} != {want}")
+        eng.close()
+        del eng
+    try:
+        deepspeed_tpu_torch.initialize(model=TransformerLM(cfg), config={
+            "train_micro_batch_size_per_gpu": TRAIN_B,
+            "gradient_accumulation_steps": gas,
+            "zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}})
+        bad.append("hpZ 2 at one rank was not refused")
+    except ValueError as exc:
+        log(f"8k (a) hpZ 2 at one rank: ValueError, as the JAX topology "
+            f"raises: {exc}")
+    if bad:
+        raise AssertionError("8k (a): " + "; ".join(bad))
+    return total
+
+
+def zeropp_transport(dev, card, cfg, flush):
+    """8k (b), (c): the ZeRO-3 gather with qwZ and qgZ on every stacked
+    leaf of the train cell over the one-rank NCCL group, forward and
+    backward, and the int8 / fp8 wire on its largest gradient bucket:
+    kernels against the plain quantizer (max |diff| 0), a repeat
+    bit-identical, times against the unquantized gather. Returns the
+    quantizer launches of the main drive (the first kernel run)."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.comm import quantized as tq
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.runtime.engine import _flatten
+    from deepspeed_tpu_torch.runtime.grad_overlap import plan_grad_buckets
+    from deepspeed_tpu_torch.runtime.zero.partition import (build_zero_plan,
+                                                            zero_dim)
+
+    comm.init_distributed()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = TransformerLM(cfg).init_params(gen, dtype=torch.bfloat16)
+    leaves = params["layers"]
+    names = sorted(leaves)
+    dims = {k: zero_dim(tuple(leaves[k].shape), 1) for k in names}
+    cots = {k: torch.randn(leaves[k].shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for k in names}
+
+    def run(quantized):
+        out = {}
+        for k in names:
+            p = leaves[k].detach().requires_grad_(True)
+            g = tq.make_zero3_gather(dims[k], None, fwd_quantized=quantized,
+                                     bwd_quantized=quantized)(p)
+            g.backward(cots[k])
+            out[k] = (g.detach(), p.grad)
+        return out
+
+    quant_counts(reset=True)
+    got = run(True)
+    torch.cuda.synchronize()
+    main = quant_counts(reset=True)
+    if dev.type == "cuda" and not all(main.values()):
+        bad_launch = f"the quantized gathers launched {main}"
+    else:
+        bad_launch = None
+    with plain_quantizer():
+        want = run(True)
+    again = run(True)
+    bad, worst = ([bad_launch] if bad_launch else []), 0.0
+    for k in names:
+        for a, b, c in zip(got[k], want[k], again[k]):
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+            if not torch.equal(a, b) or not torch.equal(a, c):
+                bad.append(k)
+    n_params = sum(leaves[k].numel() for k in names)
+    del want, again
+    fwd_bwd = {}
+    for q in (True, False):
+        fwd_bwd[q] = time_ms(lambda q=q: run(q), flush, reps=5, warmup=1)
+    bf16_bytes = 2 * n_params
+    wire4 = sum(tq.quant_wire_bytes(leaves[k].numel() // 4) for k in names)
+    log(f"8k (b) ZeRO-3 gather, qwZ + qgZ, {len(names)} stacked leaves "
+        f"({n_params / 1e9:.3f} B params, bf16, dims {dims}) over a "
+        f"one-rank NCCL group: forward and gradients equal to the plain "
+        f"quantizer's (max |diff| {worst}), a repeat bit-identical: "
+        f"{not bad}; quantizer launches of one forward + backward {main}; "
+        f"forward + backward {fwd_bwd[True]:.2f} ms against "
+        f"{fwd_bwd[False]:.2f} ms unquantized (CUDA events, median of 5, "
+        f"L2 flushed) [{card}]; computed, not measured: at 4 ranks a rank "
+        f"would send {wire4 / 1e6:.1f} MB of int8 blocks + scales a gather "
+        f"against {bf16_bytes / 4 / 1e6:.1f} MB of bf16 "
+        f"({bf16_bytes / 4 / wire4:.2f}x)")
+    del got, cots
+    # (c) the wire on the largest gradient bucket of the stage-2 plan
+    shapes = {k: tuple(v.shape) for k, v in _flatten(params)}
+    total_n = sum(torch.Size(v).numel() for v in shapes.values())
+    plan = plan_grad_buckets(
+        sorted(shapes), [shapes[k] for k in sorted(shapes)],
+        build_zero_plan(1, 2, shapes), 500_000_000, 500_000_000)
+    big = max(b.numel for b in plan.buckets)
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    x = torch.randn(big, generator=gen, device=dev) * 1e-3
+    for mode in ("int8", "fp8"):
+        quant_counts(reset=True)
+        q, s = tq._quantize_wire(x, 2048, mode)
+        d = tq._dequantize_wire(q, s, big)
+        torch.cuda.synchronize()
+        for k, n in quant_counts(reset=True).items():
+            main[k] += n
+        with plain_quantizer():
+            q2, s2 = tq._quantize_wire(x, 2048, mode)
+            d2 = tq._dequantize_wire(q2, s2, big)
+        # the fp8 wire is plain torch: its card result against the CPU's
+        cpu = tq._quantize_wire(x[:1 << 20].cpu(), 2048, mode)
+        same = (torch.equal(q.view(torch.uint8), q2.view(torch.uint8))
+                and torch.equal(s, s2) and torch.equal(d, d2)
+                and torch.equal(q[:(1 << 20) // 2048].cpu().view(torch.uint8),
+                                cpu[0].view(torch.uint8))
+                and torch.equal(s[:(1 << 20) // 2048].cpu(), cpu[1]))
+        del q2, s2, d2
+        for n_small in (100, 1):
+            qs = tq._quantize_wire(x[:n_small], 2048, mode)
+            with plain_quantizer():
+                qp = tq._quantize_wire(x[:n_small], 2048, mode)
+            same = same and qs[0].shape[1] == n_small and torch.equal(
+                qs[0].view(torch.uint8), qp[0].view(torch.uint8))
+        t_q = time_ms(lambda: tq._quantize_wire(x, 2048, mode), flush, 5, 1)
+        t_d = time_ms(lambda: tq._dequantize_wire(q, s, big), flush, 5, 1)
+        err = float((d - x).abs().max() / x.abs().max())
+        log(f"8k (c) {mode} wire on the largest stage-2 bucket ({big} f32 "
+            f"elements, block 2048): equal to the plain versions (and the "
+            f"CPU's on 1 M elements; clamped 100- and 1-element messages): "
+            f"{same}; quantize {t_q:.3f} ms, dequantize {t_d:.3f} ms; "
+            f"max error {err:.2e} of max |x|; {quant_wire_bytes_line(big)} "
+            f"[{card}]")
+        if not same:
+            bad.append(f"the {mode} wire differs from its plain version")
+        del q, s, d
+    del x
+    if bad:
+        raise AssertionError("8k (b), (c): differ from the plain quantizer "
+                             "or not repeatable: " + ", ".join(bad))
+    return main, total_n
+
+
+def quant_wire_bytes_line(n):
+    from deepspeed_tpu_torch.comm.quantized import quant_wire_bytes
+    return (f"one hop {quant_wire_bytes(n) / 1e6:.1f} MB against "
+            f"{4 * n / 1e6:.1f} MB f32 (computed)")
+
+
+def onebit_phase(dev, card, cfg, batch, total_n):
+    """8k (d): compressed_allreduce_padded over the train cell's flat
+    momentum buffer at one rank (ms, peak; a 1 M-element buffer equal to
+    the CPU's result), then the train cell with OneBitAdam, OneBitLamb and
+    ZeroOneAdam, freeze at step 1, 3 steps, ZeRO 0, no clipping: losses
+    finite and falling. Returns the flash launches."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import compressed as tc
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    bad = []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    padded = tc.padded_numel(total_n, 1)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    buf = torch.randn(total_n, generator=gen, device=dev) * 1e-3
+    we = torch.zeros(padded, device=dev)
+    se = torch.zeros(padded, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, we, se = tc.compressed_allreduce_padded(buf, we, se)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    ms = cuda_median_ms(lambda: tc.compressed_allreduce_padded(buf, we, se))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    two = bool(torch.isfinite(out).all()) and out.unique().numel() <= 2
+    small = buf[:1 << 20].contiguous()
+    pad_s = tc.padded_numel(small.numel(), 1)
+    got = tc.compressed_allreduce_padded(
+        small, torch.zeros(pad_s, device=dev), torch.zeros(pad_s, device=dev))
+    ref = tc.compressed_allreduce_padded(
+        small.cpu(), torch.zeros(pad_s), torch.zeros(pad_s))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+    log(f"8k (d) compressed_allreduce_padded over {total_n} f32 elements "
+        f"(padded {padded}) at one rank: {ms:.2f} ms (first call "
+        f"{first:.1f} ms), peak {peak:.2f} GiB above its inputs; output "
+        f"+-scale only: {two}; a 1 M-element buffer equal to the CPU's: "
+        f"{same} [{card}]")
+    if not (two and same):
+        bad.append("the compressed allreduce")
+    del buf, we, se, out, got, ref
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    total = {k.__name__: 0 for k in kernels}
+    L, gas, steps = cfg.num_layers, 2, 3
+    for opt, params in (("OneBitAdam", {"freeze_step": 1}),
+                        ("OneBitLamb", {"freeze_step": 1}),
+                        ("ZeroOneAdam", {"var_freeze_step": 1})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        config = {"train_micro_batch_size_per_gpu": TRAIN_B,
+                  "gradient_accumulation_steps": gas,
+                  "optimizer": {"type": opt,
+                                "params": dict(lr=ONEBIT_LR[opt], **params)},
+                  "gradient_clipping": 0.0, "bf16": {"enabled": True},
+                  "steps_per_print": 10 ** 9,
+                  "zero_optimization": {"stage": 0}}
+        eng, *_ = deepspeed_tpu_torch.initialize(model=TransformerLM(cfg),
+                                                 config=config)
+        for kfn in kernels:
+            kfn.launches = 0
+        losses, step_s = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch(batch=batch))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = {kfn.__name__: kfn.launches for kfn in kernels}
+        for k, n in launches.items():
+            total[k] += n
+        ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+        log(f"8k (d) {opt} (lr {ONEBIT_LR[opt]}, {params}) at one rank: losses "
+            f"{losses}, finite and falling: {ok}; step ms "
+            f"{[f'{x * 1e3:.1f}' for x in step_s]}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+            f"launches {launches} [{card}]")
+        want = {"flash_fwd": steps * 2 * L * gas,
+                "flash_bwd_dq": steps * L * gas,
+                "flash_bwd_dkv": steps * L * gas}
+        if not ok:
+            bad.append(f"{opt} losses {losses}")
+        if launches != want:
+            bad.append(f"{opt} launches {launches} != {want}")
+        eng.close()
+        del eng
+    if bad:
+        raise AssertionError("8k (d): " + "; ".join(bad))
+    return total
+
+
+def zeropp_phase(dev, card, refs):
+    """Phase 8k: quantized communication at one NCCL rank on the train
+    cell (Mistral-7B width, 4 layers, bf16, micro 2 x gas 2 x S 2048).
+    Returns the flash and quantizer launches of its main drives."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import mistral_7b
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(mistral_7b(), num_layers=4)
+    rng = np.random.default_rng(4)          # phase 8's fixed batch
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (2, TRAIN_B, TRAIN_S))}
+    t0 = time.perf_counter()
+    launches = zeropp_engines(dev, card, refs, cfg, batch)
+    log(f"8k (a): {time.perf_counter() - t0:.0f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    quant, total_n = zeropp_transport(dev, card, cfg, flush)
+    del flush
+    launches.update(quant)
+    log(f"8k (b), (c): {time.perf_counter() - t0:.0f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for k, n in onebit_phase(dev, card, cfg, batch, total_n).items():
+        launches[k] += n
+    log(f"8k (d): {time.perf_counter() - t0:.0f}s")
+    comm.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 8k: {time.perf_counter() - t_phase:.0f}s; launches "
+        f"{launches}")
     return launches
 
 
@@ -6596,14 +7000,16 @@ def main() -> int:
         launches[k] += n
     del moe_ref
     log(f"phase 8j: {time.perf_counter() - t0:.0f}s")
-    dp_launches, stage3_two_steps = zero_dp_phase(dev, card)
+    dp_launches, zero_refs = zero_dp_phase(dev, card)
     for k, n in dp_launches.items():
         launches[k] += n
-    for k, n in parallel_phase(dev, card, stage3_two_steps).items():
+    for k, n in parallel_phase(dev, card, zero_refs[3]).items():
         launches[k] += n
-    del stage3_two_steps
     for k, n in pipeline_phase(dev, card).items():
         launches[k] += n
+    for k, n in zeropp_phase(dev, card, zero_refs).items():
+        launches[k] += n
+    del zero_refs
     t0 = time.perf_counter()
     offload_launches, host_ops = offload_phase(dev)
     log(f"phase 8b: {time.perf_counter() - t0:.0f}s; flash launches of the "

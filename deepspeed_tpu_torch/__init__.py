@@ -48,10 +48,11 @@ parallelism (``pipeline.stages`` > 1, ``runtime/pipe/``): the 1F1B
 schedule over the ranks of the pipe axis trains ``TransformerLM`` or a
 ``PipelineModule`` of ``LayerSpec`` / ``TiedLayerSpec`` layers, with
 ZeRO-1, tensor, sequence and expert parallelism and the optimizer
-offload. Still raising:
-ZeRO-Infinity at more than one rank (ROADMAP A9),
-ZeRO++ (A10), the other remat
-policies (A3); ``init_inference(use_ragged=True, checkpoint=...)``
+offload. ZeRO++ (qwZ, qgZ, hpZ), the int8 / fp8 quantized gradient
+rings (``zero_optimization.quantized_reduce``) and the 1-bit optimizers
+(OneBitAdam, OneBitLamb, ZeroOneAdam) train over the data-parallel ranks.
+Still raising: ZeRO-Infinity at more than one rank (ROADMAP A9), the
+other remat policies (A3); ``init_inference(use_ragged=True, checkpoint=...)``
 raises as in the JAX package. Entry points run on the GPU unless the
 caller passes ``device="cpu"``.
 

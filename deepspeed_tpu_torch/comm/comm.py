@@ -535,7 +535,7 @@ def permute(x, perm=None, axis_name="pipe", group=None):
     outs = [torch.zeros_like(t) for t in xs]
     exchange([(t, d) for s, d in perm if s == me for t in xs],
              [(o, s) for s, d in perm if d == me for o in outs],
-             group=group)
+             axis_name=axis_name, group=group)
     return outs if many else outs[0]
 
 

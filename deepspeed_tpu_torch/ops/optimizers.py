@@ -197,7 +197,9 @@ class SGD(TpuOptimizer):
 
 
 # reference engine._configure_basic_optimizer name dispatch
-# (runtime/engine.py:1239); the 1-bit family rides ROADMAP A10
+# (runtime/engine.py:1239); the 1-bit family (OneBitAdam, OneBitLamb,
+# ZeroOneAdam) owns its communication, and the engine builds its step
+# from runtime/fp16/onebit.ONEBIT_OPTIMIZERS instead
 OPTIMIZER_REGISTRY: Dict[str, Callable[..., TpuOptimizer]] = {
     "adam": lambda **kw: FusedAdam(adam_w_mode=False, **kw),
     "adamw": lambda **kw: FusedAdam(adam_w_mode=True, **kw),

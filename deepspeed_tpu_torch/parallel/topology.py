@@ -19,7 +19,11 @@ keeps its own; a group spanning the whole world is the default group
 (None). The pipeline axis (``pipe``, outermost) holds the stages of the
 1F1B schedule (``runtime/pipe/``); it is never a data axis, so the batch,
 the ZeRO shard and the data-parallel world exclude it (JAX
-``runtime/config.py:576-580``). ZeRO++ hpZ raises (ROADMAP A10).
+``runtime/config.py:576-580``). ZeRO++ hpZ (``hpz_shard`` > 1) sizes the
+``shard`` axis too, as JAX does (:78-93): the stage-3 compute params shard
+over it alone (``secondary_axes``), within groups of ``hpz_shard``
+consecutive ranks, while master, moments and gradients span the whole
+data-parallel world.
 """
 
 from dataclasses import dataclass
@@ -48,11 +52,6 @@ class TopologyConfig:
     hpz_shard: int = 1
 
 
-_UNPORTED_AXES = (
-    ("hpz_shard", "ZeRO++ hpZ (zero_hpz_partition_size)", "A10 (ZeRO++)"),
-)
-
-
 def _key(axes) -> Tuple[str, ...]:
     names = (axes,) if isinstance(axes, str) else tuple(axes)
     return tuple(a for a in AXIS_ORDER if a in names)
@@ -67,11 +66,6 @@ class MeshTopology:
 
     def __init__(self, topo: TopologyConfig = TopologyConfig(),
                  world_size: Optional[int] = None, rank: Optional[int] = None):
-        for field, what, item in _UNPORTED_AXES:
-            if getattr(topo, field) > 1:
-                raise NotImplementedError(
-                    f"{what} = {getattr(topo, field)} is not ported to "
-                    f"deepspeed_tpu_torch yet (ROADMAP {item})")
         self.topo = topo
         self.world = comm.get_world_size() if world_size is None else world_size
         self.rank = comm.get_rank() if rank is None else rank
@@ -80,12 +74,20 @@ class MeshTopology:
             raise ValueError(f"{self.world} ranks not divisible by "
                              f"pipe*model*seq*expert={mp}")
         data, shard = self.world // mp, 1
-        if topo.mics_shard > 1:
-            if data % topo.mics_shard:
+        if topo.mics_shard > 1 and topo.hpz_shard > 1:
+            raise ValueError(
+                "mics_shard_size and zero_hpz_partition_size both claim the "
+                "shard sub-axis with opposite replication semantics; enable "
+                "at most one")
+        group = max(topo.mics_shard, topo.hpz_shard)
+        if group > 1:
+            name = ("mics_shard_size" if topo.mics_shard > 1
+                    else "zero_hpz_partition_size")
+            if data % group:
                 raise ValueError(
-                    f"mics_shard_size={topo.mics_shard} does not divide the "
+                    f"{name}={group} does not divide the "
                     f"data-parallel world of {data}")
-            shard, data = topo.mics_shard, data // topo.mics_shard
+            shard, data = group, data // group
         self.sizes: Dict[str, int] = {
             PIPE_AXIS: topo.pipe, DATA_AXIS: data, SHARD_AXIS: shard,
             EXPERT_AXIS: topo.expert, SEQ_AXIS: topo.seq,
@@ -196,6 +198,16 @@ class MeshTopology:
     @property
     def mics_enabled(self) -> bool:
         return self.sizes[SHARD_AXIS] > 1 and self.topo.mics_shard > 1
+
+    @property
+    def hpz_enabled(self) -> bool:
+        return self.sizes[SHARD_AXIS] > 1 and self.topo.hpz_shard > 1
+
+    @property
+    def secondary_axes(self) -> Tuple[str, ...]:
+        """hpZ's secondary partition (JAX :124): the stage-3 compute params
+        shard over the within-group axis only."""
+        return (SHARD_AXIS,)
 
     @property
     def dp_axes(self) -> Tuple[str, ...]:

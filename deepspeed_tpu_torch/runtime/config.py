@@ -480,15 +480,6 @@ def _coerce_optional_blocks(raw: Dict[str, Any]) -> Dict[str, Any]:
     return raw
 
 
-# optimizer.type names of the 1-bit family (JAX runtime/fp16/onebit)
-_ONEBIT_OPTIMIZERS = ("onebitadam", "1bitadam", "onebitlamb", "1bitlamb",
-                      "zerooneadam", "01adam", "zoadam")
-
-
-def is_onebit_optimizer(name: str) -> bool:
-    return name.lower().replace("_", "").replace("-", "") in _ONEBIT_OPTIMIZERS
-
-
 class DeepSpeedConfig:
     """Parse + validate a config (path or dict) and resolve batch-size math
     (train_batch = micro * gas * dp_world, reference runtime/config.py)."""
@@ -510,6 +501,7 @@ class DeepSpeedConfig:
                 f"device count {self.world_size} not divisible by tp*pp*sp={mp}")
         self.dp_world_size = self.world_size // mp
         self._resolve_batch_sizes()
+        from .fp16.onebit import is_onebit_optimizer
         if self.cfg.zero_optimization.offload_optimizer.device != "none" \
                 and self.cfg.optimizer is not None \
                 and is_onebit_optimizer(self.cfg.optimizer.type):
@@ -626,6 +618,15 @@ _PORTED = {
     # other keys are accepted and ignored, as in JAX (partition_method is
     # PipelineModule's argument, M is gradient_accumulation_steps)
     "pipeline",
+    # ZeRO++ and the quantized gradient rings (comm/quantized.py,
+    # runtime/grad_overlap.py); the 1-bit optimizers are optimizer.type
+    # names (runtime/fp16/onebit)
+    "zero_optimization.zero_hpz_partition_size",
+    "zero_optimization.zero_quantized_weights",
+    "zero_optimization.zero_quantized_gradients",
+    "zero_optimization.quantized_reduce",
+    "zero_optimization.quantized_reduce_hierarchy",
+    "zero_optimization.quant_block",
 }
 # keys and the values that run
 _PORTED_VALUES = {"activation_checkpointing.policy": POLICIES}
@@ -654,13 +655,6 @@ _INERT = {
 _ROADMAP = {
     "zero_optimization.offload_optimizer": "A9 (memory tiers)",
     "zero_optimization.offload_param": "A9 (memory tiers)",
-    "zero_optimization.zero_hpz_partition_size": "A10 (ZeRO++)",
-    "zero_optimization.zero_quantized_weights": "A10 (ZeRO++)",
-    "zero_optimization.zero_quantized_gradients": "A10 (ZeRO++)",
-    "zero_optimization.quantized_reduce": "A10 (quantized communication)",
-    "zero_optimization.quantized_reduce_hierarchy":
-        "A10 (quantized communication)",
-    "zero_optimization.quant_block": "A10 (quantized communication)",
     "aio": "A9 (memory tiers)",
     "activation_checkpointing": "A3 (the remaining remat policies)",
     "hybrid_engine": "A11 (RLHF and hybrid engine)",
@@ -699,10 +693,6 @@ def unported_keys(ds_config: DeepSpeedConfig) -> List[Tuple[str, Any, str]]:
         out.append(("world_size", ds_config.world_size,
                     "A9 (memory tiers: ZeRO-Infinity at more than one "
                     "rank)"))
-    if ds_config.cfg.optimizer is not None and \
-            is_onebit_optimizer(ds_config.cfg.optimizer.type):
-        out.append(("optimizer.type", ds_config.cfg.optimizer.type,
-                    "A10 (1-bit optimizers)"))
     return out
 
 

@@ -161,8 +161,24 @@ group) with a warning; the optimizer offload only in bf16 / fp32;
 ``eval_batch`` through ``model.apply``; the shims and ``offload_param``
 refuse.
 
+ZeRO++ and the quantized transports (JAX :913-991):
+``zero_quantized_weights`` gathers stage-3 params as int8 blocks (qwZ)
+and ``zero_quantized_gradients`` reduces the gradients of stages 2-3 by
+the int8 all-to-all (qgZ), both where the group has more than one rank
+(JAX quantizes nothing at a data-parallel world of 1);
+``zero_hpz_partition_size`` (hpZ) cuts the stage-3 compute params within
+groups of that many ranks, the gathers staying inside a group and the gradients averaged
+across the groups (``CROSS_GROUP``). ``quantized_reduce`` (int8 / fp8,
+stages 0-2) reduces the bucketed gradients on quantized rings, flat or
+two-level (``quantized_reduce_hierarchy``), carrying each rank's
+error-feedback residuals (``quant_reduce_state``) across steps; an fp16
+step that overflows keeps the old ones. These transports reduce after
+the backward on JAX's bucket layout (``runtime/grad_overlap.py``).
+The 1-bit optimizers (``runtime/fp16/onebit``) replace the step: local
+gradients, then the optimizer's own compressed allreduce.
+
 Not ported (``runtime/config.check_ported`` raises, naming the ROADMAP
-item): ZeRO-Infinity at more than one rank (A9), ZeRO++ (A10), the
+item): ZeRO-Infinity at more than one rank (A9), the
 remat policies beyond the ported ones (A3),
 compression, curriculum and the profilers (A12), the hybrid engine
 (A11); the offload tiers at tp, sp or MiCS > 1 (A9).
@@ -190,10 +206,11 @@ from .activation_checkpointing import checkpointing as ds_ckpt
 from .config import ConfigError, DeepSpeedConfig, OptimizerConfig, check_ported
 from .fp16.loss_scaler import (LossScaleConfig, from_fp16_config,
                                grads_finite, init_scale_state, update_scale)
-from .grad_overlap import (ALL_REDUCE, REDUCE_SCATTER, VJP,
-                           BucketedReducer,
-                           leaf_kinds, plan_grad_buckets, reduce_leaves,
-                           resolve_overlap_mode)
+from .grad_overlap import (ALL_REDUCE, CROSS_GROUP, REDUCE_SCATTER, VJP,
+                           BucketedReducer, apply_bucketed_reduction,
+                           leaf_kinds, plan_grad_buckets, quant_reduce_layout,
+                           reduce_leaves, resolve_overlap_mode,
+                           ring_wire_bytes)
 from .lr_schedules import LRScheduler, build_lr_schedule
 from .offload import HostLayerStream, PinnedHost, copy_rows
 from .zero.partition import ZeroPlan, build_zero_plan
@@ -353,9 +370,18 @@ class DeepSpeedTpuEngine:
         if opt_cfg is None:
             opt_cfg = OptimizerConfig(type="adamw", params={"lr": 1e-3})
         self.config.optimizer = opt_cfg
-        self.optimizer: TpuOptimizer = build_optimizer(opt_cfg.type,
-                                                       opt_cfg.params)
-        base_lr = opt_cfg.params.get("lr", getattr(self.optimizer, "lr", 1e-3))
+        # the 1-bit optimizers own their communication (JAX :199-201)
+        from .fp16.onebit import is_onebit_optimizer
+        self.onebit_mode = is_onebit_optimizer(opt_cfg.type)
+        self._onebit = None
+        if self.onebit_mode:
+            self.optimizer = None
+            base_lr = opt_cfg.params.get("lr", 1e-3)
+        else:
+            self.optimizer: TpuOptimizer = build_optimizer(opt_cfg.type,
+                                                           opt_cfg.params)
+            base_lr = opt_cfg.params.get("lr", getattr(self.optimizer, "lr",
+                                                       1e-3))
         self._lr_fn = build_lr_schedule(self.config.scheduler, base_lr)
         self.lr_scheduler = lr_scheduler or LRScheduler(self._lr_fn)
         self._check_world()
@@ -373,13 +399,27 @@ class DeepSpeedTpuEngine:
         self._init_experts(model)
         self._pending_saves: List[threading.Thread] = []
         self._async_save_errors: List[BaseException] = []
+        # the quantized rings' error-feedback residuals (JAX :163-170; not
+        # checkpointed, as in JAX) and their settings
+        self.quant_reduce_state = None
+        self._qr = None
         ds_ckpt.configure(deepspeed_config=self.config)
+        if self.config.zero_optimization.quantized_reduce != "off" and \
+                self.onebit_mode:
+            # (JAX :328) its own step never consults the knob
+            raise ConfigError(
+                "zero_optimization.quantized_reduce requires the standard "
+                "jitted step: ZeRO-Offload, ZeRO-Infinity and 1-bit "
+                "optimizers keep their own gradient transports")
         if self.param_offload_nvme:
             self._init_infinity_state(params, seed)
         else:
             self._init_state(params, seed)
             self._init_grad_reduction()
         self._init_frozen(model)
+        if self.onebit_mode:
+            from .fp16.onebit import build_train_step_for
+            self._onebit = build_train_step_for(self)
         self._last_metrics: Dict[str, float] = {}
         self.last_step_s = None
         self._step_events = None
@@ -423,11 +463,12 @@ class DeepSpeedTpuEngine:
         compiled program to read here: ``training_comm_exposed_fraction``
         (measured from the HLO schedule only when the JAX step is
         AOT-lowered) keeps its registered default, as on a JAX engine
-        that never lowers its step; the quantized-reduce series
-        (``training_reduce_quantized_bytes``,
-        ``training_quant_error_feedback_norm``) are 0, the values JAX
-        gives them with ``quantized_reduce`` off, which is the only
-        setting the port runs (ROADMAP A10). ``telemetry.xla_annotations``
+        that never lowers its step. Under ``quantized_reduce``,
+        ``training_reduce_quantized_bytes`` is the plan's quantized ring
+        bytes a rank ships a step (``ring_wire_bytes``) and
+        ``training_quant_error_feedback_norm`` the global norm of the
+        carried error-feedback residuals after each step (JAX :424-444);
+        both stay 0 otherwise. ``telemetry.xla_annotations``
         mirrors the spans into ``torch.profiler.record_function`` ranges
         (``telemetry/trace.enable_profiler_annotations``)."""
         from ..telemetry import get_registry
@@ -473,7 +514,10 @@ class DeepSpeedTpuEngine:
             "residuals after the last step")
         if self.grad_bucket_plan is not None:
             self._tm_bucket_bytes.set(self.grad_bucket_plan.max_bucket_bytes)
-            self._tm_quant_bytes.set(0)
+            if self.quant_reduce_state is not None:
+                self._tm_quant_bytes.set(ring_wire_bytes(
+                    self.grad_bucket_plan, self._qr["world"], quantized=True,
+                    quant_block=self._qr["block"]))
         if self.monitor is not None and self.monitor.enabled:
             self.telemetry_bridge = self.monitor.attach_telemetry(
                 reg, flush_interval=tcfg.flush_interval)
@@ -536,6 +580,8 @@ class DeepSpeedTpuEngine:
         self._tm_lr.set(float(metrics["lr"]))
         if "loss_scale" in metrics:
             self._tm_scale.set(float(metrics["loss_scale"]))
+        if "quant_error_norm" in metrics:
+            self._tm_quant_err.set(float(metrics["quant_error_norm"]))
         if skipped:
             self._tm_skipped.inc()
         else:
@@ -587,10 +633,12 @@ class DeepSpeedTpuEngine:
         self._frozen_idx: List[int] = []
         if mask is None:
             return
-        if self.offload_device or self.param_offload_nvme:
+        if self.offload_device or self.param_offload_nvme or \
+                self.onebit_mode:
             raise NotImplementedError(
-                "frozen_mask is not supported with ZeRO-Offload or "
-                "offload_param nvme; use the resident optimizer")
+                "frozen_mask is not supported with ZeRO-Offload, "
+                "offload_param nvme or 1-bit optimizers; use the resident "
+                "optimizer")
         flags = dict(_flatten(mask))
         self._frozen_idx = [i for i, n in enumerate(self._leaf_names)
                             if flags.get(n)]
@@ -705,7 +753,7 @@ class DeepSpeedTpuEngine:
                 "tensor, sequence or MiCS parallelism are not ported to "
                 "deepspeed_tpu_torch yet (ROADMAP A9)")
         if offloaded and world > 1 and self.zero_stage >= 1 and \
-                not self.optimizer.elementwise:
+                self.optimizer is not None and not self.optimizer.elementwise:
             raise NotImplementedError(
                 f"optimizer {self.config.optimizer.type!r} reads whole "
                 f"leaves (a trust ratio), which an offloaded tier holding "
@@ -984,12 +1032,19 @@ class DeepSpeedTpuEngine:
         # plan, each rank's host tier holding its master shards
         plan_stage = (0 if self.offload_device and self.zero_world == 1
                       else self.zero_stage)
+        # ZeRO++ hpZ: stage-3 compute params cut within the hpZ groups
+        topo = self.topology
+        self._hpz = self.zero_stage == 3 and topo.hpz_enabled
+        sec = topo.secondary_axes
+        secondary = ((topo.group(sec), topo.group_size(sec),
+                      topo.group_rank(sec)) if self._hpz else None)
         self.zero_plan: ZeroPlan = build_zero_plan(
             self.zero_world, plan_stage, self._full_shapes,
             persistence_threshold=zc.stage3_param_persistence_threshold,
             expert_dims=self._expert_dims if self.ep > 1 else None,
             model_dims={k: tuple(c.values()) for k, c in self._cuts.items()},
-            expert_world=self._expert_zero[1])
+            expert_world=self._expert_zero[1],
+            secondary_world=secondary[1] if secondary else None)
         names = self._leaf_names
         # each leaf's ZeRO (group, world, rank): an expert leaf's is the
         # ranks holding its experts, every other leaf's the ZeRO group
@@ -998,13 +1053,21 @@ class DeepSpeedTpuEngine:
                             if k in self._expert_dims]
         self._zero = [self._expert_zero if k in self._expert_dims else dense
                       for k in names]
+        # the compute params' ZeRO (group, world, rank): the hpZ group's
+        # under hpZ, else the leaf's own
+        self._pzero = ([secondary if k not in self._expert_dims else z
+                        for k, z in zip(names, self._zero)]
+                       if secondary else self._zero)
         self._pdims = [self.zero_plan.param_dims[k] for k in names]
         self._gdims = [self.zero_plan.grad_dims[k] for k in names]
         self._odims = [self.zero_plan.master_dims[k] for k in names]
 
-        def local(i, v, dim):
-            _, world, rank = self._zero[i]
+        def local(i, v, dim, zero=None):
+            _, world, rank = (zero or self._zero)[i]
             return v if dim is None else shard_of(v, dim, rank, world)
+
+        def plocal(i, v):
+            return local(i, v, self._pdims[i], self._pzero)
 
         with torch.no_grad():
             if self.offload_device:
@@ -1012,11 +1075,9 @@ class DeepSpeedTpuEngine:
                 # host (built by the offload tier from this rank's master
                 # shards); the card keeps the compute params only
                 master = None
-                compute = [local(i, v, pd).to(self.device,
-                                              self.compute_dtype,
-                                              copy=params is not None)
-                           for i, ((_, v), pd) in enumerate(
-                               zip(items, self._pdims))]
+                compute = [plocal(i, v).to(self.device, self.compute_dtype,
+                                           copy=params is not None)
+                           for i, (_, v) in enumerate(items)]
                 self._init_offload([(k, local(i, v, od)) for i, ((k, v), od)
                                     in enumerate(zip(items, self._odims))])
             elif self.has_master:
@@ -1026,13 +1087,11 @@ class DeepSpeedTpuEngine:
                                                               self._odims))]
                 # a compute leaf sharded like its master is the master's
                 # cast (the same tensor in fp32, as at stage 0)
-                compute = [m.to(self.compute_dtype) if pd is not None
-                           or od is None else
-                           local(i, v, pd).to(self.device, self.compute_dtype,
-                                              copy=True)
-                           for i, (m, (_, v), pd, od) in enumerate(
-                               zip(master, items, self._pdims,
-                                   self._odims))]
+                compute = [m.to(self.compute_dtype) if self._like_master(i)
+                           else plocal(i, v).to(self.device,
+                                                self.compute_dtype, copy=True)
+                           for i, (m, (_, v)) in enumerate(zip(master,
+                                                               items))]
             else:
                 master = None
                 compute = [v.to(self.device, torch.float32, copy=True)
@@ -1047,8 +1106,9 @@ class DeepSpeedTpuEngine:
         self.params = _unflatten(list(zip(self._leaf_names, compute)))
         self.master_params = (_unflatten(list(zip(self._leaf_names, master)))
                               if master is not None else None)
-        self.opt_state = (None if self.offload_device else
-                          self.optimizer.init_state(
+        # a 1-bit optimizer's state is its step's (fp16/onebit)
+        self.opt_state = (None if self.offload_device or self.onebit_mode
+                          else self.optimizer.init_state(
                               master if master is not None else compute))
         self.scale_state = (init_scale_state(self.scale_cfg, self.device)
                             if self.fp16_enabled else None)
@@ -1065,6 +1125,16 @@ class DeepSpeedTpuEngine:
             if self.offload_device and pd is None and od is not None
             else None
             for i, (pd, od) in enumerate(zip(self._pdims, self._odims))]
+
+    def _like_master(self, i: int) -> bool:
+        """Whether compute leaf ``i`` is cut as its master is (then it is
+        the master's cast): sharded on the same group, or neither sharded.
+        Not so under hpZ, nor for a replicated leaf with a sharded
+        master."""
+        pd, od = self._pdims[i], self._odims[i]
+        if pd is None:
+            return od is None
+        return pd == od and self._pzero[i] is self._zero[i]
 
     def _local_shape(self, i: int, dim: Optional[int]) -> Tuple[int, ...]:
         """The shape of this rank's shard of leaf ``i`` along ``dim``."""
@@ -1106,56 +1176,163 @@ class DeepSpeedTpuEngine:
 
     def _init_grad_reduction(self):
         """The leaves' reduction kinds, the stage-3 gathers and the bucket
-        plan (JAX ``make_overlapped_grad_fn``'s planning, :648-758)."""
+        plan (JAX ``make_overlapped_grad_fn``'s planning, :648-758), with
+        ZeRO++ and ``quantized_reduce`` (JAX :913-991): qwZ at stage 3 and
+        qgZ at stages 2-3 where the gather's group has more than one rank,
+        the quantized rings at a data-parallel world > 1 (inert at 1, with
+        JAX's log line), and their refusals."""
         names = self._leaf_names
-        self._kinds = leaf_kinds(names, self.zero_plan)
+        zc = self.config.zero_optimization
+        topo = self.topology
+        gather_world = (topo.group_size(topo.secondary_axes) if self._hpz
+                        else self.zero_world)
+        # the optimizer offload keeps its own gradient transport, as JAX's
+        # offload step does (:340-355): ZeRO++ quantizes nothing there
+        zpp = not self.offload_device
+        zpp_w = bool(zpp and zc.zero_quantized_weights
+                     and self.zero_stage == 3 and gather_world > 1)
+        zpp_g = bool(zpp and zc.zero_quantized_gradients
+                     and self.zero_stage >= 2 and self.zero_world > 1)
+        qr_on = zc.quantized_reduce != "off"
+        if qr_on and self.ds_config.dp_world_size <= 1:
+            from ..utils.logging import log_dist
+            log_dist(
+                "quantized_reduce is inert without data parallelism "
+                "(dp world 1): no ring transport to quantize — running "
+                "unquantized", ranks=[0])
+            qr_on = False
+        use_zeropp = zpp_w or zpp_g or qr_on
+        if use_zeropp:
+            if self.param_offload:
+                raise ConfigError(
+                    "the manual (bucketed/ZeRO++) gradient program does not "
+                    "compose with offload_param (host-streamed layer "
+                    "storage)")
+            for ax in ("expert", "pipe"):
+                if qr_on and topo.axis_size(ax) != 1:
+                    raise ConfigError(
+                        f"zero_optimization.quantized_reduce does not "
+                        f"compose with {ax} parallelism: the quantized "
+                        f"ring rides the manual data-parallel program")
+                if topo.axis_size(ax) != 1:
+                    raise AssertionError(
+                        f"the manual gradient program composes with "
+                        f"dp/tp/sp only (got {ax} size "
+                        f"{topo.axis_size(ax)})")
+        self._cross = (topo.group("data"), topo.axis_size("data"))
+        self._kinds = leaf_kinds(names, self.zero_plan, hpz_cross=self._hpz)
         stack = tuple(getattr(self.model, "param_offload_keys", ()) or ())
         stacked = [any(n.startswith(k + "/") for k in stack) for n in names]
+
+        def tp_of(n, shift=0):
+            d = self._cuts.get(n, {}).get("model")
+            if d is None or not (zpp_w or zpp_g):
+                return None
+            return (topo.group("model"), d - shift)
+
+        def gather(d, i, shift=0):
+            return make_zero3_gather(d, self._pzero[i][0],
+                                     fwd_quantized=zpp_w,
+                                     bwd_quantized=zpp_g,
+                                     tp=tp_of(names[i], shift))
+
         # stage 3: a stacked leaf cut along a layer's own dimension is
         # gathered layer by layer in the model's loop; any other sharded
-        # leaf once before the forward
+        # leaf once before the forward. Quantized gathers take whole
+        # leaves, as JAX's do: a quantization block spans the layers of a
+        # stacked shard
         self._whole_gathers: Dict[int, Any] = {}
-        layer_dims: Dict[str, Tuple[int, Any]] = {}
+        layer_gathers: Dict[str, Any] = {}
+        per_layer = hasattr(self.model, "layer_gather") and not (zpp_w
+                                                                  or zpp_g)
         for i, (n, d) in enumerate(zip(names, self._pdims)):
             if d is None:
                 continue
-            if stacked[i] and d > 0 and hasattr(self.model,
-                                                      "layer_gather"):
-                layer_dims[n.split("/", 1)[1]] = (d - 1, self._zero[i][0])
+            if stacked[i] and d > 0 and per_layer:
+                layer_gathers[n.split("/", 1)[1]] = gather(d - 1, i, 1)
             elif n in self._streamed:
                 raise NotImplementedError(
                     f"offload_param: {n} is cut along its layer axis at "
                     f"{self.zero_world} ranks, so no rank holds whole "
                     f"layers to stream")
             else:
-                self._whole_gathers[i] = make_zero3_gather(d,
-                                                           self._zero[i][0])
+                self._whole_gathers[i] = gather(d, i)
         self._layer_gather = None
-        if layer_dims:
-            gathers = {k: make_zero3_gather(d, g)
-                       for k, (d, g) in layer_dims.items()}
-
+        if layer_gathers:
             def layer_gather(lp):
-                return {k: gathers[k](v) if k in gathers else v
+                return {k: layer_gathers[k](v) if k in layer_gathers else v
                         for k, v in lp.items()}
 
             self._layer_gather = layer_gather
-        self.grad_overlap_mode = resolve_overlap_mode(self)
+        self.grad_overlap_mode = resolve_overlap_mode(self, use_zeropp)
         self.grad_bucket_plan = None
         self._reducer = None
+        # quantized transports and hpZ reduce after the backward on JAX's
+        # bucket layout; the plain buckets reduce in the backward's hooks
+        self._post_reduce = (self.grad_overlap_mode == "bucketed"
+                             and (use_zeropp or self._hpz))
         if self.grad_overlap_mode == "bucketed":
-            zc = self.config.zero_optimization
+            shapes = [self._full_shapes[n] for n in names]
+            unroll = None
+            if self._post_reduce:
+                cfg = getattr(self.model, "cfg", None)
+                hint = 2 if (self.zero_stage == 3 and zc.overlap_comm
+                             and gather_world > 1) else 1
+                unroll = max(int(getattr(cfg, "scan_unroll", 1) or 1), hint)
             self.grad_bucket_plan = plan_grad_buckets(
-                names, [self._full_shapes[n] for n in names], self.zero_plan,
+                names, shapes, self.zero_plan,
                 zc.reduce_bucket_size, zc.allgather_bucket_size,
-                stack_keys=stack)
-            self._reducer = BucketedReducer(self.grad_bucket_plan,
-                                            self._gdims, self.device,
-                                            self.group)
+                stack_keys=stack, unroll=unroll, hpz_cross=self._hpz,
+                gather_world=gather_world)
+            if not self._post_reduce:
+                self._reducer = BucketedReducer(self.grad_bucket_plan,
+                                                self._gdims, self.device,
+                                                self.group)
             logger.info(f"grad overlap: bucketed reduction "
                         f"({self.grad_bucket_plan.num_buckets} buckets, "
                         f"{len(self.grad_bucket_plan.vjp_leaves)} vjp-reduced "
-                        f"leaves)")
+                        f"leaves, quantized={zpp_g}, "
+                        f"quantized_reduce={zc.quantized_reduce}, "
+                        f"hierarchy={zc.quantized_reduce_hierarchy})")
+        self._zpp_g = zpp_g
+        if qr_on:
+            self._init_quant_reduce(zpp_g)
+
+    def _init_quant_reduce(self, zpp_g: bool):
+        """The quantized rings' settings and zero error-feedback residuals
+        (JAX ``make_overlapped_grad_fn`` :892-928, engine :966-984)."""
+        zc = self.config.zero_optimization
+        topo = self.topology
+        if self.tp > 1 or self.sp > 1:
+            raise ConfigError(
+                "zero_optimization.quantized_reduce does not compose with "
+                "tensor/sequence parallelism: the quantized ring needs the "
+                "fully-manual data-parallel program")
+        axes = topo.dp_axes
+        live = [a for a in axes if topo.sizes[a] > 1]
+        if len(live) > 1:
+            raise ConfigError(
+                "zero_optimization.quantized_reduce needs a single live "
+                f"data-parallel mesh axis for the ring transport (got "
+                f"{live})")
+        world = topo.group_size(axes)
+        groups = int(zc.quantized_reduce_hierarchy or 0)
+        if groups > 1 and world % groups != 0:
+            raise ConfigError(
+                f"zero_optimization.quantized_reduce_hierarchy="
+                f"{groups} must divide the data-parallel world "
+                f"({world}): the two-level ring lays the ring out as "
+                f"hosts x devices-per-host")
+        layout = quant_reduce_layout(self.grad_bucket_plan, axes, world,
+                                     topo.sizes, ring=True,
+                                     a2a_quantized=zpp_g)
+        self._qr = {"mode": zc.quantized_reduce, "block": int(zc.quant_block),
+                    "groups": groups, "world": world, "layout": layout}
+        self.quant_reduce_state = {
+            k: {kk: torch.zeros(shape, dtype=torch.float32,
+                                device=self.device)
+                for kk, shape in v.items()}
+            for k, v in layout.items()}
 
     def _init_offload(self, items):
         """The host tier (JAX ``_init_offload_state`` :797 /
@@ -1273,6 +1450,14 @@ class DeepSpeedTpuEngine:
         for i, kind in enumerate(self._kinds):
             if kind == REDUCE_SCATTER:
                 out.append(shards[i])
+            elif kind == CROSS_GROUP:
+                # hpZ: the group shard of the mean, re-cut like the master
+                full = all_gather_leaf(acc[i], self._pdims[i],
+                                       self._pzero[i][0])
+                _, world, rank = self._zero[i]
+                od = self._odims[i]
+                out.append(full if od is None else
+                           shard_of(full, od, rank, world))
             elif kind == VJP or self._odims[i] is None:
                 out.append(acc[i])
             else:
@@ -1288,18 +1473,25 @@ class DeepSpeedTpuEngine:
         """The compute params from the updated master (JAX :1132-1136): a
         leaf sharded like its master is the master's cast; a replicated
         leaf with a sharded master gathers the cast shards."""
-        for p, m, pd, od, z in zip(self._param_leaves, self._master_leaves,
-                                   self._pdims, self._odims, self._zero):
+        for i, (p, m, pd, od, z) in enumerate(zip(
+                self._param_leaves, self._master_leaves, self._pdims,
+                self._odims, self._zero)):
             if p.device != m.device:
                 # a streamed layer leaf in host memory: cast on the card
                 # (a cast across devices would run on the host), one layer
                 # at a time
                 for r in range(p.shape[0]):
                     p[r].copy_(m[r].to(p.dtype))
-            elif pd is not None or od is None:
+            elif self._like_master(i):
                 p.copy_(m)
             else:
-                p.copy_(all_gather_leaf(m.to(self.compute_dtype), od, z[0]))
+                full = (m.to(self.compute_dtype) if od is None else
+                        all_gather_leaf(m.to(self.compute_dtype), od, z[0]))
+                if pd is not None:
+                    # hpZ: this rank's slice within its group
+                    _, pworld, prank = self._pzero[i]
+                    full = shard_of(full, pd, prank, pworld)
+                p.copy_(full)
 
     def _update_targets(self) -> List[torch.Tensor]:
         """Where the host tier writes the updated compute params: the
@@ -1364,6 +1556,8 @@ class DeepSpeedTpuEngine:
             with trace.span("train_device_dispatch"):
                 if self._infinity is not None:
                     out = self._run_infinity(dev_batch)
+                elif self._onebit is not None:
+                    out = self._onebit.step(dev_batch)
                 else:
                     out = self._run_step(dev_batch)
             with trace.span("train_host_sync"):
@@ -1438,9 +1632,12 @@ class DeepSpeedTpuEngine:
                 del grads
                 losses.append(loss.detach())
             loss = torch.stack(losses).mean()
+        new_q = None
         with torch.no_grad():
             if self._reducer is not None:
                 self._reducer.finish(acc, shards)
+            elif self._post_reduce:
+                new_q = self._reduce_buckets(acc, shards, scale)
             else:
                 self._reduce(acc, shards)
             loss = self._mean_over_group(loss)
@@ -1451,7 +1648,43 @@ class DeepSpeedTpuEngine:
                "skipped": 0 if ok else 1, "leaf_sqnorms": leaf_sq}
         if self.fp16_enabled:
             out["loss_scale"] = scale
+        if self.quant_reduce_state is not None:
+            # an overflowed step's transport errors are garbage: the
+            # residuals keep their pre-step values (JAX :1120-1126)
+            if ok:
+                self.quant_reduce_state = new_q
+            out["quant_error_norm"] = self._quant_error_norm()
         return out
+
+    def _reduce_buckets(self, acc, shards, scale):
+        """The bucket plan's collectives after the backward, on JAX's
+        layout (``apply_bucketed_reduction``): ZeRO++ qgZ, the quantized
+        rings with their residuals, hpZ's cross-group means; then MiCS's
+        replica means and the expert division. Returns the new
+        residuals."""
+        qr = self._qr or {}
+        new_q = apply_bucketed_reduction(
+            acc, self.grad_bucket_plan, self._gdims, shards,
+            group=self.group, world=self.zero_world,
+            cross_group=self._cross[0], cross_world=self._cross[1],
+            quantized=self._zpp_g, quant_reduce=qr.get("mode"),
+            quant_reduce_block=qr.get("block", 2048),
+            quant_reduce_groups=qr.get("groups", 0),
+            qstate=self.quant_reduce_state, qlayout=qr.get("layout"),
+            loss_scale=scale)
+        self._reduce_replicas(acc, shards)
+        self._reduce_experts(acc, shards)
+        return new_q
+
+    def _quant_error_norm(self) -> torch.Tensor:
+        """The global norm of the carried residuals, every rank's."""
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for v in self.quant_reduce_state.values():
+            for x in v.values():
+                sq += x.square().sum()
+        sq = sq.reshape(1)
+        comm.all_reduce(sq, group=self.group)
+        return sq[0].sqrt()
 
     def _pipeline_grads(self, dev_batch, acc, scale):
         """Pipeline mode's gradients into ``acc`` (JAX ``train_step``,
@@ -1485,7 +1718,7 @@ class DeepSpeedTpuEngine:
         backward, each over its ZeRO group (:attr:`_zero`), then
         :meth:`_reduce_experts`."""
         reduce_leaves(acc, self._kinds, self._gdims, shards,
-                      [z[0] for z in self._zero])
+                      [z[0] for z in self._zero], cross_group=self._cross[0])
         self._reduce_replicas(acc, shards)
         self._reduce_experts(acc, shards)
 
@@ -1524,7 +1757,7 @@ class DeepSpeedTpuEngine:
         if inv is None:
             inv = 1.0 / (self.gas * scale) if scale is not None \
                 else 1.0 / self.gas
-        sharded = [k != ALL_REDUCE or d is not None
+        sharded = [k not in (ALL_REDUCE, CROSS_GROUP) or d is not None
                    for k, d in zip(self._kinds, self._odims)]
         replicas = {}
         if self.ep > 1:
@@ -1647,6 +1880,11 @@ class DeepSpeedTpuEngine:
     # torch-style forward / backward / step (JAX :1828-1960)
     # ------------------------------------------------------------------
     def _check_shims(self):
+        if self.onebit_mode:
+            raise RuntimeError(
+                "forward/backward/step are not supported with the 1-bit "
+                "optimizers (their step owns its communication); use "
+                "train_batch/eval_batch")
         if self.pp > 1:
             raise RuntimeError(
                 "forward/backward/step are not supported in pipeline mode; "
@@ -1801,22 +2039,25 @@ class DeepSpeedTpuEngine:
     def _tree(self, leaves) -> Dict[str, Any]:
         return _unflatten(list(zip(self._leaf_names, leaves)))
 
-    def _shards(self, whole, dims) -> List[torch.Tensor]:
+    def _shards(self, whole, dims, zero=None) -> List[torch.Tensor]:
         """This rank's ZeRO shards (views) of whole leaves, each cut over
-        its own ZeRO group (:attr:`_zero`)."""
+        its own ZeRO group (:attr:`_zero`; the compute params' are
+        :attr:`_pzero`)."""
+        zero = zero or self._zero
         return [v if d is None else
-                shard_of(v, d, self._zero[i][2], self._zero[i][1])
+                shard_of(v, d, zero[i][2], zero[i][1])
                 for i, (v, d) in enumerate(zip(whole, dims))]
 
-    def _gathered(self, leaves, dims) -> List[torch.Tensor]:
-        """Whole leaves: the ZeRO shards joined over the ZeRO group, the
-        slices over the model-parallel groups that cut them (model, seq,
-        pipe) and the experts over the expert group (every rank takes
-        part)."""
+    def _gathered(self, leaves, dims, zero=None) -> List[torch.Tensor]:
+        """Whole leaves: the ZeRO shards joined over the ZeRO group (the
+        compute params' over ``zero``, :attr:`_pzero`), the slices over
+        the model-parallel groups that cut them (model, seq, pipe) and the
+        experts over the expert group (every rank takes part)."""
+        zero = zero or self._zero
         if self.zero_world > 1 or self._cuts:  # collectives on the device
             leaves = [v.to(self.device) for v in leaves]
-        out = [v if d is None or self._zero[i][1] == 1 else
-               all_gather_leaf(v.detach(), d, self._zero[i][0])
+        out = [v if d is None or zero[i][1] == 1 else
+               all_gather_leaf(v.detach(), d, zero[i][0])
                for i, (v, d) in enumerate(zip(leaves, dims))]
         topo = self.topology
         for i, n in enumerate(self._leaf_names):
@@ -1846,7 +2087,7 @@ class DeepSpeedTpuEngine:
         if self._infinity is not None:
             master, _ = self._infinity.get_all_leaves()
             return [m.to(self.compute_dtype) for m in master]
-        return self._gathered(self._param_leaves, self._pdims)
+        return self._gathered(self._param_leaves, self._pdims, self._pzero)
 
     def _train_state(self):
         """The state a checkpoint holds, as the JAX engine lays it out,
@@ -1889,6 +2130,7 @@ class DeepSpeedTpuEngine:
                         save_latest=True):
         """Every rank takes part (the shards are gathered); rank 0
         writes."""
+        self._check_checkpointable()
         self._join_pending_saves()
         tag = tag or f"global_step{self.global_steps}"
         state = self._train_state()
@@ -1933,6 +2175,13 @@ class DeepSpeedTpuEngine:
         self._pending_saves.append(t)
         logger.info(f"async checkpoint started -> {save_dir}/{tag}")
 
+    def _check_checkpointable(self):
+        if self.onebit_mode:
+            raise NotImplementedError(
+                "checkpoints of an engine with a 1-bit optimizer (per-rank "
+                "momentum and error-feedback state) are not supported by "
+                "deepspeed_tpu_torch")
+
     @torch.no_grad()
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
                         load_lr_scheduler_states=True, **_kw):
@@ -1941,6 +2190,7 @@ class DeepSpeedTpuEngine:
         shards, so a checkpoint saved at any data-parallel world loads at
         any other. Returns ``(load_dir, client_state)``, or ``(None, {})``
         when ``load_dir`` names no checkpoint."""
+        self._check_checkpointable()
         self._join_pending_saves()
         comm.barrier()   # rank 0's write is complete
         tag = tag or ckpt.read_latest(load_dir)
@@ -1983,11 +2233,11 @@ class DeepSpeedTpuEngine:
                 load_dir, tag, {"params": template["master_params"]}
             )[0]["params"]
 
-        def leaves(name, sub=None, dims=None):
+        def leaves(name, sub=None, dims=None, zero=None):
             whole = [self._manual_cut(k, self._expert_cut(k, v))
                      for k, v in ckpt.leaf_paths(
                          state[name] if sub is None else sub)]
-            return self._shards(whole, dims or [None] * len(whole))
+            return self._shards(whole, dims or [None] * len(whole), zero)
 
         if tier is not None:
             moments = None
@@ -2012,7 +2262,8 @@ class DeepSpeedTpuEngine:
         else:
             mdims = self._odims if self.has_master else self._pdims
             for p, v in zip(self._param_leaves,
-                            leaves("params", dims=self._pdims)):
+                            leaves("params", dims=self._pdims,
+                                   zero=self._pzero)):
                 copy_rows(p.detach(), v)
             if master is not None:
                 for m, v in zip(master, leaves("master_params",
@@ -2062,6 +2313,7 @@ class DeepSpeedTpuEngine:
         mismatch restores the weights only, the step restarting at 0,
         and is validated before anything changes. Serves the resident
         engine at ZeRO 0-3 and both optimizer offloads."""
+        self._check_checkpointable()
         from ..checkpoint.universal import (has_universal_opt_state,
                                             load_universal_extras,
                                             load_universal_into_tree)

@@ -34,8 +34,13 @@ backend may add in a layout-dependent order. The flat buffers place each
 unit at a 256-byte boundary, so a unit read back from a bucket is as
 aligned as a fresh allocation.
 
-Not ported: the quantized transports (ZeRO++ qgZ, ``quantized_reduce``'s
-rings, ``quant_reduce_layout``), ROADMAP A10.
+The quantized transports (ZeRO++ qgZ's int8 all-to-all,
+``quantized_reduce``'s int8 / fp8 rings with their error-feedback
+residuals, ``quant_reduce_layout`` :331, ``ring_wire_bytes`` :359) and
+hpZ's cross-group means reduce after the backward, bucket by bucket, in
+:func:`apply_bucketed_reduction` (JAX :384), on JAX's bucket layout: a
+quantized block spans what JAX's spans, so the port quantizes the same
+values into the same blocks.
 """
 
 from dataclasses import dataclass
@@ -44,7 +49,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..comm import comm
-from ..comm.quantized import reduce_scatter_leaf
+from ..comm.quantized import (all_to_all_quant_reduce, quant_wire_bytes,
+                              reduce_scatter_leaf, ring_all_gather_hier,
+                              ring_all_gather_quant, ring_reduce_scatter_hier,
+                              ring_reduce_scatter_quant)
 
 # leaf reduction categories
 VJP = "vjp"                      # reduced by the stage-3 gather's VJP
@@ -54,9 +62,6 @@ CROSS_GROUP = "cross_group"      # hpZ: cross-group mean of a VJP-reduced leaf
 
 # 256 bytes of f32: where every unit of a flat bucket starts
 ALIGN_ELEMS = 64
-
-_UNPORTED = "ROADMAP A10 (quantized communication)"
-
 
 @dataclass(frozen=True)
 class GradUnit:
@@ -223,12 +228,18 @@ def build_bucket_plan(units: Sequence[GradUnit],
                               int(allgather_bucket_size)))
 
 
-def leaf_kinds(names: Sequence[str], zero_plan) -> List[str]:
-    """Each leaf's reduction kind under a ``ZeroPlan``."""
+def leaf_kinds(names: Sequence[str], zero_plan,
+               hpz_cross: bool = False) -> List[str]:
+    """Each leaf's reduction kind under a ``ZeroPlan`` (JAX ``kind_of``
+    :716). A stage-3 gathered leaf is checked before a replicated
+    gradient: under hpZ a dimension can divide the group but not the
+    world, and its cotangent was already reduce-scattered over the group
+    by the gather's backward, so it takes only the cross-group mean
+    (``hpz_cross``: the hpZ groups have peers)."""
     out = []
     for n in names:
         if zero_plan.stage == 3 and zero_plan.param_dims[n] is not None:
-            out.append(VJP)
+            out.append(CROSS_GROUP if hpz_cross else VJP)
         elif zero_plan.grad_dims[n] is None:
             out.append(ALL_REDUCE)
         else:
@@ -239,18 +250,25 @@ def leaf_kinds(names: Sequence[str], zero_plan) -> List[str]:
 def plan_grad_buckets(names: Sequence[str], shapes: Sequence[Tuple[int, ...]],
                       zero_plan, reduce_bucket_size: int,
                       allgather_bucket_size: int,
-                      stack_keys: Sequence[str] = ("layers",)
-                      ) -> GradBucketPlan:
+                      stack_keys: Sequence[str] = ("layers",),
+                      unroll: Optional[int] = None,
+                      hpz_cross: bool = False,
+                      gather_world: int = 1) -> GradBucketPlan:
     """The bucket plan of a tree of leaves ``names`` / ``shapes`` (paths as
     ``"layers/wq"``). Leaves under a ``stack_keys`` subtree are stacked
     ``[L, ...]`` and reduce per layer — the port's layer loop always walks
     them layer by layer — unless their gradient shard is cut along the
-    layer dimension."""
-    kinds = leaf_kinds(names, zero_plan)
+    layer dimension. ``unroll`` (the quantized transports, whose blocks
+    follow the bucket layout): slice only where JAX does, a stack of at
+    most ``unroll`` layers. An hpZ cross-group unit carries its group
+    shard (``1 / gather_world`` of the leaf)."""
+    kinds = leaf_kinds(names, zero_plan, hpz_cross)
 
     def sliceable(i):
         sh, name = shapes[i], names[i]
-        if kinds[i] == VJP or len(sh) < 2 or sh[0] < 2:
+        if kinds[i] in (VJP, CROSS_GROUP) or len(sh) < 2 or sh[0] < 2:
+            return False
+        if unroll is not None and unroll < sh[0]:
             return False
         if not any(name.startswith(k + "/") for k in stack_keys):
             return False
@@ -258,12 +276,204 @@ def plan_grad_buckets(names: Sequence[str], shapes: Sequence[Tuple[int, ...]],
                     and zero_plan.grad_dims[name] == 0)
 
     numels = [int(torch.Size(s).numel()) for s in shapes]
+    numels = [n // gather_world if k == CROSS_GROUP else n
+              for n, k in zip(numels, kinds)]
     stacked = [sliceable(i) for i in range(len(names))]
     layer_counts = [shapes[i][0] if stacked[i] else 0
                     for i in range(len(names))]
     units = order_units(names, numels, kinds, layer_counts, stacked)
     return build_bucket_plan(units, reduce_bucket_size,
                              allgather_bucket_size)
+
+
+def quant_reduce_layout(plan: GradBucketPlan, axes: Tuple[str, ...],
+                        world: int, axis_sizes: Dict[str, int],
+                        ring: bool = True,
+                        a2a_quantized: bool = False) -> Dict[str, Dict]:
+    """Which buckets the quantized ring transport carries, and the row
+    shapes of their error-feedback residuals (JAX :331).
+
+    Returns ``{"b<i>": {"rs": (world, M)[, "ag": (M,)]}}`` for every
+    bucket on the ring: ALL_REDUCE buckets carry both phases' residuals
+    (quantized reduce-scatter, then quantized all-gather of the result),
+    REDUCE_SCATTER buckets the reduce phase only. CROSS_GROUP (hpZ) and
+    qgZ (``a2a_quantized``) buckets keep their own transports. Empty when
+    the data-parallel axes have no single live axis (the ring's
+    precondition) or under tensor / sequence parallelism (``ring``
+    False)."""
+    live = [a for a in axes if axis_sizes.get(a, 2) > 1]
+    if len(live) != 1 or not ring or world <= 1:
+        return {}
+    out: Dict[str, Dict] = {}
+    for i, b in enumerate(plan.buckets):
+        if b.kind == ALL_REDUCE:
+            M = sum(-(-plan.units[u].numel // world) for u in b.indices)
+            out[f"b{i}"] = {"rs": (world, M), "ag": (M,)}
+        elif b.kind == REDUCE_SCATTER and not a2a_quantized:
+            out[f"b{i}"] = {"rs": (world, b.numel // world)}
+    return out
+
+
+def ring_wire_bytes(plan: GradBucketPlan, world: int,
+                    quantized: bool = False,
+                    quant_block: int = 2048) -> int:
+    """Per-rank bytes the bucket rings ship per step (JAX :359):
+    ``world - 1`` hops a phase; ALL_REDUCE buckets pay a reduce-scatter
+    and an all-gather phase; VJP and CROSS_GROUP leaves do not ride the
+    ring."""
+    if world <= 1:
+        return 0
+    hops = world - 1
+    total = 0
+    for b in plan.buckets:
+        if b.kind == REDUCE_SCATTER:
+            M, phases = b.numel // world, 1
+        elif b.kind == ALL_REDUCE:
+            M = sum(-(-plan.units[u].numel // world) for u in b.indices)
+            phases = 2
+        else:
+            continue
+        per_hop = quant_wire_bytes(M, quant_block) if quantized else M * 4
+        total += phases * hops * per_hop
+    return total
+
+
+def _unit_rows(flat: torch.Tensor, world: int) -> torch.Tensor:
+    """Unit-flat [n] -> [world, ceil(n / world)] ring rows, zero-padded:
+    the element -> row assignment depends only on the unit, never on the
+    bucket it rides in (JAX :297)."""
+    n = flat.shape[0]
+    m = -(-n // world)
+    if m * world != n:
+        flat = torch.nn.functional.pad(flat, (0, m * world - n))
+    return flat.reshape(world, m)
+
+
+def apply_bucketed_reduction(acc: List[torch.Tensor], plan: GradBucketPlan,
+                             grad_dims: Sequence[Optional[int]],
+                             out: List[Optional[torch.Tensor]],
+                             group=None, world: int = 1,
+                             cross_group=None, cross_world: int = 1,
+                             quantized: bool = False,
+                             quant_block: int = 2048, quant_bits: int = 8,
+                             quant_reduce: Optional[str] = None,
+                             quant_reduce_block: int = 2048,
+                             quant_reduce_groups: int = 0,
+                             qstate: Optional[Dict[str, Dict]] = None,
+                             qlayout: Optional[Dict[str, Dict]] = None,
+                             loss_scale=None) -> Dict[str, Dict]:
+    """One collective per bucket after the backward, on the bucket layout
+    of JAX's manual program (:384; its quantized blocks cover a bucket's
+    packed rows, so the layout is JAX's: units back to back, an all-reduce
+    unit as ``world`` zero-padded rows). ``acc``: the accumulated
+    gradients, whole leaves (a CROSS_GROUP leaf: its group shard). The
+    mean over the group goes into ``acc`` for ALL_REDUCE and CROSS_GROUP
+    units (over ``cross_group``) and this rank's shard of it into ``out``
+    for REDUCE_SCATTER units.
+
+    ``quantized`` (ZeRO++ qgZ): REDUCE_SCATTER buckets take the int8
+    all-to-all. ``quant_reduce`` ("int8" | "fp8"): the buckets of
+    ``qlayout`` (:func:`quant_reduce_layout`) ride the quantized rings
+    (two-level for ``quant_reduce_groups`` > 1) with error feedback:
+    ``qstate`` holds last step's residuals, added to the partials before
+    transport, stored unscaled (divided by ``loss_scale``) so an fp16
+    scale change cannot stretch them. Returns this step's residuals."""
+    hier = int(quant_reduce_groups or 0) > 1
+    qlayout = qlayout or {}
+    new_qstate: Dict[str, Dict] = {}
+    ls = 1.0 if loss_scale is None else loss_scale
+
+    def ring_rs(buf, denom):
+        if hier:
+            return ring_reduce_scatter_hier(
+                buf, group, denom, quant_reduce_groups,
+                block=quant_reduce_block, mode=quant_reduce)
+        return ring_reduce_scatter_quant(buf, group, denom,
+                                         block=quant_reduce_block,
+                                         mode=quant_reduce)
+
+    def ring_ag(row, denom):
+        if hier:
+            return ring_all_gather_hier(
+                row, group, denom, quant_reduce_groups,
+                block=quant_reduce_block, mode=quant_reduce)
+        return ring_all_gather_quant(row, group, denom,
+                                     block=quant_reduce_block,
+                                     mode=quant_reduce)
+
+    def value(u: GradUnit) -> torch.Tensor:
+        g = acc[u.leaf]
+        return g if u.layer < 0 else g[u.layer]
+
+    def dst_of(u: GradUnit) -> torch.Tensor:
+        t = out[u.leaf]
+        return t if u.layer < 0 else t[u.layer]
+
+    for bi, b in enumerate(plan.buckets):
+        us = [plan.units[i] for i in b.indices]
+        key = f"b{bi}"
+        if b.kind in (ALL_REDUCE, CROSS_GROUP):
+            g = group if b.kind == ALL_REDUCE else cross_group
+            denom = world if b.kind == ALL_REDUCE else cross_world
+            if key in qlayout:
+                parts = [_unit_rows(value(u).reshape(-1), denom) for u in us]
+                buf = torch.cat(parts, dim=1)
+                res = qstate[key]
+                buf = buf + res["rs"] * ls
+                red_sum, rs_err = ring_rs(buf, denom)
+                red = red_sum / denom + res["ag"] * ls
+                full, ag_err = ring_ag(red, denom)
+                new_qstate[key] = {"rs": rs_err / ls, "ag": ag_err / ls}
+                off = 0
+                for u, part in zip(us, parts):
+                    m = part.shape[1]
+                    piece = full[:, off:off + m].reshape(-1)[:u.numel]
+                    off += m
+                    value(u).copy_(piece.view(value(u).shape))
+                continue
+            if denom <= 1:
+                continue
+            buf = torch.cat([value(u).reshape(-1) for u in us])
+            comm.all_reduce(buf, group=g)
+            buf.div_(denom)
+            off = 0
+            for u in us:
+                value(u).copy_(buf[off:off + u.numel].view(value(u).shape))
+                off += u.numel
+            continue
+        # REDUCE_SCATTER
+        parts, metas = [], []
+        for u in us:
+            d = _unit_dim(u, grad_dims[u.leaf])
+            moved = value(u).movedim(d, 0)
+            parts.append(moved.reshape(world, -1))
+            metas.append((u, d, tuple(moved.shape)))
+        buf = torch.cat(parts, dim=1)
+        if key in qlayout:
+            res = qstate[key]
+            buf = buf + res["rs"] * ls
+            row, rs_err = ring_rs(buf, world)
+            buf = row / world
+            new_qstate[key] = {"rs": rs_err / ls}
+        elif quantized:
+            buf = all_to_all_quant_reduce(buf, 0, group, block=quant_block,
+                                          bits=quant_bits,
+                                          mean=True).reshape(-1)
+        elif world > 1:
+            row = torch.empty(buf.shape[1], dtype=buf.dtype,
+                              device=buf.device)
+            comm.reduce_scatter_tensor(row, buf, group=group)
+            buf = row.div_(world)
+        else:
+            buf = buf.reshape(-1)
+        off = 0
+        for u, d, mshape in metas:
+            cols = u.numel // world
+            piece = buf[off:off + cols]
+            off += cols
+            shard = piece.view((mshape[0] // world,) + mshape[1:])
+            dst_of(u).movedim(d, 0).copy_(shard)
+    return new_qstate
 
 
 def _aligned(n: int) -> int:
@@ -288,15 +498,19 @@ def _unit_dim(unit: GradUnit, grad_dim: Optional[int]) -> Optional[int]:
 
 def reduce_leaves(acc: List[torch.Tensor], kinds: Sequence[str],
                   grad_dims: Sequence[Optional[int]], out: List[torch.Tensor],
-                  groups: Sequence) -> None:
+                  groups: Sequence, cross_group=None) -> None:
     """``overlap_grad_reduce="off"``: after the backward, one synchronous
     collective per leaf in tree order, over the leaf's group
     (``groups[i]``; an expert leaf's ZeRO group is its own). An all-reduce
     leaf is reduced in place in ``acc`` (the mean over the group), a
     reduce-scatter leaf into ``out`` (this rank's shard of the mean).
-    Stage-3 (``VJP``) leaves are already reduced."""
+    Stage-3 (``VJP``) leaves are already reduced; an hpZ ``CROSS_GROUP``
+    leaf (reduced within its group by the gather's backward) takes the
+    mean over ``cross_group``, in place."""
     for i, (a, kind, g) in enumerate(zip(acc, kinds, groups)):
-        if kind == ALL_REDUCE:
+        if kind == CROSS_GROUP:
+            g = cross_group
+        if kind in (ALL_REDUCE, CROSS_GROUP):
             comm.all_reduce(a, group=g)
             a.div_(comm.get_world_size(g))
         elif kind == REDUCE_SCATTER:
@@ -450,16 +664,18 @@ def overlap_blockers(engine, forced: bool) -> List[Tuple[str, str]]:
     return out
 
 
-def resolve_overlap_mode(engine) -> str:
+def resolve_overlap_mode(engine, use_zeropp: bool = False) -> str:
     """'bucketed' | 'off' for this engine build.
 
     ``zero_optimization.overlap_grad_reduce``: 'auto' buckets on a
     data-parallel world > 1 with ``overlap_comm`` at stages 0-2; 'bucketed'
     forces it (hard blockers raise); 'off' reduces leaf by leaf after the
-    backward. (ZeRO++, which always takes the JAX manual program, is
-    rejected by the config, ROADMAP A10.)"""
+    backward. ZeRO++ and ``quantized_reduce`` (``use_zeropp``) always
+    bucket, as JAX's manual program does (hard blockers raise)."""
     from .config import ConfigError
     mode = engine.config.zero_optimization.overlap_grad_reduce
+    if use_zeropp:
+        mode = "bucketed"
     if mode == "off":
         return "off"
     blockers = overlap_blockers(engine, forced=(mode == "bucketed"))
@@ -471,16 +687,3 @@ def resolve_overlap_mode(engine) -> str:
                 "supported here: " + "; ".join(hard))
         return "bucketed"
     return "off" if blockers else "bucketed"
-
-
-def _unported(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"grad_overlap.{name} is not ported to deepspeed_tpu_torch yet "
-            f"({_UNPORTED})")
-    fn.__name__ = name
-    return fn
-
-
-quant_reduce_layout = _unported("quant_reduce_layout")
-ring_wire_bytes = _unported("ring_wire_bytes")

@@ -29,6 +29,11 @@ sequence parallelism or MiCS the ZeRO world is the engine's ZeRO group
 at world 1 the JAX plan is replicated, while this plan keeps the
 dimensions — one shard is the whole leaf, so a one-rank run goes through
 every collective of the sharded path (each a copy).
+
+ZeRO++ hpZ (JAX ``secondary_axes`` :108-148): the stage-3 compute params
+are cut over the ``secondary_world`` ranks of an hpZ group (the largest
+dimension divisible by that), while master, moments and gradients stay
+cut over the whole ZeRO world.
 """
 
 from dataclasses import dataclass
@@ -109,7 +114,8 @@ def build_zero_plan(world: int, stage: int,
                     persistence_threshold: int = 0,
                     expert_dims: Optional[Dict[str, int]] = None,
                     model_dims: Optional[Dict[str, int]] = None,
-                    expert_world: int = 1) -> ZeroPlan:
+                    expert_world: int = 1,
+                    secondary_world: Optional[int] = None) -> ZeroPlan:
     """The plan of ``stage`` over a ZeRO world of ``world`` ranks for the
     leaves ``{path: shape}`` (JAX ``build_zero_plan``: master, moments and
     gradient shards always partition; stage-3 compute params only from
@@ -118,15 +124,16 @@ def build_zero_plan(world: int, stage: int,
     over the ``expert_world`` ranks that hold the same experts (replicated
     at 1) on the other dimensions. ``model_dims``: the
     dimension (or dimensions) of each leaf cut over a model-parallel axis
-    (tensor, seq, pipe), never a ZeRO one."""
+    (tensor, seq, pipe), never a ZeRO one. ``secondary_world`` (hpZ): the
+    stage-3 compute params' ZeRO world."""
     experts = expert_dims or {}
     model_dims = {k: (d,) if isinstance(d, int) else tuple(d)
                   for k, d in (model_dims or {}).items()}
 
-    def dim_of(k, s, threshold=0):
+    def dim_of(k, s, threshold=0, dense_world=world):
         taken = model_dims.get(k, ())
         if k not in experts:
-            return zero_dim(s, world, threshold,
+            return zero_dim(s, dense_world, threshold,
                             free=[d for d in range(len(s))
                                   if d not in taken])
         if expert_world <= 1:
@@ -143,7 +150,8 @@ def build_zero_plan(world: int, stage: int,
         return ZeroPlan(stage, world, none, none, opt)
     if stage == 2:
         return ZeroPlan(stage, world, none, opt, opt)
-    param3 = {k: dim_of(k, s, persistence_threshold)
+    param3 = {k: dim_of(k, s, persistence_threshold,
+                        secondary_world or world)
               for k, s in param_shapes.items()}
     return ZeroPlan(stage, world, param3, opt, opt)
 

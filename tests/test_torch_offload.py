@@ -420,14 +420,19 @@ def test_unported_offload_keys_raise():
             ({"zero_optimization": {"stage": 3, "offload_param": {
                 "device": "cpu", "ratio": 0.5}}}, "A9"),
             ({"zero_optimization": {"stage": 2, "offload_optimizer": dict(
-                LEGACY, ratio=0.5)}}, "A9"),
-            ({"zero_optimization": {"stage": 2,
-                                    "zero_quantized_gradients": True}},
-             "A10")):
+                LEGACY, ratio=0.5)}}, "A9")):
         with pytest.raises(NotImplementedError, match=item):
             deepspeed_tpu_torch.initialize(
                 model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
                 config=dict(_config(), **extra), device="cpu")
+    # ZeRO++ is ported now (tests/test_torch_zeropp*.py): qgZ at one rank
+    # builds and, as in JAX, quantizes nothing
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
+        config=dict(_config(), zero_optimization={
+            "stage": 2, "zero_quantized_gradients": True}), device="cpu")
+    assert not eng._zpp_g
+    eng.close()
 
 
 def test_host_op_builder_caches_and_reports(tmp_path, monkeypatch):

@@ -255,9 +255,10 @@ def test_config_rejects_unported_zero_keys(extra, world, item):
     from deepspeed_tpu_torch.runtime.config import check_ported
 
     cfg = dict(W.train_config(0), **extra)
-    if "pipeline" in extra:
-        # the pipeline is ported now (tests/test_torch_pipeline*.py): its
-        # keys pass the config check
+    if "pipeline" in extra or item == "A10":
+        # the pipeline is ported now (tests/test_torch_pipeline*.py), and
+        # so are ZeRO++ and the quantized rings (tests/test_torch_zeropp*.py):
+        # their keys pass the config check
         check_ported(DeepSpeedConfig(cfg, world_size=world))
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -268,16 +269,20 @@ def test_config_rejects_unported_zero_keys(extra, world, item):
     ("model", "A8"), ("pipe", "A8"), ("seq", "A8"), ("expert", "A8"),
     ("mics_shard", "A4"), ("hpz_shard", "A10")])
 def test_topology_raises_for_unported_axes(field, item):
-    if field in ("expert", "model", "seq", "mics_shard", "pipe"):
+    if field in ("expert", "model", "seq", "mics_shard", "pipe",
+                 "hpz_shard"):
         # these axes are ported now: the expert axis factors the data axis
         # as in JAX (tests/test_torch_moe_distributed.py runs it at world
         # 2), the model and seq axes and MiCS' shard axis lay ranks out in
         # the JAX axis order (tests/test_torch_tensor_parallel.py), and so
-        # does the pipe axis, outermost (tests/test_torch_pipeline*.py)
+        # does the pipe axis, outermost (tests/test_torch_pipeline*.py);
+        # ZeRO++ hpZ sizes the shard axis as MiCS does
         got = ttopo.MeshTopology(ttopo.TopologyConfig(**{field: 2}),
                                  world_size=4, rank=3)
         ref = JTopo(JTopoCfg(**{field: 2}), devices=jax.devices()[:4])
         assert got.sizes == ref.sizes and got.dp_axes == ref.dp_axes
+        assert got.hpz_enabled == ref.hpz_enabled
+        assert got.secondary_axes == ref.secondary_axes
         assert got.zero_shard_axes == ref.zero_shard_axes
         assert got.dp_world_size == ref.dp_world_size
         if field == "expert":
@@ -343,10 +348,17 @@ def test_model_axis_group_raises_a8():
 
 
 def test_quantized_gather_raises_a10():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tq.make_zero3_gather(0, fwd_quantized=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tgo.quant_reduce_layout()
+    """The quantized gather is ported now: at one rank its forward is the
+    int8 round trip of the shard, and no bucket rides a ring."""
+    from deepspeed_tpu_torch.ops.quantizer import (dequantize_symmetric,
+                                                   quantize_symmetric)
+    x = torch.randn(8, 300, generator=torch.Generator().manual_seed(3))
+    got = tq.make_zero3_gather(0, fwd_quantized=True)(x)
+    want = dequantize_symmetric(*quantize_symmetric(x), x.shape)
+    assert torch.equal(got, want) and not torch.equal(got, x)
+    plan = tgo.build_bucket_plan(
+        [tgo.GradUnit(0, -1, 10, "w", tgo.ALL_REDUCE)], 100, 100)
+    assert tgo.quant_reduce_layout(plan, ("data",), 1, {"data": 1}) == {}
 
 
 def test_accelerators():
