@@ -11,9 +11,10 @@ full-width Mistral-7B at 4 layers
 through ``initialize()`` and ``train_batch()`` (and, with telemetry,
 diagnostics and the monitor on, under each selective remat policy,
 through the forward / backward / step shims and through universal
-checkpoints), then at 6 layers
+checkpoints), then at 4 layers
 through both ZeRO-Offload backends (the host C++ optimizer and the tiered
-pinned-memory state), with the NVMe tier and checkpoints at 2 layers,
+pinned-memory state), with the NVMe tier and checkpoints at 2 layers and
+LAMB over the tiered state at 4,
 trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group
 and with the tensor / sequence / MiCS keys at one rank (after checking
 the attention kernels at tensor-parallel head counts and ring attention
@@ -367,9 +368,9 @@ exit 0):
    the resident (ZeRO 2), tiered (offload_optimizer {device: cpu,
    pin_memory: true}) and legacy ({device: cpu}) engines: tiered equal to
    resident bit for bit (losses, params, master, moments: torch.equal),
-   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 6 layers
-   (``DEEP_LAYERS``: earlier versions ran 32, then 12, then 8 here; cut for the
-   run's time limit), bf16, AdamW, micro 2 x gas 2 x S 2048, remat, through the
+   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 4 layers
+   (``DEEP_LAYERS``: earlier versions ran 32, then 12, then 8, then 6
+   here; cut for the run's time limit), bf16, AdamW, micro 2 x gas 2 x S 2048, remat, through the
    legacy and the tiered engine, 2 steps each (``DEEP_STEPS``; 3 before)
    on one fixed batch: losses finite, the last below
    the first, flash launches 2 x L x gas and L x gas a step, peak device
@@ -383,28 +384,40 @@ exit 0):
    its next loss equal to the saving engine's; save / load seconds and
    bytes; the v1 init_inference(checkpoint=) prefill logits torch.equal to
    init_inference(params=) on the same weights;
+8l. LAMB over the tiered tier (inside 8b, after its 4-layer engines): the
+   4-layer train cell at ZeRO 2, bf16, LAMB lr 3e-4, 3 steps each through
+   the resident and the tiered engine on 8b's weights and batch: losses,
+   params, master and moments torch.equal (the tiered buckets hold whole
+   leaves, each trust ratio the whole leaf's), losses finite and falling,
+   flash launches 2 x L x gas and L x gas a step; median step ms and peak
+   GiB of both beside 8b's resident and tiered AdamW;
 8d. parameter and activation offload on phase 8's model, settings and
-   batch at stage 3: at 4 layers, offload_param {device: cpu} against the
+   batch at stage 3: at 2 layers (``TIER_WIDTH_LAYERS``; 4 before, cut
+   for the run's time limit), offload_param {device: cpu} against the
    resident engine, cpu_checkpointing against it, and offload_param cpu
    with the host C++ optimizer against that optimizer alone (the tiered
    optimizer offload at stage 3 refused, as in JAX), 3 steps each: losses
    and params torch.equal, flash launches 2 x L x gas and L x gas a
    step, the stack in pinned host memory; then offload_param cpu with
-   the host C++ optimizer at 6 layers, 2 steps (26 layers, the host's
-   cap, and 3 steps, then 12 and 8 layers before; cut for the run's time
-   limit): losses
+   the host C++ optimizer at 4 layers, 2 steps (26 layers, the host's
+   cap, and 3 steps, then 12, 8 and 6 layers before; cut for the run's
+   time limit): losses
    finite and falling, step ms, tokens/s, peak device GiB beside phase
    8b's 32-layer runs, host RSS, layer copies a step and their exposed
    share;
 8e. ZeRO-Infinity (offload_param {device: nvme}) under build/nvme_infinity
-   (removed at the end): at 4 layers, 2 steps, the optimizer state in
+   (removed at the end), through the sharded executor over a one-rank data
+   group (each layer's pieces gathered before it runs, its gradients
+   reduce-scattered: one-rank copies; the files the whole layer): at 2
+   layers (``TIER_WIDTH_LAYERS``; 4 before), 2 steps, the optimizer
+   state in
    host RAM and on NVMe torch.equal to each other and within rtol 0.05 /
    atol 1e-2 of phase 8d's host-optimizer engine, flash launches as above,
    no layer on the device after init (no stacked leaf among the
    persistent ones, the init's device bytes at most the persistent
    leaves' plus less than one layer), the files removed by close(); then
-   at 6 layers (20, where the host capped it, then 12 and 8 before; cut for
-   the run's time limit), the same init check, 2 steps: losses finite and falling,
+   at 4 layers (20, where the host capped it, then 12, 8 and 6 before;
+   cut for the run's time limit), the same init check, 2 steps: losses finite and falling,
    step ms,
    tokens/s, peak device GiB, bytes read from the layer files and their
    rate, each sweep's share waiting on reads, init s and bytes written;
@@ -421,7 +434,7 @@ exit 0):
 10. the card's name and power limit, the host_ops JSON line (the host
    optimizers' times, rates, yardstick and errors), the kernels JSON line
    (the flash launches of phases 2e, 8, 8f, 8g, 8j, 8c, 8h, 8i, 8k, 8b,
-   8d and 8e together, the paged and ragged ones of phases 6, 2e, 2c, 2d,
+   8l, 8d and 8e together, the paged and ragged ones of phases 6, 2e, 2c, 2d,
    2f and 2g,
    the dense decode ones of phases 6 and 2f, the quantizer ones of the
    WOQ phases, 2f and 8k (b)-(c)), then the last line
@@ -5442,7 +5455,8 @@ def offload_width_phase(dev, cfg, batch):
     """Resident, tiered (pin_memory, stage 2) and legacy (stage 2) on the
     same weights and fixed batch, 3 steps each: tiered equal to resident bit
     for bit, legacy within rtol 0.05, atol 1e-2 (one bf16 rounding of the
-    shipped gradients)."""
+    shipped gradients). Returns the resident and tiered engines' median
+    step ms and peak GiB (phase 8l's yardstick)."""
     from deepspeed_tpu_torch.models import TransformerLM
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -5471,18 +5485,68 @@ def offload_width_phase(dev, cfg, batch):
     free_engine(leg)
     free_engine(res)
     del leg, res, weights
+    return {"resident": (statistics.median(r_s[1:]) * 1e3, r_peak),
+            "tiered": (statistics.median(t_s[1:]) * 1e3, t_peak)}
+
+
+LAMB = {"type": "lamb", "params": {"lr": 3e-4, "weight_decay": 0.01}}
+
+
+def lamb_tiered_phase(dev, cfg, batch, adamw):
+    """Phase 8l: LAMB (a trust ratio per leaf, whole leaves in the tiered
+    buckets) over the tiered tier at the train cell, ZeRO 2, against
+    resident LAMB on the same weights and fixed batch, 3 steps each:
+    losses, params, master and moments torch.equal; flash launches 2 x L
+    x gas and L x gas a step; median step ms and peak GiB of both beside
+    8b's AdamW engines (``adamw``). Returns the flash launches."""
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    weights = TransformerLM(cfg).init_params(gen, dtype=torch.bfloat16)
+    (res, r_loss, r_s, r_peak, _), n1 = tier_run(
+        cfg, offload_config(stage=2, optimizer=LAMB), batch, 3,
+        "8l resident LAMB L=4", weights)
+    (tier, t_loss, t_s, t_peak, _), n2 = tier_run(
+        cfg, offload_config(TIERED, optimizer=LAMB), batch, 3,
+        "8l tiered LAMB L=4", weights)
+    if t_loss != r_loss:
+        raise AssertionError(f"8l: tiered LAMB losses {t_loss} != resident "
+                             f"{r_loss}")
+    compare_tiered_resident(res, tier)
+    if not (all(np.isfinite(r_loss)) and r_loss[-1] < r_loss[0]):
+        raise AssertionError(f"8l: LAMB losses not finite and falling: "
+                             f"{r_loss}")
+    ho = tier.host_opt
+    r_ms, t_ms = (statistics.median(x[1:]) * 1e3 for x in (r_s, t_s))
+    log(f"8l L=4: tiered LAMB == resident LAMB bit for bit (losses "
+        f"{[f'{x:.4f}' for x in t_loss]}, params, master, exp_avg, "
+        f"exp_avg_sq); median step ms resident {r_ms:.1f}, tiered "
+        f"{t_ms:.1f} ({t_ms / r_ms:.2f}x); peak GiB {r_peak:.2f} / "
+        f"{t_peak:.2f}; {len(ho.buckets)} buckets of whole leaves; 8b's "
+        f"AdamW resident {adamw['resident'][0]:.1f} ms / "
+        f"{adamw['resident'][1]:.2f} GiB, tiered {adamw['tiered'][0]:.1f} "
+        f"ms / {adamw['tiered'][1]:.2f} GiB; flash launches a step "
+        f"{ {k: v // 3 for k, v in n2.items()} }")
+    free_engine(tier)
+    free_engine(res)
+    del tier, res, weights
+    return {k: n1[k] + n2[k] for k in n1}
 
 
 # the depth and steps of the deep offload runs of phases 8b, 8d and 8e:
-# 6 layers and 2 steps, cut from 32 (8b), 26 (8d) and 20 (8e) layers
+# 4 layers and 2 steps, cut from 32 (8b), 26 (8d) and 20 (8e) layers
 # (their host caps) and 3 steps to make room for phases 2e and 8f, then
-# from 12 layers for phases 2f and 8g and from 8 for phases 2g and 8j,
-# within the run's time limit. At 6 layers the resident state (18 B a
-# parameter, 28 GB) would still fit the card: these runs show the
+# from 12 layers for phases 2f and 8g, from 8 for phases 2g and 8j and
+# from 6 for phase 8l, within the run's time limit. At these depths the
+# resident state (18 B a parameter) would still fit the card: these runs show the
 # offloaded engines at depth, not a depth only offload reaches (earlier
 # versions of this script did, at 20-32 layers)
-DEEP_LAYERS = 6
+DEEP_LAYERS = 4
 DEEP_STEPS = 2
+# the depth of phases 8d's and 8e's reference comparisons: 4 layers
+# before, cut (with DEEP_LAYERS, 6 before) to keep the run well inside its
+# time limit; 2 layers still give the stacked leaves an order to get wrong
+TIER_WIDTH_LAYERS = 2
 
 
 def full_depth_layers(cfg, bytes_per_param=HOST_STATE_BYTES_PER_PARAM,
@@ -5681,9 +5745,10 @@ def checkpoint_phase(dev, cfg, batch):
 
 
 def offload_phase(dev):
-    """Phase 8b: host ops, the three engines at 4 layers, both offload
-    backends at full depth, the NVMe tier and checkpoints at 2 layers.
-    Returns (flash launches of the full-depth runs, the host_ops record)."""
+    """Phase 8b: host ops, the three engines at 4 layers, phase 8l, both
+    offload backends at full depth, the NVMe tier and checkpoints at 2
+    layers. Returns (flash launches of the full-depth runs and 8l, the
+    host_ops record)."""
     import dataclasses
 
     from deepspeed_tpu_torch.models import mistral_7b
@@ -5692,12 +5757,17 @@ def offload_phase(dev):
     rng = np.random.default_rng(4)
     batch = {"input_ids": rng.integers(0, mistral_7b().vocab_size,
                                        (OFFLOAD_GAS, TRAIN_B, TRAIN_S))}
+    four = dataclasses.replace(mistral_7b(), num_layers=4)
     t0 = time.perf_counter()
-    offload_width_phase(dev, dataclasses.replace(mistral_7b(), num_layers=4),
-                        batch)
+    adamw = offload_width_phase(dev, four, batch)
     log(f"offload L=4 phase: {time.perf_counter() - t0:.0f}s")
     t0 = time.perf_counter()
+    lamb = lamb_tiered_phase(dev, four, batch, adamw)
+    log(f"phase 8l: {time.perf_counter() - t0:.0f}s")
+    t0 = time.perf_counter()
     launches = offload_full_depth_phase(dev, batch)
+    for k, n in lamb.items():
+        launches[k] += n
     log(f"offload full-depth phase: {time.perf_counter() - t0:.0f}s")
     two = dataclasses.replace(mistral_7b(), num_layers=2)
     t0 = time.perf_counter()
@@ -5774,11 +5844,13 @@ def equal_engines(label, a, b, a_loss, b_loss):
 
 
 def param_offload_width_phase(dev, cfg, batch, weights):
-    """Phase 8d at 4 layers, stage 3: offload_param {device: cpu} against
-    the resident engine, with the host C++ optimizer against that
+    """Phase 8d at ``cfg``'s depth (``TIER_WIDTH_LAYERS``), stage 3:
+    offload_param {device: cpu} against the resident engine, with the
+    host C++ optimizer against that
     optimizer alone (JAX refuses the tiered optimizer offload at stage 3,
     and so does the port), and cpu_checkpointing against the resident
     engine: torch.equal each, the stack in pinned host memory."""
+    L = cfg.num_layers
     from deepspeed_tpu_torch.runtime.config import (ConfigError,
                                                     DeepSpeedConfig)
 
@@ -5790,10 +5862,10 @@ def param_offload_width_phase(dev, cfg, batch, weights):
 
     po = {"offload_param": {"device": "cpu"}}
     (res, r_loss, r_s, r_peak, _), n = tier_run(
-        cfg, tier_config(), batch, 3, "resident stage 3 L=4", weights)
+        cfg, tier_config(), batch, 3, f"resident stage 3 L={L}", weights)
     add(n)
     (off, o_loss, o_s, o_peak, _), n = tier_run(
-        cfg, tier_config(po), batch, 3, "offload_param cpu L=4", weights)
+        cfg, tier_config(po), batch, 3, f"offload_param cpu L={L}", weights)
     add(n)
     layers = off.params["layers"]
     if not all(v.device.type == "cpu" and v.is_pinned()
@@ -5807,7 +5879,7 @@ def param_offload_width_phase(dev, cfg, batch, weights):
                   r_loss, o_loss)
     st = off.host_stream.timings()
     stack = sum(v.numel() * v.element_size() for v in layers.values())
-    log(f"8d L=4: stack {stack / 2**30:.2f} GiB pinned on the host; median "
+    log(f"8d L={L}: stack {stack / 2**30:.2f} GiB pinned on the host; median "
         f"step ms resident {statistics.median(r_s[1:]) * 1e3:.1f}, "
         f"offload_param {statistics.median(o_s[1:]) * 1e3:.1f}; peak device "
         f"{r_peak:.2f} / {o_peak:.2f} GiB; layer copies "
@@ -5817,11 +5889,11 @@ def param_offload_width_phase(dev, cfg, batch, weights):
     del off
     ck = {"activation_checkpointing": {"cpu_checkpointing": True}}
     (cpu_ck, c_loss, c_s, c_peak, _), n = tier_run(
-        cfg, tier_config(**ck), batch, 3, "cpu_checkpointing L=4", weights)
+        cfg, tier_config(**ck), batch, 3, f"cpu_checkpointing L={L}", weights)
     add(n)
     equal_engines("8d cpu_checkpointing vs resident stage 3", res, cpu_ck,
                   r_loss, c_loss)
-    log(f"8d L=4: cpu_checkpointing median step ms "
+    log(f"8d L={L}: cpu_checkpointing median step ms "
         f"{statistics.median(c_s[1:]) * 1e3:.1f}, peak device {c_peak:.2f} "
         f"GiB (resident {r_peak:.2f})")
     free_engine(cpu_ck)
@@ -5837,15 +5909,15 @@ def param_offload_width_phase(dev, cfg, batch, weights):
                              "accepted")
     (leg, l_loss, _, l_peak, _), n = tier_run(
         cfg, tier_config({"offload_optimizer": LEGACY}), batch, 3,
-        "legacy stage 3 L=4", weights)
+        f"legacy stage 3 L={L}", weights)
     add(n)
     (lpo, p_loss, p_s, p_peak, _), n = tier_run(
         cfg, tier_config(dict(po, offload_optimizer=LEGACY)), batch, 3,
-        "offload_param cpu + legacy L=4", weights)
+        f"offload_param cpu + legacy L={L}", weights)
     add(n)
     equal_engines("8d offload_param cpu + legacy vs legacy", leg, lpo,
                   l_loss, p_loss)
-    log(f"8d L=4: peak device legacy {l_peak:.2f} GiB, with offload_param "
+    log(f"8d L={L}: peak device legacy {l_peak:.2f} GiB, with offload_param "
         f"{p_peak:.2f} GiB")
     free_engine(lpo)
     free_engine(leg)
@@ -5942,28 +6014,29 @@ def check_infinity_resident(label, eng, init_bytes):
 
 
 def infinity_width_phase(dev, cfg, batch, weights, root, l_loss):
-    """Phase 8e at 4 layers: ZeRO-Infinity with the optimizer state in
-    host RAM and on NVMe, torch.equal to each other, within phase 8b's
+    """Phase 8e at ``cfg``'s depth (``TIER_WIDTH_LAYERS``): ZeRO-Infinity
+    with the optimizer state in host RAM and on NVMe, torch.equal to each other, within phase 8b's
     legacy tolerance of the losses ``l_loss`` of phase 8d's stage-3
     engine with the host C++ optimizer on the same weights; the device
     holds only the persistent leaves."""
+    L = cfg.num_layers
     runs = {}
     for label, on in (("host", False), ("nvme", True)):
         init = {}
 
         def on_init(e, nbytes, label=label):
             init["persist"] = check_infinity_resident(
-                f"8e L=4 optimizer {label}", e, nbytes)
+                f"8e L={L} optimizer {label}", e, nbytes)
 
         # two steps: the optimizer sweep over the files takes ~8 s a step
         (eng, losses, step_s, peak, init_s), n = tier_run(
             cfg, infinity_config(root, on), batch, 2,
-            f"infinity (optimizer {label}) L=4", weights, on_init=on_init)
+            f"infinity (optimizer {label}) L={L}", weights, on_init=on_init)
         inf = eng._infinity
         persist = init["persist"]
         master = [m.clone() for m in inf.get_all_leaves()[0]]
         runs[label] = (losses, master, n)
-        log(f"8e L=4 optimizer {label}: median step "
+        log(f"8e L={L} optimizer {label}: median step "
             f"{statistics.median(step_s[1:]) * 1e3:.0f} ms, peak device "
             f"{peak:.2f} GiB, device params {persist / 2**30:.3f} GiB "
             f"(persistent leaves only), init {init_s:.1f}s; timings "
@@ -5981,7 +6054,7 @@ def infinity_width_phase(dev, cfg, batch, weights, root, l_loss):
                              f"the host {h_loss}")
     if not np.allclose(h_loss, l_loss[:2], rtol=0.05, atol=1e-2):
         raise AssertionError(f"infinity losses {h_loss} vs legacy {l_loss}")
-    log(f"8e L=4: optimizer on NVMe torch.equal to on the host (losses, "
+    log(f"8e L={L}: optimizer on NVMe torch.equal to on the host (losses, "
         f"master); within rtol 0.05 / atol 1e-2 of legacy stage 3 (max "
         f"|diff| {max(abs(a - b) for a, b in zip(h_loss, l_loss)):.2e}; "
         f"2 steps)")
@@ -6093,7 +6166,7 @@ def memory_tiers_phase(dev):
     rng = np.random.default_rng(4)
     batch = {"input_ids": rng.integers(0, mistral_7b().vocab_size,
                                        (OFFLOAD_GAS, TRAIN_B, TRAIN_S))}
-    four = dataclasses.replace(mistral_7b(), num_layers=4)
+    four = dataclasses.replace(mistral_7b(), num_layers=TIER_WIDTH_LAYERS)
     weights = TransformerLM(four).init_params(
         torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
     launches = dict.fromkeys(flash_want(0, 0), 0)
@@ -7013,7 +7086,7 @@ def main() -> int:
     t0 = time.perf_counter()
     offload_launches, host_ops = offload_phase(dev)
     log(f"phase 8b: {time.perf_counter() - t0:.0f}s; flash launches of the "
-        f"full-depth runs {offload_launches}")
+        f"full-depth runs and 8l {offload_launches}")
     for k, n in offload_launches.items():
         launches[k] += n
     t0 = time.perf_counter()

@@ -51,10 +51,14 @@ ZeRO-1, tensor, sequence and expert parallelism and the optimizer
 offload. ZeRO++ (qwZ, qgZ, hpZ), the int8 / fp8 quantized gradient
 rings (``zero_optimization.quantized_reduce``) and the 1-bit optimizers
 (OneBitAdam, OneBitLamb, ZeroOneAdam) train over the data-parallel ranks.
-Still raising: ZeRO-Infinity at more than one rank (ROADMAP A9), the
-other remat policies (A3); ``init_inference(use_ragged=True, checkpoint=...)``
-raises as in the JAX package. Entry points run on the GPU unless the
-caller passes ``device="cpu"``.
+The memory tiers run at any number of ranks and beside tensor, sequence
+and MiCS parallelism: ZeRO-Infinity's files hold each rank's piece of its
+tensor-parallel slice, and LAMB streams whole leaves through the tiered
+optimizer offload. The factories of ``jax.checkpoint_policies`` raise
+``ValueError`` as remat policy names (JAX cannot run them either), and
+``init_inference(use_ragged=True, checkpoint=...)`` raises as in the JAX
+package. Entry points run on the GPU unless the caller passes
+``device="cpu"``.
 
 It serves online too: ``inference/v2/serve`` is the JAX package's
 single-replica serving runtime — ``ServingEngine`` (streaming

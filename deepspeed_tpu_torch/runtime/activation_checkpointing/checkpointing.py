@@ -57,9 +57,13 @@ so it recomputes as under ``nothing_saveable``. Every policy computes the
 same values as ``nothing_saveable``: it changes what is kept, not what is
 computed.
 
-The other JAX policy names (the factories ``save_only_these_names``,
-``save_anything_except_these_names``, ``offload_dot_with_no_batch_dims``
-as a policy name, ...) raise ``NotImplementedError`` (ROADMAP A3).
+The other names of ``jax.checkpoint_policies`` are factories of policies
+(``save_only_these_names``, ``save_anything_except_these_names``,
+``offload_dot_with_no_batch_dims`` as a policy name, ...). The JAX
+package hands such a name's factory to ``jax.checkpoint`` as the policy
+itself, which then fails with ``TypeError`` when the checkpoint is
+differentiated, so no JAX run takes them; here they raise ``ValueError``
+at :func:`configure`, as an unknown name does in both packages.
 """
 
 import threading
@@ -93,15 +97,25 @@ _KEEP = {"save_attn": ("", ("attn_out",)),
          "checkpoint_dots": ("all", ())}
 # cpu_checkpointing's policy, named as JAX names it
 OFFLOAD_DOTS = "offload_dot_with_no_batch_dims"
+# the factories among the jax.checkpoint_policies names (jax 0.9.0)
+FACTORIES = ("save_only_these_names", "save_anything_except_these_names",
+             "save_any_names_but_these", "save_and_offload_only_these_names",
+             "save_from_both_policies", OFFLOAD_DOTS)
 
 
 def _resolve_policy(name: str, cpu_checkpointing: bool = False) -> str:
     if cpu_checkpointing:
         return OFFLOAD_DOTS
+    if name in FACTORIES:
+        raise ValueError(
+            f"activation-checkpointing policy {name!r} names a factory of "
+            f"jax.checkpoint_policies, not a policy: the JAX package cannot "
+            f"run it either (jax.checkpoint raises TypeError when it is "
+            f"differentiated); policies: {POLICIES}")
     if name not in POLICIES:
-        raise NotImplementedError(
-            f"activation-checkpointing policy {name!r} is not ported to "
-            f"deepspeed_tpu_torch yet (ROADMAP A3); ported: {POLICIES}")
+        raise ValueError(
+            f"unknown activation-checkpointing policy {name!r}; policies: "
+            f"{POLICIES}")
     return name
 
 

@@ -19,7 +19,6 @@ from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 from . import tunables
-from .activation_checkpointing.checkpointing import POLICIES
 from .config_utils import AUTO, ConfigError, as_dict, hydrate, subconfig
 
 
@@ -588,7 +587,15 @@ _PORTED = {
     "zero_optimization.offload_param.nvme_path",
     "zero_optimization.offload_param.pin_memory",
     "zero_optimization.offload_param.buffer_count",
-    "activation_checkpointing.cpu_checkpointing",
+    # accepted as the JAX package accepts it, which validates it in (0, 1]
+    # (OffloadConfig) and reads it nowhere: every tier moves all of its
+    # state
+    "zero_optimization.offload_optimizer.ratio",
+    "zero_optimization.offload_param.ratio",
+    # the remat block: configure() stores it as JAX's does (which reads
+    # only the policy and cpu_checkpointing) and raises ValueError for a
+    # policy no package runs
+    "activation_checkpointing",
     # ZeRO over torch.distributed (runtime/zero/partition.py,
     # runtime/grad_overlap.py)
     "zero_optimization.stage", "zero_optimization.reduce_bucket_size",
@@ -628,8 +635,6 @@ _PORTED = {
     "zero_optimization.quantized_reduce_hierarchy",
     "zero_optimization.quant_block",
 }
-# keys and the values that run
-_PORTED_VALUES = {"activation_checkpointing.policy": POLICIES}
 # keys the JAX package itself leaves inert, by the rationale of its
 # dead-key audit (tests/unit/runtime/test_config_keys.py INERT_BY_DESIGN)
 _INERT = {
@@ -653,10 +658,6 @@ _INERT = {
 # everything else, by the ROADMAP item (section A) that ports it; the
 # longest matching prefix wins
 _ROADMAP = {
-    "zero_optimization.offload_optimizer": "A9 (memory tiers)",
-    "zero_optimization.offload_param": "A9 (memory tiers)",
-    "aio": "A9 (memory tiers)",
-    "activation_checkpointing": "A3 (the remaining remat policies)",
     "hybrid_engine": "A11 (RLHF and hybrid engine)",
 }
 _ROADMAP_DEFAULT = "A12 (remainder)"
@@ -681,18 +682,12 @@ def unported_keys(ds_config: DeepSpeedConfig) -> List[Tuple[str, Any, str]]:
     for path, value in _leaves(ds_config.cfg, base):
         top = path.split(".")[0]
         if (path in _PORTED or top in _PORTED
-                or value in _PORTED_VALUES.get(path, ())
                 or path.split(".")[-1] in _INERT):
             continue
         item = max((k for k in _ROADMAP
                     if path == k or path.startswith(k + ".")),
                    key=len, default=None)
         out.append((path, value, _ROADMAP[item] if item else _ROADMAP_DEFAULT))
-    if ds_config.dp_world_size != 1 and \
-            ds_config.cfg.zero_optimization.offload_param.device == "nvme":
-        out.append(("world_size", ds_config.world_size,
-                    "A9 (memory tiers: ZeRO-Infinity at more than one "
-                    "rank)"))
     return out
 
 

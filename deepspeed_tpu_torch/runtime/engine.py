@@ -63,10 +63,16 @@ The optimizer state may leave the card
 
 At one rank the ZeRO plan of an offloaded engine is the identity. At more
 than one, each rank's host tier holds only its ZeRO shard of the master
-and moments, updates it with its shard of the reduced gradients, and its
-slice of the compute params reaches the other ranks through the same
-all-gather as a resident stage-1/2 step's (a stage-3 compute leaf is the
-shard itself). An fp16 step that overflows leaves either host state
+and moments (of its tensor-parallel slices, over the MiCS shard group
+under MiCS, over the data ranks alone under Ulysses, as JAX keeps the
+offload's shard off the seq axis), updates it with its shard of the
+reduced gradients (reduced, normed and clipped as the resident step's,
+then re-cut for the tier), and its slice of the compute params reaches
+the other ranks through an all-gather as a resident stage-1/2 step's (a
+stage-3 compute leaf cut like the master is the shard itself). LAMB
+streams whole leaves through the tiered tier, its trust ratio summed over
+the ranks holding their pieces (``norm_reduce``); the host C++ tier has
+no LAMB, as in JAX. An fp16 step that overflows leaves either host state
 untouched.
 
 The parameters may leave the card too
@@ -80,16 +86,20 @@ The parameters may leave the card too
   or an offloaded one, bit for bit;
 * ``{device: nvme, nvme_path}``: ZeRO-Infinity
   (``runtime/zero/infinity.py``): the layers' params and optimizer state
-  in per-layer files, a per-layer executor with host gradients and the
-  host C++ optimizer; one rank, bf16 / fp32, causal pre-LN dense models
-  (JAX ``_check_infinity_supported`` :544).
+  in per-layer files, each rank's piece over the data ranks of its
+  tensor-parallel slices, a per-layer executor gathering each layer over
+  the data ranks before it runs, with host gradients reduce-scattered into
+  the pieces and the host C++ optimizer; bf16 / fp32, causal pre-LN dense
+  models, data x tensor parallelism (JAX ``_check_infinity_supported``
+  :544 refuses the rest, and so does the port).
 ``save_checkpoint`` / ``load_checkpoint`` (JAX :1983 / :2061) write and
 read the JAX package's fragment format (``checkpoint/state_checkpoint.py``)
 for the resident and both offloaded engines, in the background under
 ``checkpoint.async_save``; ``save_16bit_model`` (:2172) writes the
 consolidated weights; ``load_universal_checkpoint`` (:2183) loads a
 universal directory (``checkpoint/universal.py``) into the resident
-engine at ZeRO 0-3 and both optimizer offloads, moments included.
+engine at ZeRO 0-3 and both optimizer offloads, moments included (not
+under ZeRO-Infinity, where JAX's loader fails too).
 
 Observability (JAX :363-534, :1693-1810): the training series of the
 metrics registry (``telemetry``), flushed into ``MonitorMaster``
@@ -178,10 +188,8 @@ The 1-bit optimizers (``runtime/fp16/onebit``) replace the step: local
 gradients, then the optimizer's own compressed allreduce.
 
 Not ported (``runtime/config.check_ported`` raises, naming the ROADMAP
-item): ZeRO-Infinity at more than one rank (A9), the
-remat policies beyond the ported ones (A3),
-compression, curriculum and the profilers (A12), the hybrid engine
-(A11); the offload tiers at tp, sp or MiCS > 1 (A9).
+item): compression, curriculum and the profilers (A12), the hybrid
+engine (A11).
 """
 
 import logging
@@ -744,21 +752,6 @@ class DeepSpeedTpuEngine:
             raise RuntimeError(
                 f"a {self.device.type} engine needs the {want!r} process "
                 f"group, not {backend!r}")
-        zc = self.config.zero_optimization
-        offloaded = (zc.offload_optimizer.device not in ("none", None, "")
-                     or zc.offload_param.device not in ("none", None, ""))
-        if offloaded and (self.tp > 1 or self.sp > 1 or self.mics):
-            raise NotImplementedError(
-                "ZeRO-Offload, ZeRO-Infinity and the parameter tier with "
-                "tensor, sequence or MiCS parallelism are not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A9)")
-        if offloaded and world > 1 and self.zero_stage >= 1 and \
-                self.optimizer is not None and not self.optimizer.elementwise:
-            raise NotImplementedError(
-                f"optimizer {self.config.optimizer.type!r} reads whole "
-                f"leaves (a trust ratio), which an offloaded tier holding "
-                f"shards at {world} ranks does not; not ported to "
-                f"deepspeed_tpu_torch yet (ROADMAP A9)")
 
     def _check_pipeline(self, model):
         """Pipeline mode (JAX :993-1048, :253-280): the compositions it
@@ -942,6 +935,9 @@ class DeepSpeedTpuEngine:
             raise NotImplementedError(
                 "offload_param nvme requires bf16/fp32 compute (fp16 loss "
                 "scaling is not threaded through the per-layer executor)")
+        if self.onebit_mode:
+            raise NotImplementedError(
+                "offload_param nvme x 1-bit optimizers is not supported")
         cfg = getattr(self.model, "cfg", None)
         if cfg is None or not cfg.is_causal or cfg.norm_scheme != "pre":
             raise NotImplementedError(
@@ -975,6 +971,8 @@ class DeepSpeedTpuEngine:
         opt_cfg, aio = self.config.optimizer, self.config.aio
         po = self.config.zero_optimization.offload_param
         oo = self.config.zero_optimization.offload_optimizer
+        # each rank's pieces over the ZeRO (data) group of its
+        # tensor-parallel slices
         self._infinity = InfinityParamEngine(
             self.model, items, self.device,
             opt_name=opt_cfg.type, opt_params=opt_cfg.params,
@@ -984,7 +982,10 @@ class DeepSpeedTpuEngine:
                              else None),
             aio_block_size=aio.block_size, aio_threads=aio.thread_count,
             gas=self.gas, clip=self.config.gradient_clipping,
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, group=self.group,
+            model_group=self._model_group,
+            tp_dims={k: c["model"] for k, c in self._cuts.items()
+                     if "model" in c})
         self.has_master = True
         self._pdims = self._gdims = self._odims = [None] * len(items)
         self._zero, self._expert_idx = [], []
@@ -995,8 +996,8 @@ class DeepSpeedTpuEngine:
         self._param_leaves, self._master_leaves = [], None
         self.params = self.master_params = self.opt_state = None
         self.scale_state = None
-        self.param_count = int(sum(torch.Size(s).numel()
-                                   for s in self._full_shapes.values()))
+        self.param_count = int(sum(torch.Size(self._ckpt_shape(k)).numel()
+                                   for k in self._full_shapes))
         self._step = 0
         self._grad_acc = self._grad_shards = None
 
@@ -1061,6 +1062,7 @@ class DeepSpeedTpuEngine:
         self._pdims = [self.zero_plan.param_dims[k] for k in names]
         self._gdims = [self.zero_plan.grad_dims[k] for k in names]
         self._odims = [self.zero_plan.master_dims[k] for k in names]
+        self._init_storage(plan_stage)
 
         def local(i, v, dim, zero=None):
             _, world, rank = (zero or self._zero)[i]
@@ -1078,8 +1080,9 @@ class DeepSpeedTpuEngine:
                 compute = [plocal(i, v).to(self.device, self.compute_dtype,
                                            copy=params is not None)
                            for i, (_, v) in enumerate(items)]
-                self._init_offload([(k, local(i, v, od)) for i, ((k, v), od)
-                                    in enumerate(zip(items, self._odims))])
+                self._init_offload([(k, local(i, v, sd, self._szero))
+                                    for i, ((k, v), sd)
+                                    in enumerate(zip(items, self._sdims))])
             elif self.has_master:
                 master = [local(i, v, d).to(self.device, torch.float32,
                                             copy=True)
@@ -1118,13 +1121,88 @@ class DeepSpeedTpuEngine:
         self._grad_acc: Optional[List[torch.Tensor]] = None
         self._grad_shards: Optional[List[Optional[torch.Tensor]]] = None
         # an offloaded engine at more than one rank: the compute-dtype
-        # shard a replicated leaf's host update writes, then all-gathered
+        # shard a leaf's host update writes where the compute leaf is not
+        # cut as the host tier's master (a replicated one), then gathered
         self._update_bufs = [
-            torch.empty(self._local_shape(i, od), dtype=self.compute_dtype,
-                        device=self.device)
-            if self.offload_device and pd is None and od is not None
+            torch.empty(self._local_shape(i, sd, self._szero),
+                        dtype=self.compute_dtype, device=self.device)
+            if self.offload_device and not self._stored_like_param(i)
             else None
-            for i, (pd, od) in enumerate(zip(self._pdims, self._odims))]
+            for i, sd in enumerate(self._sdims)]
+
+    def _init_storage(self, plan_stage: int):
+        """The host tiers' storage geometry, ``_szero`` (each leaf's
+        (group, world, rank)) and ``_sdims``: the master's own
+        (``_zero``, ``_odims``) but under sequence parallelism, where JAX
+        keeps the optimizer offload's ZeRO shard on the data axes (its
+        ``include_seq`` is off there, :608-619). The gradients still
+        reduce over data x seq as the resident step's do, and the norm
+        and clipping read them so; :meth:`_to_storage` re-cuts them for
+        the tier."""
+        self._szero, self._sdims = self._zero, self._odims
+        if not (self.offload_device and self.sp > 1 and not self.mics
+                and not self._seq_manual):
+            return
+        topo = self.topology
+        axes = topo.dp_axes
+        dense = (topo.group(axes), topo.group_size(axes),
+                 topo.group_rank(axes))
+        eaxes = topo.expert_axes(axes) if self.ep > 1 else axes
+        expert = (topo.group(eaxes), topo.group_size(eaxes),
+                  topo.group_rank(eaxes))
+        plan = build_zero_plan(
+            dense[1], 0 if dense[1] == 1 else plan_stage, self._full_shapes,
+            expert_dims=self._expert_dims if self.ep > 1 else None,
+            model_dims={k: tuple(c.values()) for k, c in self._cuts.items()},
+            expert_world=expert[1])
+        self._szero = [expert if k in self._expert_dims else dense
+                       for k in self._leaf_names]
+        self._sdims = [plan.master_dims[k] for k in self._leaf_names]
+
+    def _stored_like_param(self, i: int) -> bool:
+        """Whether the host tier's master of leaf ``i`` is cut as its
+        compute leaf is (then the tier's update writes that leaf)."""
+        sd, pd = self._sdims[i], self._pdims[i]
+        return sd == pd and (sd is None or self._szero[i] is self._pzero[i])
+
+    def _to_storage(self, grads) -> List[torch.Tensor]:
+        """The reduced, clipped gradients (cut like the master, ``_odims``
+        over ``_zero``) re-cut as the host tier stores its master."""
+        if self._szero is self._zero:
+            return grads
+        out = []
+        for i, g in enumerate(grads):
+            od, sd = self._odims[i], self._sdims[i]
+            full = g if od is None else all_gather_leaf(g, od,
+                                                        self._zero[i][0])
+            _, world, rank = self._szero[i]
+            out.append((full if sd is None else
+                        shard_of(full, sd, rank, world)).contiguous())
+        return out
+
+    @torch.no_grad()
+    def _params_from_tier(self):
+        """The compute params as the cast of the host tier's master, as
+        in JAX: gathered over the tier's group where the compute leaf is
+        cut otherwise."""
+        master, _ = self.host_opt.get_all_leaves()
+        for i, (p, m) in enumerate(zip(self._param_leaves, master)):
+            if self._stored_like_param(i):
+                copy_rows(p.detach(), m)
+            else:
+                self._param_from_shard(i, m.to(self.device,
+                                                self.compute_dtype))
+
+    def _param_from_shard(self, i: int, shard: torch.Tensor):
+        """Compute leaf ``i`` from every rank's piece ``shard`` of it (cut
+        as the host tier stores it)."""
+        sd, pd = self._sdims[i], self._pdims[i]
+        full = shard if sd is None else all_gather_leaf(shard, sd,
+                                                        self._szero[i][0])
+        if pd is not None:
+            _, world, rank = self._pzero[i]
+            full = shard_of(full, pd, rank, world)
+        self._param_leaves[i].copy_(full)
 
     def _like_master(self, i: int) -> bool:
         """Whether compute leaf ``i`` is cut as its master is (then it is
@@ -1136,11 +1214,13 @@ class DeepSpeedTpuEngine:
             return od is None
         return pd == od and self._pzero[i] is self._zero[i]
 
-    def _local_shape(self, i: int, dim: Optional[int]) -> Tuple[int, ...]:
-        """The shape of this rank's shard of leaf ``i`` along ``dim``."""
+    def _local_shape(self, i: int, dim: Optional[int],
+                     zero=None) -> Tuple[int, ...]:
+        """The shape of this rank's shard of leaf ``i`` along ``dim`` over
+        its ZeRO group (``zero``'s, by default :attr:`_zero`)."""
         shape = list(self._full_shapes[self._leaf_names[i]])
         if dim is not None:
-            shape[dim] //= self._zero[i][1]
+            shape[dim] //= (zero or self._zero)[i][1]
         return tuple(shape)
 
     def _offload_layers(self, compute):
@@ -1502,12 +1582,12 @@ class DeepSpeedTpuEngine:
 
     @torch.no_grad()
     def _gather_updated(self):
-        """After a host-tier update at more than one rank: each replicated
-        compute leaf from every rank's updated shard."""
-        for p, b, od, z in zip(self._param_leaves, self._update_bufs,
-                               self._odims, self._zero):
+        """After a host-tier update at more than one rank: each compute
+        leaf not cut as the tier's master from every rank's updated
+        shard."""
+        for i, b in enumerate(self._update_bufs):
             if b is not None:
-                p.copy_(all_gather_leaf(b, od, z[0]))
+                self._param_from_shard(i, b)
 
     def _mean_over_group(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over the data-parallel ranks (the tensor- and
@@ -1788,9 +1868,11 @@ class DeepSpeedTpuEngine:
                 self._publish_params()
         elif ok:
             # an overflowed step leaves the host state untouched
+            grads = self._to_storage(grads)
             if self.offload_tiered:
                 self.host_opt.stream_update(grads, self._update_targets(),
-                                            self._step, lr)
+                                            self._step, lr,
+                                            **self._whole_leaf_kw())
             else:
                 self.host_opt.step(grads, self._update_targets(),
                                    self._step + 1, lr)
@@ -1812,8 +1894,12 @@ class DeepSpeedTpuEngine:
         if self.optimizer.elementwise or (self.zero_world == 1
                                           and not self._cuts):
             return {}
-        dims = self._odims if self.has_master else self._pdims
-        zero = [d is not None and z[1] > 1 for d, z in zip(dims, self._zero)]
+        # the master: the host tier's, or the card's (the params without
+        # one)
+        dims, zeros = ((self._sdims, self._szero) if self.host_opt is not None
+                       else (self._odims if self.has_master else self._pdims,
+                             self._zero))
+        zero = [d is not None and z[1] > 1 for d, z in zip(dims, zeros)]
         axes = [[self.topology.group(a) for a in self._cuts.get(n, {})]
                 for n in self._leaf_names]
         if self.ep > 1:
@@ -1823,7 +1909,7 @@ class DeepSpeedTpuEngine:
 
         def norm_reduce(i, t):
             if zero[i]:
-                comm.all_reduce(t, group=self._zero[i][0])
+                comm.all_reduce(t, group=zeros[i][0])
             for g in axes[i]:
                 comm.all_reduce(t, group=g)
 
@@ -1849,6 +1935,8 @@ class DeepSpeedTpuEngine:
                                                   lr))
         self._step += 1
         metrics["lr"] = lr
+        metrics["loss"] = self._mean_over_group(
+            torch.tensor(metrics["loss"], device=self.device))
         return metrics
 
     def _finish_step(self, metrics, t0, leaf_sq=None) -> float:
@@ -1998,7 +2086,8 @@ class DeepSpeedTpuEngine:
             batch = self._next_batch(data_iter)
         dev_batch = self._shard_batch(batch)
         if self._infinity is not None:
-            return self._infinity.eval_batch(dev_batch)
+            return float(self._mean_over_group(torch.tensor(
+                self._infinity.eval_batch(dev_batch), device=self.device)))
         params = self._model_params()
         if self.pp > 1:
             # the pipelined apply takes the whole [M, micro, ...] batch
@@ -2073,6 +2162,13 @@ class DeepSpeedTpuEngine:
                    for n, v in zip(self._leaf_names, out)]
         return out
 
+    def _storage_geometry(self):
+        """(dims, ZeRO groups) of the host tier's master and moments
+        (ZeRO-Infinity's are whole over the ZeRO group, to the engine)."""
+        if self._infinity is not None:
+            return self._odims, self._zero
+        return self._sdims, self._szero
+
     @property
     def _state_tier(self):
         """The host tier holding master and moments, if any: the
@@ -2086,7 +2182,8 @@ class DeepSpeedTpuEngine:
         JAX :1992 writes them)."""
         if self._infinity is not None:
             master, _ = self._infinity.get_all_leaves()
-            return [m.to(self.compute_dtype) for m in master]
+            return self._gathered([m.to(self.compute_dtype) for m in master],
+                                  self._odims)
         return self._gathered(self._param_leaves, self._pdims, self._pzero)
 
     def _train_state(self):
@@ -2095,8 +2192,9 @@ class DeepSpeedTpuEngine:
         tier = self._state_tier
         if tier is not None:
             master, moments = tier.get_all_leaves()
-            master_tree = self._tree(self._gathered(master, self._odims))
-            moments = {k: self._gathered(v, self._odims)
+            sdims, szero = self._storage_geometry()
+            master_tree = self._tree(self._gathered(master, sdims, szero))
+            moments = {k: self._gathered(v, sdims, szero)
                        for k, v in moments.items()}
         else:
             master_tree = (None if self._master_leaves is None else
@@ -2240,25 +2338,16 @@ class DeepSpeedTpuEngine:
             return self._shards(whole, dims or [None] * len(whole), zero)
 
         if tier is not None:
+            sdims, szero = self._storage_geometry()
             moments = None
             if state["opt_state"] is not None:
-                moments = {k: leaves(None, sub, self._odims)
+                moments = {k: leaves(None, sub, sdims, szero)
                            for k, sub in state["opt_state"].items()}
             # ZeRO-Infinity rewrites its layer files and persistents too
-            tier.load_leaves(leaves("master_params", dims=self._odims),
+            tier.load_leaves(leaves("master_params", dims=sdims, zero=szero),
                              moments)
             if self.host_opt is not None:
-                # the compute params are the master's cast, as in JAX
-                master, _ = self.host_opt.get_all_leaves()
-                for p, m, pd, od, z in zip(self._param_leaves, master,
-                                           self._pdims, self._odims,
-                                           self._zero):
-                    if pd is None and od is not None:
-                        p.copy_(all_gather_leaf(m.to(self.device,
-                                                     self.compute_dtype),
-                                                od, z[0]))
-                    else:
-                        copy_rows(p.detach(), m)
+                self._params_from_tier()
         else:
             mdims = self._odims if self.has_master else self._pdims
             for p, v in zip(self._param_leaves,
@@ -2319,9 +2408,13 @@ class DeepSpeedTpuEngine:
                                             load_universal_into_tree)
         self._join_pending_saves()
         if self._infinity is not None:
+            # the JAX loader has no ZeRO-Infinity branch: it maps the
+            # weights over the engine's master tree, which is None there,
+            # and fails with a ValueError
             raise NotImplementedError(
-                "load_universal_checkpoint under offload_param nvme is not "
-                "ported to deepspeed_tpu_torch yet (ROADMAP A9)")
+                "load_universal_checkpoint is not supported under "
+                "offload_param nvme (nor by the JAX package's loader); "
+                "load a native checkpoint with load_checkpoint")
 
         def template(dtype_of):
             return self._tree([
@@ -2352,8 +2445,9 @@ class DeepSpeedTpuEngine:
             _, moments = tier.template_leaves()
         else:
             moments = self.opt_state or {}
-        mdims = self._odims if (self.has_master or tier is not None) \
-            else self._pdims
+        mdims, mzero = (self._storage_geometry() if tier is not None else
+                        (self._odims if self.has_master else self._pdims,
+                         self._zero))
         opt = None
         if moments and has_universal_opt_state(universal_dir):
             try:
@@ -2361,7 +2455,7 @@ class DeepSpeedTpuEngine:
                     universal_dir,
                     {k: template(lambda i, v=v: v[i].dtype)
                      for k, v in moments.items()}, section="opt_state")
-                opt = {k: self._shards(leaves_of(tree[k]), mdims)
+                opt = {k: self._shards(leaves_of(tree[k]), mdims, mzero)
                        for k in moments}
             except KeyError as exc:
                 logger.warning(
@@ -2369,17 +2463,8 @@ class DeepSpeedTpuEngine:
                     f"this optimizer ({exc}); restored weights only — the "
                     f"step counter and LR schedule restart at 0")
         if tier is not None:
-            tier.load_leaves(self._shards(host, self._odims), opt)
-            # the compute params are the master's cast, as in JAX
-            master, _ = tier.get_all_leaves()
-            for p, m, pd, od, z in zip(self._param_leaves, master,
-                                       self._pdims, self._odims, self._zero):
-                if pd is None and od is not None:
-                    p.copy_(all_gather_leaf(m.to(self.device,
-                                                 self.compute_dtype),
-                                            od, z[0]))
-                else:
-                    copy_rows(p.detach(), m)
+            tier.load_leaves(self._shards(host, mdims, mzero), opt)
+            self._params_from_tier()
         else:
             if self.has_master:
                 for m, v in zip(self._master_leaves,

@@ -253,11 +253,15 @@ class TieredOptimizerOffload:
     @torch.no_grad()
     def stream_update(self, grads: Sequence[torch.Tensor],
                       params: Sequence[torch.Tensor], step: int,
-                      lr: float) -> None:
+                      lr: float, norm_reduce=None) -> None:
         """One optimizer step, bucket by bucket: ``grads`` (f32, on the
         device, in leaf order) update the host state and the compute
         ``params`` in place. ``step`` is the count of applied steps before
-        this one (the resident step's ``_step``)."""
+        this one (the resident step's ``_step``). ``norm_reduce(i, t)``
+        (LAMB over leaves cut over ranks, the resident step's) sums leaf
+        ``i``'s partial squares over the ranks holding its pieces; the
+        buckets hold whole leaves then, so each trust ratio is the whole
+        leaf's (JAX :89-97)."""
         if len(grads) != len(self.sizes):
             raise ValueError(f"{len(grads)} grads vs {len(self.sizes)} "
                              f"leaves")
@@ -288,7 +292,10 @@ class TieredOptimizerOffload:
                 views.append(field_views)
             g = [grads[i].view(-1)[s:e] for i, s, e in segs]
             states = dict(zip(self.state_keys, views[1:]))
-            self._apply(self.opt, views[0], g, states, step, lr, True)
+            kw = {} if norm_reduce is None else {
+                "norm_reduce": lambda j, t, segs=segs: norm_reduce(
+                    segs[j][0], t)}
+            self._apply(self.opt, views[0], g, states, step, lr, True, **kw)
             for (i, s, e), m in zip(segs, views[0]):
                 params[i].detach().view(-1)[s:e].copy_(m)
             self._issue_fetch(b + self.depth)

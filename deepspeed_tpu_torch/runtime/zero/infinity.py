@@ -2,15 +2,15 @@
 
 Port of ``deepspeed_tpu/runtime/zero/infinity.py`` (``_LayerFileStream``
 :64, ``InfinityParamEngine`` :134). The reference's parameter swapper
-(``swap_tensor/partitioned_param_swapper.py:36``) keeps the layer params
-on NVMe and reads each into a page-locked buffer right before its module
-runs. Here, as in the JAX package, an explicit per-layer executor walks
-the stack:
+(``swap_tensor/partitioned_param_swapper.py:36``) keeps each rank's
+partition of the layer params on NVMe and reads it into a page-locked
+buffer right before its module runs. Here, as in the JAX package, an
+explicit per-layer executor walks the stack:
 
 * the forward sweep runs the stem (embedding), each layer, and keeps only
   the layers' boundary activations; layer ``i + 1``'s file read overlaps
-  layer ``i``'s compute (two page-locked buffers, :class:`_LayerFileStream`
-  on ``ops/aio.py``);
+  layer ``i``'s gather and compute (two page-locked buffers,
+  :class:`_LayerFileStream` on ``ops/aio.py``);
 * the crown (final norm and the chunked cross-entropy) is differentiated
   by autograd; the reverse sweep reads each layer again and recomputes it
   under ``torch.enable_grad()``, differentiating it with
@@ -23,20 +23,39 @@ the stack:
   writing it back behind when the optimizer state is on NVMe too, and
   rewrites ``layer_{i}.params`` (:427-471).
 
-Files under ``offload_param.nvme_path/ds_tpu_param_swap/pid<p>_<n>/``
-(the JAX layout, byte for byte):
+At more than one rank each rank runs this executor on its own rows of the
+batch (the JAX engine is one controller over the mesh; the reference's
+partitioned swapper is the model here). A rank holds its tensor-parallel
+slice of every leaf (the model's TP plan, as the resident engine cuts
+them), and of that slice its ZeRO-3 piece over the data-parallel group
+``group``: each layer leaf flattened, zero-padded to a multiple of the
+group's size and cut into equal contiguous pieces, piece ``r`` on rank
+``r``. Before layer ``i`` runs (forward and recompute) the ranks
+all-gather its pieces, while layer ``i + 1``'s file read proceeds; its
+gradients reduce-scatter (the mean over the group) into the rank's host
+f32 accumulators. The persistent leaves (embedding, final norm, head)
+follow the resident stage-3 plan: master and moments cut along the
+largest dimension the group's size divides (``runtime/zero/partition``),
+gathered to the device after each update, their gradients
+reduce-scattered. The clip norm sums each piece's squares over the ranks
+holding distinct pieces (the data group; a tensor-parallel slice over the
+model group too), never over replicas. At one rank every piece is the
+whole leaf and every collective a copy.
 
-* ``layer_{i:05d}.params``: the layer's compute-dtype leaves, in sorted
-  leaf order, concatenated;
+Files under ``offload_param.nvme_path/ds_tpu_param_swap/pid<p>_<n>/``
+(the JAX layout, byte for byte, at one rank):
+
+* ``layer_{i:05d}.params``: the rank's pieces of the layer's leaves in
+  the compute dtype, in sorted leaf order, concatenated;
 * ``layer_{i:05d}.optim``: fp32 ``[master | moment0 | moment1 ...]`` per
-  leaf, concatenated (in host RAM instead unless ``offload_optimizer`` is
+  piece, concatenated (in host RAM instead unless ``offload_optimizer`` is
   ``nvme``).
 
-The persistent leaves (embedding, final norm, head) stay on the device in
-the compute dtype, with fp32 master and moments in host RAM. A slot of the
-read buffers is reused only once its read has completed and the
-host-to-device copies sourced from it have finished (a CUDA event, where
-JAX waits with ``block_until_ready``).
+The persistent leaves stay on the device in the compute dtype, with their
+fp32 master and moments pieces in host RAM. A slot of the read buffers is
+reused only once its read has completed and the host-to-device copy
+sourced from it has finished (a CUDA event, where JAX waits with
+``block_until_ready``).
 
 Measured per step (``timings``): each sweep's seconds and the seconds it
 waited on a file read, the bytes read from and written to the layer
@@ -50,10 +69,12 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from ...comm import comm
+from ...comm.quantized import all_gather_leaf, reduce_scatter_leaf, shard_of
 from ...ops.cpu_optimizers import build_host_optimizer
 from ..offload import PinnedHost
+from .partition import zero_dim
 
 logger = logging.getLogger(__name__)
 
@@ -144,9 +165,13 @@ class InfinityParamEngine:
     ``offload_param.device == "nvme"``.
 
     ``items`` are the initial weights, ``(path, tensor)`` in the engine's
-    leaf order (any device and dtype: the master is their f32 value).
-    The checkpoint surface is the host optimizers' (leaf lists in that
-    order): ``get_all_leaves``, ``template_leaves``, ``load_leaves``."""
+    leaf order, each this rank's tensor-parallel slice (any device and
+    dtype: the master is their f32 value). ``group`` is the data-parallel
+    group the pieces are cut over; ``model_group`` the tensor-parallel
+    group and ``tp_dims`` the leaves cut over it, with the dimension (their
+    squares sum over it in the clip norm). The checkpoint surface is the
+    host optimizers' (leaf lists in that order, whole over ``group``):
+    ``get_all_leaves``, ``template_leaves``, ``load_leaves``."""
 
     _instance_counter = 0
 
@@ -155,7 +180,8 @@ class InfinityParamEngine:
                  param_nvme_path: str, optim_device: str,
                  optim_nvme_path: Optional[str], aio_block_size: int,
                  aio_threads: int, gas: int, clip: float,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, group=None, model_group=None,
+                 tp_dims: Optional[Dict[str, int]] = None):
         from ...ops.aio import AsyncIOHandle
 
         self.model = model
@@ -166,6 +192,10 @@ class InfinityParamEngine:
         self.clip = clip
         self.compute_dtype = compute_dtype
         self.L = self.cfg.num_layers
+        self.group = group
+        self.world = comm.get_world_size(group)
+        self.rank = comm.get_rank(group)
+        self.model_group = model_group
         self.opt = build_host_optimizer(opt_name, opt_params)
         self.state_keys = self.opt.state_keys()
         self._n_fields = 1 + len(self.state_keys)
@@ -192,9 +222,18 @@ class InfinityParamEngine:
         self.layer_keys = [k.split("/", 1)[1] for k in self.names
                            if k.startswith("layers/")]
         tensors = dict(items)
+        tp_dims = tp_dims or {}
+        # a persistent leaf's piece: the resident stage-3 plan's dimension
+        # (never the tensor-parallel one), or the whole leaf (replicated)
+        self.persist_shapes = [tuple(tensors[k].shape)
+                               for k in self.persist_names]
+        self.persist_dims = [
+            zero_dim(s, self.world,
+                     free=[d for d in range(len(s)) if d != tp_dims.get(k)])
+            for k, s in zip(self.persist_names, self.persist_shapes)]
         self.persist_leaves = [
-            tensors[k].detach().to("cpu", torch.float32, copy=True)
-            for k in self.persist_names]
+            self._cut(tensors[k].detach().to("cpu", torch.float32), d)
+            for k, d in zip(self.persist_names, self.persist_dims)]
         self.persist_state = [[torch.zeros(m.shape)
                                for _ in self.state_keys]
                               for m in self.persist_leaves]
@@ -202,7 +241,12 @@ class InfinityParamEngine:
         self.layer_shapes = [tuple(l.shape[1:]) for l in layer_leaves]
         self.layer_sizes = [int(torch.Size(s).numel())
                             for s in self.layer_shapes]
-        self.layer_elems = int(sum(self.layer_sizes))
+        # each leaf's piece of a layer: its flat elements padded to a
+        # multiple of the group's size, cut in ``world`` equal parts
+        self.piece_sizes = [-(-sz // self.world) for sz in self.layer_sizes]
+        self.layer_elems = int(sum(self.piece_sizes))
+        self._cut_layer = ["layers/" + k in tp_dims for k in self.layer_keys]
+        self._cut_persist = [k in tp_dims for k in self.persist_names]
         self.param_files = [os.path.join(self.param_dir,
                                          f"layer_{i:05d}.params")
                             for i in range(self.L)]
@@ -217,12 +261,12 @@ class InfinityParamEngine:
         for i in range(self.L):
             off = ooff = 0
             obuf.zero_()
-            for leaf, sz in zip(layer_leaves, self.layer_sizes):
+            for leaf, c in zip(layer_leaves, self.piece_sizes):
                 flat = leaf[i].detach().to("cpu", torch.float32).reshape(-1)
-                pbuf[off:off + sz].copy_(flat)
-                obuf[ooff:ooff + sz].copy_(flat)
-                off += sz
-                ooff += sz * self._n_fields
+                self._piece(flat, obuf[ooff:ooff + c])
+                pbuf[off:off + c].copy_(obuf[ooff:ooff + c])
+                off += c
+                ooff += c * self._n_fields
             self.aio.sync_pwrite(self.param_files[i], pbuf)
             self.bytes_written += pbuf.numel() * pbuf.element_size()
             if self.optim_on_nvme:
@@ -235,7 +279,7 @@ class InfinityParamEngine:
         logger.info(
             f"ZeRO-Infinity: {self.L} layer param files at {self.param_dir} "
             f"({self.layer_elems * self.L * pbuf.element_size() / 1e9:.2f} "
-            f"GB); optimizer state "
+            f"GB, piece {self.rank} of {self.world}); optimizer state "
             f"{'on NVMe' if self.optim_on_nvme else 'in host RAM'}")
 
         # ---- working buffers ----
@@ -244,10 +288,12 @@ class InfinityParamEngine:
                                          self.pinned)
         self.grad_acc = [torch.zeros(self.layer_elems)
                          for _ in range(self.L)]
-        # a layer's gradients arrive here in f32 (cast on the device: a
-        # cast across devices, or a mixed-dtype add, runs slowly on the
-        # host), then one f32 add into the accumulator
+        # a layer's gradients are cast to f32 on the device into the
+        # reduce-scatter's input (its padding stays 0), reduced into this
+        # rank's pieces, then cross in one copy: a cast across devices,
+        # or a mixed-dtype add, runs slowly on the host
         self._gstage = self.pinned.pin(torch.empty(self.layer_elems))
+        self._gbufs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.persist_grad_acc = [torch.zeros(m.shape)
                                  for m in self.persist_leaves]
         self._obufs = ([torch.zeros(self.layer_elems * self._n_fields)
@@ -258,41 +304,81 @@ class InfinityParamEngine:
         self.timings: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
+    # pieces over the data-parallel group
+    # ------------------------------------------------------------------
+    def _cut(self, full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's piece of a persistent leaf (a contiguous copy)."""
+        if dim is None:
+            return full.clone()
+        return shard_of(full, dim, self.rank, self.world).clone()
+
+    def _piece(self, flat: torch.Tensor, out: torch.Tensor) -> None:
+        """This rank's piece of a flat layer leaf into ``out`` (zeros past
+        the leaf's end)."""
+        c = out.numel()
+        a = min(self.rank * c, flat.numel())
+        b = min(a + c, flat.numel())
+        out[:b - a].copy_(flat[a:b])
+        out[b - a:].zero_()
+
+    def _whole(self, rows: torch.Tensor, off: int, c: int, n: int,
+               shape) -> torch.Tensor:
+        """A leaf from every rank's pieces: ``rows`` [world, ...] holds
+        each rank's concatenated pieces; this leaf's are ``[off, off +
+        c)`` of each row (a view at one rank, else a copy)."""
+        return rows[:, off:off + c].reshape(-1)[:n].view(shape)
+
+    def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """[world, numel]: every rank's ``local`` (on this engine's
+        device), rank-major."""
+        out = torch.empty(self.world * local.numel(), dtype=local.dtype,
+                          device=local.device)
+        comm.all_gather_into_tensor(out, local, group=self.group)
+        return out.view(self.world, -1)
+
+    def _gather_host(self, local: torch.Tensor) -> torch.Tensor:
+        """:meth:`_gather_rows` of a host tensor, back on the host (the
+        collective runs where the group's backend does: on the card)."""
+        return self._gather_rows(local.to(self.device)).cpu()
+
     def _push_persist(self) -> None:
-        self.pp_dev = {k: m.to(self.device, self.compute_dtype)
-                       for k, m in zip(self.persist_names,
-                                       self.persist_leaves)}
+        self.pp_dev = {
+            k: (m.to(self.device, self.compute_dtype) if d is None else
+                all_gather_leaf(m.to(self.device, self.compute_dtype), d,
+                                self.group))
+            for k, m, d in zip(self.persist_names, self.persist_leaves,
+                               self.persist_dims)}
 
     def _fetch_layer(self, i: int, prefetch: Optional[int]):
-        """Layer ``i``'s leaves on the device (fresh tensors)."""
+        """Layer ``i``'s leaves on the device (fresh tensors): this rank's
+        pieces from its file, gathered over the group while the read of
+        ``prefetch`` proceeds."""
         buf = self._pstream.get(i, prefetch)
+        if self.cuda:
+            local = buf.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            # the buffer is not rewritten before this copy has read it
+            self._pstream.note_transfer(i, done)
+        else:
+            local = buf
+        rows = self._gather_rows(local)
         views, off = {}, 0
-        for k, shape, sz in zip(self.layer_keys, self.layer_shapes,
-                                self.layer_sizes):
-            views[k] = buf[off:off + sz].view(shape)
-            off += sz
-        if not self.cuda:
-            return {k: v.clone() for k, v in views.items()}
-        dev = {k: v.to(self.device, non_blocking=True)
-               for k, v in views.items()}
-        done = torch.cuda.Event()
-        done.record()
-        # the buffer is not rewritten before these copies have read it
-        self._pstream.note_transfer(i, done)
-        return dev
+        for k, shape, n, c in zip(self.layer_keys, self.layer_shapes,
+                                  self.layer_sizes, self.piece_sizes):
+            views[k] = self._whole(rows, off, c, n, shape)
+            off += c
+        return views
 
     # -- the stem, the crown (the model's own pieces) --------------------
     def _stem(self, pp, ids):
-        cfg = self.cfg
-        x = F.embedding(ids, pp["embed"])
-        if cfg.embed_scale != 1.0:
-            x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
-        if cfg.positional == "learned":
-            x = x + pp["pos_embed"][:ids.shape[1]][None]
-        return x
+        # under tensor parallelism a masked lookup of this rank's vocab
+        # rows, summed over the model group
+        return self.model._embed_tokens(pp, ids)
 
     def _crown(self, pp, x, ids, mask):
-        from ...models.transformer import _chunked_ce_loss
+        from ...models.transformer import (_chunked_ce_loss,
+                                           _vocab_parallel_ce_loss)
 
         cfg = self.cfg
         x = self.model._norm(x, pp["final_norm"], pp.get("final_norm_b"))
@@ -300,8 +386,14 @@ class InfinityParamEngine:
         m = (mask[:, 1:].float() if mask is not None
              else torch.ones(ids[:, 1:].shape, dtype=torch.float32,
                              device=ids.device))
-        total, count = _chunked_ce_loss(x[:, :-1], ids[:, 1:], m, head,
-                                        cfg.loss_chunk)
+        tp, tr, tg = self.model._tp
+        if tp > 1:      # this rank's vocab columns, as the model's apply
+            total, count = _vocab_parallel_ce_loss(
+                self.model._col(x[:, :-1]), ids[:, 1:], m, head,
+                cfg.loss_chunk, tr * head.shape[-1], tg)
+        else:
+            total, count = _chunked_ce_loss(x[:, :-1], ids[:, 1:], m, head,
+                                            cfg.loss_chunk)
         return total / torch.clamp(count, min=1.0)
 
     def _rope(self, S: int):
@@ -393,12 +485,9 @@ class InfinityParamEngine:
 
         # ---- 1 / gas, the global norm, the clip factor ----
         inv = 1.0 / self.gas
-        sq = 0.0
         for g in self.grad_acc + self.persist_grad_acc:
             g.mul_(inv)
-            flat = g.reshape(-1)
-            sq += float(torch.dot(flat, flat))
-        gnorm = sq ** 0.5
+        gnorm = self._global_norm()
         if self.clip and self.clip > 0 and gnorm > self.clip:
             factor = self.clip / (gnorm + 1e-6)
             for g in self.grad_acc + self.persist_grad_acc:
@@ -416,16 +505,70 @@ class InfinityParamEngine:
         return {"loss": loss_mean, "grad_norm": gnorm, "skipped": 0}
 
     def _acc_layer_grads(self, i: int, grads) -> None:
+        """Layer ``i``'s gradients (this rank's rows) reduce-scattered
+        into the rank's pieces (the mean over the group), added to its
+        host accumulator."""
+        if self._gbufs is None:
+            self._gbufs = (
+                torch.zeros(self.world * self.layer_elems,
+                            device=self.device),
+                torch.empty(self.layer_elems, device=self.device))
+        send, recv = self._gbufs
+        rows = send.view(self.world, self.layer_elems)
         off = 0
-        for g, sz in zip(grads, self.layer_sizes):
-            self._gstage[off:off + sz].copy_(g.detach().float().reshape(-1))
-            off += sz
+        for g, n, c in zip(grads, self.layer_sizes, self.piece_sizes):
+            flat = g.detach().reshape(-1)
+            if n < self.world * c:      # zeros past the leaf's end
+                flat = torch.cat([flat, flat.new_zeros(self.world * c - n)])
+            # piece r of the leaf into row r
+            rows[:, off:off + c].copy_(flat.view(self.world, c))
+            off += c
+        comm.reduce_scatter_tensor(recv, send, group=self.group)
+        if self.world > 1:
+            recv.div_(self.world)
+        self._gstage.copy_(recv)
         self.grad_acc[i].add_(self._gstage)
 
     def _acc_persist(self, grads) -> None:
-        for acc, g in zip(self.persist_grad_acc, grads):
-            if g is not None:
-                acc.add_(g.detach().float().to("cpu").reshape(acc.shape))
+        for acc, g, d in zip(self.persist_grad_acc, grads, self.persist_dims):
+            if g is None:
+                continue
+            g = g.detach().float()
+            if d is not None:
+                g = reduce_scatter_leaf(g, d, self.group)
+            else:
+                g = g.clone()
+                comm.all_reduce(g, group=self.group)
+                g.div_(self.world)
+            acc.add_(g.to("cpu").reshape(acc.shape))
+
+    def _global_norm(self) -> float:
+        """The norm of the whole gradient: each piece's squares, summed
+        over the data group (distinct pieces; a persistent leaf this rank
+        holds whole counts on rank 0 only) and, for a tensor-parallel
+        slice, over the model group."""
+        sq = [0.0, 0.0]         # [cut over the model group, replicated]
+        for g in self.grad_acc:
+            if self.model_group is None:    # nothing cut: one sum a layer
+                sq[1] += float(torch.dot(g, g))
+                continue
+            off = 0
+            for c, cut in zip(self.piece_sizes, self._cut_layer):
+                part = g[off:off + c]
+                sq[0 if cut else 1] += float(torch.dot(part, part))
+                off += c
+        for g, d, cut in zip(self.persist_grad_acc, self.persist_dims,
+                             self._cut_persist):
+            if d is not None or self.rank == 0:
+                flat = g.reshape(-1)
+                sq[0 if cut else 1] += float(torch.dot(flat, flat))
+        t = torch.tensor(sq, dtype=torch.float64, device=self.device)
+        comm.all_reduce(t, group=self.group)
+        if self.model_group is not None:
+            cut = t[:1].clone()
+            comm.all_reduce(cut, group=self.model_group)
+            t[0] = cut[0]
+        return float(t.sum()) ** 0.5
 
     # ------------------------------------------------------------------
     def _optimizer_sweep(self, step: int, lr: float) -> float:
@@ -455,15 +598,15 @@ class InfinityParamEngine:
             else:
                 cur = self._optim_ram[i]
             grads, ooff, poff = self.grad_acc[i], 0, 0
-            for sz in self.layer_sizes:
-                master = cur[ooff:ooff + sz]
-                moments = [cur[ooff + (1 + k) * sz:ooff + (2 + k) * sz]
+            for c in self.piece_sizes:
+                master = cur[ooff:ooff + c]
+                moments = [cur[ooff + (1 + k) * c:ooff + (2 + k) * c]
                            for k in range(len(self.state_keys))]
-                self.opt.step(step, master, grads[poff:poff + sz],
+                self.opt.step(step, master, grads[poff:poff + c],
                               *moments, lr=lr)
-                pbuf[poff:poff + sz].copy_(master)
-                ooff += sz * self._n_fields
-                poff += sz
+                pbuf[poff:poff + c].copy_(master)
+                ooff += c * self._n_fields
+                poff += c
             if self.optim_on_nvme:
                 pending_write = self.aio.pwrite(self.optim_files[i], cur)
             self.aio.sync_pwrite(self.param_files[i], pbuf)
@@ -512,38 +655,41 @@ class InfinityParamEngine:
                        for k, v in zip(self.layer_keys, stacked))
         return [by_name[k] for k in self.names]
 
+    def _whole_persist(self, pieces) -> List[torch.Tensor]:
+        """Persistent leaves from every rank's pieces (host f32)."""
+        return [p.clone() if d is None else
+                all_gather_leaf(p.to(self.device), d, self.group).cpu()
+                for p, d in zip(pieces, self.persist_dims)]
+
     def get_all_leaves(self):
-        """(master leaves, {state key: leaves}), fp32 host copies with the
-        layers re-stacked: one sweep over the optimizer state."""
-        stacked_m = [torch.empty((self.L,) + s) for s in self.layer_shapes]
-        stacked_s = {k: [torch.empty((self.L,) + s)
-                         for s in self.layer_shapes]
-                     for k in self.state_keys}
+        """(master leaves, {state key: leaves}), fp32 host copies, whole
+        over the group, with the layers re-stacked: one sweep over the
+        optimizer state (every rank takes part)."""
+        stacked = [[torch.empty((self.L,) + s) for s in self.layer_shapes]
+                   for _ in range(self._n_fields)]
         for i in range(self.L):
-            buf = self._read_optim(i)
+            rows = self._gather_host(self._read_optim(i))
             ooff = 0
-            for j, (shape, sz) in enumerate(zip(self.layer_shapes,
-                                                self.layer_sizes)):
-                stacked_m[j][i] = buf[ooff:ooff + sz].view(shape)
-                for k_idx, key in enumerate(self.state_keys):
-                    stacked_s[key][j][i] = buf[
-                        ooff + (1 + k_idx) * sz:
-                        ooff + (2 + k_idx) * sz].view(shape)
-                ooff += sz * self._n_fields
-        master = self._assemble([m.clone() for m in self.persist_leaves],
-                                stacked_m)
-        state = {key: self._assemble([s[k_idx].clone()
-                                      for s in self.persist_state],
-                                     stacked_s[key])
-                 for k_idx, key in enumerate(self.state_keys)}
+            for j, (shape, n, c) in enumerate(zip(
+                    self.layer_shapes, self.layer_sizes, self.piece_sizes)):
+                for f in range(self._n_fields):
+                    stacked[f][j][i] = self._whole(rows, ooff + f * c, c, n,
+                                                   shape)
+                ooff += c * self._n_fields
+        master = self._assemble(self._whole_persist(self.persist_leaves),
+                                stacked[0])
+        state = {key: self._assemble(
+            self._whole_persist([s[k_idx] for s in self.persist_state]),
+            stacked[1 + k_idx])
+            for k_idx, key in enumerate(self.state_keys)}
         return master, state
 
     def template_leaves(self):
-        """Shape templates (``meta`` tensors) for checkpoint loading."""
+        """Shape templates (``meta`` tensors, whole over the group) for
+        checkpoint loading."""
         def meta():
             return self._assemble(
-                [torch.empty(m.shape, device="meta")
-                 for m in self.persist_leaves],
+                [torch.empty(s, device="meta") for s in self.persist_shapes],
                 [torch.empty((self.L,) + s, device="meta")
                  for s in self.layer_shapes])
 
@@ -552,36 +698,46 @@ class InfinityParamEngine:
     def load_leaves(self, master: Sequence[torch.Tensor],
                     state: Optional[Dict[str, Sequence[torch.Tensor]]] = None):
         """Restore the master (and the moments, if given; ``None`` keeps
-        them) into the files or RAM, and rebuild the param files and the
-        device persistents from it."""
+        them) from whole leaves into this rank's pieces in the files or
+        RAM, and rebuild the param files and the device persistents from
+        it."""
         by_name = dict(zip(self.names, master))
         s_by_name = ({k: dict(zip(self.names, v)) for k, v in state.items()}
                      if state is not None else None)
-        for j, name in enumerate(self.persist_names):
-            self.persist_leaves[j].copy_(by_name[name].reshape(
-                self.persist_leaves[j].shape))
+        for j, (name, d) in enumerate(zip(self.persist_names,
+                                          self.persist_dims)):
+            shape = self.persist_shapes[j]
+
+            def piece(v):
+                return self._cut(v.to("cpu", torch.float32).reshape(shape),
+                                 d)
+
+            self.persist_leaves[j].copy_(piece(by_name[name]))
             if s_by_name is not None:
                 for k_idx, key in enumerate(self.state_keys):
                     self.persist_state[j][k_idx].copy_(
-                        s_by_name[key][name].reshape(
-                            self.persist_state[j][k_idx].shape))
+                        piece(s_by_name[key][name]))
         pbuf = self._pbuf
         for i in range(self.L):
             buf = self._read_optim(i) if state is None else \
                 torch.zeros(self.layer_elems * self._n_fields)
             ooff = poff = 0
-            for key, sz in zip(self.layer_keys, self.layer_sizes):
-                flat = by_name["layers/" + key][i].to(
-                    "cpu", torch.float32).reshape(-1)
-                buf[ooff:ooff + sz].copy_(flat)
-                pbuf[poff:poff + sz].copy_(flat)
+            for key, n, c in zip(self.layer_keys, self.layer_sizes,
+                                 self.piece_sizes):
+                def flat(v):
+                    return v[i].to("cpu", torch.float32).reshape(-1)
+
+                self._piece(flat(by_name["layers/" + key]),
+                            buf[ooff:ooff + c])
+                pbuf[poff:poff + c].copy_(buf[ooff:ooff + c])
                 if s_by_name is not None:
                     for k_idx, skey in enumerate(self.state_keys):
-                        buf[ooff + (1 + k_idx) * sz:
-                            ooff + (2 + k_idx) * sz].copy_(
-                            s_by_name[skey]["layers/" + key][i].reshape(-1))
-                ooff += sz * self._n_fields
-                poff += sz
+                        self._piece(
+                            flat(s_by_name[skey]["layers/" + key]),
+                            buf[ooff + (1 + k_idx) * c:
+                                ooff + (2 + k_idx) * c])
+                ooff += c * self._n_fields
+                poff += c
             if self.optim_on_nvme:
                 self.aio.sync_pwrite(self.optim_files[i], buf)
             else:
@@ -595,7 +751,8 @@ class InfinityParamEngine:
         """Bytes of parameters resident on the device: the persistent
         leaves only (the layer stack lives in its files)."""
         itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
-        return int(sum(m.numel() * itemsize for m in self.persist_leaves))
+        return int(sum(torch.Size(s).numel() * itemsize
+                       for s in self.persist_shapes))
 
     def close(self) -> None:
         if self.aio is not None:

@@ -213,3 +213,24 @@ def test_checkpoints_cross_the_packages(tmp_path):
     np.testing.assert_allclose(float(jres.train_batch(batch=bs[3])), t_next,
                                rtol=1e-5)
     teng.close()
+
+
+def test_universal_load_refused_under_infinity(tmp_path):
+    """Neither package loads a universal directory into a ZeRO-Infinity
+    engine: the JAX loader maps the weights over the engine's master tree,
+    which is None under Infinity, and fails with ``ValueError``; the port
+    refuses with ``NotImplementedError`` (a native checkpoint loads:
+    ``test_checkpoints_cross_the_packages``)."""
+    from deepspeed_tpu.checkpoint import universal as juni
+
+    jres = jax_engine(config(tmp_path, nvme=False))
+    jres.save_checkpoint(str(tmp_path / "ck"), tag="t")
+    juni.ds_to_universal(str(tmp_path / "ck"), str(tmp_path / "uni"))
+    jinf = jax_engine(config(tmp_path / "j"))
+    with pytest.raises(ValueError):
+        jinf.load_universal_checkpoint(str(tmp_path / "uni"))
+    jinf._infinity.close()
+    teng = port_engine(config(tmp_path / "t"), _nested(jax_master(jinf)))
+    with pytest.raises(NotImplementedError, match="offload_param nvme"):
+        teng.load_universal_checkpoint(str(tmp_path / "uni"))
+    teng.close()

@@ -416,15 +416,27 @@ def test_offload_configs_run(weights, extra):
 
 
 def test_unported_offload_keys_raise():
-    for extra, item in (
-            ({"zero_optimization": {"stage": 3, "offload_param": {
-                "device": "cpu", "ratio": 0.5}}}, "A9"),
-            ({"zero_optimization": {"stage": 2, "offload_optimizer": dict(
-                LEGACY, ratio=0.5)}}, "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            deepspeed_tpu_torch.initialize(
-                model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
-                config=dict(_config(), **extra), device="cpu")
+    """The offload keys that once raised here run now: ``ratio`` below 1
+    is accepted as the JAX package accepts it (validated in (0, 1], read
+    nowhere; ``test_offload_ratio_is_inert``), and a ratio outside it
+    raises the same ConfigError in both packages."""
+    for extra in (
+            {"zero_optimization": {"stage": 3, "offload_param": {
+                "device": "cpu", "ratio": 0.5}}},
+            {"zero_optimization": {"stage": 2, "offload_optimizer": dict(
+                LEGACY, ratio=0.5)}}):
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
+            config=dict(_config(), **extra), device="cpu")
+        eng.close()
+    for ratio in (0.0, 1.5):
+        raw = dict(_config(), zero_optimization={
+            "stage": 2, "offload_optimizer": dict(LEGACY, ratio=ratio)})
+        with pytest.raises(JConfigError) as jerr:
+            JDSConfig(copy.deepcopy(raw))
+        with pytest.raises(ConfigError) as terr:
+            DeepSpeedConfig(copy.deepcopy(raw))
+        assert str(terr.value) == str(jerr.value)
     # ZeRO++ is ported now (tests/test_torch_zeropp*.py): qgZ at one rank
     # builds and, as in JAX, quantizes nothing
     eng, *_ = deepspeed_tpu_torch.initialize(
@@ -433,6 +445,25 @@ def test_unported_offload_keys_raise():
             "stage": 2, "zero_quantized_gradients": True}), device="cpu")
     assert not eng._zpp_g
     eng.close()
+
+
+@pytest.mark.parametrize("offload", ["tiered", "legacy"])
+def test_offload_ratio_is_inert(weights, offload):
+    """``ratio`` 0.5 (JAX validates it and reads it nowhere) trains
+    bit for bit as ``ratio`` 1.0: every tier moves all of its state."""
+    tier = TIERED if offload == "tiered" else LEGACY
+    out = []
+    for ratio in (1.0, 0.5):
+        eng = _port(_config(offload=dict(tier, ratio=ratio), bucket=20000),
+                    weights)
+        losses = [eng.train_batch(batch={"input_ids": _ids(s)})
+                  for s in (71, 72)]
+        out.append((losses, _host_master(eng),
+                    [p.detach().clone() for p in eng._param_leaves]))
+        eng.close()
+    assert out[0][0] == out[1][0]
+    for a, b in zip(out[0][1] + out[0][2], out[1][1] + out[1][2]):
+        assert torch.equal(a, b)
 
 
 def test_host_op_builder_caches_and_reports(tmp_path, monkeypatch):

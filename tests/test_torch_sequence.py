@@ -293,8 +293,9 @@ def test_one_rank_parallel_keys_are_the_plain_engine():
         "stage": 2, "offload_optimizer": {"device": "cpu"}}}, "A9"),
 ])
 def test_parallel_compositions_not_ported_raise(topo, extra, item):
-    """The compositions the port refuses name their ROADMAP item before
-    any collective runs (a topology of 4 ranks, built without a group)."""
+    """Compositions the port once refused, each named by its ROADMAP
+    item, now build at world 4 (a topology of 4 ranks, built without a
+    group; no collective runs in the build)."""
     from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
                                                        TopologyConfig)
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
@@ -327,8 +328,14 @@ def test_parallel_compositions_not_ported_raise(topo, extra, item):
             assert tuple(lp["wq"].shape) == (2, 128, 64)
             assert eng._expert_zero[1] == 1
         return
-    with pytest.raises(NotImplementedError, match=item):
-        build()
+    # A9: the offload tiers at tp > 1 run now
+    # (tests/test_torch_tiers_distributed.py trains them against JAX at
+    # world 4): the host tier holds the data shard of the rank's slice
+    eng = build()
+    master = dict(zip(eng._leaf_names, eng.host_opt.get_all_leaves()[0]))
+    assert tuple(eng.params["layers"]["wq"].shape) == (2, 128, 64)
+    assert tuple(master["layers/wq"].shape) == (2, 64, 64)
+    eng.close()
 
 
 def test_send_next_of_a_list_at_one_rank():

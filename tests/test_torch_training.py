@@ -296,6 +296,9 @@ def test_device_none_raises_without_gpu():
     # the port refuses it as the JAX topology does
     ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
      ValueError),
+    # once refused under the ROADMAP items they name: a partial offload
+    # ratio trains now (inert, as in JAX), and a factory of
+    # jax.checkpoint_policies raises ValueError (JAX cannot run it either)
     ({"zero_optimization": {"stage": 3, "offload_param":
                             {"device": "cpu", "ratio": 0.5}}}, "A9"),
     ({"activation_checkpointing": {
@@ -311,8 +314,18 @@ def test_device_none_raises_without_gpu():
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, AssertionError),
 ])
 def test_unported_keys_raise(extra, item):
+    if item == "A9":
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
+            config=dict(TRAIN_CONFIG, **extra), device="cpu")
+        assert np.isfinite(eng.train_batch(
+            batch={"input_ids": _ids(1, (GAS, MICRO, S))}))
+        eng.close()
+        return
     exc, match = ((item, None) if isinstance(item, type)
                   else (NotImplementedError, item))
+    if item == "A3":
+        exc, match = ValueError, "factory of jax.checkpoint_policies"
     with pytest.raises(exc, match=match):
         deepspeed_tpu_torch.initialize(
             model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
@@ -495,11 +508,42 @@ def test_loss_scaler_matches_jax():
     assert not bool(tls.grads_finite(g)) and bool(tls.grads_finite(g[:1]))
 
 
+def test_factory_policy_refused_by_both_packages():
+    """``save_only_these_names`` names a factory of jax.checkpoint_policies:
+    the JAX package hands it to ``jax.checkpoint`` as the policy, which
+    raises ``TypeError`` once the checkpoint is differentiated (the factory
+    receives the primitive's parameters); the port refuses the name at
+    ``configure`` with ``ValueError``."""
+    from deepspeed_tpu.runtime.activation_checkpointing import \
+        checkpointing as jckpt
+
+    x = jnp.ones((4, 4))
+
+    def loss(x):
+        return jckpt.checkpoint(lambda y: jnp.sum(jnp.sin(y) @ y), x,
+                                policy_name="save_only_these_names")
+
+    with pytest.raises(TypeError, match="save_only_these_names"):
+        jax.grad(loss)(x)
+    # the policies both packages run differentiate
+    jax.grad(lambda x: jckpt.checkpoint(lambda y: jnp.sum(jnp.sin(y) @ y),
+                                        x, policy_name="dots_saveable"))(x)
+    tckpt.reset()
+    try:
+        with pytest.raises(ValueError, match="save_only_these_names"):
+            tckpt.configure(policy="save_only_these_names")
+    finally:
+        tckpt.reset()
+
+
 def test_remat_policies():
     tckpt.reset()
     try:
-        with pytest.raises(NotImplementedError, match="A3"):
+        with pytest.raises(ValueError, match="factory"):
             tckpt.configure(policy="save_only_these_names")
+        tckpt.reset()
+        with pytest.raises(ValueError, match="unknown"):
+            tckpt.configure(policy="no_such_policy")
         tckpt.reset()
         tckpt.configure(policy="dots_saveable")
         assert tckpt.active_policy() == "dots_saveable"

@@ -231,8 +231,9 @@ def test_config_admits_zero_keys(extra, world):
 
 
 REJECTED = [
-    # optimizer offload at world 2 and offload_param run; ZeRO-Infinity
-    # at more than one rank and a partial offload ratio do not
+    # once refused; all run now: ZeRO-Infinity at more than one rank and a
+    # partial offload ratio (A9, tests/test_torch_tiers_distributed.py),
+    # ZeRO++ and the quantized rings (A10), the pipeline (A8)
     ({"zero_optimization": {"stage": 3, "offload_param":
                             {"device": "nvme", "nvme_path": "/nvme"}}},
      2, "A9"),
@@ -254,15 +255,16 @@ REJECTED = [
 def test_config_rejects_unported_zero_keys(extra, world, item):
     from deepspeed_tpu_torch.runtime.config import check_ported
 
+    from deepspeed_tpu_torch.runtime.config import unported_keys
+
     cfg = dict(W.train_config(0), **extra)
-    if "pipeline" in extra or item == "A10":
-        # the pipeline is ported now (tests/test_torch_pipeline*.py), and
-        # so are ZeRO++ and the quantized rings (tests/test_torch_zeropp*.py):
-        # their keys pass the config check
-        check_ported(DeepSpeedConfig(cfg, world_size=world))
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        check_ported(DeepSpeedConfig(cfg, world_size=world))
+    # the pipeline is ported now (tests/test_torch_pipeline*.py), and so
+    # are ZeRO++ and the quantized rings (tests/test_torch_zeropp*.py),
+    # ZeRO-Infinity at N ranks and ``ratio`` < 1
+    # (tests/test_torch_tiers_distributed.py, test_torch_offload.py):
+    # their keys pass the config check
+    check_ported(DeepSpeedConfig(cfg, world_size=world))
+    assert unported_keys(DeepSpeedConfig(cfg, world_size=world)) == []
 
 
 @pytest.mark.parametrize("field,item", [
