@@ -13,8 +13,8 @@ diagnostics and the monitor on, under each selective remat policy,
 through the forward / backward / step shims and through universal
 checkpoints), then at 4 layers
 through both ZeRO-Offload backends (the host C++ optimizer and the tiered
-pinned-memory state), with the NVMe tier and checkpoints at 2 layers and
-LAMB over the tiered state at 4,
+pinned-memory state, and their deep runs at 2), with the NVMe tier and
+checkpoints at 2 layers and LAMB over the tiered state at 4,
 trains it at 4 layers under ZeRO stages 1-3 over an NCCL process group
 and with the tensor / sequence / MiCS keys at one rank (after checking
 the attention kernels at tensor-parallel head counts and ring attention
@@ -205,7 +205,40 @@ exit 0):
    block free or reclaimable, paged and ragged launches 32 x steps;
    logged: restore ms and bytes a block, turn 2's TTFT with restores,
    with recompute (and in the large pool), the int8 / bf16 bytes a block;
-   then the serving engines are freed. Phase 2e runs inside this phase,
+   then phase 2h, the serving fleet on one card: (a) two in-process
+   replicas over the same weight tensors behind ReplicaRouter (prefix
+   caching on): the 8 prompts greedy, 64 new, routed while a gate holds
+   both loops so each replica's first step takes all its requests, every
+   stream token-identical to a direct scheduler given that replica's
+   requests in one go; 8 requests sharing a 512-token prefix all on one
+   replica with prefix hits there; a drain under 4 live streams finishing
+   them while the next 4 go to the other replica; every block free or
+   held only by the prefix index after; ragged and paged launches 32 x
+   steps; (b) disaggregated prefill -> decode through the router over
+   the chunked handoff (4 blocks a chunk) on bf16 and int8 pools, 2
+   prompts of 384 and 640 tokens, 32 new, each alone on fresh engines (an
+   int8 block keeps its scales when freed) with its prefill one put() on
+   both sides: token-identical to colocated, the chunks applied as the
+   pages predict, launches 32 x steps; logged: bytes a block, ms a chunk
+   applied, TTFT disaggregated against colocated; then one 8-chunk
+   handoff into a replica decoding another request (a scheduler step
+   between every two chunks); (c) a worker process (spawn_worker, python
+   -m ...serve.worker, the spec at Mistral-7B width and 2 layers, on the
+   same card): its streams (2 prompts of 256 tokens, 32 new)
+   token-identical to an in-process engine of the same spec, and
+   through POST /handoff from an in-process prefill
+   replica, federated /metrics carrying it, the seconds from spawn to
+   the ready line; (d) at that width, ReplicaRouter.push_weights over the
+   worker and an in-process replica during traffic, a full payload of
+   seed-1 weights then an int8 delta to seed-2 weights (one quantize
+   launch a leaf, as the bucket plan predicts): no stream dropped,
+   weight_version 1 then 2 on both, post-swap streams equal to a fresh
+   engine built from the payload, every leaf at its address, the
+   reconstruction torch.equal to the publisher's, a corrupt chunk refused
+   with the version and leaves untouched; logged: payload bytes,
+   serialize and push seconds, weight_update_overlap_steps_total; then
+   the worker drains, stops and exits 0. Then the serving engines are
+   freed. Phase 2e runs inside this phase,
    before 2c, on the same engine: the 8 prompts through
    ragged_attention="off" (each its own prefill, on the flash forward
    kernel: 32 launches a prompt), last-token logits within twice the
@@ -368,9 +401,9 @@ exit 0):
    the resident (ZeRO 2), tiered (offload_optimizer {device: cpu,
    pin_memory: true}) and legacy ({device: cpu}) engines: tiered equal to
    resident bit for bit (losses, params, master, moments: torch.equal),
-   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 4 layers
-   (``DEEP_LAYERS``: earlier versions ran 32, then 12, then 8, then 6
-   here; cut for the run's time limit), bf16, AdamW, micro 2 x gas 2 x S 2048, remat, through the
+   legacy within rtol 0.05, atol 1e-2; then Mistral-7B at 2 layers
+   (``DEEP_LAYERS``: earlier versions ran 32, then 12, then 8, then 6,
+   then 4 here; cut for the run's time limit), bf16, AdamW, micro 2 x gas 2 x S 2048, remat, through the
    legacy and the tiered engine, 2 steps each (``DEEP_STEPS``; 3 before)
    on one fixed batch: losses finite, the last below
    the first, flash launches 2 x L x gas and L x gas a step, peak device
@@ -399,9 +432,9 @@ exit 0):
    optimizer offload at stage 3 refused, as in JAX), 3 steps each: losses
    and params torch.equal, flash launches 2 x L x gas and L x gas a
    step, the stack in pinned host memory; then offload_param cpu with
-   the host C++ optimizer at 4 layers, 2 steps (26 layers, the host's
-   cap, and 3 steps, then 12, 8 and 6 layers before; cut for the run's
-   time limit): losses
+   the host C++ optimizer at 2 layers, 2 steps (26 layers, the host's
+   cap, and 3 steps, then 12, 8, 6 and 4 layers before; cut for the
+   run's time limit): losses
    finite and falling, step ms, tokens/s, peak device GiB beside phase
    8b's 32-layer runs, host RSS, layer copies a step and their exposed
    share;
@@ -416,8 +449,8 @@ exit 0):
    no layer on the device after init (no stacked leaf among the
    persistent ones, the init's device bytes at most the persistent
    leaves' plus less than one layer), the files removed by close(); then
-   at 4 layers (20, where the host capped it, then 12, 8 and 6 before;
-   cut for the run's time limit), the same init check, 2 steps: losses finite and falling,
+   at 2 layers (20, where the host capped it, then 12, 8, 6 and 4
+   before; cut for the run's time limit), the same init check, 2 steps: losses finite and falling,
    step ms,
    tokens/s, peak device GiB, bytes read from the layer files and their
    rate, each sweep's share waiting on reads, init s and bytes written;
@@ -1562,6 +1595,10 @@ def serve_phase(dev):
     for k, n in kv_spill_phase(dev, cfg, eng).items():
         launches[k] += n
     log(f"phase 2d: {time.perf_counter() - t0:.0f}s")
+    t0 = time.perf_counter()
+    for k, n in fleet_phase(dev, cfg, eng, prompts, new).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"phase 2h: {time.perf_counter() - t0:.0f}s")
     launches["paged_attention"] += stitched["paged_attention"]
     launches["flash_fwd"] = stitched["flash_fwd"]
     return launches
@@ -2411,6 +2448,651 @@ def kv_spill_phase(dev, cfg, bf16_eng):
         f"{spilled_per_block['int8'] / spilled_per_block['bf16']:.4f} "
         f"(predicted about 0.5)")
     shutil.rmtree(disk_root, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 2h: the serving fleet on one card
+# ---------------------------------------------------------------------------
+FLEET_CHUNK_BLOCKS = 4        # KV blocks a chunk of the handoff stream
+FLEET_SPEC_LAYERS = 2         # the worker's depth (of 32; the time limit)
+FLEET_BLOCKS = 64             # pools of 2h (b)'s fresh engines (a request
+                              # there holds at most 11 blocks, 27 with the
+                              # overlap run's other request)
+
+
+def fleet_engine(dev, cfg, params, registry=None, **sm):
+    """A serving engine over the weight tensors ``params`` (shared, not
+    copied), built inside ``registry``'s scope when one is given so its
+    metrics land there."""
+    import contextlib
+
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.telemetry.registry import scoped_registry
+
+    with (scoped_registry(registry) if registry is not None
+          else contextlib.nullcontext()):
+        return InferenceEngineV2(
+            TransformerLM(cfg), RaggedInferenceEngineConfig.from_dict(
+                {"dtype": "bfloat16", "seed": 0, "decode_window": 8,
+                 "kv_quant": bool(sm.pop("kv_quant", False)),
+                 "state_manager": dict({"max_ragged_batch_size": 8192},
+                                       **sm)}),
+            params=params, device=dev)
+
+
+def gated(replicas):
+    """Hold each replica's loop thread inside a command until the returned
+    event is set: requests routed meanwhile wait in admission, and the
+    loop's first step then takes all of them, as a direct scheduler that
+    got them in one go does."""
+    import threading
+    gate = threading.Event()
+    for r in replicas:
+        r.serving.loop_runner.post(lambda: gate.wait(60.0))
+    return gate
+
+
+def direct_streams(eng, prompts, new):
+    """Greedy streams of ``prompts`` submitted together to a direct
+    DynamicSplitFuseScheduler on ``eng`` (the serving runtime's scheduler
+    with ServingConfig()'s defaults)."""
+    from deepspeed_tpu_torch.inference.v2 import DynamicSplitFuseScheduler
+    sched = DynamicSplitFuseScheduler(eng)
+    for i, p in enumerate(prompts):
+        sched.submit(7000 + i, p, new)
+    sched.run()
+    res = sched.results()
+    out = [res[7000 + i][len(p):].tolist() for i, p in enumerate(prompts)]
+    for i in range(len(prompts)):
+        sched.release(7000 + i)
+    return out
+
+
+def blocks_clean(eng):
+    """No KV block is held by a sequence: every block is free or retained
+    by the prefix index alone."""
+    sm = eng.state_manager
+    return (sm.tracked_sequences() == 0 and sm.free_blocks()
+            + len(sm._prefix) == sm.config.num_blocks - 1)
+
+
+def fleet_router_run(dev, cfg, eng, prompts, new):
+    """2h (a): two in-process replicas over ``eng``'s weight tensors
+    behind ReplicaRouter. Returns the engines' step counts."""
+    import asyncio
+
+    from deepspeed_tpu_torch.inference.v2.serve import (Replica,
+                                                        ReplicaRouter,
+                                                        RouterConfig,
+                                                        ServingConfig)
+    from deepspeed_tpu_torch.telemetry.registry import MetricsRegistry
+
+    regs = [MetricsRegistry(), MetricsRegistry()]
+    engines = [fleet_engine(dev, cfg, eng.params, regs[i],
+                            enable_prefix_caching=True) for i in range(2)]
+    # each replica's engine and serving stack report to its own registry
+    replicas = [Replica(f"fleet{i}", e, ServingConfig(), registry=regs[i])
+                for i, e in enumerate(engines)]
+    rng = np.random.default_rng(8)
+    prefix = list(map(int, rng.integers(1, cfg.vocab_size, 512)))
+    shared = [prefix + list(map(int, rng.integers(1, cfg.vocab_size, 64)))
+              for _ in range(8)]
+
+    async def run():
+        router = ReplicaRouter(replicas, RouterConfig(monitor_interval_s=0))
+        await router.start()
+        gate = gated(replicas)
+        t0 = time.perf_counter()
+        streams = [await router.submit(p, new) for p in prompts]
+        gate.set()
+        routed = [await s.drain() for s in streams]
+        routed_s = time.perf_counter() - t0
+        placed = [s.replica for s in streams]
+        # the shared-prefix requests: the first alone (its flush indexes
+        # the prefix), then the other seven at once
+        first = await router.submit(shared[0], 16)
+        await first.drain()
+        rest = [await router.submit(p, 16) for p in shared[1:]]
+        for s in rest:
+            await s.drain()
+        shared_placed = [first.replica] + [s.replica for s in rest]
+        shared_ok = all(s.status == "completed" and len(s.tokens) == 16
+                        for s in [first] + rest)
+        # drain one replica mid-traffic
+        live = [await router.submit(p, new) for p in prompts[:4]]
+        for s in live:
+            await s.__anext__()
+        victim = live[0].replica
+        drain = asyncio.ensure_future(router.drain_replica(victim))
+        await asyncio.sleep(0)
+        later = [await router.submit(p, 16) for p in prompts[4:]]
+        for s in live + later:
+            await s.drain()
+        await drain
+        drained = dict(victim=victim, state=router._by_name[victim].state,
+                       live=[(s.replica, s.status, len(s.tokens))
+                             for s in live],
+                       later=[(s.replica, s.status, len(s.tokens))
+                              for s in later])
+        await router.stop()
+        return routed, routed_s, placed, shared_placed, shared_ok, drained
+
+    routed, routed_s, placed, shared_placed, shared_ok, drained = \
+        asyncio.run(run())
+    # the reference: a direct scheduler on an engine configured as the
+    # replicas' (prefix caching aside), over the same weight tensors
+    ref_eng = fleet_engine(dev, cfg, eng.params)
+    subsets = {name: [i for i, n in enumerate(placed) if n == name]
+               for name in ("fleet0", "fleet1")}
+    log(f"2h (a): routed placement {placed} ({routed_s:.2f}s for "
+        f"{len(prompts)} x {new} tokens)")
+    if not all(subsets.values()):
+        raise AssertionError(f"2h (a): the ring put every request on one "
+                             f"replica: {placed}")
+    for name, idx in subsets.items():
+        ref = direct_streams(ref_eng, [prompts[i] for i in idx], new)
+        got = [routed[i] for i in idx]
+        if got != ref:
+            bad = [i for i, a, b in zip(idx, got, ref) if a != b]
+            raise AssertionError(f"2h (a): routed streams {bad} on {name} "
+                                 f"differ from the direct scheduler's")
+    if len(set(shared_placed)) != 1 or not shared_ok:
+        raise AssertionError(f"2h (a): shared-prefix placement "
+                             f"{shared_placed}, completed {shared_ok}")
+    home = replicas[0 if shared_placed[0] == "fleet0" else 1]
+    hits = home.registry.family_total("inference_prefix_hits_total")
+    if hits <= 0:
+        raise AssertionError(f"2h (a): no prefix-cache hit on {home.name}")
+    survivor = "fleet1" if drained["victim"] == "fleet0" else "fleet0"
+    if drained["state"] != "drained" or any(
+            st != "completed" or n != new for _, st, n in drained["live"]):
+        raise AssertionError(f"2h (a): drain {drained}")
+    if any(r != survivor or st != "completed" or n != 16
+           for r, st, n in drained["later"]):
+        raise AssertionError(f"2h (a): traffic after the drain {drained}")
+    for e, r in zip(engines, replicas):
+        if not blocks_clean(e):
+            raise AssertionError(f"2h (a): {r.name} holds KV blocks after "
+                                 f"the drain")
+    log(f"2h (a): routed streams token-identical to the direct scheduler "
+        f"on each replica's requests ({[len(v) for v in subsets.values()]}"
+        f"); 8 shared-prefix requests all on {home.name}, prefix hits "
+        f"{hits:.0f} there; drained {drained['victim']} mid-traffic: its "
+        f"{len(drained['live'])} streams finished, the next "
+        f"{len(drained['later'])} went to {survivor}; every block free or "
+        f"retained by the prefix index")
+    steps = [(e.ragged_steps, e.decode_steps) for e in engines + [ref_eng]]
+    del engines, replicas, ref_eng
+    return steps
+
+
+def fleet_handoff_run(dev, cfg, eng, prompts, new, kv_quant):
+    """2h (b) for one pool: each request alone, colocated on a fresh
+    engine and disaggregated (a fresh prefill engine -> chunked handoff ->
+    a fresh decode engine) through the router; fresh engines, because an
+    int8 block keeps its scales when freed. Returns (steps, stats)."""
+    import asyncio
+
+    from deepspeed_tpu_torch.inference.v2.serve import (PrefillReplica,
+                                                        Replica,
+                                                        ReplicaRouter,
+                                                        RouterConfig,
+                                                        ServingConfig)
+    from deepspeed_tpu_torch.telemetry.registry import MetricsRegistry
+
+    # a chunk as large as the prompt: the colocated prefill is one put(),
+    # as the prefill replica's is
+    scfg = dict(chunk=8192)
+    stats = dict(colo_ttft=[], disagg_ttft=[], bytes_per_block=[],
+                 chunk_ms=[], overlap=0.0)
+    steps = [0, 0]
+
+    async def one(prompt):
+        reg = MetricsRegistry()
+        colo_eng = fleet_engine(dev, cfg, eng.params, kv_quant=kv_quant,
+                                num_blocks=FLEET_BLOCKS)
+        pre_eng = fleet_engine(dev, cfg, eng.params, kv_quant=kv_quant,
+                               num_blocks=FLEET_BLOCKS)
+        dec_eng = fleet_engine(dev, cfg, eng.params, reg, kv_quant=kv_quant,
+                               num_blocks=FLEET_BLOCKS)
+        colo = Replica("colo", colo_eng, ServingConfig(**scfg))
+        await colo.start()
+        t0 = time.perf_counter()
+        s = await colo.submit(prompt, new)
+        await s.__anext__()
+        stats["colo_ttft"].append(time.perf_counter() - t0)
+        colocated = await s.drain()
+        await colo.stop()
+        dec = Replica("decode0", dec_eng, ServingConfig(**scfg),
+                      registry=reg)
+        router = ReplicaRouter(
+            [dec], RouterConfig(disaggregated=True, monitor_interval_s=0,
+                                handoff_chunk_blocks=FLEET_CHUNK_BLOCKS),
+            prefill_replicas=[PrefillReplica("prefill0", pre_eng)])
+        await router.start()
+        t0 = time.perf_counter()
+        s = await router.submit(prompt, new)
+        await s.__anext__()
+        stats["disagg_ttft"].append(time.perf_counter() - t0)
+        disagg = await s.drain()
+        await router.stop()
+        nbytes = reg.family_total("handoff_chunk_bytes_total")
+        n_blocks = -(-len(prompt) // dec_eng.block_size)
+        stats["bytes_per_block"].append(nbytes / n_blocks)
+        apply_h = reg.get("handoff_chunk_apply_seconds")
+        chunks = reg.family_total("handoff_chunks_total")
+        stats["chunk_ms"].append(
+            1e3 * sum(sr.sum for _, sr in apply_h.series()) / max(chunks, 1))
+        stats["overlap"] += reg.family_total(
+            "handoff_chunk_overlap_steps_total")
+        for e in (colo_eng, pre_eng, dec_eng):
+            steps[0] += e.ragged_steps
+            steps[1] += e.decode_steps
+        return colocated, disagg, chunks, n_blocks
+
+    tag = "int8" if kv_quant else "bf16"
+    for i, p in enumerate(prompts):
+        colocated, disagg, chunks, n_blocks = asyncio.run(one(p))
+        if len(colocated) != new or disagg != colocated:
+            raise AssertionError(
+                f"2h (b) {tag}: request {i} disaggregated "
+                f"{first_divergence(disagg, colocated)} != colocated")
+        if chunks != -(-n_blocks // FLEET_CHUNK_BLOCKS):
+            raise AssertionError(f"2h (b) {tag}: {chunks} chunks applied "
+                                 f"for {n_blocks} blocks")
+    return steps, stats
+
+
+def fleet_overlap_run(dev, cfg, eng, prompt):
+    """2h (b): one chunked handoff applied while the decode replica's loop
+    decodes another request; the scheduler steps between chunk applies."""
+    import asyncio
+
+    from deepspeed_tpu_torch.inference.v2.serve import (PrefillReplica,
+                                                        Replica,
+                                                        ServingConfig)
+
+    async def run():
+        pre_eng = fleet_engine(dev, cfg, eng.params, num_blocks=FLEET_BLOCKS)
+        pre = PrefillReplica("prefill0", pre_eng)
+        dec_eng = fleet_engine(dev, cfg, eng.params, num_blocks=FLEET_BLOCKS)
+        dec = Replica("decode0", dec_eng, ServingConfig())
+        await dec.start()
+        # a victim long enough to outlast the transfer (cancelled after)
+        victim = await dec.submit(prompt[:128], 1024)
+        await victim.__anext__()
+        tok, payloads, rng_state, _ = await pre.prefill(
+            prompt, 16, chunk_blocks=1)
+        loop = dec.serving.loop_runner
+        handle = await dec.serving.begin_handoff(payloads[0])
+        s0 = loop.steps_done
+        for chunk in payloads[1:]:
+            before = loop.steps_done
+            deadline = time.monotonic() + 60.0
+            while loop.steps_done == before:
+                if time.monotonic() > deadline or victim.status != "active":
+                    raise AssertionError("2h (b): the decode loop took no "
+                                         "step while the handoff streamed")
+                await asyncio.sleep(0.001)
+            await handle.feed(chunk)
+        overlapped = loop.steps_done - s0
+        stream = await handle.commit(prompt=prompt, generated=[tok],
+                                     max_new_tokens=16, rng_state=rng_state)
+        rest = await stream.drain()
+        await victim.cancel()
+        await dec.stop()
+        return overlapped, len(payloads) - 1, len(rest), (pre_eng, dec_eng)
+
+    overlapped, n_chunks, n_rest, engines = asyncio.run(run())
+    if n_rest != 15 or overlapped < n_chunks:
+        raise AssertionError(f"2h (b): overlap run {overlapped} steps over "
+                             f"{n_chunks} chunks, {n_rest} tokens")
+    return overlapped, n_chunks, (sum(e.ragged_steps for e in engines),
+                                  sum(e.decode_steps for e in engines))
+
+
+def fleet_spec(cfg, seed=0):
+    """The worker's spec: Mistral-7B width at FLEET_SPEC_LAYERS layers."""
+    import dataclasses
+    return {"model": dict(dataclasses.asdict(cfg),
+                          num_layers=FLEET_SPEC_LAYERS),
+            "state_manager": {"max_tracked_sequences": 16,
+                              "max_seq_len": 2048, "num_blocks": 128,
+                              "block_size": 64,
+                              "max_ragged_batch_size": 4096},
+            "engine": {"dtype": "bfloat16", "decode_window": 8},
+            "serving": {"token_budget": 4096, "chunk": 4096},
+            "seed": seed}
+
+
+def leaf_state(eng):
+    from deepspeed_tpu_torch.inference.v2.serve import weights as sw
+    return [(n, t.data_ptr(), t.clone()) for n, t in
+            sw.flatten_params(eng.params)]
+
+
+def fleet_remote_run(dev, cfg, prompts, new):
+    """2h (c) and (d): a worker subprocess on the same card (spawn_worker,
+    the spec at Mistral-7B width and FLEET_SPEC_LAYERS layers) beside an
+    in-process engine from the same spec; then live weight pushes to both
+    through ReplicaRouter.push_weights. Returns launch counts."""
+    import asyncio
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.v2.serve import spawn_worker
+
+    spec = fleet_spec(cfg)
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec_dir = tempfile.mkdtemp(prefix="fleet_spec_",
+                                dir=os.path.join(root, "build"))
+    spec_path = os.path.join(spec_dir, "spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    # faulthandler: a SIGABRT on a stuck worker dumps its threads' stacks
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), PYTHONFAULTHANDLER="1")
+    t0 = time.perf_counter()
+    proc, info = spawn_worker(["--spec", spec_path, "--name", "worker0",
+                               "--device", dev.type], timeout_s=240.0,
+                              env=env)
+    spawn_s = time.perf_counter() - t0
+    log(f"2h (c): spawn_worker -> ready line in {spawn_s:.1f}s: {info}")
+    def tails():
+        return (f"worker stdout:\n{''.join(proc.stdout_tail)[-3000:]}\n"
+                f"worker stderr:\n{''.join(proc.stderr_tail)[-6000:]}")
+
+    out = {}
+    try:
+        try:
+            out = asyncio.run(asyncio.wait_for(fleet_remote_checks(
+                dev, cfg, spec, info, prompts, new), 300.0))
+        except asyncio.TimeoutError:
+            import faulthandler
+            import signal
+            faulthandler.dump_traceback(all_threads=True)
+            proc.send_signal(signal.SIGABRT)
+            time.sleep(3.0)
+            raise AssertionError(f"2h (c)-(d) did not finish in 300 s; "
+                                 f"{tails()}")
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(spec_dir, ignore_errors=True)
+    if rc != 0:
+        raise AssertionError(f"2h (c): the worker exited with {rc}: "
+                             f"{tails()}")
+    log(f"2h (c): the worker drained, stopped and exited with 0")
+    out["spawn_s"] = spawn_s
+    return out
+
+
+async def fleet_remote_checks(dev, cfg, spec, info, prompts, new):
+    import asyncio
+
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.config_v2 import \
+        DSStateManagerConfig
+    from deepspeed_tpu_torch.inference.v2.serve import (PrefillReplica,
+                                                        RemoteReplica,
+                                                        Replica,
+                                                        ReplicaRouter,
+                                                        RouterConfig)
+    from deepspeed_tpu_torch.inference.v2.serve import weights as sw
+    from deepspeed_tpu_torch.inference.v2.serve import worker as ws
+    from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
+    from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+    from deepspeed_tpu_torch.telemetry import get_registry
+
+    remote = RemoteReplica("worker0", info["host"], int(info["port"]))
+    local_eng = ws.build_engine(spec, dev)
+    local = Replica("local0", local_eng, ws._serving_config(spec))
+    await local.start()
+    await remote.start()
+
+    async def serve_seq(replica, ps, n):
+        outs = []
+        for p in ps:
+            s = await replica.submit(p, n)
+            outs.append(await s.drain())
+        return outs
+
+    async def fresh_streams(params, ps, n):
+        model = TransformerLM(TransformerConfig(**spec["model"]))
+        e = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+            state_manager=DSStateManagerConfig(**spec["state_manager"]),
+            **spec["engine"]), params=params, device=dev)
+        r = Replica("fresh", e, ws._serving_config(spec))
+        await r.start()
+        try:
+            return await serve_seq(r, ps, n)
+        finally:
+            await r.stop()
+
+    ps = [p[:256] for p in prompts[:2]]
+    # (c) the worker's streams against an in-process engine of one spec
+    log("2h (c): the worker serves")
+    rem = await serve_seq(remote, ps, new)
+    log("2h (c): the in-process engine of the spec serves")
+    loc = await serve_seq(local, ps, new)
+    if rem != loc or any(len(x) != new for x in rem):
+        raise AssertionError("2h (c): remote streams differ from the "
+                             "in-process engine built from the same spec")
+    # a handoff over POST /handoff from an in-process prefill replica
+    log("2h (c): handoffs over POST /handoff")
+    pre = PrefillReplica("prefill0", ws.build_engine(spec, dev))
+    handed = []
+    for p in ps:
+        tok, payloads, rng_state, _ = await pre.prefill(
+            p, new, chunk_blocks=FLEET_CHUNK_BLOCKS)
+        s = await remote.resume_handoff(
+            payloads, chunked=True, prompt=p, generated=[tok],
+            max_new_tokens=new, rng_state=rng_state)
+        handed.append([tok] + await s.drain())
+    if handed != rem:
+        raise AssertionError("2h (c): streams handed off over POST /handoff "
+                             "differ from the worker's own")
+    router = ReplicaRouter([remote, local],
+                           RouterConfig(monitor_interval_s=0))
+    await router.start()
+    text = await router.federated_metrics_async()
+    if 'replica="worker0"' not in text:
+        raise AssertionError("2h (c): federated /metrics lack the worker")
+    log(f"2h (c): worker streams token-identical to the in-process engine "
+        f"of the same spec ({len(ps)} x {new} tokens), and through POST "
+        f"/handoff from an in-process prefill replica; federated /metrics "
+        f"{len(text.splitlines())} lines with replica=\"worker0\"")
+
+    # (d) live weight pushes during traffic
+    log("2h (d): payloads")
+    gen = torch.Generator(device=dev)
+    model = TransformerLM(TransformerConfig(**spec["model"]))
+    trees = {}
+    for seed in (1, 2):
+        gen.manual_seed(seed)
+        trees[seed] = model.init_params(gen, dtype=torch.bfloat16)
+    before = [(n, t.data_ptr()) for n, t in
+              sw.flatten_params(local_eng.params)]
+    t0 = time.perf_counter()
+    items = sw.flatten_params(trees[1])
+    buckets = sw.plan_buckets(items)
+    flat1 = {n: sw.fetch_leaf(t) for n, t in items}
+    full = sw.chunk_weight_leaves(({n: flat1[n] for n in b}
+                                   for b in buckets), 1)
+    full_s = time.perf_counter() - t0
+    flat2 = {n: sw.fetch_leaf(t) for n, t in sw.flatten_params(trees[2])}
+    qk.quantize_blocks.launches = 0
+    t0 = time.perf_counter()
+    delta, recon = sw.chunk_weight_deltas(flat2, flat1, 2, 1, device=dev)
+    torch.cuda.synchronize()
+    delta_s = time.perf_counter() - t0
+    q_launches = qk.quantize_blocks.launches
+    if q_launches != sum(len(b) for b in sw.plan_buckets(list(
+            flat2.items()))):
+        raise AssertionError(f"2h (d): {q_launches} quantize launches for "
+                             f"{len(flat2)} leaves")
+    reg = get_registry()
+    ov0 = reg.family_total("weight_update_overlap_steps_total")
+    results = {}
+    for version, payload in ((1, full), (2, delta)):
+        log(f"2h (d): push {version}")
+        traffic = [await router.submit(p, 32) for p in ps]
+        t0 = time.perf_counter()
+        got = await router.push_weights(payload)
+        push_s = time.perf_counter() - t0
+        done = [await s.drain() for s in traffic]
+        if got != version or any(len(x) != 32 for x in done) or any(
+                s.status != "completed" for s in traffic):
+            raise AssertionError(f"2h (d): push {version}: {got}, streams "
+                                 f"{[s.status for s in traffic]}")
+        await remote.refresh(force=True)
+        if (local.weight_version, remote.weight_version) != (version,
+                                                             version):
+            raise AssertionError(
+                f"2h (d): weight_version local {local.weight_version} "
+                f"remote {remote.weight_version}, want {version}")
+        flat = flat1 if version == 1 else recon
+        ref = await fresh_streams(
+            sw.flat_to_tree(local_eng.params, flat), ps, new)
+        if await serve_seq(local, ps, new) != ref or \
+                await serve_seq(remote, ps, new) != ref:
+            raise AssertionError(f"2h (d): post-swap streams at version "
+                                 f"{version} differ from a fresh engine "
+                                 f"built from the payload")
+        results[version] = (sw.payload_bytes(payload), push_s)
+    after = [(n, t.data_ptr()) for n, t in
+             sw.flatten_params(local_eng.params)]
+    if before != after:
+        raise AssertionError("2h (d): a swap moved a leaf")
+    base = sw.delta_base_of(local_eng)
+    if not all(torch.equal(torch.from_numpy(base[n]),
+                           torch.from_numpy(recon[n])) for n in recon):
+        raise AssertionError("2h (d): the delta's reconstruction differs "
+                             "from the publisher's recon")
+    # a corrupt chunk: typed failure, version and params untouched
+    snap = leaf_state(local_eng)
+    bad = list(full)
+    bad[1] = bytearray(bad[1])
+    bad[1][len(bad[1]) // 2] ^= 0xFF
+    bad[1] = bytes(bad[1])
+    try:
+        await local.apply_weights(bad)
+        raise AssertionError("2h (d): a corrupt chunk applied")
+    except ValueError as e:
+        if "crc" not in str(e).lower() and "corrupt" not in str(e).lower():
+            raise
+    if local.weight_version != 2 or not all(
+            p == t.data_ptr() and torch.equal(c, t) for (_, p, c), (_, t)
+            in zip(snap, sw.flatten_params(local_eng.params))):
+        raise AssertionError("2h (d): a corrupt payload changed the engine")
+    overlap = reg.family_total("weight_update_overlap_steps_total") - ov0
+    log(f"2h (d): full payload {results[1][0] / 2**20:.1f} MiB "
+        f"({len(full) - 1} chunks, serialized in {full_s:.2f}s, pushed to "
+        f"both replicas in {results[1][1]:.2f}s); delta "
+        f"{results[2][0] / 2**20:.1f} MiB ({results[2][0] / results[1][0]:.3f}"
+        f" of full; built in {delta_s:.2f}s with {q_launches} quantize "
+        f"launches, pushed in {results[2][1]:.2f}s); no stream dropped, "
+        f"weight_version 1 then 2 on both, post-swap streams = fresh "
+        f"engines from the payloads, every leaf at its address, the "
+        f"delta's reconstruction torch.equal to recon, a corrupt chunk "
+        f"refused (version and leaves untouched); "
+        f"weight_update_overlap_steps_total +{overlap:.0f}")
+    # drain (the router drains both replicas), then stop: the worker
+    # process exits
+    await router.stop(drain=True)
+    await remote.stop()
+    return {"quantize_blocks": q_launches}
+
+
+def fleet_phase(dev, cfg, eng, prompts, new):
+    """Phase 2h: the serving fleet on one card (see the module docstring).
+    Returns the phase's paged, ragged and quantize launches."""
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_attention
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import \
+        ragged_attention
+
+    L = cfg.num_layers
+    t_phase = time.perf_counter()
+    for kern in (paged_attention, ragged_attention):
+        kern.launches = 0
+        kern.q8_launches = 0
+    t0 = time.perf_counter()
+    steps = fleet_router_run(dev, cfg, eng, prompts, new)
+    ragged = sum(s[0] for s in steps)
+    decode = sum(s[1] for s in steps)
+    if (ragged_attention.launches, paged_attention.launches) != (
+            L * ragged, L * decode) or not ragged or not decode:
+        raise AssertionError(
+            f"2h (a): launches ragged {ragged_attention.launches} paged "
+            f"{paged_attention.launches} != {L} x steps ({ragged}, "
+            f"{decode})")
+    log(f"2h (a): ragged {ragged_attention.launches} / paged "
+        f"{paged_attention.launches} launches = {L} x steps ({ragged}, "
+        f"{decode}); {time.perf_counter() - t0:.1f}s")
+    launches = {"ragged_attention": ragged_attention.launches,
+                "paged_attention": paged_attention.launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ps = [prompts[2], prompts[4]]       # 384 and 640 tokens: 2 and 3 chunks
+    for kv_quant in (False, True):
+        tag = "int8" if kv_quant else "bf16"
+        attr = "q8_launches" if kv_quant else "launches"
+        for kern in (paged_attention, ragged_attention):
+            setattr(kern, attr, 0)
+        (ragged, decode), st = fleet_handoff_run(dev, cfg, eng, ps, 32,
+                                                 kv_quant)
+        got = (getattr(ragged_attention, attr),
+               getattr(paged_attention, attr))
+        if got != (L * ragged, L * decode) or not ragged or not decode:
+            raise AssertionError(f"2h (b) {tag}: launches {got} != {L} x "
+                                 f"({ragged}, {decode})")
+        suffix = "_q8" if kv_quant else ""
+        launches[f"ragged_attention{suffix}"] = \
+            launches.get(f"ragged_attention{suffix}", 0) + got[0]
+        launches[f"paged_attention{suffix}"] = \
+            launches.get(f"paged_attention{suffix}", 0) + got[1]
+        log(f"2h (b) {tag}: {len(ps)} requests (prompts "
+            f"{[len(p) for p in ps]}, 32 new) disaggregated over the "
+            f"chunked handoff ({FLEET_CHUNK_BLOCKS} blocks a chunk) "
+            f"token-identical to colocated; bytes a block "
+            f"{statistics.median(st['bytes_per_block']):.0f}, ms a chunk "
+            f"applied {statistics.median(st['chunk_ms']):.3f}, TTFT "
+            f"disaggregated {statistics.median(st['disagg_ttft']) * 1e3:.1f}"
+            f" ms against colocated "
+            f"{statistics.median(st['colo_ttft']) * 1e3:.1f} ms (medians), "
+            f"handoff_chunk_overlap_steps_total +{st['overlap']:.0f} "
+            f"(each request alone: nothing else to step); launches {got}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    paged_attention.launches = ragged_attention.launches = 0
+    overlapped, n_chunks, (r, d) = fleet_overlap_run(dev, cfg, eng,
+                                                     prompts[3])
+    if (ragged_attention.launches, paged_attention.launches) != (
+            L * r, L * d):
+        raise AssertionError("2h (b): overlap run launches")
+    launches["ragged_attention"] += ragged_attention.launches
+    launches["paged_attention"] += paged_attention.launches
+    log(f"2h (b): a {n_chunks}-chunk handoff into a replica decoding "
+        f"another request: {overlapped} scheduler steps while it streamed "
+        f"in; {time.perf_counter() - t0:.1f}s for (b)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paged_attention.launches = ragged_attention.launches = 0
+    remote = fleet_remote_run(dev, cfg, prompts, 32)
+    launches["quantize_blocks"] = remote["quantize_blocks"]
+    # this process's 2-layer engines (the worker counts its own)
+    launches["ragged_attention"] += ragged_attention.launches
+    launches["paged_attention"] += paged_attention.launches
+    log(f"2h (c)-(d): {time.perf_counter() - t0:.1f}s; phase 2h "
+        f"{time.perf_counter() - t_phase:.1f}s")
     return launches
 
 
@@ -5534,14 +6216,14 @@ def lamb_tiered_phase(dev, cfg, batch, adamw):
 
 
 # the depth and steps of the deep offload runs of phases 8b, 8d and 8e:
-# 4 layers and 2 steps, cut from 32 (8b), 26 (8d) and 20 (8e) layers
+# 2 layers and 2 steps, cut from 32 (8b), 26 (8d) and 20 (8e) layers
 # (their host caps) and 3 steps to make room for phases 2e and 8f, then
-# from 12 layers for phases 2f and 8g, from 8 for phases 2g and 8j and
-# from 6 for phase 8l, within the run's time limit. At these depths the
+# from 12 layers for phases 2f and 8g, from 8 for phases 2g and 8j, from
+# 6 for phase 8l and from 4 for phase 2h, within the run's time limit. At these depths the
 # resident state (18 B a parameter) would still fit the card: these runs show the
 # offloaded engines at depth, not a depth only offload reaches (earlier
 # versions of this script did, at 20-32 layers)
-DEEP_LAYERS = 4
+DEEP_LAYERS = 2
 DEEP_STEPS = 2
 # the depth of phases 8d's and 8e's reference comparisons: 4 layers
 # before, cut (with DEEP_LAYERS, 6 before) to keep the run well inside its

@@ -72,8 +72,10 @@ recorder, anomaly detectors and post-mortem bundles, and ``generate()``
 samples (temperature / top-p / top-k) on the device; under
 ``ragged_attention="off"`` put() takes the stitched prefill / continue /
 decode dispatch, its prompts on the flash forward kernel. The fleet tier
-(router, replicas, KV handoff, weight pushes) is ROADMAP A7, the online
-adapter A12, speculation and LoRA A11.
+(``inference/v2/serve``: the replica router, in-process and remote
+replicas behind worker processes, disaggregated prefill over the chunked
+KV handoff, live weight pushes and the autoscaler) is the JAX package's;
+the online adapter is ROADMAP A12, speculation and LoRA A11.
 """
 
 __version__ = "0.1.0"

@@ -24,14 +24,15 @@ knobs), the telemetry of the JAX package (the ``inference_*`` metrics,
 trace spans, flight-recorder events, the KV-pool gauges, the
 ``inference_kv_pool_quant_bytes_saved`` gauge), ``bind_trace`` for
 distributed tracing, and ``memory_report`` (the CUDA caching allocator's
-figures), and the KV spill tier (``engine.spill``, ``ragged/spill.py``).
+figures), the KV spill tier (``engine.spill``, ``ragged/spill.py``), and
+the live weight version (``weight_version``, ``swap_params``,
+``note_weight_swap``: ``serve/weights.py`` swaps the leaves in place).
 Under ``ragged_attention="off"`` put() takes the stitched dispatch
 instead (JAX :1583-1621): a new prompt through ``paged_prefill`` (its
 causal self-attention on the flash forward kernel when its bucket is a
 multiple of 128), a multi-token continuation through ``paged_continue``,
 single tokens as batched decode steps on the paged decode kernel. Not
-ported: speculative decoding and the LoRA bank (ROADMAP A11) and weight
-hot-swaps (A7).
+ported: speculative decoding and the LoRA bank (ROADMAP A11).
 
 Under ``quant_bits`` 8 or 4 the weights rest quantized
 (``inference/quantization.py``) and are dequantized right before use.
@@ -110,8 +111,13 @@ class InferenceEngineV2:
         self.dtype = DTYPES[config.dtype]
         self.block_size = sm.block_size
 
+        # the leaves that are the caller's own memory (_cast_tree reuses a
+        # tensor already on the device in the dtype): a weight swap gives
+        # them storage of their own first (serve/weights.py)
+        self._borrowed_leaves = set()
         if params is not None:
             self.params = _cast_tree(params, self.device, self.dtype)
+            self._borrowed_leaves = _borrowed_leaves(params, self.params)
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
@@ -168,6 +174,10 @@ class InferenceEngineV2:
         # scheduler binds them at submit so batch-level spans carry the
         # trace ids of every request they served; cleared on flush()
         self._uid_traces: Dict[int, str] = {}
+        # live-weight version (serve/weights.py hot-swap): 0 = the boot
+        # weights; set by each swap and advertised through /healthz, so
+        # the router's blue/green rollout converges a fleet on one version
+        self.weight_version = 0
         self._init_telemetry()
         self.ragged_enabled = check_ragged_mode(config.ragged_attention)
         self.decode_window = max(int(config.decode_window), 1)
@@ -267,6 +277,19 @@ class InferenceEngineV2:
             "HBM the int8 KV pool frees vs the same pool at the serving "
             "dtype (0 when kv_quant is off) — the capacity headroom that "
             "admits ~2x concurrent sequences", unit="bytes")
+        self._m_weight_swaps = reg.counter(
+            "inference_weight_swaps_total",
+            "live param hot-swaps applied to this engine (in-place copies "
+            "into the existing leaves; every leaf keeps its address)")
+        self._m_weight_swap_time = reg.histogram(
+            "inference_weight_swap_seconds",
+            "param hot-swap apply time (the cast and in-place copy of "
+            "every leaf)", unit="s",
+            buckets=(1e-4, 1e-3, 1e-2, 0.1, 1.0, 10.0))
+        self._m_weight_version = reg.gauge(
+            "serving_weight_version",
+            "live weight version this engine serves (0 = the boot "
+            "checkpoint; bumped by each hot-swap)")
 
     def _update_pool_telemetry(self):
         """KV-pool gauges from the block allocator's host counters (no
@@ -757,6 +780,24 @@ class InferenceEngineV2:
         self.state_manager.flush_sequence(uid)
         self._update_pool_telemetry()
 
+    # -- weight hot-swap (serve/weights.py) -----------------------------
+    def note_weight_swap(self, seconds: float) -> None:
+        """Book-keeping after ``serve/weights.swap_engine_params`` wrote
+        new values into ``self.params``: telemetry, a flight event, and
+        the params buffer's bytes."""
+        self._m_weight_swaps.inc()
+        self._m_weight_swap_time.observe(seconds)
+        self._m_weight_version.set(self.weight_version)
+        flight.record("weight_swap", version=int(self.weight_version),
+                      dur_s=round(float(seconds), 5))
+        ds_memory.record_buffer("params", ds_memory.tree_bytes(self.params))
+
+    def swap_params(self, flat_leaves, version: int) -> None:
+        """Install published weight leaves (``{path: fp32 ndarray}``) in
+        place (``serve/weights.swap_engine_params``)."""
+        from .serve import weights as serve_weights
+        serve_weights.swap_engine_params(self, flat_leaves, version)
+
     # -- distributed tracing (telemetry/context.py) ---------------------
     def bind_trace(self, uid: int, trace_id: str) -> None:
         """Correlate ``uid``'s engine spans with a distributed trace:
@@ -915,6 +956,26 @@ class InferenceEngineV2:
             for uid in uids:
                 self.flush(uid)
         return [np.asarray(o) for o in outs]
+
+
+def _borrowed_leaves(src, dst, prefix: str = "") -> set:
+    """Path names (``checkpoint/state_checkpoint.leaf_paths``) of the
+    leaves of ``dst`` that start at the same address as their ``src``
+    leaf: ``_cast_tree`` kept the caller's memory."""
+    if isinstance(dst, dict):
+        out = set()
+        for k in dst:
+            out |= _borrowed_leaves(src[k], dst[k], f"{prefix}{k}/")
+        return out
+    if not isinstance(dst, torch.Tensor):
+        return set()
+    if isinstance(src, torch.Tensor):
+        ptr = src.data_ptr()
+    elif isinstance(src, np.ndarray):
+        ptr = src.__array_interface__["data"][0]
+    else:
+        return set()
+    return {prefix[:-1]} if dst.data_ptr() == ptr else set()
 
 
 def _cast_tree(tree, device, dtype):

@@ -62,20 +62,19 @@ _TILE_HEAD_DIMS = (64, 128)
 # kv head) pairs b, b + blocks, ... and walks the single-token runs among
 # them, so a prefill-heavy buffer does not launch a block per token
 SINGLETON_BLOCKS = 8 * H100_SMS
-# per device: the tile launch's scan of the buffer (rank int32 [T], the
-# count of single-token runs int32 [1]), and the single-token walk's
-# workspace under the plan for the table's rows, grown as needed
-_scans = {}
+# per device: the single-token walk's workspace under the plan for the
+# table's rows, grown as needed
 _fine_workspaces = {}
 
 
 def _scan_buffers(device, T):
-    rank, scan = _scans.get(device, (None, None))
-    if rank is None or rank.numel() < T:
-        rank = torch.empty(T, dtype=torch.int32, device=device)
-        scan = torch.empty(1, dtype=torch.int32, device=device)
-        _scans[device] = (rank, scan)
-    return rank, scan
+    """The tile launch's scan of the buffer (rank int32 [T], the count of
+    single-token runs int32 [1]), which the single-token walk, a second
+    launch, reads. Fresh for each call: engines serving from two threads
+    enqueue on one stream, and another call's tile launch must not
+    overwrite them between this call's two launches."""
+    return (torch.empty(T, dtype=torch.int32, device=device),
+            torch.empty(1, dtype=torch.int32, device=device))
 
 
 def ragged_attention_plain(q, k_cache, v_cache, row_ids, lengths,

@@ -60,9 +60,11 @@ trace id, the server's span id) and the final NDJSON line carries
 
 Port note: a copy of ``deepspeed_tpu/inference/v2/serve/api.py``: the
 same routes, status codes, headers and NDJSON lines, so a client cannot
-tell the two packages apart. The routed frontend mode needs the replica
-router, which is not ported (ROADMAP A7); the duck-typed hooks for it
-stay and are simply absent on a single :class:`ServingEngine`.
+tell the two packages apart. In the routed frontend mode the API serves a
+:class:`~.router.ReplicaRouter` through the same duck-typed hooks
+(``health``, ``replica_statusz``, ``router_statusz``,
+``federated_metrics_async``, ``fleet_timeline``), which a single
+:class:`ServingEngine` simply lacks.
 """
 
 import asyncio

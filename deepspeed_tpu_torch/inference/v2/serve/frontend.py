@@ -18,12 +18,12 @@ Tokens are byte-identical to the direct scheduler path: the runtime
 changes WHEN work runs, never what it computes.
 
 Port note: a copy of ``deepspeed_tpu/inference/v2/serve/frontend.py``
-(``ServingConfig``, ``TokenStream``, ``ServingEngine``). The fleet
-surface raises ``NotImplementedError`` with its ROADMAP label: KV
-handoffs (``resume``, ``begin_handoff``) and live weight updates
-(``begin_weight_update``, ``apply_weights``) are ROADMAP A7, and
-``ServingConfig.autotune`` (the online adapter, ``autotuning/online.py``)
-is ROADMAP A12.
+(``ServingConfig``, ``TokenStream``, ``ServingEngine``, and the fleet's
+handles ``ChunkedHandoff`` and ``WeightUpdate``: KV handoffs through
+``resume`` / ``begin_handoff``, live weight updates through
+``begin_weight_update`` / ``apply_weights``). ``ServingConfig.autotune``
+(the online adapter, ``autotuning/online.py``) raises
+``NotImplementedError`` (ROADMAP A12).
 """
 
 import asyncio
@@ -39,11 +39,6 @@ from ....telemetry.recorder import get_recorder
 from ..scheduler import DynamicSplitFuseScheduler
 from .admission import AdmissionConfig, AdmissionController
 from .loop import FollowerLoop, LeaderEngine, ModelGroup, ServingLoop
-
-
-def _fleet_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP A7)")
 
 
 class DeadlineExceeded(Exception):
@@ -303,6 +298,12 @@ class ServingEngine:
         await self.stop(drain=exc == (None, None, None))
 
     # -- submission -----------------------------------------------------
+    def _refuse_follower(self) -> None:
+        if self.follower:
+            raise RuntimeError(
+                "this rank follows its engine group's rank 0, which serves "
+                "the requests")
+
     async def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                      eos_token_id: Optional[int] = None,
                      temperature: float = 0.0, top_p: float = 1.0,
@@ -322,10 +323,7 @@ class ServingEngine:
         adapter to serve the request through (None = base model); it
         scopes admission fairness within the tenant and the engine's
         per-row adapter gather."""
-        if self.follower:
-            raise RuntimeError(
-                "this rank follows its engine group's rank 0, which serves "
-                "the requests")
+        self._refuse_follower()
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         uid = next(self._uids)
@@ -349,22 +347,119 @@ class ServingEngine:
         self._loop_runner.register(entry)
         return stream
 
-    # -- fleet surface (serve/handoff.py, serve/weights.py): ROADMAP A7 --
-    async def resume(self, pack, **kw) -> TokenStream:
-        """Adopt a handed-off request: not ported (ROADMAP A7)."""
-        raise _fleet_not_ported("KV handoff (resume)")
+    # -- handoff (prefill/decode disaggregation; serve/handoff.py) ------
+    async def resume(self, pack, *, prompt: Sequence[int],
+                     generated: Sequence[int], max_new_tokens: int,
+                     eos_token_id: Optional[int] = None,
+                     temperature: float = 0.0, top_p: float = 1.0,
+                     top_k: int = 0, rng_state=None,
+                     deadline_s: Optional[float] = None,
+                     trace_ctx=None) -> TokenStream:
+        """Adopt a handed-off request: restore the KV ``pack`` exported
+        by a prefill replica and continue decoding it here. The stream
+        yields only the tokens decoded on THIS runtime — the caller
+        already streamed ``generated`` (at least the prefill's first
+        token). Restore and scheduler adoption run on the loop thread
+        (the engine is not thread-safe); a restore failure ends the
+        stream with status 'error'.
 
-    async def begin_handoff(self, header_chunk: bytes):
-        """Open a chunked streaming handoff: not ported (ROADMAP A7)."""
-        raise _fleet_not_ported("chunked KV handoff (begin_handoff)")
+        ``trace_ctx`` continues the request's distributed trace across
+        the handoff; when omitted, the pack's wire payload (embedded by
+        the prefill side — serve/handoff.py) or the caller's bound
+        context is used, so the decode hop lands in the SAME trace as
+        router dispatch and prefill.
 
-    async def begin_weight_update(self, header_chunk: bytes):
-        """Open a live weight update: not ported (ROADMAP A7)."""
-        raise _fleet_not_ported("live weight updates (begin_weight_update)")
+        Resumed requests bypass the admission queue — there is no
+        pending phase to queue through; the ROUTER is the admission
+        point for disaggregated traffic and picks the decode replica by
+        its load signals before prefill ever runs."""
+        self._refuse_follower()
+        if self._stopped or self.admission.closed:
+            from .admission import OverloadedError
+            raise OverloadedError(
+                "draining", "serving runtime is draining; not accepting "
+                "handoffs",
+                retry_after_s=self.config.admission.retry_after_s)
+        uid = next(self._uids)
+        stream = TokenStream(self, uid, asyncio.get_running_loop())
+        entry = _Entry(
+            uid=uid, prompt=list(map(int, prompt)),
+            max_new_tokens=int(max_new_tokens),
+            eos_token_id=eos_token_id, temperature=temperature,
+            top_p=top_p, top_k=top_k, seed=None, tenant="handoff",
+            weight=None,
+            deadline_t=(self.clock() + deadline_s
+                        if deadline_s is not None else None),
+            on_token=stream._push_token, on_end=stream._push_end,
+            state="inflight",
+            trace_ctx=(trace_ctx if trace_ctx is not None
+                       else trace_context.from_wire(pack.get("trace"))
+                       or trace_context.current()))
+        self._loop_runner.resume(entry, pack,
+                                 generated=list(map(int, generated)),
+                                 rng_state=rng_state)
+        return stream
+
+    async def begin_handoff(self, header_chunk: bytes) -> "ChunkedHandoff":
+        """Open a chunked streaming handoff (serve/handoff.py chunk
+        protocol): parse the header chunk, adopt the destination blocks
+        on the loop thread, and return the feed/commit/abort handle.
+        Each fed chunk applies BETWEEN scheduler steps, so the transfer
+        overlaps this runtime's running batch. Raises
+        :class:`~.admission.OverloadedError` while draining (the
+        caller re-routes, like ``resume``)."""
+        self._refuse_follower()
+        from . import handoff as handoff_mod
+        if self._stopped or self.admission.closed:
+            from .admission import OverloadedError
+            raise OverloadedError(
+                "draining", "serving runtime is draining; not accepting "
+                "handoffs",
+                retry_after_s=self.config.admission.retry_after_s)
+        header = await asyncio.to_thread(handoff_mod.parse_header,
+                                         header_chunk)
+        uid = next(self._uids)
+        await self._loop_runner.run_on_loop(
+            lambda: self._loop_runner.begin_restore(uid, header))
+        return ChunkedHandoff(self, uid, header)
+
+    # -- live weight update (serve/weights.py; blue/green hot-swap) -----
+    async def begin_weight_update(self, header_chunk: bytes
+                                  ) -> "WeightUpdate":
+        """Open a chunked weight update: chunks stage HOST-SIDE (CRC-
+        checked, off the loop thread — the running batch keeps
+        stepping), then ``commit`` applies ONE atomic param swap
+        between scheduler steps. A stream therefore never sees tokens
+        from two weight versions unless it spans the commit — which the
+        router's blue/green rollout prevents by draining a replica's
+        routed streams before pushing (serve/router.py)."""
+        self._refuse_follower()
+        from . import weights as serve_weights
+        if self._stopped or self.admission.closed:
+            from .admission import OverloadedError
+            raise OverloadedError(
+                "draining", "serving runtime is draining; not accepting "
+                "weight updates",
+                retry_after_s=self.config.admission.retry_after_s)
+        header = await asyncio.to_thread(
+            serve_weights.parse_weights_header, header_chunk)
+        return WeightUpdate(self, serve_weights.WeightStager(header))
 
     async def apply_weights(self, payloads: Sequence[bytes]) -> int:
-        """Stage and commit a weight payload: not ported (ROADMAP A7)."""
-        raise _fleet_not_ported("live weight updates (apply_weights)")
+        """Stage + commit a complete weight payload; returns the
+        installed version."""
+        update = await self.begin_weight_update(payloads[0])
+        try:
+            for chunk in payloads[1:]:
+                await update.feed(chunk)
+            return await update.commit()
+        except BaseException:
+            await update.abort()
+            raise
+
+    @property
+    def weight_version(self) -> int:
+        return int(getattr(self.scheduler.engine, "weight_version", 0))
 
     # -- introspection --------------------------------------------------
     def heartbeat_age(self) -> Optional[float]:
@@ -394,10 +489,13 @@ class ServingEngine:
                 self.scheduler.engine.state_manager.block_size),
             "max_seq_len": int(
                 self.scheduler.engine.state_manager.config.max_seq_len),
-            # the JAX document's fleet fields: the boot weights (live
-            # updates are ROADMAP A7), and the bloom summary of the
-            # spilled digests (None without a spill tier)
-            "weight_version": 0,
+            # blue/green rollout signal (serve/weights.py): the router
+            # converges the fleet onto one target version off this field
+            "weight_version": self.weight_version,
+            # spill-aware placement signal (ragged/spill.py): the bloom
+            # summary of this replica's spilled digests rides every
+            # heartbeat, so the router can place a returning
+            # conversation where its cold KV actually lives
             "kv_spill": self.spill_summary_doc(),
         }
 
@@ -408,3 +506,185 @@ class ServingEngine:
         if spill is None:
             return None
         return spill.digest_summary().to_doc()
+
+
+class ChunkedHandoff:
+    """Client handle for one streaming handoff into a
+    :class:`ServingEngine` (``begin_handoff``): ``feed`` each KV chunk
+    (awaiting the ack paces the wire and lets scheduler steps
+    interleave), then ``commit`` with the decode parameters to get the
+    token stream — or ``abort`` to free the partially-streamed blocks."""
+
+    def __init__(self, serving: ServingEngine, uid: int, header: dict):
+        self._serving = serving
+        self.uid = uid
+        self.header = header
+        self._open = True
+
+    async def feed(self, chunk: bytes) -> None:
+        from . import handoff as handoff_mod
+        parsed = await asyncio.to_thread(handoff_mod.parse_chunk, chunk)
+        loop = self._serving._loop_runner
+        try:
+            await loop.run_on_loop(
+                lambda: loop.apply_restore(self.uid, parsed, len(chunk)))
+        except asyncio.CancelledError:
+            # the AWAIT was cancelled, not the apply — the loop-side
+            # restore may still be live, so the handle stays open and
+            # abort()/__del__ can free it (closing here would leak the
+            # blocks and wedge graceful drain)
+            raise
+        except BaseException:
+            # the loop already freed the blocks on an apply failure
+            self._open = False
+            raise
+
+    async def commit(self, *, prompt: Sequence[int],
+                     generated: Sequence[int], max_new_tokens: int,
+                     eos_token_id: Optional[int] = None,
+                     temperature: float = 0.0, top_p: float = 1.0,
+                     top_k: int = 0, rng_state=None,
+                     deadline_s: Optional[float] = None,
+                     trace_ctx=None) -> TokenStream:
+        """Verify every chunk arrived and resume decoding here — the
+        chunked counterpart of :meth:`ServingEngine.resume` (same
+        parameters, same bit-identical-to-colocated contract)."""
+        serving = self._serving
+        stream = TokenStream(serving, self.uid,
+                             asyncio.get_running_loop())
+        entry = _Entry(
+            uid=self.uid, prompt=list(map(int, prompt)),
+            max_new_tokens=int(max_new_tokens),
+            eos_token_id=eos_token_id, temperature=temperature,
+            top_p=top_p, top_k=top_k, seed=None, tenant="handoff",
+            weight=None,
+            deadline_t=(serving.clock() + deadline_s
+                        if deadline_s is not None else None),
+            on_token=stream._push_token, on_end=stream._push_end,
+            state="inflight",
+            trace_ctx=(trace_ctx if trace_ctx is not None
+                       else trace_context.current()
+                       or trace_context.from_wire(
+                           self.header.get("trace"))))
+        loop = self._serving._loop_runner
+        try:
+            await loop.run_on_loop(
+                lambda: loop.commit_restore(
+                    entry, list(map(int, generated)), rng_state))
+        except asyncio.CancelledError:
+            # await cancelled mid-commit: leave the handle open so
+            # abort() can still free an uncommitted restore (abort is
+            # a no-op if the loop-side commit did run)
+            raise
+        except BaseException:
+            self._open = False   # loop-side commit failed: already
+            raise                # aborted there
+        self._open = False
+        return stream
+
+    async def abort(self) -> None:
+        if not self._open:
+            return
+        self._open = False
+        loop = self._serving._loop_runner
+        try:
+            await loop.run_on_loop(
+                lambda: loop._abort_restore(self.uid))
+        except Exception:
+            pass
+
+    def __del__(self):
+        # GC net: a dropped handle must not wedge drain holding blocks
+        # (_abort_restore only touches loop-thread state via post())
+        if self._open:
+            try:
+                self._serving._loop_runner.post(
+                    lambda: self._serving._loop_runner._abort_restore(
+                        self.uid))
+            except Exception:
+                pass
+
+
+class WeightUpdate:
+    """Client handle for one staged weight update into a
+    :class:`ServingEngine` (``begin_weight_update``): ``feed`` each
+    payload chunk (host-side staging + CRC — the loop keeps stepping
+    its batch), then ``commit`` applies the atomic swap between
+    scheduler steps; ``abort`` drops the staged leaves without touching
+    the live params."""
+
+    def __init__(self, serving: ServingEngine, stager):
+        self._serving = serving
+        self._stager = stager
+        self._open = True
+        self._t0 = time.perf_counter()
+        loop = serving._loop_runner
+        loop.weight_staging += 1
+        from ....telemetry import get_registry
+        self._m_seconds = get_registry().histogram(
+            "serving_weight_update_seconds",
+            "weight update begin -> committed swap (staging overlaps "
+            "the running batch; only the final swap touches the loop)",
+            unit="s", buckets=(1e-3, 1e-2, 0.1, 1.0, 10.0, 60.0))
+
+    @property
+    def version(self) -> int:
+        return int(self._stager.version)
+
+    async def feed(self, chunk: bytes) -> None:
+        if not self._open:
+            raise RuntimeError("weight update already closed")
+        try:
+            await asyncio.to_thread(self._stager.feed, chunk)
+        except BaseException:
+            await self.abort()
+            raise
+
+    async def commit(self) -> int:
+        """Verify every chunk arrived and swap the live params between
+        scheduler steps. Returns the installed version."""
+        from . import weights as serve_weights
+        if not self._open:
+            raise RuntimeError("weight update already closed")
+        stager = self._stager
+        stager.commit_check()
+        loop = self._serving._loop_runner
+
+        engine = loop.scheduler.engine
+        # host-side half off the loop thread: for DELTA payloads this
+        # validates the base version and reconstructs base +
+        # dequant(delta) (typed failure on stale base, live params
+        # untouched); full payloads pass through
+        try:
+            flat = await asyncio.to_thread(
+                serve_weights.prepare_stager, engine, stager)
+        except BaseException:
+            await self.abort()
+            raise
+
+        def swap() -> int:
+            # full / delta -> the in-place param swap
+            # (weights.install_stager)
+            return serve_weights.install_stager(engine, stager, flat)
+        try:
+            version = await loop.run_on_loop(swap)
+        finally:
+            self._close()
+        self._m_seconds.observe(time.perf_counter() - self._t0)
+        return version
+
+    async def abort(self) -> None:
+        self._close()
+
+    def _close(self) -> None:
+        if self._open:
+            self._open = False
+            self._stager.leaves = {}
+            self._serving._loop_runner.weight_staging -= 1
+
+    def __del__(self):
+        if self._open:
+            try:
+                self._close()
+            except Exception:
+                pass

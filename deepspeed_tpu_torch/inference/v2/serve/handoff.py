@@ -22,16 +22,19 @@ scatter an in-place ``index_copy_`` into the pool; scatter shapes are
 padded to a power of two of the block count with rows aimed at the null
 block carrying zeros, as in JAX (the null block is never read unmasked).
 
-The serving frontend's and loop's entry points into it (``resume``,
-``begin_handoff``, ``begin_restore``) belong to the fleet (ROADMAP A7)
-and still raise there; the spill tier (``ragged/spill.py``) uses the
-chunk codec and the block copies.
+Its users: the serving frontend's and loop's handoff entry points
+(``resume``, ``begin_handoff``, ``begin_restore``), the prefill replica
+(serve/replica.py), the worker's ``POST /handoff`` (serve/worker.py), the
+weight payloads' chunk codec (serve/weights.py) and the KV spill tier
+(``ragged/spill.py``).
 """
 
 import io
 import json
+import struct
+import zipfile
 import zlib
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -131,17 +134,73 @@ def serialize(pack: Dict) -> bytes:
     return _npz(descriptor, pack["kv"])
 
 
+def _npy_view(data: memoryview) -> np.ndarray:
+    """The array of one ``.npy`` member as a view of ``data``."""
+    head = io.BytesIO(bytes(data[:1 << 17]))
+    version = np.lib.format.read_magic(head)
+    if version == (1, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_1_0(head)
+    elif version == (2, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_2_0(head)
+    else:
+        return np.lib.format.read_array(io.BytesIO(bytes(data)))
+    if dtype.hasobject:
+        raise ValueError("object arrays are not part of the wire format")
+    count = 1
+    for d in shape:
+        count *= d
+    arr = np.frombuffer(data, dtype=dtype, count=count, offset=head.tell())
+    return arr.reshape(shape[::-1]).T if fortran else arr.reshape(shape)
+
+
+def _npz_arrays(buf: bytes) -> Dict[str, np.ndarray]:
+    """The arrays of an ``.npz`` buffer as read-only views of ``buf``: no
+    copy of the data, each member's zip CRC-32 checked as ``np.load``
+    checks it. A compressed member (another writer's
+    ``savez_compressed``) is read through ``zipfile``."""
+    mv = memoryview(buf)
+    if bytes(mv[:4]) not in (b"PK\x03\x04", b"PK\x05\x06"):
+        # not a zip: np.load refuses it as the JAX package's reader does
+        with np.load(io.BytesIO(buf)) as z:
+            return {name: z[name] for name in z.files}
+    out = {}
+    with zipfile.ZipFile(io.BytesIO(buf)) as z:
+        for info in z.infolist():
+            name = info.filename[:-4] if info.filename.endswith(".npy") \
+                else info.filename
+            if info.compress_type != zipfile.ZIP_STORED:
+                out[name] = np.lib.format.read_array(
+                    io.BytesIO(z.read(info)))
+                continue
+            off = info.header_offset
+            if bytes(mv[off:off + 4]) != b"PK\x03\x04":
+                raise zipfile.BadZipFile(f"bad local header for {name!r}")
+            n_name, n_extra = struct.unpack("<HH", mv[off + 26:off + 30])
+            start = off + 30 + n_name + n_extra
+            data = mv[start:start + info.file_size]
+            if len(data) != info.file_size or \
+                    zlib.crc32(data) != info.CRC:
+                raise zipfile.BadZipFile(f"Bad CRC-32 for file {name!r}")
+            out[name] = _npy_view(data)
+    return out
+
+
+def _load_arrays(buf: bytes) -> Tuple[Dict, Dict[str, np.ndarray],
+                                      Dict[str, str]]:
+    """Buffer -> (descriptor, {leaf: wire array (a read-only view)},
+    {leaf: wire dtype name})."""
+    arrays = _npz_arrays(buf)
+    descriptor = json.loads(bytes(arrays[_DESCRIPTOR_KEY]).decode())
+    dtypes = descriptor.pop("kv_dtypes", {})
+    kv = {name[3:]: arr for name, arr in arrays.items()
+          if name.startswith("kv_")}
+    return descriptor, kv, {k: dtypes.get(k, a.dtype.name)
+                            for k, a in kv.items()}
+
+
 def _load(buf: bytes):
-    with np.load(io.BytesIO(buf)) as z:
-        descriptor = json.loads(bytes(z[_DESCRIPTOR_KEY]).decode())
-        dtypes = descriptor.pop("kv_dtypes", {})
-        kv = {}
-        for name in z.files:
-            if name.startswith("kv_"):
-                key = name[3:]
-                kv[key] = _from_wire(z[name],
-                                     dtypes.get(key, z[name].dtype.name))
-    return descriptor, kv
+    descriptor, kv, dtypes = _load_arrays(buf)
+    return descriptor, {k: _from_wire(a, dtypes[k]) for k, a in kv.items()}
 
 
 def deserialize(buf: bytes) -> Dict:
@@ -153,8 +212,11 @@ def deserialize(buf: bytes) -> Dict:
 # ---------------------------------------------------------------------------
 # chunked form
 # ---------------------------------------------------------------------------
-def _leaf_wire_bytes(t: torch.Tensor) -> bytes:
-    return _to_wire(t).tobytes()
+def _leaf_wire_bytes(t) -> memoryview:
+    """A leaf's wire bytes (a tensor's as :func:`_to_wire` ships them, a
+    wire array's as they are), without a copy where they are contiguous."""
+    arr = _to_wire(t) if isinstance(t, torch.Tensor) else t
+    return memoryview(np.ascontiguousarray(arr)).cast("B")
 
 
 def _chunk_crc(kv: Dict[str, torch.Tensor]) -> int:
@@ -174,6 +236,15 @@ def parse_chunk(buf: bytes) -> Dict:
     dtypes restored."""
     descriptor, kv = _load(buf)
     return {"descriptor": descriptor, "kv": kv}
+
+
+def parse_chunk_arrays(buf: bytes) -> Dict:
+    """Chunk buffer -> ``{"descriptor": ..., "kv": {...}, "dtypes":
+    {...}}`` with the leaves as read-only numpy views of ``buf`` in their
+    wire form (16-bit floats as raw bytes): what a host-side consumer
+    (the weight stager) reads without copying."""
+    descriptor, kv, dtypes = _load_arrays(buf)
+    return {"descriptor": descriptor, "kv": kv, "dtypes": dtypes}
 
 
 def chunk_pack(pack: Dict, chunk_blocks: int) -> List[bytes]:

@@ -18,11 +18,13 @@ loop thread selects the engine's CUDA device before its first step (a
 thread starts on device 0). The engine's ``put()`` returns host logits and
 a decode window one host token block, so each step synchronizes once;
 nothing else on this thread reads the device (the telemetry hooks read
-host counters). The KV handoff entry points (``resume``,
-``begin_restore``) raise ``NotImplementedError`` (ROADMAP A7); the loop
-keeps none of the fleet's state (chunked restores, weight staging, the
-online adapter), which comes with those modules (ROADMAP A7, A12). The
-drain closes the engine's KV spill tier (``ragged/spill.py``), as in JAX.
+host counters). The fleet's state is JAX's: the chunked KV restores in
+flight (``begin_restore`` / ``apply_restore`` / ``commit_restore``, each
+chunk applied between scheduler steps), whole handoffs (``resume``), the
+weight updates staging (``weight_staging``), and their metric families
+(``handoff_chunk_*``, ``weight_update_overlap_steps_total``). The online
+adapter (``autotuning/online.py``) is not ported (ROADMAP A12). The drain
+closes the engine's KV spill tier (``ragged/spill.py``), as in JAX.
 
 Over an SPMD engine (tensor or expert parallel: ``engine.topology`` set)
 the runtime runs on the engine group's rank 0 (the leader): its loop
@@ -42,9 +44,13 @@ known to run no collective (``LOCAL``) raises on the leader rather than
 leave the followers behind. When the leader's loop exits (drain or stop)
 it sends a final message, and the followers' loops end: a follower never
 waits on a step the leader will not take. The JAX package is one
-controller over all devices, so this layer has no JAX counterpart.
+controller over all devices, so this layer has no JAX counterpart. A KV
+handoff into an SPMD engine is refused (``NotImplementedError``, ROADMAP
+A15): each rank's pool holds its own heads, and the restore would have to
+be mirrored.
 """
 
+import asyncio
 import heapq
 import logging
 import threading
@@ -61,6 +67,16 @@ MIRRORED = ("put", "flush", "_decode_batch_greedy", "_decode_window_greedy",
 # the engine calls the runtime makes on the leader alone: they read host
 # state and run no collective
 LOCAL = ("can_schedule", "_window_steps_left", "bind_trace")
+
+
+def select_device(device) -> None:
+    """Make ``device`` the calling thread's CUDA device (a thread starts on
+    device 0). A device without an index (``torch.device("cuda")``, what
+    an engine built with ``device=None`` holds) means the current one."""
+    if device is not None and device.type == "cuda" \
+            and device.index is not None:
+        import torch
+        torch.cuda.set_device(device)
 
 
 class GroupDiverged(RuntimeError):
@@ -187,10 +203,7 @@ class FollowerLoop:
         self._thread: Optional[threading.Thread] = None
 
     def _run(self) -> None:
-        device = getattr(self.engine, "device", None)
-        if device is not None and device.type == "cuda":
-            import torch
-            torch.cuda.set_device(device)
+        select_device(getattr(self.engine, "device", None))
         while True:
             msg = self.group.recv()
             if msg is None:
@@ -238,12 +251,6 @@ class FollowerLoop:
         return self._thread is not None and self._thread.is_alive()
 
 
-def _handoff_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "KV handoff between replicas (serve/handoff.py) is not ported to "
-        "deepspeed_tpu_torch yet (ROADMAP A7)")
-
-
 class ServingLoop:
     """Drains ``scheduler`` continuously; admits from ``admission``.
 
@@ -286,15 +293,57 @@ class ServingLoop:
         self._thread: Optional[threading.Thread] = None
         self._stop = False
         self._draining = False
+        # set just before the loop's FINAL command drain: commands
+        # posted after it may never run (run_on_loop fails fast on it)
+        self._cmds_closed = False
         self._entries: Dict[int, object] = {}   # uid -> entry (not done)
         self._deadlines: List = []              # heap of (deadline_t, uid)
         self._just_finished: List = []          # entries finished in step()
         self._dead: List[int] = []              # uids whose on_token raised
+        # chunked streaming KV handoffs in flight (handoff.ChunkedRestore,
+        # keyed by destination uid): each chunk applies between scheduler
+        # steps, so the transfer overlaps the running batch; drain waits
+        # for them and a hard stop aborts them
+        self._restores: Dict[int, object] = {}
+        # scheduler steps completed since start: the overlap evidence
+        self.steps_done = 0
+        # weight updates currently STAGING host-side (frontend.py
+        # WeightUpdate): staging never blocks the loop, and steps taken
+        # while >= 1 update stages are the publish / decode overlap
+        self.weight_staging = 0
         from ....telemetry import get_registry
         reg = get_registry()
         self._m_expired = reg.counter(
             "serving_deadline_expired_total",
             "requests cancelled because their deadline passed")
+        self._m_chunks = reg.counter(
+            "handoff_chunks_total",
+            "chunked-handoff KV chunks applied to this runtime's pool")
+        self._m_chunk_bytes = reg.counter(
+            "handoff_chunk_bytes_total",
+            "serialized chunked-handoff bytes applied")
+        self._m_chunk_apply = reg.histogram(
+            "handoff_chunk_apply_seconds",
+            "per-chunk integrity check + scatter time on the loop "
+            "thread", unit="s",
+            buckets=(1e-5, 1e-4, 1e-3, 1e-2, 0.1, 1.0))
+        self._m_chunk_aborts = reg.counter(
+            "handoff_chunk_aborts_total",
+            "chunked handoffs aborted mid-transfer (client hangup, "
+            "integrity failure, drain)")
+        self._m_chunk_inflight = reg.gauge(
+            "handoff_chunk_inflight",
+            "chunked handoffs currently streaming into this runtime")
+        self._m_overlap_steps = reg.counter(
+            "handoff_chunk_overlap_steps_total",
+            "scheduler steps completed while >=1 chunked handoff was "
+            "in flight (the transfer/compute overlap the protocol "
+            "buys)")
+        self._m_weight_overlap_steps = reg.counter(
+            "weight_update_overlap_steps_total",
+            "scheduler steps completed while >=1 weight update was "
+            "staging (publication overlaps decode; only the final "
+            "atomic swap lands between steps)")
 
     # -- cross-thread surface (any thread) ------------------------------
     def post(self, fn: Callable[[], None]) -> None:
@@ -312,8 +361,49 @@ class ServingLoop:
         self.post(lambda: self._cancel(uid, status))
 
     def resume(self, entry, pack, *, generated, rng_state=None) -> None:
-        """Adopt a handed-off request (serve/handoff.py): not ported."""
-        raise _handoff_not_ported()
+        """Adopt a handed-off request (serve/handoff.py): restore the KV
+        pack into the engine and insert the entry directly into the
+        scheduler's running set, both on the loop thread."""
+        self.post(lambda: self._resume(entry, pack, generated, rng_state))
+
+    def run_on_loop(self, fn: Callable[[], object]) -> "asyncio.Future":
+        """Run ``fn`` on the loop thread and resolve an asyncio future
+        with its result (or exception): the chunked-handoff surface's ack
+        channel. Must be called from a running event loop."""
+        aio = asyncio.get_running_loop()
+        fut: asyncio.Future = aio.create_future()
+
+        def done(result, exc) -> None:
+            if fut.done():
+                return
+            if exc is not None:
+                fut.set_exception(exc)
+            else:
+                fut.set_result(result)
+
+        def wrapped() -> None:
+            try:
+                result = fn()
+            except BaseException as e:   # noqa: BLE001 — forwarded
+                result, exc = None, e
+            else:
+                exc = None
+            try:
+                aio.call_soon_threadsafe(done, result, exc)
+            except RuntimeError:
+                # the client's event loop is gone (closed between post
+                # and execution): drop the ack, it must not kill the
+                # serving-loop thread mid-drain
+                pass
+
+        self.post(wrapped)
+        if self._cmds_closed or not self.running:
+            # a dead (or exiting: _cmds_closed set before the final drain)
+            # loop never processes this command: fail fast instead of
+            # awaiting forever (wrapped() may still run via the final
+            # drain; done() is idempotent either way)
+            done(None, RuntimeError("serving loop is not running"))
+        return fut
 
     def request_drain(self) -> None:
         """Graceful drain: admission closes immediately (new submits get
@@ -376,9 +466,99 @@ class ServingLoop:
             # take the serving loop down; the entry is done either way
             pass
 
+    def _check_restorable(self) -> None:
+        if getattr(self.scheduler.engine, "release_followers", None) \
+                is not None:
+            raise NotImplementedError(
+                "a KV handoff into an SPMD engine (tensor or expert "
+                "parallel) is not ported to deepspeed_tpu_torch yet: each "
+                "rank's pool holds its own heads and the restore would "
+                "have to be mirrored (ROADMAP A15)")
+
+    def _resume(self, entry, pack, generated, rng_state) -> None:
+        from . import handoff
+        try:
+            self._check_restorable()
+            handoff.restore_sequence(self.scheduler.engine, pack,
+                                     uid=entry.uid)
+        except Exception as e:
+            self._end(entry, "error",
+                      f"handoff restore failed: {type(e).__name__}: {e}")
+            return
+        self._adopt(entry, generated, rng_state)
+
+    def _adopt(self, entry, generated, rng_state) -> None:
+        """Insert an entry whose KV is already in the pool into the
+        scheduler's running set (the blocking and chunked handoff paths
+        share it)."""
+        try:
+            self.scheduler.resume(
+                entry.uid, entry.prompt, generated,
+                entry.max_new_tokens, eos_token_id=entry.eos_token_id,
+                temperature=entry.temperature, top_p=entry.top_p,
+                top_k=entry.top_k, rng_state=rng_state,
+                on_token=self._make_on_token(entry),
+                trace_ctx=getattr(entry, "trace_ctx", None))
+        except Exception as e:
+            self.scheduler.engine.flush(entry.uid)
+            self._end(entry, "error", f"{type(e).__name__}: {e}")
+            return
+        entry.state = "inflight"
+        self._entries[entry.uid] = entry
+        if entry.deadline_t is not None:
+            heapq.heappush(self._deadlines, (entry.deadline_t, entry.uid))
+
+    # -- chunked streaming handoff (loop thread; serve/handoff.py) ------
     def begin_restore(self, uid: int, header) -> None:
-        """Start a chunked streaming KV handoff: not ported."""
-        raise _handoff_not_ported()
+        """Adopt the destination blocks for a streaming handoff (raises
+        through run_on_loop's future on a layout mismatch or an exhausted
+        pool)."""
+        from . import handoff
+        if self._stop or self._draining:
+            raise RuntimeError("serving loop is draining")
+        self._check_restorable()
+        restore = handoff.ChunkedRestore(self.scheduler.engine, uid,
+                                         header)
+        restore.begin()
+        self._restores[uid] = restore
+        self._m_chunk_inflight.set(len(self._restores))
+
+    def apply_restore(self, uid: int, chunk, nbytes: int) -> None:
+        restore = self._restores.get(uid)
+        if restore is None:
+            raise ValueError(f"no chunked handoff in flight for uid {uid}")
+        t0 = time.perf_counter()
+        try:
+            restore.apply(chunk)
+        except Exception:
+            # integrity / protocol failure: free the partial blocks now;
+            # the client learns from the raised ack either way
+            self._abort_restore(uid)
+            raise
+        self._m_chunks.inc()
+        self._m_chunk_bytes.inc(nbytes)
+        self._m_chunk_apply.observe(time.perf_counter() - t0)
+
+    def commit_restore(self, entry, generated, rng_state) -> None:
+        restore = self._restores.get(entry.uid)
+        if restore is None:
+            raise ValueError(f"no chunked handoff in flight for uid "
+                             f"{entry.uid}")
+        try:
+            restore.commit_check()
+        except Exception:
+            self._abort_restore(entry.uid)
+            raise
+        del self._restores[entry.uid]
+        self._m_chunk_inflight.set(len(self._restores))
+        self._adopt(entry, generated, rng_state)
+
+    def _abort_restore(self, uid: int) -> None:
+        restore = self._restores.pop(uid, None)
+        if restore is not None:
+            restore.abort()
+            self._m_chunk_aborts.inc()
+            self._m_chunk_inflight.set(len(self._restores))
 
     def _cancel(self, uid: int, status: str) -> None:
         entry = self._entries.get(uid)
@@ -517,6 +697,8 @@ class ServingLoop:
             pass
 
     def _abort_remaining(self) -> None:
+        for uid in list(self._restores):
+            self._abort_restore(uid)     # free partially-streamed KV
         for entry in list(self._entries.values()):
             self._cancel(entry.uid, "cancelled")
         while (entry := self.admission.pop()) is not None:
@@ -557,10 +739,7 @@ class ServingLoop:
                 pass
 
     def _serve(self) -> None:
-        device = getattr(self.scheduler.engine, "device", None)
-        if device is not None and device.type == "cuda":
-            import torch
-            torch.cuda.set_device(device)
+        select_device(getattr(self.scheduler.engine, "device", None))
         if self.lane is not None:
             from ....telemetry import trace
             trace.set_lane(self.lane)
@@ -577,6 +756,13 @@ class ServingLoop:
                     raise
                 except Exception as e:
                     self._step_error(e)
+                self.steps_done += 1
+                if self._restores:
+                    # a chunked handoff is streaming in AND the batch
+                    # kept stepping: the overlap the protocol buys
+                    self._m_overlap_steps.inc()
+                if self.weight_staging:
+                    self._m_weight_overlap_steps.inc()
                 self._cancel_dead()
                 self._flush_finished()
                 continue
@@ -589,6 +775,7 @@ class ServingLoop:
             # last busy-time values after traffic stops
             self._diag_tick()
             if (self._draining and not self._entries
+                    and not self._restores
                     and self.admission.empty() and not self._cmds):
                 break
             # idle: block until woken (every external command calls
@@ -607,6 +794,7 @@ class ServingLoop:
                 timeout = 1.0 if timeout is None else min(timeout, 1.0)
             self._wake.wait(timeout)
             self._wake.clear()
+        self._cmds_closed = True
         self._run_cmds()
         self._abort_remaining()
         self._diag_drain()

@@ -26,8 +26,10 @@ Every element is computed by the same kernels as in the resident step, so
 tiered training is bit-identical to resident training (pinned by
 ``tests/test_torch_offload.py``, the layer split included).
 
-Overlap is measured, not assumed (attributes, the registry gauges of the
-JAX package wait for ROADMAP A7): ``prefetch_hit_fraction`` counts fetches
+Overlap is measured, not assumed (attributes here; the JAX package also
+publishes them as registry families, ``optimizer_offload_bytes``,
+``offload_prefetch_*`` and ``offload_*_bytes_total``, which this module
+does not register): ``prefetch_hit_fraction`` counts fetches
 already issued when their bucket needed them, and
 ``prefetch_exposed_fraction`` is the share of the streamed update the
 card's stream spent waiting on a fetch (CUDA events around each wait);

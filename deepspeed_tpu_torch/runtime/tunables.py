@@ -10,16 +10,18 @@ jax), holding only the entries that code in this package reads:
   * ``serving.max_queued_tokens``, the admission controller's
     token-budget shed threshold (``inference/v2/serve/admission.py``),
   * ``state_manager.kv_spill_host_bytes`` / ``kv_spill_disk_bytes``, the
-    KV spill tier's budgets, checked by ``inference/v2/config_v2.py``.
+    KV spill tier's budgets, checked by ``inference/v2/config_v2.py``,
+  * the fleet's: ``serving.handoff_chunk_blocks`` (the router's
+    ``RouterConfig.handoff_chunk_blocks``) and ``autoscaler.*`` (the
+    defaults of ``serve/autoscaler.AutoscalerConfig``).
 
 Each entry has the same name, default, hard range and cost signal as in
 the JAX package, so a bad value fails with the same message in both.
 Consumers report the value they run with through :func:`observe`, and
 ``/statusz`` renders :func:`statusz_section`: the effective value and
 its provenance (``default | config | tuned | online``) per knob. The
-search ladders of the JAX registry belong to its offline tuner, and the
-handoff and autoscaler entries to the fleet modules (ROADMAP A7): they
-come with the code that reads them.
+search ladders of the JAX registry belong to its offline tuner (ROADMAP
+A12) and come with the code that reads them.
 """
 
 import math
@@ -183,6 +185,10 @@ _r(name="serving.max_queued_tokens", default=None, lo=1, hi=1 << 24,
    online=True, cost_signal="serving_admission_queued_tokens",
    doc="admission token-budget shed threshold "
        "(AdmissionConfig.max_queued_tokens; None disables shedding)")
+_r(name="serving.handoff_chunk_blocks", default=4, lo=1, hi=256,
+   cost_signal="handoff_chunk_overlap_steps_total",
+   doc="KV blocks per chunk in live-migration handoff streams "
+       "(serve/handoff.py export_chunks)")
 
 # -- serving: KV spill tier --------------------------------------------
 _r(name="state_manager.kv_spill_host_bytes", default=64 << 20,
@@ -192,6 +198,21 @@ _r(name="state_manager.kv_spill_disk_bytes", default=256 << 20,
    lo=0, hi=None, cost_signal="kv_spill_dropped_blocks_total",
    doc="disk-tier LRU budget for spilled KV blocks (0 = host tier "
        "only)")
+
+# -- fleet: autoscaler thresholds --------------------------------------
+_r(name="autoscaler.load_high", default=64.0, kind=float, lo=1e-6,
+   hi=None, cost_signal="router_autoscale_replicas",
+   doc="per-replica queued-token load above which a scale-up tick "
+       "accrues")
+_r(name="autoscaler.scale_up_after_ticks", default=2, lo=1, hi=1000,
+   cost_signal="router_autoscale_up_total",
+   doc="consecutive high-load ticks before spawning a replica")
+_r(name="autoscaler.scale_down_after_ticks", default=5, lo=1, hi=10000,
+   cost_signal="router_autoscale_down_total",
+   doc="consecutive low-load ticks before retiring a replica")
+_r(name="autoscaler.cooldown_s", default=2.0, kind=float, lo=0.0,
+   hi=3600.0, cost_signal="router_autoscale_tick_seconds",
+   doc="minimum seconds between autoscaler actions")
 
 
 # -- module-level conveniences (the registry singleton) ----------------

@@ -512,21 +512,39 @@ def test_prefix_caching_matches_jax(models):
 
 
 # ---------------------------------------------------------------------------
-# the serving surface that is not ported raises with its ROADMAP label
+# the fleet surface (landed with ROADMAP A7) refuses a malformed handoff or
+# weight payload as the JAX package does
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("call,item", [
-    ("resume", "A7"), ("begin_handoff", "A7"),
-    ("begin_weight_update", "A7"), ("apply_weights", "A7")])
-def test_fleet_surface_raises_with_its_label(engines, call, item):
-    eng, serve = engines["torch"]
-    serving = serve.ServingEngine(eng, serve.ServingConfig())
-    args = ({"x": 1},) if call == "resume" else (b"\x00",) if call in (
-        "begin_handoff", "begin_weight_update") else ([b"\x00"],)
-    try:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            asyncio.run(getattr(serving, call)(*args))
-    finally:
-        asyncio.run(serving.stop())      # ends the stall-watchdog thread
+@pytest.mark.parametrize("call", [
+    pytest.param(c, id=f"{c}-A7") for c in (
+        "resume", "begin_handoff", "begin_weight_update", "apply_weights")])
+def test_fleet_surface_raises_with_its_label(engines, call):
+    async def run(eng, serve):
+        serving = serve.ServingEngine(eng, serve.ServingConfig())
+        await serving.start()
+        try:
+            if call == "resume":
+                # the restore fails on the loop thread: the stream ends
+                # with an error, the engine keeps no sequence for it
+                stream = await serving.resume(
+                    {"x": 1}, prompt=[1, 2, 3], generated=[4],
+                    max_new_tokens=4)
+                with pytest.raises(serve.RequestFailed) as e:
+                    await stream.drain()
+                assert eng.state_manager.tracked_sequences() == 0
+                return type(e.value).__name__, "handoff restore failed" \
+                    in str(e.value)
+            arg = [b"\x00"] if call == "apply_weights" else b"\x00"
+            try:
+                await getattr(serving, call)(arg)
+            except Exception as e:   # noqa: BLE001 — compared below
+                return type(e).__name__, serving.weight_version
+            raise AssertionError(f"{call} accepted a malformed buffer")
+        finally:
+            await serving.stop()
+
+    got = {name: asyncio.run(run(*engines[name])) for name in engines}
+    assert got["torch"] == got["jax"], got
 
 
 @pytest.mark.parametrize("what,item", [

@@ -382,9 +382,11 @@ def test_tunables_registry_identical():
         "zero_optimization.stage3_prefetch_bucket_size",
         "zero_optimization.quant_block",
         "serving.decode_window", "serving.prefill_bucket",
-        "serving.max_queued_tokens",
+        "serving.max_queued_tokens", "serving.handoff_chunk_blocks",
         "state_manager.kv_spill_host_bytes",
-        "state_manager.kv_spill_disk_bytes"]
+        "state_manager.kv_spill_disk_bytes",
+        "autoscaler.load_high", "autoscaler.scale_up_after_ticks",
+        "autoscaler.scale_down_after_ticks", "autoscaler.cooldown_s"]
     for name in tt.REGISTRY.names():
         t, j = tt.REGISTRY.get(name), jt.REGISTRY.get(name)
         assert (t.range_str(), t.default, t.kind, t.cost_signal,
