@@ -11,7 +11,9 @@ full-width Mistral-7B at 4 layers
 through ``initialize()`` and ``train_batch()`` (and, with telemetry,
 diagnostics and the monitor on, under each selective remat policy,
 through the forward / backward / step shims and through universal
-checkpoints), then at 4 layers
+checkpoints), drives the RLHF hybrid engine (train, publish, generate,
+rollout, a PPO learner step, int8 delta publication) at 2 layers and the
+multi-LoRA adapter bank over the serving weights, then at 4 layers
 through both ZeRO-Offload backends (the host C++ optimizer and the tiered
 pinned-memory state, and their deep runs at 2), with the NVMe tier and
 checkpoints at 2 layers and LAMB over the tiered state at 4,
@@ -189,7 +191,7 @@ exit 0):
    dense embedding and head + 1.5 GiB, finite logits, a fresh engine's
    identical streams, decode tokens/s beside the bf16 engine's in the
    same call, and profiles; then phase 2d, the KV spill tier on the same
-   weight tensors: 12 two-turn conversations (turn 1: a 512-token prompt,
+   weight tensors: 8 two-turn conversations (turn 1: a 512-token prompt,
    32 new tokens; turn 2: that, its 32 tokens and 64 new ones, 32 new
    tokens), all turn 1s 4 at a time, then the turn 2s, through pools of
    64 blocks under prefix caching with the spill tier's host tier alone
@@ -207,7 +209,7 @@ exit 0):
    with recompute (and in the large pool), the int8 / bf16 bytes a block;
    then phase 2h, the serving fleet on one card: (a) two in-process
    replicas over the same weight tensors behind ReplicaRouter (prefix
-   caching on): the 8 prompts greedy, 64 new, routed while a gate holds
+   caching on): the 8 prompts greedy, 32 new, routed while a gate holds
    both loops so each replica's first step takes all its requests, every
    stream token-identical to a direct scheduler given that replica's
    requests in one go; 8 requests sharing a 512-token prefix all on one
@@ -237,7 +239,18 @@ exit 0):
    reconstruction torch.equal to the publisher's, a corrupt chunk refused
    with the version and leaves untouched; logged: payload bytes,
    serialize and push seconds, weight_update_overlap_steps_total; then
-   the worker drains, stops and exits 0. Then the serving engines are
+   the worker drains, stops and exits 0. Then phase 8m (d), the
+   multi-LoRA bank on the same 32 layers: an engine over the serve
+   engine's weight tensors (shared, not copied) with max_lora_adapters 2
+   and lora_rank 16, two seeded adapters loaded (B at scale 0.5): base
+   rows torch.equal to the bank-less engine in the 8-prompt put() and in
+   a decode step, 16-token streams equal; a put() mixing base, A and B
+   rows gives each row within the serve put()'s logit gap to the fp32
+   engine of that row alone (and the adapter rows move off base); a
+   mixed generate(adapter=...); a publish_adapter payload installed
+   through apply_payload torch.equal to a direct load_adapter; logged:
+   the device ms of the put() and of a decode-window step, bank-less,
+   bank on with base rows, and mixed. Then the serving engines are
    freed. Phase 2e runs inside this phase,
    before 2c, on the same engine: the 8 prompts through
    ragged_attention="off" (each its own prefill, on the flash forward
@@ -307,6 +320,22 @@ exit 0):
    tiered-offload engine of other weights: the next loss torch.equal to
    the saving engine's; AsyncCheckpointEngine once over the card's layer
    tensors;
+8m. the RLHF hybrid engine at Mistral-7B width and 2 layers (the time
+   limit), bf16, ZeRO 2, AdamW, through initialize() with
+   hybrid_engine.enabled: (a) one train step on [1, 2, 2048], publish(),
+   generate() of 4 x 1280-token prompts, 32 new, greedy, token-identical
+   to a fresh InferenceEngineV2 built from the payload; another step and
+   generate() republishes (weight_version rises); (b) rollout() of 4
+   sampled prompts (1100-1500 tokens, temperature 1, seed 7, 32 new):
+   every logprob finite and <= 0; a CriticValueHead fit on them and one
+   PPOLearner.step (the packed S 2048: the flash route) with a finite
+   loss and flash_fwd / dq / dkv launches > 0; (c) publish_delta() as
+   the anchor, a train step, publish_delta() again: the int8 delta with
+   one quantize launch a leaf, and the colocated engine's put() logits
+   torch.equal to a fresh engine of the anchor payload with the delta
+   applied; logged: losses, publish s, payload bytes, rollout tokens/s,
+   learner step ms, delta bytes and wire ratio (phase 8m (d) runs in the
+   serve phase, above);
 8g. Mixtral-8x7B width at 2 layers (3.165 B parameters) through
    initialize() / train_batch() at one NCCL rank: ZeRO 1, bf16, AdamW,
    clip 1.0, micro 2 x gas 2 x S 2048, remat, top-2 at capacity 1.0, 3
@@ -397,7 +426,8 @@ exit 0):
    optimizers on CPU tensors (rtol 1e-5, atol 1e-6), the bf16 copy-back
    equal to round-to-nearest-even of the f32 result, ms a call and GB/s
    beside a CPU copy_ of the same bytes, the CPU model and thread count;
-   at 4 layers, on the same bf16 weights and fixed batch, 3 steps each of
+   at 2 layers (``TIER_WIDTH_LAYERS``; 4 before, cut for the run's time
+   limit), on the same bf16 weights and fixed batch, 3 steps each of
    the resident (ZeRO 2), tiered (offload_optimizer {device: cpu,
    pin_memory: true}) and legacy ({device: cpu}) engines: tiered equal to
    resident bit for bit (losses, params, master, moments: torch.equal),
@@ -417,8 +447,8 @@ exit 0):
    its next loss equal to the saving engine's; save / load seconds and
    bytes; the v1 init_inference(checkpoint=) prefill logits torch.equal to
    init_inference(params=) on the same weights;
-8l. LAMB over the tiered tier (inside 8b, after its 4-layer engines): the
-   4-layer train cell at ZeRO 2, bf16, LAMB lr 3e-4, 3 steps each through
+8l. LAMB over the tiered tier (inside 8b, after its first engines): the
+   train cell at 8b's depth, ZeRO 2, bf16, LAMB lr 3e-4, 3 steps each through
    the resident and the tiered engine on 8b's weights and batch: losses,
    params, master and moments torch.equal (the tiered buckets hold whole
    leaves, each trust ratio the whole leaf's), losses finite and falling,
@@ -466,11 +496,11 @@ exit 0):
    under impl="auto" on the card raises;
 10. the card's name and power limit, the host_ops JSON line (the host
    optimizers' times, rates, yardstick and errors), the kernels JSON line
-   (the flash launches of phases 2e, 8, 8f, 8g, 8j, 8c, 8h, 8i, 8k, 8b,
-   8l, 8d and 8e together, the paged and ragged ones of phases 6, 2e, 2c, 2d,
-   2f and 2g,
+   (the flash launches of phases 2e, 8, 8f, 8m, 8g, 8j, 8c, 8h, 8i, 8k,
+   8b, 8l, 8d and 8e together, the paged and ragged ones of phases 6, 2e,
+   2c, 2d, 2h, 8m, 2f and 2g,
    the dense decode ones of phases 6 and 2f, the quantizer ones of the
-   WOQ phases, 2f and 8k (b)-(c)), then the last line
+   WOQ phases, 2h, 8m, 2f and 8k (b)-(c)), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 Everything it builds goes under build/ of the checkout. It imports nothing
@@ -1599,6 +1629,9 @@ def serve_phase(dev):
     for k, n in fleet_phase(dev, cfg, eng, prompts, new).items():
         launches[k] = launches.get(k, 0) + n
     log(f"phase 2h: {time.perf_counter() - t0:.0f}s")
+    for k, n in lora_bank_phase(dev, cfg, eng, prompts,
+                                float(np.abs(logits - f32).max())).items():
+        launches[k] += n
     launches["paged_attention"] += stitched["paged_attention"]
     launches["flash_fwd"] = stitched["flash_fwd"]
     return launches
@@ -2199,13 +2232,14 @@ def q8_serve_phase(dev, cfg, bf16_eng, prompts, new, bf16_logits,
 # ---------------------------------------------------------------------------
 # phase 2d: the KV spill tier
 # ---------------------------------------------------------------------------
-SPILL_CONVS, SPILL_BATCH = 12, 4
+SPILL_CONVS, SPILL_BATCH = 8, 4   # 12 before: cut for the time limit
 SPILL_T1, SPILL_NEW1, SPILL_NEW2 = 512, 32, 64     # turn-1 prompt, tokens
 
 
 def spill_run(dev, cfg, params, blocks, kv_quant, spill=None):
-    """12 two-turn conversations through one engine (pool of ``blocks``,
-    prefix caching on, ``spill``: the spill tier's settings or None): all
+    """SPILL_CONVS two-turn conversations through one engine (pool of
+    ``blocks``, prefix caching on, ``spill``: the spill tier's settings or
+    None): all
     turn 1s, 4 at a time, then the turn 2s in the same order. Returns the
     engine, the streams, turn 2's TTFTs and what the spy saw: the bytes a
     block took in the tier, and the number of restores, each checked bit
@@ -2286,7 +2320,7 @@ def spill_run(dev, cfg, params, blocks, kv_quant, spill=None):
 
 def kv_spill_phase(dev, cfg, bf16_eng):
     """Phase 2d on phase 6's Mistral-7B weights: a pool of 64 blocks (8
-    MiB each in bf16) cannot retain the 12 conversations' 96 prefix
+    MiB each in bf16) cannot retain the 8 conversations' 64 prefix
     blocks. Spill on (host tier alone; then 8 blocks of host tier over a
     1 GiB disk tier) is token-identical to a pool that spills nothing, its
     restored blocks torch.equal to the spilled bytes; spill off recomputes
@@ -2456,6 +2490,7 @@ def kv_spill_phase(dev, cfg, bf16_eng):
 # ---------------------------------------------------------------------------
 FLEET_CHUNK_BLOCKS = 4        # KV blocks a chunk of the handoff stream
 FLEET_SPEC_LAYERS = 2         # the worker's depth (of 32; the time limit)
+FLEET_ROUTED_NEW = 32         # 2h (a)'s new tokens (64 before; the limit)
 FLEET_BLOCKS = 64             # pools of 2h (b)'s fresh engines (a request
                               # there holds at most 11 blocks, 27 with the
                               # overlap run's other request)
@@ -3023,7 +3058,7 @@ def fleet_phase(dev, cfg, eng, prompts, new):
         kern.launches = 0
         kern.q8_launches = 0
     t0 = time.perf_counter()
-    steps = fleet_router_run(dev, cfg, eng, prompts, new)
+    steps = fleet_router_run(dev, cfg, eng, prompts, FLEET_ROUTED_NEW)
     ragged = sum(s[0] for s in steps)
     decode = sum(s[1] for s in steps)
     if (ragged_attention.launches, paged_attention.launches) != (
@@ -3446,14 +3481,17 @@ def device_events(prof):
     return kern
 
 
-def profiled(fn):
+def profiled(fn, cpu=True):
     """Runs fn() under torch.profiler; returns (fn's result, host ms of the
-    call ending in a synchronize, ``device_events`` of the profile)."""
+    call ending in a synchronize, ``device_events`` of the profile).
+    ``cpu=False`` records the card's activity alone: the device times
+    without the cost of recording every host op (the host ms is then
+    closer to the call's own)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -6143,23 +6181,26 @@ def offload_width_phase(dev, cfg, batch):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     weights = TransformerLM(cfg).init_params(gen, dtype=torch.bfloat16)
+    L = cfg.num_layers
     res, r_loss, r_s, r_peak, _ = offload_run(
-        cfg, offload_config(stage=2), batch, 3, "resident L=4",
+        cfg, offload_config(stage=2), batch, 3, f"resident L={L}",
         params=weights)
     tier, t_loss, t_s, t_peak, _ = offload_run(
-        cfg, offload_config(TIERED), batch, 3, "tiered L=4", params=weights)
+        cfg, offload_config(TIERED), batch, 3, f"tiered L={L}",
+        params=weights)
     if t_loss != r_loss:
         raise AssertionError(f"tiered losses {t_loss} != resident {r_loss}")
     compare_tiered_resident(res, tier)
-    log("offload L=4: tiered == resident bit for bit (losses, params, "
-        "master, exp_avg, exp_avg_sq)")
+    log(f"offload L={L}: tiered == resident bit for bit (losses, params, "
+        f"master, exp_avg, exp_avg_sq)")
     free_engine(tier)
     del tier
     leg, l_loss, l_s, l_peak, _ = offload_run(
-        cfg, offload_config(LEGACY), batch, 3, "legacy L=4", params=weights)
+        cfg, offload_config(LEGACY), batch, 3, f"legacy L={L}",
+        params=weights)
     if not np.allclose(l_loss, r_loss, rtol=0.05, atol=1e-2):
         raise AssertionError(f"legacy losses {l_loss} vs resident {r_loss}")
-    log(f"offload L=4: legacy within rtol 0.05 / atol 1e-2 of resident "
+    log(f"offload L={L}: legacy within rtol 0.05 / atol 1e-2 of resident "
         f"(max |diff| {max(abs(a - b) for a, b in zip(l_loss, r_loss)):.2e}); "
         f"median step ms resident {statistics.median(r_s[1:]) * 1e3:.1f}, "
         f"tiered {statistics.median(t_s[1:]) * 1e3:.1f}, legacy "
@@ -6187,10 +6228,10 @@ def lamb_tiered_phase(dev, cfg, batch, adamw):
     weights = TransformerLM(cfg).init_params(gen, dtype=torch.bfloat16)
     (res, r_loss, r_s, r_peak, _), n1 = tier_run(
         cfg, offload_config(stage=2, optimizer=LAMB), batch, 3,
-        "8l resident LAMB L=4", weights)
+        f"8l resident LAMB L={cfg.num_layers}", weights)
     (tier, t_loss, t_s, t_peak, _), n2 = tier_run(
         cfg, offload_config(TIERED, optimizer=LAMB), batch, 3,
-        "8l tiered LAMB L=4", weights)
+        f"8l tiered LAMB L={cfg.num_layers}", weights)
     if t_loss != r_loss:
         raise AssertionError(f"8l: tiered LAMB losses {t_loss} != resident "
                              f"{r_loss}")
@@ -6200,7 +6241,8 @@ def lamb_tiered_phase(dev, cfg, batch, adamw):
                              f"{r_loss}")
     ho = tier.host_opt
     r_ms, t_ms = (statistics.median(x[1:]) * 1e3 for x in (r_s, t_s))
-    log(f"8l L=4: tiered LAMB == resident LAMB bit for bit (losses "
+    log(f"8l L={cfg.num_layers}: tiered LAMB == resident LAMB bit for bit "
+        f"(losses "
         f"{[f'{x:.4f}' for x in t_loss]}, params, master, exp_avg, "
         f"exp_avg_sq); median step ms resident {r_ms:.1f}, tiered "
         f"{t_ms:.1f} ({t_ms / r_ms:.2f}x); peak GiB {r_peak:.2f} / "
@@ -6427,10 +6469,10 @@ def checkpoint_phase(dev, cfg, batch):
 
 
 def offload_phase(dev):
-    """Phase 8b: host ops, the three engines at 4 layers, phase 8l, both
-    offload backends at full depth, the NVMe tier and checkpoints at 2
-    layers. Returns (flash launches of the full-depth runs and 8l, the
-    host_ops record)."""
+    """Phase 8b: host ops, the three engines and phase 8l at
+    TIER_WIDTH_LAYERS layers, both offload backends at full depth, the NVMe
+    tier and checkpoints at 2 layers. Returns (flash launches of the
+    full-depth runs and 8l, the host_ops record)."""
     import dataclasses
 
     from deepspeed_tpu_torch.models import mistral_7b
@@ -6439,12 +6481,13 @@ def offload_phase(dev):
     rng = np.random.default_rng(4)
     batch = {"input_ids": rng.integers(0, mistral_7b().vocab_size,
                                        (OFFLOAD_GAS, TRAIN_B, TRAIN_S))}
-    four = dataclasses.replace(mistral_7b(), num_layers=4)
+    width = dataclasses.replace(mistral_7b(), num_layers=TIER_WIDTH_LAYERS)
     t0 = time.perf_counter()
-    adamw = offload_width_phase(dev, four, batch)
-    log(f"offload L=4 phase: {time.perf_counter() - t0:.0f}s")
+    adamw = offload_width_phase(dev, width, batch)
+    log(f"offload L={TIER_WIDTH_LAYERS} phase: "
+        f"{time.perf_counter() - t0:.0f}s")
     t0 = time.perf_counter()
-    lamb = lamb_tiered_phase(dev, four, batch, adamw)
+    lamb = lamb_tiered_phase(dev, width, batch, adamw)
     log(f"phase 8l: {time.perf_counter() - t0:.0f}s")
     t0 = time.perf_counter()
     launches = offload_full_depth_phase(dev, batch)
@@ -7689,6 +7732,339 @@ def moe_zero_phase(dev, ref):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8m: the RLHF hybrid engine (a)-(c) and the multi-LoRA bank (d)
+# ---------------------------------------------------------------------------
+HYBRID_LAYERS = 2             # of 32: the time limit
+HYBRID_NEW = 32
+HYBRID_LEARN_S = 2048         # the learner's pow2 bucket of 1100-1532 tokens
+HYBRID_SERVING = {"state_manager": {"max_tracked_sequences": 8,
+                                    "max_seq_len": 2048, "block_size": 64,
+                                    "num_blocks": 8 * 2048 // 64 + 1,
+                                    "max_ragged_batch_size": 8192},
+                  "engine": {"prefill_bucket": 64, "decode_window": 8}}
+HYBRID_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_B,
+                 "gradient_accumulation_steps": 1,
+                 "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+                 "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                 "zero_optimization": {"stage": 2},
+                 "hybrid_engine": {"enabled": True,
+                                   "serving": HYBRID_SERVING},
+                 "steps_per_print": 10 ** 9, "telemetry": {"enabled": False}}
+LORA_SLOTS, LORA_RANK = 2, 16
+
+
+def kernel_counts(reset=False):
+    """{counter: launches} of the kernels the hybrid engine's path runs:
+    flash forward / dq / dk-dv (the learner step), ragged and paged
+    attention (serving) and the block quantizer (the int8 delta)."""
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_attention
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import \
+        ragged_attention
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import quantizer_kernels as qk
+
+    fns = {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+           "flash_bwd_dkv": fa.flash_bwd_dkv,
+           "ragged_attention": ragged_attention,
+           "paged_attention": paged_attention,
+           "quantize_blocks": qk.quantize_blocks}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+    return {k: f.launches for k, f in fns.items()}
+
+
+def payload_engine(dev, cfg, payloads, delta=None):
+    """A fresh v2 engine (the hybrid engine's serving geometry) from a full
+    payload, with a delta payload applied when given."""
+    from deepspeed_tpu_torch.checkpoint.state_checkpoint import \
+        tree_from_paths
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.serve import weights as sw
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    stager = sw.stage_payload(payloads)
+    tree = tree_from_paths((n, np.array(v, np.float32))
+                           for n, v in stager.leaves.items())
+    eng = InferenceEngineV2(
+        TransformerLM(cfg), RaggedInferenceEngineConfig.from_dict(
+            dict(HYBRID_SERVING["engine"], dtype="bfloat16",
+                 state_manager=dict(HYBRID_SERVING["state_manager"]))),
+        params=tree, device=dev)
+    eng.weight_version = stager.version
+    sw.set_delta_base(eng, stager.leaves)
+    if delta is not None:
+        sw.apply_payload(eng, delta)
+    return eng
+
+
+def hybrid_phase(dev):
+    """Phase 8m (a)-(c): the hybrid engine at Mistral-7B width and
+    HYBRID_LAYERS layers (see the module docstring). Returns the launches
+    of its kernels."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2.serve import weights as sw
+    from deepspeed_tpu_torch.models import TransformerLM, mistral_7b
+    from deepspeed_tpu_torch.rl import CriticValueHead, PPOLearner
+    from deepspeed_tpu_torch.runtime.hybrid_engine import \
+        DeepSpeedHybridEngine
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(mistral_7b(), num_layers=HYBRID_LAYERS)
+    V = cfg.vocab_size
+    rng = np.random.default_rng(25)
+    eng, *_ = deepspeed_tpu_torch.initialize(model=TransformerLM(cfg),
+                                             config=HYBRID_CONFIG)
+    if not isinstance(eng, DeepSpeedHybridEngine):
+        raise AssertionError("8m: initialize() did not return the hybrid "
+                             "engine")
+    batch = {"input_ids": rng.integers(0, V, (1, TRAIN_B, TRAIN_S))}
+    n_leaves = len(sw.flatten_params(eng.params))
+    # warm-up outside the counted path: the cuBLAS handles of the shapes
+    eng.train_batch(batch=batch)
+    kernel_counts(reset=True)
+    # -- the main path: train, publish, generate, rollout, learn, publish
+    # the int8 delta ------------------------------------------------------
+    losses = [eng.train_batch(batch=batch)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = eng.publish()
+    publish_s = time.perf_counter() - t0
+    full_bytes = sw.payload_bytes(payload)
+    gen_prompts = rng.integers(1, V, (4, 1280))
+    t0 = time.perf_counter()
+    gen = eng.generate(gen_prompts, max_new_tokens=HYBRID_NEW)
+    gen_s = time.perf_counter() - t0
+    v1 = eng.weight_version
+    losses.append(eng.train_batch(batch=batch))
+    gen2 = eng.generate(gen_prompts, max_new_tokens=HYBRID_NEW)
+    v2 = eng.weight_version
+    roll_prompts = [list(map(int, rng.integers(1, V, n)))
+                    for n in rng.integers(1100, 1501, 4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = eng.rollout(roll_prompts, max_new_tokens=HYBRID_NEW,
+                          temperature=1.0, seed=7)
+    roll_s = time.perf_counter() - t0
+    for s in samples:
+        s.reward = len(set(s.tokens)) / len(s.tokens)
+    critic = CriticValueHead()
+    critic.observe(samples)
+    learner = PPOLearner(eng, value_fn=critic)
+    before = kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = learner.step()
+    torch.cuda.synchronize()
+    learn_ms = (time.perf_counter() - t0) * 1e3
+    learn = {k: v - before[k] for k, v in kernel_counts().items()}
+    anchor = eng.publish_delta()
+    losses.append(eng.train_batch(batch=batch))
+    before = kernel_counts()
+    t0 = time.perf_counter()
+    pub = eng.publish_delta()
+    delta_s = time.perf_counter() - t0
+    q_delta = kernel_counts()["quantize_blocks"] - before["quantize_blocks"]
+    launches = kernel_counts()
+    # -- checks ---------------------------------------------------------
+    log(f"8m (a): hybrid engine, mistral_7b width at {HYBRID_LAYERS} layers "
+        f"(of 32), bf16, ZeRO 2, AdamW; losses "
+        f"{[f'{x:.4f}' for x in losses]}; publish() {publish_s:.2f}s, "
+        f"{full_bytes / 2**30:.3f} GiB fp32 payload ({n_leaves} leaves); "
+        f"generate() of 4 x 1280 tokens, {HYBRID_NEW} new, {gen_s:.2f}s; "
+        f"weight_version {v1} -> {v2}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"8m: losses {losses}")
+    fresh = payload_engine(dev, cfg, payload)
+    ref = fresh.generate([list(map(int, p)) for p in gen_prompts],
+                         max_new_tokens=HYBRID_NEW)
+    del fresh
+    if not all(np.array_equal(g, r) for g, r in zip(gen, ref)):
+        raise AssertionError("8m (a): the colocated engine's streams differ "
+                             "from a fresh engine built from the payload")
+    if gen.shape != gen2.shape != (4, 1280 + HYBRID_NEW) or not v2 > v1:
+        raise AssertionError(f"8m (a): generate shape {gen.shape}, "
+                             f"weight_version {v1} -> {v2}")
+    n_tok = sum(len(s.tokens) for s in samples)
+    lps = np.concatenate([np.asarray(s.logprobs) for s in samples])
+    log(f"8m (b): rollout of 4 prompts ({[len(p) for p in roll_prompts]} "
+        f"tokens), temperature 1, {HYBRID_NEW} new: {n_tok} tokens in "
+        f"{roll_s:.2f}s = {n_tok / roll_s:.1f} tokens/s; logprobs in "
+        f"[{lps.min():.3f}, {lps.max():.3f}]; learner step (S bucket "
+        f"{res['seq_bucket']}, {res['samples']} samples, critic fit on "
+        f"{critic.observed}) loss {res['loss']:.5f} in {learn_ms:.1f} ms; "
+        f"its launches {learn}")
+    if n_tok != 4 * HYBRID_NEW or not (np.isfinite(lps).all()
+                                        and (lps <= 0).all()):
+        raise AssertionError(f"8m (b): rollout tokens {n_tok}, logprobs "
+                             f"finite and <= 0: {lps}")
+    if (res["seq_bucket"] != HYBRID_LEARN_S or not np.isfinite(res["loss"])
+            or not all(learn[k] > 0 for k in FLASH_NAMES)):
+        raise AssertionError(f"8m (b): learner step {res}, flash launches "
+                             f"{learn}")
+    log(f"8m (c): publish_delta(): anchor v{anchor.version} (full), delta "
+        f"v{pub.version} on base v{pub.base_version} in {delta_s:.2f}s: "
+        f"{pub.delta_bytes / 2**20:.1f} MiB against "
+        f"{pub.full_bytes / 2**20:.1f} MiB full ({pub.wire_ratio:.2f}x); "
+        f"quantize launches {q_delta} for {n_leaves} leaves")
+    if anchor.delta is not None or pub.delta is None or q_delta != n_leaves:
+        raise AssertionError(f"8m (c): anchor delta {anchor.delta is None}, "
+                             f"delta {pub.delta is None}, quantize "
+                             f"launches {q_delta} != {n_leaves}")
+    fresh = payload_engine(dev, cfg, anchor.full, delta=pub.delta)
+    uids = [1, 2]
+    ps = roll_prompts[:2]
+    got = eng.serving_engine.put(uids, ps)
+    want = fresh.put(uids, ps)
+    for e in (eng.serving_engine, fresh):
+        for u in uids:
+            e.flush(u)
+    if not torch.equal(torch.from_numpy(got), torch.from_numpy(want)):
+        raise AssertionError(f"8m (c): the colocated engine's put() logits "
+                             f"after the delta differ from a fresh engine "
+                             f"of the full payload + the delta (max "
+                             f"{float(np.abs(got - want).max())})")
+    log(f"8m (c): colocated put() logits after the delta torch.equal to a "
+        f"fresh engine of the anchor payload + the delta; phase 8m (a)-(c) "
+        f"{time.perf_counter() - t_phase:.1f}s; launches {launches}")
+    del fresh, eng, learner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def seeded_adapter(cfg, seed, scale=0.02):
+    from deepspeed_tpu_torch.models.transformer import lora_target_leaves
+    rng = np.random.default_rng(seed)
+    return {p: (rng.standard_normal((cfg.num_layers, i, LORA_RANK))
+                .astype(np.float32) * scale,
+                rng.standard_normal((cfg.num_layers, LORA_RANK, o))
+                .astype(np.float32) * scale)
+            for p, (i, o) in lora_target_leaves(cfg).items()}
+
+
+def lora_bank_phase(dev, cfg, eng, prompts, tol):
+    """Phase 8m (d): the multi-LoRA bank over the serve phase's 32-layer
+    weight tensors (see the module docstring). ``tol`` is the serve phase's
+    put() logit gap to the fp32 engine. Returns the ragged and paged
+    launches."""
+    import types
+
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.serve import weights as sw
+    from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.runtime.hybrid_engine import \
+        DeepSpeedHybridEngine
+
+    t_phase = time.perf_counter()
+    bank = InferenceEngineV2(
+        TransformerLM(cfg), RaggedInferenceEngineConfig.from_dict(
+            {"dtype": "bfloat16", "decode_window": eng.decode_window,
+             "max_lora_adapters": LORA_SLOTS, "lora_rank": LORA_RANK,
+             "state_manager": {"max_ragged_batch_size": 8192}}),
+        params=eng.params, device=dev)
+    shared = all(a.data_ptr() == b.data_ptr() for (_, a), (_, b) in zip(
+        sw.flatten_params(bank.params), sw.flatten_params(eng.params)))
+    if not shared:
+        raise AssertionError("8m (d): the bank engine copied the weights")
+    ada, adb = seeded_adapter(cfg, 1), seeded_adapter(cfg, 2)
+    bank.load_adapter("A", ada)
+    bank.load_adapter("B", adb, scale=0.5)
+    kernel_counts(reset=True)
+    uids = list(range(2000, 2008))
+    # -- base rows with the bank on: put(), a decode step, generate() ----
+    got = bank.put(uids, prompts)
+    want = eng.put(uids, prompts)
+    nxt = [int(t) for t in want.argmax(-1)]
+    got_d = bank._decode_batch(uids, nxt)
+    want_d = eng._decode_batch(uids, nxt)
+    for e in (bank, eng):
+        for u in uids:
+            e.flush(u)
+    if not (torch.equal(torch.from_numpy(got), torch.from_numpy(want))
+            and all(torch.equal(torch.from_numpy(got_d[u]),
+                                torch.from_numpy(want_d[u]))
+                    for u in uids)):
+        raise AssertionError("8m (d): base rows with the bank on differ "
+                             "from the bank-less engine")
+    gen_b = bank.generate(prompts, max_new_tokens=16)
+    gen_e = eng.generate(prompts, max_new_tokens=16)
+    if not all(np.array_equal(a, b) for a, b in zip(gen_b, gen_e)):
+        raise AssertionError("8m (d): base streams with the bank on differ")
+    # -- a put() mixing base, A and B rows against each row alone --------
+    names = [None, "A", "B", None, "A", "B", "A", None]
+    for u, n in zip(uids, names):
+        bank.assign_adapter(u, n)
+    mixed = bank.put(uids, prompts)
+    for u in uids:
+        bank.flush(u)
+    gaps = []
+    for u, n, p, row in zip(uids, names, prompts, mixed):
+        bank.assign_adapter(u, n)
+        alone = bank.put([u], [p])[0]
+        bank.flush(u)
+        gaps.append(float(np.abs(row - alone).max()))
+    moved = [float(np.abs(mixed[i] - want[i]).max())
+             for i, n in enumerate(names) if n]
+    log(f"8m (d): bank of {LORA_SLOTS} x rank {LORA_RANK} over the serve "
+        f"engine's tensors (shared); base rows torch.equal to the bank-less "
+        f"engine in put() and a decode step, 16-token streams equal; mixed "
+        f"put() (base / A / B) max|row - row alone| "
+        f"{[f'{g:.4f}' for g in gaps]} (tolerance {tol:.4f}, the serve "
+        f"put()'s gap to fp32); adapter rows moved by "
+        f"{min(moved):.3f}-{max(moved):.3f} from base")
+    if max(gaps) > tol or not min(moved) > 0:
+        raise AssertionError(f"8m (d): mixed rows {gaps} beyond {tol}, or "
+                             f"an adapter moved nothing ({moved})")
+    streams = bank.generate(prompts, max_new_tokens=16, adapter=names)
+    if not all(len(s) == len(p) + 16 for s, p in zip(streams, prompts)):
+        raise AssertionError("8m (d): mixed generate() short")
+    # -- a publish_adapter payload equals a direct load -------------------
+    stub = types.SimpleNamespace(lora_adapters=adb, lora_scale=0.5,
+                                 publisher=types.SimpleNamespace(version=0),
+                                 _serving=None)
+    payload = DeepSpeedHybridEngine.publish_adapter(stub, "B")
+    direct = {k: v[:, bank._adapter_slots["B"]].clone()
+              for k, v in bank.lora_bank.items()}
+    bank.unload_adapter("B")
+    sw.apply_payload(bank, payload)
+    slot = bank._adapter_slots["B"]
+    if not all(torch.equal(bank.lora_bank[k][:, slot], v)
+               for k, v in direct.items()):
+        raise AssertionError("8m (d): the publish_adapter payload differs "
+                             "from a direct load_adapter")
+    launches = kernel_counts()
+    t_checks = time.perf_counter() - t_phase
+
+    # -- device ms of the put() and of a decode-window step, the bank on
+    # against the bank-less engine (the card's activity alone) ----------
+    def device_ms(engine, adapter=None):
+        w = engine.decode_window
+        ms = [sum(t for t, _ in profiled(lambda: engine.generate(
+            prompts, max_new_tokens=new, adapter=adapter),
+            cpu=False)[2].values()) for new in (1, 1 + w)]
+        return ms[0], (ms[1] - ms[0]) / w
+
+    (put_e, win_e), (put_b, win_b), (put_m, win_m) = (
+        device_ms(eng), device_ms(bank), device_ms(bank, names))
+    log(f"8m (d): device ms of the 8-prompt put() / a decode-window step: "
+        f"bank-less {put_e:.2f} / {win_e:.3f}, bank on with base rows "
+        f"{put_b:.2f} / {win_b:.3f}, mixed base / A / B {put_m:.2f} / "
+        f"{win_m:.3f}; the payload install equals a direct load; checks "
+        f"{t_checks:.1f}s, phase {time.perf_counter() - t_phase:.1f}s")
+    del bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ragged_attention": launches["ragged_attention"],
+            "paged_attention": launches["paged_attention"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -7745,6 +8121,8 @@ def main() -> int:
         launches[k] += n
     gc.collect()
     torch.cuda.empty_cache()
+    for k, n in hybrid_phase(dev).items():
+        launches[k] += n
     t0 = time.perf_counter()
     moe_launches, moe_ref = moe_train_phase(dev)
     for k, n in moe_launches.items():

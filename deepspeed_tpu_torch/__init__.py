@@ -75,7 +75,18 @@ decode dispatch, its prompts on the flash forward kernel. The fleet tier
 (``inference/v2/serve``: the replica router, in-process and remote
 replicas behind worker processes, disaggregated prefill over the chunked
 KV handoff, live weight pushes and the autoscaler) is the JAX package's;
-the online adapter is ROADMAP A12, speculation and LoRA A11.
+the online adapter is ROADMAP A12, speculation A11b.
+
+RLHF: with ``hybrid_engine.enabled`` ``initialize()`` returns the
+:class:`~.runtime.hybrid_engine.DeepSpeedHybridEngine`, the training
+engine with a colocated v2 serving engine on its published weights
+(``publish`` / ``publish_delta`` / ``publish_adapter``, ``generate``,
+``rollout`` into a bounded queue), and ``rl/`` is the PPO learner loop
+over it (GAE, the fitted critic, ``PPOLearner``, ``ActorLearnerLoop``);
+a batch with ``ppo_*`` keys trains the clipped-PPO objective. The v2
+engine serves many LoRA adapters at once from a bank on the card
+(``max_lora_adapters``, ``load_adapter``, ``generate(adapter=)``,
+adapter payloads over the weight wire and the router).
 """
 
 __version__ = "0.1.0"
@@ -103,7 +114,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     Starts the process group first (``comm.init_distributed``, JAX
     :58): the launcher's ranks, or one rank on a free local port; on
     ``nccl`` for the card and ``gloo`` for ``device="cpu"``. Returns
-    ``(engine, optimizer, training_dataloader, lr_scheduler)``; the
+    ``(engine, optimizer, training_dataloader, lr_scheduler)``, the engine
+    a :class:`~.runtime.hybrid_engine.DeepSpeedHybridEngine` when
+    ``hybrid_engine.enabled`` (JAX :70); the
     dataloader is a :class:`~.runtime.dataloader.DeepSpeedDataLoader` of
     ``training_data`` (global micro-batches, which the engine cuts by
     rank; the engine draws from it when ``train_batch()`` gets no batch),
@@ -134,7 +147,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
             micro_batch_size=ds_config.train_micro_batch_size_per_gpu,
             dp_world_size=ds_config.dp_world_size,
             collate_fn=collate_fn)
-    engine = DeepSpeedTpuEngine(
+    engine_cls = DeepSpeedTpuEngine
+    if ds_config.cfg.hybrid_engine.enabled:
+        from .runtime.hybrid_engine import DeepSpeedHybridEngine
+        engine_cls = DeepSpeedHybridEngine
+    engine = engine_cls(
         model, ds_config, params=params, device=device, seed=seed,
         lr_scheduler=lr_scheduler, topology=topology,
         dataloader=RepeatingLoader(dataloader) if dataloader else None)

@@ -29,3 +29,24 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tree.detach().to("cpu", torch.float32).numpy()
+
+
+def adapters_from_numpy(adapters: Dict[str, Any], device="cpu",
+                        dtype: Optional[torch.dtype] = None
+                        ) -> Dict[str, tuple]:
+    """A LoRA adapter dict of the JAX package (``{leaf path: (lora_a,
+    lora_b)}`` numpy arrays, the hybrid engine's external-adapter and
+    ``load_adapter`` convention) -> the same dict of tensor pairs."""
+    return {path: tuple(params_from_numpy(x, device, dtype) for x in pair)
+            for path, pair in adapters.items()}
+
+
+def lora_bank_from_numpy(bank: Dict[str, Any], device="cpu",
+                         dtype: Optional[torch.dtype] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """A JAX engine's stacked LoRA bank (``engine.lora_bank``: ``qa`` /
+    ``va`` [L, slots, h, r], ``qb`` / ``vb`` [L, slots, r, out], as numpy)
+    -> the port's bank (the same layout, ``paged_model.init_lora_bank``),
+    ready to copy into ``InferenceEngineV2.lora_bank``."""
+    return {k: params_from_numpy(bank[k], device, dtype)
+            for k in ("qa", "qb", "va", "vb")}

@@ -1,22 +1,16 @@
 """Ragged inference engine configuration.
 
 Port of ``deepspeed_tpu/inference/v2/config_v2.py``: the same two
-dataclasses, fields and defaults. Features the port does not serve yet
-raise ``NotImplementedError`` at construction instead of being ignored:
-the LoRA bank (``max_lora_adapters``) and tensor/expert parallelism. The
+dataclasses, fields, defaults and validation. Every field is served: the
 int8 KV pool (``kv_quant``), weight-only quantization (``quant_bits`` 8
-or 4), the KV spill tier (``enable_kv_spill``, ``ragged/spill.py``) and
-both dispatches of ``ragged_attention`` (the ragged step, and "off": the
-stitched prefill / continue / decode) are served.
+or 4), the KV spill tier (``enable_kv_spill``, ``ragged/spill.py``), both
+dispatches of ``ragged_attention`` (the ragged step, and "off": the
+stitched prefill / continue / decode), tensor and expert parallelism and
+the multi-LoRA bank (``max_lora_adapters`` slots of rank ``lora_rank``).
 """
 
 from dataclasses import dataclass, field
 from typing import Optional
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP {item})")
 
 
 def check_ragged_mode(mode: str) -> bool:
@@ -126,9 +120,9 @@ class RaggedInferenceEngineConfig:
                 "quant_bits requires tensor_parallel_size == "
                 "expert_parallel_size == 1 (shardings are declared "
                 "against dense leaves)")
-        if self.max_lora_adapters:
-            raise _not_ported("the LoRA adapter bank (max_lora_adapters)",
-                              "A11")
+        if self.max_lora_adapters and self.lora_rank < 1:
+            raise ValueError("lora_rank must be >= 1 when the adapter "
+                             "bank is enabled")
         if self.expert_parallel_size < 1:
             raise ValueError("expert_parallel_size must be >= 1")
         if self.tensor_parallel_size < 1:

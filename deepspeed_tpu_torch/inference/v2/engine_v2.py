@@ -31,8 +31,17 @@ Under ``ragged_attention="off"`` put() takes the stitched dispatch
 instead (JAX :1583-1621): a new prompt through ``paged_prefill`` (its
 causal self-attention on the flash forward kernel when its bucket is a
 multiple of 128), a multi-token continuation through ``paged_continue``,
-single tokens as batched decode steps on the paged decode kernel. Not
-ported: speculative decoding and the LoRA bank (ROADMAP A11).
+single tokens as batched decode steps on the paged decode kernel.
+
+Multi-tenant LoRA (``max_lora_adapters`` > 0, JAX :243 / :636-760): a
+stacked adapter bank on the card (``paged_model.init_lora_bank``; slot 0
+all zeros for the base model), ``load_adapter`` / ``unload_adapter``
+write a slot in place, ``assign_adapter`` routes a uid through a loaded
+adapter, and every path adds each row's q / v delta in the layer loop
+(the ragged step from ``RaggedBatch.adapter_slots``, decode steps and
+windows from the rows' slots, prefill / continue from the sequence's).
+Prefix caching keys on the adapter name. ``generate(adapter=)`` serves
+rows through adapters. Not ported: speculative decoding (ROADMAP A11b).
 
 Under ``quant_bits`` 8 or 4 the weights rest quantized
 (``inference/quantization.py``) and are dequantized right before use.
@@ -69,9 +78,10 @@ from ...utils.bucketing import ceil_bucket, pow2_bucket
 from ...utils.device import resolve_device
 from ...utils.logging import log_dist
 from .config_v2 import RaggedInferenceEngineConfig, check_ragged_mode
-from .paged_model import (check_servable, init_paged_kv_cache,
-                          paged_continue, paged_decode, paged_decode_window,
-                          paged_prefill, paged_ragged_step)
+from .paged_model import (check_servable, init_lora_bank,
+                          init_paged_kv_cache, paged_continue, paged_decode,
+                          paged_decode_window, paged_prefill,
+                          paged_ragged_step)
 from .ragged import batch as ragged_batch
 from .ragged.blocked_allocator import NULL_BLOCK
 from .ragged.ragged_manager import DSStateManager
@@ -178,6 +188,21 @@ class InferenceEngineV2:
         # weights; set by each swap and advertised through /healthz, so
         # the router's blue/green rollout converges a fleet on one version
         self.weight_version = 0
+        # multi-tenant LoRA: the stacked adapter bank on the engine's
+        # device, slot 0 the all-zero base delta (rows without an adapter
+        # add an exact +0.0); loading an adapter writes its slot in place
+        self.lora_bank = None
+        self._adapter_slots: Dict[str, int] = {}
+        self._uid_adapter: Dict[int, str] = {}
+        if config.max_lora_adapters > 0:
+            if self.topology is not None:
+                raise NotImplementedError(
+                    "the LoRA adapter bank in an SPMD engine (tensor or "
+                    "expert parallel) is not ported: its followers would "
+                    "have to mirror every adapter load (ROADMAP A15)")
+            self.lora_bank = init_lora_bank(
+                cfg, config.max_lora_adapters + 1, config.lora_rank,
+                self.dtype, self.device)
         self._init_telemetry()
         self.ragged_enabled = check_ragged_mode(config.ragged_attention)
         self.decode_window = max(int(config.decode_window), 1)
@@ -290,6 +315,12 @@ class InferenceEngineV2:
             "serving_weight_version",
             "live weight version this engine serves (0 = the boot "
             "checkpoint; bumped by each hot-swap)")
+        self._m_adapter_loads = reg.counter(
+            "inference_lora_adapter_loads_total",
+            "LoRA adapters (re)loaded into device bank slots")
+        self._m_adapters_live = reg.gauge(
+            "inference_lora_adapters_live",
+            "adapter names currently resident in the device bank")
 
     def _update_pool_telemetry(self):
         """KV-pool gauges from the block allocator's host counters (no
@@ -333,6 +364,139 @@ class InferenceEngineV2:
         flight.record("tunable_set", name="serving.decode_window",
                       value=window, source=source)
         return window
+
+    # ------------------------------------------------------------------
+    # Multi-tenant batched LoRA (config_v2.max_lora_adapters; JAX :636)
+    # ------------------------------------------------------------------
+    def load_adapter(self, name: str, adapters: Dict[str, tuple],
+                     scale: float = 1.0) -> int:
+        """Install a LoRA adapter into a bank slot (in place: serving goes
+        on through the same code and tensors). ``adapters`` is the hybrid
+        engine's external-adapter convention: ``{"layers/wq": (a, b),
+        "layers/wv": (a, b)}`` with a [L, h, r] and b [L, r, out]
+        (arrays or tensors). ``scale`` folds into b, so a row's delta is
+        the fused weight's ``w + scale * (a @ b)``. Ranks below the bank's
+        zero-pad (the extra rank adds exactly 0), larger ones raise;
+        reloading a known name rewrites its slot. Returns the slot."""
+        if self.lora_bank is None:
+            raise ValueError(
+                "adapter bank disabled: set max_lora_adapters > 0 in "
+                "RaggedInferenceEngineConfig")
+        from ...models.transformer import lora_target_leaves
+        cfg = self.model.cfg
+        targets = lora_target_leaves(cfg)
+        if set(adapters) != set(targets):
+            raise ValueError(
+                f"adapter {name!r} leaves {sorted(adapters)} != serving "
+                f"targets {sorted(targets)} (q/v projections only)")
+        R = self.config.lora_rank
+        L = cfg.num_layers
+        staged = {}
+        for leaf, keys in (("layers/wq", ("qa", "qb")),
+                           ("layers/wv", ("va", "vb"))):
+            # host copies (a staged payload leaf is a read-only view)
+            a, b = (np.array(x.detach().to("cpu", torch.float32)
+                             if isinstance(x, torch.Tensor) else x,
+                             np.float32) for x in adapters[leaf])
+            in_dim, out_dim = targets[leaf]
+            if (a.ndim != 3 or b.ndim != 3 or a.shape[0] != L
+                    or b.shape[0] != L or a.shape[1] != in_dim
+                    or b.shape[2] != out_dim or a.shape[2] != b.shape[1]):
+                raise ValueError(
+                    f"adapter {name!r} leaf {leaf}: got a{a.shape} "
+                    f"b{b.shape}, want a[{L},{in_dim},r] "
+                    f"b[{L},r,{out_dim}]")
+            r = a.shape[2]
+            if r > R:
+                raise ValueError(
+                    f"adapter {name!r} rank {r} exceeds bank rank {R} "
+                    f"(config_v2.lora_rank)")
+            if r < R:   # zero-pad: the extra rank contributes exactly 0
+                a = np.concatenate(
+                    [a, np.zeros((L, in_dim, R - r), a.dtype)], axis=2)
+                b = np.concatenate(
+                    [b, np.zeros((L, R - r, out_dim), b.dtype)], axis=1)
+            staged[keys] = (a, b * float(scale))
+        slot = self._adapter_slots.get(name)
+        if slot is None:
+            used = set(self._adapter_slots.values())
+            slot = next(
+                (s for s in range(1, self.config.max_lora_adapters + 1)
+                 if s not in used), None)
+            if slot is None:
+                raise RuntimeError(
+                    f"adapter bank full ({self.config.max_lora_adapters} "
+                    f"slots); unload_adapter() one or raise "
+                    f"max_lora_adapters")
+        bank = self.lora_bank
+        with torch.no_grad():
+            for (ka, kb), (a, b) in staged.items():
+                bank[ka][:, slot].copy_(torch.from_numpy(a).to(
+                    bank[ka].device, bank[ka].dtype))
+                bank[kb][:, slot].copy_(torch.from_numpy(b).to(
+                    bank[kb].device, bank[kb].dtype))
+        self._adapter_slots[name] = slot
+        self._m_adapter_loads.inc()
+        self._m_adapters_live.set(len(self._adapter_slots))
+        flight.record("adapter_load", name=str(name), slot=int(slot))
+        return slot
+
+    def unload_adapter(self, name: str) -> None:
+        """Zero the adapter's slot (back to the base no-op delta) and free
+        it; uids still routed to the name fall back to the base model."""
+        slot = self._adapter_slots.pop(name, None)
+        if slot is None:
+            return
+        with torch.no_grad():
+            for t in self.lora_bank.values():
+                t[:, slot].zero_()
+        self._uid_adapter = {u: n for u, n in self._uid_adapter.items()
+                             if n != name}
+        self._m_adapters_live.set(len(self._adapter_slots))
+
+    def assign_adapter(self, uid: int, name: Optional[str]) -> int:
+        """Route ``uid``'s tokens through a loaded adapter's slot (None or
+        "" clears it to the base slot 0). An unknown adapter raises
+        ``KeyError`` here, at submit, not mid-batch."""
+        uid = int(uid)
+        if not name:
+            self._uid_adapter.pop(uid, None)
+            return 0
+        if self.lora_bank is None:
+            raise ValueError(
+                f"adapter {name!r} requested but the bank is disabled "
+                f"(max_lora_adapters=0)")
+        slot = self._adapter_slots.get(name)
+        if slot is None:
+            raise KeyError(
+                f"unknown adapter {name!r}: load_adapter() it first "
+                f"(loaded: {sorted(self._adapter_slots)})")
+        self._uid_adapter[uid] = str(name)
+        seq = self.state_manager.seqs.get(uid)
+        if seq is not None:
+            seq.adapter = str(name)
+            seq.adapter_slot = int(slot)
+        return slot
+
+    def adapter_of(self, uid: int) -> Optional[str]:
+        """The adapter name serving ``uid`` (None = base). Names, not
+        engine-local slots, key the prefix digests and router affinity, so
+        they agree across replicas."""
+        return self._uid_adapter.get(int(uid))
+
+    def _adapter_slot_of(self, uid: int) -> int:
+        name = self._uid_adapter.get(int(uid))
+        if name is None:
+            return 0
+        return self._adapter_slots.get(name, 0)
+
+    def _lora_rows(self, N: int, uids) -> dict:
+        """The bank and the [N] per-row slots of a decode batch (padding
+        rows on slot 0), as the families' keyword arguments."""
+        if self.lora_bank is None:
+            return {}
+        return dict(lora=self.lora_bank, adapter_ids=self._pad_i32(
+            N, [self._adapter_slot_of(u) for u in uids]))
 
     # ------------------------------------------------------------------
     # Schedulability (reference engine_v2.py:135 query / :161 can_schedule)
@@ -423,7 +587,7 @@ class InferenceEngineV2:
                 self.serve_cfg, self.params, self._i32(toks),
                 self._i32(pos), self._i32(tables), self.kv_cache,
                 torch.as_tensor(active).to(self.device), self.block_size,
-                use_kernel=self.use_kernel)
+                use_kernel=self.use_kernel, **self._lora_rows(N, uids))
             nxt = pick(logits, N).cpu().numpy()   # the step's one read
         self.host_syncs += 1
         self.decode_steps += 1
@@ -506,7 +670,8 @@ class InferenceEngineV2:
                 self._i32(pos), self._i32(tables), self.kv_cache,
                 self._pad_i32(N, steps_left), self._i32(eos),
                 self.block_size, self.decode_window,
-                use_kernel=self.use_kernel, **(sampling or {}))
+                use_kernel=self.use_kernel, **(sampling or {}),
+                **self._lora_rows(N, uids))
             out = out.cpu().numpy()   # ONE transfer for the whole window
         self.host_syncs += 1
         self.decode_windows += 1
@@ -600,8 +765,10 @@ class InferenceEngineV2:
         for i, (uid, toks) in enumerate(entries):
             if not sm.known_seq(uid) and len(toks) > 1:
                 # prefix caching: shared full blocks shorten the row to its
-                # unseen suffix
-                _, n_reused = sm.match_prefix(uid, toks)
+                # unseen suffix; keyed on the adapter name (a LoRA row's v
+                # projection, so its KV, differs from the base model's)
+                _, n_reused = sm.match_prefix(
+                    uid, toks, adapter=self._uid_adapter.get(int(uid)))
                 if n_reused:
                     entries[i] = (uid, toks[n_reused:])
         # classify rows BEFORE packing mutates allocation state: a decode
@@ -610,8 +777,19 @@ class InferenceEngineV2:
             1 for uid, toks in entries
             if len(toks) == 1 and sm.known_seq(uid)
             and sm.seqs[uid].seen_tokens > 0)
+        if self.lora_bank is not None:
+            # each row's adapter into its descriptor: the packer carries
+            # the slots (RaggedBatch.adapter_slots), flush-time prefix
+            # registration the name
+            for uid, _ in entries:
+                seq = sm.get_or_create_sequence(uid)
+                seq.adapter = self._uid_adapter.get(int(uid))
+                seq.adapter_slot = self._adapter_slot_of(uid)
         t0 = time.perf_counter()
         rb = ragged_batch.pack(entries, sm)
+        lora = ({} if self.lora_bank is None else
+                dict(lora=self.lora_bank,
+                     adapter_ids=self._i32(rb.adapter_slots)))
         i32 = self._i32
         with trace.span("ragged_step", rows=len(entries),
                         tokens=rb.total_tokens,
@@ -623,7 +801,7 @@ class InferenceEngineV2:
                 i32(rb.write_offsets), i32(rb.block_tables),
                 i32(rb.last_index), self.kv_cache, self.block_size,
                 use_kernel=self.use_kernel,
-                touched_blocks=i32(rb.touched_blocks))
+                touched_blocks=i32(rb.touched_blocks), **lora)
             logits = logits[:len(entries)].cpu().numpy()   # the one read
         dt = time.perf_counter() - t0
         self.ragged_steps += 1
@@ -686,7 +864,7 @@ class InferenceEngineV2:
                 self.serve_cfg, self.params, self._i32(ids), n,
                 self.kv_cache, self._i32(table), self._i32(offs),
                 use_kernel=self.use_kernel,
-                touched_blocks=self._i32(touched))
+                touched_blocks=self._i32(touched), **self._lora_seq(uid))
             logits = logits.cpu().numpy()
         flight.record("prefill", uid=int(uid), tokens=int(n))
         seq.seen_tokens = n
@@ -713,7 +891,7 @@ class InferenceEngineV2:
                 self.serve_cfg, self.params, self._i32(ids), start, n,
                 self.kv_cache, self._i32(table), self._i32(offs),
                 self._i32(sm.block_table_for(uid)), self.block_size,
-                touched_blocks=self._i32(touched))
+                touched_blocks=self._i32(touched), **self._lora_seq(uid))
             logits = logits.cpu().numpy()
         seq.seen_tokens = start + n
         if sm.config.enable_prefix_caching:
@@ -721,6 +899,13 @@ class InferenceEngineV2:
         self._m_prefill_tokens.inc(n)
         self._update_pool_telemetry()
         return logits
+
+    def _lora_seq(self, uid: int) -> dict:
+        """The bank and ``uid``'s slot for a one-sequence pass."""
+        if self.lora_bank is None:
+            return {}
+        return dict(lora=self.lora_bank,
+                    adapter_ids=self._adapter_slot_of(uid))
 
     def _decode_batch(self, uids: List[int],
                       tokens: List[int]) -> Dict[int, np.ndarray]:
@@ -755,8 +940,9 @@ class InferenceEngineV2:
         for i, (uid, toks) in enumerate(entries):
             if not sm.known_seq(uid) and len(toks) > 1:
                 # prefix caching: shared full blocks make this uid a known
-                # sequence whose suffix continues below
-                _, n_reused = sm.match_prefix(uid, toks)
+                # sequence whose suffix continues below (adapter-keyed)
+                _, n_reused = sm.match_prefix(
+                    uid, toks, adapter=self._uid_adapter.get(int(uid)))
                 if n_reused:
                     toks = toks[n_reused:]
                     entries[i] = (uid, toks)
@@ -777,6 +963,7 @@ class InferenceEngineV2:
     def flush(self, uid: int) -> None:
         """Release a finished sequence's KV blocks (reference flush)."""
         self._uid_traces.pop(int(uid), None)
+        self._uid_adapter.pop(int(uid), None)
         self.state_manager.flush_sequence(uid)
         self._update_pool_telemetry()
 
@@ -851,17 +1038,23 @@ class InferenceEngineV2:
         from (``seed``, its row index, its generated-token index), so the
         window and the per-token path give the same stream, whatever else
         is in the batch. Returns prompt + generated tokens per row.
-        Speculative decoding and LoRA adapters are not ported and raise
-        (ROADMAP A11)."""
+        ``adapter`` routes rows through loaded LoRA adapters: a name for
+        every row, or a list of names (None = base) one per row.
+        Speculative decoding is not ported and raises (ROADMAP A11b)."""
         if speculative:
             raise NotImplementedError(
                 "speculative decoding is not ported to deepspeed_tpu_torch "
-                "yet (ROADMAP A11)")
-        if adapter is not None:
-            raise NotImplementedError(
-                "LoRA adapters are not ported to deepspeed_tpu_torch yet "
-                "(ROADMAP A11)")
+                "yet (ROADMAP A11b)")
         uids = list(uids) if uids is not None else list(range(len(prompts)))
+        if adapter is not None:
+            names = ([adapter] * len(uids) if isinstance(adapter, str)
+                     else list(adapter))
+            if len(names) != len(uids):
+                raise ValueError(
+                    f"adapter list length {len(names)} != batch size "
+                    f"{len(uids)}")
+            for uid, name in zip(uids, names):
+                self.assign_adapter(uid, name)
         outs: List[List[int]] = [list(map(int, p)) for p in prompts]
         row_of = {uid: i for i, uid in enumerate(uids)}
         sampling = temperature > 0.0

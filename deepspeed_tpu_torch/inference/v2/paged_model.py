@@ -15,6 +15,12 @@ path:
 * ``paged_decode_window`` — K decode steps (greedy or sampled) on the
   device with one host transfer for the whole window.
 
+Every family takes the multi-LoRA bank (``init_lora_bank``; ``lora`` and
+``adapter_ids``: a slot for the one sequence of prefill / continue, one
+per row otherwise): the shared layer loop adds each row's adapter delta
+to the flat q and v projections right after ``qkv_proj`` (JAX :129-168,
+plain products beside the kernels, as the JAX package's ``jnp`` einsums).
+
 The KV pool is ``[L, num_blocks, block_size, kv_heads, head_dim]`` per K
 and V; block 0 is the null block that padding writes land in. Under
 ``kv_quant`` the pool is int8 with per-(block, kv head) f32 scales
@@ -309,15 +315,69 @@ def _logits(cfg, params, x):
     return gather_vocab(out, tp, g)
 
 
+def init_lora_bank(cfg: TransformerConfig, slots: int, rank: int,
+                   dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """The all-zero stacked adapter bank (JAX :156): ``slots`` includes the
+    reserved base slot 0. ``qa`` / ``va`` [L, slots, h, r], ``qb`` / ``vb``
+    [L, slots, r, out] (the JAX layout); loading an adapter writes its
+    slot in place."""
+    h, r = cfg.hidden_size, int(rank)
+    L, hd = cfg.num_layers, cfg.head_dim
+    return {"qa": torch.zeros((L, slots, h, r), dtype=dtype, device=device),
+            "qb": torch.zeros((L, slots, r, cfg.num_heads * hd), dtype=dtype,
+                              device=device),
+            "va": torch.zeros((L, slots, h, r), dtype=dtype, device=device),
+            "vb": torch.zeros((L, slots, r, cfg.kv_heads * hd), dtype=dtype,
+                              device=device)}
+
+
+def _lora_delta(a, b, hn, aid):
+    """Per-row LoRA delta ``(hn @ a[aid]) @ b[aid]`` from one layer of the
+    bank (JAX :129): ``a`` [S, h, r], ``b`` [S, r, o] (the adapter's scale
+    folded into ``b`` at load), ``hn`` [T, h]. ``aid`` is an int for a
+    single-sequence chunk (prefill / continue), or a [T, S] one-hot of each
+    row's slot in ``hn``'s dtype: then every slot's ``hn @ a[s]`` is formed
+    ([T, S, r], small at LoRA ranks), the rows' own slot kept and the
+    products with ``b`` summed over (slot, rank), which adds exact zeros
+    for the other slots and never gathers a [T, h, r] copy of the bank.
+    Slot 0 is all zeros: a base row's delta is exactly 0."""
+    if isinstance(aid, int):
+        return (hn @ a[aid].to(hn.dtype)) @ b[aid].to(hn.dtype)
+    t = torch.einsum("th,shr->tsr", hn, a.to(hn.dtype)) * aid[:, :, None]
+    return torch.einsum("tsr,sro->to", t, b.to(hn.dtype))
+
+
+def _lora_aid(lora, adapter_ids, dtype):
+    """The ``aid`` of :func:`_lora_delta` for one forward: an int stays,
+    per-row slots [T] become their one-hot [T, S] (once, not per layer)."""
+    if lora is None or isinstance(adapter_ids, int):
+        return adapter_ids
+    slots = lora["qa"].shape[1]
+    return torch.nn.functional.one_hot(adapter_ids.long(), slots).to(dtype)
+
+
+def _lora_qv(lora, l: int, hn, aid, q, v):
+    """Add layer ``l``'s per-row LoRA deltas to the flat q / v projections
+    (classic LoRA targets q and v; JAX :146); ``lora`` None is the
+    bank-less engine."""
+    if lora is None:
+        return q, v
+    return (q + _lora_delta(lora["qa"][l], lora["qb"][l], hn, aid),
+            v + _lora_delta(lora["va"][l], lora["vb"][l], hn, aid))
+
+
 def _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
-            touched, attend):
-    """The shared layer loop: norm, qkv, rotary, KV write, then attention
+            touched, attend, lora=None, adapter_ids=None):
+    """The shared layer loop: norm, qkv (plus the LoRA bank's deltas on q
+    and v when ``lora`` is given: ``adapter_ids`` an int slot, or [T] per
+    token), rotary, KV write, then attention
     (``attend(q, k, v, kc_l, vc_l, ks_l, vs_l)``: the batch's own k / v
     and the layer's pool, the scales None unless the pool is int8),
     out-projection and MLP. Each layer writes its K/V into the pool before
     it reads it, on the same stream. ``touched`` is the write-set's
     distinct blocks (read for an int8 pool only)."""
     T = x.shape[0]
+    aid = _lora_aid(lora, adapter_ids, x.dtype)
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     layers = params["layers"]
     kc, vc = cache["k"], cache["v"]
@@ -330,6 +390,7 @@ def _layers(cfg, params, x, cos, sin, cache, write_blocks, write_offsets,
                                 for name, leaf in layers.items()})
         hn = _norm(cfg, x, lp["attn_norm"], lp.get("attn_norm_b"))
         q, k, v = qkv_proj(lp, hn)
+        q, v = _lora_qv(lora, l, hn, aid, q, v)
         q = q.reshape(T, nh, hd)
         k = k.reshape(T, nkv, hd)
         v = v.reshape(T, nkv, hd)
@@ -388,7 +449,8 @@ def paged_prefill(cfg: TransformerConfig, params, ids: torch.Tensor,
                   prompt_len: int, cache: Dict[str, torch.Tensor],
                   block_ids: torch.Tensor, offsets: torch.Tensor,
                   use_kernel: bool = True,
-                  touched_blocks: torch.Tensor = None) -> torch.Tensor:
+                  touched_blocks: torch.Tensor = None, lora=None,
+                  adapter_ids: int = 0) -> torch.Tensor:
     """ids [1, C] (the padded prompt); ``prompt_len`` its valid tokens;
     ``block_ids`` / ``offsets`` [C] map a chunk position to its (cache
     block, slot), padding to the null block. Returns the last token's
@@ -424,7 +486,7 @@ def paged_prefill(cfg: TransformerConfig, params, ids: torch.Tensor,
         return _plain_attention(q, k, v, mask, x.dtype)
 
     x = _layers(cfg, params, x, cos, sin, cache, block_ids, offsets,
-                touched_blocks, attend)
+                touched_blocks, attend, lora, adapter_ids)
     return _logits(cfg, params, x[int(prompt_len) - 1])
 
 
@@ -433,7 +495,8 @@ def paged_continue(cfg: TransformerConfig, params, ids: torch.Tensor,
                    cache: Dict[str, torch.Tensor], block_ids: torch.Tensor,
                    offsets: torch.Tensor, block_table: torch.Tensor,
                    block_size: int,
-                   touched_blocks: torch.Tensor = None) -> torch.Tensor:
+                   touched_blocks: torch.Tensor = None, lora=None,
+                   adapter_ids: int = 0) -> torch.Tensor:
     """A multi-token continuation of ONE cached sequence in one pass (JAX
     :417): ids [1, C] (the padded chunk), ``start_pos`` the tokens already
     cached, ``n_new`` the chunk's valid tokens, ``block_ids`` /
@@ -463,7 +526,7 @@ def paged_continue(cfg: TransformerConfig, params, ids: torch.Tensor,
         return _plain_attention(q, kp, vp, mask, x.dtype)
 
     x = _layers(cfg, params, x, cos, sin, cache, block_ids, offsets,
-                touched_blocks, attend)
+                touched_blocks, attend, lora, adapter_ids)
     return _logits(cfg, params, x[int(n_new) - 1])
 
 
@@ -473,7 +536,8 @@ def paged_continue(cfg: TransformerConfig, params, ids: torch.Tensor,
 def paged_decode(cfg: TransformerConfig, params, toks: torch.Tensor,
                  pos: torch.Tensor, block_tables: torch.Tensor,
                  cache: Dict[str, torch.Tensor], active: torch.Tensor,
-                 block_size: int, use_kernel: bool = True) -> torch.Tensor:
+                 block_size: int, use_kernel: bool = True, lora=None,
+                 adapter_ids: torch.Tensor = None) -> torch.Tensor:
     """toks/pos/active [N]; block_tables [N, MB] int32. One token per
     sequence; returns [N, V] f32 logits and updates ``cache`` in place.
     Inactive rows write to the null block and produce garbage logits
@@ -494,7 +558,8 @@ def paged_decode(cfg: TransformerConfig, params, toks: torch.Tensor,
     attn = paged_attention if use_kernel else paged_attention_plain
     x = _layers(cfg, params, x, cos, sin, cache, blk, off, blk,
                 lambda q, k, v, kc, vc, ks, vs: attn(q, kc, vc, block_tables,
-                                                     lengths, ks, vs))
+                                                     lengths, ks, vs),
+                lora, adapter_ids)
     return _logits(cfg, params, x)
 
 
@@ -508,7 +573,8 @@ def paged_ragged_step(cfg: TransformerConfig, params, ids: torch.Tensor,
                       block_tables: torch.Tensor, last_index: torch.Tensor,
                       cache: Dict[str, torch.Tensor], block_size: int,
                       use_kernel: bool = True,
-                      touched_blocks: torch.Tensor = None) -> torch.Tensor:
+                      touched_blocks: torch.Tensor = None, lora=None,
+                      adapter_ids: torch.Tensor = None) -> torch.Tensor:
     """One mixed batch as a flat token buffer ``ids`` [TB] with per-token
     descriptors (``row_ids``, ``pos``, ``lengths`` = pos + 1 or 0 for
     padding, the KV write-set ``write_blocks``/``write_offsets``), per-row
@@ -528,7 +594,10 @@ def paged_ragged_step(cfg: TransformerConfig, params, ids: torch.Tensor,
                 touched_blocks,
                 lambda q, k, v, kc, vc, ks, vs: attn(q, kc, vc, row_ids,
                                                      lengths, block_tables,
-                                                     ks, vs))
+                                                     ks, vs),
+                # the bank slot of each row [RB], per token (padding rows
+                # carry slot 0)
+                lora, None if lora is None else adapter_ids[row_ids.long()])
     return _logits(cfg, params, x[last_index.long()])
 
 
@@ -545,7 +614,8 @@ def paged_decode_window(cfg: TransformerConfig, params, toks: torch.Tensor,
                         gen_idx0: torch.Tensor = None,
                         temp: torch.Tensor = None, topp: torch.Tensor = None,
                         topk: torch.Tensor = None,
-                        use_kernel: bool = True) -> torch.Tensor:
+                        use_kernel: bool = True, lora=None,
+                        adapter_ids: torch.Tensor = None) -> torch.Tensor:
     """``window`` decode steps with no host round trip: the next-token
     pick (argmax, or the sampler), the active mask, the EOS and budget cuts
     and the output block all stay on the device. Returns tokens [N, window]
@@ -581,7 +651,8 @@ def paged_decode_window(cfg: TransformerConfig, params, toks: torch.Tensor,
             gen_idx0[:, None] + steps))
     for s in range(window):
         logits = paged_decode(cfg, params, toks, pos, block_tables, cache,
-                              active, block_size, use_kernel=use_kernel)
+                              active, block_size, use_kernel=use_kernel,
+                              lora=lora, adapter_ids=adapter_ids)
         if rng is not None:
             nxt = sample_tokens_uniform(logits, u[:, s], temp, topp, topk)
         else:

@@ -9,8 +9,8 @@ composed step is one ``put()`` — one ragged step (paged_model
 ``paged_ragged_step``) — except pure greedy decode steps, which take the
 engine's fused decode window. Sampled requests draw on the host from
 put()'s logits with their own numpy Generator (``host_sample``), as in
-the JAX package, so seeded streams match it. LoRA adapters are not
-ported (ROADMAP A11): ``submit(adapter=...)`` raises.
+the JAX package, so seeded streams match it. ``submit(adapter=...)``
+serves a request through a LoRA adapter loaded in the engine's bank.
 
 Usage:
     sched = DynamicSplitFuseScheduler(engine, token_budget=256)
@@ -164,12 +164,9 @@ class DynamicSplitFuseScheduler:
         ``trace_ctx`` (a :class:`~...telemetry.context.TraceContext`)
         correlates the request's lifeline spans — and, via
         ``engine.bind_trace``, the engine's batch spans — with its
-        distributed trace. ``adapter`` (a LoRA adapter name) is not
-        ported and raises NotImplementedError (ROADMAP A11)."""
-        if adapter:
-            raise NotImplementedError(
-                "LoRA adapters are not ported to deepspeed_tpu_torch yet "
-                "(ROADMAP A11)")
+        distributed trace. ``adapter`` names a loaded LoRA adapter to
+        serve this request through (KeyError if unknown; None = base
+        model)."""
         if uid in self._all:
             # results()/metrics() are keyed by uid: admitting a second
             # request under a live key would silently cross their
@@ -200,6 +197,11 @@ class DynamicSplitFuseScheduler:
                        temperature=temperature, top_p=top_p, top_k=top_k,
                        rng=np.random.default_rng(seed), on_token=on_token,
                        t_submit_pc=time.perf_counter(), adapter=adapter)
+        if adapter:
+            # the name resolves to a bank slot now (an unknown one raises
+            # at submit, not mid-batch) and every engine pass for this uid
+            # goes through it
+            self.engine.assign_adapter(uid, adapter)
         self._bind_trace(req, trace_ctx)
         self._all[uid] = req
         self._queue.append(req)

@@ -35,8 +35,10 @@ Port of ``deepspeed_tpu/inference/v2/serve/``:
   faults.py    — deterministic, seeded fault injection over the remote
                  transport
 
-Not ported: the online adapter (``ServingConfig.autotune``, ROADMAP A12)
-and LoRA adapter payloads (ROADMAP A11).
+LoRA adapter payloads (``weights.chunk_adapter_payload``) ride the same
+wire into an engine's adapter bank, fleet-wide through
+``ReplicaRouter.push_adapter``. Not ported: the online adapter
+(``ServingConfig.autotune``, ROADMAP A12).
 """
 
 from . import handoff  # noqa: F401

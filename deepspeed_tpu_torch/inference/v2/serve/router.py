@@ -335,6 +335,9 @@ class ReplicaRouter:
         # rotation, streams finishing on their original version)
         self.target_weight_version: Optional[int] = None
         self._weight_payloads: Optional[List[bytes]] = None
+        # adapter payloads by name for scale-up sync: a newcomer holds
+        # every live adapter before it takes adapter traffic
+        self._adapter_payloads: Dict[str, List[bytes]] = {}
         self._updating: set = set()
         self._uids = itertools.count(1)
         self._requests: Dict[int, _RoutedRequest] = {}
@@ -586,6 +589,19 @@ class ReplicaRouter:
                 # the replica was already STARTED above: stop it before
                 # propagating, or a failed sync leaks a live worker the
                 # autoscaler only counts as a spawn failure
+                try:
+                    await replica.stop()
+                except Exception:
+                    pass
+                raise
+        # newcomers also sync every live ADAPTER before taking traffic
+        # (bank-slot installs; weight_version untouched)
+        if self.config.sync_weights_on_add and self._adapter_payloads:
+            try:
+                for pl in self._adapter_payloads.values():
+                    await self._push_to_replica(
+                        replica, pl, sum(len(p) for p in pl))
+            except BaseException:
                 try:
                     await replica.stop()
                 except Exception:
@@ -1154,10 +1170,19 @@ class ReplicaRouter:
         gets the quantized delta payload (~4x fewer wire bytes); anyone else —
         and any delta that fails typed (stale base, corrupt chunk) —
         gets the full payload. Only the FULL payload is cached for
-        scale-up sync (newcomers hold no base)."""
+        scale-up sync (newcomers hold no base). ``payloads`` may be a
+        :class:`~....runtime.hybrid_engine.WeightPublication` (its full
+        payload, and its delta unless ``delta`` is given), or an adapter
+        payload, which goes to :meth:`push_adapter`."""
         from . import weights as serve_weights
+        if hasattr(payloads, "full"):   # a WeightPublication
+            if delta is None:
+                delta = payloads.delta
+            payloads = payloads.full
         if serve_weights.is_adapter_payload(payloads):
-            raise NotImplementedError(serve_weights.ADAPTER_REFUSAL)
+            # an ADAPTER rode the publish path: the same per-replica push,
+            # installed in a bank slot, the fleet's version target left
+            return await self.push_adapter(payloads)
         if self.config.disaggregated:
             raise NotImplementedError(
                 "blue/green weight push over disaggregated fleets is "
@@ -1234,6 +1259,48 @@ class ReplicaRouter:
             raise RequestFailed(
                 f"weight push to version {version} did not converge: "
                 f"replicas {still_stale} still stale ({detail})")
+        return version
+
+    async def push_adapter(self, payloads: Sequence[bytes]) -> int:
+        """Deploy a LoRA adapter fleet-wide over the per-replica push path
+        of the blue/green weights (quiesce, ``POST /weights`` or the staged
+        in-process update, ingest) without moving the fleet's weight
+        version: each replica installs it in a bank slot
+        (``engine.load_adapter``), so convergence is each push's success.
+        The payload is cached by adapter name, so later ``add_replica``
+        scale-ups join holding every live adapter. Returns the payload's
+        version (JAX :1267)."""
+        from . import weights as serve_weights
+        if self._stopped:
+            raise RuntimeError("router is stopped")
+        header = serve_weights.parse_weights_header(payloads[0])
+        if not serve_weights.is_adapter_header(header):
+            raise ValueError(
+                "push_adapter requires an adapter payload "
+                "(payload_kind='adapter'); use push_weights for full/delta "
+                "payloads")
+        name = str(header["adapter_name"])
+        version = int(header["version"])
+        payloads = list(payloads)
+        nbytes = serve_weights.payload_bytes(payloads)
+        t0 = time.perf_counter()
+        failures: List[str] = []
+        for replica in list(self.replicas):
+            if replica.state != "up":
+                continue
+            try:
+                await self._push_to_replica(replica, payloads, nbytes)
+            except Exception as e:
+                self._m_weight_push_failures.inc()
+                failures.append(f"{replica.name}: {type(e).__name__}: {e}")
+        self._adapter_payloads[name] = payloads
+        trace.record("router_adapter_push", t0, time.perf_counter() - t0,
+                     lane=_ROUTER_LANE, adapter=name, version=version,
+                     payload_bytes=nbytes, failures=len(failures))
+        if failures:
+            raise RequestFailed(
+                f"adapter {name!r} push did not converge: "
+                + "; ".join(failures))
         return version
 
     async def _push_to_replica(self, replica, payloads: List[bytes],

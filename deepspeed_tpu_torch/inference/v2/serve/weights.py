@@ -41,15 +41,21 @@ the delta chain holds the same bits as the publisher's ``recon``.
 ``quant="off"`` ships changed leaves at full fp32 (bitwise-unchanged
 leaves are skipped), so reconstruction equals a full push exactly.
 
+ADAPTER payloads (``chunk_adapter_payload``) carry one LoRA adapter on the
+same wire: ``payload_kind="adapter"``, the adapter name (the identity the
+router and the prefix cache key on) and its scale in the header, each
+low-rank pair as two leaves ``path + "::a"`` / ``path + "::b"``. Ingest
+installs it in the engine's bank (``engine.load_adapter``, a slot write)
+instead of swapping params: ``weight_version`` and the delta base stay.
+
 Port note: ``deepspeed_tpu/inference/v2/serve/weights.py``'s API, function
 by function, on the same wire: header keys, leaf names, fp32 leaves and
 CRC32 ``.npz`` chunks, so a payload written by either package applies in
 the other. JAX swaps by donated buffer replacement (new arrays on the old
-shardings); the port copies into the old tensors. Refused here: LoRA
-adapter payloads (``payload_kind="adapter"``; the multi-LoRA bank is
-ROADMAP A11), engines whose weights rest quantized (``quant_bits``, as in
-JAX), and a swap into an SPMD engine (tensor or expert parallel; its
-followers would have to mirror it, ROADMAP A15).
+shardings); the port copies into the old tensors. Refused here: engines
+whose weights rest quantized (``quant_bits``, as in JAX), and a swap into
+an SPMD engine (tensor or expert parallel; its followers would have to
+mirror it, ROADMAP A15).
 """
 
 import time
@@ -68,10 +74,6 @@ _CHUNK_KIND = "weights"
 # holds gathered at once (and the per-frame wire unit of a remote push)
 DEFAULT_BUCKET_BYTES = 16 << 20
 
-ADAPTER_REFUSAL = (
-    "LoRA adapter weight payloads (payload_kind='adapter') install into "
-    "the multi-LoRA bank, which is not ported to deepspeed_tpu_torch yet "
-    "(ROADMAP A11)")
 SPMD_REFUSAL = (
     "a weight push into an SPMD engine (tensor or expert parallel) is not "
     "ported to deepspeed_tpu_torch yet: the engine group's followers "
@@ -360,12 +362,71 @@ def reconstruct_delta(header: Dict, staged: Dict[str, np.ndarray],
     return out
 
 
+_ADAPTER_A = "::a"
+_ADAPTER_B = "::b"
+
+
+def chunk_adapter_payload(name: str, adapters: Dict[str, tuple],
+                          version: int, scale: float = 1.0) -> List[bytes]:
+    """Serialize one LoRA adapter (``{"layers/wq": (a, b), ...}``, the
+    hybrid engine's external-adapter convention; arrays or tensors) into
+    the weights wire ``[header, chunk]`` (JAX :359). Adapters are small
+    beside the model: one chunk always holds one."""
+    if not str(name):
+        raise ValueError("adapter payload requires a non-empty name")
+    flat: Dict[str, np.ndarray] = {}
+    for path in sorted(adapters):
+        a, b = adapters[path]
+        flat[path + _ADAPTER_A] = np.ascontiguousarray(fetch_leaf(a))
+        flat[path + _ADAPTER_B] = np.ascontiguousarray(fetch_leaf(b))
+    kv = _wire(flat)
+    crc = _chunk_crc(kv)
+    leaf_meta = {n: {"shape": list(v.shape)} for n, v in flat.items()}
+    chunk = _npz_chunk(
+        {"kind": _CHUNK_KIND, "seq": 0, "crc32": crc,
+         "version": int(version)}, kv)
+    header = _npz_chunk(
+        {"kind": _HEADER_KIND, "version": int(version),
+         "payload_kind": "adapter", "adapter_name": str(name),
+         "adapter_scale": float(scale), "n_chunks": 1,
+         "chunk_crcs": [crc], "chunk_leaves": [sorted(flat)],
+         "leaf_meta": leaf_meta,
+         "param_count": sum(int(v.size) for v in flat.values())}, {})
+    return [header, chunk]
+
+
 def is_adapter_header(header: Dict) -> bool:
     return header.get("payload_kind") == "adapter"
 
 
 def is_adapter_payload(payloads: Sequence[bytes]) -> bool:
     return is_adapter_header(parse_weights_header(payloads[0]))
+
+
+def adapters_from_flat(flat: Dict[str, np.ndarray]) -> Dict[str, tuple]:
+    """Regroup staged ``path::a`` / ``path::b`` leaves into the
+    ``{path: (a, b)}`` map ``engine.load_adapter`` takes; an unpaired or
+    unrecognized leaf raises ``ValueError``."""
+    adapters: Dict[str, tuple] = {}
+    for n in sorted(flat):
+        if n.endswith(_ADAPTER_A):
+            path = n[:-len(_ADAPTER_A)]
+            bk = path + _ADAPTER_B
+            if bk not in flat:
+                raise ValueError(
+                    f"adapter payload leaf {n!r} has no matching {bk!r} "
+                    f"(a/b pairs must travel together)")
+            adapters[path] = (flat[n], flat[bk])
+        elif not n.endswith(_ADAPTER_B):
+            raise ValueError(
+                f"adapter payload leaf {n!r} is neither '{_ADAPTER_A}' nor "
+                f"'{_ADAPTER_B}' suffixed")
+    for n in flat:
+        if n.endswith(_ADAPTER_B) and n[:-len(_ADAPTER_B)] not in adapters:
+            raise ValueError(
+                f"adapter payload leaf {n!r} has no matching "
+                f"'{_ADAPTER_A}' half")
+    return adapters
 
 
 def parse_weights_header(buf: bytes) -> Dict:
@@ -558,7 +619,10 @@ def prepare_stager(engine, stager: WeightStager) -> Dict[str, np.ndarray]:
     :func:`swap_engine_params` between scheduler steps."""
     header = stager.header
     if is_adapter_header(header):
-        raise NotImplementedError(ADAPTER_REFUSAL)
+        # the pairing is checked here, off the loop thread, so a malformed
+        # payload fails before the install; install_stager regroups again
+        adapters_from_flat(stager.leaves)
+        return stager.leaves
     if not is_delta_header(header):
         return stager.leaves
     base_version = int(header["base_version"])
@@ -578,10 +642,16 @@ def prepare_stager(engine, stager: WeightStager) -> Dict[str, np.ndarray]:
 def install_stager(engine, stager: WeightStager,
                    flat: Dict[str, np.ndarray]) -> int:
     """The loop-thread half of ingest: swap the prepared leaves into the
-    engine. The colocated :func:`commit_stager` and the serving loop's
-    ``WeightUpdate.commit`` both land here."""
-    if is_adapter_header(stager.header):
-        raise NotImplementedError(ADAPTER_REFUSAL)
+    engine, or for an adapter payload install it in the engine's bank
+    (``engine.load_adapter``; ``weight_version`` and the delta base stay,
+    the base model did not change). The colocated :func:`commit_stager`
+    and the serving loop's ``WeightUpdate.commit`` both land here."""
+    header = stager.header
+    if is_adapter_header(header):
+        engine.load_adapter(
+            str(header["adapter_name"]), adapters_from_flat(flat),
+            scale=float(header.get("adapter_scale", 1.0)))
+        return int(stager.version)
     swap_engine_params(engine, flat, stager.version)
     return int(stager.version)
 
@@ -590,7 +660,8 @@ def commit_stager(engine, stager: WeightStager) -> int:
     """The ingest choke point: every path that turns a complete stager
     into live params (colocated :func:`apply_payload`, the serving loop's
     ``WeightUpdate.commit``, the worker's ``/weights`` handler above it)
-    lands here, so full and delta payloads behave alike everywhere."""
+    lands here, so full, delta and adapter payloads behave alike
+    everywhere."""
     flat = prepare_stager(engine, stager)
     return install_stager(engine, stager, flat)
 

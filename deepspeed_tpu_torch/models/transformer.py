@@ -33,9 +33,11 @@ by the chunk's start, attention is Ulysses or ring
 group; an MoE layer gates each rank's chunk globally over the data x seq
 ranks (its aux loss's gradient reaching each rank as 1 / sp of it, the
 backward starting from sp times the loss). At one rank on both axes
-every hook is the identity. Not ported yet, each raising
-``NotImplementedError``: PPO batches (A11), alibi, post-LN and the MLM
-family (A12), uneven tensor-parallel splits (A8), and in the cached
+every hook is the identity. A batch carrying ``ppo_old_logprobs`` takes
+the clipped-PPO objective with the k3 KL term (``_ppo_total``, the RLHF
+learner's loss), its per-token logprobs from the same chunked head. Not
+ported yet, each raising ``NotImplementedError``: alibi, post-LN and the
+MLM family (A12), uneven tensor-parallel splits (A8), and in the cached
 forward learned positions, alibi and parallel residual (A6d).
 """
 
@@ -267,6 +269,45 @@ def _chunked_ce_loss(x, targets, mask, head, chunk: int, bias=None):
             mask[:, a:a + chunk], head, bias, use_reentrant=False,
             preserve_rng_state=False)
     return total, torch.sum(mask)
+
+
+def _chunked_token_logprobs(x, targets, head, chunk: int, start: int = 0,
+                            group=None):
+    """Per-token ``log softmax(x @ head)[target]`` [B, S] without
+    materializing [B, S, V] logits (JAX :347): the sequence chunks of
+    :func:`_chunked_ce_loss`, each rebuilt in the backward, returning the
+    per-position values (the PPO ratio and KL terms need each token's).
+    Under tensor parallelism ``head`` holds this rank's vocab columns
+    ``[start, start + V / tp)`` and the softmax spans the model group
+    (:func:`vocab_parallel_nll`)."""
+    B, S, H = x.shape
+    chunk = min(chunk, S) if chunk and chunk > 0 else S
+
+    def chunk_lp(x_c, t_c, head):
+        logits = (x_c @ head.to(x_c.dtype)).float()
+        if group is not None:
+            return -vocab_parallel_nll(logits, t_c, start, group)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, t_c[..., None].long())[..., 0]
+        return tgt - lse
+
+    return torch.cat([
+        torch.utils.checkpoint.checkpoint(
+            chunk_lp, x[:, a:a + chunk], targets[:, a:a + chunk], head,
+            use_reentrant=False, preserve_rng_state=False)
+        for a in range(0, S, chunk)], dim=1)
+
+
+def lora_target_leaves(cfg: "TransformerConfig"):
+    """Flat leaf paths multi-tenant serving LoRA may target (the q and v
+    projections) mapped to their layer-stacked (fan_in, fan_out) dims
+    (JAX :298): the validation surface of
+    ``InferenceEngineV2.load_adapter`` and of adapter payloads, in the
+    flat key space the hybrid engine's external adapters fuse into
+    (``runtime/hybrid_engine.fuse_flat_leaves``)."""
+    h, hd = cfg.hidden_size, cfg.head_dim
+    return {"layers/wq": (h, cfg.num_heads * hd),
+            "layers/wv": (h, cfg.kv_heads * hd)}
 
 
 class _VocabParallelNLL(torch.autograd.Function):
@@ -962,11 +1003,18 @@ class TransformerLM:
 
     def apply(self, params, batch, train: bool = True, rng=None):
         """Next-token loss on {input_ids [B, S], optional loss_mask [B, S]}:
-        the masked mean of the chunked cross-entropy, f32."""
-        if "ppo_old_logprobs" in batch:
-            raise NotImplementedError(
-                "PPO learner batches are not ported to deepspeed_tpu_torch "
-                "yet (ROADMAP A11)")
+        the masked mean of the chunked cross-entropy, f32. A batch carrying
+        ``ppo_old_logprobs`` takes the clipped-PPO objective instead (the
+        RLHF learner's loss, :meth:`_ppo_total`; JAX :1048)."""
+        ppo = "ppo_old_logprobs" in batch
+        if ppo:
+            assert self.cfg.is_causal, \
+                "PPO batches require objective='causal_lm' (the rollout " \
+                "policy is a decoder)"
+            assert self._pp[0] == 1, \
+                "PPO learner batches are not supported under pipeline " \
+                "parallelism yet (the shifted per-token logprob gather " \
+                "needs the last stage's full sequence)"
         if self._pp[0] > 1:
             # input_ids [M, b, S] through the pipeline (JAX :1011-1016)
             return self._apply_pipelined(params, batch, train=train, rng=rng)
@@ -975,6 +1023,11 @@ class TransformerLM:
         mask = (mask[:, 1:].float() if mask is not None
                 else torch.ones(ids[:, 1:].shape, dtype=torch.float32,
                                 device=ids.device))
+        # the PPO per-token inputs, shifted like the mask (the token at t
+        # is predicted at t - 1)
+        per_tok = ([batch[k][:, 1:].float()
+                    for k in ("ppo_old_logprobs", "ppo_advantages")]
+                   if ppo else [])
         sp, r, sg = self._sp
         if sp > 1:
             # this rank's chunk of the sequence: its tokens, and the next
@@ -985,7 +1038,8 @@ class TransformerLM:
                                  f"sequence_parallel_size {sp}")
             n = S // sp
             tgt = F.pad(ids[:, 1:], (0, 1))[:, r * n:(r + 1) * n]
-            mask = F.pad(mask, (0, 1))[:, r * n:(r + 1) * n]
+            mask, *per_tok = [F.pad(t, (0, 1))[:, r * n:(r + 1) * n]
+                              for t in [mask] + per_tok]
             ids = ids[:, r * n:(r + 1) * n]
             x, aux = self.forward_hidden_aux(params, ids)
         else:
@@ -995,7 +1049,13 @@ class TransformerLM:
         # the logit bias of the head is not in the JAX training loss either
         _, head, _ = self._head_inputs(params, x)
         tp, tr, tg = self._tp
-        if tp > 1:
+        if ppo:
+            new_lp = _chunked_token_logprobs(
+                self._col(x), tgt, head, self.cfg.loss_chunk,
+                tr * head.shape[-1], tg if tp > 1 else None)
+            total, count = self._ppo_total(new_lp, mask, *per_tok,
+                                           batch["ppo_hparams"])
+        elif tp > 1:
             total, count = _vocab_parallel_ce_loss(
                 self._col(x), tgt, mask, head, self.cfg.loss_chunk,
                 tr * head.shape[-1], tg)
@@ -1021,6 +1081,26 @@ class TransformerLM:
             loss = loss + self.cfg.moe_aux_loss_coef * aux
         return loss
 
+    @staticmethod
+    def _ppo_total(new_lp, mask, old_lp, adv, hparams):
+        """(masked sum, mask count) of the clipped-PPO objective with the
+        k3 KL term (JAX ``_apply_ppo`` :1048-1106). Per masked token:
+        ratio = exp(new - old), pg = -min(ratio * adv, clip(ratio, 1 +- eps)
+        * adv), kl = exp(old - new) - 1 - (old - new), the loss term
+        pg + kl_coef * kl; ``old_lp`` (the rollout's logprobs) is both the
+        importance-ratio denominator and the KL reference. ``hparams``
+        [B, 2] holds ``[clip_eps, kl_coef]`` on every row."""
+        hp = hparams.float()
+        clip_eps = torch.mean(hp[:, 0])
+        kl_coef = torch.mean(hp[:, 1])
+        ratio = torch.exp(new_lp - old_lp)
+        surrogate = torch.minimum(
+            ratio * adv,
+            torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps) * adv)
+        log_ref_over_new = old_lp - new_lp
+        kl = torch.exp(log_ref_over_new) - 1.0 - log_ref_over_new
+        per_token = -surrogate + kl_coef * kl
+        return torch.sum(per_token * mask), torch.sum(mask)
 
     # -- KV-cache inference (the v1 engine's prefill + decode) ------------
     # Port of the JAX package's dense-cache path (transformer.py:1112-1251):

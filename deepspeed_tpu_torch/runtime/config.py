@@ -634,6 +634,9 @@ _PORTED = {
     "zero_optimization.quantized_reduce",
     "zero_optimization.quantized_reduce_hierarchy",
     "zero_optimization.quant_block",
+    # the hybrid engine (runtime/hybrid_engine.py) reads enabled and the
+    # seam fields; max_out_tokens is accepted and read nowhere, as in JAX
+    "hybrid_engine",
 }
 # keys the JAX package itself leaves inert, by the rationale of its
 # dead-key audit (tests/unit/runtime/test_config_keys.py INERT_BY_DESIGN)
@@ -657,9 +660,7 @@ _INERT = {
 }
 # everything else, by the ROADMAP item (section A) that ports it; the
 # longest matching prefix wins
-_ROADMAP = {
-    "hybrid_engine": "A11 (RLHF and hybrid engine)",
-}
+_ROADMAP: Dict[str, str] = {}
 _ROADMAP_DEFAULT = "A12 (remainder)"
 
 

@@ -188,8 +188,9 @@ The 1-bit optimizers (``runtime/fp16/onebit``) replace the step: local
 gradients, then the optimizer's own compressed allreduce.
 
 Not ported (``runtime/config.check_ported`` raises, naming the ROADMAP
-item): compression, curriculum and the profilers (A12), the hybrid
-engine (A11).
+item): compression, curriculum and the profilers (A12). The hybrid engine
+(``runtime/hybrid_engine.py``) subclasses this engine and reads its
+weights through :meth:`DeepSpeedTpuEngine.consolidated_param_buckets`.
 """
 
 import logging
@@ -2143,24 +2144,59 @@ class DeepSpeedTpuEngine:
         the model-parallel groups that cut them (model, seq, pipe) and the
         experts over the expert group (every rank takes part)."""
         zero = zero or self._zero
+        return [self._gather_leaf(i, v, d, zero)
+                for i, (v, d) in enumerate(zip(leaves, dims))]
+
+    def _gather_leaf(self, i: int, v: torch.Tensor, d: Optional[int],
+                     zero) -> torch.Tensor:
+        """Leaf ``i`` whole (:meth:`_gathered`'s work for one leaf: every
+        rank calls it for the same leaves in the same order)."""
         if self.zero_world > 1 or self._cuts:  # collectives on the device
-            leaves = [v.to(self.device) for v in leaves]
-        out = [v if d is None or zero[i][1] == 1 else
-               all_gather_leaf(v.detach(), d, zero[i][0])
-               for i, (v, d) in enumerate(zip(leaves, dims))]
-        topo = self.topology
-        for i, n in enumerate(self._leaf_names):
-            for axis, d in self._cuts.get(n, {}).items():
-                out[i] = all_gather_leaf(out[i].detach().contiguous(), d,
-                                         topo.group(axis))
-        if self.ep > 1:
+            v = v.to(self.device)
+        if d is not None and zero[i][1] > 1:
+            v = all_gather_leaf(v.detach(), d, zero[i][0])
+        n = self._leaf_names[i]
+        for axis, cd in self._cuts.get(n, {}).items():
+            v = all_gather_leaf(v.detach().contiguous(), cd,
+                                self.topology.group(axis))
+        if self.ep > 1 and n in self._expert_dims:
             # whole expert leaves: every expert rank's experts joined
-            out = [all_gather_leaf(v.detach().contiguous(),
-                                   self._expert_dims[n],
-                                   self.topology.expert_group())
-                   if n in self._expert_dims else v
-                   for n, v in zip(self._leaf_names, out)]
-        return out
+            v = all_gather_leaf(v.detach().contiguous(),
+                                self._expert_dims[n],
+                                self.topology.expert_group())
+        return v
+
+    def consolidated_param_buckets(self, bucket_bytes: int = 16 << 20):
+        """Yield the live compute params as ``{path: fp32 ndarray}`` groups
+        (the paths of ``serve/weights.flatten_params``), gathered leaf by
+        leaf and capped at ``bucket_bytes`` of host fp32 (JAX :2139): the
+        :class:`~.hybrid_engine.WeightPublisher` feed. The ZeRO shards,
+        the model-parallel slices and the experts held over the expert
+        ranks are joined as for a checkpoint; every rank must iterate it.
+        Read-only: the train state and the addresses of its leaves do not
+        change."""
+        if self.param_offload_nvme:
+            raise NotImplementedError(
+                "weight publication over the NVMe parameter tier is not "
+                "supported; use save_16bit_model")
+        if not self._param_leaves:
+            raise RuntimeError("engine holds no live compute params")
+        bucket_bytes = max(int(bucket_bytes), 1)
+        group: Dict[str, np.ndarray] = {}
+        group_bytes = 0
+        with torch.no_grad():
+            for i, key in enumerate(self._leaf_names):
+                nbytes = int(np.prod(self._ckpt_shape(key) or (1,))) * 4
+                if group and group_bytes + nbytes > bucket_bytes:
+                    yield group
+                    group, group_bytes = {}, 0
+                whole = self._gather_leaf(i, self._param_leaves[i],
+                                          self._pdims[i], self._pzero)
+                group[key] = whole.detach().to(
+                    "cpu", torch.float32).numpy()
+                group_bytes += nbytes
+        if group:
+            yield group
 
     def _storage_geometry(self):
         """(dims, ZeRO groups) of the host tier's master and moments

@@ -229,12 +229,12 @@ def test_swap_never_changes_another_engines_weights(models):
 
 def test_refusals(models):
     eng = _owned_engine(models)
-    header = jw._npz_chunk({"kind": "weights_header", "version": 1,
-                            "payload_kind": "adapter", "n_chunks": 0,
-                            "chunk_crcs": [], "chunk_leaves": [],
-                            "leaf_meta": {}, "param_count": 0}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tw.apply_payload(eng, [header])
+    # adapter payloads install into an engine's LoRA bank now (tests/
+    # test_torch_multi_lora.py); an engine without one refuses, as JAX's
+    payload = tw.chunk_adapter_payload("a", {}, 1)
+    with pytest.raises(ValueError, match="bank disabled"):
+        tw.apply_payload(eng, payload)
+    assert eng.weight_version == 0
 
     class Spmd:
         topology = object()

@@ -575,11 +575,16 @@ def test_unported_options_raise_with_their_label(engines, models, what,
         with pytest.raises(RuntimeError, match="follows"):
             asyncio.run(follower.submit([1, 2, 3], 2))
         return
+    if what == "adapter":
+        # LoRA adapters are served now (tests/test_torch_multi_lora.py):
+        # an engine without an adapter bank refuses the request at submit,
+        # with the JAX package's exception
+        with pytest.raises(ValueError, match="bank is disabled"):
+            DynamicSplitFuseScheduler(eng).submit(1, [1, 2, 3], 2,
+                                                  adapter="a")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         if what == "autotune":
             serve.ServingEngine(eng, serve.ServingConfig(autotune=object()))
-        elif what == "adapter":
-            DynamicSplitFuseScheduler(eng).submit(1, [1, 2, 3], 2,
-                                                  adapter="a")
         else:
             eng.generate([[1, 2, 3]], 2, speculative=True)

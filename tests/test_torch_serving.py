@@ -343,14 +343,11 @@ def test_unported_config_features_raise(field, value):
         assert RaggedInferenceEngineConfig(
             ragged_attention=value).ragged_attention == "off"
         return
-    if field in ("tensor_parallel_size", "expert_parallel_size"):
-        # and so are tensor parallelism (tests/test_torch_tensor_parallel.
-        # py) and expert parallelism (tests/test_torch_parallel_serving.py)
-        assert getattr(RaggedInferenceEngineConfig(**{field: value}),
-                       field) == 2
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        RaggedInferenceEngineConfig(**{field: value})
+    # and so are tensor parallelism (tests/test_torch_tensor_parallel.py),
+    # expert parallelism (tests/test_torch_parallel_serving.py) and the
+    # LoRA adapter bank (tests/test_torch_multi_lora.py)
+    assert getattr(RaggedInferenceEngineConfig(**{field: value}),
+                   field) == 2
 
 
 def test_config_validation_matches_jax():
@@ -376,9 +373,11 @@ def test_config_validation_matches_jax():
 
 def test_generate_options_not_ported_raise(models):
     te = _torch_engine(models, 8)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A11b"):
         te.generate([[1, 2, 3]], max_new_tokens=4, speculative=True)
-    with pytest.raises(NotImplementedError, match="A11"):
+    # adapters are served now (tests/test_torch_multi_lora.py); without an
+    # adapter bank the JAX package's ValueError
+    with pytest.raises(ValueError, match="bank is disabled"):
         te.generate([[1, 2, 3]], max_new_tokens=4, adapter="a")
     with pytest.raises(NotImplementedError):
         deepspeed_tpu_torch.pipeline("mistralai/Mistral-7B-v0.1")

@@ -314,10 +314,16 @@ def test_device_none_raises_without_gpu():
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, AssertionError),
 ])
 def test_unported_keys_raise(extra, item):
-    if item == "A9":
+    if item in ("A9", "A11"):
+        # these train now; the hybrid engine (tests/test_torch_hybrid_
+        # engine.py) is what initialize() returns for hybrid_engine.enabled
         eng, *_ = deepspeed_tpu_torch.initialize(
             model=TransformerLM(TransformerConfig(**FLAGSHIP_SMALL)),
             config=dict(TRAIN_CONFIG, **extra), device="cpu")
+        if item == "A11":
+            from deepspeed_tpu_torch.runtime.hybrid_engine import \
+                DeepSpeedHybridEngine
+            assert isinstance(eng, DeepSpeedHybridEngine)
         assert np.isfinite(eng.train_batch(
             batch={"input_ids": _ids(1, (GAS, MICRO, S))}))
         eng.close()
