@@ -539,6 +539,28 @@ def log(msg):
     print(msg, flush=True)
 
 
+class PhaseClock:
+    """Wall seconds of each phase of the run, logged as each one ends and
+    printed together as one ``{"phase_seconds": ...}`` line at the end."""
+
+    def __init__(self):
+        self.start = time.perf_counter()
+        self.seconds = {}
+
+    def run(self, name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        self.done(name, t0)
+        return out
+
+    def done(self, name, t0):
+        """Record phase ``name`` as having run from ``t0`` until now."""
+        s = time.perf_counter() - t0
+        self.seconds[name] = round(s, 1)
+        log(f"[phase {name}: {s:.1f}s; {time.perf_counter() - self.start:.0f}"
+            f"s into the run]")
+
+
 def time_samples(fn, flush, reps=20, warmup=3):
     """CUDA-event times (ms) of `reps` calls, with the 50 MB L2 flushed
     before every launch (each layer of the serving path reads its own pool
@@ -1495,7 +1517,7 @@ def small_woq_check(dev):
 # ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
-def serve_phase(dev):
+def serve_phase(dev, clock):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceEngineConfig)
@@ -1507,7 +1529,7 @@ def serve_phase(dev):
 
     cfg = mistral_7b()
     L = cfg.num_layers
-    t0 = time.perf_counter()
+    t0 = t_phase = time.perf_counter()
     pipe = deepspeed_tpu_torch.pipeline(
         cfg, device=dev,
         config={"dtype": "bfloat16",
@@ -1609,32 +1631,502 @@ def serve_phase(dev):
     log(f"serve: fp32 |logits| max {np.abs(f32).max():.3f}, smallest top-2 "
         f"margin {float((top2[:, 1] - top2[:, 0]).min()):.4f} "
         f"(bf16 gaps informational)")
-    stitched = stitched_serve_phase(dev, cfg, eng, prompts, new, logits,
-                                    f32, gen)
-    greedy_window_launches = profile_phase(eng, prompts, eng.decode_window)
-    for k, n in serving_runtime_phase(cfg, eng, prompts, new, gen,
-                                      greedy_window_launches).items():
+    clock.done("2a", t_phase)
+    stitched = clock.run("2e", stitched_serve_phase, dev, cfg, eng, prompts,
+                         new, logits, f32, gen)
+    greedy_window_launches = clock.run("2a profile", profile_phase, eng,
+                                       prompts, eng.decode_window)
+    for k, n in clock.run("2c", serving_runtime_phase, cfg, eng, prompts,
+                          new, gen, greedy_window_launches).items():
         launches[k] += n
-    launches.update(q8_serve_phase(dev, cfg, eng, prompts, new, logits,
-                                   f32))
-    v1_launches, v1_ids, v1_out = v1_serve_phase(dev, cfg, eng.params)
+    launches.update(clock.run("2b", q8_serve_phase, dev, cfg, eng, prompts,
+                              new, logits, f32))
+    v1_launches, v1_ids, v1_out = clock.run("v1", v1_serve_phase, dev, cfg,
+                                            eng.params)
     launches.update(v1_launches)
-    launches.update(woq_serve_phases(dev, cfg, eng, prompts, gen, logits,
-                                     v1_ids, v1_out))
-    t0 = time.perf_counter()
-    for k, n in kv_spill_phase(dev, cfg, eng).items():
+    launches.update(clock.run("woq", woq_serve_phases, dev, cfg, eng,
+                              prompts, gen, logits, v1_ids, v1_out))
+    for k, n in clock.run("2d", kv_spill_phase, dev, cfg, eng).items():
         launches[k] += n
-    log(f"phase 2d: {time.perf_counter() - t0:.0f}s")
-    t0 = time.perf_counter()
-    for k, n in fleet_phase(dev, cfg, eng, prompts, new).items():
+    for k, n in clock.run("2h", fleet_phase, dev, cfg, eng, prompts,
+                          new).items():
         launches[k] = launches.get(k, 0) + n
-    log(f"phase 2h: {time.perf_counter() - t0:.0f}s")
-    for k, n in lora_bank_phase(dev, cfg, eng, prompts,
-                                float(np.abs(logits - f32).max())).items():
+    for k, n in clock.run("8m (d)", lora_bank_phase, dev, cfg, eng, prompts,
+                          float(np.abs(logits - f32).max())).items():
         launches[k] += n
+    for k, n in clock.run("2i", spec_phase, dev, cfg, eng, prompts, gen,
+                          float(np.abs(logits - f32).max())).items():
+        launches[k] = launches.get(k, 0) + n
     launches["paged_attention"] += stitched["paged_attention"]
     launches["flash_fwd"] = stitched["flash_fwd"]
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 2i: speculative decoding and the online adapter
+# ---------------------------------------------------------------------------
+SPEC_K = 4                  # drafted tokens a round
+SPEC_LOOKUP_NEW = 32        # (c)'s new tokens
+SPEC_Q8_NEW = 32            # (d)'s new tokens
+ADAPT_LAYERS = 2            # (e)'s depth (of 32; the time limit)
+ADAPT_REQUESTS = 16
+ADAPT_NEW = 32
+
+
+def llama_160m():
+    """(b)'s draft: the shapes of the public JackFram/llama-160m config
+    (hidden 768, 12 layers, 12 heads without GQA, FFN 3072, vocab 32000,
+    RMSNorm eps 1e-6, rotary positions), its max_seq_len raised from 2048
+    to the target's 8192, as ``load_draft_model`` requires."""
+    from deepspeed_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(vocab_size=32000, hidden_size=768,
+                             intermediate_size=3072, num_layers=12,
+                             num_heads=12, num_kv_heads=12, max_seq_len=8192,
+                             norm_eps=1e-6)
+
+
+def attention_counts(reset=False):
+    """{kernel row: launches} of the serving attention kernels (rows 1,
+    1q, 3, 3q)."""
+    from deepspeed_tpu_torch.inference.v2.kernels.paged_attention import \
+        paged_attention
+    from deepspeed_tpu_torch.inference.v2.kernels.ragged_attention import \
+        ragged_attention
+
+    if reset:
+        for f in (paged_attention, ragged_attention):
+            f.launches = 0
+            f.q8_launches = 0
+    return {"paged_attention": paged_attention.launches,
+            "paged_attention_q8": paged_attention.q8_launches,
+            "ragged_attention": ragged_attention.launches,
+            "ragged_attention_q8": ragged_attention.q8_launches}
+
+
+def add_counts(total, counts):
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def spec_stats(eng):
+    """The engine's speculation counters: (drafted, accepted, miss rounds,
+    row rounds), the spec windows and their device loop rounds."""
+    from deepspeed_tpu_torch.telemetry import get_registry
+
+    reg = get_registry()
+    return np.array([reg.family_total(f"inference_spec_{n}")
+                     for n in ("drafted_tokens_total",
+                               "accepted_tokens_total",
+                               "miss_rounds_total", "window_rounds_total")]
+                    + [eng.spec_windows, eng.spec_rounds, eng.decode_steps,
+                       eng.ragged_steps], dtype=np.int64)
+
+
+def all_position_logits(eng, prompts, streams):
+    """The target's f32 logits at every position of prompt + stream (the
+    stream's last token left out), from ONE fresh ragged step over fresh
+    sequences: ``paged_ragged_step`` with every token as a row's output.
+    Returns one [len(stream), V] array a row: the logits that pick each
+    generated token."""
+    from deepspeed_tpu_torch.inference.v2.paged_model import \
+        paged_ragged_step
+    from deepspeed_tpu_torch.inference.v2.ragged import batch as rbatch
+
+    uids = list(range(5000, 5000 + len(prompts)))
+    seqs = [np.asarray(list(p) + list(s[:-1]), np.int64)
+            for p, s in zip(prompts, streams)]
+    rb = rbatch.pack(list(zip(uids, seqs)), eng.state_manager)
+    starts = np.cumsum([0] + [len(s) for s in seqs])
+    i32 = eng._i32
+    with torch.no_grad():
+        logits = paged_ragged_step(
+            eng.serve_cfg, eng.params, i32(rb.ids), i32(rb.row_ids),
+            i32(rb.positions), i32(rb.lengths), i32(rb.write_blocks),
+            i32(rb.write_offsets), i32(rb.block_tables),
+            i32(np.arange(starts[-1])), eng.kv_cache, eng.block_size,
+            touched_blocks=i32(rb.touched_blocks)).cpu().numpy()
+    for u in uids:
+        eng.flush(u)
+    return [logits[starts[i] + len(p) - 1:starts[i + 1]]
+            for i, p in enumerate(prompts)]
+
+
+def hold_invariant(name, eng, prompts, outs, tol):
+    """Every emitted token is the target's argmax at its position, or
+    within ``tol`` of the top logit there (a bf16 near-tie): one fresh
+    put() over prompt + stream. Returns (argmax share, worst gap)."""
+    streams = [o[len(p):] for p, o in zip(prompts, outs)]
+    ref = all_position_logits(eng, prompts, streams)
+    hits = total = 0
+    worst = 0.0
+    for r, s in zip(ref, streams):
+        if r.shape[0] != len(s) or not np.isfinite(r).all():
+            raise AssertionError(f"2i {name}: reference logits of shape "
+                                 f"{r.shape} for {len(s)} tokens")
+        got = r[np.arange(len(s)), np.asarray(s)]
+        gap = r.max(axis=-1) - got
+        hits += int((gap == 0).sum())
+        total += len(s)
+        worst = max(worst, float(gap.max()))
+    log(f"2i {name}: every emitted token the target's argmax or within "
+        f"{tol:.4f} of it: argmax at {hits}/{total}, worst gap "
+        f"{worst:.4f}")
+    if worst > tol:
+        raise AssertionError(f"2i {name}: an emitted token {worst:.4f} "
+                             f"below the target's top logit (tolerance "
+                             f"{tol:.4f})")
+    return hits / total, worst
+
+
+def first_call_profiled(eng, attr):
+    """Wraps ``eng.<attr>`` so that its first call runs under a card-only
+    torch.profiler session; the returned dict gets that call's host ms and
+    device events."""
+    orig = getattr(eng, attr)
+    box = {}
+
+    def wrapped(*a, **kw):
+        if box:
+            return orig(*a, **kw)
+        out, wall, kern = profiled(lambda: orig(*a, **kw))
+        box.update(wall=wall, kern=kern, out=out)
+        return out
+
+    setattr(eng, attr, wrapped)
+    return box
+
+
+def spec_small_check(dev):
+    """2i (a): the tiny fp32 model of ``small_fp32_check`` (2 KV heads)
+    on the kernel engine with a 1-layer draft of its vocabulary:
+    speculative streams under "ngram", "draft" and "auto" equal the plain
+    greedy streams, over repetitive and random prompts, and the spec
+    windows launch the paged kernel draft_layers x (spec_k + 1) times and
+    the ragged kernel (its f32 page-walk route) target_layers times a
+    round."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import TransformerLM, tiny_test
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(tiny_test(), num_kv_heads=2)
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    rng = np.random.default_rng(4)
+    prompt_sets = {"repetitive": [[5, 9, 17, 23] * 6, [3] + [7, 8, 9] * 7,
+                                  list(range(30, 40)) * 3],
+                   "random": [list(map(int, rng.integers(1, 255, n)))
+                              for n in (21, 34, 9)]}
+    counts = {}
+    for kind, prompts in prompt_sets.items():
+        eng = InferenceEngineV2(
+            TransformerLM(cfg), RaggedInferenceEngineConfig.from_dict(
+                {"dtype": "float32", "prefill_bucket": 16,
+                 "decode_window": 8,
+                 "state_manager": {"max_tracked_sequences": 8,
+                                   "max_seq_len": 128, "num_blocks": 65,
+                                   "block_size": 16}}), device=dev)
+        plain = eng.generate(prompts, max_new_tokens=20)
+        eng.load_draft_model(TransformerLM(dcfg))
+        for mode in ("ngram", "draft", "auto"):
+            s0 = spec_stats(eng)
+            attention_counts(reset=True)
+            out = eng.generate(prompts, max_new_tokens=20, speculative=True,
+                               spec_k=SPEC_K, spec_mode=mode)
+            got = attention_counts()
+            d = spec_stats(eng) - s0
+            add_counts(counts, got)
+            same = all(np.array_equal(a, b) for a, b in zip(out, plain))
+            want_paged = (dcfg.num_layers * (SPEC_K + 1) * int(d[5])
+                          + cfg.num_layers * int(d[6]))
+            want_ragged = cfg.num_layers * (int(d[5]) + int(d[7]))
+            log(f"2i (a) fp32 {kind} {mode}: streams equal to plain greedy "
+                f"{same}; drafted/accepted/miss/rounds {d[:4].tolist()}, "
+                f"{d[4]} spec windows of {d[5]} loop rounds, {d[6]} plain "
+                f"decode steps; launches {got} (paged want {want_paged}, "
+                f"ragged want {want_ragged})")
+            if not same:
+                raise AssertionError(f"2i (a) {kind} {mode}: speculative "
+                                     f"streams differ from plain greedy")
+            if got["paged_attention"] != want_paged or \
+                    got["ragged_attention"] != want_ragged:
+                raise AssertionError(f"2i (a) {kind} {mode}: launches "
+                                     f"{got} != paged {want_paged}, ragged "
+                                     f"{want_ragged}")
+            if mode == "draft" and d[5] == 0:
+                raise AssertionError("2i (a): no spec window ran")
+    return counts
+
+
+def spec_full_width(dev, cfg, eng, prompts, gen, tol):
+    """2i (b)-(d) over the serve cell's 32-layer weight tensors (shared):
+    (b) the llama-160m-shaped draft and a self-draft on the serve cell's
+    8 prompts; (c) prompt lookup on repeated spans under "auto"; (d) an
+    int8 target pool with a self-draft. Returns the launches of the
+    speculative generate() calls."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.serve import weights as sw
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    new = len(gen[0]) - len(prompts[0])
+    counts = {}
+
+    def engine(**extra):
+        e = InferenceEngineV2(
+            TransformerLM(cfg), RaggedInferenceEngineConfig.from_dict(
+                dict({"dtype": "bfloat16",
+                      "decode_window": eng.decode_window,
+                      "state_manager": {"max_ragged_batch_size": 8192}},
+                     **extra)), params=eng.params, device=dev)
+        if not all(a.data_ptr() == b.data_ptr() for (_, a), (_, b) in zip(
+                sw.flatten_params(e.params), sw.flatten_params(eng.params))):
+            raise AssertionError("2i: the engine copied the weights")
+        return e
+
+    def spec_run(e, name, ps, n, mode="draft", **kw):
+        s0 = spec_stats(e)
+        attention_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = e.generate(ps, max_new_tokens=n, speculative=True,
+                         spec_k=SPEC_K, spec_mode=mode, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = attention_counts()
+        add_counts(counts, got)
+        d = spec_stats(e) - s0
+        log(f"2i {name}: {secs:.2f}s, {len(ps) * n / secs:.1f} tokens/s; "
+            f"drafted/accepted/miss rounds/row rounds {d[:4].tolist()} "
+            f"(accept rate {d[1] / max(d[0], 1):.3f}), {d[4]} spec "
+            f"windows of {d[5]} loop rounds, {d[6]} plain decode steps; "
+            f"launches {got}")
+        for o, p in zip(out, ps):
+            if len(o) != len(p) + n or not ((o >= 0) & (o < cfg.vocab_size)
+                                            ).all():
+                raise AssertionError(f"2i {name}: a row did not get its "
+                                     f"{n} tokens in [0, vocab)")
+        return out, secs, d
+
+    def divergence(name, outs, ref, ps):
+        firsts = [first_divergence(o[len(p):], g[len(p):])
+                  for o, g, p in zip(outs, ref, ps)]
+        log(f"2i {name}: first divergence from plain greedy per row "
+            f"{firsts} (None = equal; bf16 near-ties, informational)")
+
+    # -- (b) the llama-160m-shaped draft ---------------------------------
+    target = engine()
+    target.load_draft_model(TransformerLM(llama_160m()))
+    K = target.decode_window
+    # one spec window's device time: the first window of a short run
+    # (card-only profile of the window alone; the draft's catch-up of the
+    # prompts runs before it)
+    box = first_call_profiled(target, "_spec_window_fn")
+    target.generate(prompts, max_new_tokens=1 + K, speculative=True,
+                    spec_k=SPEC_K, spec_mode="draft")
+    spec_k = box["kern"]
+    log_profile("2i (b) one spec window (llama-160m draft)", box["wall"],
+                spec_k)
+    # speculative against plain in turns: plain, spec, spec, plain; the
+    # first spec run is the one counted and held
+    times = {"plain": [], "spec": []}
+    out = None
+    for which in ("plain", "spec", "spec", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "plain":
+            target.generate(prompts, max_new_tokens=new)
+        else:
+            o, _, _ = spec_run(target, "(b) llama-160m draft", prompts, new)
+            out = o if out is None else out
+        torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t0)
+    tps = {k: len(prompts) * new / statistics.median(v)
+           for k, v in times.items()}
+    divergence("(b) llama-160m draft", out, gen, prompts)
+    hold_invariant("(b) llama-160m draft", target, prompts, out, tol)
+    # one plain window's device time: generate() of 1 + K tokens less
+    # generate() of 1 (card-only profiles)
+    _, _, put_k = profiled(
+        lambda: target.generate(prompts, max_new_tokens=1))
+    _, _, both_k = profiled(
+        lambda: target.generate(prompts, max_new_tokens=1 + K))
+    win_k = minus(both_k, put_k)
+    log(f"2i (b): tokens/s speculative {tps['spec']:.1f} against plain "
+        f"{tps['plain']:.1f} (in turns, medians of 2); one spec window "
+        f"{sum(t for t, _ in spec_k.values()):.2f} device ms, "
+        f"{sum(c for _, c in spec_k.values())} launches, "
+        f"{box['out'][2]} rounds, "
+        f"{int((box['out'][0] >= 0).sum().item())} tokens over its "
+        f"{len(prompts)} rows; one plain window "
+        f"{sum(t for t, _ in win_k.values()):.2f} device ms, "
+        f"{sum(c for _, c in win_k.values())} launches, {K * len(prompts)} "
+        f"tokens")
+    # -- (b) the self-draft: the target's own tensors on its own pool ----
+    target.load_draft_model(TransformerLM(cfg), eng.params)
+    out, _, d = spec_run(target, "(b) self-draft", prompts, new)
+    divergence("(b) self-draft", out, gen, prompts)
+    hold_invariant("(b) self-draft", target, prompts, out, tol)
+    # -- (c) prompt lookup on repeated spans, routed by "auto" -----------
+    rng = np.random.default_rng(9)
+    spans = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+             for n in (16, 24, 32, 48)]
+    lookup = [(s * (512 // len(s) + 1))[:512] for s in spans]
+    target.load_draft_model(TransformerLM(llama_160m()))
+    reg_mode = target._m_spec_mode_requests
+    before = {m: reg_mode.labels(mode=m).value for m in ("ngram", "draft")}
+    out, _, d = spec_run(target, "(c) prompt lookup, auto", lookup,
+                         SPEC_LOOKUP_NEW, mode=None)
+    routes = {m: reg_mode.labels(mode=m).value - before[m]
+              for m in before}
+    log(f"2i (c): the chooser routed {routes} (cold start: a prompt whose "
+        f"trailing n-gram recurs goes to prompt lookup)")
+    # seeded weights need not continue a repeated span, so a round may
+    # find no recurring tail to draft from: drafting is logged, not held
+    if routes["ngram"] == 0:
+        raise AssertionError(f"2i (c): prompt lookup took no request "
+                             f"({routes})")
+    hold_invariant("(c) prompt lookup", target, lookup, out, tol)
+    del target
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (d) an int8 target pool, self-draft -----------------------------
+    q8 = engine(kv_quant=True)
+    q8.load_draft_model(TransformerLM(cfg), eng.params)
+    ps = prompts[:2]
+    out, _, d = spec_run(q8, "(d) int8 pool, self-draft", ps, SPEC_Q8_NEW)
+    if counts.get("ragged_attention_q8", 0) == 0:
+        raise AssertionError("2i (d): the verify did not run the int8 "
+                             "ragged kernel")
+    # the int8 pool's own rounding against the bf16 pool widens the bound
+    uids = [6000, 6001]
+    gap_q8 = float(np.abs(q8.put(uids, ps) - eng.put(uids, ps)).max())
+    for e in (q8, eng):
+        for u in uids:
+            e.flush(u)
+    hold_invariant("(d) int8 pool", q8, ps, out, tol + gap_q8)
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def adapter_run(eng, requests, new, autotune):
+    """Streams of ``requests`` through one serving runtime over ``eng``
+    (all submitted, then drained). With ``autotune`` the adapter runs on
+    an injected clock (one second a tick) and a scripted SLO that burns
+    for 6 ticks once every request is admitted (a burn sheds new
+    requests at the door); returns (streams, adapter moves, ticks)."""
+    import asyncio
+
+    from deepspeed_tpu_torch.autotuning import OnlineAdapterConfig
+    from deepspeed_tpu_torch.inference.v2 import serve
+    from deepspeed_tpu_torch.runtime import tunables
+
+    script = {"ticks": 0, "admitted": False, "burnt": 0}
+
+    class ScriptedSLO:
+        def burning(self):
+            script["ticks"] += 1
+            if script["admitted"] and script["burnt"] < 6:
+                script["burnt"] += 1
+                return True
+            return False
+
+    async def run():
+        serving = serve.ServingEngine(eng, serve.ServingConfig(
+            autotune=OnlineAdapterConfig(
+                interval_s=1.0, hold_ticks=1, restore_ticks=2,
+                min_decode_window=2) if autotune else None))
+        moves = []
+        if autotune:
+            adapter = serving.adapter
+            clock = {"t": 0.0}
+
+            def tick_clock():
+                clock["t"] += 1.0
+                return clock["t"]
+
+            adapter.clock = tick_clock
+            adapter.slo = ScriptedSLO()
+            orig = eng.set_decode_window
+
+            def recorded(window, **kw):
+                moves.append((eng.decode_window, int(window)))
+                return orig(window, **kw)
+
+            eng.set_decode_window = recorded
+        await serving.start()
+        streams = [await serving.submit(p, new) for p in requests]
+        script["admitted"] = True
+        outs = [await s.drain() for s in streams]
+        await serving.stop()
+        if autotune:
+            del eng.set_decode_window
+            eng.set_decode_window(8, source="config")
+        return outs, moves
+
+    outs, moves = asyncio.run(run())
+    window = tunables.REGISTRY.get("serving.decode_window")
+    for old, w in moves:
+        if w != tunables.clamp("serving.decode_window", w) or \
+                w not in tunables.REGISTRY.ladder("serving.decode_window"):
+            raise AssertionError(f"2i (e): the adapter moved K {old} -> {w}, "
+                                 f"off the clamp {window.range_str()} or "
+                                 f"its ladder")
+    return outs, moves, script["ticks"]
+
+
+def spec_adapter_phase(dev, cfg, eng):
+    """2i (e): the serving runtime with ``ServingConfig.autotune`` over a
+    Mistral-width engine cut to ADAPT_LAYERS layers (views of the serve
+    cell's stacked weights), ADAPT_REQUESTS requests."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    c2 = dataclasses.replace(cfg, num_layers=ADAPT_LAYERS)
+    params = {k: v for k, v in eng.params.items() if k != "layers"}
+    params["layers"] = {k: v[:ADAPT_LAYERS]
+                        for k, v in eng.params["layers"].items()}
+    small = InferenceEngineV2(
+        TransformerLM(c2), RaggedInferenceEngineConfig.from_dict(
+            {"dtype": "bfloat16", "decode_window": 8,
+             "state_manager": {"max_ragged_batch_size": 8192}}),
+        params=params, device=dev)
+    rng = np.random.default_rng(12)
+    requests = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+                for n in rng.integers(64, 384, ADAPT_REQUESTS)]
+    attention_counts(reset=True)
+    outs, moves, ticks = adapter_run(small, requests, ADAPT_NEW, True)
+    counts = attention_counts()
+    ref, _, _ = adapter_run(small, requests, ADAPT_NEW, False)
+    for o in outs:
+        if len(o) != ADAPT_NEW:
+            raise AssertionError("2i (e): a request did not complete with "
+                                 "its full token count")
+    firsts = [first_divergence(a, b) for a, b in zip(outs, ref)]
+    log(f"2i (e): the adapter ticked {ticks} times and moved K {moves}; "
+        f"all {ADAPT_REQUESTS} requests complete; first divergence from "
+        f"autotune off per stream {firsts} (informational); launches "
+        f"{counts}")
+    if ticks < 1:
+        raise AssertionError("2i (e): the adapter never ticked")
+    return counts
+
+
+def spec_phase(dev, cfg, eng, prompts, gen, tol):
+    """Phase 2i: speculative decoding (a)-(d) and the online adapter
+    (e). Returns the attention launches of its speculative and served
+    runs."""
+    counts = spec_small_check(dev)
+    add_counts(counts, spec_full_width(dev, cfg, eng, prompts, gen, tol))
+    add_counts(counts, spec_adapter_phase(dev, cfg, eng))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3481,12 +3973,13 @@ def device_events(prof):
     return kern
 
 
-def profiled(fn, cpu=True):
+def profiled(fn, cpu=False):
     """Runs fn() under torch.profiler; returns (fn's result, host ms of the
-    call ending in a synchronize, ``device_events`` of the profile).
-    ``cpu=False`` records the card's activity alone: the device times
-    without the cost of recording every host op (the host ms is then
-    closer to the call's own)."""
+    call ending in a synchronize, ``device_events`` of the profile). By
+    default the session records the card's activity alone: the device
+    times without the cost of recording every host op (~8 s a profiled
+    32-layer generate() pair with them), and a host ms close to the
+    call's own. ``cpu=True`` records the host ops too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -6171,33 +6664,53 @@ def compare_tiered_resident(res, tier):
                                      f"{name}")
 
 
-def offload_width_phase(dev, cfg, batch):
+def offload_width_phase(dev, cfg, batch, deep=False):
     """Resident, tiered (pin_memory, stage 2) and legacy (stage 2) on the
     same weights and fixed batch, 3 steps each: tiered equal to resident bit
     for bit, legacy within rtol 0.05, atol 1e-2 (one bf16 rounding of the
-    shipped gradients). Returns the resident and tiered engines' median
-    step ms and peak GiB (phase 8l's yardstick)."""
+    shipped gradients). With ``deep`` (the full depth is this depth) the
+    tiered and legacy runs are also the full-depth runs, held by
+    ``offload_deep_checks``. Returns the resident and tiered engines'
+    median step ms and peak GiB (phase 8l's yardstick) and the flash
+    launches of the full-depth runs."""
     from deepspeed_tpu_torch.models import TransformerLM
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    deep_launches = {kfn.__name__: 0 for kfn in kernels}
+
+    def run(label, config):
+        for kfn in kernels:
+            kfn.launches = 0
+        out = offload_run(cfg, config, batch, 3, f"{label} L={L}",
+                          params=weights)
+        return out, {kfn.__name__: kfn.launches for kfn in kernels}
+
+    def deep_checks(label, out, launches):
+        """After the run's comparisons: the profiled step moves it on."""
+        if deep:
+            offload_deep_checks(label, L, out[0], batch, *out[1:4],
+                                launches)
+            for k in deep_launches:
+                deep_launches[k] += launches[k]
 
     gen = torch.Generator(device=dev).manual_seed(0)
     weights = TransformerLM(cfg).init_params(gen, dtype=torch.bfloat16)
     L = cfg.num_layers
-    res, r_loss, r_s, r_peak, _ = offload_run(
-        cfg, offload_config(stage=2), batch, 3, f"resident L={L}",
-        params=weights)
-    tier, t_loss, t_s, t_peak, _ = offload_run(
-        cfg, offload_config(TIERED), batch, 3, f"tiered L={L}",
-        params=weights)
+    (res, r_loss, r_s, r_peak, _), _ = run("resident",
+                                           offload_config(stage=2))
+    t_out, t_launches = run("tiered", offload_config(TIERED))
+    tier, t_loss, t_s, t_peak, _ = t_out
     if t_loss != r_loss:
         raise AssertionError(f"tiered losses {t_loss} != resident {r_loss}")
     compare_tiered_resident(res, tier)
     log(f"offload L={L}: tiered == resident bit for bit (losses, params, "
         f"master, exp_avg, exp_avg_sq)")
+    deep_checks("tiered", t_out, t_launches)
     free_engine(tier)
-    del tier
-    leg, l_loss, l_s, l_peak, _ = offload_run(
-        cfg, offload_config(LEGACY), batch, 3, f"legacy L={L}",
-        params=weights)
+    del tier, t_out
+    l_out, l_launches = run("legacy", offload_config(LEGACY))
+    leg, l_loss, l_s, l_peak, _ = l_out
     if not np.allclose(l_loss, r_loss, rtol=0.05, atol=1e-2):
         raise AssertionError(f"legacy losses {l_loss} vs resident {r_loss}")
     log(f"offload L={L}: legacy within rtol 0.05 / atol 1e-2 of resident "
@@ -6205,11 +6718,13 @@ def offload_width_phase(dev, cfg, batch):
         f"median step ms resident {statistics.median(r_s[1:]) * 1e3:.1f}, "
         f"tiered {statistics.median(t_s[1:]) * 1e3:.1f}, legacy "
         f"{statistics.median(l_s[1:]) * 1e3:.1f}")
+    deep_checks("legacy", l_out, l_launches)
     free_engine(leg)
     free_engine(res)
-    del leg, res, weights
+    del leg, res, weights, l_out
     return {"resident": (statistics.median(r_s[1:]) * 1e3, r_peak),
-            "tiered": (statistics.median(t_s[1:]) * 1e3, t_peak)}
+            "tiered": (statistics.median(t_s[1:]) * 1e3, t_peak)}, \
+        deep_launches
 
 
 LAMB = {"type": "lamb", "params": {"lr": 3e-4, "weight_decay": 0.01}}
@@ -6292,20 +6807,12 @@ def full_depth_layers(cfg, bytes_per_param=HOST_STATE_BYTES_PER_PARAM,
                          f"({room:.1f} GiB free)")
 
 
-def offload_full_depth_phase(dev, batch):
-    """Mistral-7B at full depth through both offload backends, 3 steps each
-    on one fixed batch: losses finite and falling, flash launches 2·L·gas /
-    L·gas / L·gas a step, peak device memory under 80 GiB; then one more
-    step under torch.profiler for the split into device, transfer and host
-    optimizer."""
+def offload_deep_line(base):
+    """The depth of phase 8b's full-depth runs (``full_depth_layers``),
+    logged with the host memory it needs; returns (L, that config)."""
     import dataclasses
 
-    from deepspeed_tpu_torch.models import mistral_7b
-    from deepspeed_tpu_torch.ops import flash_attention as fa
-
-    base = mistral_7b()
     L, need, room, n_params = full_depth_layers(base)
-    cfg = dataclasses.replace(base, num_layers=L)
     log(f"offload full depth: L={L} of {base.num_layers} (cut to "
         f"{DEEP_LAYERS} for the run's time limit), "
         f"{n_params / 1e9:.3f} B params; host state {need:.1f} GiB of "
@@ -6316,53 +6823,71 @@ def offload_full_depth_phase(dev, batch):
         f"resident state would be {RESIDENT_BYTES_PER_PARAM} B x "
         f"{n_params / 1e9:.2f} B = "
         f"{RESIDENT_BYTES_PER_PARAM * n_params / 1e9:.0f} GB")
-    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    want = {"flash_fwd": DEEP_STEPS * 2 * L * OFFLOAD_GAS,
-            "flash_bwd_dq": DEEP_STEPS * L * OFFLOAD_GAS,
-            "flash_bwd_dkv": DEEP_STEPS * L * OFFLOAD_GAS}
-    total = dict.fromkeys(want, 0)
+    return L, dataclasses.replace(base, num_layers=L)
+
+
+def offload_deep_checks(label, L, eng, batch, losses, step_s, peak,
+                        launches):
+    """The checks of a full-depth offload run of ``len(losses)`` steps:
+    losses finite and falling, flash launches 2·L·gas / L·gas / L·gas a
+    step, peak device memory under 80 GiB; then one more step under
+    torch.profiler for the split into device, transfer and host
+    optimizer. Returns the run's step ms, peak GiB."""
+    steps = len(losses)
+    want = {"flash_fwd": steps * 2 * L * OFFLOAD_GAS,
+            "flash_bwd_dq": steps * L * OFFLOAD_GAS,
+            "flash_bwd_dkv": steps * L * OFFLOAD_GAS}
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{label} L={L} losses not finite and "
+                             f"falling: {losses}")
+    if launches != want:
+        raise AssertionError(f"{label} L={L} launches {launches} != {want}")
+    if peak >= 80.0:
+        raise AssertionError(f"{label} L={L} peak device memory "
+                             f"{peak:.2f} GiB >= 80 GiB")
     tokens = OFFLOAD_GAS * TRAIN_B * TRAIN_S
-    results = {}
+    med = statistics.median(step_s[1:])
+    log(f"offload {label} L={L}: median step {med * 1e3:.0f} ms = "
+        f"{tokens / med:.0f} tokens/s ({tokens} tokens/step); launches "
+        f"{launches}; peak device {peak:.2f} GiB")
+    # the split of one more step: torch.profiler where it records the
+    # card, and the engine's and the tier's CUDA events in any case
+    _, wall, kern = profiled(lambda: eng.train_batch(batch=batch))
+    st, t = eng.step_timings(), eng.host_opt.timings
+    copy_ms = sum(v for k, (v, _) in kern.items() if "Memcpy" in k)
+    dev_ms = sum(v for k, (v, _) in kern.items()
+                 if "Memcpy" not in k and "Memset" not in k)
+    log(f"profile {label} L={L} step: wall {wall:.0f} ms; by events: "
+        f"forward+backward {st.get('grads_ms', 0.0):.0f} ms, update "
+        f"{st.get('update_ms', 0.0):.0f} ms, of which host optimizer "
+        f"{t.get('host_opt_ms', 0.0):.0f} ms; H2D "
+        f"{t.get('h2d_ms', 0.0):.0f} ms, D2H {t.get('d2h_ms', 0.0):.0f} "
+        f"ms on the copy streams; profiler: " + (
+            f"device kernels {dev_ms:.0f} ms, copies {copy_ms:.0f} ms"
+            if kern else "recorded no device event"))
+    for k, (tt, c) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:5]:
+        log(f"   {tt:.1f} ms {c}x  {k[:90]}")
+    return {"step_ms": med * 1e3, "peak_gib": peak}
+
+
+def offload_full_depth_phase(dev, batch, L, cfg):
+    """Mistral-7B at full depth (``offload_deep_line``) through both offload
+    backends, DEEP_STEPS steps each on one fixed batch, held by
+    ``offload_deep_checks``. Returns their flash launches."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    total = {kfn.__name__: 0 for kfn in kernels}
     for label, off in (("legacy", LEGACY), ("tiered", TIERED)):
         for kfn in kernels:
             kfn.launches = 0
-        eng, losses, step_s, peak, init_s = offload_run(
+        eng, losses, step_s, peak, _ = offload_run(
             cfg, offload_config(off), batch, DEEP_STEPS, f"{label} L={L}")
         launches = {kfn.__name__: kfn.launches for kfn in kernels}
-        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-            raise AssertionError(f"{label} L={L} losses not finite and "
-                                 f"falling: {losses}")
-        if launches != want:
-            raise AssertionError(f"{label} L={L} launches {launches} != "
-                                 f"{want}")
-        if peak >= 80.0:
-            raise AssertionError(f"{label} L={L} peak device memory "
-                                 f"{peak:.2f} GiB >= 80 GiB")
+        offload_deep_checks(label, L, eng, batch, losses, step_s, peak,
+                            launches)
         for k in total:
             total[k] += launches[k]
-        med = statistics.median(step_s[1:])
-        log(f"offload {label} L={L}: median step {med * 1e3:.0f} ms = "
-            f"{tokens / med:.0f} tokens/s ({tokens} tokens/step); launches "
-            f"{launches}; peak device {peak:.2f} GiB")
-        # the split of one more step: torch.profiler where it records the
-        # card, and the engine's and the tier's CUDA events in any case
-        _, wall, kern = profiled(lambda: eng.train_batch(batch=batch))
-        st, t = eng.step_timings(), eng.host_opt.timings
-        copy_ms = sum(v for k, (v, _) in kern.items() if "Memcpy" in k)
-        dev_ms = sum(v for k, (v, _) in kern.items()
-                     if "Memcpy" not in k and "Memset" not in k)
-        log(f"profile {label} L={L} step: wall {wall:.0f} ms; by events: "
-            f"forward+backward {st.get('grads_ms', 0.0):.0f} ms, update "
-            f"{st.get('update_ms', 0.0):.0f} ms, of which host optimizer "
-            f"{t.get('host_opt_ms', 0.0):.0f} ms; H2D "
-            f"{t.get('h2d_ms', 0.0):.0f} ms, D2H {t.get('d2h_ms', 0.0):.0f} "
-            f"ms on the copy streams; profiler: " + (
-                f"device kernels {dev_ms:.0f} ms, copies {copy_ms:.0f} ms"
-                if kern else "recorded no device event"))
-        for k, (tt, c) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:5]:
-            log(f"   {tt:.1f} ms {c}x  {k[:90]}")
-        results[label] = {"step_ms": med * 1e3, "peak_gib": peak,
-                          "init_s": init_s}
         free_engine(eng)
         del eng
         log(f"offload {label} L={L} freed: host RSS {host_rss_gib():.1f} "
@@ -6482,18 +7007,24 @@ def offload_phase(dev):
     batch = {"input_ids": rng.integers(0, mistral_7b().vocab_size,
                                        (OFFLOAD_GAS, TRAIN_B, TRAIN_S))}
     width = dataclasses.replace(mistral_7b(), num_layers=TIER_WIDTH_LAYERS)
+    deep_L, deep_cfg = offload_deep_line(mistral_7b())
+    # at the width runs' depth the full-depth runs would repeat them: the
+    # width runs carry the full-depth checks instead
+    fold = deep_L == TIER_WIDTH_LAYERS
     t0 = time.perf_counter()
-    adamw = offload_width_phase(dev, width, batch)
+    adamw, launches = offload_width_phase(dev, width, batch, deep=fold)
     log(f"offload L={TIER_WIDTH_LAYERS} phase: "
-        f"{time.perf_counter() - t0:.0f}s")
+        f"{time.perf_counter() - t0:.0f}s" + (
+            " (with the full-depth checks: the same depth)" if fold else ""))
     t0 = time.perf_counter()
     lamb = lamb_tiered_phase(dev, width, batch, adamw)
     log(f"phase 8l: {time.perf_counter() - t0:.0f}s")
-    t0 = time.perf_counter()
-    launches = offload_full_depth_phase(dev, batch)
+    if not fold:
+        t0 = time.perf_counter()
+        launches = offload_full_depth_phase(dev, batch, deep_L, deep_cfg)
+        log(f"offload full-depth phase: {time.perf_counter() - t0:.0f}s")
     for k, n in lamb.items():
         launches[k] += n
-    log(f"offload full-depth phase: {time.perf_counter() - t0:.0f}s")
     two = dataclasses.replace(mistral_7b(), num_layers=2)
     t0 = time.perf_counter()
     nvme_phase(dev, two, batch)
@@ -6568,13 +7099,17 @@ def equal_engines(label, a, b, a_loss, b_loss):
     log(f"{label}: losses and params torch.equal over 3 steps")
 
 
-def param_offload_width_phase(dev, cfg, batch, weights):
+def param_offload_width_phase(dev, cfg, batch, weights, deep=False):
     """Phase 8d at ``cfg``'s depth (``TIER_WIDTH_LAYERS``), stage 3:
     offload_param {device: cpu} against the resident engine, with the
     host C++ optimizer against that
     optimizer alone (JAX refuses the tiered optimizer offload at stage 3,
     and so does the port), and cpu_checkpointing against the resident
-    engine: torch.equal each, the stack in pinned host memory."""
+    engine: torch.equal each, the stack in pinned host memory. With
+    ``deep`` (the full depth is this depth) the offload_param + host
+    optimizer run is also the full-depth run, held by
+    ``param_offload_deep_checks``. Returns the launches, the legacy
+    losses and the full-depth record (None without ``deep``)."""
     L = cfg.num_layers
     from deepspeed_tpu_torch.runtime.config import (ConfigError,
                                                     DeepSpeedConfig)
@@ -6636,7 +7171,7 @@ def param_offload_width_phase(dev, cfg, batch, weights):
         cfg, tier_config({"offload_optimizer": LEGACY}), batch, 3,
         f"legacy stage 3 L={L}", weights)
     add(n)
-    (lpo, p_loss, p_s, p_peak, _), n = tier_run(
+    (lpo, p_loss, p_s, p_peak, p_init), n = tier_run(
         cfg, tier_config(dict(po, offload_optimizer=LEGACY)), batch, 3,
         f"offload_param cpu + legacy L={L}", weights)
     add(n)
@@ -6644,46 +7179,46 @@ def param_offload_width_phase(dev, cfg, batch, weights):
                   l_loss, p_loss)
     log(f"8d L={L}: peak device legacy {l_peak:.2f} GiB, with offload_param "
         f"{p_peak:.2f} GiB")
+    record = (param_offload_deep_checks(L, lpo, p_loss, p_s, p_peak, p_init)
+              if deep else None)
     free_engine(lpo)
     free_engine(leg)
     del lpo, leg
-    return launches, l_loss
+    return launches, l_loss, record
 
 
-def param_offload_depth_phase(dev, batch):
-    """Phase 8d at full depth: offload_param cpu with the host C++
-    optimizer, the deepest depth the host holds (never below 20), 3
-    steps: losses finite and falling, flash launches, step ms, tokens/s,
-    peak device GiB beside phase 8b's at 32 layers, host RSS, the layer
-    copies a step and the share of them the compute stream waited for."""
+def param_offload_depth(base):
+    """The depth of phase 8d's full-depth run, logged; returns (L, that
+    config)."""
     import dataclasses
 
-    from deepspeed_tpu_torch.models import mistral_7b
-
-    base = mistral_7b()
     L, need, room, n_params = full_depth_layers(
         base, HOST_STATE_BYTES_PER_PARAM + PARAM_STACK_BYTES_PER_PARAM,
         HOST_MARGIN_GIB)
-    cfg = dataclasses.replace(base, num_layers=L)
     log(f"8d full depth: L={L} of {base.num_layers}"
         + (" (cut: host memory)" if L < min(DEEP_LAYERS, 20) else
            f" (cut to {DEEP_LAYERS}: the run's time limit)"
            if L < base.num_layers else "")
         + f", {n_params / 1e9:.3f} B params; host state and stack "
         f"{need:.1f} GiB of {room:.1f} GiB")
-    config = tier_config({"offload_param": {"device": "cpu"},
-                          "offload_optimizer": LEGACY})
-    (eng, losses, step_s, peak, init_s), launches = tier_run(
-        cfg, config, batch, DEEP_STEPS,
-        f"8d offload_param cpu + legacy L={L}", None)
+    return L, dataclasses.replace(base, num_layers=L)
+
+
+def param_offload_deep_checks(L, eng, losses, step_s, peak, init_s):
+    """The checks of phase 8d's full-depth run (offload_param cpu with the
+    host C++ optimizer, ``len(losses)`` steps, its flash launches checked
+    by ``tier_run``): losses finite and falling; step ms, tokens/s, peak
+    device GiB beside phase 8b's at 32 layers, host RSS, the layer copies
+    a step and the share of them the compute stream waited for."""
+    steps = len(losses)
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"8d L={L}: losses not finite and falling: "
                              f"{losses}")
     # the layer copies a step: the mean of the steps
     hs = eng.host_stream
     st, tm = hs.timings(), eng.step_timings()
-    st = {k: v / DEEP_STEPS for k, v in st.items()}
-    h2d = hs.h2d_bytes / DEEP_STEPS
+    st = {k: v / steps for k, v in st.items()}
+    h2d = hs.h2d_bytes / steps
     tokens = OFFLOAD_GAS * TRAIN_B * TRAIN_S
     med = statistics.median(step_s[1:])
     log(f"8d L={L}: median step {med * 1e3:.0f} ms = {tokens / med:.0f} "
@@ -6691,16 +7226,29 @@ def param_offload_depth_phase(dev, batch):
         f"legacy {OFFLOAD_32L_PEAK_GIB['legacy']}, tiered "
         f"{OFFLOAD_32L_PEAK_GIB['tiered']}); "
         f"host RSS {host_rss_gib():.1f} GiB; init {init_s:.1f}s")
-    log(f"8d L={L} a step (mean of {DEEP_STEPS}): layer copies "
+    log(f"8d L={L} a step (mean of {steps}): layer copies "
         f"{h2d / 1e9:.2f} GB ({st['h2d_ms']:.0f} ms on the side stream, "
         f"{h2d / max(st['h2d_ms'], 1e-9) / 1e6:.2f} GB/s), compute stream "
         f"waited {st['wait_ms']:.0f} ms (exposed share "
         f"{st['wait_ms'] / max(st['h2d_ms'], 1e-9):.3f}); last step: "
         f"forward+backward {tm.get('grads_ms', 0):.0f} ms, update "
         f"{tm.get('update_ms', 0):.0f} ms")
+    return {"L": L, "step_ms": med * 1e3, "peak_gib": peak}
+
+
+def param_offload_depth_phase(dev, batch, L, cfg):
+    """Phase 8d at full depth (``param_offload_depth``): offload_param cpu
+    with the host C++ optimizer, DEEP_STEPS steps, held by
+    ``param_offload_deep_checks``."""
+    config = tier_config({"offload_param": {"device": "cpu"},
+                          "offload_optimizer": LEGACY})
+    (eng, losses, step_s, peak, init_s), launches = tier_run(
+        cfg, config, batch, DEEP_STEPS,
+        f"8d offload_param cpu + legacy L={L}", None)
+    record = param_offload_deep_checks(L, eng, losses, step_s, peak, init_s)
     free_engine(eng)
     del eng
-    return launches, {"L": L, "step_ms": med * 1e3, "peak_gib": peak}
+    return launches, record
 
 
 def infinity_config(path, optim_nvme=False):
@@ -6738,20 +7286,26 @@ def check_infinity_resident(label, eng, init_bytes):
     return persist
 
 
-def infinity_width_phase(dev, cfg, batch, weights, root, l_loss):
+def infinity_width_phase(dev, cfg, batch, weights, root, l_loss,
+                         deep=False):
     """Phase 8e at ``cfg``'s depth (``TIER_WIDTH_LAYERS``): ZeRO-Infinity
     with the optimizer state in host RAM and on NVMe, torch.equal to each other, within phase 8b's
     legacy tolerance of the losses ``l_loss`` of phase 8d's stage-3
     engine with the host C++ optimizer on the same weights; the device
-    holds only the persistent leaves."""
+    holds only the persistent leaves. With ``deep`` (the full depth is
+    this depth) the host-RAM run is also the full-depth run, held by
+    ``infinity_deep_checks``. Returns the launches and the full-depth
+    record (None without ``deep``)."""
     L = cfg.num_layers
     runs = {}
+    record = None
     for label, on in (("host", False), ("nvme", True)):
         init = {}
 
         def on_init(e, nbytes, label=label):
             init["persist"] = check_infinity_resident(
                 f"8e L={L} optimizer {label}", e, nbytes)
+            init["base"] = torch.cuda.memory_allocated()
 
         # two steps: the optimizer sweep over the files takes ~8 s a step
         (eng, losses, step_s, peak, init_s), n = tier_run(
@@ -6766,6 +7320,10 @@ def infinity_width_phase(dev, cfg, batch, weights, root, l_loss):
             f"{peak:.2f} GiB, device params {persist / 2**30:.3f} GiB "
             f"(persistent leaves only), init {init_s:.1f}s; timings "
             f"{ {k: round(v, 3) for k, v in inf.timings.items()} }")
+        if deep and label == "host":
+            record = infinity_deep_checks(L, eng, losses, step_s, peak,
+                                          init["base"], init_s,
+                                          dict(inf.timings))
         pdir = inf.param_dir
         free_engine(eng)
         del eng
@@ -6783,7 +7341,7 @@ def infinity_width_phase(dev, cfg, batch, weights, root, l_loss):
         f"master); within rtol 0.05 / atol 1e-2 of legacy stage 3 (max "
         f"|diff| {max(abs(a - b) for a, b in zip(h_loss, l_loss)):.2e}; "
         f"2 steps)")
-    return {k: n1[k] + n2[k] for k in n1}
+    return {k: n1[k] + n2[k] for k in n1}, record
 
 
 def infinity_depth_layers(cfg, root, max_layers=DEEP_LAYERS):
@@ -6809,57 +7367,35 @@ def infinity_depth_layers(cfg, root, max_layers=DEEP_LAYERS):
                          f"({disk:.1f} GiB free) fit")
 
 
-def infinity_depth_phase(dev, batch, root):
-    """Phase 8e at full depth (cut by the host's memory or the disk, never
-    below 20): 3 steps with the optimizer in host RAM; losses finite and
-    falling, flash launches; step ms, tokens/s, peak device GiB, bytes
-    read a step and their rate, the share of each sweep that waits on a
-    read, init s and bytes written."""
+def infinity_depth(base, root):
+    """The depth of phase 8e's full-depth run (cut by the host's memory or
+    the disk), logged; returns (L, that config)."""
     import dataclasses
 
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import TransformerLM, mistral_7b
-
-    base = mistral_7b()
     L, host, room, files, disk, n_params = infinity_depth_layers(base, root)
-    cfg = dataclasses.replace(base, num_layers=L)
     log(f"8e full depth: L={L} of {base.num_layers}"
         + (" (cut: host memory or disk)" if L < min(DEEP_LAYERS, 20) else
            f" (cut to {DEEP_LAYERS}: the run's time limit)"
            if L < base.num_layers else "")
         + f", {n_params / 1e9:.3f} B params; host state {host:.1f} of "
         f"{room:.1f} GiB, param files {files:.1f} of {disk:.1f} GiB free")
-    flash_counts(reset=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    b0 = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    eng, *_ = deepspeed_tpu_torch.initialize(
-        model=TransformerLM(cfg), config=infinity_config(root))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return L, dataclasses.replace(base, num_layers=L)
+
+
+def infinity_deep_checks(L, eng, losses, step_s, peak, base_b, init_s,
+                         timings):
+    """The checks of phase 8e's full-depth run (the optimizer in host RAM;
+    its flash launches and resident bytes checked by the caller): losses
+    finite and falling; step ms, tokens/s, peak device GiB, bytes read a
+    step and their rate, the share of each sweep that waits on a read,
+    init s and bytes written."""
     inf = eng._infinity
-    torch.cuda.reset_peak_memory_stats()
-    base_b = torch.cuda.memory_allocated()
-    check_infinity_resident(f"8e L={L}", eng, base_b - b0)
-    losses, step_s, tms = [], [], []
-    for _ in range(DEEP_STEPS):
-        t0 = time.perf_counter()
-        losses.append(eng.train_batch(batch=batch))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        tms.append(dict(inf.timings))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = flash_counts()
-    want = flash_want(L, DEEP_STEPS)
-    if launches != want:
-        raise AssertionError(f"8e L={L}: flash launches {launches} != {want}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"8e L={L}: losses not finite and falling: "
                              f"{losses}")
     tokens = OFFLOAD_GAS * TRAIN_B * TRAIN_S
     med = statistics.median(step_s[1:])
-    t = tms[-1]
+    t = timings
     sweeps = t["forward_s"] + t["backward_s"]
     log(f"8e L={L}: losses {[f'{x:.4f}' for x in losses]}, step s "
         f"{[f'{x:.2f}' for x in step_s]}; median {med * 1e3:.0f} ms = "
@@ -6877,9 +7413,45 @@ def infinity_depth_phase(dev, batch, root):
         f"optimizer sweep {t['optimizer_s']:.2f}s; init {init_s:.1f}s "
         f"({inf.init_s:.1f}s writing {inf.bytes_written / 1e9:.2f} GB of "
         f"layer files)")
+    return {"L": L, "step_ms": med * 1e3, "peak_gib": peak}
+
+
+def infinity_depth_phase(dev, batch, root, L, cfg):
+    """Phase 8e at full depth (``infinity_depth``): DEEP_STEPS steps with
+    the optimizer in host RAM, flash launches checked, held by
+    ``infinity_deep_checks``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import TransformerLM
+
+    flash_counts(reset=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=TransformerLM(cfg), config=infinity_config(root))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    inf = eng._infinity
+    torch.cuda.reset_peak_memory_stats()
+    base_b = torch.cuda.memory_allocated()
+    check_infinity_resident(f"8e L={L}", eng, base_b - b0)
+    losses, step_s = [], []
+    for _ in range(DEEP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = flash_counts()
+    want = flash_want(L, DEEP_STEPS)
+    if launches != want:
+        raise AssertionError(f"8e L={L}: flash launches {launches} != {want}")
+    record = infinity_deep_checks(L, eng, losses, step_s, peak, base_b,
+                                  init_s, dict(inf.timings))
     free_engine(eng)
     del eng
-    return launches, {"L": L, "step_ms": med * 1e3, "peak_gib": peak}
+    return launches, record
 
 
 def memory_tiers_phase(dev):
@@ -6900,21 +7472,32 @@ def memory_tiers_phase(dev):
         for k in launches:
             launches[k] += n[k]
 
+    # at the width runs' depth a full-depth run would repeat one of them:
+    # that width run carries the full-depth checks instead
     t0 = time.perf_counter()
-    n, l_loss = param_offload_width_phase(dev, four, batch, weights)
+    L8, cfg8 = param_offload_depth(mistral_7b())
+    n, l_loss, d8 = param_offload_width_phase(
+        dev, four, batch, weights, deep=L8 == TIER_WIDTH_LAYERS)
     add(n)
-    n, d8 = param_offload_depth_phase(dev, batch)
-    add(n)
+    if d8 is None:
+        n, d8 = param_offload_depth_phase(dev, batch, L8, cfg8)
+        add(n)
     log(f"phase 8d: {time.perf_counter() - t0:.0f}s")
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "nvme_infinity")
     os.makedirs(root, exist_ok=True)
     t0 = time.perf_counter()
     try:
-        add(infinity_width_phase(dev, four, batch, weights, root, l_loss))
-        del weights
-        n, d9 = infinity_depth_phase(dev, batch, root)
+        L9, cfg9 = infinity_depth(mistral_7b(), root)
+        n, d9 = infinity_width_phase(
+            dev, four, batch, weights, root, l_loss,
+            # its host run takes DEEP_STEPS (2) steps
+            deep=L9 == TIER_WIDTH_LAYERS and DEEP_STEPS == 2)
         add(n)
+        del weights
+        if d9 is None:
+            n, d9 = infinity_depth_phase(dev, batch, root, L9, cfg9)
+            add(n)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"phase 8e: {time.perf_counter() - t0:.0f}s")
@@ -8073,16 +8656,15 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deepspeed_tpu_torch.ops.op_builder import cuda as cuda_build
 
+    clock = PhaseClock()
     dev = torch.device("cuda", 0)
     card = device_line()
     log(f"device: {card}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; torch._grouped_mm "
         f"{'present' if hasattr(torch, '_grouped_mm') else 'absent'} (the "
         f"serving MoE's grouped experts)")
-    t0 = time.perf_counter()
-    cuda_build.build()
-    log(f"kernel build: {time.perf_counter() - t0:.1f}s "
-        f"(nvcc {cuda_build.build_seconds:.1f}s) into "
+    clock.run("build", cuda_build.build)
+    log(f"kernel build: nvcc {cuda_build.build_seconds:.1f}s into "
         f"{cuda_build.BUILD_ROOT}")
     for name, text in sorted(cuda_build.build_logs.items()):
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
@@ -8092,70 +8674,54 @@ def main() -> int:
                 f"{max(regs)} registers, {spills} bytes spilled")
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
-    results = kernel_phases(dev, flush)
-    results.update(flash_phases(dev, flush))
-    results.update(sparse_phases(dev, flush))
-    results.update(woq_kernel_phases(dev, flush))
+    results = clock.run("kernels 1-4, 11", kernel_phases, dev, flush)
+    results.update(clock.run("kernels 5-7", flash_phases, dev, flush))
+    results.update(clock.run("kernels 12-14", sparse_phases, dev, flush))
+    results.update(clock.run("kernels 8-10", woq_kernel_phases, dev, flush))
     rms_launches = results["rms_norm"].pop("launches")
     del flush
     if "--kernels-only" in sys.argv:
         return 0    # a build-and-compare run; no result line
-    small_fp32_check(dev)
-    small_woq_check(dev)
-    small_moe_check(dev)
-    launches = serve_phase(dev)
+    clock.run("small fp32", small_fp32_check, dev)
+    clock.run("small woq", small_woq_check, dev)
+    clock.run("small moe", small_moe_check, dev)
+    launches = serve_phase(dev, clock)
     launches["rms_norm"] = rms_launches
     gc.collect()
     torch.cuda.empty_cache()    # the serving engine is gone
-    t0 = time.perf_counter()
-    for k, n in moe_serve_phase(dev).items():
-        launches[k] = launches.get(k, 0) + n
-    log(f"phase 2f: {time.perf_counter() - t0:.0f}s")
-    small_train_check(dev)
-    train_launches, train_base = train_phase(dev)
-    for k, n in train_launches.items():
-        launches[k] = launches.get(k, 0) + n
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    add(clock.run("2f", moe_serve_phase, dev))
+    clock.run("small train", small_train_check, dev)
+    train_launches, train_base = clock.run("8 train", train_phase, dev)
+    add(train_launches)
     gc.collect()
     torch.cuda.empty_cache()    # the training engine is gone
-    for k, n in training_surface_phase(dev, card, train_base).items():
-        launches[k] += n
+    add(clock.run("8f", training_surface_phase, dev, card, train_base))
     gc.collect()
     torch.cuda.empty_cache()
-    for k, n in hybrid_phase(dev).items():
-        launches[k] += n
-    t0 = time.perf_counter()
-    moe_launches, moe_ref = moe_train_phase(dev)
-    for k, n in moe_launches.items():
-        launches[k] += n
-    log(f"phase 8g: {time.perf_counter() - t0:.0f}s")
-    t0 = time.perf_counter()
-    for k, n in moe_zero_phase(dev, moe_ref).items():
-        launches[k] += n
+    add(clock.run("8m (a)-(c)", hybrid_phase, dev))
+    moe_launches, moe_ref = clock.run("8g", moe_train_phase, dev)
+    add(moe_launches)
+    add(clock.run("8j", moe_zero_phase, dev, moe_ref))
     del moe_ref
-    log(f"phase 8j: {time.perf_counter() - t0:.0f}s")
-    dp_launches, zero_refs = zero_dp_phase(dev, card)
-    for k, n in dp_launches.items():
-        launches[k] += n
-    for k, n in parallel_phase(dev, card, zero_refs[3]).items():
-        launches[k] += n
-    for k, n in pipeline_phase(dev, card).items():
-        launches[k] += n
-    for k, n in zeropp_phase(dev, card, zero_refs).items():
-        launches[k] += n
+    dp_launches, zero_refs = clock.run("8c", zero_dp_phase, dev, card)
+    add(dp_launches)
+    add(clock.run("8h", parallel_phase, dev, card, zero_refs[3]))
+    add(clock.run("8i", pipeline_phase, dev, card))
+    add(clock.run("8k", zeropp_phase, dev, card, zero_refs))
     del zero_refs
-    t0 = time.perf_counter()
-    offload_launches, host_ops = offload_phase(dev)
-    log(f"phase 8b: {time.perf_counter() - t0:.0f}s; flash launches of the "
-        f"full-depth runs and 8l {offload_launches}")
-    for k, n in offload_launches.items():
-        launches[k] += n
-    t0 = time.perf_counter()
-    tier_launches, _ = memory_tiers_phase(dev)
-    log(f"phases 8d-8e: {time.perf_counter() - t0:.0f}s; flash launches "
-        f"{tier_launches}")
-    for k, n in tier_launches.items():
-        launches[k] += n
-    launches.update(sparse_op_phase(dev))
+    offload_launches, host_ops = clock.run("8b, 8l", offload_phase, dev)
+    log(f"phase 8b: flash launches of the full-depth runs and 8l "
+        f"{offload_launches}")
+    add(offload_launches)
+    tier_launches, _ = clock.run("8d-8e", memory_tiers_phase, dev)
+    log(f"phases 8d-8e: flash launches {tier_launches}")
+    add(tier_launches)
+    launches.update(clock.run("sparse op", sparse_op_phase, dev))
 
     sources = {"paged_attention": ("deepspeed_tpu_torch/csrc/"
                                    "paged_attention.cu",
@@ -8204,8 +8770,10 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    clock.seconds["total"] = round(time.perf_counter() - clock.start, 1)
     print(card)
     print(json.dumps(host_ops))
+    print(json.dumps({"phase_seconds": clock.seconds}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -74,8 +74,11 @@ samples (temperature / top-p / top-k) on the device; under
 decode dispatch, its prompts on the flash forward kernel. The fleet tier
 (``inference/v2/serve``: the replica router, in-process and remote
 replicas behind worker processes, disaggregated prefill over the chunked
-KV handoff, live weight pushes and the autoscaler) is the JAX package's;
-the online adapter is ROADMAP A12, speculation A11b.
+KV handoff, live weight pushes and the autoscaler) is the JAX package's,
+and so are speculative decoding (``generate(speculative=True)``: prompt
+lookup and a draft model from ``load_draft_model``), the offline tuner
+and the serving runtime's online adapter (``autotuning/``) and the
+multi-node runners (``launcher/runner.py``).
 
 RLHF: with ``hybrid_engine.enabled`` ``initialize()`` returns the
 :class:`~.runtime.hybrid_engine.DeepSpeedHybridEngine`, the training

@@ -95,6 +95,8 @@ class RaggedInferenceEngineConfig:
     ragged_attention: str = "auto"
     max_lora_adapters: int = 0
     lora_rank: int = 8
+    # speculative decoding's draft source (engine_v2.SpecChooser): "auto"
+    # routes each request by accept rate, "ngram" / "draft" pin it
     spec_mode: str = "auto"
     seed: int = 0
 

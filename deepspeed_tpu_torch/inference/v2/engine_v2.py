@@ -41,7 +41,19 @@ adapter, and every path adds each row's q / v delta in the layer loop
 (the ragged step from ``RaggedBatch.adapter_slots``, decode steps and
 windows from the rows' slots, prefill / continue from the sequence's).
 Prefix caching keys on the adapter name. ``generate(adapter=)`` serves
-rows through adapters. Not ported: speculative decoding (ROADMAP A11b).
+rows through adapters.
+
+Speculative decoding (greedy only, JAX :64-135 / :879-1245; output equal
+to plain greedy): ``generate(speculative=True)`` routes each request, by
+``spec_mode`` (the config's, or the call's), between prompt-lookup
+drafting (``ngram_index.NGramIndex`` over the row's own history, verified
+by one ``paged_continue(greedy_window=)`` pass, the cache position rolled
+back over the rejected tokens; three missed rounds in a row stop a uid's
+drafting) and a draft model attached with ``load_draft_model``
+(``paged_model.paged_spec_decode_window``: the draft proposes over its
+own pool on the paged decode kernel, the target verifies on the ragged
+kernel, inside one window with one read of its tokens). ``SpecChooser``
+routes "auto" requests by the sources' accept rates, with hysteresis.
 
 Under ``quant_bits`` 8 or 4 the weights rest quantized
 (``inference/quantization.py``) and are dequantized right before use.
@@ -81,7 +93,7 @@ from .config_v2 import RaggedInferenceEngineConfig, check_ragged_mode
 from .paged_model import (check_servable, init_lora_bank,
                           init_paged_kv_cache, paged_continue, paged_decode,
                           paged_decode_window, paged_prefill,
-                          paged_ragged_step)
+                          paged_ragged_step, paged_spec_decode_window)
 from .ragged import batch as ragged_batch
 from .ragged.blocked_allocator import NULL_BLOCK
 from .ragged.ragged_manager import DSStateManager
@@ -90,6 +102,81 @@ from .sampling import (fold_in_rows, greedy_tokens, prng_key,
 
 DTYPES = {"float32": torch.float32, "float16": torch.float16,
           "bfloat16": torch.bfloat16}
+
+
+class DraftModelMismatchError(ValueError):
+    """A draft model cannot verify-share with the serving target:
+    greedy verification compares raw token ids, so the vocabularies
+    must be the SAME id space, and the draft writes its KV through the
+    target's block tables, so it must cover the same sequence range."""
+
+
+class SpecChooser:
+    """Routes each speculative request between the two draft sources —
+    the host n-gram index (``"ngram"``, prompt-lookup) and the in-window
+    draft model (``"draft"``) — by observed accept rate (JAX :64, a copy).
+
+    Hysteresis-armed like the online autotuner (autotuning/online.py's
+    armed/hold cycle): a switch commits only after the OTHER source's
+    accept-rate EMA beats the current one by ``margin`` for ``hold``
+    consecutive observations, so one noisy window never flips the
+    route. Cold start (no accept history for either source) routes by a
+    repetitiveness prior: histories whose trailing n-gram already
+    recurs draft well from their own text; everything else goes to the
+    draft model."""
+
+    def __init__(self, mode: str = "auto", alpha: float = 0.3,
+                 margin: float = 0.05, hold: int = 3):
+        self.mode = mode
+        self.alpha = float(alpha)
+        self.margin = float(margin)
+        self.hold = int(hold)
+        self.rate: Dict[str, Optional[float]] = {"ngram": None,
+                                                 "draft": None}
+        self.current = "draft" if mode == "draft" else "ngram"
+        self.switches = 0
+        self._armed: Optional[str] = None
+        self._streak = 0
+
+    def observe(self, mode: str, drafted: int, accepted: int) -> None:
+        """Fold one round's (drafted, accepted) counts into ``mode``'s
+        accept-rate EMA; may arm or commit a route switch."""
+        if drafted <= 0:
+            return
+        r = min(max(accepted / drafted, 0.0), 1.0)
+        prev = self.rate.get(mode)
+        self.rate[mode] = (r if prev is None
+                           else (1 - self.alpha) * prev + self.alpha * r)
+        self._maybe_switch()
+
+    def _maybe_switch(self) -> None:
+        if self.mode != "auto":
+            return
+        other = "draft" if self.current == "ngram" else "ngram"
+        ro, rc = self.rate[other], self.rate[self.current]
+        if ro is None or rc is None or ro <= rc + self.margin:
+            self._armed, self._streak = None, 0
+            return
+        if self._armed != other:
+            self._armed, self._streak = other, 1
+        else:
+            self._streak += 1
+        if self._streak >= self.hold:
+            self.current = other
+            self.switches += 1
+            self._armed, self._streak = None, 0
+
+    def choose(self, has_draft_model: bool, ngram_hit: bool) -> str:
+        """Route one incoming request. Pinned modes and a missing draft
+        model short-circuit; "auto" returns the hysteresis-settled
+        current source once any accept history exists."""
+        if self.mode == "ngram" or not has_draft_model:
+            return "ngram"
+        if self.mode == "draft":
+            return "draft"
+        if self.rate["ngram"] is None and self.rate["draft"] is None:
+            return "ngram" if ngram_hit else "draft"
+        return self.current
 
 
 class InferenceEngineV2:
@@ -180,6 +267,27 @@ class InferenceEngineV2:
         self.decode_windows = 0      # fused windows run
         self.decode_steps = 0        # device decode steps (K per window)
         self.ragged_steps = 0        # ragged steps run (one per put())
+        self.spec_windows = 0        # draft-model speculative windows run
+        self.spec_rounds = 0         # their propose -> verify rounds
+        # windows K whose program has run (the online adapter's steady
+        # move set); the per-token path is window 1
+        self._warmed_windows: set = set()
+        # speculation: per-uid consecutive missed-verify counts and
+        # incremental n-gram indexes, cleared on flush() and at generate()
+        # entry, so a cold streak never bans a uid across requests
+        self._spec_miss_streak: Dict[int, int] = {}
+        self._draft_index: Dict[int, object] = {}
+        # the draft model (load_draft_model): its own pool shares the
+        # target's block tables; _draft_seen is each uid's fed history
+        # the draft pool holds
+        self.draft_model = None
+        self.draft_params = None
+        self.draft_cache = None
+        self._draft_cfg = None
+        self._draft_seen: Dict[int, int] = {}
+        self.spec_chooser = SpecChooser(config.spec_mode)
+        self._spec_mode_of: Dict[int, str] = {}
+        self._spec_switches_seen = 0
         # per-uid distributed-trace ids (telemetry/context.py): the
         # scheduler binds them at submit so batch-level spans carry the
         # trace ids of every request they served; cleared on flush()
@@ -215,6 +323,9 @@ class InferenceEngineV2:
                                          paged_decode_window)
         self._prefill_fn = watchdog.watch("prefill", paged_prefill)
         self._continue_fn = watchdog.watch("continue", paged_continue)
+        self._spec_verify_fn = watchdog.watch("spec_verify", paged_continue)
+        self._spec_window_fn = watchdog.watch("spec_decode_window",
+                                              paged_spec_decode_window)
         if config.kv_quant:
             # the capacity win, as a live gauge: pool bytes the int8
             # layout frees vs the same pool at the serving dtype
@@ -315,6 +426,32 @@ class InferenceEngineV2:
             "serving_weight_version",
             "live weight version this engine serves (0 = the boot "
             "checkpoint; bumped by each hot-swap)")
+        self._m_spec_drafted = reg.counter(
+            "inference_spec_drafted_tokens_total",
+            "speculative tokens drafted for verification")
+        self._m_spec_accepted = reg.counter(
+            "inference_spec_accepted_tokens_total",
+            "speculative tokens accepted by greedy verification")
+        self._m_spec_miss_rounds = reg.counter(
+            "inference_spec_miss_rounds_total",
+            "speculative rounds whose whole draft was rejected")
+        self._m_spec_window_rounds = reg.counter(
+            "inference_spec_window_rounds_total",
+            "draft-model propose->verify->accept rounds run inside "
+            "fused speculative decode windows (per-row, summed on "
+            "device)")
+        self._m_spec_mode_requests = reg.counter(
+            "inference_spec_mode_requests_total",
+            "speculative requests routed per speculation source",
+            labelnames=("mode",))
+        self._m_spec_switches = reg.counter(
+            "inference_spec_chooser_switches_total",
+            "speculation-source switches committed by the hysteresis "
+            "chooser")
+        self._m_spec_rate = reg.gauge(
+            "inference_spec_accept_rate",
+            "EMA accept rate (accepted/drafted) per speculation source",
+            labelnames=("mode",))
         self._m_adapter_loads = reg.counter(
             "inference_lora_adapter_loads_total",
             "LoRA adapters (re)loaded into device bank slots")
@@ -346,6 +483,12 @@ class InferenceEngineV2:
         costs nothing."""
         self.ragged_enabled = check_ragged_mode(mode)
         self.config.ragged_attention = mode
+
+    def warmed_decode_windows(self):
+        """Window sizes whose decode path has run at least once (1 is the
+        per-token path): the only K values the online adapter moves to at
+        steady state (JAX :597)."""
+        return sorted(self._warmed_windows)
 
     def set_decode_window(self, window: int, *,
                           source: str = "online") -> int:
@@ -591,6 +734,7 @@ class InferenceEngineV2:
             nxt = pick(logits, N).cpu().numpy()   # the step's one read
         self.host_syncs += 1
         self.decode_steps += 1
+        self._warmed_windows.add(1)   # the per-token path is window 1
         dt = time.perf_counter() - t0
         self._m_host_syncs.inc()
         self._m_decode_steps.inc()
@@ -676,6 +820,7 @@ class InferenceEngineV2:
         self.host_syncs += 1
         self.decode_windows += 1
         self.decode_steps += self.decode_window
+        self._warmed_windows.add(self.decode_window)
         dt = time.perf_counter() - t0
         log_tokens = sm.config.enable_prefix_caching
         emitted: Dict[int, List[int]] = {}
@@ -874,9 +1019,12 @@ class InferenceEngineV2:
         self._update_pool_telemetry()
         return logits
 
-    def _continue(self, uid: int, tokens: np.ndarray) -> np.ndarray:
+    def _continue(self, uid: int, tokens: np.ndarray,
+                  all_logits: int = 0) -> np.ndarray:
         """A multi-token continuation of a cached sequence in one pass
-        (``paged_continue``): [V] f32 logits of its last token."""
+        (``paged_continue``): [V] f32 logits of its last token. With
+        ``all_logits`` > 0 (speculative verification) the [all_logits]
+        int32 greedy ids of the leading fed positions instead."""
         sm = self.state_manager
         n = len(tokens)
         seq = sm.ensure_blocks(uid, n)
@@ -885,20 +1033,359 @@ class InferenceEngineV2:
         ids = np.zeros((1, C), np.int32)
         ids[0, :n] = tokens
         table, offs, touched = self._chunk_write_set(seq, start, n, C)
+        fn = self._spec_verify_fn if all_logits else self._continue_fn
         with trace.span("continue", uid=int(uid), tokens=int(n),
-                        spec=False, **self._trace_attr(uid)):
-            logits = self._continue_fn(
+                        spec=bool(all_logits), **self._trace_attr(uid)):
+            logits = fn(
                 self.serve_cfg, self.params, self._i32(ids), start, n,
                 self.kv_cache, self._i32(table), self._i32(offs),
                 self._i32(sm.block_table_for(uid)), self.block_size,
-                touched_blocks=self._i32(touched), **self._lora_seq(uid))
+                touched_blocks=self._i32(touched), greedy_window=all_logits,
+                **self._lora_seq(uid))
             logits = logits.cpu().numpy()
         seq.seen_tokens = start + n
         if sm.config.enable_prefix_caching:
             seq.token_log.extend(map(int, tokens))
-        self._m_prefill_tokens.inc(n)
+        if not all_logits:  # spec-verify feeds count via the spec counters
+            self._m_prefill_tokens.inc(n)
         self._update_pool_telemetry()
         return logits
+
+    # -- speculative decoding (prompt-lookup, JAX :879-1007) --------------
+    _SPEC_SCAN_WINDOW = 512   # bound the per-round host scan (the scan
+    # is O(window); an unbounded history would make draft lookup
+    # quadratic over a long generation)
+
+    @staticmethod
+    def _lookup_draft(history: List[int], k: int, ngram: int) -> List[int]:
+        """Draft the k tokens that followed the most recent earlier
+        occurrence of the history's trailing n-gram (prompt-lookup
+        decoding: the sequence's own text is the draft model). Scans at
+        most the last _SPEC_SCAN_WINDOW tokens.
+
+        This right-to-left scan is the REFERENCE implementation (O(window
+        * ngram) per round); the hot path uses the incremental
+        NGramIndex (ngram_index.py, held equal to this)."""
+        W = InferenceEngineV2._SPEC_SCAN_WINDOW
+        base = max(0, len(history) - W)
+        win = history[base:]
+        for n in range(ngram, 1, -1):
+            if len(win) <= n:
+                continue
+            tail = win[-n:]
+            # scan right-to-left for the most recent earlier match
+            for i in range(len(win) - n - 1, -1, -1):
+                if win[i:i + n] == tail:
+                    start = base + i + n
+                    draft = history[start:start + k]
+                    if draft:
+                        return list(draft)
+        return []
+
+    def _speculative_step(self, uid: int, cur: int,
+                          draft: List[int]) -> List[int]:
+        """Feed [cur] + draft through one fused continuation, accept the
+        longest greedily-verified draft prefix, roll the cache position
+        back over rejected tokens, and return the emitted tokens
+        (1 + accepted; the last emitted token is NOT yet in the cache —
+        same invariant as the normal decode loop).
+
+        Rollback is a host-side counter reset: attention masks by
+        position (ctx_pos <= pos), so the rejected tokens' stale KV
+        slots are never attended and the next write overwrites them."""
+        sm = self.state_manager
+        seq = sm.seqs[uid]
+        fed = [int(cur)] + list(map(int, draft))
+        start = seq.seen_tokens
+        greedy = self._continue(uid, np.asarray(fed, np.int64),
+                                all_logits=len(fed))
+        emitted = [int(greedy[0])]
+        accepted = 0
+        for j, d in enumerate(draft):
+            if int(d) != emitted[-1]:
+                break
+            accepted += 1
+            emitted.append(int(greedy[j + 1]))
+        # rewind over the rejected fed tokens (cur + accepted stay)
+        seq.seen_tokens = start + 1 + accepted
+        if sm.config.enable_prefix_caching:
+            rejected = len(fed) - 1 - accepted
+            if rejected:
+                del seq.token_log[-rejected:]
+        return emitted
+
+    def _speculative_round(self, step_uids, outs, row_of, prompt_lens,
+                           live, max_new_tokens, eos_token_id,
+                           spec_k, spec_ngram) -> Dict[int, int]:
+        """One greedy round with prompt-lookup speculation: per uid,
+        draft from its own history and verify in one fused pass. The
+        accepted extras append to ``outs`` here (with per-token
+        eos/budget checks); the final emitted token becomes the round's
+        ``cur`` — the last-token-never-fed invariant the plain loop
+        keeps. Sequences without a usable draft fall back to the normal
+        batched greedy decode."""
+        from .ngram_index import NGramIndex
+
+        cur: Dict[int, int] = {}
+        plain_uids: List[int] = []
+        sm = self.state_manager
+        for uid in step_uids:
+            row = outs[row_of[uid]]
+            remaining = max_new_tokens - (len(row) - prompt_lens[uid])
+            # draft length budget: the generation budget, the sequence
+            # length limit (1+k fed tokens must fit max_seq_len — the
+            # loop's guard only covered 1), and a cold-streak cutoff
+            # (natural text with recurring n-grams but divergent
+            # continuations would otherwise pay a rejected verify pass
+            # every round, slower than plain batched greedy)
+            seq_room = sm.config.max_seq_len - sm.seqs[uid].seen_tokens - 1
+            k = min(spec_k, remaining - 1, seq_room)
+            if k > 0 and self._spec_miss_streak.get(uid, 0) < 3:
+                idx = self._draft_index.get(uid)
+                if idx is None:
+                    idx = self._draft_index[uid] = NGramIndex(
+                        spec_ngram, self._SPEC_SCAN_WINDOW)
+                idx.sync(row)
+                draft = idx.draft(k, spec_ngram)
+            else:
+                draft = []
+            if draft and not self.can_schedule([uid], [1 + len(draft)]):
+                draft = []
+            if not draft:
+                plain_uids.append(uid)
+                continue
+            emitted = self._speculative_step(uid, row[-1], draft)
+            self._m_spec_drafted.inc(len(draft))
+            self._m_spec_accepted.inc(len(emitted) - 1)
+            self.spec_chooser.observe("ngram", len(draft),
+                                      len(emitted) - 1)
+            if len(emitted) == 1:
+                self._m_spec_miss_rounds.inc()
+                self._spec_miss_streak[uid] = \
+                    self._spec_miss_streak.get(uid, 0) + 1
+            else:
+                self._spec_miss_streak[uid] = 0
+            finished = False
+            for tok in emitted[:-1]:
+                row.append(tok)
+                if ((eos_token_id is not None and tok == eos_token_id)
+                        or len(row) - prompt_lens[uid] >= max_new_tokens):
+                    finished = True
+                    break
+            if finished:
+                live.discard(uid)
+            else:
+                cur[uid] = emitted[-1]
+        if plain_uids:
+            cur.update(self._decode_batch_greedy(
+                plain_uids, [outs[row_of[u]][-1] for u in plain_uids]))
+        self._observe_spec_rates()
+        return cur
+
+    # -- draft-model speculation (in-window propose->verify->accept) -----
+    def load_draft_model(self, model, params=None) -> None:
+        """Attach a small draft model for in-window speculative decoding
+        (JAX :1010). The draft shares the TARGET's block tables against
+        its own 16-bit paged KV pool (the target's ``num_blocks x
+        block_size``), so the spec window needs no table of its own and
+        rollback stays free. Raises :class:`DraftModelMismatchError` when
+        the draft cannot verify-share with the target. ``params`` (a tree
+        of tensors or arrays; tensors already on the device in the
+        engine's dtype are used in place) defaults to a fresh seeded
+        init."""
+        dcfg = model.cfg
+        cfg = self.model.cfg
+        if dcfg.vocab_size != cfg.vocab_size:
+            raise DraftModelMismatchError(
+                f"draft vocab_size {dcfg.vocab_size} != target "
+                f"{cfg.vocab_size}: greedy verification compares raw "
+                f"token ids, so the vocabularies must be the same id "
+                f"space")
+        sm = self.state_manager
+        if dcfg.max_seq_len < sm.config.max_seq_len:
+            raise DraftModelMismatchError(
+                f"draft max_seq_len {dcfg.max_seq_len} < serving "
+                f"max_seq_len {sm.config.max_seq_len}: the draft must "
+                f"decode at every position the target serves")
+        if self.topology is not None:
+            raise NotImplementedError(
+                "a draft model in an SPMD engine (tensor or expert "
+                "parallel) is not ported: its followers would have to "
+                "mirror the draft pool (ROADMAP A15)")
+        check_servable(dcfg)
+        self.draft_model = model
+        self._draft_cfg = dcfg
+        if params is not None:
+            self.draft_params = _cast_tree(params, self.device, self.dtype)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.config.seed + 1)
+            self.draft_params = model.init_params(gen, dtype=self.dtype)
+        self.draft_cache = init_paged_kv_cache(
+            dcfg, sm.config.num_blocks, sm.block_size, self.dtype,
+            self.device)
+        self._draft_seen.clear()
+        self._draft_catchup_fn = watchdog.watch("draft_catchup",
+                                                paged_continue)
+        ds_memory.record_buffer("draft_params",
+                                ds_memory.tree_bytes(self.draft_params))
+        ds_memory.record_buffer("draft_kv_pool",
+                                ds_memory.tree_bytes(self.draft_cache))
+        log_dist(
+            f"draft model attached: layers={dcfg.num_layers} "
+            f"hidden={dcfg.hidden_size} (target hidden="
+            f"{cfg.hidden_size})", ranks=[0])
+
+    def _draft_catchup(self, uid: int, row: List[int]) -> None:
+        """Bring the draft KV pool level with the target's cache for
+        ``uid``: feed the fed-token suffix the draft has not seen
+        (``row[:seen_tokens]`` is exactly the fed history — the last
+        emitted token is never fed, the loop invariant) through one
+        ``paged_continue`` over the draft pool. No-op when the draft is
+        already level (consecutive spec windows)."""
+        sm = self.state_manager
+        seq = sm.seqs[uid]
+        seen = seq.seen_tokens
+        d0 = self._draft_seen.get(uid, 0)
+        if d0 >= seen:
+            return
+        toks = np.asarray(row[d0:seen], np.int64)
+        n = len(toks)
+        C = self._bucket(n)
+        ids = np.zeros((1, C), np.int32)
+        ids[0, :n] = toks
+        table, offs, _ = self._chunk_write_set(seq, d0, n, C)
+        with trace.span("draft_catchup", uid=int(uid), tokens=int(n),
+                        **self._trace_attr(uid)):
+            self._draft_catchup_fn(
+                self._draft_cfg, self.draft_params, self._i32(ids), d0, n,
+                self.draft_cache, self._i32(table), self._i32(offs),
+                self._i32(sm.block_table_for(uid)), self.block_size)
+        self._draft_seen[uid] = seen
+
+    def _observe_spec_rates(self) -> None:
+        """Publish the chooser's per-source accept-rate EMAs and any
+        newly committed route switches."""
+        for mode in ("ngram", "draft"):
+            r = self.spec_chooser.rate.get(mode)
+            if r is not None:
+                self._m_spec_rate.labels(mode=mode).set(r)
+        d = self.spec_chooser.switches - self._spec_switches_seen
+        if d > 0:
+            self._m_spec_switches.inc(d)
+            self._spec_switches_seen = self.spec_chooser.switches
+
+    def _spec_window_round(self, step_uids, outs, row_of, prompt_lens,
+                           live, max_new_tokens, eos_token_id,
+                           spec_k) -> Dict[int, int]:
+        """One draft-model speculative window per batch (JAX :1134):
+        propose(k) -> target-verify -> accept-prefix rounds on the device
+        (``paged_spec_decode_window``), the window's tokens and stats read
+        once. Rows without the sequence room / KV blocks the widened
+        pre-allocation contract needs (``steps_left + spec_k`` writes)
+        fall back to the plain batched greedy step."""
+        sm = self.state_manager
+        K = max(self.decode_window, spec_k + 1)
+        spec_uids: List[int] = []
+        plain_uids: List[int] = []
+        sl: List[int] = []
+        for uid in step_uids:
+            row = outs[row_of[uid]]
+            remaining = max_new_tokens - (len(row) - prompt_lens[uid])
+            room = (sm.config.max_seq_len - sm.seqs[uid].seen_tokens
+                    - spec_k)
+            s = min(K, remaining, room)
+            if s < 1 or not self.can_schedule([uid], [s + spec_k]):
+                plain_uids.append(uid)
+                continue
+            spec_uids.append(uid)
+            sl.append(s)
+        cur: Dict[int, int] = {}
+        if plain_uids:
+            cur.update(self._decode_batch_greedy(
+                plain_uids, [outs[row_of[u]][-1] for u in plain_uids]))
+        if not spec_uids:
+            return cur
+        for uid in spec_uids:
+            self._draft_catchup(uid, outs[row_of[uid]])
+        tokens = [outs[row_of[u]][-1] for u in spec_uids]
+        t0 = time.perf_counter()
+        with trace.span("spec_decode_window", batch=len(spec_uids),
+                        window=K, spec_k=spec_k,
+                        uids=[int(u) for u in spec_uids],
+                        **self._trace_attrs(spec_uids)):
+            # widened pre-allocation contract: row i may write KV at
+            # positions pos..pos+sl[i]+spec_k-1 (the final round's
+            # unaccepted tail), so those blocks exist BEFORE dispatch
+            N, toks, pos, tables = self._assemble_decode_rows(
+                spec_uids, tokens, [s + spec_k for s in sl])
+            eos = np.full(N, -1, np.int32)
+            eos[:len(spec_uids)] = (
+                -1 if eos_token_id is None else int(eos_token_id))
+            out, stats, rounds = self._spec_window_fn(
+                self.serve_cfg, self._draft_cfg, self.params,
+                self.draft_params, self._i32(toks), self._i32(pos),
+                self._i32(tables), self.kv_cache, self.draft_cache,
+                self._pad_i32(N, sl), self._i32(eos), self.block_size, K,
+                spec_k, use_kernel=self.use_kernel,
+                **self._lora_rows(N, spec_uids))
+            # one transfer for the whole window: tokens and stats
+            both = torch.cat([out.reshape(-1).long(), stats]).cpu().numpy()
+        out = both[:-4].reshape(N, K)
+        stats = both[-4:]
+        self.host_syncs += 1
+        self.spec_windows += 1
+        self.spec_rounds += rounds
+        self._m_host_syncs.inc()
+        dt = time.perf_counter() - t0
+        drafted, accepted, miss, row_rounds = (int(x) for x in stats)
+        self._m_spec_drafted.inc(drafted)
+        self._m_spec_accepted.inc(accepted)
+        self._m_spec_miss_rounds.inc(miss)
+        self._m_spec_window_rounds.inc(row_rounds)
+        self.spec_chooser.observe("draft", drafted, accepted)
+        self._observe_spec_rates()
+        log_tokens = sm.config.enable_prefix_caching
+        total = 0
+        for i, uid in enumerate(spec_uids):
+            out_row = out[i]
+            e = int((out_row >= 0).sum())   # emissions are a prefix
+            toks_out = [int(t) for t in out_row[:e]]
+            seq = sm.seqs[uid]
+            seq.seen_tokens += e
+            # accepted draft tokens ARE the canonical stream, so the
+            # draft cache is level with the target after the window
+            self._draft_seen[uid] = seq.seen_tokens
+            if log_tokens:
+                seq.token_log.extend([int(tokens[i])] + toks_out[:-1])
+            total += e
+            row = outs[row_of[uid]]
+            finished = False
+            # all but the last emit are fed/cached already; the host
+            # re-applies the eos/budget cuts (defensively — the device
+            # enforced them too), same fold-back as the plain window
+            for tok in toks_out[:-1]:
+                row.append(tok)
+                if ((eos_token_id is not None and tok == eos_token_id)
+                        or len(row) - prompt_lens[uid] >= max_new_tokens):
+                    finished = True
+                    break
+            if finished or not toks_out:
+                live.discard(uid)
+            else:
+                cur[uid] = toks_out[-1]
+        self._m_decode_steps.inc()
+        self._m_decode_tokens.inc(total)
+        self._m_decode_time.observe(dt)
+        self._m_fused_time.observe(dt)
+        if dt > 0:
+            self._m_decode_tput.set(total / dt)
+        flight.record("spec_decode_window", batch=len(spec_uids),
+                      tokens=total, window=K, spec_k=spec_k,
+                      drafted=drafted, accepted=accepted,
+                      dur_s=round(dt, 5))
+        self._update_pool_telemetry()
+        return cur
 
     def _lora_seq(self, uid: int) -> dict:
         """The bank and ``uid``'s slot for a one-sequence pass."""
@@ -961,9 +1448,16 @@ class InferenceEngineV2:
         return np.stack([results[uid] for uid, _ in entries])
 
     def flush(self, uid: int) -> None:
-        """Release a finished sequence's KV blocks (reference flush)."""
+        """Release a finished sequence's KV blocks (reference flush).
+        Also forgets the uid's speculative cold-streak state: uids are
+        caller-assigned and commonly reused, and a streak carried across
+        independent requests would permanently ban drafting for them."""
+        self._spec_miss_streak.pop(uid, None)
+        self._draft_index.pop(uid, None)
         self._uid_traces.pop(int(uid), None)
         self._uid_adapter.pop(int(uid), None)
+        self._spec_mode_of.pop(int(uid), None)
+        self._draft_seen.pop(int(uid), None)
         self.state_manager.flush_sequence(uid)
         self._update_pool_telemetry()
 
@@ -1023,12 +1517,41 @@ class InferenceEngineV2:
                 "device": ds_memory.record_device(self.device),
                 "buffers": ds_memory.buffers()}
 
+    def _route_speculative(self, uids, outs, row_of, spec_ngram: int,
+                           spec_mode: Optional[str]) -> None:
+        """Validate ``spec_mode`` and route each request once, up front
+        (JAX :1789-1820): the n-gram index over its prompt is the
+        chooser's repetitiveness prior, the per-source accept-rate EMAs
+        its learned history."""
+        from .ngram_index import NGramIndex
+
+        if spec_mode not in (None, "auto", "ngram", "draft"):
+            raise ValueError(f"spec_mode must be auto|ngram|draft, "
+                             f"got {spec_mode!r}")
+        if spec_mode == "draft" and self.draft_model is None:
+            raise ValueError("spec_mode='draft' requires a draft "
+                             "model: call load_draft_model() first")
+        for uid in uids:
+            idx = self._draft_index[uid] = NGramIndex(
+                spec_ngram, self._SPEC_SCAN_WINDOW)
+            idx.sync(outs[row_of[uid]])
+            if spec_mode in ("ngram", "draft"):
+                mode = spec_mode
+            else:
+                mode = self.spec_chooser.choose(
+                    self.draft_model is not None,
+                    idx.has_candidate(spec_ngram))
+            self._spec_mode_of[int(uid)] = mode
+            self._m_spec_mode_requests.labels(mode=mode).inc()
+
     # convenience: serve-style generation over the ragged engine
     def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens: int,
                  uids: Optional[Sequence[int]] = None,
                  eos_token_id: Optional[int] = None,
                  temperature: float = 0.0, top_p: float = 1.0,
                  top_k: int = 0, seed: int = 0, speculative: bool = False,
+                 spec_k: int = 4, spec_ngram: int = 3,
+                 spec_mode: Optional[str] = None,
                  adapter=None) -> List[np.ndarray]:
         """Greedy by default; temperature > 0 samples with top_p / top_k
         on the device, deterministic for a given seed. The prompts go
@@ -1040,12 +1563,24 @@ class InferenceEngineV2:
         is in the batch. Returns prompt + generated tokens per row.
         ``adapter`` routes rows through loaded LoRA adapters: a name for
         every row, or a list of names (None = base) one per row.
-        Speculative decoding is not ported and raises (ROADMAP A11b)."""
-        if speculative:
-            raise NotImplementedError(
-                "speculative decoding is not ported to deepspeed_tpu_torch "
-                "yet (ROADMAP A11b)")
+        ``speculative`` (greedy only) turns on speculative decoding with
+        drafts of up to ``spec_k`` tokens: per request the chooser routes
+        between prompt-lookup drafting (``spec_ngram``-gram history
+        matches, one verify pass a round) and the draft model's in-window
+        path when one is loaded; ``spec_mode`` ("auto" / "ngram" /
+        "draft") overrides the configured mode for this call. The output
+        is the plain greedy stream either way."""
         uids = list(uids) if uids is not None else list(range(len(prompts)))
+        sampling = temperature > 0.0
+        if speculative and sampling:
+            raise AssertionError(
+                "speculative decoding is greedy-only (draft verification "
+                "compares argmax)")
+        # each generate() call is an independent request batch: spec
+        # cold-streaks (and draft indexes) from earlier calls must not
+        # leak into this one
+        self._spec_miss_streak.clear()
+        self._draft_index.clear()
         if adapter is not None:
             names = ([adapter] * len(uids) if isinstance(adapter, str)
                      else list(adapter))
@@ -1057,7 +1592,9 @@ class InferenceEngineV2:
                 self.assign_adapter(uid, name)
         outs: List[List[int]] = [list(map(int, p)) for p in prompts]
         row_of = {uid: i for i, uid in enumerate(uids)}
-        sampling = temperature > 0.0
+        if speculative:
+            self._route_speculative(uids, outs, row_of, spec_ngram,
+                                    spec_mode)
         base_rng = prng_key(seed, self.device) if sampling else None
         t_start = time.perf_counter()
         try:
@@ -1105,7 +1642,25 @@ class InferenceEngineV2:
                 feed = [outs[row_of[u]][-1] for u in step_uids]
                 gen_count = [len(outs[row_of[u]]) - prompt_lens[u]
                              for u in step_uids]
-                if self.decode_window > 1:
+                if speculative:
+                    # per-request routing: draft-model rows take the
+                    # in-window path, the rest prompt-lookup
+                    draft_uids = [u for u in step_uids
+                                  if self._spec_mode_of.get(int(u))
+                                  == "draft"]
+                    ngram_uids = [u for u in step_uids
+                                  if u not in draft_uids]
+                    cur = {}
+                    if draft_uids:
+                        cur.update(self._spec_window_round(
+                            draft_uids, outs, row_of, prompt_lens, live,
+                            max_new_tokens, eos_token_id, spec_k))
+                    if ngram_uids:
+                        cur.update(self._speculative_round(
+                            ngram_uids, outs, row_of, prompt_lens, live,
+                            max_new_tokens, eos_token_id, spec_k,
+                            spec_ngram))
+                elif self.decode_window > 1:
                     sl = self._window_steps_left(
                         step_uids, [max_new_tokens - g for g in gen_count])
                     eos = -1 if eos_token_id is None else int(eos_token_id)

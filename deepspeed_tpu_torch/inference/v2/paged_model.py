@@ -14,6 +14,10 @@ path:
   the paged decode kernel, once per layer.
 * ``paged_decode_window`` — K decode steps (greedy or sampled) on the
   device with one host transfer for the whole window.
+* ``paged_spec_decode_window`` — draft-model speculation inside a window:
+  a draft's decodes over its own pool propose, ``_paged_verify`` (the
+  ragged kernel over N runs of ``spec_k + 1`` tokens) verifies, the
+  matching prefix plus one is accepted.
 
 Every family takes the multi-LoRA bank (``init_lora_bank``; ``lora`` and
 ``adapter_ids``: a slot for the one sequence of prefill / continue, one
@@ -496,7 +500,8 @@ def paged_continue(cfg: TransformerConfig, params, ids: torch.Tensor,
                    offsets: torch.Tensor, block_table: torch.Tensor,
                    block_size: int,
                    touched_blocks: torch.Tensor = None, lora=None,
-                   adapter_ids: int = 0) -> torch.Tensor:
+                   adapter_ids: int = 0,
+                   greedy_window: int = 0) -> torch.Tensor:
     """A multi-token continuation of ONE cached sequence in one pass (JAX
     :417): ids [1, C] (the padded chunk), ``start_pos`` the tokens already
     cached, ``n_new`` the chunk's valid tokens, ``block_ids`` /
@@ -504,7 +509,10 @@ def paged_continue(cfg: TransformerConfig, params, ids: torch.Tensor,
     ``block_table`` [MB] the sequence's whole table. The chunk's K/V go
     into the pool, then every chunk token attends causally over the whole
     table (``_kv_read``, int8 pages dequantized) up to its own position.
-    Returns the last valid token's [V] f32 logits."""
+    Returns the last valid token's [V] f32 logits; with ``greedy_window``
+    > 0 (speculative verification, JAX :503) the [greedy_window] int32
+    argmax ids of the leading fed positions instead, the head run on
+    those positions only."""
     _need_touched(cache, touched_blocks, "paged_continue")
     C = ids.shape[1]
     MB = block_table.shape[0]
@@ -527,6 +535,8 @@ def paged_continue(cfg: TransformerConfig, params, ids: torch.Tensor,
 
     x = _layers(cfg, params, x, cos, sin, cache, block_ids, offsets,
                 touched_blocks, attend, lora, adapter_ids)
+    if greedy_window:
+        return greedy_tokens(_logits(cfg, params, x[:int(greedy_window)]))
     return _logits(cfg, params, x[int(n_new) - 1])
 
 
@@ -662,3 +672,152 @@ def paged_decode_window(cfg: TransformerConfig, params, toks: torch.Tensor,
         toks = torch.where(active, nxt, toks)
         active = active & (nxt != eos_ids) & (steps_left > s + 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Speculative decode window (draft-model propose -> target verify)
+# ---------------------------------------------------------------------------
+def _paged_verify(cfg: TransformerConfig, params, fed: torch.Tensor,
+                  pos0: torch.Tensor, block_tables: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], active: torch.Tensor,
+                  block_size: int, use_kernel: bool = True, lora=None,
+                  adapter_ids: torch.Tensor = None) -> torch.Tensor:
+    """The target's multi-query pass of a speculative round (JAX :804):
+    the ``S = spec_k + 1`` fed tokens of every row (``fed`` [N, S]; column
+    0 the row's pending token, the rest the draft's proposals; ``pos0``
+    [N] the cache position of column 0) in ONE pass. The fed K/V go into
+    each row's blocks at ``pos0 .. pos0 + S - 1`` (inactive rows to the
+    null block), then every fed token attends over its row's table up to
+    its own position: the flat buffer of the ragged step, N runs of S
+    tokens with per-token causal bounds (inactive rows length 0), through
+    the ragged kernel (row 3, or 3q over an int8 pool). The layer body is
+    the shared loop's. The LoRA bank's per-row slots repeat over the S fed
+    positions. Returns the greedy ids [N, S] int32: ``ids[:, j]`` is the
+    target's next token after ``fed[:, :j + 1]``."""
+    N, S = fed.shape
+    MB = block_tables.shape[1]
+    dev = fed.device
+    params = dequantize_nonlayer(params)
+    x = _embed(cfg, params, fed.reshape(N * S))                 # [N*S, H]
+    posm = pos0[:, None] + torch.arange(S, dtype=pos0.dtype,
+                                        device=dev)[None, :]  # [N, S]
+    cos, sin = _rope_at(cfg, posm.reshape(N * S))
+    # an inactive row's positions may run past its table; clamp the lookup
+    # (its writes go to the null block either way)
+    page = torch.clamp(posm.long() // block_size, max=MB - 1)
+    blk = torch.gather(block_tables, 1, page)
+    blk = torch.where(active[:, None], blk, torch.zeros_like(blk))
+    blk = blk.reshape(N * S)
+    off = (posm % block_size).reshape(N * S)
+    row_ids = torch.arange(N, dtype=torch.int32,
+                           device=dev).repeat_interleave(S)
+    lengths = torch.where(active[:, None], posm + 1,
+                          torch.zeros_like(posm)).reshape(N * S)
+    attn = ragged_attention if use_kernel else ragged_attention_plain
+    # the write-set's blocks, repeats included, serve as ``touched``: a
+    # repeated block is requantized to the same value
+    x = _layers(cfg, params, x, cos, sin, cache, blk, off, blk,
+                lambda q, k, v, kc, vc, ks, vs: attn(q, kc, vc, row_ids,
+                                                     lengths, block_tables,
+                                                     ks, vs),
+                lora, None if lora is None else adapter_ids[row_ids.long()])
+    return greedy_tokens(_logits(cfg, params, x)).reshape(N, S)
+
+
+def paged_spec_decode_window(cfg: TransformerConfig, dcfg: TransformerConfig,
+                             params, dparams, toks: torch.Tensor,
+                             pos: torch.Tensor, block_tables: torch.Tensor,
+                             cache: Dict[str, torch.Tensor],
+                             dcache: Dict[str, torch.Tensor],
+                             steps_left: torch.Tensor, eos_ids: torch.Tensor,
+                             block_size: int, window: int, spec_k: int,
+                             use_kernel: bool = True, lora=None,
+                             adapter_ids: torch.Tensor = None):
+    """Draft-model speculative decoding inside the fused decode window
+    (JAX :915), greedy only. Each round, for every running row (active,
+    window not full):
+
+      1. the DRAFT proposes ``spec_k`` greedy tokens with ``spec_k + 1``
+         single-token decodes over its own pool ``dcache``, which shares
+         the target's block tables (the paged decode kernel, row 1); the
+         last decode writes the final proposal's draft K/V, so an
+         all-accept round leaves no hole. Rejected positions hold stale
+         K/V that position masking never reads and the next round
+         overwrites: rollback is free.
+      2. the TARGET scores all ``spec_k + 1`` fed tokens in one pass
+         (:func:`_paged_verify`, the ragged kernel, row 3).
+      3. the row accepts the longest matching prefix plus the target's own
+         next token (``m = accepted + 1`` emissions), cut at the row's
+         window / step budget and at an emitted EOS (emitted, never fed).
+
+    The host pre-allocates every block a row can write: up to
+    ``steps_left[i] + spec_k`` positions from ``pos[i]``. Both pools are
+    updated in place. The JAX ``lax.while_loop`` stops once no row runs;
+    this loop tests that on the host once a round (one sync a round: a
+    fixed round count would pay up to ``window`` full rounds of draft
+    decodes and a target pass each), so it runs exactly JAX's rounds.
+
+    Returns (tokens [N, window] int32, -1 where a row emitted nothing
+    (emissions form a prefix of each row); stats [4] int64 = (drafted,
+    accepted, miss_rounds, row_rounds), as in JAX; the rounds the loop
+    ran, an int)."""
+    N = toks.shape[0]
+    S = spec_k + 1
+    dev = toks.device
+    sidx = torch.arange(S, device=dev)
+    rows = torch.arange(N, device=dev)
+    params = dequantize_nonlayer(params)
+    dparams = dequantize_nonlayer(dparams)
+    oi = torch.zeros(N, dtype=torch.int32, device=dev)
+    active = steps_left > 0
+    # one column past the window takes the writes JAX drops
+    out = torch.full((N, window + 1), -1, dtype=torch.int32, device=dev)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    rounds = 0
+    while bool((active & (oi < window)).any()):
+        run = active & (oi < window)
+        rounds += 1
+        # -- 1. the draft proposes ---------------------------------------
+        t, p = toks, pos
+        seq = [toks]
+        for j in range(S):
+            dlogits = paged_decode(dcfg, dparams, t, p, block_tables, dcache,
+                                   run, block_size, use_kernel=use_kernel)
+            if j < spec_k:
+                t = greedy_tokens(dlogits)
+                seq.append(t)
+                p = p + 1
+        fed = torch.stack(seq, dim=1)                          # [N, S]
+        # -- 2. the target verifies every fed token in one pass ----------
+        ids_v = _paged_verify(cfg, params, fed, pos, block_tables, cache,
+                              run, block_size, use_kernel=use_kernel,
+                              lora=lora, adapter_ids=adapter_ids)
+        # -- 3. accept the matching prefix + the target's own token ------
+        matches = (ids_v[:, :spec_k] == fed[:, 1:]).to(torch.int32)
+        acc = torch.cumprod(matches, dim=1).sum(dim=1).to(torch.int32)
+        m = torch.minimum(acc + 1, torch.minimum(window - oi,
+                                                 steps_left - oi))
+        m = torch.where(run, m.clamp(min=0), torch.zeros_like(m))
+        within = sidx[None, :] < m[:, None]
+        is_eos = within & (ids_v == eos_ids[:, None])
+        any_eos = is_eos.any(dim=1)
+        m = torch.where(any_eos,
+                        (is_eos.to(torch.int32).argmax(dim=1) + 1).to(m.dtype),
+                        m)
+        for j in range(S):
+            col = torch.where(run & (j < m), oi + j,
+                              torch.full_like(oi, window))
+            out[rows, col.long()] = ids_v[:, j]
+        # -- advance -----------------------------------------------------
+        m_safe = m.clamp(min=1)
+        last = torch.gather(ids_v, 1, (m_safe - 1).long()[:, None])[:, 0]
+        toks = torch.where(run, last, toks)
+        pos = torch.where(run, pos + m.to(pos.dtype), pos)
+        oi = oi + m
+        active = torch.where(run, (~any_eos) & (oi < steps_left), active)
+        stats += torch.stack([
+            (run.to(torch.int64) * spec_k).sum(),
+            (m - 1).clamp(min=0).sum(),
+            (run & (acc == 0)).sum(),
+            run.sum()]).to(torch.int64)
+    return out[:, :window], stats, rounds

@@ -37,8 +37,8 @@ Port of ``deepspeed_tpu/inference/v2/serve/``:
 
 LoRA adapter payloads (``weights.chunk_adapter_payload``) ride the same
 wire into an engine's adapter bank, fleet-wide through
-``ReplicaRouter.push_adapter``. Not ported: the online adapter
-(``ServingConfig.autotune``, ROADMAP A12).
+``ReplicaRouter.push_adapter``. ``ServingConfig.autotune`` turns on the
+SLO-driven online adapter (``autotuning/online.py``).
 """
 
 from . import handoff  # noqa: F401

@@ -22,8 +22,9 @@ Port note: a copy of ``deepspeed_tpu/inference/v2/serve/frontend.py``
 handles ``ChunkedHandoff`` and ``WeightUpdate``: KV handoffs through
 ``resume`` / ``begin_handoff``, live weight updates through
 ``begin_weight_update`` / ``apply_weights``). ``ServingConfig.autotune``
-(the online adapter, ``autotuning/online.py``) raises
-``NotImplementedError`` (ROADMAP A12).
+(an ``OnlineAdapterConfig``) builds the SLO-driven online adapter
+(``autotuning/online.py``) over the engine, the admission controller and
+the SLO monitor; the loop ticks it between scheduler steps.
 """
 
 import asyncio
@@ -36,6 +37,7 @@ from ....telemetry import context as trace_context
 from ....telemetry.anomaly import (DiagnosticsConfig, KVLeakDetector,
                                    SLOBurnRateMonitor, StallWatchdog)
 from ....telemetry.recorder import get_recorder
+from ....autotuning.online import OnlineAdapter, OnlineAdapterConfig
 from ..scheduler import DynamicSplitFuseScheduler
 from .admission import AdmissionConfig, AdmissionController
 from .loop import FollowerLoop, LeaderEngine, ModelGroup, ServingLoop
@@ -69,9 +71,9 @@ class ServingConfig:
     diagnostics: DiagnosticsConfig = field(
         default_factory=DiagnosticsConfig)
     # SLO-driven online adaptation of the registry's online=True knobs
-    # (autotuning/online.py): not ported (ROADMAP A12); anything but None
-    # raises when the ServingEngine is built
-    autotune: Optional[object] = None
+    # (decode window, admission token budget) between scheduler steps —
+    # autotuning/online.py; None disables it
+    autotune: Optional[OnlineAdapterConfig] = None
 
 
 class ServingDiagnostics:
@@ -232,11 +234,6 @@ class ServingEngine:
         follows (``loop.FollowerLoop``; ``submit`` refuses there), from
         ``start()`` until the leader's loop ends."""
         self.config = config or ServingConfig()
-        if self.config.autotune is not None:
-            raise NotImplementedError(
-                "ServingConfig.autotune (the online adapter, "
-                "autotuning/online.py) is not ported to deepspeed_tpu_torch "
-                "yet (ROADMAP A12)")
         self._stopped = False
         self.follower = False
         if getattr(engine, "topology", None) is not None:
@@ -255,11 +252,21 @@ class ServingEngine:
             chunk=self.config.chunk, clock=clock)
         self.admission = AdmissionController(self.config.admission)
         self.diagnostics = ServingDiagnostics(self.config.diagnostics)
+        # SLO-driven online adapter (autotuning/online.py): ticked by the
+        # loop thread between scheduler steps — the only thread that
+        # touches the engine
+        self.adapter: Optional[OnlineAdapter] = None
+        if (self.config.autotune is not None
+                and self.config.autotune.enabled):
+            self.adapter = OnlineAdapter(
+                engine, admission=self.admission,
+                slo=self.diagnostics.slo, config=self.config.autotune)
         self._loop_runner = ServingLoop(
             self.scheduler, self.admission,
             max_inflight=self.config.max_inflight,
             idle_wait_s=self.config.idle_wait_s, clock=clock,
-            bridge=bridge, diagnostics=self.diagnostics, lane=lane)
+            bridge=bridge, diagnostics=self.diagnostics, lane=lane,
+            adapter=self.adapter)
         self._uids = itertools.count(1)
 
     @property

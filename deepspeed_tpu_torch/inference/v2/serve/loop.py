@@ -22,9 +22,10 @@ host counters). The fleet's state is JAX's: the chunked KV restores in
 flight (``begin_restore`` / ``apply_restore`` / ``commit_restore``, each
 chunk applied between scheduler steps), whole handoffs (``resume``), the
 weight updates staging (``weight_staging``), and their metric families
-(``handoff_chunk_*``, ``weight_update_overlap_steps_total``). The online
-adapter (``autotuning/online.py``) is not ported (ROADMAP A12). The drain
-closes the engine's KV spill tier (``ragged/spill.py``), as in JAX.
+(``handoff_chunk_*``, ``weight_update_overlap_steps_total``), and the
+online adapter (``autotuning/online.py``), ticked right after the SLO
+monitor. The drain closes the engine's KV spill tier
+(``ragged/spill.py``), as in JAX.
 
 Over an SPMD engine (tensor or expert parallel: ``engine.topology`` set)
 the runtime runs on the engine group's rank 0 (the leader): its loop
@@ -66,7 +67,8 @@ MIRRORED = ("put", "flush", "_decode_batch_greedy", "_decode_window_greedy",
             "set_ragged_mode", "set_decode_window")
 # the engine calls the runtime makes on the leader alone: they read host
 # state and run no collective
-LOCAL = ("can_schedule", "_window_steps_left", "bind_trace")
+LOCAL = ("can_schedule", "_window_steps_left", "bind_trace",
+         "warmed_decode_windows")
 
 
 def select_device(device) -> None:
@@ -264,7 +266,7 @@ class ServingLoop:
                  max_inflight: Optional[int] = None,
                  idle_wait_s: float = 0.002, clock=time.perf_counter,
                  bridge=None, diagnostics=None,
-                 lane: Optional[str] = None):
+                 lane: Optional[str] = None, adapter=None):
         self.scheduler = scheduler
         self.admission = admission
         # fleet lane name (telemetry/trace.py set_lane): the loop thread
@@ -281,6 +283,10 @@ class ServingLoop:
         # drains — the loop thread is the only place that sees all three
         # moments
         self.diagnostics = diagnostics
+        # optional SLO-driven online adapter (autotuning/online.py):
+        # ticked right after the SLO monitor so it reads a fresh burn
+        # verdict, on this thread (the only one that touches the engine)
+        self.adapter = adapter
         self._last_slo_tick = 0.0
         sm = scheduler.engine.state_manager.config
         # cap on requests inside the scheduler at once; the admission
@@ -680,6 +686,11 @@ class ServingLoop:
                     diag.slo.tick()
                 except Exception:   # monitoring must never stall serving
                     pass
+        if self.adapter is not None:
+            try:
+                self.adapter.tick()
+            except Exception:       # adaptation must never stall serving
+                logger.exception("online adapter tick failed")
 
     def _diag_drain(self) -> None:
         """KV-pool reconciliation at drain: every allocated block must be

@@ -17,8 +17,8 @@ Environment written for each worker (read by ``comm.init_distributed``):
   DS_TPU_PROCESS_ID      this worker's global process id
   LOCAL_RANK             this worker's local index on the node (its card)
 and torch's own protocol, MASTER_ADDR / MASTER_PORT / RANK / WORLD_SIZE.
-The multi-node runners (PDSH, MPI, Slurm: JAX ``launcher/runner.py``) are
-not ported yet (ROADMAP A14).
+Across nodes, ``launcher/runner.py`` (PDSH, MPI, Slurm) runs this spawner
+on every node with its ``--node_rank``.
 """
 
 import argparse

@@ -493,6 +493,20 @@ class DeepSpeedConfig:
             raise ConfigError(f"config must be a path or dict, got {type(config)}")
         self.raw = raw
         self.cfg = hydrate(DeepSpeedTpuConfig, _coerce_optional_blocks(raw))
+        # the ZeRO knobs' effective values for /statusz (here, not in
+        # ZeroConfig: unported_keys hydrates a default config too). The
+        # offline tuner (autotuning/offline.py) stamps the knobs it moved
+        # under autotuning.tuned: their provenance is "tuned"
+        zero = self.cfg.zero_optimization
+        for key in ("reduce_bucket_size", "allgather_bucket_size",
+                    "stage3_prefetch_bucket_size", "quant_block"):
+            tunables.observe(f"zero_optimization.{key}", getattr(zero, key),
+                             "config")
+        tuned = (self.cfg.autotuning or {}).get("tuned", {})
+        if isinstance(tuned, dict):
+            for name, value in tuned.items():
+                if name in tunables.REGISTRY:
+                    tunables.observe(name, value, "tuned")
         self.world_size = 1 if world_size is None else world_size
         mp = self.cfg.tensor_parallel_size * self.cfg.pipeline.stages * self.cfg.sequence_parallel_size
         if self.world_size % mp != 0:
@@ -637,6 +651,11 @@ _PORTED = {
     # the hybrid engine (runtime/hybrid_engine.py) reads enabled and the
     # seam fields; max_out_tokens is accepted and read nowhere, as in JAX
     "hybrid_engine",
+    # the offline tuner's output (autotuning/offline.py): its ZeRO knobs
+    # land in zero_optimization, its serving knobs (autotuning.serving)
+    # are read by autotuning.serving_overrides, and autotuning.tuned stamps
+    # their provenance
+    "autotuning",
 }
 # keys the JAX package itself leaves inert, by the rationale of its
 # dead-key audit (tests/unit/runtime/test_config_keys.py INERT_BY_DESIGN)

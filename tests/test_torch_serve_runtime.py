@@ -583,8 +583,29 @@ def test_unported_options_raise_with_their_label(engines, models, what,
             DynamicSplitFuseScheduler(eng).submit(1, [1, 2, 3], 2,
                                                   adapter="a")
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        if what == "autotune":
-            serve.ServingEngine(eng, serve.ServingConfig(autotune=object()))
-        else:
-            eng.generate([[1, 2, 3]], 2, speculative=True)
+    jeng, jserve_ = engines["jax"]
+    if what == "autotune":
+        # the online adapter is ported (tests/test_torch_autotuning.py):
+        # ServingConfig.autotune builds it over the engine, the admission
+        # controller and the SLO monitor, as the JAX package does
+        from deepspeed_tpu.autotuning import OnlineAdapterConfig as JAdapt
+        from deepspeed_tpu_torch.autotuning import OnlineAdapterConfig
+        built = {}
+        for name, (e, pkg), cfg in (("torch", (eng, serve),
+                                     OnlineAdapterConfig()),
+                                    ("jax", (jeng, jserve_), JAdapt())):
+            rt = pkg.ServingEngine(e, pkg.ServingConfig(autotune=cfg))
+            a = rt.adapter
+            assert a.engine is e and a.admission is rt.admission
+            assert a.slo is rt.diagnostics.slo
+            built[name] = (a.base_window, a.base_budget, a.armed)
+        assert built["torch"] == built["jax"]
+        return
+    # speculative decoding is ported (tests/test_torch_speculative.py,
+    # tests/test_torch_spec_window.py): the stream is plain greedy's and
+    # JAX's
+    prompt = [5, 9, 17, 23] * 5
+    out = eng.generate([prompt], 8, speculative=True)[0]
+    np.testing.assert_array_equal(out, eng.generate([prompt], 8)[0])
+    np.testing.assert_array_equal(
+        out, jeng.generate([prompt], 8, speculative=True)[0])

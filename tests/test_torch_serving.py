@@ -373,8 +373,15 @@ def test_config_validation_matches_jax():
 
 def test_generate_options_not_ported_raise(models):
     te = _torch_engine(models, 8)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        te.generate([[1, 2, 3]], max_new_tokens=4, speculative=True)
+    # speculative decoding is served now (tests/test_torch_speculative.py):
+    # greedy-only, with the JAX package's AssertionError for sampling
+    prompt = [5, 9, 17, 23] * 5
+    np.testing.assert_array_equal(
+        te.generate([prompt], max_new_tokens=6, speculative=True)[0],
+        te.generate([prompt], max_new_tokens=6)[0])
+    with pytest.raises(AssertionError, match="greedy-only"):
+        te.generate([[1, 2, 3]], max_new_tokens=4, speculative=True,
+                    temperature=0.5)
     # adapters are served now (tests/test_torch_multi_lora.py); without an
     # adapter bank the JAX package's ValueError
     with pytest.raises(ValueError, match="bank is disabled"):

@@ -375,23 +375,15 @@ def test_tunables_registry_identical():
     from deepspeed_tpu_torch.runtime import tunables as tt
     from deepspeed_tpu.inference.v2 import config_v2 as jcfg
     from deepspeed_tpu_torch.inference.v2 import config_v2 as tcfg
-    # the port registers only the knobs its code reads, each as in JAX
-    assert tt.REGISTRY.names() == [
-        "zero_optimization.reduce_bucket_size",
-        "zero_optimization.allgather_bucket_size",
-        "zero_optimization.stage3_prefetch_bucket_size",
-        "zero_optimization.quant_block",
-        "serving.decode_window", "serving.prefill_bucket",
-        "serving.max_queued_tokens", "serving.handoff_chunk_blocks",
-        "state_manager.kv_spill_host_bytes",
-        "state_manager.kv_spill_disk_bytes",
-        "autoscaler.load_high", "autoscaler.scale_up_after_ticks",
-        "autoscaler.scale_down_after_ticks", "autoscaler.cooldown_s"]
+    # the port registers every knob of the JAX registry, each as in JAX
+    # (the offline tuner's search ladders included)
+    assert tt.REGISTRY.names() == jt.REGISTRY.names()
+    assert "serving.token_budget" in tt.REGISTRY
     for name in tt.REGISTRY.names():
         t, j = tt.REGISTRY.get(name), jt.REGISTRY.get(name)
         assert (t.range_str(), t.default, t.kind, t.cost_signal,
-                t.online) == (j.range_str(), j.default, j.kind,
-                              j.cost_signal, j.online)
+                t.online, t.search) == (j.range_str(), j.default, j.kind,
+                                        j.cost_signal, j.online, j.search)
     for mod in (jt, tt):
         with pytest.raises(ValueError, match="registered tunable"):
             mod.check("serving.decode_window", 65)
